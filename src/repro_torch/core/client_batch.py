@@ -1,0 +1,264 @@
+"""Stacked per-client state for the batched BL engine — port of
+`repro.core.client_batch` for the ``standard`` and ``data_outer`` kinds.
+
+  * `ClientBatch`  — data ``A (n, m, d)``, labels ``b (n, m)``, shared λ;
+  * `BatchedBasis` — one basis kind for the whole fleet, with per-client
+    data-basis matrices zero-padded to a common ``r_max``
+    (``V (n, d, r_max)``; padded columns are exactly zero).
+
+The batched GLM math mirrors `glm` one-to-one, vectorized over the client
+axis, in the reference's formulas and association order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import glm
+from .basis import DataOuterBasis, MatrixBasis, StandardBasis
+from .comm import FLOAT_BITS
+
+
+@dataclasses.dataclass
+class ClientBatch:
+    """All clients' GLM data stacked on a leading client axis."""
+
+    A: torch.Tensor  # (n, m, d)
+    b: torch.Tensor  # (n, m)
+    lam: float       # shared ridge coefficient
+
+    def __post_init__(self):
+        if self.A.dim() != 3:
+            raise ValueError(
+                "ClientBatch.A must be client-stacked (n, m, d); got shape "
+                f"{tuple(self.A.shape)}")
+        if tuple(self.b.shape) != tuple(self.A.shape[:2]):
+            raise ValueError(
+                "ClientBatch.b must have shape (n, m) = A.shape[:2] = "
+                f"{tuple(self.A.shape[:2])}; got {tuple(self.b.shape)}")
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.A.shape[1]
+
+    @property
+    def d(self) -> int:
+        return self.A.shape[2]
+
+
+@dataclasses.dataclass
+class BatchedBasis:
+    """A fleet-wide basis: one kind (``standard`` or ``data_outer``), with
+    per-client ranks ``rs`` kept for the bit accounting (the wire cost
+    depends on r_i, not r_max)."""
+
+    kind: str
+    d: int
+    rs: Tuple[int, ...]
+    V: Optional[torch.Tensor] = None  # (n, d, r_max) for kind == "data_outer"
+
+    @property
+    def r_max(self) -> int:
+        return max(self.rs)
+
+    # ---- bit accounting (host-side floats, no device sync) ----------------
+    def grad_uplink_bits_mean(self) -> float:
+        """Per-client gradient uplink cost averaged over the fleet (§2.3:
+        r_i coefficients for the data basis, d floats otherwise)."""
+        if self.kind == "data_outer":
+            return sum(r * FLOAT_BITS for r in self.rs) / len(self.rs)
+        return self.d * FLOAT_BITS
+
+    def transmission_bits_mean(self) -> float:
+        """One-time basis shipping cost averaged over clients."""
+        if self.kind == "data_outer":
+            return sum(self.d * r * FLOAT_BITS for r in self.rs) / len(self.rs)
+        return 0.0
+
+    def coeff_count_mean(self) -> float:
+        if self.kind == "data_outer":
+            return sum(r * r for r in self.rs) / len(self.rs)
+        return self.d * self.d
+
+    def init_coeff_bits_mean(self, init_exact: bool) -> float:
+        return self.coeff_count_mean() * FLOAT_BITS if init_exact else 0.0
+
+    # ---- coefficient transforms (batched h / reconstruct) -----------------
+    def h(self, A: torch.Tensor) -> torch.Tensor:
+        """Batched coefficient matrices: A (n, d, d) → (n, d, d)."""
+        if self.kind == "standard":
+            return A
+        out = torch.zeros(A.shape, dtype=A.dtype, device=A.device)
+        out[:, : self.r_max, : self.r_max] = _basis_project(self.V, A)
+        return out
+
+    def reconstruct(self, H: torch.Tensor) -> torch.Tensor:
+        """Batched Σ_{jl} H_{jl} B^{jl}: H (n, d, d) → (n, d, d)."""
+        if self.kind == "standard":
+            return H
+        gamma = H[:, : self.r_max, : self.r_max]
+        return torch.einsum("ndr,nrs,nes->nde", self.V, gamma, self.V)
+
+
+def _basis_project(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Γ = VᵀAV batched over clients: (n,d,r),(n,d,d) → (n,r,r), in float64.
+    (The reference's f32 Pallas route comes with the ``tiled_matmul`` slice,
+    ROADMAP.md §2 item 2.)"""
+    return torch.einsum("ndr,nde,nes->nrs", V, A, V)
+
+
+# --------------------------------------------------------------------------
+# stacking a fleet
+# --------------------------------------------------------------------------
+def from_clients(clients: Sequence[glm.ClientData]) -> Optional[ClientBatch]:
+    """Stack a homogeneous client list; None if shapes/λ differ."""
+    clients = list(clients)
+    if not clients:
+        return None
+    shape = clients[0].A.shape
+    lam = clients[0].lam
+    for c in clients:
+        if c.A.shape != shape or tuple(c.b.shape) != (shape[0],) or c.lam != lam:
+            return None
+    return ClientBatch(A=torch.stack([c.A for c in clients]),
+                       b=torch.stack([c.b for c in clients]), lam=lam)
+
+
+def stack_bases(bases: Sequence[MatrixBasis]) -> Optional[BatchedBasis]:
+    """Stack a homogeneous-kind basis list; None if mixed or unported kinds."""
+    bases = list(bases)
+    if not bases:
+        return None
+    b0 = bases[0]
+    if any(b.d != b0.d for b in bases):
+        return None
+    if all(type(b) is StandardBasis for b in bases):
+        return BatchedBasis(kind="standard", d=b0.d, rs=tuple(b.d for b in bases))
+    if all(type(b) is DataOuterBasis for b in bases):
+        rs = tuple(b.r for b in bases)
+        r_max = max(rs)
+        V = torch.stack([torch.nn.functional.pad(b.V, (0, r_max - b.r))
+                         for b in bases])                # zero cols beyond r_i
+        return BatchedBasis(kind="data_outer", d=b0.d, rs=rs, V=V)
+    return None
+
+
+# --------------------------------------------------------------------------
+# batched GLM math (mirrors glm, vectorized over clients)
+# --------------------------------------------------------------------------
+def bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per-client matvec (n, k, e) @ (n, e) → (n, k) as multiply+reduce, as
+    the reference does: its result does not depend on the batch size."""
+    return (M * v[:, None, :]).sum(dim=-1)
+
+
+def _per_client_x(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    """Broadcast a shared iterate (d,) to (n, d); pass (n, d) through."""
+    if x.dim() == 1:
+        return x.expand(batch.n, batch.d)
+    return x
+
+
+def losses(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    xb = _per_client_x(batch, x)
+    z = bmv(batch.A, xb) * batch.b
+    data = torch.logaddexp(torch.zeros_like(z), -z).mean(dim=1)
+    return data + 0.5 * batch.lam * (xb * xb).sum(dim=1)
+
+
+def global_loss(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    return losses(batch, x).mean()
+
+
+def grads(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    """Per-client gradients (n, d) at a shared or per-client iterate."""
+    xb = _per_client_x(batch, x)
+    z = bmv(batch.A, xb) * batch.b
+    coef = -batch.b * glm.sigmoid(-z)
+    return torch.einsum("nmd,nm->nd", batch.A, coef) / batch.m + batch.lam * xb
+
+
+def global_grad(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    return grads(batch, x).mean(dim=0)
+
+
+def hess_weights(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    xb = _per_client_x(batch, x)
+    z = bmv(batch.A, xb) * batch.b
+    s = glm.sigmoid(z)
+    return s * (1.0 - s)
+
+
+def hess_data_part(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    """Per-client data-part Hessians (n, d, d) — no λI term (§2.3)."""
+    w = hess_weights(batch, x)
+    return torch.einsum("nmd,nm,nme->nde", batch.A, w, batch.A) / batch.m
+
+
+def _ridge(batch: ClientBatch, like: torch.Tensor) -> torch.Tensor:
+    return batch.lam * torch.eye(batch.d, dtype=like.dtype, device=like.device)
+
+
+def hess(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    """Per-client full Hessians (n, d, d)."""
+    H = hess_data_part(batch, x)
+    return H + _ridge(batch, H)
+
+
+def global_hess_fused(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
+    """Global Hessian mean_i ∇²f_i(x) without the (n, d, d) per-client
+    intermediate: one (n·m, d)-shaped weighted Gram contraction.  Agrees
+    with the mean of `hess` to f64 roundoff, not bitwise — for the reference
+    optimum, not the round engine."""
+    w = hess_weights(batch, x)                      # (n, m)
+    Aw = batch.A * w[..., None]                     # (n, m, d)
+    H = torch.einsum("nmd,nme->de", Aw, batch.A) / (batch.n * batch.m)
+    return H + _ridge(batch, H)
+
+
+def newton_solve_fused(batch: ClientBatch, x0: torch.Tensor,
+                       iters: int = 20) -> torch.Tensor:
+    """Reference optimum x* by full Newton on the stacked fleet, with the
+    low-memory `global_hess_fused` each iteration (fig1-xl's solver)."""
+    x = x0
+    for _ in range(iters):
+        g = global_grad(batch, x)
+        H = global_hess_fused(batch, x)
+        x = x - torch.linalg.solve(H, g)
+    return x
+
+
+def hess_coeff_target(basisb: BatchedBasis, batch: ClientBatch,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Batched h^i(∇²f_i): the data basis sees only the data part (the
+    ridge is added server-side), the standard basis the full Hessian."""
+    if basisb.kind == "data_outer":
+        return basisb.h(hess_data_part(batch, x))
+    return basisb.h(hess(batch, x))
+
+
+# --------------------------------------------------------------------------
+# r-dim coordinate-space fast path (§2.3): never materialize the d×d Hessian
+# --------------------------------------------------------------------------
+def basis_AV(basisb: BatchedBasis, batch: ClientBatch) -> torch.Tensor:
+    """Per-client data rotated into the basis: (n, m, r_max), once per run."""
+    return torch.einsum("nmd,ndr->nmr", batch.A, basisb.V)
+
+
+def hess_coeff_block(basisb: BatchedBasis, batch: ClientBatch, x: torch.Tensor,
+                     AV: torch.Tensor) -> torch.Tensor:
+    """Γ_i = (AᵢVᵢ)ᵀ Dᵢ (AᵢVᵢ)/m natively (n, r, r): the data-basis
+    coefficient target in O(n·m·r²) with no (n, d, d) intermediate."""
+    w = hess_weights(batch, x)
+    return torch.einsum("nmr,nm,nms->nrs", AV, w, AV) / batch.m
+
+
+def reconstruct_block(basisb: BatchedBasis, G: torch.Tensor) -> torch.Tensor:
+    """(n, r, r) block coefficients → (n, d, d) data-part Hessians."""
+    return torch.einsum("ndr,nrs,nes->nde", basisb.V, G, basisb.V)

@@ -1,0 +1,119 @@
+"""Matrix/vector compression operators (paper §3, §A.2) — the deterministic
+subset of `repro.core.compressors` that BL1's main path runs.
+
+One natively-batched contract: ``compress(keys, x)`` takes a stack of n
+inputs (leading client axis) and returns ``(compressed_dense, counts)`` —
+zeros where entries were dropped, plus a `comm.Counts` record of what hit
+the wire.  ``keys`` is accepted and ignored by `Identity` and `TopK`, which
+draw nothing; the stochastic compressors come with the PRNG port
+(ROADMAP.md §1 items 9 and 10).
+
+|·|-Top-K selection is one routine, `topk_keep_mask`: the threshold search
+runs on a float32 copy through the exact threshold kernel
+(`repro_torch.kernels.topk_threshold`), then the shared tie-break mask
+keeps exactly k entries per row.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels.topk_threshold import keep_mask, topk_row_threshold
+from . import comm
+
+
+def _numel(x: torch.Tensor) -> int:
+    """Per-client element count of a client-stacked (n, ...) tensor."""
+    n = 1
+    for s in x.shape[1:]:
+        n *= s
+    return n
+
+
+def _full(n: int, value, device) -> torch.Tensor:
+    return torch.full((n,), float(value), dtype=torch.float64, device=device)
+
+
+class Compressor:
+    """Base class. Subclasses set `is_unbiased`, `delta` or `omega`."""
+
+    is_unbiased: bool = False
+    #: contraction parameter δ ∈ (0,1]  (contractive compressors)
+    delta: Optional[float] = None
+    #: variance parameter ω ≥ 0        (unbiased compressors)
+    omega: Optional[float] = None
+    #: True if C(A) is deterministic given A
+    deterministic: bool = False
+
+    @property
+    def wire(self):
+        """`comm.WireFormat` pricing this operator's `Counts`."""
+        return comm.WireFormat()
+
+    def compress(self, keys, x: torch.Tensor) -> Tuple[torch.Tensor, comm.Counts]:
+        """Compress a client-stacked (n, ...) batch → ``(dense, counts)``
+        with per-client (n,) counts; price them with
+        ``comm.price(self.wire, counts)``."""
+        raise NotImplementedError
+
+    def __call__(self, key, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Single-client adapter: compress one tensor and price it.
+        Returns (compressed_dense, bits_transmitted)."""
+        dense, counts = self.compress(None if key is None else [key], x[None])
+        return dense[0], comm.price(self.wire, counts)[0]
+
+
+@dataclasses.dataclass(unsafe_hash=True)
+class Identity(Compressor):
+    """No compression; full tensor on the wire."""
+    is_unbiased = True
+    omega = 0.0
+    delta = 1.0
+    deterministic = True
+
+    def compress(self, keys, x):
+        return x, comm.Counts(floats=_full(x.shape[0], _numel(x), x.device))
+
+
+def _selection_threshold(a32: torch.Tensor, k: int) -> torch.Tensor:
+    """k-th largest per row of non-negative f32 `a32` (..., T) → (..., 1)."""
+    t = topk_row_threshold(a32.reshape((-1,) + a32.shape[-1:]), k)
+    return t.reshape(a32.shape[:-1] + (1,))
+
+
+def topk_keep_mask(v: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask of the K largest-|v| entries along the last axis.
+
+    Exactly K entries are kept per row: entries strictly above the f32
+    threshold, then earliest-index entries inside the threshold tie group
+    (sub-f32-ulp differences inside the group are broken by index)."""
+    a32 = v.abs().to(torch.float32)
+    return keep_mask(a32, _selection_threshold(a32, k), k)
+
+
+@dataclasses.dataclass(unsafe_hash=True)
+class TopK(Compressor):
+    """Greedy sparsification (Eq. 21): keep K largest-|.| entries.
+
+    Contractive with δ = K/numel.  Deterministic.  Only the flat selection
+    is ported; ``symmetrize=True`` (the triangular-half codec of §A.2)
+    raises until ROADMAP.md §1 item 10."""
+    k: int
+    symmetrize: bool = False
+
+    def __post_init__(self):
+        self.deterministic = True
+        if self.symmetrize:
+            raise NotImplementedError(
+                "TopK(symmetrize=True) is not ported yet: ROADMAP.md §1 "
+                "item 10 (the rest of the paper's figures) brings it")
+
+    def compress(self, keys, x):
+        n = x.shape[0]
+        v = x.reshape(n, -1)
+        kk = min(self.k, v.shape[1])
+        out = torch.where(topk_keep_mask(v, kk), v, 0.0).reshape(x.shape)
+        c = _full(n, kk, x.device)
+        return out, comm.Counts(floats=c, indices=c)

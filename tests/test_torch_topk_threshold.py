@@ -1,0 +1,132 @@
+"""The port's exact Top-K threshold (`repro_torch.kernels.topk_threshold`)
+against the reference Pallas kernel, bitwise.
+
+On the CPU the wrapper runs its plain PyTorch version; the CUDA kernel is
+held against the same plain version on the card by chip_smoke.py.  Every
+comparison here is bitwise (int32 views), the reference's own contract:
+the threshold equals the k-th largest value and `keep_mask` keeps exactly
+k entries per row.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import topk_threshold as jtk
+from repro_torch.kernels import _build
+from repro_torch.kernels import topk_threshold as ttk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _rows(kind: str, rows: int, T: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return np.abs(rng.standard_normal((rows, T))).astype(np.float32)
+    if kind == "ties":
+        return rng.integers(0, 4, (rows, T)).astype(np.float32)
+    if kind == "zeros":
+        return np.zeros((rows, T), np.float32)
+    if kind == "inf":
+        a = np.abs(rng.standard_normal((rows, T))).astype(np.float32)
+        a[:, rng.integers(0, T, max(1, T // 8))] = np.inf
+        return a
+    if kind == "subnormal":
+        tiny = np.finfo(np.float32).smallest_subnormal
+        return (rng.integers(0, 20, (rows, T)) * tiny).astype(np.float32)
+    if kind == "neg_zero":
+        a = np.where(rng.random((rows, T)) < 0.5, -0.0,
+                     rng.standard_normal((rows, T))).astype(np.float32)
+        return np.abs(a)
+    raise ValueError(kind)
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _np_keep_mask(a: np.ndarray, t: np.ndarray, k: int) -> np.ndarray:
+    """`keep_mask` in numpy, which compares subnormals exactly."""
+    above = a > t
+    eq = a == t
+    return above | (eq & (np.cumsum(eq, axis=-1) <= k - above.sum(-1, keepdims=True)))
+
+
+CASES = [(kind, rows, T, k)
+         for kind, rows, T in (("random", 10, 576), ("random", 7, 333),
+                               ("ties", 6, 200), ("zeros", 3, 64),
+                               ("inf", 4, 96), ("subnormal", 4, 96),
+                               ("neg_zero", 4, 96))
+         for k in (1, 5, T // 2, T)]
+
+
+@pytest.mark.parametrize("kind,rows,T,k", CASES)
+def test_plain_threshold_and_mask_match_reference_bitwise(kind, rows, T, k):
+    a = _rows(kind, rows, T, seed=rows * 1000 + T + k)
+    t_port = ttk.topk_row_threshold(torch.from_numpy(a), k)
+    t_pallas = jtk.topk_row_threshold(jnp.asarray(a), k, interpret=True)
+    t_topk = jax.lax.top_k(jnp.asarray(a), k)[0][:, -1:]
+    assert t_port.shape == (rows, 1) and t_port.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(t_port.numpy()), _bits(t_pallas))
+    np.testing.assert_array_equal(_bits(t_port.numpy()), _bits(t_topk))
+
+    m_port = ttk.keep_mask(torch.from_numpy(a), t_port, k).numpy()
+    np.testing.assert_array_equal(m_port, _np_keep_mask(a, t_port.numpy(), k))
+    assert (m_port.sum(axis=1) == k).all()
+    if kind != "subnormal":
+        # XLA on the CPU treats subnormal operands of a comparison as zero,
+        # so only the exact masks above hold the subnormal rows
+        m_ref = np.asarray(jtk.keep_mask(jnp.asarray(a), t_pallas, k))
+        np.testing.assert_array_equal(m_port, m_ref)
+
+
+def test_torch_topk_agrees_with_plain_version():
+    """The library call chip_smoke.py times beside the kernel selects the
+    same threshold (on the CPU, against the plain version)."""
+    a = torch.from_numpy(_rows("random", 16, 1024, seed=5))
+    for k in (1, 32, 1024):
+        t_lib = torch.topk(a, k, dim=1).values[:, -1:].contiguous()
+        assert torch.equal(ttk.topk_row_threshold_plain(a, k).view(torch.int32),
+                           t_lib.view(torch.int32))
+
+
+@pytest.mark.parametrize("k,kk", [(0, 1), (-3, 1), (40, 40), (41, 40), (10**6, 40)])
+def test_k_is_clamped_to_row(k, kk):
+    a = torch.from_numpy(_rows("random", 3, 40, seed=k % 97))
+    want = torch.topk(a, kk, dim=1).values[:, -1:]
+    assert torch.equal(ttk.topk_row_threshold(a, k), want)
+    ref = jtk.topk_row_threshold(jnp.asarray(a.numpy()), k, interpret=True)
+    np.testing.assert_array_equal(_bits(ttk.topk_row_threshold(a, k).numpy()), _bits(ref))
+
+
+@pytest.mark.parametrize("bad,err", [
+    (torch.ones((4, 8), dtype=torch.float64), TypeError),
+    (torch.ones((2, 4, 8), dtype=torch.float32), ValueError),
+    (torch.ones((8,), dtype=torch.float32), ValueError),
+    (torch.ones((8, 4), dtype=torch.float32).T, ValueError),
+])
+def test_wrapper_raises_on_unsupported_input(bad, err):
+    with pytest.raises(err):
+        ttk.topk_row_threshold(bad, 2)
+
+
+def test_cpu_tensor_takes_plain_version_without_counting():
+    before = ttk.launches
+    a = torch.from_numpy(_rows("random", 2, 16, seed=1))
+    ttk.topk_row_threshold(a, 3)
+    assert ttk.launches == before
+
+
+def test_kernel_library_is_keyed_on_source_hash():
+    path = _build.library_path("topk_threshold")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("topk_threshold-") and path.suffix == ".so"
+    assert path == _build.library_path("topk_threshold")
+    assert (_build.CSRC / "topk_threshold.cu").is_file()
