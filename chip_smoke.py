@@ -2,26 +2,40 @@
 """Smoke test of the PyTorch port (`src/repro_torch`) on one CUDA card.
 
     python3 chip_smoke.py              # what a checkout's check runs
-    python3 chip_smoke.py --profile    # + a torch.profiler pass over fig1-xl
+    python3 chip_smoke.py --profile    # + torch.profiler passes over fig1-xl
+                                       #   and fig-dnn/BLDNN
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is non-zero and no result line is printed:
 
-  1. device  — the card's name, and its name and power limit from nvidia-smi;
-  2. build   — compile every CUDA source of the port (one nvcc each, in
-               parallel) from this checkout;
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               bitwise, on the main path's shapes and on edge-case rows, and
-               timed beside its plain version, its library call and its bound;
-  4. fig1r1  — BL1 through `repro_torch.core.bl.bl1` against the committed
-               artifact results/exp/fig1r1/BL1.seed0.json;
-  5. fig1-xl — the same at full width (n=512, d=1200) against
-               results/exp/fig1-xl/BL1.seed0.json, with seconds per round,
-               the Newton reference time and peak device memory.
+  1. device   — the card's name, and its name and power limit from nvidia-smi;
+  2. build    — compile every CUDA source of the port (one nvcc each, in
+                parallel) from this checkout;
+  3. kernels  — the threshold kernel against its plain PyTorch version on the
+                card, bitwise, on the main path's shapes and on edge-case
+                rows, and timed beside its plain version, its library call
+                and its bound;
+  4. fig1r1   — BL1 through `repro_torch.core.bl.bl1` against the committed
+                artifact results/exp/fig1r1/BL1.seed0.json;
+  5. fig1-xl  — the same at full width (n=512, d=1200) against
+                results/exp/fig1-xl/BL1.seed0.json, with seconds per round,
+                the Newton reference time and peak device memory;
+  6. kernels_bldnn — the fused Top-K compress-sum kernel (bitwise) and the
+                basis-transform kernel (within 1e-5·max|ref| of its plain
+                version, 1e-6·max|ref| of float64) at BL-DNN's shapes and on
+                edge-case rows, timed at those shapes and at one larger one;
+  7. fig-dnn / fig-dnn-ship — BL-DNN through
+                `repro_torch.fed.bldnn.run_bldnn` from the carried problem
+                (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
+                FedAvg, BLDNN_int8, BLDNN_dct and BLDNN_hadamard against
+                their artifacts under results/exp/.
 
-Gaps must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and every bit stream exactly.
-Each path resets the kernels' launch counts just before it runs and fails
-if a kernel of the path was not launched.  The last line is
+BL1 gaps must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and every bit stream
+exactly.  BL-DNN bit streams must agree exactly over every round, the loss
+within 1e-4·|ref| and the error rate exactly over rounds 0–3 (training is
+chaotic at the ulp level; later rounds are reported), and every loss must
+be finite.  Each path resets the kernels' launch counts just before it
+runs and fails if a kernel of the path was not launched.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 """
@@ -42,6 +56,11 @@ HBM_BYTES_PER_S = 3.35e12
 OPS32_PER_S = 67e12
 #: fig1-xl timing repeats (each a 1-round and a full run)
 XL_REPEATS = 5
+#: BL-DNN: rounds whose loss and error rate are held to the artifact
+DNN_HELD_ROUNDS = 4
+DNN_LOSS_RTOL = 1e-4
+#: basis_transform against its plain float32 version / against float64
+BT_TOL_PLAIN, BT_TOL_F64 = 1e-5, 1e-6
 
 
 def emit(obj) -> None:
@@ -78,6 +97,36 @@ def threshold_bound_ms(rows: int, T: int) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def compress_sum_bound_ms(n: int, T: int) -> tuple:
+    """Least time for the fused compress-sum of an (n, T) f32 stack: read v
+    and write dense once, write the (T,) sum, or 31 compare+add passes over
+    the n·T keys, whichever is larger."""
+    bytes_ms = (2 * n * T * 4 + T * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * 31 * n * T / OPS32_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def basis_transform_bound_ms(n: int, da: int, d1: int, d2: int, db: int) -> tuple:
+    """Least time for (A·gᵢ)·B over n clients in f32: the bytes of A, g, B
+    and out once, or 2n(da·d1·d2 + da·d2·db) operations at the f32 rate."""
+    bytes_ms = (da * d1 + n * d1 * d2 + d2 * db + n * da * db) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * (da * d1 * d2 + da * d2 * db) / OPS32_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_bits(name: str, hist, ref: dict) -> list:
+    """Every bit stream (uplink, downlink, each ledger leg) exactly the
+    reference's; returns the names of the streams compared."""
+    streams = {"up_bits": hist.up_bits, "down_bits": hist.down_bits,
+               **{f"legs.{k}": hist.legs[k] for k in ref["legs"]}}
+    want = {"up_bits": ref["up_bits"], "down_bits": ref["down_bits"],
+            **{f"legs.{k}": v for k, v in ref["legs"].items()}}
+    for k, v in streams.items():
+        if list(v) != list(want[k]):
+            raise AssertionError(f"{name}: bit stream {k} {v} != reference {want[k]}")
+    return sorted(streams)
+
+
 def check_history(name: str, hist, ref: dict) -> dict:
     import numpy as np
 
@@ -89,15 +138,8 @@ def check_history(name: str, hist, ref: dict) -> dict:
     if bad.any():
         raise AssertionError(f"{name}: gaps leave |Δ| ≤ 1e-8·|ref| + 1e-12 at rounds "
                              f"{np.nonzero(bad)[0].tolist()}: {g} vs {gr}")
-    streams = {"up_bits": hist.up_bits, "down_bits": hist.down_bits,
-               **{f"legs.{k}": hist.legs[k] for k in ref["legs"]}}
-    want = {"up_bits": ref["up_bits"], "down_bits": ref["down_bits"],
-            **{f"legs.{k}": v for k, v in ref["legs"].items()}}
-    for k, v in streams.items():
-        if list(v) != list(want[k]):
-            raise AssertionError(f"{name}: bit stream {k} {v} != reference {want[k]}")
     return {"max_gap_abs_err": float(err.max()), "gaps": list(map(float, g)),
-            "bit_streams_equal": sorted(streams)}
+            "bit_streams_equal": check_bits(name, hist, ref)}
 
 
 def kernel_phase(torch, tk) -> dict:
@@ -159,20 +201,170 @@ def kernel_phase(torch, tk) -> dict:
     return {"cases": len(cases), "max_abs_err": max_err, "timings": timings}
 
 
-def run_path(torch, tk, problems, cell, prob, steps=None):
-    """Drive one BL1 path with the launch count reset just before it and
-    read just after; returns (history, seconds, launches)."""
+#: fig-dnn's four parameter leaves as the Fisher leg sees them: (clients,
+#: numel) with k = ⌊0.1·numel⌋, and the rotations (da, d1, d2, db) of the
+#: gradient leg, n = 8 clients
+DNN_STACKS = ((8, 3072, 307), (8, 2048, 204), (8, 2048, 204), (8, 128, 12))
+DNN_ROTATIONS = ((96, 96, 32, 32), (32, 32, 64, 64), (64, 64, 32, 32), (32, 32, 4, 4))
+LARGE_STACK = (512, 16384, 1638)
+LARGE_ROTATION = (64, 1024, 1024, 1024, 1024)    # n, da, d1, d2, db
+
+
+def bldnn_kernel_phase(torch, tk, bt) -> dict:
+    """The fused compress-sum kernel against its plain version (dense and
+    row-order sum bitwise) and the two-pass selection (dense bitwise), and
+    the basis-transform kernel against its plain version and float64;
+    then times at the path's shapes and at one larger shape each."""
+    import numpy as np
+
+    from repro_torch.core.compressors import TopK
+
+    rng = np.random.default_rng(1)
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device="cuda")
+
+    tiny = np.finfo(np.float32).smallest_subnormal
+    cases = []
+    for n, T, k in DNN_STACKS + ((4, 40, 10 ** 6),):
+        infs = rng.standard_normal((n, T))
+        infs[:, rng.integers(0, T, max(1, T // 16))] = np.inf
+        infs[0, :3] = -np.inf
+        for name, arr in (("random", rng.standard_normal((n, T))),
+                          ("ties", rng.integers(-3, 4, (n, T))),
+                          ("zeros", np.zeros((n, T))),
+                          ("inf", infs),
+                          ("subnormal", rng.integers(-40, 41, (n, T)) * tiny)):
+            cases.append((f"{name}{n}x{T}", dev(arr), k))
+    cs_err = 0.0
+    for name, v, k in cases:
+        dense, col_sum = tk.topk_compress_sum(v, k)
+        p_dense, p_sum = tk.topk_compress_sum_plain(v, k)
+        two_pass, _ = TopK(k=k).compress(None, v)
+        torch.cuda.synchronize()
+        for other, what in ((p_dense, "plain dense"), (two_pass, "two-pass TopK.compress")):
+            if not torch.equal(dense.view(torch.int32), other.view(torch.int32)):
+                raise AssertionError(f"topk_compress_sum != {what} on {name} k={k}")
+        if not torch.equal(col_sum.view(torch.int32), p_sum.view(torch.int32)):
+            raise AssertionError(f"topk_compress_sum col_sum != plain row-order sum on {name}")
+        for a, b in ((dense, p_dense), (col_sum, p_sum)):
+            same = a.view(torch.int32) == b.view(torch.int32)
+            cs_err = max(cs_err, float(torch.where(same, 0.0, (a.double() - b.double()).abs())
+                                       .nan_to_num(nan=float("inf")).max()))
+        if bool(torch.isfinite(dense).all()):
+            ulps = v.shape[0] * torch.finfo(torch.float32).eps * dense.abs().sum(dim=0)
+            if bool(((col_sum - dense.sum(dim=0)).abs() > ulps).any()):
+                raise AssertionError(f"col_sum leaves n·ulp of dense.sum(0) on {name}")
+
+    bt_err = {"plain": 0.0, "f64": 0.0, "plain_rel": 0.0, "f64_rel": 0.0}
+    rotations = [(8,) + r for r in DNN_ROTATIONS] + [LARGE_ROTATION]
+    operands = {}
+    for n, da, d1, d2, db in rotations:
+        if d1 >= 512:
+            # a basis is orthogonal: random orthogonal factors at the large shape
+            A = torch.linalg.qr(torch.randn((da, d1), device="cuda", dtype=torch.float64))[0]
+            B = torch.linalg.qr(torch.randn((d2, db), device="cuda", dtype=torch.float64))[0]
+            A, B = A.float().contiguous(), B.float().contiguous()
+            g = torch.randn((n, d1, d2), device="cuda", dtype=torch.float32)
+        else:
+            A, g, B = (dev(rng.standard_normal(s)) for s in ((da, d1), (n, d1, d2), (d2, db)))
+        operands[(n, da, d1, d2, db)] = (A, g, B)
+        out = bt.basis_transform(A, g, B)
+        plain = bt.basis_transform_plain(A, g, B)
+        ref = torch.einsum("ab,nbc,cd->nad", A.double(), g.double(), B.double())
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        e_plain = float((out - plain).abs().max())
+        e_f64 = float((out.double() - ref).abs().max())
+        if e_plain > BT_TOL_PLAIN * scale or e_f64 > BT_TOL_F64 * scale:
+            raise AssertionError(
+                f"basis_transform at {(n, da, d1, d2, db)}: |Δ plain| {e_plain}, "
+                f"|Δ f64| {e_f64}, max|ref| {scale}")
+        bt_err["plain"] = max(bt_err["plain"], e_plain)
+        bt_err["f64"] = max(bt_err["f64"], e_f64)
+        bt_err["plain_rel"] = max(bt_err["plain_rel"], e_plain / scale)
+        bt_err["f64_rel"] = max(bt_err["f64_rel"], e_f64 / scale)
+    try:
+        bt.basis_transform(*(torch.zeros(s, device="cuda") for s in
+                             ((8, 8000), (1, 8000, 64), (64, 8))))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("basis_transform took rows that do not fit shared memory")
+
+    cs_times, bt_times = {}, {}
+    for n, T, k in sorted(set(DNN_STACKS)) + [LARGE_STACK]:
+        v = dev(rng.standard_normal((n, T)))
+        iters = 200 if n * T < 10 ** 6 else 20
+        bound, by = compress_sum_bound_ms(n, T)
+
+        def two_pass():
+            dense, _ = TopK(k=k).compress(None, v)
+            return dense.sum(dim=0)
+
+        cs_times[f"{n}x{T}"] = {
+            "shape": [n, T], "k": k,
+            "kernel_ms": cuda_ms(torch, lambda: tk.topk_compress_sum(v, k), iters),
+            "plain_ms": cuda_ms(torch, lambda: tk.topk_compress_sum_plain(v, k), 10),
+            "two_pass_ms": cuda_ms(torch, two_pass, iters),
+            "bound_ms": bound, "bound_by": by}
+    for key, (A, g, B) in operands.items():
+        n, da, d1, d2, db = key
+        iters = 200 if d1 < 512 else 3
+        bound, by = basis_transform_bound_ms(n, da, d1, d2, db)
+        bt_times[f"{n}x{da}x{d1}x{d2}x{db}"] = {
+            "shape": list(key),
+            "kernel_ms": cuda_ms(torch, lambda: bt.basis_transform(A, g, B), iters, warmup=2),
+            "plain_ms": cuda_ms(torch, lambda: bt.basis_transform_plain(A, g, B), iters, warmup=2),
+            "library_ms": cuda_ms(torch, lambda: torch.matmul(torch.matmul(A, g), B), iters,
+                                  warmup=2),
+            "bound_ms": bound, "bound_by": by}
+    del operands
+    torch.cuda.empty_cache()
+    return {"compress_sum_cases": len(cases), "compress_sum_max_abs_err": cs_err,
+            "basis_transform_max_abs_err": bt_err,
+            "compress_sum_timings": cs_times, "basis_transform_timings": bt_times}
+
+
+def drive(torch, tk, bt, run) -> tuple:
+    """Drive one path, ``run()``, with every kernel's launch count reset
+    just before it and read just after; returns (result, seconds,
+    launches by kernel)."""
     torch.cuda.synchronize()
-    tk.launches = 0
+    tk.launches = tk.compress_sum_launches = bt.launches = 0
     t0 = time.perf_counter()
-    hist = problems.run_cell(cell, prob, steps=steps)
+    out = run()
     torch.cuda.synchronize()
-    return hist, time.perf_counter() - t0, tk.launches
+    return out, time.perf_counter() - t0, {"topk_row_threshold": tk.launches,
+                                           "topk_compress_sum": tk.compress_sum_launches,
+                                           "basis_transform": bt.launches}
 
 
-def profile_xl(torch, problems, cell, prob, steps: int = 2) -> dict:
-    """Device time by CUDA kernel over a `steps`-round fig1-xl run
-    (torch.profiler; a first profiled run warms the profiler up)."""
+def check_dnn_history(name: str, hist, ref: dict) -> dict:
+    """Bit streams exact over every round; loss within 1e-4·|ref| and the
+    error rate exact over the held rounds; every loss finite."""
+    import numpy as np
+
+    loss, lr = np.asarray(hist.metrics["loss"]), np.asarray(ref["metrics"]["loss"])
+    err, er = np.asarray(hist.gaps), np.asarray(ref["gaps"])
+    if loss.shape != lr.shape or not np.all(np.isfinite(loss)):
+        raise AssertionError(f"{name}: loss {loss} against reference {lr}")
+    rel = np.abs(loss - lr) / np.abs(lr)
+    h = DNN_HELD_ROUNDS
+    if (rel[:h] > DNN_LOSS_RTOL).any() or list(err[:h]) != list(er[:h]):
+        raise AssertionError(f"{name}: rounds 0-{h - 1} leave the envelope: loss "
+                             f"{loss[:h]} vs {lr[:h]}, error {err[:h]} vs {er[:h]}")
+    return {"held_rounds": h, "max_loss_rel_err_held": float(rel[:h].max()),
+            "loss_rel_err": list(map(float, rel)),
+            "error_rate_diff": list(map(float, err - er)),
+            "rounds_error_equal": int((err == er).sum()),
+            "bit_streams_equal": check_bits(name, hist, ref)}
+
+
+def profile_run(torch, run, steps: int) -> dict:
+    """Device time by CUDA kernel, and host time by operator, over
+    `run()`, a `steps`-round run (torch.profiler; a first profiled run
+    warms the profiler up)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -180,7 +372,7 @@ def profile_xl(torch, problems, cell, prob, steps: int = 2) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            problems.run_cell(cell, prob, steps=steps)
+            run()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
@@ -188,9 +380,14 @@ def profile_xl(torch, problems, cell, prob, steps: int = 2) -> dict:
                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
                   reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    host = sorted(((ev.self_cpu_time_total, ev.key, ev.count) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0),
+                  reverse=True)
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "top": [{"name": k[:100], "device_ms": us / 1e3, "calls": c}
-                    for us, k, c in rows[:15]]}
+                    for us, k, c in rows[:15]],
+            "top_host": [{"name": k[:100], "self_cpu_ms": us / 1e3, "calls": c}
+                         for us, k, c in host[:15]]}
 
 
 def main(argv) -> int:
@@ -207,6 +404,7 @@ def main(argv) -> int:
     from repro_torch import device as _device
     from repro_torch.exp import problems
     from repro_torch.kernels import SOURCES, _build
+    from repro_torch.kernels import basis_transform as bt
     from repro_torch.kernels import topk_threshold as tk
 
     _device.resolve("cuda")
@@ -230,13 +428,13 @@ def main(argv) -> int:
     prob = problems.build_problem(cell.problem, device="cuda")
     prob.bases(cell.basis)
     setup_s = time.perf_counter() - t0
-    hist, secs, launches["fig1r1"] = run_path(torch, tk, problems, cell, prob)
+    hist, secs, counts = drive(torch, tk, bt, lambda: problems.run_cell(cell, prob))
+    launches["fig1r1"] = counts["topk_row_threshold"]
     res = check_history("fig1r1", hist, json.loads(cell.artifact.read_text())["history"])
     if launches["fig1r1"] < cell.steps:
         raise AssertionError(f"fig1r1: threshold kernel launched {launches['fig1r1']} "
                              f"times in {cell.steps} rounds")
-    emit({"phase": "fig1r1", "setup_s": setup_s, "run_s": secs,
-          "launches": {"topk_row_threshold": launches["fig1r1"]}, **res})
+    emit({"phase": "fig1r1", "setup_s": setup_s, "run_s": secs, "launches": counts, **res})
 
     # ---- fig1-xl: full width on one card ------------------------------------
     cell = problems.FIG1_XL
@@ -260,10 +458,11 @@ def main(argv) -> int:
     # the last full run is the main path's checked run
     per_round, t_ones, t_alls = [], [], []
     for rep in range(XL_REPEATS):
-        _, t_one, _ = run_path(torch, tk, problems, cell, prob, steps=1)
+        _, t_one, _ = drive(torch, tk, bt, lambda: problems.run_cell(cell, prob, steps=1))
         if rep == XL_REPEATS - 1:
             torch.cuda.reset_peak_memory_stats()
-        hist, t_all, launches["fig1-xl"] = run_path(torch, tk, problems, cell, prob)
+        hist, t_all, counts = drive(torch, tk, bt, lambda: problems.run_cell(cell, prob))
+        launches["fig1-xl"] = counts["topk_row_threshold"]
         t_ones.append(t_one)
         t_alls.append(t_all)
         per_round.append((t_all - t_one) / (cell.steps - 1))
@@ -275,21 +474,76 @@ def main(argv) -> int:
     emit({"phase": "fig1-xl", "problem_build_s": build_s, "newton_s": newton_s,
           "bases_s": bases_s, "run_1_round_s": t_ones, "run_s": t_alls,
           "s_per_round": sorted(per_round), "s_per_round_median": median(per_round),
-          "max_memory_allocated": peak,
-          "launches": {"topk_row_threshold": launches["fig1-xl"]}, **res})
+          "max_memory_allocated": peak, "launches": counts, **res})
 
     if "--profile" in argv:
-        emit({"phase": "profile_fig1-xl", **profile_xl(torch, problems, cell, prob)})
+        emit({"phase": "profile_fig1-xl",
+              **profile_run(torch, lambda: problems.run_cell(cell, prob, steps=2), 2)})
+    del prob
+    torch.cuda.empty_cache()
+
+    # ---- BL-DNN kernels -------------------------------------------------------
+    kb = bldnn_kernel_phase(torch, tk, bt)
+    emit({"phase": "kernels_bldnn", **kb})
+
+    # ---- fig-dnn / fig-dnn-ship from the carried problem ---------------------
+    t0 = time.perf_counter()
+    prob = problems.load_dnn_problem(device="cuda")
+    problems.run_dnn_cell(problems.FIG_DNN["BLDNN"], prob, steps=2)   # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dnn_launches = {}
+    for cell in (problems.FIG_DNN["BLDNN"], problems.FIG_DNN["TopK"],
+                 problems.FIG_DNN["FedAvg"], problems.FIG_DNN_SHIP["BLDNN_int8"],
+                 problems.FIG_DNN_SHIP["BLDNN_dct"], problems.FIG_DNN_SHIP["BLDNN_hadamard"]):
+        hist, secs, counts = drive(torch, tk, bt, lambda: problems.run_dnn_cell(cell, prob))
+        res = check_dnn_history(f"{cell.experiment}/{cell.name}", hist,
+                                json.loads(cell.artifact.read_text())["history"])
+        need = {"topk_row_threshold": 0, "topk_compress_sum": 0, "basis_transform": 0}
+        if cell.compressor == "topk":
+            need["topk_row_threshold"] = need["topk_compress_sum"] = 4 * cell.steps
+        if cell.basis is not None:
+            need["basis_transform"] = 4 * cell.steps
+        short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
+        if short:
+            raise AssertionError(f"{cell.experiment}/{cell.name}: kernels launched fewer "
+                                 f"times than (launches, needed) {short}")
+        dnn_launches[cell.name] = counts
+        emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps,
+              "setup_s": setup_s, "run_s": secs, "s_per_round": secs / cell.steps,
+              "launches": counts, **res})
+    if "--profile" in argv:
+        cell = problems.FIG_DNN["BLDNN"]
+        emit({"phase": "profile_fig-dnn_BLDNN",
+              **profile_run(torch, lambda: problems.run_dnn_cell(cell, prob, steps=4), 4)})
 
     xl = kern["timings"]["fig1-xl"]
+    cs = kb["compress_sum_timings"]["8x3072"]
+    bt_path = kb["basis_transform_timings"]["8x96x96x32x32"]
+    main = dnn_launches["BLDNN"]
     emit({"kernels": [{
         "name": "topk_row_threshold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk_threshold.cu",
         "replaces": "src/repro/kernels/topk_threshold.py:73",
-        "launches": launches["fig1-xl"], "max_abs_err": kern["max_abs_err"],
+        "launches": main["topk_row_threshold"], "max_abs_err": kern["max_abs_err"],
         "ms": xl["kernel_ms"], "plain_ms": xl["plain_ms"], "bound_ms": xl["bound_ms"],
         "bound_by": xl["bound_by"], "library_ms": xl["library_ms"],
-        "shape": xl["shape"]}]})
+        "shape": xl["shape"], "launches_fig1-xl": launches["fig1-xl"]}, {
+        "name": "topk_compress_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_compress_sum.cu",
+        "replaces": "src/repro/kernels/topk_threshold.py:123",
+        "launches": main["topk_compress_sum"], "max_abs_err": kb["compress_sum_max_abs_err"],
+        "ms": cs["kernel_ms"], "plain_ms": cs["plain_ms"], "bound_ms": cs["bound_ms"],
+        "bound_by": cs["bound_by"], "library_ms": None,
+        "two_pass_ms": cs["two_pass_ms"], "shape": cs["shape"]}, {
+        "name": "basis_transform", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/basis_transform.cu",
+        "replaces": "src/repro/kernels/basis_transform.py:56",
+        "launches": main["basis_transform"],
+        "max_abs_err": kb["basis_transform_max_abs_err"]["plain"],
+        "ms": bt_path["kernel_ms"], "plain_ms": bt_path["plain_ms"],
+        "bound_ms": bt_path["bound_ms"], "bound_by": bt_path["bound_by"],
+        "library_ms": bt_path["library_ms"], "shape": bt_path["shape"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -4,7 +4,9 @@
   * `ClientBatch`  — data ``A (n, m, d)``, labels ``b (n, m)``, shared λ;
   * `BatchedBasis` — one basis kind for the whole fleet, with per-client
     data-basis matrices zero-padded to a common ``r_max``
-    (``V (n, d, r_max)``; padded columns are exactly zero).
+    (``V (n, d, r_max)``; padded columns are exactly zero);
+  * `TreeBatch`    — the BL-DNN fleet: any pytree (nested dict) of data
+    leaves stacked on a leading client axis.
 
 The batched GLM math mirrors `glm` one-to-one, vectorized over the client
 axis, in the reference's formulas and association order.
@@ -17,6 +19,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import glm
+from .pytree import tree_leaves
 from .basis import DataOuterBasis, MatrixBasis, StandardBasis
 from .comm import FLOAT_BITS
 
@@ -111,6 +114,37 @@ def _basis_project(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     (The reference's f32 Pallas route comes with the ``tiled_matmul`` slice,
     ROADMAP.md §2 item 2.)"""
     return torch.einsum("ndr,nde,nes->nrs", V, A, V)
+
+
+@dataclasses.dataclass
+class TreeBatch:
+    """Client-stacked batch for pytree workloads (BL-DNN): `data` is the
+    pytree the loss consumes, every leaf stacked on a leading
+    ``n_clients`` axis."""
+
+    data: object
+    n_clients: int
+
+    def __post_init__(self):
+        for leaf in tree_leaves(self.data):
+            if leaf.dim() < 1 or leaf.shape[0] != self.n_clients:
+                raise ValueError(
+                    f"every TreeBatch leaf needs a leading n_clients={self.n_clients} "
+                    f"axis; got shape {tuple(leaf.shape)}")
+
+    @property
+    def n(self) -> int:
+        return self.n_clients
+
+
+def tree_batch(data, n_clients: Optional[int] = None) -> TreeBatch:
+    """Build a `TreeBatch` (``n_clients`` defaults to the first leaf's
+    leading axis), validating the shared leading client axis."""
+    leaves = tree_leaves(data)
+    if not leaves:
+        raise ValueError("TreeBatch needs at least one data leaf")
+    n = leaves[0].shape[0] if n_clients is None else n_clients
+    return TreeBatch(data=data, n_clients=int(n))
 
 
 # --------------------------------------------------------------------------

@@ -10,12 +10,13 @@ counts into bits, and the `CommLedger` accumulates bits per leg:
   * ``basis_ship`` — the one-time basis shipment.
 
 Bits are float64 and integer-valued, so every sum is exact and the bit
-streams equal the reference's exactly.  (`BasisShipSpec` waits for the
-BL-DNN slice, ROADMAP.md §1 item 12.)
+streams equal the reference's exactly.  `BasisShipSpec` prices a shipped
+basis (the BL-DNN pytree bases) through the same algebra.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Union
 
 import torch
@@ -73,6 +74,57 @@ def with_float_bits(wire: WireTree, float_bits: int) -> WireTree:
     if isinstance(wire, tuple):
         return tuple(with_float_bits(w, float_bits) for w in wire)
     return dataclasses.replace(wire, float_bits=float_bits)
+
+
+#: float widths a shipped basis may quantize to: f64/f32 casts, bf16
+#: round-trip, or int8 with per-column f32 scales (see `BasisShipSpec`).
+_SHIP_FLOAT_BITS = (8, 16, 32, 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class BasisShipSpec:
+    """How a shipped basis travels the wire (the ``basis_ship`` leg).
+
+      * ``float_bits`` — per-value width: 64/32 are plain casts, 16 is a
+        bfloat16 round-trip, 8 is symmetric int8 with one f32 scale per
+        basis column (scales billed as 32-bit floats, the packed values as
+        8-bit ``entries``);
+      * ``col_frac`` — every basis column keeps its ``ceil(col_frac·rows)``
+        largest magnitudes and ships them with their row indices.
+
+    The default (f32, dense) prices exactly ``ship_floats() × 32``."""
+
+    float_bits: int = 32
+    col_frac: float = 1.0
+
+    def __post_init__(self):
+        if self.float_bits not in _SHIP_FLOAT_BITS:
+            raise ValueError(
+                f"BasisShipSpec.float_bits must be one of {_SHIP_FLOAT_BITS}"
+                f" (f64/f32 cast, bf16, int8+scales), got {self.float_bits}")
+        if not 0.0 < self.col_frac <= 1.0:
+            raise ValueError(
+                f"BasisShipSpec.col_frac must be in (0, 1], got {self.col_frac}")
+
+    @property
+    def dense(self) -> bool:
+        return self.col_frac >= 1.0
+
+    @property
+    def wire(self) -> WireFormat:
+        if self.float_bits == 8:
+            return WireFormat(float_bits=32, index_bits=INDEX_BITS, entry_bits=8)
+        return WireFormat(float_bits=self.float_bits, index_bits=INDEX_BITS)
+
+    def factor_counts(self, rows: int, cols: int) -> Counts:
+        """Message `Counts` of one shipped (rows, cols) factor, as python
+        floats (shipment bits are priced once, at setup)."""
+        kept_per_col = max(1, min(rows, int(math.ceil(self.col_frac * rows))))
+        kept = float(kept_per_col * cols)
+        idx = 0.0 if self.dense else kept
+        if self.float_bits == 8:
+            return Counts(floats=float(cols), indices=idx, entries=kept)
+        return Counts(floats=kept, indices=idx)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,14 +4,18 @@ subset of `repro.core.compressors` that BL1's main path runs.
 One natively-batched contract: ``compress(keys, x)`` takes a stack of n
 inputs (leading client axis) and returns ``(compressed_dense, counts)`` —
 zeros where entries were dropped, plus a `comm.Counts` record of what hit
-the wire.  ``keys`` is accepted and ignored by `Identity` and `TopK`, which
-draw nothing; the stochastic compressors come with the PRNG port
-(ROADMAP.md §1 items 9 and 10).
+the wire.  ``compress_sum`` adds the sum of the compressed stack over the
+client axis (BL-DNN's Fisher leg).  ``keys`` is accepted and ignored by
+`Identity` and `TopK`, which draw nothing; the stochastic compressors
+(`rtopk` among them) come with the PRNG port (ROADMAP.md §1 items 9
+and 10).
 
 |·|-Top-K selection is one routine, `topk_keep_mask`: the threshold search
 runs on a float32 copy through the exact threshold kernel
 (`repro_torch.kernels.topk_threshold`), then the shared tie-break mask
-keeps exactly k entries per row.
+keeps exactly k entries per row.  `TopK.compress_sum` on a CUDA float32
+stack runs selection and client sum in the fused kernel
+(`topk_compress_sum`), whose dense output is bitwise the two-pass one.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.topk_threshold import keep_mask, topk_row_threshold
+from ..kernels.topk_threshold import keep_mask, topk_compress_sum, topk_row_threshold
 from . import comm
 
 
@@ -58,6 +62,14 @@ class Compressor:
         ``comm.price(self.wire, counts)``."""
         raise NotImplementedError
 
+    def compress_sum(self, keys, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, comm.Counts, torch.Tensor]:
+        """Fused compress-then-reduce: `compress` plus the sum of the
+        compressed stack over the client axis, ``(dense, counts,
+        local_sum)``.  The default is the two-pass composition."""
+        dense, counts = self.compress(keys, x)
+        return dense, counts, dense.sum(dim=0)
+
     def __call__(self, key, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Single-client adapter: compress one tensor and price it.
         Returns (compressed_dense, bits_transmitted)."""
@@ -79,7 +91,7 @@ class Identity(Compressor):
 
 def _selection_threshold(a32: torch.Tensor, k: int) -> torch.Tensor:
     """k-th largest per row of non-negative f32 `a32` (..., T) → (..., 1)."""
-    t = topk_row_threshold(a32.reshape((-1,) + a32.shape[-1:]), k)
+    t = topk_row_threshold(a32.reshape((-1,) + a32.shape[-1:]).contiguous(), k)
     return t.reshape(a32.shape[:-1] + (1,))
 
 
@@ -117,3 +129,37 @@ class TopK(Compressor):
         out = torch.where(topk_keep_mask(v, kk), v, 0.0).reshape(x.shape)
         c = _full(n, kk, x.device)
         return out, comm.Counts(floats=c, indices=c)
+
+    def compress_sum(self, keys, x):
+        # a flat float32 stack runs the fused codec (the kernel on the card,
+        # its plain version on the CPU); its dense output and counts equal
+        # the two-pass default bitwise.  float64 streams take the default,
+        # as in the reference.
+        if x.dtype != torch.float32:
+            return super().compress_sum(keys, x)
+        n = x.shape[0]
+        v = x.reshape(n, -1).contiguous()
+        kk = min(self.k, v.shape[1])
+        out, s = topk_compress_sum(v, kk)
+        c = _full(n, kk, x.device)
+        return (out.reshape(x.shape), comm.Counts(floats=c, indices=c),
+                s.reshape(x.shape[1:]))
+
+
+_PRNG_PENDING = ("draws from JAX's PRNG stream, which is not ported yet: "
+                 "ROADMAP.md §1 item 9 (PRNG) brings it")
+
+
+@dataclasses.dataclass(unsafe_hash=True)
+class ComposedTopK(Compressor):
+    """Top-K followed by a stochastic inner codec on the kept values."""
+    k: int
+    inner: object = None
+
+    def __post_init__(self):
+        raise NotImplementedError(f"ComposedTopK {_PRNG_PENDING}")
+
+
+def rtopk(k: int) -> ComposedTopK:
+    """RTop-K: Top-K composed with random dithering."""
+    raise NotImplementedError(f"rtopk(k={k}) {_PRNG_PENDING}")

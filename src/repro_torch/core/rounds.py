@@ -4,10 +4,13 @@ Every method shares one round skeleton: local Hessian/gradient compute →
 compressed-difference uplink → server aggregate → downlink.  This module
 holds that skeleton's pieces as plain functions on client-stacked tensors:
 
-  * the `VmapReducer`: cross-client reductions over the leading axis;
-  * the combinators: the compressed-shift recursion (`shift_update`), the
-    BL1 gradient-leg switch (`xi_scalar`), the §2.3 coefficient layouts
-    (`coeff_layout`: compact (n, r, r) blocks or full (n, d, d));
+  * the `VmapReducer`: cross-client reductions over the leading axis, on
+    tensors and on pytrees (nested dicts, `repro_torch.core.pytree`);
+  * the combinators: the compressed-shift recursion (`shift_update`, its
+    pytree and fused compress-sum forms for BL-DNN), the BL1 gradient-leg
+    switch (`xi_scalar`), the basis-refresh boundary (`refresh_due`), the
+    §2.3 coefficient layouts (`coeff_layout`: compact (n, r, r) blocks or
+    full (n, d, d));
   * `run_rounds`: a Python loop over rounds (the reference's
     `lax.scan`), with the trajectory evaluated after the loop
     (`default_gap_stream`) as the reference does.
@@ -23,6 +26,7 @@ from typing import Callable, Tuple
 import torch
 
 from . import client_batch, comm
+from .pytree import tree_leaves, tree_map, tree_unflatten
 
 _REDUCE_OPS = ("mean", "sum")
 
@@ -44,16 +48,27 @@ class VmapReducer:
         return x.sum(dim=0)
 
     def reduce_tree(self, tree: dict, ops="mean") -> dict:
-        """Reduce a dict of client-stacked uplink legs in one call; ``ops``
-        is one op for every leg or a dict of ops by leg name."""
-        out = {}
-        for name, x in tree.items():
-            op = ops if isinstance(ops, str) else ops[name]
-            if op not in _REDUCE_OPS:
-                raise ValueError(
-                    f"reduce_tree op must be one of {_REDUCE_OPS}, got {op!r}")
-            out[name] = getattr(self, op)(x)
-        return out
+        """Reduce a pytree of client-stacked uplink legs in one call;
+        ``ops`` is one op for every leaf or a tree of ops shaped like
+        `tree` (a leg that is itself a pytree may take one op for all its
+        leaves)."""
+        if not isinstance(ops, str):
+            return {name: self.reduce_tree(x, ops[name]) for name, x in tree.items()}
+        if ops not in _REDUCE_OPS:
+            raise ValueError(f"reduce_tree op must be one of {_REDUCE_OPS}, got {ops!r}")
+        return tree_map(getattr(self, ops), tree)
+
+    def tree_mean(self, tree):
+        """`mean` over the client axis of every leaf of a pytree."""
+        return self.reduce_tree(tree, "mean")
+
+    def tree_mean_presummed(self, tree, local_sums):
+        """Fleet mean of client-stacked leaves given their local client-axis
+        sums (the extra output of `Compressor.compress_sum`).  This exact
+        single-device reducer ignores the sums and reduces `tree` itself,
+        as the reference's does."""
+        del local_sums
+        return self.tree_mean(tree)
 
     def once(self, f: Callable, *args):
         """Run server-only math ``f(*args)`` once per fleet."""
@@ -69,6 +84,15 @@ class RoundCtx:
     t: int
 
 
+def refresh_due(t: int, rounds_per_refresh: int) -> bool:
+    """Basis-refresh boundary: True at rounds where an amortized basis
+    shipment may re-ship (``t % T == 0`` for ``T ≥ 1``; never for
+    ``T ≤ 0``, the ship-once policy).  A function of the absolute round
+    index only."""
+    T = int(rounds_per_refresh)
+    return T > 0 and int(t) % T == 0
+
+
 # ==========================================================================
 # Round-step combinators
 # ==========================================================================
@@ -78,6 +102,47 @@ def shift_update(compress: Callable, target: torch.Tensor, shift: torch.Tensor,
     S = C(target − L), L ← L + α·S.  Returns (S, new_shift, aux)."""
     S, aux = compress(target - shift)
     return S, shift + alpha * S, aux
+
+
+def _leaf_pairs(target, shift):
+    t_leaves, s_leaves = tree_leaves(target), tree_leaves(shift)
+    if len(t_leaves) != len(s_leaves):
+        raise ValueError(
+            f"target/shift leaf mismatch: {len(t_leaves)} vs {len(s_leaves)}")
+    return list(zip(t_leaves, s_leaves))
+
+
+def tree_shift_update(compress: Callable, target, shift, alpha: float):
+    """`shift_update` over pytrees, one recursion per leaf:
+    ``compress(i, delta) -> (dense, aux)`` compresses leaf i (leaf order of
+    `tree_leaves`).  Returns ``(S, new_shift, auxs)``: two trees shaped
+    like `target` and the per-leaf aux records as a tuple."""
+    outs = [shift_update(lambda d, i=i: compress(i, d), t, s, alpha)
+            for i, (t, s) in enumerate(_leaf_pairs(target, shift))]
+    return (tree_unflatten(target, [o[0] for o in outs]),
+            tree_unflatten(target, [o[1] for o in outs]),
+            tuple(o[2] for o in outs))
+
+
+def shift_update_sum(compress_sum: Callable, target: torch.Tensor,
+                     shift: torch.Tensor, alpha: float):
+    """`shift_update` through a fused compress-then-reduce codec,
+    ``compress_sum(delta) -> (dense, aux, local_sum)``.  Returns
+    ``(S, new_shift, aux, local_sum)``."""
+    S, aux, s_local = compress_sum(target - shift)
+    return S, shift + alpha * S, aux, s_local
+
+
+def tree_shift_update_sum(compress_sum: Callable, target, shift, alpha: float):
+    """`tree_shift_update` through fused codecs, ``compress_sum(i, delta)
+    -> (dense, aux, local_sum)``.  Returns ``(S, new_shift, auxs,
+    local_sums)``."""
+    outs = [shift_update_sum(lambda d, i=i: compress_sum(i, d), t, s, alpha)
+            for i, (t, s) in enumerate(_leaf_pairs(target, shift))]
+    return (tree_unflatten(target, [o[0] for o in outs]),
+            tree_unflatten(target, [o[1] for o in outs]),
+            tuple(o[2] for o in outs),
+            tree_unflatten(target, [o[3] for o in outs]))
 
 
 def xi_scalar(p: float, *, device=None) -> torch.Tensor:
@@ -142,7 +207,7 @@ class Env:
 
     batch: object
     basisb: object
-    x0: torch.Tensor
+    x0: object     # (d,) iterate, or a parameter pytree (BL-DNN)
     extra: object  # spec-specific precomputation (e.g. a CoeffLayout)
 
 
@@ -152,13 +217,15 @@ def default_gap_stream(batch, xs_t: torch.Tensor, f_star: torch.Tensor) -> torch
     return torch.stack([client_batch.losses(batch, x).mean() for x in xs_t]) - f_star
 
 
-def run_rounds(spec, batch, basisb, x0: torch.Tensor, f_star: torch.Tensor,
-               steps: int, *, sharded: bool = False, stream=None):
+def run_rounds(spec, batch, basisb, x0, f_star, steps: int, *,
+               sharded: bool = False, stream=None):
     """Run `steps` rounds of `spec` on one device and return
     ``(evals, ledger_streams)``: ``evals`` is the dict of (steps,) streams
     from ``spec.eval_streams`` (always holding ``"gap"``), the ledger holds
     one (steps,) cumulative bit stream per leg, recorded at the start of
-    each round as the reference's scan does."""
+    each round as the reference's scan does.  ``x0`` is a tensor or a
+    parameter pytree; the trajectory reaches ``eval_streams`` stacked leaf
+    by leaf, (steps, ...)."""
     if sharded:
         raise NotImplementedError(
             "the sharded reducer is not ported yet: ROADMAP.md §1 item 13 "
@@ -178,5 +245,5 @@ def run_rounds(spec, batch, basisb, x0: torch.Tensor, f_star: torch.Tensor,
         carry, (eval_x, led) = spec.step(R, env, carry, RoundCtx(t=t))
         xs.append(eval_x)
         leds.append(led)
-    evals = spec.eval_streams(batch, torch.stack(xs), f_star)
+    evals = spec.eval_streams(batch, tree_map(lambda *x: torch.stack(x), *xs), f_star)
     return evals, comm.CommLedger.stack(leds)

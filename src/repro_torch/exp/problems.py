@@ -1,7 +1,8 @@
-"""The problems and cells of BL1's main path — port of the synthetic part
-of `repro.exp.registry.ProblemSpec` and `repro.exp.engine.build_problem`.
+"""The problems and cells of the port's main paths — port of the synthetic
+part of `repro.exp.registry` (`ProblemSpec`, `DNNProblemSpec` and their
+cells) and of `repro.exp.engine.build_problem` / ``run_cell``.
 
-Two registered cells, each with its committed reference artifact:
+Two BL1 cells, each with its committed reference artifact:
 
   * `FIG1R1`  — the paper's headline cell (``src/repro/exp/registry.py``
     lines 194-218): n=10, m=60, d=120, r=24, Top-K k=24, 12 rounds, the
@@ -14,21 +15,37 @@ Two registered cells, each with its committed reference artifact:
     port runs it on one card with the "fast" backend.
 
 Both run BL1 with the ``data_outer`` basis and an Identity model stream.
+
+The BL-DNN cells of ``fig-dnn`` (registry lines 437-468: BLDNN, TopK,
+RTopK, FedAvg) and ``fig-dnn-ship`` (lines 478-509) on `DNN_FIG`, the
+widest BL-DNN model the reference registers: n=8 clients, m=64, d=96,
+width 32, 4 classes.  The reference draws that problem from
+``jax.random``; the port loads it, carried across, from `DNN_FIXTURE`
+(`load_dnn_problem`): the data, the student's parameters and the
+per-layer SVD factors, written by the reference with
+``jax_threefry_partitionable=False``, the setting its committed artifacts
+were written under (``tests/test_torch_bldnn.py`` regenerates it).
 """
 from __future__ import annotations
 
 import dataclasses
 import pathlib
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import device as _device
 from ..core import basis as _basis
 from ..core import bl, client_batch, glm
 from ..core.compressors import Identity, TopK
+from ..core.convert import dnn_problem_from_numpy
+from ..core.pytree import tree_leaves
+from ..fed import bldnn
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+#: the carried fig-dnn problem (seed 0)
+DNN_FIXTURE = pathlib.Path(__file__).resolve().parent / "data" / "fig_dnn_seed0.npz"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +138,127 @@ def run_cell(cell: BL1Cell, prob: Problem, *, steps=None,
                   Identity(), prob.x0, prob.x_star,
                   cell.steps if steps is None else steps, backend=backend,
                   device=prob.x0.device)
+
+
+# ==========================================================================
+# BL-DNN: fig-dnn and fig-dnn-ship
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class DNNProblemSpec:
+    """The BL-DNN regime (`repro.exp.registry.DNNProblemSpec`): a
+    teacher-labelled classification fleet with inputs in a shared
+    r-dimensional subspace and a near-teacher student."""
+
+    kind: str = "dnn_synthetic"
+    seed: int = 0
+    n_clients: int = 8
+    m: int = 64                      # samples per client
+    d: int = 96                      # input features
+    classes: int = 4
+    width: int = 32                  # MLP hidden width
+    r: int = 8                       # intrinsic data rank
+    heterogeneity: float = 0.5
+    label_noise: float = 0.05
+
+
+DNN_FIG = DNNProblemSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class DNNCell:
+    """One BL-DNN curve: `compressor` kind for both legs, the pytree
+    `basis` (None: no basis), `BLDNNConfig` overrides in `params`, and its
+    committed artifact."""
+
+    experiment: str
+    name: str
+    steps: int
+    compressor: str
+    basis: Optional[str] = None
+    params: Tuple[Tuple[str, object], ...] = ()
+
+    @property
+    def artifact(self) -> pathlib.Path:
+        return REPO_ROOT / "results" / "exp" / self.experiment / f"{self.name}.seed0.json"
+
+
+_TOPK_PARAMS = (("top_k_frac", 0.1), ("lr", 0.05))
+FIG_DNN: Dict[str, DNNCell] = {c.name: c for c in (
+    DNNCell("fig-dnn", "BLDNN", 40, "topk", "per_layer_svd", _TOPK_PARAMS),
+    DNNCell("fig-dnn", "TopK", 40, "topk", None, _TOPK_PARAMS),
+    DNNCell("fig-dnn", "RTopK", 40, "rtopk", "per_layer_svd", _TOPK_PARAMS),
+    DNNCell("fig-dnn", "FedAvg", 60, "identity", None,
+            (("lr", 0.5), ("precondition", False))),
+)}
+FIG_DNN_SHIP: Dict[str, DNNCell] = {c.name: c for c in (
+    DNNCell("fig-dnn-ship", "TopK", 40, "topk", None, _TOPK_PARAMS),
+    DNNCell("fig-dnn-ship", "BLDNN_f32", 40, "topk", "per_layer_svd", _TOPK_PARAMS),
+    DNNCell("fig-dnn-ship", "BLDNN_bf16", 40, "topk", "per_layer_svd",
+            _TOPK_PARAMS + (("ship_float_bits", 16),)),
+    DNNCell("fig-dnn-ship", "BLDNN_int8", 40, "topk", "per_layer_svd",
+            _TOPK_PARAMS + (("ship_float_bits", 8),)),
+    DNNCell("fig-dnn-ship", "BLDNN_dct", 40, "topk", "dct_tree", _TOPK_PARAMS),
+    DNNCell("fig-dnn-ship", "BLDNN_hadamard", 40, "topk", "hadamard_tree", _TOPK_PARAMS),
+)}
+
+
+@dataclasses.dataclass
+class DNNProblem:
+    """A BL-DNN problem on a device: client-stacked data, the student's
+    parameters, the carried per-layer SVD basis, and the loss/eval
+    closures."""
+
+    spec: DNNProblemSpec
+    batch: client_batch.TreeBatch
+    params0: dict
+    basis: _basis.PerLayerSVDBasis
+    loss_fn: object
+    eval_fn: object
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def load_dnn_problem(path: pathlib.Path = DNN_FIXTURE, spec: DNNProblemSpec = DNN_FIG,
+                     *, device=None) -> DNNProblem:
+    """The carried BL-DNN problem from an ``.npz`` written by the reference:
+    ``x``, ``y``, ``param:<leaf path>`` and ``U:``/``V:<leaf path>`` for
+    every rotated leaf (leaf paths like ``mlp/wi``)."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    params = _nest({k[len("param:"):]: v for k, v in arrays.items()
+                    if k.startswith("param:")})
+    paths = tree_leaves(_nest({k[len("param:"):]: k[len("param:"):]
+                               for k in arrays if k.startswith("param:")}))
+    UV = [(arrays[f"U:{p}"], arrays[f"V:{p}"]) if f"U:{p}" in arrays else None
+          for p in paths]
+    conv = dnn_problem_from_numpy(arrays["x"], arrays["y"], params, UV, device=device)
+    if tuple(conv.batch.data["x"].shape) != (spec.n_clients, spec.m, spec.d):
+        raise ValueError(f"{path} holds x of shape {tuple(conv.batch.data['x'].shape)}, "
+                         f"not the ({spec.n_clients}, {spec.m}, {spec.d}) of {spec}")
+    return DNNProblem(spec=spec, batch=conv.batch, params0=conv.params0,
+                      basis=conv.basis, loss_fn=bldnn.make_loss_fn(spec.classes),
+                      eval_fn=bldnn.make_eval_fn())
+
+
+def run_dnn_cell(cell: DNNCell, prob: DNNProblem, *, steps=None) -> bl.History:
+    """Run a BL-DNN cell through the public `run_bldnn` entry point on the
+    problem's device; a ``per_layer_svd`` cell rotates with the carried
+    factors."""
+    cfg = bldnn.BLDNNConfig(compressor=cell.compressor,
+                            use_basis=cell.basis is not None,
+                            basis_kind=cell.basis or "per_layer_svd",
+                            **dict(cell.params))
+    basis = prob.basis if cell.basis == "per_layer_svd" else None
+    device = tree_leaves(prob.params0)[0].device
+    return bldnn.run_bldnn(prob.loss_fn, prob.eval_fn, prob.params0, prob.batch,
+                           cell.steps if steps is None else steps, cfg,
+                           basis=basis, device=device)

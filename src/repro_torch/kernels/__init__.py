@@ -1,9 +1,14 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-``topk_threshold`` — exact per-row Top-K threshold (CUDA C++, sm_90a),
-replacing the Pallas ``repro.kernels.topk_threshold.topk_row_threshold``.
+``topk_threshold`` — exact per-row Top-K threshold, and the fused Top-K
+compress-then-sum over a client stack (CUDA C++, sm_90a), replacing the
+Pallas ``repro.kernels.topk_threshold.topk_row_threshold`` and
+``topk_compress_sum``;
+``basis_transform`` — the two-sided rotation (A·gᵢ)·B over a client stack
+(CUDA C++, sm_90a), replacing the Pallas
+``repro.kernels.basis_transform.basis_transform``.
 The other Pallas kernels are queued in ROADMAP.md §2.
 """
 
 #: every CUDA source of the port, by its base name under ``csrc/``
-SOURCES = ("topk_threshold",)
+SOURCES = ("topk_threshold", "topk_compress_sum", "basis_transform")

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` alone (no PyTorch headers) into its own shared library in
 ``build/repro_torch_kernels/`` at the repository root.  The library's file
-name carries the hash of its source, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  `build_all` starts one ``nvcc`` per
+name carries the hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and an unchanged one is
+loaded as it is.  `build_all` starts one ``nvcc`` per
 source, all at once.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -40,8 +41,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

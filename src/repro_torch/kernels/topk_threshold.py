@@ -12,6 +12,11 @@ patterns (monotone in value for non-negative floats), so it equals
 version, `topk_row_threshold_plain`, only for a tensor on the CPU.
 `keep_mask` runs outside the kernel in the reference too, so it stays
 plain PyTorch here.
+
+`topk_compress_sum` is the fused codec of the reference's Fisher leg: the
+same selection applied to every row of a signed (n, T) client stack, the
+dense kept values, and their sum over the client axis in row order
+(``csrc/topk_compress_sum.cu``; plain version `topk_compress_sum_plain`).
 """
 from __future__ import annotations
 
@@ -21,12 +26,17 @@ import torch
 
 from . import _build
 
-#: launches of the CUDA kernel since the last reset (the plain version on a
-#: CPU tensor does not count)
+#: launches of the threshold kernel since the last reset (the plain version
+#: on a CPU tensor does not count)
 launches = 0
+#: launches of the fused compress-sum kernel, counted the same way
+compress_sum_launches = 0
 
 #: rows up to this many bytes are staged in shared memory (no opt-in needed)
 _SMEM_LIMIT = 48 * 1024
+#: the fused kernel stages rows up to this many bytes (above 48 KB through
+#: the opt-in attribute; an H100 block may use 227 KB)
+_COMPRESS_SUM_SMEM_LIMIT = 160 * 1024
 
 
 def _clamp_k(k: int, T: int) -> int:
@@ -35,15 +45,15 @@ def _clamp_k(k: int, T: int) -> int:
     return max(1, min(int(k), T))
 
 
-def _check(a32: torch.Tensor) -> None:
+def _check(a32: torch.Tensor, what: str = "topk_row_threshold") -> None:
     if a32.dtype != torch.float32:
-        raise TypeError(
-            f"topk_row_threshold searches float32 bit patterns, got {a32.dtype}")
+        raise TypeError(f"{what} searches float32 bit patterns, got {a32.dtype}")
     if a32.dim() != 2:
-        raise ValueError(
-            f"topk_row_threshold takes (rows, T), got shape {tuple(a32.shape)}")
+        raise ValueError(f"{what} takes (rows, T), got shape {tuple(a32.shape)}")
     if not a32.is_contiguous():
-        raise ValueError("topk_row_threshold needs a contiguous tensor")
+        raise ValueError(f"{what} needs a contiguous tensor")
+    if a32.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, got {a32.device}")
 
 
 def topk_row_threshold_plain(a32: torch.Tensor, k: int) -> torch.Tensor:
@@ -84,8 +94,6 @@ def topk_row_threshold(a32: torch.Tensor, k: int) -> torch.Tensor:
     _check(a32)
     if a32.device.type == "cpu":
         return topk_row_threshold_plain(a32, k)
-    if a32.device.type != "cuda":
-        raise ValueError(f"topk_row_threshold runs on cuda or cpu, got {a32.device}")
     return _kernel(a32, _clamp_k(k, a32.shape[1]))
 
 
@@ -99,3 +107,49 @@ def keep_mask(a32: torch.Tensor, t: torch.Tensor, k: int) -> torch.Tensor:
     n_above = above.sum(dim=-1, keepdim=True)
     cum = eq.cumsum(dim=-1)
     return above | (eq & (cum <= k - n_above))
+
+
+def topk_compress_sum_plain(v: torch.Tensor, k: int):
+    """The fused kernel's function in PyTorch: per row of f32 `v` (n, T)
+    keep the k largest |v| (`keep_mask` tie-break) → ``(dense (n, T),
+    col_sum (T,))``, the column sum taken over rows in order 0..n−1."""
+    _check(v, "topk_compress_sum")
+    kk = _clamp_k(k, v.shape[1])
+    a32 = v.abs()
+    dense = torch.where(keep_mask(a32, topk_row_threshold_plain(a32, kk), kk), v, 0.0)
+    col_sum = torch.zeros(v.shape[1], dtype=torch.float32, device=v.device)
+    for row in dense:
+        col_sum = col_sum + row
+    return dense, col_sum
+
+
+def _compress_sum_kernel(v: torch.Tensor, kk: int):
+    global compress_sum_launches
+    lib = _build.load("topk_compress_sum")
+    fn = lib.topk_compress_sum_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n, T = v.shape
+    dense = torch.empty_like(v)
+    col_sum = torch.empty((T,), dtype=torch.float32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    err = fn(v.data_ptr(), dense.data_ptr(), col_sum.data_ptr(), n, T, kk,
+             _COMPRESS_SUM_SMEM_LIMIT, stream)
+    if err != 0:
+        raise RuntimeError(f"topk_compress_sum kernel launch failed: CUDA error {err}")
+    compress_sum_launches += 1
+    return dense, col_sum
+
+
+def topk_compress_sum(v: torch.Tensor, k: int):
+    """Exact |·|-Top-K of each row of f32 `v` (n, T) fused with the sum of
+    the compressed rows: ``(dense (n, T), col_sum (T,))``.  ``dense`` is
+    bitwise the two-pass selection (`topk_row_threshold` + `keep_mask`);
+    ``col_sum`` sums the rows in order.  k is clamped to [1, T].  Launches
+    the CUDA kernel on a CUDA tensor; a CPU tensor takes
+    `topk_compress_sum_plain`."""
+    _check(v, "topk_compress_sum")
+    if v.device.type == "cpu":
+        return topk_compress_sum_plain(v, k)
+    return _compress_sum_kernel(v, _clamp_k(k, v.shape[1]))

@@ -26,7 +26,8 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
-    assert {"bl.py", "topk_threshold.py", "problems.py", "chip_smoke.py"} <= names
+    assert {"bl.py", "topk_threshold.py", "problems.py", "chip_smoke.py",
+            "bldnn.py", "basis_transform.py", "pytree.py", "layers.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -63,6 +64,18 @@ def test_bl1_without_device_raises_when_cuda_is_unavailable(monkeypatch):
                x0, x0, 2)
     with pytest.raises(RuntimeError, match="CUDA device"):
         glm.make_synthetic(seed=0, n_clients=2, m=8, d=6, r=3)
+
+
+def test_run_bldnn_without_device_raises_when_cuda_is_unavailable(monkeypatch):
+    from repro_torch.exp import problems
+    from repro_torch.fed import bldnn
+
+    prob = problems.load_dnn_problem(device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        bldnn.run_bldnn(prob.loss_fn, prob.eval_fn, prob.params0, prob.batch, 1)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        problems.load_dnn_problem()
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -130,3 +130,70 @@ def test_kernel_library_is_keyed_on_source_hash():
     assert path.name.startswith("topk_threshold-") and path.suffix == ".so"
     assert path == _build.library_path("topk_threshold")
     assert (_build.CSRC / "topk_threshold.cu").is_file()
+
+
+# --------------------------------------------------------------------------
+# the fused compress-sum codec (BL-DNN's Fisher leg)
+# --------------------------------------------------------------------------
+def _signed(kind: str, rows: int, T: int, seed: int) -> np.ndarray:
+    """Signed rows: the codec selects on |v| and keeps the signs."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.standard_normal((rows, T)).astype(np.float32)
+    if kind == "ties":
+        return (rng.integers(-3, 4, (rows, T))).astype(np.float32)
+    if kind == "zeros":
+        return np.zeros((rows, T), np.float32)
+    raise ValueError(kind)
+
+
+#: fig-dnn's four parameter leaves, flattened: (clients, numel) and the
+#: per-leaf budget k = ⌊0.1·numel⌋; plus a clamped k
+COMPRESS_SUM_CASES = [(kind, rows, T, k)
+                      for kind in ("random", "ties", "zeros")
+                      for rows, T, k in ((8, 3072, 307), (8, 2048, 204), (8, 128, 12),
+                                         (3, 40, 10 ** 6))]
+
+
+@pytest.mark.parametrize("kind,rows,T,k", COMPRESS_SUM_CASES)
+def test_plain_compress_sum_matches_reference_kernel(kind, rows, T, k):
+    v = _signed(kind, rows, T, seed=rows * 7 + T + k % 97)
+    dense, col_sum = ttk.topk_compress_sum(torch.from_numpy(v), k)
+    j_dense, j_sum = jtk.topk_compress_sum(jnp.asarray(v), k, interpret=True)
+    np.testing.assert_array_equal(_bits(dense.numpy()), _bits(j_dense))
+    kk = max(1, min(k, T))
+    assert ((dense != 0).sum(dim=1) <= kk).all()
+    # the row-order sum against XLA's reduction: within n ulps of the
+    # column's magnitude
+    tol = rows * np.finfo(np.float32).eps * np.abs(np.asarray(j_dense)).sum(axis=0)
+    assert (np.abs(col_sum.numpy() - np.asarray(j_sum)) <= tol).all()
+    # and the two-pass selection of the threshold kernel, bitwise
+    a32 = torch.from_numpy(np.abs(v))
+    two_pass = torch.where(ttk.keep_mask(a32, ttk.topk_row_threshold(a32, kk), kk),
+                           torch.from_numpy(v), 0.0)
+    np.testing.assert_array_equal(_bits(dense.numpy()), _bits(two_pass.numpy()))
+
+
+def test_plain_compress_sum_sums_rows_in_order():
+    v = torch.from_numpy(_signed("random", 5, 64, seed=2))
+    dense, col_sum = ttk.topk_compress_sum_plain(v, 16)
+    want = dense[0].clone()
+    for row in dense[1:]:
+        want = want + row
+    assert torch.equal(col_sum.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("bad,err", [
+    (torch.ones((4, 8), dtype=torch.float64), TypeError),
+    (torch.ones((2, 4, 8), dtype=torch.float32), ValueError),
+    (torch.ones((8, 4), dtype=torch.float32).T, ValueError),
+])
+def test_compress_sum_raises_on_unsupported_input(bad, err):
+    with pytest.raises(err):
+        ttk.topk_compress_sum(bad, 2)
+
+
+def test_compress_sum_on_cpu_does_not_count_launches():
+    before = ttk.compress_sum_launches
+    ttk.topk_compress_sum(torch.from_numpy(_signed("random", 2, 16, seed=1)), 3)
+    assert ttk.compress_sum_launches == before
