@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port (`src/repro_torch`) on one CUDA card.
 
     python3 chip_smoke.py              # what a checkout's check runs
-    python3 chip_smoke.py --profile    # + torch.profiler passes over fig1-xl
+    python3 chip_smoke.py --profile    # + torch.profiler passes over fig1-xl,
+                                       #   fig2's and Newton-XL's kernel route
                                        #   and fig-dnn/BLDNN
 
 Phases, each printing one JSON line; any failure raises, so the exit code
@@ -15,27 +16,48 @@ is non-zero and no result line is printed:
                 card, bitwise, on the main path's shapes and on edge-case
                 rows, and timed beside its plain version, its library call
                 and its bound;
-  4. fig1r1   — BL1 through `repro_torch.core.bl.bl1` against the committed
-                artifact results/exp/fig1r1/BL1.seed0.json;
-  5. fig1-xl  — the same at full width (n=512, d=1200) against
+  4. kernels_matmul — the tiled-matmul kernel against its plain version and
+                float64 (within 1e-5 of the larger magnitude of each) at
+                the Γ = VᵀAV path's shapes (fig2 and Newton-XL), the
+                reference's test sweep, K = 1, float64/float32/bfloat16
+                inputs and a transposed view, `ops.basis_project` (batched
+                and shared V) and `ops.glm_hessian`; then timed at the path
+                shapes beside its plain version, its bound and two library
+                calls (the float64 einsum of the default route and
+                `torch.matmul` on float32 copies);
+  5. fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
+                `repro_torch.core.bl.bl1` / `core.baselines.newton` against
+                the committed artifacts results/exp/fig1r1/*.seed0.json;
+  6. fig2     — Newton without a basis and in the data basis on the default
+                float64 route against results/exp/fig2/*.seed0.json, and in
+                the data basis on the kernel route (Γ in float32 through the
+                tiled-matmul kernel) within |Δ| ≤ 2e-6·|ref| + 1e-12;
+  7. fig1-xl  — BL1 at full width (n=512, d=1200) against
                 results/exp/fig1-xl/BL1.seed0.json, with seconds per round,
-                the Newton reference time and peak device memory;
-  6. kernels_bldnn — the fused Top-K compress-sum kernel (bitwise) and the
+                the Newton reference time and peak device memory; then
+                newton-xl: 6 Newton rounds in the data basis on the same
+                problem on both routes, the kernel route held to the
+                float64 one within 2e-6, with seconds per round and peak
+                memory;
+  8. kernels_bldnn — the fused Top-K compress-sum kernel (bitwise) and the
                 basis-transform kernel (within 1e-5·max|ref| of its plain
                 version, 1e-6·max|ref| of float64) at BL-DNN's shapes and on
-                edge-case rows, timed at those shapes and at one larger one;
-  7. fig-dnn / fig-dnn-ship — BL-DNN through
+                edge-case rows, timed at those shapes and at one larger one,
+                and the threshold kernel timed at the gradient leg's shapes;
+  9. fig-dnn / fig-dnn-ship — BL-DNN through
                 `repro_torch.fed.bldnn.run_bldnn` from the carried problem
                 (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
                 FedAvg, BLDNN_int8, BLDNN_dct and BLDNN_hadamard against
                 their artifacts under results/exp/.
 
-BL1 gaps must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and every bit stream
-exactly.  BL-DNN bit streams must agree exactly over every round, the loss
-within 1e-4·|ref| and the error rate exactly over rounds 0–3 (training is
-chaotic at the ulp level; later rounds are reported), and every loss must
-be finite.  Each path resets the kernels' launch counts just before it
-runs and fails if a kernel of the path was not launched.  The last line is
+GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
+every bit stream exactly.  BL-DNN bit streams must agree exactly over
+every round, the loss within 1e-4·|ref| and the error rate exactly over
+rounds 0–3 (training is chaotic at the ulp level; later rounds are
+reported), and every loss must be finite.  Each path resets the kernels'
+launch counts just before it runs and fails if a kernel of the path was
+not launched, or if the tiled-matmul kernel ran on a path that must not
+reach it (every float64 route).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 """
@@ -61,6 +83,15 @@ DNN_HELD_ROUNDS = 4
 DNN_LOSS_RTOL = 1e-4
 #: basis_transform against its plain float32 version / against float64
 BT_TOL_PLAIN, BT_TOL_F64 = 1e-5, 1e-6
+#: tiled_matmul against its plain float32 version and against float64, as a
+#: share of the larger magnitude of each
+MM_TOL = 1e-5
+#: the float32 Γ route's gap envelope: the reference's own f32 route leaves
+#: the 1e-8 one (2.4e-10 absolute at a 4.1e-3 gap in fig2) and stays 4x
+#: inside 2e-6 on a 16-client fleet at fig1-xl's widths
+F32_GAP_RTOL = 2e-6
+#: Newton in the data basis at fig1-xl's widths: rounds and timing repeats
+NEWTON_XL_STEPS, NEWTON_XL_REPEATS = 6, 3
 
 
 def emit(obj) -> None:
@@ -114,6 +145,117 @@ def basis_transform_bound_ms(n: int, da: int, d1: int, d2: int, db: int) -> tupl
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def matmul_bound_ms(a, b) -> tuple:
+    """Least time for ``a @ b`` with float32 accumulation: each operand
+    read once in its own type (a broadcast one once), the float32 output
+    written once, or 2·batch·M·N·K operations at the f32 rate."""
+    batch = a.shape[0] if a.dim() == 3 else (b.shape[0] if b.dim() == 3 else 1)
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    bytes_ = (a.numel() * a.element_size() + b.numel() * b.element_size()
+              + batch * M * N * 4)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * batch * M * N * K / OPS32_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+#: Γ = VᵀAV on the kernel route: (clients, d, r) for fig2/newton_basis and
+#: for Newton in the data basis at fig1-xl's widths
+MM_PATHS = (("fig2", 10, 120, 24), ("newton-xl", 512, 1200, 32))
+#: the reference's matmul test sweep (tests/test_kernels.py), (M, K, N)
+MM_SWEEP = ((64, 64, 64), (300, 500, 200), (128, 1, 7), (1, 257, 129), (513, 128, 255))
+
+
+def matmul_kernel_phase(torch, tm, ops) -> dict:
+    """The tiled-matmul kernel against its plain version and float64 (each
+    error within MM_TOL of the larger magnitude), at the Γ path's shapes,
+    the reference sweep in three input types, a transposed view and
+    K = 1, then `ops.basis_project` and `ops.glm_hessian`; then timings at
+    the path shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, dtype=torch.float64):
+        return torch.randn(*shape, device="cuda", dtype=torch.float64,
+                           generator=gen).to(dtype)
+
+    err = {"plain": 0.0, "f64": 0.0, "plain_rel": 0.0, "f64_rel": 0.0}
+
+    def hold(name, out, plain, ref):
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        e_plain = float((out.double() - plain.double()).abs().max())
+        e_f64 = float((out.double() - ref).abs().max())
+        p_scale = float(plain.double().abs().max())
+        if not (e_plain <= MM_TOL * p_scale and e_f64 <= MM_TOL * scale):
+            raise AssertionError(f"tiled_matmul on {name}: |Δ plain| {e_plain} "
+                                 f"(max|plain| {p_scale}), |Δ f64| {e_f64} (max|ref| {scale})")
+        err["plain"] = max(err["plain"], e_plain)
+        err["f64"] = max(err["f64"], e_f64)
+        err["plain_rel"] = max(err["plain_rel"], e_plain / p_scale)
+        err["f64_rel"] = max(err["f64_rel"], e_f64 / scale)
+
+    def check(name, a, b):
+        hold(name, tm.matmul(a, b), tm.matmul_plain(a, b),
+             torch.matmul(a.double(), b.double()))
+
+    cases = 0
+    operands = {}
+    for path, n, d, r in MM_PATHS:
+        A = rnd(n, d, d)
+        A = (A + A.transpose(-1, -2)) / 2          # a Hessian is symmetric
+        # row-major, as the data basis is stacked (cuSOLVER's Q is column-major)
+        V = torch.linalg.qr(rnd(n, d, r))[0].contiguous()
+        T = tm.matmul(A, V)
+        check(f"{path} T = A·V", A, V)
+        check(f"{path} Γ = Vᵀ·T", V.transpose(-1, -2), T)
+        hold(f"{path} basis_project", ops.basis_project(V, A),
+             tm.matmul_plain(V.transpose(-1, -2), tm.matmul_plain(A, V)),
+             torch.einsum("ndr,nde,nes->nrs", V, A, V))
+        operands[path] = (A, V, T)
+        cases += 3
+    A, V, _ = operands["fig2"]
+    hold("basis_project, shared 2-D V", ops.basis_project(V[0], A),
+         tm.matmul_plain(V[0].T, tm.matmul_plain(A, V[0])),
+         torch.einsum("dr,nde,es->nrs", V[0], A, V[0]))
+    hold("basis_project, 2-D", ops.basis_project(V[0], A[0]),
+         tm.matmul_plain(V[0].T, tm.matmul_plain(A[0], V[0])), V[0].T @ A[0] @ V[0])
+    for M, K, N in MM_SWEEP:
+        for dt in (torch.float64, torch.float32, torch.bfloat16):
+            check(f"({M}, {K}, {N}) {dt}", rnd(M, K, dtype=dt), rnd(K, N, dtype=dt))
+        check(f"({M}, {K}, {N}) transposed A and B", rnd(K, M).T, rnd(N, K).T)
+        cases += 4
+    check("f32 · bf16, batched · broadcast", rnd(3, 70, 90, dtype=torch.float32),
+          rnd(90, 33, dtype=torch.bfloat16))
+    Ag, w = rnd(60, 120), torch.rand(60, device="cuda", dtype=torch.float64, generator=gen)
+    hold("glm_hessian", ops.glm_hessian(Ag, w, 1e-3),
+         tm.matmul_plain(Ag.T, Ag * w[:, None]) / 60 + 1e-3 * torch.eye(120, device="cuda"),
+         (Ag.T * w) @ Ag / 60 + 1e-3 * torch.eye(120, device="cuda", dtype=torch.float64))
+    cases += 4
+
+    timings = {}
+    for path, n, d, r in MM_PATHS:
+        A, V, T = operands[path]
+        Vt = V.transpose(-1, -2)
+        A32, V32, Vt32 = A.float(), V.float(), Vt.float()
+        iters = 200 if n * d * d < 10 ** 7 else 10
+        for prod, (a, b, a32, b32) in (("T", (A, V, A32, V32)), ("G", (Vt, T, Vt32, T))):
+            bound, by = matmul_bound_ms(a, b)
+            timings[f"{path}/{prod}"] = {
+                "a": [list(a.shape), str(a.dtype)], "b": [list(b.shape), str(b.dtype)],
+                "kernel_ms": cuda_ms(torch, lambda: tm.matmul(a, b), iters, warmup=2),
+                "plain_ms": cuda_ms(torch, lambda: tm.matmul_plain(a, b), iters, warmup=2),
+                "library_ms": cuda_ms(torch, lambda: torch.matmul(a32, b32), iters, warmup=2),
+                "bound_ms": bound, "bound_by": by}
+        timings[f"{path}/basis_project"] = {
+            "kernel_route_ms": cuda_ms(torch, lambda: ops.basis_project(V, A), iters, warmup=2),
+            "einsum_f64_ms": cuda_ms(
+                torch, lambda: torch.einsum("ndr,nde,nes->nrs", V, A, V), iters, warmup=2)}
+        del A32, V32, Vt32
+    del operands
+    torch.cuda.empty_cache()
+    return {"cases": cases, "max_abs_err": err, "timings": timings}
+
+
 def check_bits(name: str, hist, ref: dict) -> list:
     """Every bit stream (uplink, downlink, each ledger leg) exactly the
     reference's; returns the names of the streams compared."""
@@ -127,19 +269,28 @@ def check_bits(name: str, hist, ref: dict) -> list:
     return sorted(streams)
 
 
-def check_history(name: str, hist, ref: dict) -> dict:
+def check_history(name: str, hist, ref: dict, rtol: float = GAP_RTOL) -> dict:
+    """Gaps within |Δ| ≤ rtol·|ref| + 1e-12 and every bit stream exact."""
     import numpy as np
 
     g, gr = np.asarray(hist.gaps), np.asarray(ref["gaps"])
     if g.shape != gr.shape or not np.all(np.isfinite(g)):
         raise AssertionError(f"{name}: gaps {g} against reference {gr}")
     err = np.abs(g - gr)
-    bad = err > GAP_RTOL * np.abs(gr) + GAP_ATOL
+    bad = err > rtol * np.abs(gr) + GAP_ATOL
     if bad.any():
-        raise AssertionError(f"{name}: gaps leave |Δ| ≤ 1e-8·|ref| + 1e-12 at rounds "
+        raise AssertionError(f"{name}: gaps leave |Δ| ≤ {rtol}·|ref| + 1e-12 at rounds "
                              f"{np.nonzero(bad)[0].tolist()}: {g} vs {gr}")
-    return {"max_gap_abs_err": float(err.max()), "gaps": list(map(float, g)),
-            "bit_streams_equal": check_bits(name, hist, ref)}
+    big = np.abs(gr) > 1e-9                  # the tail's relative error is noise
+    return {"max_gap_abs_err": float(err.max()),
+            "max_gap_rel_err_above_1e-9": float((err[big] / np.abs(gr[big])).max(initial=0.0)),
+            "gaps": list(map(float, g)), "bit_streams_equal": check_bits(name, hist, ref)}
+
+
+def history_dict(hist) -> dict:
+    """A `History` as the artifact's ``history`` mapping."""
+    return {"gaps": hist.gaps, "up_bits": hist.up_bits, "down_bits": hist.down_bits,
+            "legs": hist.legs}
 
 
 def kernel_phase(torch, tk) -> dict:
@@ -214,7 +365,8 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
     """The fused compress-sum kernel against its plain version (dense and
     row-order sum bitwise) and the two-pass selection (dense bitwise), and
     the basis-transform kernel against its plain version and float64;
-    then times at the path's shapes and at one larger shape each."""
+    then times at the path's shapes and at one larger shape each, and the
+    threshold kernel's time at the gradient leg's shapes."""
     import numpy as np
 
     from repro_torch.core.compressors import TopK
@@ -292,7 +444,17 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
     else:
         raise AssertionError("basis_transform took rows that do not fit shared memory")
 
-    cs_times, bt_times = {}, {}
+    cs_times, bt_times, th_times = {}, {}, {}
+    for n, T, k in sorted(set(DNN_STACKS)):
+        # the gradient leg's threshold alone: |v| of one leaf's stack
+        a = torch.abs(dev(rng.standard_normal((n, T)))).contiguous()
+        bound, by = threshold_bound_ms(n, T)
+        th_times[f"{n}x{T}"] = {
+            "shape": [n, T], "k": k,
+            "kernel_ms": cuda_ms(torch, lambda: tk.topk_row_threshold(a, k), 200),
+            "plain_ms": cuda_ms(torch, lambda: tk.topk_row_threshold_plain(a, k), 10),
+            "library_ms": cuda_ms(torch, lambda: torch.topk(a, k, dim=1).values[:, -1:], 200),
+            "bound_ms": bound, "bound_by": by}
     for n, T, k in sorted(set(DNN_STACKS)) + [LARGE_STACK]:
         v = dev(rng.standard_normal((n, T)))
         iters = 200 if n * T < 10 ** 6 else 20
@@ -322,22 +484,24 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
     del operands
     torch.cuda.empty_cache()
     return {"compress_sum_cases": len(cases), "compress_sum_max_abs_err": cs_err,
-            "basis_transform_max_abs_err": bt_err,
+            "basis_transform_max_abs_err": bt_err, "threshold_timings": th_times,
             "compress_sum_timings": cs_times, "basis_transform_timings": bt_times}
 
 
-def drive(torch, tk, bt, run) -> tuple:
+def drive(torch, k, run) -> tuple:
     """Drive one path, ``run()``, with every kernel's launch count reset
-    just before it and read just after; returns (result, seconds,
-    launches by kernel)."""
+    just before it and read just after (``k`` holds the kernel modules
+    ``tk``, ``tm``, ``bt``); returns (result, seconds, launches by
+    kernel)."""
     torch.cuda.synchronize()
-    tk.launches = tk.compress_sum_launches = bt.launches = 0
+    k.tk.launches = k.tk.compress_sum_launches = k.tm.launches = k.bt.launches = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, {"topk_row_threshold": tk.launches,
-                                           "topk_compress_sum": tk.compress_sum_launches,
-                                           "basis_transform": bt.launches}
+    return out, time.perf_counter() - t0, {"topk_row_threshold": k.tk.launches,
+                                           "topk_compress_sum": k.tk.compress_sum_launches,
+                                           "tiled_matmul": k.tm.launches,
+                                           "basis_transform": k.bt.launches}
 
 
 def check_dnn_history(name: str, hist, ref: dict) -> dict:
@@ -359,6 +523,10 @@ def check_dnn_history(name: str, hist, ref: dict) -> dict:
             "error_rate_diff": list(map(float, err - er)),
             "rounds_error_equal": int((err == er).sum()),
             "bit_streams_equal": check_bits(name, hist, ref)}
+
+
+#: substrings of the hand-written kernels' names in a profiler trace
+HAND_KERNELS = ("threshold", "select_rows", "column_sum", "tiled_matmul", "basis_transform")
 
 
 def profile_run(torch, run, steps: int) -> dict:
@@ -386,6 +554,8 @@ def profile_run(torch, run, steps: int) -> dict:
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "top": [{"name": k[:100], "device_ms": us / 1e3, "calls": c}
                     for us, k, c in rows[:15]],
+            "hand_kernels": [{"name": k[:100], "device_ms": us / 1e3, "calls": c}
+                             for us, k, c in rows if any(h in k for h in HAND_KERNELS)],
             "top_host": [{"name": k[:100], "self_cpu_ms": us / 1e3, "calls": c}
                          for us, k, c in host[:15]]}
 
@@ -401,12 +571,17 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from types import SimpleNamespace
+
     from repro_torch import device as _device
+    from repro_torch.core import baselines, client_batch
     from repro_torch.exp import problems
-    from repro_torch.kernels import SOURCES, _build
+    from repro_torch.kernels import SOURCES, _build, ops
     from repro_torch.kernels import basis_transform as bt
+    from repro_torch.kernels import tiled_matmul as tm
     from repro_torch.kernels import topk_threshold as tk
 
+    k = SimpleNamespace(tk=tk, tm=tm, bt=bt)
     _device.resolve("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -420,21 +595,56 @@ def main(argv) -> int:
 
     kern = kernel_phase(torch, tk)
     emit({"phase": "kernels", "kernel": "topk_row_threshold", **kern})
+    km = matmul_kernel_phase(torch, tm, ops)
+    emit({"phase": "kernels_matmul", "kernel": "tiled_matmul", **km})
+
+    def need(name, counts, want):
+        """Fail unless every kernel ran at least (or, for 0, exactly) as
+        often as `want` says."""
+        bad = {kn: (counts[kn], n) for kn, n in want.items()
+               if (counts[kn] < n if n else counts[kn] != 0)}
+        if bad:
+            raise AssertionError(f"{name}: kernel launches (counted, needed) {bad}")
 
     launches = {}
-    # ---- fig1r1: the paper's cell -----------------------------------------
+    # ---- fig1r1: the paper's cell, then FedNL and Newton -------------------
     cell = problems.FIG1R1
     t0 = time.perf_counter()
     prob = problems.build_problem(cell.problem, device="cuda")
     prob.bases(cell.basis)
     setup_s = time.perf_counter() - t0
-    hist, secs, counts = drive(torch, tk, bt, lambda: problems.run_cell(cell, prob))
+    hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
     launches["fig1r1"] = counts["topk_row_threshold"]
     res = check_history("fig1r1", hist, json.loads(cell.artifact.read_text())["history"])
-    if launches["fig1r1"] < cell.steps:
-        raise AssertionError(f"fig1r1: threshold kernel launched {launches['fig1r1']} "
-                             f"times in {cell.steps} rounds")
+    need("fig1r1", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0})
     emit({"phase": "fig1r1", "setup_s": setup_s, "run_s": secs, "launches": counts, **res})
+    for cell in (problems.FIG1R1_CELLS["FedNL"], problems.FIG1R1_CELLS["Newton"]):
+        hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
+        res = check_history(f"fig1r1/{cell.name}", hist,
+                            json.loads(cell.artifact.read_text())["history"])
+        need(f"fig1r1/{cell.name}", counts, {"tiled_matmul": 0})
+        emit({"phase": "fig1r1", "cell": cell.name, "run_s": secs, "launches": counts, **res})
+
+    # ---- fig2: Newton without and with the data basis, both Γ routes -------
+    fig2_launches = {}
+    for cell, route in ((problems.FIG2["newton_std"], "einsum"),
+                        (problems.FIG2["newton_basis"], "einsum"),
+                        (problems.FIG2["newton_basis"], "kernel")):
+        hist, secs, counts = drive(
+            torch, k, lambda: problems.run_cell(cell, prob, basis_project=route))
+        f32 = route == "kernel"
+        res = check_history(f"fig2/{cell.name} ({route})", hist,
+                            json.loads(cell.artifact.read_text())["history"],
+                            rtol=F32_GAP_RTOL if f32 else GAP_RTOL)
+        need(f"fig2/{cell.name} ({route})", counts,
+             {"tiled_matmul": 2 * cell.steps if f32 else 0})
+        fig2_launches[f"{cell.name}/{route}"] = counts["tiled_matmul"]
+        emit({"phase": "fig2", "cell": cell.name, "basis_project": route, "run_s": secs,
+              "launches": counts, **res})
+    if "--profile" in argv:
+        cell = problems.FIG2["newton_basis"]
+        emit({"phase": "profile_fig2_newton_basis_kernel", **profile_run(
+            torch, lambda: problems.run_cell(cell, prob, steps=4, basis_project="kernel"), 4)})
 
     # ---- fig1-xl: full width on one card ------------------------------------
     cell = problems.FIG1_XL
@@ -443,8 +653,6 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    from repro_torch.core import client_batch
-
     client_batch.newton_solve_fused(client_batch.from_clients(prob.clients), prob.x0,
                                     cell.problem.newton_iters)
     torch.cuda.synchronize()
@@ -458,19 +666,17 @@ def main(argv) -> int:
     # the last full run is the main path's checked run
     per_round, t_ones, t_alls = [], [], []
     for rep in range(XL_REPEATS):
-        _, t_one, _ = drive(torch, tk, bt, lambda: problems.run_cell(cell, prob, steps=1))
+        _, t_one, _ = drive(torch, k, lambda: problems.run_cell(cell, prob, steps=1))
         if rep == XL_REPEATS - 1:
             torch.cuda.reset_peak_memory_stats()
-        hist, t_all, counts = drive(torch, tk, bt, lambda: problems.run_cell(cell, prob))
+        hist, t_all, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
         launches["fig1-xl"] = counts["topk_row_threshold"]
         t_ones.append(t_one)
         t_alls.append(t_all)
         per_round.append((t_all - t_one) / (cell.steps - 1))
     peak = torch.cuda.max_memory_allocated()
     res = check_history("fig1-xl", hist, json.loads(cell.artifact.read_text())["history"])
-    if launches["fig1-xl"] < cell.steps:
-        raise AssertionError(f"fig1-xl: threshold kernel launched {launches['fig1-xl']} "
-                             f"times in {cell.steps} rounds")
+    need("fig1-xl", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0})
     emit({"phase": "fig1-xl", "problem_build_s": build_s, "newton_s": newton_s,
           "bases_s": bases_s, "run_1_round_s": t_ones, "run_s": t_alls,
           "s_per_round": sorted(per_round), "s_per_round_median": median(per_round),
@@ -479,6 +685,40 @@ def main(argv) -> int:
     if "--profile" in argv:
         emit({"phase": "profile_fig1-xl",
               **profile_run(torch, lambda: problems.run_cell(cell, prob, steps=2), 2)})
+
+    # ---- newton-xl: Newton in the data basis at fig1-xl's widths ------------
+    def newton_xl(route, steps=NEWTON_XL_STEPS):
+        return baselines.newton(prob.clients, prob.x0, prob.x_star, steps,
+                                bases=prob.bases(cell.basis), backend="fast",
+                                device="cuda", basis_project=route)
+
+    nx = {}
+    for route in ("einsum", "kernel"):
+        newton_xl(route, steps=1)                             # warm-up round
+        per_round, t_ones, t_alls = [], [], []
+        for rep in range(NEWTON_XL_REPEATS):
+            _, t_one, _ = drive(torch, k, lambda: newton_xl(route, steps=1))
+            if rep == NEWTON_XL_REPEATS - 1:
+                torch.cuda.reset_peak_memory_stats()
+            hist, t_all, counts = drive(torch, k, lambda: newton_xl(route))
+            t_ones.append(t_one)
+            t_alls.append(t_all)
+            per_round.append((t_all - t_one) / (NEWTON_XL_STEPS - 1))
+        need(f"newton-xl ({route})", counts,
+             {"tiled_matmul": 2 * NEWTON_XL_STEPS if route == "kernel" else 0})
+        nx[route] = {"hist": hist, "s_per_round": sorted(per_round),
+                     "s_per_round_median": median(per_round), "run_1_round_s": t_ones,
+                     "run_s": t_alls, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "launches": counts}
+    f64 = history_dict(nx["einsum"].pop("hist"))
+    res = check_history("newton-xl (kernel route vs float64 route)", nx["kernel"].pop("hist"),
+                        f64, rtol=F32_GAP_RTOL)
+    launches["newton-xl"] = nx["kernel"]["launches"]["tiled_matmul"]
+    emit({"phase": "newton-xl", "steps": NEWTON_XL_STEPS, "f64_gaps": f64["gaps"], **nx,
+          "kernel_vs_f64": res})
+    if "--profile" in argv:
+        emit({"phase": "profile_newton-xl_kernel",
+              **profile_run(torch, lambda: newton_xl("kernel", steps=2), 2)})
     del prob
     torch.cuda.empty_cache()
 
@@ -496,18 +736,15 @@ def main(argv) -> int:
     for cell in (problems.FIG_DNN["BLDNN"], problems.FIG_DNN["TopK"],
                  problems.FIG_DNN["FedAvg"], problems.FIG_DNN_SHIP["BLDNN_int8"],
                  problems.FIG_DNN_SHIP["BLDNN_dct"], problems.FIG_DNN_SHIP["BLDNN_hadamard"]):
-        hist, secs, counts = drive(torch, tk, bt, lambda: problems.run_dnn_cell(cell, prob))
+        hist, secs, counts = drive(torch, k, lambda: problems.run_dnn_cell(cell, prob))
         res = check_dnn_history(f"{cell.experiment}/{cell.name}", hist,
                                 json.loads(cell.artifact.read_text())["history"])
-        need = {"topk_row_threshold": 0, "topk_compress_sum": 0, "basis_transform": 0}
+        want = {"tiled_matmul": 0}
         if cell.compressor == "topk":
-            need["topk_row_threshold"] = need["topk_compress_sum"] = 4 * cell.steps
+            want["topk_row_threshold"] = want["topk_compress_sum"] = 4 * cell.steps
         if cell.basis is not None:
-            need["basis_transform"] = 4 * cell.steps
-        short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
-        if short:
-            raise AssertionError(f"{cell.experiment}/{cell.name}: kernels launched fewer "
-                                 f"times than (launches, needed) {short}")
+            want["basis_transform"] = 4 * cell.steps
+        need(f"{cell.experiment}/{cell.name}", counts, want)
         dnn_launches[cell.name] = counts
         emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps,
               "setup_s": setup_s, "run_s": secs, "s_per_round": secs / cell.steps,
@@ -520,6 +757,7 @@ def main(argv) -> int:
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]
     bt_path = kb["basis_transform_timings"]["8x96x96x32x32"]
+    mm = km["timings"]["newton-xl/T"]
     main = dnn_launches["BLDNN"]
     emit({"kernels": [{
         "name": "topk_row_threshold", "route": "cuda",
@@ -536,6 +774,13 @@ def main(argv) -> int:
         "ms": cs["kernel_ms"], "plain_ms": cs["plain_ms"], "bound_ms": cs["bound_ms"],
         "bound_by": cs["bound_by"], "library_ms": None,
         "two_pass_ms": cs["two_pass_ms"], "shape": cs["shape"]}, {
+        "name": "tiled_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
+        "replaces": "src/repro/kernels/tiled_matmul.py:70",
+        "launches": launches["newton-xl"], "max_abs_err": km["max_abs_err"]["plain"],
+        "ms": mm["kernel_ms"], "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
+        "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
+        "shape": [mm["a"], mm["b"]], "launches_fig2": fig2_launches["newton_basis/kernel"]}, {
         "name": "basis_transform", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/basis_transform.cu",
         "replaces": "src/repro/kernels/basis_transform.py:56",

@@ -1,12 +1,13 @@
 """Batched execution engine — the configuration layer of the fast path;
-port of `repro.core.batched` for BL1.
+port of `repro.core.batched` for BL1 and Newton.
 
 Per-client state lives in leading-axis-`n` stacked tensors (`ClientBatch`,
 `BatchedBasis`); this module validates and stacks the fleet, builds the
-frozen `specs.BL1Spec`, runs it on `rounds.run_rounds`, and turns the
-streams into a `History`.  Raises `FastPathUnavailable` for fleets the
-stacked representation cannot express (heterogeneous shapes, mixed basis
-kinds, mixed or unported compressors).
+frozen `specs.BL1Spec` or `specs.NewtonSpec`, runs it on
+`rounds.run_rounds`, and turns the streams into a `History`.  Raises
+`FastPathUnavailable` for fleets the stacked representation cannot
+express (heterogeneous shapes, mixed basis kinds, mixed or unported
+compressors).
 """
 from __future__ import annotations
 
@@ -17,14 +18,15 @@ import torch
 
 from . import client_batch, comm, rounds, specs
 from .bl import History
-from .compressors import Compressor, Identity, TopK
+from .comm import FLOAT_BITS
+from .compressors import Compressor, Identity, RankR, TopK
 
 
 class FastPathUnavailable(Exception):
     """This configuration cannot run batched; use the reference backend."""
 
 
-_SUPPORTED = (Identity, TopK)
+_SUPPORTED = (Identity, TopK, RankR)
 
 
 def _check_supported(comp: Compressor) -> None:
@@ -42,13 +44,16 @@ def _one_of(comps: Sequence[Compressor], what: str) -> Compressor:
     return c0
 
 
-def _stack_or_raise(clients, bases=None):
+def _stack_or_raise(clients, bases=None, basis_project="einsum"):
+    if basis_project not in client_batch.PROJECT_ROUTES:
+        raise ValueError(f"basis_project must be one of {client_batch.PROJECT_ROUTES}, "
+                         f"got {basis_project!r}")
     batch = client_batch.from_clients(clients)
     if batch is None:
         raise FastPathUnavailable("heterogeneous client shapes / λ")
     basisb = None
     if bases is not None:
-        basisb = client_batch.stack_bases(bases)
+        basisb = client_batch.stack_bases(bases, basis_project)
         if basisb is None:
             raise FastPathUnavailable("mixed basis kinds")
     return batch, basisb
@@ -91,9 +96,9 @@ def _run(spec, batch, basisb, x0, x_star, steps, *, stream=None) -> History:
 # BL1 — Algorithm 1 (fast path)
 # ==========================================================================
 def bl1_setup(clients, bases, hess_comp, model_comp, alpha=1.0, eta=1.0,
-              p=1.0, mu=None, init_exact_hessian=True):
+              p=1.0, mu=None, init_exact_hessian=True, basis_project="einsum"):
     rounds.xi_scalar(p)  # p < 1 raises before any work
-    batch, basisb = _stack_or_raise(clients, bases)
+    batch, basisb = _stack_or_raise(clients, bases, basis_project)
     hc = _one_of(list(hess_comp), "hessian")
     _check_supported(model_comp)
     spec = specs.BL1Spec(
@@ -109,10 +114,36 @@ def bl1_setup(clients, bases, hess_comp, model_comp, alpha=1.0, eta=1.0,
 
 def bl1_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
              alpha=1.0, eta=1.0, p=1.0, mu=None, seed=0,
-             init_exact_hessian=True, stream=None) -> History:
+             init_exact_hessian=True, stream=None, basis_project="einsum") -> History:
     """BL1 on the stacked single-device engine.  ``seed`` is unused by the
     ported deterministic configurations (see `repro_torch.core.bl.bl1`)."""
     spec, batch, basisb = bl1_setup(
         clients, bases, hess_comp, model_comp, alpha=alpha, eta=eta, p=p,
-        mu=mu, init_exact_hessian=init_exact_hessian)
+        mu=mu, init_exact_hessian=init_exact_hessian, basis_project=basis_project)
     return _run(spec, batch, basisb, x0, x_star, steps, stream=stream)
+
+
+# ==========================================================================
+# Newton (fast path)
+# ==========================================================================
+def newton_fast(clients, x0, x_star, steps, bases=None,
+                basis_project="einsum") -> History:
+    """Newton on the stacked single-device engine: d² + d floats a round
+    without a basis, r² + r with the data basis (plus its one-time dr
+    shipment)."""
+    batch, basisb = _stack_or_raise(clients, bases, basis_project)
+    d = batch.d
+    if basisb is None:
+        basis_bits = 0.0
+        hess_bits = d * d * FLOAT_BITS
+        grad_bits = d * FLOAT_BITS
+    else:
+        if basisb.kind != "data_outer":
+            raise FastPathUnavailable("newton basis path expects DataOuterBasis")
+        rs = basisb.rs
+        basis_bits = sum(d * r * FLOAT_BITS for r in rs) / len(rs)
+        hess_bits = sum(r * r for r in rs) / len(rs) * FLOAT_BITS
+        grad_bits = sum(float(r) for r in rs) / len(rs) * FLOAT_BITS
+    spec = specs.NewtonSpec(hess_bits=hess_bits, grad_bits=grad_bits,
+                            basis_bits=basis_bits)
+    return _run(spec, batch, basisb, x0, x_star, steps)

@@ -4,7 +4,8 @@
 `bl1` takes ``backend="auto"|"fast"|"fast+sharded"|"reference"``.  The
 port runs "auto" and "fast" on its single-device fast path
 (`repro_torch.core.batched`); "fast+sharded" and "reference" raise
-`NotImplementedError` until ROADMAP.md §1 items 13 and 17 port them.
+`NotImplementedError` until ROADMAP.md §1 items 13 and 17 port them
+(`run_fast`, shared with `repro_torch.core.baselines.newton`).
 
 Conventions are the reference's: compression acts on coefficient matrices
 h^i(∇²f_i) in the client's basis; with the data basis the Hessian's data
@@ -46,12 +47,44 @@ class History:
 
 
 def _to(device, clients, bases, x0, x_star):
-    """The run's inputs on `device` (a no-op for tensors already there)."""
+    """The run's inputs on `device` (a no-op for tensors already there);
+    ``bases`` may be None."""
     clients = [glm.ClientData(A=c.A.to(device), b=c.b.to(device), lam=c.lam)
                for c in clients]
-    bases = [DataOuterBasis(V=b.V.to(device)) if isinstance(b, DataOuterBasis)
-             else b for b in bases]
+    if bases is not None:
+        bases = [DataOuterBasis(V=b.V.to(device)) if isinstance(b, DataOuterBasis)
+                 else b for b in bases]
     return clients, bases, x0.to(device), x_star.to(device)
+
+
+def run_fast(backend: str, device, clients, bases, x0, x_star, fast):
+    """Dispatch a public entry point: validate ``backend``, move the inputs
+    to the resolved device and run ``fast(clients, bases, x0, x_star)`` on
+    the single-device fast path.  "reference" and "fast+sharded" raise
+    until their ROADMAP items; a fleet the fast path cannot stack raises
+    `batched.FastPathUnavailable` under "fast" and `NotImplementedError`
+    under "auto", whose reference fallback is not ported."""
+    from . import batched
+
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+    if backend == "reference":
+        raise NotImplementedError(
+            "backend='reference' (the op-by-op loops) is not ported yet: "
+            "ROADMAP.md §1 item 17 brings it")
+    if backend == "fast+sharded":
+        raise NotImplementedError(
+            "backend='fast+sharded' is not ported yet: ROADMAP.md §1 item 13 "
+            "(torch.distributed reducer) brings it")
+    dev = _device.resolve(device)
+    try:
+        return fast(*_to(dev, clients, bases, x0, x_star))
+    except batched.FastPathUnavailable as e:
+        if backend == "auto":
+            raise NotImplementedError(
+                f"{e}: the reference backend that 'auto' falls back to is "
+                "not ported yet (ROADMAP.md §1 item 17)") from e
+        raise
 
 
 def bl1(
@@ -72,39 +105,29 @@ def bl1(
     stream=None,
     *,
     device=None,
+    basis_project: str = "einsum",
 ) -> History:
     """Basis Learn with Bidirectional Compression (Algorithm 1).
 
     Args are the reference's (`repro.core.bl.bl1`), plus ``device``: the
     run's device, ``None`` meaning ``"cuda"`` (raises without a GPU);
-    inputs elsewhere are moved there.  ``seed`` is accepted for the
-    reference's signature; the ported deterministic configurations (Top-K
-    or Identity compressors, p = 1) draw nothing from it.
+    inputs elsewhere are moved there; and ``basis_project``, the route of
+    the data basis's Γ = VᵀAV in the full (n, d, d) layout: "einsum"
+    (float64, the default) or "kernel" (float32 through the tiled-matmul
+    kernel, the reference's ``REPRO_BL_PALLAS=1`` route).  ``seed`` is
+    accepted for the reference's signature; the ported deterministic
+    configurations (Top-K, Rank-R or Identity compressors, p = 1) draw
+    nothing from it.
 
     Returns a `History` with per-round gaps, cumulative per-node uplink and
     downlink bits, and the per-leg `CommLedger` streams in ``legs``."""
     from . import batched
 
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-    if backend == "reference":
-        raise NotImplementedError(
-            "backend='reference' (the op-by-op loops) is not ported yet: "
-            "ROADMAP.md §1 item 17 brings it")
-    if backend == "fast+sharded":
-        raise NotImplementedError(
-            "backend='fast+sharded' is not ported yet: ROADMAP.md §1 item 13 "
-            "(torch.distributed reducer) brings it")
-    dev = _device.resolve(device)
-    clients, bases, x0, x_star = _to(dev, clients, bases, x0, x_star)
-    try:
+    def fast(clients, bases, x0, x_star):
         return batched.bl1_fast(
             clients, bases, hess_comp, model_comp, x0, x_star, steps,
             alpha=alpha, eta=eta, p=p, mu=mu, seed=seed,
-            init_exact_hessian=init_exact_hessian, stream=stream)
-    except batched.FastPathUnavailable as e:
-        if backend == "auto":
-            raise NotImplementedError(
-                f"{e}: the reference backend that 'auto' falls back to is "
-                "not ported yet (ROADMAP.md §1 item 17)") from e
-        raise
+            init_exact_hessian=init_exact_hessian, stream=stream,
+            basis_project=basis_project)
+
+    return run_fast(backend, device, clients, bases, x0, x_star, fast)

@@ -18,10 +18,17 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels import ops
 from . import glm
 from .pytree import tree_leaves
 from .basis import DataOuterBasis, MatrixBasis, StandardBasis
 from .comm import FLOAT_BITS
+
+#: routes of the data basis's projection Γ = VᵀAV: "einsum" is the float64
+#: default; "kernel" is the float32 route through the tiled-matmul kernel
+#: (the reference's ``REPRO_BL_PALLAS=1`` route), stored back into the
+#: float64 coefficient array
+PROJECT_ROUTES = ("einsum", "kernel")
 
 
 @dataclasses.dataclass
@@ -59,12 +66,14 @@ class ClientBatch:
 class BatchedBasis:
     """A fleet-wide basis: one kind (``standard`` or ``data_outer``), with
     per-client ranks ``rs`` kept for the bit accounting (the wire cost
-    depends on r_i, not r_max)."""
+    depends on r_i, not r_max) and the route of Γ = VᵀAV (``project``, one
+    of `PROJECT_ROUTES`; it changes no bit count)."""
 
     kind: str
     d: int
     rs: Tuple[int, ...]
     V: Optional[torch.Tensor] = None  # (n, d, r_max) for kind == "data_outer"
+    project: str = "einsum"
 
     @property
     def r_max(self) -> int:
@@ -98,7 +107,9 @@ class BatchedBasis:
         if self.kind == "standard":
             return A
         out = torch.zeros(A.shape, dtype=A.dtype, device=A.device)
-        out[:, : self.r_max, : self.r_max] = _basis_project(self.V, A)
+        # the kernel route's float32 Γ is cast into the float64 array, as the
+        # reference's ``out.at[...].set(gamma)`` does
+        out[:, : self.r_max, : self.r_max] = _basis_project(self.V, A, self.project)
         return out
 
     def reconstruct(self, H: torch.Tensor) -> torch.Tensor:
@@ -108,11 +119,22 @@ class BatchedBasis:
         gamma = H[:, : self.r_max, : self.r_max]
         return torch.einsum("ndr,nrs,nes->nde", self.V, gamma, self.V)
 
+    def server_reconstruct(self, H: torch.Tensor, lam: float) -> torch.Tensor:
+        """`reconstruct` plus the analytic λI ridge for the data basis, as
+        the server adds it; the standard basis encodes the full Hessian."""
+        out = self.reconstruct(H)
+        if self.kind == "data_outer":
+            out = out + lam * torch.eye(self.d, dtype=out.dtype, device=out.device)
+        return out
 
-def _basis_project(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """Γ = VᵀAV batched over clients: (n,d,r),(n,d,d) → (n,r,r), in float64.
-    (The reference's f32 Pallas route comes with the ``tiled_matmul`` slice,
-    ROADMAP.md §2 item 2.)"""
+
+def _basis_project(V: torch.Tensor, A: torch.Tensor, route: str = "einsum") -> torch.Tensor:
+    """Γ = VᵀAV batched over clients: (n,d,r),(n,d,d) → (n,r,r).  The
+    "einsum" route computes in float64; the "kernel" route in float32
+    through `repro_torch.kernels.ops.basis_project` (the tiled-matmul
+    kernel on the card)."""
+    if route == "kernel":
+        return ops.basis_project(V, A)
     return torch.einsum("ndr,nde,nes->nrs", V, A, V)
 
 
@@ -164,8 +186,10 @@ def from_clients(clients: Sequence[glm.ClientData]) -> Optional[ClientBatch]:
                        b=torch.stack([c.b for c in clients]), lam=lam)
 
 
-def stack_bases(bases: Sequence[MatrixBasis]) -> Optional[BatchedBasis]:
-    """Stack a homogeneous-kind basis list; None if mixed or unported kinds."""
+def stack_bases(bases: Sequence[MatrixBasis],
+                project: str = "einsum") -> Optional[BatchedBasis]:
+    """Stack a homogeneous-kind basis list, its Γ on the `project` route;
+    None if mixed or unported kinds."""
     bases = list(bases)
     if not bases:
         return None
@@ -173,13 +197,14 @@ def stack_bases(bases: Sequence[MatrixBasis]) -> Optional[BatchedBasis]:
     if any(b.d != b0.d for b in bases):
         return None
     if all(type(b) is StandardBasis for b in bases):
-        return BatchedBasis(kind="standard", d=b0.d, rs=tuple(b.d for b in bases))
+        return BatchedBasis(kind="standard", d=b0.d, rs=tuple(b.d for b in bases),
+                            project=project)
     if all(type(b) is DataOuterBasis for b in bases):
         rs = tuple(b.r for b in bases)
         r_max = max(rs)
         V = torch.stack([torch.nn.functional.pad(b.V, (0, r_max - b.r))
                          for b in bases])                # zero cols beyond r_i
-        return BatchedBasis(kind="data_outer", d=b0.d, rs=rs, V=V)
+        return BatchedBasis(kind="data_outer", d=b0.d, rs=rs, V=V, project=project)
     return None
 
 

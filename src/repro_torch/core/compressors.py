@@ -1,12 +1,13 @@
 """Matrix/vector compression operators (paper §3, §A.2) — the deterministic
-subset of `repro.core.compressors` that BL1's main path runs.
+subset of `repro.core.compressors`: `Identity`, `TopK` (BL1's and BL-DNN's
+main paths) and `RankR` (FedNL's Hessian codec).
 
 One natively-batched contract: ``compress(keys, x)`` takes a stack of n
 inputs (leading client axis) and returns ``(compressed_dense, counts)`` —
 zeros where entries were dropped, plus a `comm.Counts` record of what hit
 the wire.  ``compress_sum`` adds the sum of the compressed stack over the
 client axis (BL-DNN's Fisher leg).  ``keys`` is accepted and ignored by
-`Identity` and `TopK`, which draw nothing; the stochastic compressors
+`Identity`, `TopK` and `RankR`, which draw nothing; the stochastic compressors
 (`rtopk` among them) come with the PRNG port (ROADMAP.md §1 items 9
 and 10).
 
@@ -144,6 +145,31 @@ class TopK(Compressor):
         c = _full(n, kk, x.device)
         return (out.reshape(x.shape), comm.Counts(floats=c, indices=c),
                 s.reshape(x.shape[1:]))
+
+
+@dataclasses.dataclass(unsafe_hash=True)
+class RankR(Compressor):
+    """Low-rank approximation via SVD (Eq. 19–20): the best rank-R
+    approximation of each matrix of an (n, p, q) stack.
+
+    Contractive with δ = R/d on d×d matrices.  Deterministic.  The
+    singular vectors are not unique, but their product is (when σ_R >
+    σ_{R+1}), so the output is comparable across libraries."""
+    r: int
+
+    def __post_init__(self):
+        self.deterministic = True
+
+    def compress(self, keys, x):
+        if x.dim() != 3:
+            raise ValueError(f"Rank-R needs a stack of matrices, got shape {tuple(x.shape)}")
+        n = x.shape[0]
+        u, s, vt = torch.linalg.svd(x, full_matrices=False)
+        rr = min(self.r, s.shape[-1])
+        out = torch.matmul(u[:, :, :rr] * s[:, None, :rr], vt[:, :rr, :])
+        # wire format: rr singular triples (u_i, σ_i, v_i)
+        c = _full(n, rr * (x.shape[1] + x.shape[2] + 1), x.device)
+        return out, comm.Counts(floats=c)
 
 
 _PRNG_PENDING = ("draws from JAX's PRNG stream, which is not ported yet: "

@@ -1,5 +1,6 @@
 """Declarative method specs for the round engine — port of
-`repro.core.specs` (the `MethodSpec` hooks, `BL1Spec` and `BLDNNSpec`).
+`repro.core.specs` (the `MethodSpec` hooks, `BL1Spec`, `NewtonSpec` and
+`BLDNNSpec`).
 
 A spec is a frozen dataclass holding a method's hyperparameters and the
 hooks `rounds.run_rounds` calls:
@@ -12,7 +13,8 @@ hooks `rounds.run_rounds` calls:
     and the cumulative `comm.CommLedger` at the round's start;
   * ``eval_streams(batch, xs_t, f_star)`` — the post-loop evaluation.
 
-BL2, BL3, FedNL-BAG and the baselines come with ROADMAP.md §1 item 10.
+BL2, BL3, FedNL-BAG and the other baselines come with ROADMAP.md §1
+item 10.
 """
 from __future__ import annotations
 
@@ -115,6 +117,35 @@ class BL1Spec(MethodSpec):
         z_n = z + self.eta * v
         xi_n = xi_scalar(self.p, device=z.device)
         return (z_n, w_n, L_n, H_n, grad_w_n, xi_n, led), ys
+
+
+# ==========================================================================
+# Newton — Table 1's naive (§2.1) and data-basis (§2.3) columns
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class NewtonSpec(MethodSpec):
+    """Classical Newton: every client sends its Hessian (or, with the data
+    basis, its r×r coefficients Γᵢ) and its gradient every round; the
+    server solves with their fleet means.  Bits per round are fixed."""
+
+    hess_bits: float
+    grad_bits: float
+    basis_bits: float
+
+    def init(self, R, env):
+        return (env.x0, CommLedger.create(basis_ship=self.basis_bits, device=env.x0.device))
+
+    def step(self, R, env, carry, rc):
+        x, led = carry
+        batch = env.batch
+        if env.basisb is None:
+            Hc = client_batch.hess(batch, x)
+        else:
+            coef = client_batch.hess_coeff_target(env.basisb, batch, x)
+            Hc = env.basisb.server_reconstruct(coef, batch.lam)
+        red = R.reduce_tree({"H": Hc, "g": client_batch.grads(batch, x)})
+        x_n = R.once(lambda H, g: x - torch.linalg.solve(H, g), red["H"], red["g"])
+        return (x_n, led.add(hess_up=self.hess_bits, grad_up=self.grad_bits)), (x, led)
 
 
 # ==========================================================================

@@ -2,11 +2,18 @@
 part of `repro.exp.registry` (`ProblemSpec`, `DNNProblemSpec` and their
 cells) and of `repro.exp.engine.build_problem` / ``run_cell``.
 
-Two BL1 cells, each with its committed reference artifact:
+GLM cells (`GLMCell`), each with its committed reference artifact and
+run through a public entry point by `run_cell`:
 
   * `FIG1R1`  — the paper's headline cell (``src/repro/exp/registry.py``
-    lines 194-218): n=10, m=60, d=120, r=24, Top-K k=24, 12 rounds, the
-    "loop" Newton reference;
+    lines 203-218): BL1, data basis, n=10, m=60, d=120, r=24, Top-K k=24,
+    12 rounds, the "loop" Newton reference;
+  * `FIG1R1_CELLS` — that cell and fig1r1's ``Newton`` (no basis, 12
+    rounds) and ``FedNL`` (BL1 in the standard basis with a Rank-1
+    Hessian compressor, 12 rounds); NL1 waits for the PRNG port;
+  * `FIG2` — ``newton_std`` and ``newton_basis`` (registry lines 258-268):
+    Newton without a basis and in the data basis, 10 rounds, on the same
+    problem;
   * `FIG1_XL` — the full-width cell (registry lines 359-378): n=512, m=32,
     d=1200, r=32, Top-K k=r²=1024, 8 rounds, the "fused" Newton reference.
     Its block-mode Hessian reconstruction is a (512, 1200, 1200) float64
@@ -14,7 +21,8 @@ Two BL1 cells, each with its committed reference artifact:
     sharded backend, which is bitwise equal to the single-device one; the
     port runs it on one card with the "fast" backend.
 
-Both run BL1 with the ``data_outer`` basis and an Identity model stream.
+Every BL1 cell runs an Identity model stream with α = η = p = 1, as the
+reference's ``engine.run_cell`` does when a cell sets no params.
 
 The BL-DNN cells of ``fig-dnn`` (registry lines 437-468: BLDNN, TopK,
 RTopK, FedAvg) and ``fig-dnn-ship`` (lines 478-509) on `DNN_FIG`, the
@@ -37,8 +45,8 @@ import torch
 
 from .. import device as _device
 from ..core import basis as _basis
-from ..core import bl, client_batch, glm
-from ..core.compressors import Identity, TopK
+from ..core import baselines, bl, client_batch, glm
+from ..core.compressors import Identity, RankR, TopK
 from ..core.convert import dnn_problem_from_numpy
 from ..core.pytree import tree_leaves
 from ..fed import bldnn
@@ -66,26 +74,43 @@ class ProblemSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class BL1Cell:
-    """One BL1 curve: data basis, Top-K(k) Hessian compressor, Identity
-    model stream, `steps` rounds at seed 0, and its committed artifact."""
+class GLMCell:
+    """One GLM curve at seed 0: ``method`` "bl1" (with an Identity model
+    stream) or "newton", the basis registry name (None: Newton without a
+    basis), the Hessian compressor as ``(kind, size)`` — ``("topk", k)``
+    or ``("rankr", r)``, BL1 only — `steps` rounds, and its committed
+    artifact."""
 
     experiment: str
+    name: str
     problem: ProblemSpec
     steps: int
-    k: int
-    basis: str = "data_outer"
+    method: str = "bl1"
+    basis: Optional[str] = None
+    hess_comp: Optional[Tuple[str, int]] = None
 
     @property
     def artifact(self) -> pathlib.Path:
-        return REPO_ROOT / "results" / "exp" / self.experiment / "BL1.seed0.json"
+        return REPO_ROOT / "results" / "exp" / self.experiment / f"{self.name}.seed0.json"
 
 
-FIG1R1 = BL1Cell("fig1r1", ProblemSpec(), steps=12, k=24)
-FIG1_XL = BL1Cell("fig1-xl", ProblemSpec(seed=0, n_clients=512, m=32, d=1200,
-                                         r=32, lam=1e-3, newton_iters=12,
-                                         solver="fused"),
-                  steps=8, k=32 * 32)
+FIG1R1 = GLMCell("fig1r1", "BL1", ProblemSpec(), 12, basis="data_outer",
+                 hess_comp=("topk", 24))
+FIG1R1_CELLS: Dict[str, GLMCell] = {c.name: c for c in (
+    FIG1R1,
+    GLMCell("fig1r1", "FedNL", ProblemSpec(), 12, basis="standard",
+            hess_comp=("rankr", 1)),
+    GLMCell("fig1r1", "Newton", ProblemSpec(), 12, method="newton"),
+)}
+FIG2: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("fig2", "newton_std", ProblemSpec(), 10, method="newton"),
+    GLMCell("fig2", "newton_basis", ProblemSpec(), 10, method="newton",
+            basis="data_outer"),
+)}
+FIG1_XL = GLMCell("fig1-xl", "BL1", ProblemSpec(seed=0, n_clients=512, m=32, d=1200,
+                                                r=32, lam=1e-3, newton_iters=12,
+                                                solver="fused"),
+                  8, basis="data_outer", hess_comp=("topk", 32 * 32))
 
 
 @dataclasses.dataclass
@@ -130,14 +155,24 @@ def build_problem(spec: ProblemSpec, *, device=None) -> Problem:
     return Problem(spec=spec, clients=clients, x0=x0, x_star=x_star)
 
 
-def run_cell(cell: BL1Cell, prob: Problem, *, steps=None,
-             backend: str = "fast") -> bl.History:
-    """Run a BL1 cell through the public `bl.bl1` entry point, on the
-    problem's device."""
-    return bl.bl1(prob.clients, prob.bases(cell.basis), [TopK(k=cell.k)] * prob.n,
-                  Identity(), prob.x0, prob.x_star,
-                  cell.steps if steps is None else steps, backend=backend,
-                  device=prob.x0.device)
+_HESS_COMPS = {"topk": lambda k: TopK(k=k), "rankr": lambda r: RankR(r=r)}
+
+
+def run_cell(cell: GLMCell, prob: Problem, *, steps=None, backend: str = "fast",
+             basis_project: str = "einsum") -> bl.History:
+    """Run a GLM cell through its public entry point (`bl.bl1` or
+    `baselines.newton`) on the problem's device; ``basis_project`` routes
+    the data basis's Γ = VᵀAV (see `bl.bl1`)."""
+    steps = cell.steps if steps is None else steps
+    bases = prob.bases(cell.basis) if cell.basis else None
+    if cell.method == "newton":
+        return baselines.newton(prob.clients, prob.x0, prob.x_star, steps, bases=bases,
+                                backend=backend, device=prob.x0.device,
+                                basis_project=basis_project)
+    kind, size = cell.hess_comp
+    return bl.bl1(prob.clients, bases, [_HESS_COMPS[kind](size)] * prob.n, Identity(),
+                  prob.x0, prob.x_star, steps, backend=backend, device=prob.x0.device,
+                  basis_project=basis_project)
 
 
 # ==========================================================================

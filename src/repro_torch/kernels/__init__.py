@@ -4,6 +4,10 @@
 compress-then-sum over a client stack (CUDA C++, sm_90a), replacing the
 Pallas ``repro.kernels.topk_threshold.topk_row_threshold`` and
 ``topk_compress_sum``;
+``tiled_matmul`` — batched tiled matrix product with float32 accumulation
+(CUDA C++, sm_90a), replacing the Pallas
+``repro.kernels.tiled_matmul.matmul``; ``ops`` builds Γ = VᵀAV and the GLM
+Hessian on it;
 ``basis_transform`` — the two-sided rotation (A·gᵢ)·B over a client stack
 (CUDA C++, sm_90a), replacing the Pallas
 ``repro.kernels.basis_transform.basis_transform``.
@@ -11,4 +15,4 @@ The other Pallas kernels are queued in ROADMAP.md §2.
 """
 
 #: every CUDA source of the port, by its base name under ``csrc/``
-SOURCES = ("topk_threshold", "topk_compress_sum", "basis_transform")
+SOURCES = ("topk_threshold", "topk_compress_sum", "tiled_matmul", "basis_transform")

@@ -114,7 +114,8 @@ def test_fig1r1_from_port_problem_matches_artifact():
     cfg = art["config"]
     assert cfg["problem"]["n_clients"] == cell.problem.n_clients
     assert (cfg["problem"]["d"], cfg["problem"]["r"]) == (cell.problem.d, cell.problem.r)
-    assert cfg["cell"]["hess_comp"]["k"] == cell.k and cfg["steps"] == cell.steps
+    assert ("topk", cfg["cell"]["hess_comp"]["k"]) == cell.hess_comp
+    assert cfg["steps"] == cell.steps
     prob = problems.build_problem(cell.problem, device="cpu")
     h = problems.run_cell(cell, prob)
     ref = art["history"]
@@ -131,7 +132,8 @@ def test_fig1_xl_cell_matches_its_artifact_config():
             p["solver"]) == (cell.problem.n_clients, cell.problem.m, cell.problem.d,
                              cell.problem.r, cell.problem.lam,
                              cell.problem.newton_iters, cell.problem.solver)
-    assert cfg["cell"]["hess_comp"] == {"kind": "topk", "k": cell.k, "r": 0, "s": 0,
+    kind, k = cell.hess_comp
+    assert cfg["cell"]["hess_comp"] == {"kind": kind, "k": k, "r": 0, "s": 0,
                                         "p": 0.0, "symmetrize": False}
     assert cfg["steps"] == cell.steps and cfg["cell"]["basis"] == cell.basis
 

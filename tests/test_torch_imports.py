@@ -27,7 +27,8 @@ def _imported_roots(path: pathlib.Path):
 def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"bl.py", "topk_threshold.py", "problems.py", "chip_smoke.py",
-            "bldnn.py", "basis_transform.py", "pytree.py", "layers.py"} <= names
+            "bldnn.py", "basis_transform.py", "pytree.py", "layers.py",
+            "baselines.py", "tiled_matmul.py", "ops.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -64,6 +65,19 @@ def test_bl1_without_device_raises_when_cuda_is_unavailable(monkeypatch):
                x0, x0, 2)
     with pytest.raises(RuntimeError, match="CUDA device"):
         glm.make_synthetic(seed=0, n_clients=2, m=8, d=6, r=3)
+
+
+def test_newton_without_device_raises_when_cuda_is_unavailable(monkeypatch):
+    from repro_torch.core import baselines, glm
+    from repro_torch.core.basis import make_bases
+
+    clients = glm.make_synthetic(seed=0, n_clients=2, m=8, d=6, r=3, device="cpu")
+    bases = make_bases("data_outer", clients)
+    x0 = torch.zeros(6, dtype=torch.float64)
+    _no_cuda(monkeypatch)
+    for route in ("einsum", "kernel"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            baselines.newton(clients, x0, x0, 2, bases=bases, basis_project=route)
 
 
 def test_run_bldnn_without_device_raises_when_cuda_is_unavailable(monkeypatch):
