@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py              # what a checkout's check runs
     python3 chip_smoke.py --profile    # + torch.profiler passes over fig1-xl,
-                                       #   fig2's and Newton-XL's kernel route
-                                       #   and fig-dnn/BLDNN
+                                       #   fig2's and Newton-XL's kernel route,
+                                       #   fig-dnn/BLDNN and a prefill + 4 decode
+                                       #   steps of each serve cell
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is non-zero and no result line is printed:
@@ -49,6 +50,33 @@ is non-zero and no result line is printed:
                 (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
                 FedAvg, BLDNN_int8, BLDNN_dct and BLDNN_hadamard against
                 their artifacts under results/exp/.
+  10. kernels_attn — the attention kernel against its plain version (within
+                1e-5·max|plain| in float32; in bfloat16 elementwise within
+                one bfloat16 ulp of the plain value plus 1e-5·max|plain|) at
+                gemma3-4b's prefill shapes (window 1024 and global) and a
+                ragged head-size-256 case in both types, the reference's
+                sweep in both types, GQA rep 1/2/8, Sq ≠ Sk, rows that see
+                no key, a window below the tile, ragged lengths, a padded
+                head size and strided views; timed at the prefill shapes
+                beside its plain version, SDPA and its bound;
+  11. kernels_ssd — the SSD kernel's y and final state against its plain
+                version (each within 1e-4·max|plain|) at mamba2-370m's
+                prefill shape, the reference's sweep, ragged lengths, heads
+                sharing B and C, exp underflow at large |dt·A|, large decays
+                mixed with weak ones (also reported against a float64
+                recurrence) and strided views; timed at the prefill shape
+                beside its plain version and its bound;
+  12. serve-gemma3 / serve-mamba2 — the LM serving path
+                (`repro_torch.launch.serve.prefill` / `decode`): the reduced
+                config in float32 on the card against the same weights on
+                the CPU (prefill logits, every decode step's logits and the
+                cache within 2e-4·max|ref|, 8 greedy tokens equal, decode
+                after an 8-token prefill equal to the full forward), then
+                the full-width config in bfloat16 with seeded weights: 4
+                (gemma3) or 8 (mamba2) requests of 2048-token prompts and
+                32 decode steps, every logit finite, exactly one kernel-5
+                (gemma3, 34) or kernel-6 (mamba2, 48) launch a layer in the
+                prefill, no other kernel, and no launch in decode.
 
 GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
 every bit stream exactly.  BL-DNN bit streams must agree exactly over
@@ -92,6 +120,35 @@ MM_TOL = 1e-5
 F32_GAP_RTOL = 2e-6
 #: Newton in the data basis at fig1-xl's widths: rounds and timing repeats
 NEWTON_XL_STEPS, NEWTON_XL_REPEATS = 6, 3
+#: kernel 5 against its plain version: within ATTN_TOL·max|plain| in
+#: float32; in bfloat16, where kernel and plain version round float32 sums
+#: that differ in their last bits, elementwise within one bfloat16 ulp of
+#: the plain value plus ATTN_TOL·max|plain|
+ATTN_TOL = 1e-5
+#: kernel 6's y and final state against its plain version, share of max|plain|
+SSD_TOL = 1e-4
+#: the reduced serve paths on the card against the same weights on the CPU
+SERVE_TOL = 2e-4
+#: NVIDIA H100 SXM data sheet: dense bfloat16 tensor-core rate
+BF16_OPS_PER_S = 989e12
+#: gemma3-4b's prefill attention: (B, S, H, KVH, hd, window) of its sliding
+#: and its global layers
+ATTN_PATH = ((4, 2048, 8, 4, 256, 1024), (4, 2048, 8, 4, 256, None))
+#: the reference's attention test sweep (tests/test_kernels.py)
+ATTN_SWEEP = ((2, 128, 128, 64, True, None), (1, 256, 256, 32, True, 64),
+              (3, 64, 192, 64, False, None), (2, 96, 96, 128, True, 17))
+#: mamba2-370m's prefill SSD: (B, S, H, hd, N) at the config's chunk 256
+SSD_PATH = (8, 2048, 32, 64, 128)
+#: the reference's SSD test sweep: (BH, S, hd, N, chunk)
+SSD_SWEEP = ((2, 64, 16, 8, 16), (1, 128, 32, 16, 32), (4, 96, 8, 4, 24), (1, 60, 16, 8, 32))
+#: serve cells at full width on one card: arch, the port's one-card input
+#: shape (`repro_torch.launch.shapes`: requests, prompt and cache length),
+#: decode steps, and the kernel each prefill layer launches
+SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, "flash_attention"),
+               ("mamba2_370m", "decode_4k_b8", 32, "ssd_scan"))
+#: the reduced configs of the card-against-CPU check (gemma3 with grouped
+#: KV heads, as at full width)
+SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {}}
 
 
 def emit(obj) -> None:
@@ -491,17 +548,20 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
 def drive(torch, k, run) -> tuple:
     """Drive one path, ``run()``, with every kernel's launch count reset
     just before it and read just after (``k`` holds the kernel modules
-    ``tk``, ``tm``, ``bt``); returns (result, seconds, launches by
-    kernel)."""
+    ``tk``, ``tm``, ``bt``, ``fa``, ``ss``); returns (result, seconds,
+    launches by kernel)."""
     torch.cuda.synchronize()
     k.tk.launches = k.tk.compress_sum_launches = k.tm.launches = k.bt.launches = 0
+    k.fa.launches = k.ss.launches = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, {"topk_row_threshold": k.tk.launches,
                                            "topk_compress_sum": k.tk.compress_sum_launches,
                                            "tiled_matmul": k.tm.launches,
-                                           "basis_transform": k.bt.launches}
+                                           "basis_transform": k.bt.launches,
+                                           "flash_attention": k.fa.launches,
+                                           "ssd_scan": k.ss.launches}
 
 
 def check_dnn_history(name: str, hist, ref: dict) -> dict:
@@ -525,8 +585,339 @@ def check_dnn_history(name: str, hist, ref: dict) -> dict:
             "bit_streams_equal": check_bits(name, hist, ref)}
 
 
+def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """Visible (query, key) pairs of one head: keys j ≤ i (causal) and
+    j > i − window; a row that sees no key averages all Sk values."""
+    import numpy as np
+
+    qi = np.arange(Sq)
+    hi = np.minimum(qi, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    n = np.maximum(hi - lo + 1, 0)
+    return int(np.where(n > 0, n, Sk).sum())
+
+
+def attention_bound_ms(q, k, causal: bool, window) -> tuple:
+    """Least time for masked attention: q, k, v read once and o written once
+    in their type, or 4·hd operations (two multiply-adds) a visible pair and
+    head at the bfloat16 tensor-core rate (bfloat16 inputs) or the float32
+    rate (TF32 stays off), whichever is larger."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    eb = q.element_size()
+    bytes_ms = eb * (2 * B * Sq * H * hd + 2 * B * Sk * KVH * hd) / HBM_BYTES_PER_S * 1e3
+    rate = BF16_OPS_PER_S if str(q.dtype) == "torch.bfloat16" else OPS32_PER_S
+    ops_ms = 4 * hd * B * H * attention_pairs(Sq, Sk, causal, window) / rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ssd_bound_ms(B: int, S: int, H: int, hd: int, N: int, chunk: int = 256) -> tuple:
+    """Least time for the SSD in float32 by the chunked algorithm at the
+    config's chunk: per batch entry and chunk of c positions, C·Bᵀ once
+    (2c²N, shared by the heads), and per head M·x (2c²hd), the chunk state
+    (2c·hd·N) and the state's read-out (2c·hd·N) at the float32 rate; or x,
+    dt, A, B, C read once and y and the final state written once."""
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    ops = B * (S // c) * (2 * c * c * N + H * (2 * c * c * hd + 4 * c * hd * N))
+    bytes_ = 4 * (2 * B * S * H * hd + B * S * H + H + 2 * B * S * N + B * H * hd * N)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS32_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def attention_kernel_phase(torch, fa) -> dict:
+    """Kernel 5 against its plain version (within ATTN_TOL, see there) on the
+    path's shapes and the edge cases, then timings at the path's shapes
+    beside the plain version, SDPA (`enable_gqa`; the window as a boolean
+    mask) and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(getattr(torch, dtype))
+
+    cases = [(f"gemma3 prefill, window {w}", B, S, S, H, KVH, hd, True, w, dt)
+             for B, S, H, KVH, hd, w in ATTN_PATH for dt in ("bfloat16", "float32")]
+    for BH, Sq, Sk, hd, causal, window in ATTN_SWEEP:
+        for dt in ("float32", "bfloat16"):
+            cases.append((f"sweep {BH}x{Sq}x{Sk}x{hd}", BH, Sq, Sk, 1, 1, hd, causal, window, dt))
+    for H, KVH in ((4, 4), (8, 4), (8, 1)):
+        cases.append((f"GQA rep {H // KVH}", 2, 128, 128, H, KVH, 64, True, None, "float32"))
+    cases += [("Sq != Sk, non-causal", 2, 100, 260, 4, 2, 128, False, None, "float32"),
+              ("rows that see no key", 1, 90, 40, 2, 1, 64, False, 8, "float32"),
+              ("window 5 below the tile", 2, 200, 200, 4, 2, 64, True, 5, "float32"),
+              ("S 333 ragged, hd 256", 1, 333, 333, 8, 4, 256, True, 100, "bfloat16"),
+              ("S 333 ragged, hd 256", 1, 333, 333, 8, 4, 256, True, 100, "float32"),
+              ("S 77 ragged, hd 32", 3, 77, 77, 2, 2, 32, True, None, "float32"),
+              ("hd 80, padded to 128", 2, 64, 64, 2, 1, 80, True, None, "float32")]
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    rel = {"float32": 0.0, "bfloat16": 0.0}
+    #: the largest share of its limit an element's error takes, by type
+    share = {"float32": 0.0, "bfloat16": 0.0}
+
+    def hold(name, dt, q, k, v, causal, window):
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+        torch.cuda.synchronize()
+        d = (out.float() - plain).abs()
+        scale = float(plain.abs().max())
+        lim = torch.full_like(plain, ATTN_TOL * scale)
+        if dt == "bfloat16":
+            # one bfloat16 ulp of each plain value: 2^(e−8) for |x| in [2^(e−1), 2^e)
+            lim += torch.where(plain == 0, 0.0,
+                               torch.ldexp(torch.ones_like(plain), torch.frexp(plain)[1] - 8))
+        worst = float((d / lim).max())
+        e = float(d.max())
+        if not (worst <= 1.0) or out.dtype != q.dtype:
+            i = tuple(int(j) for j in torch.nonzero(d > lim)[0]) if worst > 1.0 else None
+            raise AssertionError(f"flash_attention on {name} ({dt}): |Δ plain| {e}, "
+                                 f"max|plain| {scale}, first element out of bounds {i}")
+        share[dt] = max(share[dt], worst)
+        err[dt] = max(err[dt], e)
+        rel[dt] = max(rel[dt], e / scale)
+
+    for name, B, Sq, Sk, H, KVH, hd, causal, window, dt in cases:
+        hold(name, dt, rnd(B, Sq, H, hd, dtype=dt), rnd(B, Sk, KVH, hd, dtype=dt),
+             rnd(B, Sk, KVH, hd, dtype=dt), causal, window)
+    # q, k, v read through strides: views of head-major (B, H, S, hd) arrays
+    hold("strided views", "float32", rnd(2, 8, 96, 64, dtype="float32").transpose(1, 2),
+         rnd(2, 4, 96, 64, dtype="float32").transpose(1, 2),
+         rnd(2, 4, 96, 64, dtype="float32").transpose(1, 2), True, 24)
+
+    timings = {}
+    for B, S, H, KVH, hd, w in ATTN_PATH:
+        q, k, v = (rnd(B, S, n, hd, dtype="bfloat16") for n in (H, KVH, KVH))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if w is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+            mask = fa.mask(S, S, True, w, q.device)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+        plain = fa.flash_attention_plain(q, k, v, causal=True, window=w)
+        sdpa_err = float((sdpa().transpose(1, 2).float() - plain.float()).abs().max())
+        bound, by = attention_bound_ms(q, k, True, w)
+        timings["global" if w is None else f"window{w}"] = {
+            "shape": [B, S, H, KVH, hd], "window": w, "dtype": "bfloat16",
+            "kernel_ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
+                                                                  window=w), 20, warmup=2),
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, window=w), 5, warmup=1),
+            "library_ms": cuda_ms(torch, sdpa, 20, warmup=2), "sdpa_vs_plain": sdpa_err,
+            "bound_ms": bound, "bound_by": by,
+            "pairs_per_head": attention_pairs(S, S, True, w)}
+        del q, k, v, qt, kt, vt, plain
+    torch.cuda.empty_cache()
+    return {"cases": len(cases) + 1, "max_abs_err": err, "max_rel_err": rel,
+            "limit_share": share, "timings": timings}
+
+
+def ssd_kernel_phase(torch, ss) -> dict:
+    """Kernel 6's y and final state against its plain version (each within
+    SSD_TOL of max|plain|) on the path's shape and the edge cases, then its
+    time at the path's shape beside the plain version and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(B, S, H, hd, N, dt_scale=0.5, a_scale=1.0, dt_min=0.01):
+        x = torch.randn(B, S, H, hd, device="cuda", generator=gen)
+        dt = torch.rand(B, S, H, device="cuda", generator=gen) * dt_scale + dt_min
+        A = -(torch.rand(H, device="cuda", generator=gen) + 0.1) * a_scale
+        Bm, Cm = (torch.randn(B, S, N, device="cuda", generator=gen) for _ in range(2))
+        return x, dt, A, Bm, Cm
+
+    err = {"y": 0.0, "state": 0.0, "y_rel": 0.0, "state_rel": 0.0}
+
+    def hold(name, args, chunk):
+        y, s = ss.ssd_scan(*args, chunk=chunk)
+        yp, sp = ss.ssd_scan_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        for key, a, b in (("y", y, yp), ("state", s, sp)):
+            e, scale = float((a - b).abs().max()), float(b.abs().max())
+            if not (e <= SSD_TOL * scale):
+                raise AssertionError(f"ssd_scan on {name}: {key} |Δ plain| {e}, "
+                                     f"max|plain| {scale}")
+            err[key] = max(err[key], e)
+            err[f"{key}_rel"] = max(err[f"{key}_rel"], e / scale)
+
+    cases = 0
+    hold("mamba2 prefill", inputs(*SSD_PATH), 256)
+    for BH, S, hd, N, chunk in SSD_SWEEP:
+        hold(f"sweep {BH}x{S}x{hd}x{N}", inputs(BH, S, 1, hd, N), chunk)
+    hold("S 200 ragged", inputs(2, 200, 3, 64, 128), 256)
+    hold("heads sharing B and C", inputs(2, 64, 3, 16, 8), 16)
+    # every step decays by exp(−25) or less: the chunk's exponentials underflow
+    hold("exp underflow, |dt·A| ≥ 25 a step", inputs(2, 300, 2, 64, 128, 10.0, 50.0, 5.0), 256)
+    # x, B and C as views of one conv output, as the Mamba2 layer passes them
+    x, dt, A, Bm, Cm = inputs(2, 128, 4, 64, 128)
+    conv = torch.cat([x.reshape(2, 128, 256), Bm, Cm], dim=-1)
+    xv, bv, cv = torch.split(conv, [256, 128, 128], dim=-1)
+    hold("strided views", (xv.reshape(2, 128, 4, 64), dt, A, bv, cv), 256)
+    # large decays mixed with near-zero ones: exp(cs_q − cs_k) is a difference
+    # of float32 cumulative sums that reach 1e4–1e5 here, so both versions
+    # lose digits on the weak decays; held to each other, and each compared
+    # with the float64 sequential recurrence
+    x, dt, A, Bm, Cm = inputs(2, 300, 2, 64, 128, 20.0, 50.0)
+    hold("mixed decays, |cs| to 1e5", (x, dt, A, Bm, Cm), 256)
+    cases = len(SSD_SWEEP) + 6
+    y = ss.ssd_scan(x, dt, A, Bm, Cm)[0]
+    yp = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=256)[0]
+    s = torch.zeros(2, 2, 64, 128, dtype=torch.float64, device="cuda")
+    y64 = []
+    for i in range(300):
+        s = (s * torch.exp(dt[:, i].double() * A.double())[:, :, None, None]
+             + (dt[:, i, :, None, None] * x[:, i, :, :, None] * Bm[:, i, None, None, :]).double())
+        y64.append(torch.einsum("bn,bhdn->bhd", Cm[:, i].double(), s))
+    y64 = torch.stack(y64, dim=1)
+    scale = float(y64.abs().max())
+    mixed = {"kernel_vs_f64": float((y.double() - y64).abs().max()) / scale,
+             "plain_vs_f64": float((yp.double() - y64).abs().max()) / scale,
+             "kernel_vs_plain": float((y - yp).abs().max()) / float(yp.abs().max())}
+
+    args = inputs(*SSD_PATH)
+    bound, by = ssd_bound_ms(*SSD_PATH)
+    timing = {"shape": list(SSD_PATH), "chunk": 256,
+              "kernel_ms": cuda_ms(torch, lambda: ss.ssd_scan(*args), 20, warmup=2),
+              "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(*args, chunk=256), 5,
+                                  warmup=1),
+              "library_ms": None, "bound_ms": bound, "bound_by": by}
+    del args
+    torch.cuda.empty_cache()
+    return {"cases": cases, "max_abs_err": err, "timing": timing,
+            "mixed_decay_y_rel_err": mixed}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, v) for key, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree, prefix=""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", v
+
+
+def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
+    """One serve cell: the reduced config on the card against the CPU, then
+    the full-width config in bfloat16 at `shape` (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import serve, shapes
+    from repro_torch.models import model as M
+
+    def close(name, got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        e, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not (e <= SERVE_TOL * scale):
+            raise AssertionError(f"{arch} reduced, {name}: |Δ| {e} > {SERVE_TOL}·{scale}")
+        return e / scale
+
+    # ---- reduced config: the card's kernels against the CPU's plain versions
+    cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
+    n_kernel_layers = sum(1 for s in cfg.layer_specs()
+                          if (s.mixer == "attn") == (kernel == "flash_attention"))
+    cpu_params = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+    params = _tree_map(lambda t: t.cuda(), cpu_params)
+    B, prompt, max_seq = serve.DEBUG_SIZES
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
+                              dtype=torch.int32)
+    ref = serve.generate(cpu_params, cfg, prompts,
+                         M.init_cache(cfg, B, max_seq, torch.float32, device="cpu"), 8)
+    out, _, counts = drive(torch, k, lambda: serve.generate(
+        params, cfg, prompts.cuda(), M.init_cache(cfg, B, max_seq, torch.float32, device="cuda"),
+        8))
+    rel = {"prefill_logits": close("prefill logits", out["prefill_logits"],
+                                   ref["prefill_logits"])}
+    rel["step_logits"] = max(close(f"decode step {i} logits", a, b)
+                             for i, (a, b) in enumerate(zip(out["step_logits"],
+                                                            ref["step_logits"])))
+    rel["cache"] = max(close(f"cache {name}", a, b) for (name, a), (_, b) in
+                       zip(_leaves(out["cache"]), _leaves(ref["cache"])))
+    if not torch.equal(out["tokens"].cpu(), ref["tokens"]):
+        raise AssertionError(f"{arch} reduced: greedy tokens {out['tokens'].tolist()} != "
+                             f"CPU {ref['tokens'].tolist()}")
+    want = {name: 0 for name in counts}
+    want[kernel] = n_kernel_layers
+    if counts != want:
+        raise AssertionError(f"{arch} reduced: kernel launches {counts}, want {want}")
+    toks = prompts[:1, :9].cuda()
+    full, _, _ = M.forward(params, cfg, toks)
+    cache = M.init_cache(cfg, 1, 16, torch.float32, device="cuda")
+    pre = serve.prefill(params, cfg, toks[:, :8], cache)
+    dec, _, _ = M.forward(params, cfg, toks[:, 8:9], cache=pre["cache"], cache_pos=8)
+    rel["decode_vs_full_forward"] = close("decode after prefill vs full forward",
+                                          dec[0, 0], full[0, -1])
+    reduced = {"config": cfg.name, "layers": cfg.n_layers, "max_rel_err": rel,
+               "tokens_equal": True, "launches": counts}
+    del params, cpu_params, out, ref
+
+    # ---- full width, bfloat16, seeded weights drawn on the card
+    cfg = configs.get_config(arch)
+    B, prompt, max_seq = serve.sizes(shapes.SHAPES[shape])
+    n_kernel_layers = sum(1 for s in cfg.layer_specs()
+                          if (s.mixer == "attn") == (kernel == "flash_attention"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    cache = M.init_cache(cfg, B, max_seq, torch.bfloat16, device="cuda")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
+                              dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up: one prefill and two decode steps (library handles, new shapes);
+    # the measured runs overwrite the same cache slots with the same values
+    warm = serve.prefill(params, cfg, prompts, cache)
+    serve.decode(params, cfg, warm["token"], warm["cache"], prompt, 2)
+    pre, _, pre_counts = drive(torch, k, lambda: serve.prefill(params, cfg, prompts, cache))
+    dec, _, dec_counts = drive(torch, k, lambda: serve.decode(
+        params, cfg, pre["token"], pre["cache"], prompt, steps))
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(pre["logits"]).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in dec["logits"])
+    if not finite:
+        raise AssertionError(f"{arch}: a prefill or decode logit is not finite")
+    want = {name: 0 for name in pre_counts}
+    want[kernel] = n_kernel_layers
+    if pre_counts != want:
+        raise AssertionError(f"{arch} prefill: kernel launches {pre_counts}, want {want}")
+    if any(dec_counts.values()):
+        raise AssertionError(f"{arch} decode launched a kernel: {dec_counts}")
+    result = {"reduced": reduced, "config": cfg.name, "layers": cfg.n_layers,
+              "params": M.count_params(params), "shape": shape, "requests": B, "prompt": prompt,
+              "max_seq": max_seq, "decode_steps": steps, "setup_s": setup_s,
+              "prefill_s": pre["seconds"], "prefill_tok_s": B * prompt / pre["seconds"],
+              "decode_s": dec["seconds"], "decode_s_per_step": dec["seconds"] / steps,
+              "decode_tok_s": B * steps / dec["seconds"], "max_memory_allocated": peak,
+              "logits_finite": finite, "tokens_head": dec["tokens"][0, :8].tolist(),
+              "launches_prefill": pre_counts, "launches_decode": dec_counts}
+    if profile:
+        def run():
+            p = serve.prefill(params, cfg, prompts, cache)
+            serve.decode(params, cfg, p["token"], p["cache"], prompt, 4)
+        result["profile"] = profile_run(torch, run, 1)
+    del params, cache, pre, dec, warm
+    torch.cuda.empty_cache()
+    return result
+
+
 #: substrings of the hand-written kernels' names in a profiler trace
-HAND_KERNELS = ("threshold", "select_rows", "column_sum", "tiled_matmul", "basis_transform")
+HAND_KERNELS = ("threshold", "select_rows", "column_sum", "tiled_matmul", "basis_transform",
+                "flash_kernel", "ssd_kernel")
 
 
 def profile_run(torch, run, steps: int) -> dict:
@@ -578,10 +969,12 @@ def main(argv) -> int:
     from repro_torch.exp import problems
     from repro_torch.kernels import SOURCES, _build, ops
     from repro_torch.kernels import basis_transform as bt
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import tiled_matmul as tm
     from repro_torch.kernels import topk_threshold as tk
 
-    k = SimpleNamespace(tk=tk, tm=tm, bt=bt)
+    k = SimpleNamespace(tk=tk, tm=tm, bt=bt, fa=fa, ss=ss)
     _device.resolve("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -754,10 +1147,26 @@ def main(argv) -> int:
         emit({"phase": "profile_fig-dnn_BLDNN",
               **profile_run(torch, lambda: problems.run_dnn_cell(cell, prob, steps=4), 4)})
 
+    del prob
+    torch.cuda.empty_cache()
+
+    # ---- LM serving: kernels 5 and 6, then gemma3-4b and mamba2-370m --------
+    ka = attention_kernel_phase(torch, fa)
+    emit({"phase": "kernels_attn", "kernel": "flash_attention", **ka})
+    ks = ssd_kernel_phase(torch, ss)
+    emit({"phase": "kernels_ssd", "kernel": "ssd_scan", **ks})
+    serve_res = {}
+    for arch, shape, steps, kernel in SERVE_CELLS:
+        serve_res[arch] = serve_cell(torch, k, drive, arch, shape, steps, kernel,
+                                     "--profile" in argv)
+        emit({"phase": f"serve-{arch.split('_')[0]}", **serve_res[arch]})
+
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]
     bt_path = kb["basis_transform_timings"]["8x96x96x32x32"]
     mm = km["timings"]["newton-xl/T"]
+    fg, fw = ka["timings"]["global"], ka["timings"]["window1024"]
+    sd = ks["timing"]
     main = dnn_launches["BLDNN"]
     emit({"kernels": [{
         "name": "topk_row_threshold", "route": "cuda",
@@ -788,7 +1197,24 @@ def main(argv) -> int:
         "max_abs_err": kb["basis_transform_max_abs_err"]["plain"],
         "ms": bt_path["kernel_ms"], "plain_ms": bt_path["plain_ms"],
         "bound_ms": bt_path["bound_ms"], "bound_by": bt_path["bound_by"],
-        "library_ms": bt_path["library_ms"], "shape": bt_path["shape"]}]})
+        "library_ms": bt_path["library_ms"], "shape": bt_path["shape"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        "launches": serve_res["gemma3_4b"]["launches_prefill"]["flash_attention"],
+        "max_abs_err": max(ka["max_abs_err"].values()), "max_rel_err": ka["max_rel_err"],
+        "ms": fg["kernel_ms"], "plain_ms": fg["plain_ms"], "bound_ms": fg["bound_ms"],
+        "bound_by": fg["bound_by"], "library_ms": fg["library_ms"],
+        "shape": fg["shape"] + ["global"], "window1024": {
+            key: fw[key] for key in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:73",
+        "launches": serve_res["mamba2_370m"]["launches_prefill"]["ssd_scan"],
+        "max_abs_err": max(ks["max_abs_err"]["y"], ks["max_abs_err"]["state"]),
+        "ms": sd["kernel_ms"], "plain_ms": sd["plain_ms"], "bound_ms": sd["bound_ms"],
+        "bound_by": sd["bound_by"], "library_ms": None, "shape": sd["shape"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -10,9 +10,15 @@ Pallas ``repro.kernels.topk_threshold.topk_row_threshold`` and
 Hessian on it;
 ``basis_transform`` — the two-sided rotation (A·gᵢ)·B over a client stack
 (CUDA C++, sm_90a), replacing the Pallas
-``repro.kernels.basis_transform.basis_transform``.
-The other Pallas kernels are queued in ROADMAP.md §2.
+``repro.kernels.basis_transform.basis_transform``;
+``flash_attention`` — masked softmax attention with an online softmax over
+grouped-query heads (CUDA C++, sm_90a), replacing the Pallas
+``repro.kernels.flash_attention.flash_attention``;
+``ssd_scan`` — the Mamba2 SSD chunked scan with its final state (CUDA C++,
+sm_90a), replacing the Pallas ``repro.kernels.ssd_scan.ssd_scan``.
+Every Pallas kernel of the reference now has its counterpart here.
 """
 
 #: every CUDA source of the port, by its base name under ``csrc/``
-SOURCES = ("topk_threshold", "topk_compress_sum", "tiled_matmul", "basis_transform")
+SOURCES = ("topk_threshold", "topk_compress_sum", "tiled_matmul", "basis_transform",
+           "flash_attention", "ssd_scan")

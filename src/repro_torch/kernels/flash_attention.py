@@ -1,0 +1,132 @@
+"""Exact masked softmax attention over grouped-query heads: the CUDA kernel
+and its plain version.
+
+Port of `repro.kernels.flash_attention` together with the head folding of
+`repro.kernels.ops.attention`.  `flash_attention(q, k, v, causal=, window=)`
+computes ``o = softmax(q·kᵀ/√hd + mask)·v`` for q (B, Sq, H, hd) and k, v
+(B, Sk, KVH, hd), query head h reading KV head ``h // (H // KVH)``.  The
+mask keeps key j for query i when ``j <= i`` (causal) and ``j > i -
+window`` (sliding window); masked scores are −1e30, as in the reference,
+so a row that sees no key averages every value.  Inputs are float32 or
+bfloat16 (all three of one type); scores, softmax and the P·V sums are
+float32 and the result has the input type.
+
+`flash_attention` launches the hand-written kernel
+(``csrc/flash_attention.cu``) on CUDA tensors, reading q, k and v in place
+through their strides, and takes the plain PyTorch version,
+`flash_attention_plain`, only for tensors on the CPU.  The plain version is
+the reference's `attention_ref` in the GQA layout: one float32 einsum for
+the scores, the masked softmax, one einsum for P·V.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel since the last reset (the plain version on
+#: CPU tensors does not count)
+launches = 0
+
+#: the largest head size the kernel takes
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's grid puts the heads on its y axis and the batch on its z axis
+_MAX_GRID_YZ = 65535
+_NEG = -1e30
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 4:
+            raise ValueError(f"attention takes (batch, seq, heads, head_dim) tensors; "
+                             f"{name} has shape {tuple(x.shape)}")
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"attention takes float32 or bfloat16; {name} is {x.dtype}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k and v differ in type: {q.dtype}, {k.dtype}, {v.dtype}")
+    B, Sq, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    KVH = k.shape[2]
+    if KVH == 0 or H % KVH:
+        raise ValueError(f"{H} query heads do not split into groups over {KVH} KV heads")
+    if k.shape[1] == 0:
+        raise ValueError("attention needs at least one key")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive number of positions, got {window}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"q, k and v lie on different devices {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention runs on cuda or cpu, got {q.device}")
+
+
+def mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+         device=None) -> torch.Tensor:
+    """The (Sq, Sk) boolean mask of visible keys (reference
+    `flash_attention.py:44-50`)."""
+    qi = torch.arange(Sq, device=device)[:, None]
+    ki = torch.arange(Sk, device=device)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & (ki <= qi)
+    if window is not None:
+        keep = keep & (ki > qi - window)
+    return keep
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The exact masked softmax in float32, cast to the input type."""
+    _check(q, k, v, window)
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, KVH, H // KVH, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * hd ** -0.5
+    s = torch.where(mask(Sq, Sk, causal, window, q.device), s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    global launches
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM or H > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
+        raise ValueError(f"the attention kernel takes head_dim <= {MAX_HEAD_DIM} and at "
+                         f"most {_MAX_GRID_YZ} heads and batch entries; got q "
+                         f"{tuple(q.shape)}")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    fn = _build.load("flash_attention").flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+             B, Sq, Sk, H, KVH, hd, int(causal), 0 if window is None else int(window),
+             ctypes.cast(strides, ctypes.c_void_p), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Masked softmax attention, (B, Sq, H, hd) × (B, Sk, KVH, hd)² →
+    (B, Sq, H, hd).  Launches the CUDA kernel on CUDA tensors; CPU tensors
+    take `flash_attention_plain`."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _kernel(q, k, v, causal, window)

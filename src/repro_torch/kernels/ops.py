@@ -1,15 +1,20 @@
-"""Wrappers over the tiled-matmul kernel — port of the GLM part of
-`repro.kernels.ops` (``basis_project`` and ``glm_hessian``).
+"""Wrappers over the port's kernels — port of `repro.kernels.ops`.
 
-Both compute in float32 through `tiled_matmul.matmul`: the kernel on CUDA
-tensors, its plain version on CPU tensors.  The engine's default route for
-Γ = VᵀAV is a float64 einsum (`repro_torch.core.client_batch`); this one
-is the opt-in float32 route.
+``basis_project`` and ``glm_hessian`` compute in float32 through
+`tiled_matmul.matmul`: the kernel on CUDA tensors, its plain version on CPU
+tensors.  The engine's default route for Γ = VᵀAV is a float64 einsum
+(`repro_torch.core.client_batch`); this one is the opt-in float32 route.
+``attention`` and ``ssd`` are the LM stack's: kernel 5
+(`flash_attention`) and kernel 6 (`ssd_scan`), in the model's layout.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 from .tiled_matmul import matmul
 
 
@@ -30,3 +35,21 @@ def glm_hessian(A: torch.Tensor, w: torch.Tensor, lam: float) -> torch.Tensor:
     Aw = A * w[:, None].to(A.dtype)
     H = matmul(A.T, Aw) / m
     return H + lam * torch.eye(d, dtype=H.dtype, device=H.device)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Masked softmax attention over (B, S, H, hd) with grouped KV heads
+    (B, S, KVH, hd): kernel 5 reads KV head ``h // (H // KVH)`` in place, so
+    the reference's head transpose and KV repeat are not materialised."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, chunk: int = 256) -> tuple:
+    """Mamba2 SSD in the model's layout — x (B, S, H, hd), dt (B, S, H),
+    A (H,), B and C (B, S, N) shared by the heads — through kernel 6:
+    returns (y, final state (B, H, hd, N)).  The reference's `ops.ssd` takes
+    the heads-folded (B·H, S, ·) layout and returns y alone.  `chunk` sets
+    only the plain version's chunks on CPU tensors (see `ssd_scan`)."""
+    return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)

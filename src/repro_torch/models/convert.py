@@ -1,0 +1,45 @@
+"""Carry the reference's parameter and cache pytrees across.
+
+The JAX package's trees are nested dicts of arrays with the stacked
+``layers`` leaves (leading ``n_groups`` axis); the port's are nested dicts
+of tensors with the same names and shapes.  Arrays arrive as numpy (the
+caller converts with ``np.asarray``); bfloat16 arrays go through float32,
+which is exact.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import device as _device
+
+_TYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16,
+          "int32": torch.int32, "int64": torch.int64}
+
+
+def _tree(tree, dtype: Optional[torch.dtype], dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, dtype, dev) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    name = str(arr.dtype)
+    if name not in _TYPES:
+        raise TypeError(f"cannot carry an array of type {name} across")
+    want = dtype if dtype is not None else _TYPES[name]
+    if name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.tensor(arr, device=dev).to(want)
+
+
+def params_from_numpy(tree, *, dtype: Optional[torch.dtype] = None, device=None) -> dict:
+    """The port's parameters from the reference's tree of arrays: every
+    leaf cast to `dtype`, or kept in its own type when `dtype` is None."""
+    return _tree(tree, dtype, _device.resolve(device))
+
+
+def cache_from_numpy(tree, *, dtype: Optional[torch.dtype] = None, device=None) -> dict:
+    """The port's decode cache from the reference's cache tree, leaf by
+    leaf (same rule for types as `params_from_numpy`)."""
+    return _tree(tree, dtype, _device.resolve(device))
+

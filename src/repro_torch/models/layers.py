@@ -1,19 +1,274 @@
-"""Transformer layer library — port of the part of `repro.models.layers`
-that BL-DNN's MLP classifier runs: the non-gated MLP block."""
+"""Transformer layer library — port of `repro.models.layers` for one device:
+RMSNorm, 1-D RoPE, GQA attention with its KV cache (full or ring), the MLP
+(gated SwiGLU or plain GELU) and the Mamba2 SSD mixer, with the parameter
+initialisers at the reference's shapes and scales.
+
+Functions are plain functions on tensors and parameters are nested dicts
+of tensors with the reference's names, so each has an obvious counterpart
+in `repro.models.layers`.  Full-sequence attention goes through
+`kernels.ops.attention` (kernel 5) and the full-sequence SSD through
+`kernels.ops.ssd` (kernel 6); the single-token decode branches are the
+reference's plain einsums.  Caches are updated in place and returned (the
+reference's functional updates would copy the whole cache every step).
+M-RoPE, cross-attention and MoE are ROADMAP.md §1 item 18's later part.
+"""
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
+from .config import ModelConfig
 
-def mlp(p: dict, x: torch.Tensor, gated: bool = False) -> torch.Tensor:
-    """MLP block on (batch, seq, d) activations: ``gelu(x·wi)·wo``.  The
-    reference's ``jax.nn.gelu`` is the tanh approximation by default, so
-    this is too.  The gated (SiLU) variant comes with ROADMAP.md §1
-    item 18."""
+Params = Dict[str, object]
+_NEG = -1e30
+_ITEM_18 = "is not ported yet: ROADMAP.md §1 item 18 (LM stack) brings it"
+
+
+def _init(gen, shape, scale, dtype, device) -> torch.Tensor:
+    """Normal(0, scale²) draws in float32, cast to `dtype` (reference
+    `layers._init`)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Norm
+# --------------------------------------------------------------------------
+def init_rmsnorm(d: int, dtype, device, lead: tuple = ()) -> Params:
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS normalisation in float32, cast back to the input type."""
+    h = x.float()
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * p["scale"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd // 2, dtype=torch.float32, device=device)
+                            * 2.0 / hd))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
+               mrope: bool = False) -> torch.Tensor:
+    """Rotary position embedding of x (B, S, H, hd) at positions pos (B, S),
+    rotate-half convention (the two halves of hd, not interleaved pairs),
+    computed in float32."""
+    if mrope:
+        raise NotImplementedError(f"M-RoPE {_ITEM_18}")
+    if pos.dim() == 3:
+        pos = pos[0]
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = pos.float()[:, :, None] * freqs[None, None, :]          # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+def init_attention(gen, cfg: ModelConfig, dtype, device, lead: tuple = ()) -> Params:
+    d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    s = d ** -0.5
+    return {
+        "wq": _init(gen, lead + (d, nh, hd), s, dtype, device),
+        "wk": _init(gen, lead + (d, nkv, hd), s, dtype, device),
+        "wv": _init(gen, lead + (d, nkv, hd), s, dtype, device),
+        "wo": _init(gen, lead + (nh, hd, d), (nh * hd) ** -0.5, dtype, device),
+    }
+
+
+def _write_seq(buf: torch.Tensor, val: torch.Tensor, start: int) -> None:
+    """``buf[:, start:start+len] = val`` in place, the start clamped so the
+    update fits, as `jax.lax.dynamic_update_slice` clamps it."""
+    n = val.shape[1]
+    start = min(max(int(start), 0), buf.shape[1] - n)
+    buf[:, start:start + n] = val.to(buf.dtype)
+
+
+def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
+              window: Optional[int] = None,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: Optional[int] = None,
+              causal: bool = True) -> Tuple[torch.Tensor, Optional[tuple]]:
+    """GQA attention (reference `layers.attention`).
+
+    * train (cache=None): full-sequence attention through kernel 5.
+    * prefill (cache given, Sq > 1): the same, and K/V are written into the
+      cache at `cache_pos`, or, when Sq ≥ the cache length Sc, the last Sc
+      tokens at slot 0 (a ring cache of a sliding-window layer; Sq must then
+      be a multiple of Sc).
+    * decode (cache given, Sq == 1): the token's K/V go to slot
+      ``cache_pos % Sc`` of a ring cache (Sc ≤ window) or ``cache_pos`` of a
+      full one, and the query attends over the cache within the window.
+    The cache is written in place and returned as ``(K, V)``.  A window
+    applies to causal attention only: the reference masks non-causal
+    attention with all ones but still slices each query block's window
+    stripe, so the pair has no one function, and it raises here."""
+    if window is not None and not causal:
+        raise ValueError("a sliding window applies to causal attention only")
+    B, Sq, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rep = nh // nkv
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope)
+
+    new_cache = None
+    if cache is not None:
+        K, V = cache
+        Sc = K.shape[1]
+        ring = window is not None and Sc <= window
+        if Sq == 1:
+            slot = cache_pos % Sc if ring else cache_pos
+            _write_seq(K, k, slot)
+            _write_seq(V, v, slot)
+        elif Sq >= Sc:
+            if Sq % Sc:
+                raise ValueError(f"a prefill of {Sq} tokens into a cache of {Sc} slots "
+                                 f"must be a multiple of it (reference layers.py:289-290)")
+            _write_seq(K, k[:, Sq - Sc:], 0)
+            _write_seq(V, v[:, Sq - Sc:], 0)
+        else:
+            _write_seq(K, k, cache_pos)
+            _write_seq(V, v, cache_pos)
+        new_cache = (K, V)
+
+    if cache is not None and Sq == 1:
+        K, V = new_cache
+        Sk = K.shape[1]
+        k_idx = torch.arange(Sk, device=x.device)
+        if window is not None and Sk <= window:
+            # ring: slot s holds position cache_pos − ((cache_pos − s) mod Sk)
+            valid = cache_pos - torch.remainder(cache_pos - k_idx, Sk) >= 0
+        else:
+            valid = k_idx <= cache_pos
+            if window is not None:
+                valid = valid & (k_idx > cache_pos - window)
+        qg = q.reshape(B, 1, nkv, rep, hd)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float() * hd ** -0.5, K.float())
+        s = torch.where(valid, s, _NEG)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", pr.to(V.dtype), V).reshape(B, 1, nh, hd)
+    else:
+        o = ops.attention(q, k, v, causal=causal, window=window)
+
+    return torch.einsum("bqhd,hdm->bqm", o, p["wo"]), new_cache
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+def init_mlp(gen, d: int, f: int, gated: bool, dtype, device, lead: tuple = ()) -> Params:
+    p = {"wi": _init(gen, lead + (d, f), d ** -0.5, dtype, device)}
     if gated:
-        raise NotImplementedError(
-            "the gated MLP is not ported yet: ROADMAP.md §1 item 18 (LM stack) brings it")
+        p["wg"] = _init(gen, lead + (d, f), d ** -0.5, dtype, device)
+    p["wo"] = _init(gen, lead + (f, d), f ** -0.5, dtype, device)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, gated: bool = False) -> torch.Tensor:
+    """MLP block on (batch, seq, d) activations: ``(silu(x·wg) ⊙ x·wi)·wo``
+    when gated (SwiGLU), else ``gelu(x·wi)·wo`` with the tanh approximation
+    (the reference's `jax.nn.gelu` default)."""
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
-    h = F.gelu(h, approximate="tanh")
+    if gated:
+        h = F.silu(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# Mamba2 (SSD)
+# --------------------------------------------------------------------------
+def init_mamba(gen, cfg: ModelConfig, dtype, device, lead: tuple = ()) -> Params:
+    sc = cfg.ssm
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
+    conv_dim = di + 2 * sc.d_state
+    f32 = dict(dtype=torch.float32, device=device)
+    a_log = torch.log(torch.arange(1, nh + 1, **f32)) if device.type != "meta" \
+        else torch.empty(nh, **f32)
+    return {
+        "in_proj": _init(gen, lead + (d, 2 * di + 2 * sc.d_state + nh), d ** -0.5, dtype,
+                         device),
+        "conv_w": _init(gen, lead + (sc.conv_width, conv_dim), 0.5, dtype, device),
+        "A_log": a_log.expand(lead + (nh,)).clone(),
+        "D": torch.ones(lead + (nh,), **f32),
+        "dt_bias": torch.zeros(lead + (nh,), **f32),
+        "norm": init_rmsnorm(di, dtype, device, lead),
+        "out_proj": _init(gen, lead + (di, d), di ** -0.5, dtype, device),
+    }
+
+
+def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig,
+          cache: Optional[Dict[str, torch.Tensor]] = None
+          ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Mamba2 block (reference `layers.mamba`): in-projection, causal
+    depthwise conv, SiLU, the SSD (kernel 6 over a full sequence or a
+    prefill, the one-step recurrence in decode), D skip, gated RMSNorm,
+    out-projection.  cache = {"conv": (B, W−1, conv_dim), "ssm": (B, H, hd,
+    N) float32}; returns (out, new cache) with new tensors for the cache."""
+    sc = cfg.ssm
+    B, S, _ = x.shape
+    di, H, hd, N, W = cfg.d_inner, cfg.n_ssm_heads, sc.head_dim, sc.d_state, sc.conv_width
+
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xraw, Bmat, Cmat, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
+    conv_in = torch.cat([xraw, Bmat, Cmat], dim=-1)
+    conv_dim = conv_in.shape[-1]
+    if cache is None:
+        pad = torch.zeros((B, W - 1, conv_dim), dtype=conv_in.dtype, device=x.device)
+        seq = torch.cat([pad, conv_in], dim=1)
+    else:
+        seq = torch.cat([cache["conv"].to(conv_in.dtype), conv_in], dim=1)
+    new_conv_state = seq[:, -(W - 1):, :] if W > 1 else None
+
+    # causal depthwise conv of width W, as the sum of shifted products
+    conv = sum(seq[:, i:i + S, :] * p["conv_w"][i][None, None, :] for i in range(W))
+    conv = F.silu(conv)
+    xc, Bc, Cc = torch.split(conv, [di, N, N], dim=-1)
+    xh = xc.reshape(B, S, H, hd)
+
+    A = -torch.exp(p["A_log"])
+    dt_s = F.softplus(dt.float() + p["dt_bias"][None, None, :])
+
+    if cache is None or S > 1:
+        chunk = min(sc.chunk, S)
+        if S % chunk:
+            raise ValueError(f"a sequence of {S} positions does not split into SSD chunks "
+                             f"of {chunk} (reference layers.py:568)")
+        y, s_final = ops.ssd(xh.float(), dt_s, A, Bc.float(), Cc.float(), chunk=chunk)
+    else:
+        # single-token decode: s = exp(dt·A) s + dt B ⊗ x ; y = C·s
+        s_prev = cache["ssm"].float()
+        dec = torch.exp(dt_s[:, 0] * A[None, :])
+        upd = torch.einsum("bh,bn,bhd->bhdn", dt_s[:, 0], Bc[:, 0].float(), xh[:, 0].float())
+        s_final = s_prev * dec[:, :, None, None] + upd
+        y = torch.einsum("bn,bhdn->bhd", Cc[:, 0].float(), s_final)[:, None]
+
+    y = y + xh.float() * p["D"][None, None, :, None]
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = torch.einsum("bsd,de->bse", y, p["out_proj"])
+
+    new_cache = None
+    if cache is not None:
+        conv_state = new_conv_state if new_conv_state is not None else torch.zeros(
+            (B, 1, conv_dim), dtype=x.dtype, device=x.device)
+        new_cache = {"conv": conv_state.to(cache["conv"].dtype), "ssm": s_final.float()}
+    return out, new_cache

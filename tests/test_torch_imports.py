@@ -28,7 +28,9 @@ def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"bl.py", "topk_threshold.py", "problems.py", "chip_smoke.py",
             "bldnn.py", "basis_transform.py", "pytree.py", "layers.py",
-            "baselines.py", "tiled_matmul.py", "ops.py"} <= names
+            "baselines.py", "tiled_matmul.py", "ops.py", "flash_attention.py",
+            "ssd_scan.py", "model.py", "steps.py", "config.py", "convert.py", "serve.py",
+            "shapes.py", "gemma3_4b.py", "mamba2_370m.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -90,6 +92,27 @@ def test_run_bldnn_without_device_raises_when_cuda_is_unavailable(monkeypatch):
         bldnn.run_bldnn(prob.loss_fn, prob.eval_fn, prob.params0, prob.batch, 1)
     with pytest.raises(RuntimeError, match="CUDA device"):
         problems.load_dnn_problem()
+
+
+def test_lm_entry_points_without_device_raise_when_cuda_is_unavailable(monkeypatch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import convert, model, steps
+
+    cfg = get_config("gemma3_4b").reduced()
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        model.init_params(cfg, torch.float32, generator=None)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        model.init_cache(cfg, 1, 8, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        steps.stub_inputs(cfg, 1)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        convert.params_from_numpy({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        serve.main(["--arch", "gemma3_4b", "--debug"])
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
