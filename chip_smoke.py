@@ -50,15 +50,18 @@ is non-zero and no result line is printed:
                 (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
                 FedAvg, BLDNN_int8, BLDNN_dct and BLDNN_hadamard against
                 their artifacts under results/exp/.
-  10. kernels_attn — the attention kernel against its plain version (within
+  10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
+                float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
-                one bfloat16 ulp of the plain value plus 1e-5·max|plain|) at
-                gemma3-4b's prefill shapes (window 1024 and global) and a
-                ragged head-size-256 case in both types, the reference's
-                sweep in both types, GQA rep 1/2/8, Sq ≠ Sk, rows that see
-                no key, a window below the tile, ragged lengths, a padded
-                head size and strided views; timed at the prefill shapes
-                beside its plain version, SDPA and its bound;
+                one bfloat16 ulp of the plain value plus 1e-5·max|plain|),
+                every case in both types: gemma3-4b's prefill shapes (window
+                1024 and global), a ragged head-size-256 case, the
+                reference's sweep, GQA rep 1/2/8, Sq ≠ Sk, rows that see no
+                key, a window below the tile, ragged lengths, a padded head
+                size and strided views; a bfloat16 view with head-dim stride
+                2 must raise ValueError; each template's registers and
+                local (spill) bytes; timed at the prefill shapes beside its
+                plain version, SDPA and its bound;
   11. kernels_ssd — the SSD kernel's y and final state against its plain
                 version (each within 1e-4·max|plain|) at mamba2-370m's
                 prefill shape, the reference's sweep, ragged lengths, heads
@@ -639,20 +642,19 @@ def attention_kernel_phase(torch, fa) -> dict:
     def rnd(*shape, dtype):
         return torch.randn(*shape, device="cuda", generator=gen).to(getattr(torch, dtype))
 
-    cases = [(f"gemma3 prefill, window {w}", B, S, S, H, KVH, hd, True, w, dt)
-             for B, S, H, KVH, hd, w in ATTN_PATH for dt in ("bfloat16", "float32")]
+    cases = [(f"gemma3 prefill, window {w}", B, S, S, H, KVH, hd, True, w)
+             for B, S, H, KVH, hd, w in ATTN_PATH]
     for BH, Sq, Sk, hd, causal, window in ATTN_SWEEP:
-        for dt in ("float32", "bfloat16"):
-            cases.append((f"sweep {BH}x{Sq}x{Sk}x{hd}", BH, Sq, Sk, 1, 1, hd, causal, window, dt))
+        cases.append((f"sweep {BH}x{Sq}x{Sk}x{hd}", BH, Sq, Sk, 1, 1, hd, causal, window))
     for H, KVH in ((4, 4), (8, 4), (8, 1)):
-        cases.append((f"GQA rep {H // KVH}", 2, 128, 128, H, KVH, 64, True, None, "float32"))
-    cases += [("Sq != Sk, non-causal", 2, 100, 260, 4, 2, 128, False, None, "float32"),
-              ("rows that see no key", 1, 90, 40, 2, 1, 64, False, 8, "float32"),
-              ("window 5 below the tile", 2, 200, 200, 4, 2, 64, True, 5, "float32"),
-              ("S 333 ragged, hd 256", 1, 333, 333, 8, 4, 256, True, 100, "bfloat16"),
-              ("S 333 ragged, hd 256", 1, 333, 333, 8, 4, 256, True, 100, "float32"),
-              ("S 77 ragged, hd 32", 3, 77, 77, 2, 2, 32, True, None, "float32"),
-              ("hd 80, padded to 128", 2, 64, 64, 2, 1, 80, True, None, "float32")]
+        cases.append((f"GQA rep {H // KVH}", 2, 128, 128, H, KVH, 64, True, None))
+    cases += [("Sq != Sk, non-causal", 2, 100, 260, 4, 2, 128, False, None),
+              ("rows that see no key", 1, 90, 40, 2, 1, 64, False, 8),
+              ("window 5 below the tile", 2, 200, 200, 4, 2, 64, True, 5),
+              ("S 333 ragged, hd 256", 1, 333, 333, 8, 4, 256, True, 100),
+              ("S 77 ragged, hd 32", 3, 77, 77, 2, 2, 32, True, None),
+              ("hd 80, padded to 128", 2, 64, 64, 2, 1, 80, True, None)]
+    cases = [c + (dt,) for c in cases for dt in ("bfloat16", "float32")]
     err = {"float32": 0.0, "bfloat16": 0.0}
     rel = {"float32": 0.0, "bfloat16": 0.0}
     #: the largest share of its limit an element's error takes, by type
@@ -683,10 +685,18 @@ def attention_kernel_phase(torch, fa) -> dict:
         hold(name, dt, rnd(B, Sq, H, hd, dtype=dt), rnd(B, Sk, KVH, hd, dtype=dt),
              rnd(B, Sk, KVH, hd, dtype=dt), causal, window)
     # q, k, v read through strides: views of head-major (B, H, S, hd) arrays
-    hold("strided views", "float32", rnd(2, 8, 96, 64, dtype="float32").transpose(1, 2),
-         rnd(2, 4, 96, 64, dtype="float32").transpose(1, 2),
-         rnd(2, 4, 96, 64, dtype="float32").transpose(1, 2), True, 24)
-
+    for dt in ("float32", "bfloat16"):
+        hold("strided views", dt, rnd(2, 8, 96, 64, dtype=dt).transpose(1, 2),
+             rnd(2, 4, 96, 64, dtype=dt).transpose(1, 2),
+             rnd(2, 4, 96, 64, dtype=dt).transpose(1, 2), True, 24)
+    # the bfloat16 kernel reads through TMA, which needs unit head-dim stride
+    q, k, v = (rnd(2, 96, n, 128, dtype="bfloat16")[..., ::2] for n in (8, 4, 4))
+    try:
+        fa.flash_attention(q, k, v, causal=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_attention took a bfloat16 view with head-dim stride 2")
     timings = {}
     for B, S, H, KVH, hd, w in ATTN_PATH:
         q, k, v = (rnd(B, S, n, hd, dtype="bfloat16") for n in (H, KVH, KVH))
@@ -715,8 +725,8 @@ def attention_kernel_phase(torch, fa) -> dict:
             "pairs_per_head": attention_pairs(S, S, True, w)}
         del q, k, v, qt, kt, vt, plain
     torch.cuda.empty_cache()
-    return {"cases": len(cases) + 1, "max_abs_err": err, "max_rel_err": rel,
-            "limit_share": share, "timings": timings}
+    return {"cases": len(cases) + 2, "max_abs_err": err, "max_rel_err": rel,
+            "limit_share": share, "timings": timings, "templates": fa.kernel_attributes()}
 
 
 def ssd_kernel_phase(torch, ss) -> dict:

@@ -11,12 +11,17 @@ so a row that sees no key averages every value.  Inputs are float32 or
 bfloat16 (all three of one type); scores, softmax and the P·V sums are
 float32 and the result has the input type.
 
-`flash_attention` launches the hand-written kernel
-(``csrc/flash_attention.cu``) on CUDA tensors, reading q, k and v in place
-through their strides, and takes the plain PyTorch version,
-`flash_attention_plain`, only for tensors on the CPU.  The plain version is
-the reference's `attention_ref` in the GQA layout: one float32 einsum for
-the scores, the masked softmax, one einsum for P·V.
+`flash_attention` launches the hand-written kernels
+(``csrc/flash_attention.cu``) on CUDA tensors, reading q, k and v in place,
+and takes the plain PyTorch version, `flash_attention_plain`, only for
+tensors on the CPU.  The kernel is chosen by type: bfloat16 runs on the
+tensor cores (wgmma fed by TMA), which needs TMA's layout: unit head-dim
+stride, every other stride a multiple of 8 elements, 16-byte aligned data
+and a head size that is a multiple of 8 (`check_tma_layout`; anything else
+raises `ValueError`, nothing is copied); float32 runs FMAs on the CUDA
+cores through any strides.  The plain version is the reference's
+`attention_ref` in the GQA layout: one float32 einsum for the scores, the
+masked softmax, one einsum for P·V.
 """
 from __future__ import annotations
 
@@ -34,9 +39,28 @@ launches = 0
 #: the largest head size the kernel takes
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's grid puts the heads on its y axis and the batch on its z axis
+#: the float32 kernel's grid puts the heads on its y axis and the batch on
+#: its z axis; the bfloat16 kernel's the batch on y, 128-query blocks on z
 _MAX_GRID_YZ = 65535
+_BF16_QUERIES_A_BLOCK = 128
+#: the kernels' templates by type: padded head sizes
+TEMPLATES = {"float32": (32, 64, 128, 256), "bfloat16": (64, 128, 256)}
 _NEG = -1e30
+_lib = None
+
+
+def _library():
+    """The kernel library, with its entry points' signatures set once."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_attention")
+        lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                                        + [ctypes.c_void_p, ctypes.c_void_p])
+        lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.flash_attention_attributes.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,6 +120,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def check_tma_layout(name: str, x: torch.Tensor) -> None:
+    """Raise `ValueError` unless the bfloat16 kernel's TMA loads can read
+    `x` (B, S, heads, hd) in place: unit head-dim stride, the other strides
+    (of dimensions longer than 1) multiples of 8 elements, a 16-byte
+    aligned start and hd a multiple of 8."""
+    hd = x.shape[3]
+    if hd % 8:
+        raise ValueError(f"the bfloat16 attention kernel takes a head size that is a "
+                         f"multiple of 8; {name} has {hd}")
+    if x.stride(3) != 1:
+        raise ValueError(f"the bfloat16 attention kernel reads {name} through TMA, which "
+                         f"needs unit head-dim stride; {name} has strides {x.stride()}")
+    if any(x.stride(i) % 8 for i in range(3) if x.shape[i] > 1):
+        raise ValueError(f"the bfloat16 attention kernel reads {name} through TMA, which "
+                         f"needs strides that are multiples of 8 elements; {name} has "
+                         f"strides {x.stride()}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"the bfloat16 attention kernel reads {name} through TMA, which "
+                         f"needs 16-byte aligned data")
+
+
+def kernel_attributes() -> dict:
+    """Registers a thread (`numRegs`; the bfloat16 kernel's consumers raise
+    theirs at run time with setmaxnreg), local (spill) bytes a thread and
+    the largest block, of each template, by type and padded head size."""
+    lib = _library()
+    out = {}
+    for dtype, hdps in TEMPLATES.items():
+        for hdp in hdps:
+            vals = (ctypes.c_int * 3)()
+            err = lib.flash_attention_attributes(_DTYPES[getattr(torch, dtype)], hdp,
+                                                 ctypes.cast(vals, ctypes.c_void_p))
+            if err != 0:
+                raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+            out[f"{dtype}/hd{hdp}"] = {"num_regs": vals[0], "local_bytes": vals[1],
+                                       "max_threads": vals[2]}
+    return out
+
+
 def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: Optional[int]) -> torch.Tensor:
     global launches
@@ -105,18 +168,22 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"the attention kernel takes head_dim <= {MAX_HEAD_DIM} and at "
                          f"most {_MAX_GRID_YZ} heads and batch entries; got q "
                          f"{tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        if -(-Sq // _BF16_QUERIES_A_BLOCK) > _MAX_GRID_YZ:
+            raise ValueError(f"the bfloat16 attention kernel takes at most "
+                             f"{_MAX_GRID_YZ * _BF16_QUERIES_A_BLOCK} queries; got {Sq}")
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, x)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
-    fn = _build.load("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _library().flash_attention
     strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
              B, Sq, Sk, H, KVH, hd, int(causal), 0 if window is None else int(window),
              ctypes.cast(strides, ctypes.c_void_p), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
+                           f"(negative: the driver's error encoding a tensor map)")
     launches += 1
     return out
 

@@ -132,3 +132,87 @@ def test_rejects_what_the_kernel_does_not_take():
         fa.flash_attention(q, kv, torch.zeros((1, 5, 2, 8)))
     with pytest.raises(ValueError, match="at least one key"):
         fa.flash_attention(q, kv[:, :0], kv[:, :0])
+
+
+def _kernel_arithmetic(q, k, v, causal, window, split_p, bk=64):
+    """What the bfloat16 tensor-core kernel computes, in torch on the CPU:
+    bfloat16 inputs, float32 scores over 64-key tiles in base 2, the online
+    softmax with a float32 running max and denominator, P rounded to
+    bfloat16 before P·V — split into bf16(p) and bf16(p − bf16(p)), or once
+    — and float32 accumulation.  Returns the float32 output before its
+    final bfloat16 rounding."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, KVH, H // KVH, hd)
+    kf, vf = k.float(), v.float()
+    keep = fa.mask(Sq, Sk, causal, window)
+    scale_log2 = float(np.float32(np.log2(np.e) / np.sqrt(hd)))
+    m = torch.full((B, KVH, H // KVH, Sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KVH, H // KVH, Sq, hd))
+    for k0 in range(0, Sk, bk):
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf[:, k0:k0 + bk]) * scale_log2
+        s = torch.where(keep[:, k0:k0 + bk], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        if split_p:
+            pv = (torch.einsum("bgrqk,bkgd->bgrqd", hi, vf[:, k0:k0 + bk])
+                  + torch.einsum("bgrqk,bkgd->bgrqd", (p - hi).bfloat16().float(),
+                                 vf[:, k0:k0 + bk]))
+        else:
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", hi, vf[:, k0:k0 + bk])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    o = acc / l[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+@pytest.mark.parametrize("mask", [(True, None), (True, 100)], ids=["causal", "window100"])
+@pytest.mark.parametrize("p_rounding", ["split", "single"])
+def test_bf16_kernel_arithmetic_holds_the_chip_gate_only_with_p_split(mask, p_rounding):
+    """The bfloat16 kernel's P·V takes P in bfloat16.  Held to the plain
+    version under chip_smoke.py's gate (one bfloat16 ulp of the plain value
+    + 1e-5·max|plain|, elementwise; compared before the output's bfloat16
+    rounding, which both share), P split into two bfloat16 terms uses at
+    most half the gate at hd 256; one bfloat16 rounding of P leaves it."""
+    causal, window = mask
+    B, S, H, KVH, hd = 1, 300, 4, 2, 256
+    rng = np.random.default_rng(15)
+    q = torch.tensor(rng.standard_normal((B, S, H, hd)), dtype=torch.float32).bfloat16()
+    k, v = (torch.tensor(rng.standard_normal((B, S, KVH, hd)),
+                         dtype=torch.float32).bfloat16() for _ in range(2))
+    got = _kernel_arithmetic(q, k, v, causal, window, split_p=p_rounding == "split")
+    # the plain version's float32 value: its arithmetic on the same bf16 values
+    plain = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                     window=window)
+    ulp = torch.where(plain == 0, 0.0,
+                      torch.ldexp(torch.ones_like(plain), torch.frexp(plain)[1] - 8))
+    share = float(((got - plain).abs() / (1e-5 * plain.abs().max() + ulp)).max())
+    if p_rounding == "split":
+        assert share <= 0.5, share
+    else:
+        assert share > 1.0, share
+
+
+@pytest.mark.parametrize("case", ["ok", "hd_stride", "odd_stride", "hd_not_8", "misaligned"])
+def test_bf16_kernel_layout_rules(case):
+    """The bfloat16 kernel reads q, k, v in place through TMA: unit head-dim
+    stride, other strides multiples of 8 elements, 16-byte aligned data and
+    a head size that is a multiple of 8; anything else raises ValueError
+    (the wrapper copies nothing)."""
+    x = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16)
+    bad = {"ok": x, "hd_stride": torch.zeros((2, 16, 4, 128), dtype=torch.bfloat16)[..., ::2],
+           "odd_stride": torch.zeros((2, 16, 5 * 64 + 4), dtype=torch.bfloat16)[
+               ..., :256].reshape(2, 16, 4, 64),
+           "hd_not_8": torch.zeros((2, 16, 4, 36), dtype=torch.bfloat16),
+           "misaligned": torch.zeros(2 * 16 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].reshape(
+               2, 16, 4, 64)}[case]
+    if case == "ok":
+        fa.check_tma_layout("q", bad)
+        fa.check_tma_layout("q", x.transpose(1, 2).contiguous().transpose(1, 2))
+    else:
+        with pytest.raises(ValueError):
+            fa.check_tma_layout("q", bad)
