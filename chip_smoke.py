@@ -18,14 +18,18 @@ is non-zero and no result line is printed:
                 rows, and timed beside its plain version, its library call
                 and its bound;
   4. kernels_matmul — the tiled-matmul kernel against its plain version and
-                float64 (within 1e-5 of the larger magnitude of each) at
-                the Γ = VᵀAV path's shapes (fig2 and Newton-XL), the
-                reference's test sweep, K = 1, float64/float32/bfloat16
-                inputs and a transposed view, `ops.basis_project` (batched
-                and shared V) and `ops.glm_hessian`; then timed at the path
-                shapes beside its plain version, its bound and two library
-                calls (the float64 einsum of the default route and
-                `torch.matmul` on float32 copies);
+                float64 (within 1e-5 of the larger magnitude of each), and
+                bitwise equal to itself on a second call, at the
+                Γ = VᵀAV path's shapes (fig2 and
+                Newton-XL), the reference's test sweep, K = 1,
+                float64/float32/bfloat16 inputs and a transposed view,
+                `ops.basis_project` (batched and shared V) and
+                `ops.glm_hessian`, each case's template named; then timed at
+                the path shapes beside its plain version, its bound, the
+                float64 einsum of the default route and three
+                `torch.matmul` yardsticks: float64 on the same operands
+                (the library time), float32 with the casts timed, and
+                float32 on copies made outside the timing;
   5. fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
                 `repro_torch.core.bl.bl1` / `core.baselines.newton` against
                 the committed artifacts results/exp/fig1r1/*.seed0.json;
@@ -65,10 +69,15 @@ is non-zero and no result line is printed:
   11. kernels_ssd — the SSD kernel's y and final state against its plain
                 version (each within 1e-4·max|plain|) at mamba2-370m's
                 prefill shape, the reference's sweep, ragged lengths, heads
-                sharing B and C, exp underflow at large |dt·A|, large decays
+                sharing B and C, head and state sizes of 5 and 3, exp
+                underflow at large |dt·A|, large decays
                 mixed with weak ones (also reported against a float64
-                recurrence) and strided views; timed at the prefill shape
-                beside its plain version and its bound;
+                recurrence, beside the kernel's arithmetic emulated at
+                chunks of 64 and 128 positions) and strided views; timed at
+                the prefill shape beside its plain version and two bounds at
+                the kernel's chunk length (float32 on the CUDA cores; its
+                split TF32 products on the tensor cores), with the CUDA
+                launches one call makes, as the library counts them;
   12. serve-gemma3 / serve-mamba2 — the LM serving path
                 (`repro_torch.launch.serve.prefill` / `decode`): the reduced
                 config in float32 on the card against the same weights on
@@ -79,7 +88,10 @@ is non-zero and no result line is printed:
                 (gemma3) or 8 (mamba2) requests of 2048-token prompts and
                 32 decode steps, every logit finite, exactly one kernel-5
                 (gemma3, 34) or kernel-6 (mamba2, 48) launch a layer in the
-                prefill, no other kernel, and no launch in decode.
+                prefill, no other kernel, and no launch in decode.  A
+                reduced reading above 10x the usual 2.4e-6 prints one more
+                line: the largest differences, where they sit (the compared
+                logits or cache leaf, its index) and both sides' values.
 
 GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
 every bit stream exactly.  BL-DNN bit streams must agree exactly over
@@ -94,6 +106,7 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import pathlib
 from statistics import median
@@ -130,10 +143,18 @@ NEWTON_XL_STEPS, NEWTON_XL_REPEATS = 6, 3
 ATTN_TOL = 1e-5
 #: kernel 6's y and final state against its plain version, share of max|plain|
 SSD_TOL = 1e-4
-#: the reduced serve paths on the card against the same weights on the CPU
+#: the reduced serve paths on the card against the same weights on the CPU;
+#: the usual reduced-gemma3 reading (PRs 14–15) and the share above which a
+#: run prints the largest differences before its last line
 SERVE_TOL = 2e-4
-#: NVIDIA H100 SXM data sheet: dense bfloat16 tensor-core rate
+SERVE_USUAL_REL = 2.4e-6
+SERVE_UNUSUAL = 10 * SERVE_USUAL_REL
+#: NVIDIA H100 SXM data sheet: dense bfloat16 and TF32 tensor-core rates;
+#: kernel 6 takes each float32 product as three TF32 products of split
+#: operands
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
+TF32_SPLIT_PRODUCTS = 3
 #: gemma3-4b's prefill attention: (B, S, H, KVH, hd, window) of its sliding
 #: and its global layers
 ATTN_PATH = ((4, 2048, 8, 4, 256, 1024), (4, 2048, 8, 4, 256, None))
@@ -142,6 +163,9 @@ ATTN_SWEEP = ((2, 128, 128, 64, True, None), (1, 256, 256, 32, True, 64),
               (3, 64, 192, 64, False, None), (2, 96, 96, 128, True, 17))
 #: mamba2-370m's prefill SSD: (B, S, H, hd, N) at the config's chunk 256
 SSD_PATH = (8, 2048, 32, 64, 128)
+#: chunk lengths at which kernel 6's arithmetic is emulated on the
+#: mixed-decay inputs (its own, KERNEL_CHUNK, among them)
+SSD_EMULATED_CHUNKS = (64, 128)
 #: the reference's SSD test sweep: (BH, S, hd, N, chunk)
 SSD_SWEEP = ((2, 64, 16, 8, 16), (1, 128, 32, 16, 32), (4, 96, 8, 4, 24), (1, 60, 16, 8, 32))
 #: serve cells at full width on one card: arch, the port's one-card input
@@ -228,10 +252,11 @@ MM_SWEEP = ((64, 64, 64), (300, 500, 200), (128, 1, 7), (1, 257, 129), (513, 128
 
 def matmul_kernel_phase(torch, tm, ops) -> dict:
     """The tiled-matmul kernel against its plain version and float64 (each
-    error within MM_TOL of the larger magnitude), at the Γ path's shapes,
-    the reference sweep in three input types, a transposed view and
-    K = 1, then `ops.basis_project` and `ops.glm_hessian`; then timings at
-    the path shapes."""
+    error within MM_TOL of the larger magnitude), and bitwise equal to
+    itself on a second call (each tile is written once, in a fixed order), at
+    the Γ path's shapes, the reference sweep in three input types, a
+    transposed view and K = 1, then `ops.basis_project` and
+    `ops.glm_hessian`; then timings at the path shapes."""
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def rnd(*shape, dtype=torch.float64):
@@ -239,8 +264,9 @@ def matmul_kernel_phase(torch, tm, ops) -> dict:
                            generator=gen).to(dtype)
 
     err = {"plain": 0.0, "f64": 0.0, "plain_rel": 0.0, "f64_rel": 0.0}
+    templates = {}
 
-    def hold(name, out, plain, ref):
+    def hold(name, out, plain, ref, again=None):
         torch.cuda.synchronize()
         scale = float(ref.abs().max())
         e_plain = float((out.double() - plain.double()).abs().max())
@@ -249,14 +275,19 @@ def matmul_kernel_phase(torch, tm, ops) -> dict:
         if not (e_plain <= MM_TOL * p_scale and e_f64 <= MM_TOL * scale):
             raise AssertionError(f"tiled_matmul on {name}: |Δ plain| {e_plain} "
                                  f"(max|plain| {p_scale}), |Δ f64| {e_f64} (max|ref| {scale})")
+        if again is not None and not torch.equal(out, again):
+            raise AssertionError(f"tiled_matmul on {name}: a second call differs in its bits")
         err["plain"] = max(err["plain"], e_plain)
         err["f64"] = max(err["f64"], e_f64)
         err["plain_rel"] = max(err["plain_rel"], e_plain / p_scale)
         err["f64_rel"] = max(err["f64_rel"], e_f64 / scale)
 
     def check(name, a, b):
+        p = tm.plan(tm.geometry(a, b), a.element_size(), b.element_size(),
+                    a.data_ptr() % 16, b.data_ptr() % 16)
+        templates[name] = tm.TEMPLATES[p.template]
         hold(name, tm.matmul(a, b), tm.matmul_plain(a, b),
-             torch.matmul(a.double(), b.double()))
+             torch.matmul(a.double(), b.double()), tm.matmul(a, b))
 
     cases = 0
     operands = {}
@@ -302,9 +333,21 @@ def matmul_kernel_phase(torch, tm, ops) -> dict:
             bound, by = matmul_bound_ms(a, b)
             timings[f"{path}/{prod}"] = {
                 "a": [list(a.shape), str(a.dtype)], "b": [list(b.shape), str(b.dtype)],
+                "template": templates[f"{path} {'T = A·V' if prod == 'T' else 'Γ = Vᵀ·T'}"],
                 "kernel_ms": cuda_ms(torch, lambda: tm.matmul(a, b), iters, warmup=2),
                 "plain_ms": cuda_ms(torch, lambda: tm.matmul_plain(a, b), iters, warmup=2),
-                "library_ms": cuda_ms(torch, lambda: torch.matmul(a32, b32), iters, warmup=2),
+                # the same work from the same operands: cuBLAS in float64 (a
+                # float32 operand cast inside the call, as for Γ's T)
+                "library_ms": cuda_ms(torch, lambda: torch.matmul(a, b.to(a.dtype)), iters,
+                                      warmup=2),
+                # float32 cuBLAS with both casts inside the timed call
+                "library_cast_f32_ms": cuda_ms(
+                    torch, lambda: torch.matmul(a.float(), b.float()), iters, warmup=2),
+                # float32 cuBLAS on float32 copies made outside the timed call
+                # (half the bytes of a float64 operand: no kernel that reads
+                # float64 can match it)
+                "library_f32_copies_ms": cuda_ms(torch, lambda: torch.matmul(a32, b32), iters,
+                                                 warmup=2),
                 "bound_ms": bound, "bound_by": by}
         timings[f"{path}/basis_project"] = {
             "kernel_route_ms": cuda_ms(torch, lambda: ops.basis_project(V, A), iters, warmup=2),
@@ -313,7 +356,8 @@ def matmul_kernel_phase(torch, tm, ops) -> dict:
         del A32, V32, Vt32
     del operands
     torch.cuda.empty_cache()
-    return {"cases": cases, "max_abs_err": err, "timings": timings}
+    return {"cases": cases, "max_abs_err": err, "bitwise_rerun": True,
+            "templates": templates, "timings": timings}
 
 
 def check_bits(name: str, hist, ref: dict) -> list:
@@ -552,10 +596,11 @@ def drive(torch, k, run) -> tuple:
     """Drive one path, ``run()``, with every kernel's launch count reset
     just before it and read just after (``k`` holds the kernel modules
     ``tk``, ``tm``, ``bt``, ``fa``, ``ss``); returns (result, seconds,
-    launches by kernel)."""
+    launches by kernel).  Kernel 6's CUDA launches (``ss.cuda_launches``)
+    are reset too, for the caller to read."""
     torch.cuda.synchronize()
     k.tk.launches = k.tk.compress_sum_launches = k.tm.launches = k.bt.launches = 0
-    k.fa.launches = k.ss.launches = 0
+    k.fa.launches = k.ss.launches = k.ss.cuda_launches = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -614,20 +659,35 @@ def attention_bound_ms(q, k, causal: bool, window) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def ssd_bound_ms(B: int, S: int, H: int, hd: int, N: int, chunk: int = 256) -> tuple:
-    """Least time for the SSD in float32 by the chunked algorithm at the
-    config's chunk: per batch entry and chunk of c positions, C·Bᵀ once
+def ssd_ops_bytes(B: int, S: int, H: int, hd: int, N: int, chunk: int) -> tuple:
+    """Operations of the SSD in float32 by the chunked algorithm at the
+    kernel's chunk: per batch entry and chunk of c positions, C·Bᵀ once
     (2c²N, shared by the heads), and per head M·x (2c²hd), the chunk state
-    (2c·hd·N) and the state's read-out (2c·hd·N) at the float32 rate; or x,
-    dt, A, B, C read once and y and the final state written once."""
+    (2c·hd·N) and the state's read-out (2c·hd·N); and the bytes of x, dt, A,
+    B, C read once and y and the final state written once."""
     c = min(chunk, S)
-    while S % c:
-        c -= 1
-    ops = B * (S // c) * (2 * c * c * N + H * (2 * c * c * hd + 4 * c * hd * N))
+    ops = B * -(-S // c) * (2 * c * c * N + H * (2 * c * c * hd + 4 * c * hd * N))
     bytes_ = 4 * (2 * B * S * H * hd + B * S * H + H + 2 * B * S * N + B * H * hd * N)
+    return ops, bytes_
+
+
+def ssd_bound_ms(B: int, S: int, H: int, hd: int, N: int, chunk: int) -> tuple:
+    """Least time for the SSD's float32 work on the CUDA cores: its
+    operations at the float32 rate, or its bytes, whichever is larger."""
+    ops, bytes_ = ssd_ops_bytes(B, S, H, hd, N, chunk)
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS32_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ssd_bound_tc_ms(B: int, S: int, H: int, hd: int, N: int, chunk: int) -> tuple:
+    """Least time for the same work as kernel 6 issues it: every product as
+    TF32_SPLIT_PRODUCTS TF32 products of split operands at the TF32
+    tensor-core rate, or the bytes, whichever is larger."""
+    ops, bytes_ = ssd_ops_bytes(B, S, H, hd, N, chunk)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = TF32_SPLIT_PRODUCTS * ops / TF32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), bytes_ms
 
 
 def attention_kernel_phase(torch, fa) -> dict:
@@ -762,6 +822,8 @@ def ssd_kernel_phase(torch, ss) -> dict:
         hold(f"sweep {BH}x{S}x{hd}x{N}", inputs(BH, S, 1, hd, N), chunk)
     hold("S 200 ragged", inputs(2, 200, 3, 64, 128), 256)
     hold("heads sharing B and C", inputs(2, 64, 3, 16, 8), 16)
+    # rows of 5 and 3 floats: 4-byte copies and a scalar state pass
+    hold("head size 5, state size 3", inputs(2, 150, 3, 5, 3), 256)
     # every step decays by exp(−25) or less: the chunk's exponentials underflow
     hold("exp underflow, |dt·A| ≥ 25 a step", inputs(2, 300, 2, 64, 128, 10.0, 50.0, 5.0), 256)
     # x, B and C as views of one conv output, as the Mamba2 layer passes them
@@ -775,7 +837,7 @@ def ssd_kernel_phase(torch, ss) -> dict:
     # with the float64 sequential recurrence
     x, dt, A, Bm, Cm = inputs(2, 300, 2, 64, 128, 20.0, 50.0)
     hold("mixed decays, |cs| to 1e5", (x, dt, A, Bm, Cm), 256)
-    cases = len(SSD_SWEEP) + 6
+    cases = len(SSD_SWEEP) + 7
     y = ss.ssd_scan(x, dt, A, Bm, Cm)[0]
     yp = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=256)[0]
     s = torch.zeros(2, 2, 64, 128, dtype=torch.float64, device="cuda")
@@ -789,18 +851,43 @@ def ssd_kernel_phase(torch, ss) -> dict:
     mixed = {"kernel_vs_f64": float((y.double() - y64).abs().max()) / scale,
              "plain_vs_f64": float((yp.double() - y64).abs().max()) / scale,
              "kernel_vs_plain": float((y - yp).abs().max()) / float(yp.abs().max())}
+    # the kernel's arithmetic (split TF32 products) emulated at other chunk
+    # lengths on the same inputs: how much of its distance from float64 the
+    # chunk length makes
+    for c in SSD_EMULATED_CHUNKS:
+        ye = ss.ssd_scan_emulated(x, dt, A, Bm, Cm, chunk=c)[0]
+        mixed[f"emulated_chunk{c}_vs_f64"] = float((ye.double() - y64).abs().max()) / scale
 
     args = inputs(*SSD_PATH)
-    bound, by = ssd_bound_ms(*SSD_PATH)
-    timing = {"shape": list(SSD_PATH), "chunk": 256,
-              "kernel_ms": cuda_ms(torch, lambda: ss.ssd_scan(*args), 20, warmup=2),
+    ss.cuda_launches = 0
+    ss.ssd_scan(*args)
+    cuda_launches = ss.cuda_launches
+    bound, by = ssd_bound_ms(*SSD_PATH, chunk=ss.KERNEL_CHUNK)
+    bound_tc, by_tc, bytes_ms = ssd_bound_tc_ms(*SSD_PATH, chunk=ss.KERNEL_CHUNK)
+    kernel_ms = cuda_ms(torch, lambda: ss.ssd_scan(*args), 20, warmup=2)
+    # the bounds count the operations of the kernel's own chunk length
+    timing = {"shape": list(SSD_PATH), "chunk": 256, "kernel_chunk": ss.KERNEL_CHUNK,
+              "kernel_ms": kernel_ms,
               "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(*args, chunk=256), 5,
                                   warmup=1),
-              "library_ms": None, "bound_ms": bound, "bound_by": by}
+              "library_ms": None,
+              # float32 FMAs on the CUDA cores; the kernel's split TF32
+              # products on the tensor cores; the bytes alone
+              "bound_f32_ms": bound, "bound_f32_by": by, "share_f32": bound / kernel_ms,
+              "bound_ms": bound_tc, "bound_by": by_tc, "share": bound_tc / kernel_ms,
+              "bound_bytes_ms": bytes_ms}
+    if timing["share"] > 1.0 or timing["share_f32"] > 1.0:
+        raise AssertionError(f"ssd_scan ran under a bound it cannot beat: {timing}")
     del args
     torch.cuda.empty_cache()
+    from repro_torch.kernels import _build
+
+    lib = _build.load("ssd_scan")
+    lib.ssd_scan_workspace_floats.argtypes = [ctypes.c_int] * 5
+    lib.ssd_scan_workspace_floats.restype = ctypes.c_longlong
     return {"cases": cases, "max_abs_err": err, "timing": timing,
-            "mixed_decay_y_rel_err": mixed}
+            "mixed_decay_y_rel_err": mixed, "cuda_launches_per_call": cuda_launches,
+            "workspace_bytes_at_path_shape": 4 * lib.ssd_scan_workspace_floats(*SSD_PATH)}
 
 
 def _tree_map(fn, tree):
@@ -826,11 +913,24 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
     from repro_torch.launch import serve, shapes
     from repro_torch.models import model as M
 
+    diagnosis = []
+
     def close(name, got, want):
         got, want = got.float().cpu(), want.float().cpu()
-        e, scale = float((got - want).abs().max()), float(want.abs().max())
+        d = (got - want).abs()
+        e, scale = float(d.max()), float(want.abs().max())
         if not (e <= SERVE_TOL * scale):
             raise AssertionError(f"{arch} reduced, {name}: |Δ| {e} > {SERVE_TOL}·{scale}")
+        if e > SERVE_UNUSUAL * scale:
+            # keep what explains an unusual reading: the largest differences,
+            # where they sit and both sides' values
+            flat = d.flatten()
+            top = torch.topk(flat, min(5, flat.numel())).indices.tolist()
+            diagnosis.append({
+                "compared": name, "shape": list(d.shape), "rel": e / scale,
+                "largest": [{"index": [int(j) for j in np.unravel_index(i, tuple(d.shape))],
+                             "card": float(got.flatten()[i]), "cpu": float(want.flatten()[i]),
+                             "abs_diff": float(flat[i])} for i in top]})
         return e / scale
 
     # ---- reduced config: the card's kernels against the CPU's plain versions
@@ -871,6 +971,10 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
                                           dec[0, 0], full[0, -1])
     reduced = {"config": cfg.name, "layers": cfg.n_layers, "max_rel_err": rel,
                "tokens_equal": True, "launches": counts}
+    if diagnosis:
+        emit({"phase": f"serve-{arch.split('_')[0]}-reduced-diagnosis",
+              "usual_rel": SERVE_USUAL_REL, "threshold_rel": SERVE_UNUSUAL,
+              "items": diagnosis})
     del params, cpu_params, out, ref
 
     # ---- full width, bfloat16, seeded weights drawn on the card
@@ -894,6 +998,7 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
     warm = serve.prefill(params, cfg, prompts, cache)
     serve.decode(params, cfg, warm["token"], warm["cache"], prompt, 2)
     pre, _, pre_counts = drive(torch, k, lambda: serve.prefill(params, cfg, prompts, cache))
+    pre_ssd_cuda = k.ss.cuda_launches
     dec, _, dec_counts = drive(torch, k, lambda: serve.decode(
         params, cfg, pre["token"], pre["cache"], prompt, steps))
     peak = torch.cuda.max_memory_allocated()
@@ -914,7 +1019,8 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
               "decode_s": dec["seconds"], "decode_s_per_step": dec["seconds"] / steps,
               "decode_tok_s": B * steps / dec["seconds"], "max_memory_allocated": peak,
               "logits_finite": finite, "tokens_head": dec["tokens"][0, :8].tolist(),
-              "launches_prefill": pre_counts, "launches_decode": dec_counts}
+              "launches_prefill": pre_counts, "launches_decode": dec_counts,
+              "ssd_scan_cuda_launches_prefill": pre_ssd_cuda}
     if profile:
         def run():
             p = serve.prefill(params, cfg, prompts, cache)
@@ -926,8 +1032,9 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
 
 
 #: substrings of the hand-written kernels' names in a profiler trace
-HAND_KERNELS = ("threshold", "select_rows", "column_sum", "tiled_matmul", "basis_transform",
-                "flash_kernel", "ssd_kernel")
+HAND_KERNELS = ("threshold", "select_rows", "column_sum", "tiled_matmul", "stream_kernel",
+                "basis_transform", "flash_kernel", "ssd_prep", "ssd_state", "ssd_pass",
+                "ssd_out")
 
 
 def profile_run(torch, run, steps: int) -> dict:
@@ -1174,7 +1281,7 @@ def main(argv) -> int:
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]
     bt_path = kb["basis_transform_timings"]["8x96x96x32x32"]
-    mm = km["timings"]["newton-xl/T"]
+    mm, mg = km["timings"]["newton-xl/T"], km["timings"]["newton-xl/G"]
     fg, fw = ka["timings"]["global"], ka["timings"]["window1024"]
     sd = ks["timing"]
     main = dnn_launches["BLDNN"]
@@ -1199,7 +1306,13 @@ def main(argv) -> int:
         "launches": launches["newton-xl"], "max_abs_err": km["max_abs_err"]["plain"],
         "ms": mm["kernel_ms"], "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
         "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
-        "shape": [mm["a"], mm["b"]], "launches_fig2": fig2_launches["newton_basis/kernel"]}, {
+        "library_cast_f32_ms": mm["library_cast_f32_ms"],
+        "library_f32_copies_ms": mm["library_f32_copies_ms"],
+        "shape": [mm["a"], mm["b"]], "launches_fig2": fig2_launches["newton_basis/kernel"],
+        "gamma": {key: mg[key] for key in ("a", "b", "template", "kernel_ms", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms",
+                                           "library_cast_f32_ms",
+                                           "library_f32_copies_ms")}}, {
         "name": "basis_transform", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/basis_transform.cu",
         "replaces": "src/repro/kernels/basis_transform.py:56",
@@ -1224,7 +1337,10 @@ def main(argv) -> int:
         "launches": serve_res["mamba2_370m"]["launches_prefill"]["ssd_scan"],
         "max_abs_err": max(ks["max_abs_err"]["y"], ks["max_abs_err"]["state"]),
         "ms": sd["kernel_ms"], "plain_ms": sd["plain_ms"], "bound_ms": sd["bound_ms"],
-        "bound_by": sd["bound_by"], "library_ms": None, "shape": sd["shape"]}]})
+        "bound_by": sd["bound_by"], "library_ms": None, "shape": sd["shape"],
+        "bound_f32_ms": sd["bound_f32_ms"],
+        "cuda_launches": serve_res["mamba2_370m"]["ssd_scan_cuda_launches_prefill"],
+        "cuda_launches_per_call": ks["cuda_launches_per_call"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

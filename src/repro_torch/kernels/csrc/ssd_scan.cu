@@ -1,5 +1,5 @@
-// Mamba2 SSD (state-space duality) scan: chunked intra-chunk products plus
-// a sequential inter-chunk state recurrence, with the final state.
+// Mamba2 SSD (state-space duality) scan, chunk-parallel on the tensor cores,
+// with the final state.
 //
 // Replaces src/repro/kernels/ssd_scan.py::ssd_scan (the Pallas kernel
 // `_ssd_kernel`) in the model's layout, the function of
@@ -11,245 +11,649 @@
 // (the decode cache; the TPU kernel keeps it in VMEM scratch and drops it).
 // x (B, S, H, hd), dt (B, S, H), A (H,), B and C (B, S, N), all float32 and
 // read through element strides; B and C are shared by every head (one SSM
-// group) and read by batch entry, never repeated per head.  y is a
-// contiguous (B, S, H, hd) float32 array, the state a contiguous
-// (B, H, hd, N) one.
+// group).  y is a contiguous (B, S, H, hd) float32 array, the state a
+// contiguous (B, H, hd, N) one.
 //
-// Grid (H, B), 256 threads: a block owns one (b, h) and walks its sequence
-// in chunks of kL = 64 positions (the kernel's own chunk length; it changes
-// only the rounding, not the function).  The (hd x N) state stays in shared
-// memory from chunk to chunk.  For each chunk it stages x, B (position-major)
-// and C (state-major), takes the chunk's cumulative log-decay as one thread's
-// running sum (in order, as the reference's cumsum: a tree scan would round
-// neighbouring sums apart by several ulps, and exp(cs_q − cs_k) of large
-// |cs| would carry that), and then runs four 64-wide products, each thread a
-// 4 x 4 patch of a
-// 64 x 64 output tile:
-//   M[q][k] = (C_q·B_k) exp(cs_q − cs_k) dt_k  for k ≤ q, else 0 — masked
-//             before the exponential, so no exp of a positive argument;
-//   y_q     = exp(cs_q) C_q·S_in + Σ_k M[q][k] x_k;
-//   S      ← exp(cs_end) S + Σ_k exp(cs_end − cs_k) dt_k B_k ⊗ x_k.
-// hd and N are zero-padded to multiples of 64 in shared memory; positions
-// past S read as zero (dt = 0 keeps the decay flat) and the chunk's end is
-// its last real position.  Large |dt·A| makes the
-// exponentials underflow to 0, as in the reference.
+// The structure of Mamba2's own SSD (Dao & Gu 2024), in chunks of kL = 128
+// positions (the kernel's own chunk length; it changes only the rounding),
+// as four launches behind the one C entry point:
+//   1. ssd_prep_kernel, per (b, chunk): the in-chunk cumulative log-decay of
+//      every head, as one thread's running sum per head (in order, as the
+//      reference's cumsum: a tree scan would round neighbouring sums apart
+//      and exp(cs_q − cs_k) of large |cs| would carry that), the chunk's
+//      decay exp(cs_end) per head, and C·Bᵀ once for all heads (the causal
+//      half);
+//   2. ssd_state_kernel, per (b, h, chunk) in parallel: the chunk's own state
+//      Σ_k (exp(cs_end − cs_k) dt_k B_k) ⊗ x_k;
+//   3. ssd_pass_kernel, per (b, h) state element, in order over chunks: the
+//      state entering each chunk, s ← exp(cs_end)·s + state_chunk (the
+//      update of the sequential kernel, rounded the same way), written over
+//      the chunk state; the last s is the final state;
+//   4. ssd_out_kernel, per (b, h, chunk) in parallel:
+//      y_q = exp(cs_q) C_q·s_in + Σ_{k ≤ q} M[q][k] x_k with
+//      M[q][k] = (C_q·B_k) exp(cs_q − cs_k) dt_k, masked before the
+//      exponential (no exp of a positive argument).
+// cs, the decays, C·Bᵀ and the chunk states pass between launches through a
+// float32 workspace the wrapper allocates (145 MB at the mamba2 prefill
+// shape, most of it the chunk states).  Launches 2 and 4 stage their
+// operands in shared memory with 16-byte cp.async copies where the rows
+// allow (4-byte ones otherwise) and run two blocks an SM; launch 2's
+// states leave through shared memory as whole rows, launch 3 keeps 16
+// chunks' loads in flight a thread.
+//
+// Products run on the tensor cores as mma.sync m16n8k8 TF32 with split
+// operands: a = hi + lo, hi = a truncated to TF32, lo = a − hi, and a·b
+// taken as lo·hi + hi·lo + hi·hi, accumulated in float32 — about float32
+// accuracy (one TF32 product keeps ~3 digits and leaves the kernel's gate).
+// Exponentials, masks and the decay sums stay float32 on the CUDA cores.
+// hd and N are zero-padded to multiples of 32 in shared memory; positions
+// past S read as zero (dt = 0 keeps the decay flat) and each chunk's end is
+// its last real position.  Large |dt·A| makes the exponentials underflow to
+// 0, as in the reference.
 //
 // Bound on an H100: at the mamba2-370m prefill shapes (B 8, S 2048, H 32,
-// hd 64, N 128) the chunked algorithm is ~7e10 float32 operations (C·Bᵀ
-// counted once a batch entry and chunk) against ~0.3 GB: operations, ~1 ms
-// at 67 TFLOP/s.  This kernel recomputes C·Bᵀ for every head (32x that
-// product) and runs float32 FMAs on the CUDA cores; sharing C·Bᵀ across the
-// heads of a batch entry and tensor cores are later work.
+// hd 64, N 128) the chunked algorithm at kL = 128 is ~2.6e10 float32
+// operations (C·Bᵀ counted once a batch entry and chunk) against ~0.3 GB of
+// inputs and outputs: operations, 0.39 ms at 67 TFLOP/s on the CUDA cores,
+// 0.16 ms as three TF32 products at 495 TFLOP/s.  The
+// workspace adds ~0.4 GB of traffic (the chunk states written, rewritten
+// and read), and every (b, h, chunk) block re-stages the chunk's C, B and
+// C·Bᵀ that the heads share.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kL = 64;          // positions a chunk
-constexpr int kCTS = kL + 1;    // row stride of the state-major C chunk
-constexpr int kMTS = kL + 4;    // row stride of M, key-major
+constexpr int kL = 128;         // positions a chunk
+constexpr int kRT = kL / 16;    // 16-row tiles of a chunk
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kMaxPad = 128;    // largest padded hd and N
 
 struct Geometry {
-  int S, H, hd, N, HP, NP;
+  int Bsz, S, H, hd, N, HP, NP, nc;
   long long xs[4], dts[3], bs[3], cs[3];   // element strides
+  int vec;                                 // kVec* bits: 16-byte rows
+};
+// operands whose rows can be staged by 16-byte copies
+constexpr int kVecX = 1, kVecB = 2, kVecC = 4, kVecSt = 8;
+
+// the workspace: cs (Bsz, nc, H, kL), decays (Bsz, nc, H), C·Bᵀ (Bsz, nc,
+// kL, kL), chunk states (Bsz, nc, H, hd, N)
+struct Work {
+  float *cs, *dec, *cb, *st;
 };
 
-long long smem_floats(int HP, int NP) {
-  return static_cast<long long>(kL) * (NP + 4)   // B chunk, position-major
-         + static_cast<long long>(NP) * kCTS     // C chunk, state-major
-         + static_cast<long long>(kL) * HP       // x chunk
-         + static_cast<long long>(kL) * kMTS     // M, key-major
-         + static_cast<long long>(NP) * HP       // state, state-major
-         + 4LL * kL;                             // dt, cs, exp(cs), w
+int pad32(int n) { return (n + 31) / 32 * 32; }
+
+long long ws_floats(const Geometry& g, Work* w, float* base) {
+  // each section a whole number of 16-byte chunks, so every one is aligned
+  auto up4 = [](long long n) { return (n + 3) / 4 * 4; };
+  const long long bc = static_cast<long long>(g.Bsz) * g.nc;
+  const long long n_cs = up4(bc * g.H * kL), n_dec = up4(bc * g.H), n_cb = up4(bc * kL * kL);
+  const long long n_st = up4(bc * g.H * static_cast<long long>(g.hd) * g.N);
+  if (w != nullptr) {
+    w->cs = base;
+    w->dec = w->cs + n_cs;
+    w->cb = w->dec + n_dec;
+    w->st = w->cb + n_cb;
+  }
+  return n_cs + n_dec + n_cb + n_st;
 }
 
-int pad64(int n) { return (n + 63) / 64 * 64; }
+// dynamic shared memory, in floats, of each launch
+__host__ __device__ long long prep_floats(int NP) { return 2LL * kL * (NP + 4); }
+__host__ __device__ long long state_floats(int HP, int NP) {
+  return 1LL * kL * (HP + 8) + 1LL * kL * (NP + 8) + 2 * kL;
+}
+__host__ __device__ long long out_floats(int HP, int NP) {
+  const long long a = 1LL * kL * (NP + 4) + 1LL * HP * (NP + 4);
+  const long long b = 1LL * kL * (kL + 4) + 1LL * kL * (HP + 8);
+  return (a > b ? a : b) + 2 * kL;
+}
 
-// acc[r][j] += Σ_t A(ty*4 + r, t) · B(t, tx + 16 j), A(i, t) = A[i*sa_i + t*sa_t],
-// B(t, j) = B[t*sb_t + j]
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const float* A, int sa_i, int sa_t,
-                                         const float* B, int sb_t, int T, int ty, int tx) {
-#pragma unroll 4
-  for (int t = 0; t < T; ++t) {
-    float a[4], bb[4];
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(4 * n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage dst[r][c] (row stride ldd, a multiple of 4) for r < rows and c <
+// cols (a multiple of 4) from src[r·s_row + c·s_col], reading only r <
+// row_lim and c < col_lim, zero elsewhere; causal: c ≤ r, zero up to the
+// end of r's 16-row tile and nothing written past it (the causal product
+// reads a row tile's keys only up to its own end).  Warps take rows, lanes
+// 4-column chunks: one 16-byte copy when vec (s_col 1 and every row
+// 16-byte aligned), else four 4-byte copies.
+__device__ __forceinline__ void stage(float* dst, int ldd, const float* src, long long s_row,
+                                      long long s_col, int rows, int row_lim, int cols,
+                                      int col_lim, bool vec, bool causal) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    int lim = r < row_lim ? col_lim : 0;
+    if (causal && lim > r + 1) lim = r + 1;
+    const float* sr = src + r * s_row;
+    for (int c = lane * 4; c < cols; c += 128) {
+      float* d = dst + r * ldd + c;
+      const int n = max(0, min(4, lim - c));     // real elements of the chunk
+      if (vec) {
+        cp_async16(d, n > 0 ? sr + c : src, n);
+      } else {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = A[(ty * 4 + r) * sa_i + t * sa_t];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = B[t * sb_t + tx + 16 * j];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], bb[j], acc[r][j]);
+        for (int j = 0; j < 4; ++j) cp_async4(d + j, j < n ? sr + (c + j) * s_col : src, j < n);
+      }
+    }
   }
 }
 
+// a = hi + lo with hi = a truncated to TF32 (its top 19 bits) and lo = a − hi
+// exactly; the tensor core reads lo's top 19 bits, so lo·b errs by < 2⁻²⁰|a·b|.
+// Bit masks, not cvt.rna.tf32 (a conversion-pipe instruction, 4 a product).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp, two 16-row tiles sharing every B fragment: acc0[j] (rows
+// r0.., columns c0 + 8j..) += Σ_{k < k0end} A(r, k) B(k, c), acc1[j] (rows
+// r1..) the same over k < k1end (k0end ≤ k1end, multiples of 8; k0end 0
+// leaves acc0 alone), in split TF32.  A(r, k) = A[r·lda + k], or
+// A[k·lda + r] when AT; B(k, c) = B[k·ldb + c], or B[c·ldb + k] when BT.
+// Fragment layouts of m16n8k8 (PTX ISA): lane = 4g + t; a0 (g, t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4, g);
+// d0/d1 (g, 2t / 2t + 1), d2/d3 (g + 8, 2t / 2t + 1).  Row strides ≡ 4
+// (mod 32) for a row-major A and a column-major B, ≡ 8 for the others,
+// keep the fragment loads free of bank conflicts.
+template <int NT, bool AT, bool BT>
+__device__ __forceinline__ void mma3x2(float (&acc0)[NT][4], float (&acc1)[NT][4],
+                                       const float* A, int lda, const float* B, int ldb,
+                                       int r0, int r1, int c0, int k0end, int k1end) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto frag = [&](int r, int k, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    float av[4];
+    if constexpr (AT) {
+      av[0] = A[(k + t) * lda + r + g];
+      av[1] = A[(k + t) * lda + r + g + 8];
+      av[2] = A[(k + t + 4) * lda + r + g];
+      av[3] = A[(k + t + 4) * lda + r + g + 8];
+    } else {
+      av[0] = A[(r + g) * lda + k + t];
+      av[1] = A[(r + g + 8) * lda + k + t];
+      av[2] = A[(r + g) * lda + k + t + 4];
+      av[3] = A[(r + g + 8) * lda + k + t + 4];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(av[i], hi[i], lo[i]);
+  };
+  for (int k = 0; k < k1end; k += 8) {
+    const bool both = k < k0end;
+    uint32_t ah0[4], al0[4], ah1[4], al1[4];
+    frag(r1, k, ah1, al1);
+    if (both) frag(r0, k, ah0, al0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = c0 + 8 * j + g;
+      const float b0 = BT ? B[c * ldb + k + t] : B[(k + t) * ldb + c];
+      const float b1 = BT ? B[c * ldb + k + t + 4] : B[(k + t + 4) * ldb + c];
+      uint32_t bh[2], bl[2];
+      split_tf32(b0, bh[0], bl[0]);
+      split_tf32(b1, bh[1], bl[1]);
+      mma_tf32(acc1[j], al1, bh);
+      mma_tf32(acc1[j], ah1, bl);
+      mma_tf32(acc1[j], ah1, bh);
+      if (both) {
+        mma_tf32(acc0[j], al0, bh);
+        mma_tf32(acc0[j], ah0, bl);
+        mma_tf32(acc0[j], ah0, bh);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+}
+
+// A warp's two 16-row tiles of accumulators (rows r0.. and r1..; columns
+// c0 + 8j..) into ot[r][c] (row stride lo, even).
+__device__ __forceinline__ void park(float* ot, int lo, const float (&acc0)[4][4],
+                                     const float (&acc1)[4][4], int r0, int r1, int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const float (&acc)[4][4] = side ? acc1 : acc0;
+    const int r = side ? r1 : r0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(ot + (r + g) * lo + c) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(ot + (r + g + 8) * lo + c) = make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// dst[r·ld + c] = ot[r][c] for r < rows, c < cols: warps take rows, lanes
+// 4-column chunks, 16-byte stores when vec (ld, dst and lo multiples of 4).
+__device__ __forceinline__ void unpark(float* dst, long long ld, const float* ot, int lo,
+                                       int rows, int cols, bool vec) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    float* d = dst + r * ld;
+    const float* o = ot + r * lo;
+    for (int c = lane * 4; c < cols; c += 128) {
+      if (vec && c + 4 <= cols) {
+        *reinterpret_cast<float4*>(d + c) = *reinterpret_cast<const float4*>(o + c);
+      } else {
+        for (int j = 0; j < 4 && c + j < cols; ++j) d[c + j] = o[c + j];
+      }
+    }
+  }
+}
+
+// ---- 1. per (b, chunk): cumulative decays, chunk decays, C·Bᵀ ---------------
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ A, const float* __restrict__ Bm,
-           const float* __restrict__ Cm, float* __restrict__ y, float* __restrict__ state,
-           const Geometry g) {
-  extern __shared__ float4 smem4[];
-  const int HP = g.HP, NP = g.NP, BNS = NP + 4;
-  float* Bn = reinterpret_cast<float*>(smem4);  // [kL][BNS]  B rows (scaled by w for the state update)
-  float* Ct = Bn + kL * BNS;                    // [NP][kCTS] C, state-major
-  float* xs = Ct + NP * kCTS;                   // [kL][HP]
-  float* Mt = xs + kL * HP;                     // [kL][kMTS] Mt[k][q] = M[q][k]
-  float* st = Mt + kL * kMTS;                   // [NP][HP]   running state, st[n][d] = S[d][n]
-  float* dtc = st + NP * HP;                    // [kL]
-  float* cs = dtc + kL;                         // [kL] cumulative dt·A in the chunk
-  float* ecs = cs + kL;                         // [kL] exp(cs)
-  float* w = ecs + kL;                          // [kL] exp(cs_end − cs_k)·dt_k
+ssd_prep_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                const float* __restrict__ Bm, const float* __restrict__ Cm, const Geometry g,
+                const Work w) {
+  extern __shared__ __align__(16) float smem[];
+  const int NP = g.NP, LD = NP + 4;
+  float* Cs = smem;             // [kL][LD]  C rows of the chunk
+  float* Bs = Cs + kL * LD;     // [kL][LD]  B rows
+  const int c = blockIdx.x, b = blockIdx.y, s0 = c * kL, tid = threadIdx.x;
+  const int real = min(kL, g.S - s0);     // positions of the chunk before S
+  stage(Cs, LD, Cm + b * g.cs[0] + s0 * g.cs[1], g.cs[1], g.cs[2], kL, real, NP, g.N,
+        g.vec & kVecC, false);
+  stage(Bs, LD, Bm + b * g.bs[0] + s0 * g.bs[1], g.bs[1], g.bs[2], kL, real, NP, g.N,
+        g.vec & kVecB, false);
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float a_h = A[h];
-  const float* xb = x + b * g.xs[0] + h * g.xs[2];
-  const float* dtb = dt + b * g.dts[0] + h * g.dts[2];
-  const float* Bb = Bm + b * g.bs[0];
-  const float* Cb = Cm + b * g.cs[0];
-  float* yb = y + (static_cast<long long>(b) * g.S * g.H + h) * g.hd;
-  const long long y_row = static_cast<long long>(g.H) * g.hd;
-
-  for (int i = tid; i < NP * HP; i += kThreads) st[i] = 0.f;
-
-  for (int s0 = 0; s0 < g.S; s0 += kL) {
-    for (int i = tid; i < kL * HP; i += kThreads) {
-      const int kk = i / HP, d = i % HP, s = s0 + kk;
-      xs[i] = (s < g.S && d < g.hd) ? xb[s * g.xs[1] + d * g.xs[3]] : 0.f;
+  // cumulative dt·A of each head, in order: neighbouring cs differ by dt·A
+  // to ½ ulp; the chunk's end is the very number its last real position holds
+  for (int h = tid; h < g.H; h += kThreads) {
+    const float a_h = A[h];
+    const float* dth = dt + b * g.dts[0] + h * g.dts[2];
+    float* out = w.cs + ((static_cast<long long>(b) * g.nc + c) * g.H + h) * kL;
+    float run = 0.f, cs_end = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < kL; ++t) {
+      const int s = s0 + t;
+      const float d = s < g.S ? dth[static_cast<long long>(s) * g.dts[1]] : 0.f;
+      run = __fadd_rn(run, __fmul_rn(d, a_h));
+      out[t] = run;
+      if (t == real - 1) cs_end = run;
     }
-    for (int i = tid; i < kL * NP; i += kThreads) {
-      const int kk = i / NP, n = i % NP, s = s0 + kk;
-      const bool ok = s < g.S && n < g.N;
-      Bn[kk * BNS + n] = ok ? Bb[s * g.bs[1] + n * g.bs[2]] : 0.f;
-      Ct[n * kCTS + kk] = ok ? Cb[s * g.cs[1] + n * g.cs[2]] : 0.f;
-    }
-    if (tid < kL) dtc[tid] = (s0 + tid < g.S) ? dtb[(s0 + tid) * g.dts[1]] : 0.f;
-    __syncthreads();
+    w.dec[(static_cast<long long>(b) * g.nc + c) * g.H + h] = expf(cs_end);
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
-    if (tid == 0) {   // cumulative dt·A, in order: neighbouring cs differ by dt·A to ½ ulp
-      float run = 0.f;
-#pragma unroll 16
-      for (int t = 0; t < kL; ++t) {
-        run = __fadd_rn(run, __fmul_rn(dtc[t], a_h));
-        cs[t] = run;
+  // C·Bᵀ where a key can be seen (k ≤ q): warp pair p takes row tiles p and
+  // kRT − 1 − p, its two warps alternate the 32-key column groups that the
+  // later tile sees (the earlier one shares those it sees too)
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t4 = lane & 3;
+  const int r0 = (warp >> 1) * 16, r1 = (kRT - 1 - (warp >> 1)) * 16;
+  float* cb = w.cb + (static_cast<long long>(b) * g.nc + c) * kL * kL;
+  for (int cg = warp & 1; cg * 32 < r1 + 16; cg += 2) {
+    const bool both = cg * 32 < r0 + 16;
+    float acc[2][4][4];
+    zero(acc[0]);
+    zero(acc[1]);
+    mma3x2<4, false, true>(acc[0], acc[1], Cs, LD, Bs, LD, r0, r1, cg * 32, both ? NP : 0, NP);
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      if (side == 0 && !both) continue;
+      const int r = side ? r1 : r0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = cg * 32 + 8 * j + 2 * t4;
+        *reinterpret_cast<float2*>(cb + (r + gq) * kL + k) =
+            make_float2(acc[side][j][0], acc[side][j][1]);
+        *reinterpret_cast<float2*>(cb + (r + gq + 8) * kL + k) =
+            make_float2(acc[side][j][2], acc[side][j][3]);
       }
     }
-    __syncthreads();
-    // the decay to the chunk's last real position: the very number its own
-    // cs holds, so that position's weight is exp(0) = 1 exactly (at large
-    // |dt·A| a rounding of cs_end against cs_k would scale it by exp(±ulp))
-    const float cs_end = cs[min(kL, g.S - s0) - 1];
-    if (tid < kL) {
-      ecs[tid] = expf(cs[tid]);
-      w[tid] = expf(cs_end - cs[tid]) * dtc[tid];
-    }
+  }
+}
 
-    {  // M, from C·Bᵀ computed key-major: out[k][q] = Σ_n B[k][n] C[q][n]
-      float acc[4][4] = {};
-      mma_tile(acc, Bn, BNS, 1, Ct, kCTS, NP, ty, tx);
+// ---- 2. per (b, h, chunk): the chunk's own state ------------------------------
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ Bm, const Geometry g, const Work w) {
+  extern __shared__ __align__(16) float smem[];
+  const int HP = g.HP, NP = g.NP, LX = HP + 8, LB = NP + 8;
+  float* xs = smem;              // [kL][LX]  x rows of the chunk
+  float* Bw = xs + kL * LX;      // [kL][LB]  B rows, then scaled by w
+  float* csS = Bw + kL * LB;     // [kL]
+  float* wS = csS + kL;          // [kL]      dt, then exp(cs_end − cs_k)·dt_k
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, s0 = c * kL, tid = threadIdx.x;
+  const int real = min(kL, g.S - s0);
+  const long long bch = (static_cast<long long>(b) * g.nc + c) * g.H + h;
+
+  stage(xs, LX, x + b * g.xs[0] + s0 * g.xs[1] + h * g.xs[2], g.xs[1], g.xs[3], kL, real, HP,
+        g.hd, g.vec & kVecX, false);
+  stage(Bw, LB, Bm + b * g.bs[0] + s0 * g.bs[1], g.bs[1], g.bs[2], kL, real, NP, g.N,
+        g.vec & kVecB, false);
+  stage(csS, 0, w.cs + bch * kL, 0, 1, 1, 1, kL, kL, true, false);
+  stage(wS, 0, dt + b * g.dts[0] + s0 * g.dts[1] + h * g.dts[2], 0, g.dts[1], 1, 1, kL, real,
+        false, false);
+  cp_async_wait_all();
+  __syncthreads();
+  if (tid < kL) wS[tid] = expf(csS[real - 1] - csS[tid]) * wS[tid];
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  // a warp scales whole rows, four columns a lane (NP ≤ 128)
+#pragma unroll 4
+  for (int k = warp; k < kL; k += kThreads / 32) {
+    const float wk = wS[k];
+    if (lane * 4 < NP) {
+      float4* r = reinterpret_cast<float4*>(Bw + k * LB + lane * 4);
+      const float4 v = *r;
+      *r = make_float4(v.x * wk, v.y * wk, v.z * wk, v.w * wk);
+    }
+  }
+  __syncthreads();
+
+  // state[d][n] = Σ_k x[k][d] (w_k B[k][n]): a warp owns 32 rows d x 32
+  // columns n, two row tiles sharing each B fragment
+  const int groups = NP / 32, items = (HP / 32) * groups;
+  float acc[2][2][4][4];          // up to two items a warp (hd 128)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int kk = ty * 4 + r;
+  for (int i = 0; i < 2; ++i) {
+    const int it = warp + i * (kThreads / 32);
+    zero(acc[i][0]);
+    zero(acc[i][1]);
+    if (it >= items) continue;
+    const int r0 = (it / groups) * 32, c0 = (it % groups) * 32;
+    mma3x2<4, true, false>(acc[i][0], acc[i][1], xs, LX, Bw, LB, r0, r0 + 16, c0, kL, kL);
+  }
+  // the state leaves through shared memory, so each warp writes whole rows
+  // of it with 16-byte stores
+  __syncthreads();
+  float* ot = smem;              // [HP][NP + 4]
+  const int LO = NP + 4;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qq = tx + 16 * j;
-          Mt[kk * kMTS + qq] = kk <= qq ? acc[r][j] * expf(cs[qq] - cs[kk]) * dtc[kk] : 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int it = warp + i * (kThreads / 32);
+    if (it >= items) continue;
+    const int r0 = (it / groups) * 32, c0 = (it % groups) * 32;
+    park(ot, LO, acc[i][0], acc[i][1], r0, r0 + 16, c0);
+  }
+  __syncthreads();
+  unpark(w.st + bch * g.hd * g.N, g.N, ot, LO, g.hd, g.N, g.vec & kVecSt);
+}
+
+// ---- 3. per (b, h) state element, in order over chunks ------------------------
+// V consecutive elements a thread; the loads of a group of kGroup chunks are
+// issued before any store, so they are in flight together.
+constexpr int kGroup = 16;
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+ssd_pass_kernel(const Geometry g, const Work w, float* __restrict__ state) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const long long hdN = static_cast<long long>(g.hd) * g.N;
+  const long long total = static_cast<long long>(g.Bsz) * g.H * hdN / V;
+  const long long per = hdN / V;
+  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long bh = e / per, r = e % per;
+    const long long b = bh / g.H, h = bh % g.H;
+    Vec* base = reinterpret_cast<Vec*>(w.st) + (b * g.nc * g.H + h) * per + r;
+    const long long step = static_cast<long long>(g.H) * per;   // one chunk
+    const float* dec = w.dec + b * g.nc * g.H + h;
+    float s[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[i] = 0.f;
+    for (int c0 = 0; c0 < g.nc; c0 += kGroup) {
+      Vec v[kGroup];
+      float dv[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        if (c0 + j < g.nc) {
+          v[j] = base[(c0 + j) * step];
+          dv[j] = dec[(c0 + j) * g.H];
         }
-      }
-    }
-    __syncthreads();
-
-    // y = exp(cs_q) C_q·S_in + M·x
-    for (int d0 = 0; d0 < HP; d0 += 64) {
-      float acc[4][4] = {};
-      mma_tile(acc, Ct, 1, kCTS, st + d0, HP, NP, ty, tx);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float e = ecs[ty * 4 + r];
+      for (int j = 0; j < kGroup; ++j)
+        if (c0 + j < g.nc) {
+          const float* vf = reinterpret_cast<const float*>(&v[j]);
+          Vec in;
+          float* inf = reinterpret_cast<float*>(&in);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] *= e;
-      }
-      mma_tile(acc, Mt, 1, kMTS, xs + d0, HP, kL, ty, tx);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int s = s0 + ty * 4 + r;
-        if (s >= g.S) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = d0 + tx + 16 * j;
-          if (d < g.hd) yb[s * y_row + d] = acc[r][j];
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < kL * NP; i += kThreads) {
-      const int kk = i / NP, n = i % NP;
-      Bn[kk * BNS + n] *= w[kk];
-    }
-    __syncthreads();
-
-    // S ← exp(cs_end) S + Σ_k (w_k B_k) ⊗ x_k
-    const float dec = expf(cs_end);
-    for (int n0 = 0; n0 < NP; n0 += 64) {
-      for (int d0 = 0; d0 < HP; d0 += 64) {
-        float acc[4][4] = {};
-        mma_tile(acc, Bn + n0, 1, BNS, xs + d0, HP, kL, ty, tx);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float* p = &st[(n0 + ty * 4 + r) * HP + d0 + tx + 16 * j];
-            *p = *p * dec + acc[r][j];
+          for (int i = 0; i < V; ++i) {
+            inf[i] = s[i];                          // the state entering chunk c
+            s[i] = fmaf(s[i], dv[j], vf[i]);
           }
-      }
+          base[(c0 + j) * step] = in;
+        }
     }
-    __syncthreads();
-  }
-
-  float* sb = state + (static_cast<long long>(b) * g.H + h) * g.hd * g.N;
-  for (int i = tid; i < g.hd * g.N; i += kThreads) {
-    const int d = i / g.N, n = i % g.N;
-    sb[i] = st[n * HP + d];
+    Vec out;
+    float* of = reinterpret_cast<float*>(&out);
+#pragma unroll
+    for (int i = 0; i < V; ++i) of[i] = s[i];
+    reinterpret_cast<Vec*>(state)[e] = out;
   }
 }
 
-}  // namespace
+// ---- 4. per (b, h, chunk): y = exp(cs_q) C_q·s_in + M·x -----------------------
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ Cm, float* __restrict__ y, const Geometry g,
+               const Work w) {
+  extern __shared__ __align__(16) float smem[];
+  const int HP = g.HP, NP = g.NP, LC = NP + 4, LM = kL + 4, LX = HP + 8;
+  const long long region = out_floats(HP, NP) - 2 * kL;
+  float* Cs = smem;              // phase 1: [kL][LC] C rows
+  float* Ss = Cs + kL * LC;      //          [HP][LC] s_in, Ss[d][n]
+  float* Ms = smem;              // phase 2: [kL][LM] M
+  float* xs = Ms + kL * LM;      //          [kL][LX] x rows
+  float* csS = smem + region;    // [kL]
+  float* dtS = csS + kL;         // [kL]
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, s0 = c * kL, tid = threadIdx.x;
+  const int real = min(kL, g.S - s0);
+  const long long bch = (static_cast<long long>(b) * g.nc + c) * g.H + h;
 
-// Dynamic shared memory a block takes for head size hd and state size N.
-extern "C" long long ssd_scan_smem_bytes(int hd, int N) {
-  return smem_floats(pad64(hd), pad64(N)) * static_cast<long long>(sizeof(float));
+  stage(Cs, LC, Cm + b * g.cs[0] + s0 * g.cs[1], g.cs[1], g.cs[2], kL, real, NP, g.N,
+        g.vec & kVecC, false);
+  stage(Ss, LC, w.st + bch * g.hd * g.N, g.N, 1, HP, g.hd, NP, g.N, g.vec & kVecSt, false);
+  stage(csS, 0, w.cs + bch * kL, 0, 1, 1, 1, kL, kL, true, false);
+  stage(dtS, 0, dt + b * g.dts[0] + s0 * g.dts[1] + h * g.dts[2], 0, g.dts[1], 1, 1, kL, real,
+        false, false);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // warp pair p takes row tiles p and kRT − 1 − p (equal causal work), its
+  // two warps alternate 32-column groups of the head dimension
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t4 = lane & 3;
+  const int groups = HP / 32;
+  const int r0 = (warp >> 1) * 16, r1 = (kRT - 1 - (warp >> 1)) * 16;
+  float acc[2][2][4][4];
+#pragma unroll
+  for (int side = 0; side < 2; ++side)
+#pragma unroll
+    for (int gi = 0; gi < 2; ++gi) zero(acc[side][gi]);
+  {
+    const float e[2][2] = {{expf(csS[r0 + gq]), expf(csS[r0 + gq + 8])},
+                           {expf(csS[r1 + gq]), expf(csS[r1 + gq + 8])}};
+#pragma unroll
+    for (int gi = 0; gi < 2; ++gi) {
+      const int cg = (warp & 1) + 2 * gi;
+      if (cg >= groups) continue;
+      mma3x2<4, false, true>(acc[0][gi], acc[1][gi], Cs, LC, Ss, LC, r0, r1, cg * 32, NP, NP);
+#pragma unroll
+      for (int side = 0; side < 2; ++side)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[side][gi][j][0] *= e[side][0];
+          acc[side][gi][j][1] *= e[side][0];
+          acc[side][gi][j][2] *= e[side][1];
+          acc[side][gi][j][3] *= e[side][1];
+        }
+    }
+  }
+  __syncthreads();
+
+  // M from the shared C·Bᵀ where a key can be seen, zero elsewhere
+  stage(Ms, LM, w.cb + (static_cast<long long>(b) * g.nc + c) * kL * kL, kL, 1, kL, kL, kL, kL,
+        true, true);
+  stage(xs, LX, x + b * g.xs[0] + s0 * g.xs[1] + h * g.xs[2], g.xs[1], g.xs[3], kL, real, HP,
+        g.hd, g.vec & kVecX, false);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int q = warp; q < kL; q += kThreads / 32) {
+    const float cq = csS[q];
+    for (int k = lane; k <= q; k += 32)
+      Ms[q * LM + k] = Ms[q * LM + k] * expf(cq - csS[k]) * dtS[k];
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int gi = 0; gi < 2; ++gi) {
+    const int cg = (warp & 1) + 2 * gi;
+    if (cg >= groups) continue;
+    mma3x2<4, false, false>(acc[0][gi], acc[1][gi], Ms, LM, xs, LX, r0, r1, cg * 32, r0 + 16,
+                            r1 + 16);
+  }
+  const long long y_row = static_cast<long long>(g.H) * g.hd;
+#pragma unroll
+  for (int gi = 0; gi < 2; ++gi) {
+    const int cg = (warp & 1) + 2 * gi;
+    if (cg >= groups) continue;
+#pragma unroll
+    for (int side = 0; side < 2; ++side)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = cg * 32 + 8 * j + 2 * t4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int s = s0 + (side ? r1 : r0) + gq + 8 * half;
+          if (s >= g.S) continue;
+          float* yr = y + (static_cast<long long>(b) * g.S + s) * y_row +
+                      static_cast<long long>(h) * g.hd;
+          if (d < g.hd) yr[d] = acc[side][gi][j][2 * half];
+          if (d + 1 < g.hd) yr[d + 1] = acc[side][gi][j][2 * half + 1];
+        }
+      }
+  }
 }
 
-// x (Bsz, S, H, hd), dt (Bsz, S, H), A (H,), Bm and Cm (Bsz, S, N), float32;
-// strides: 13 element strides, x (b, s, h, d), dt (b, s, h), Bm (b, s, n),
-// Cm (b, s, n); y: contiguous (Bsz, S, H, hd), state: contiguous
-// (Bsz, H, hd, N).  Returns cudaGetLastError() after the launch (or the
-// shared-memory opt-in's error).
-extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A, const void* Bm,
-                            const void* Cm, void* y, void* state, int Bsz, int S, int H,
-                            int hd, int N, const long long* strides, void* stream) {
-  if (Bsz == 0 || H == 0 || hd == 0 || N == 0) return static_cast<int>(cudaSuccess);
-  Geometry g;
-  g.S = S; g.H = H; g.hd = hd; g.N = N;
-  g.HP = pad64(hd);
-  g.NP = pad64(N);
+bool geometry(Geometry& g, int Bsz, int S, int H, int hd, int N, const long long* strides) {
+  g.Bsz = Bsz; g.S = S; g.H = H; g.hd = hd; g.N = N;
+  g.HP = pad32(hd);
+  g.NP = pad32(N);
+  g.nc = (S + kL - 1) / kL;
   for (int i = 0; i < 4; ++i) g.xs[i] = strides[i];
   for (int i = 0; i < 3; ++i) {
     g.dts[i] = strides[4 + i];
     g.bs[i] = strides[7 + i];
     g.cs[i] = strides[10 + i];
   }
-  const long long smem = smem_floats(g.HP, g.NP) * static_cast<long long>(sizeof(float));
-  const cudaError_t e = cudaFuncSetAttribute(
-      ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(H, Bsz);
-  ssd_kernel<<<grid, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const float*>(Bm), static_cast<const float*>(Cm), static_cast<float*>(y),
-      static_cast<float*>(state), g);
-  return static_cast<int>(cudaGetLastError());
+  return g.HP <= kMaxPad && g.NP <= kMaxPad;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, long long floats) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(floats * sizeof(float)));
+}
+
+}  // namespace
+
+// Float32 elements of the workspace a call needs.
+extern "C" long long ssd_scan_workspace_floats(int Bsz, int S, int H, int hd, int N) {
+  Geometry g;
+  const long long zeros[13] = {};
+  geometry(g, Bsz, S, H, hd, N, zeros);
+  g.vec = 0;
+  return ws_floats(g, nullptr, nullptr);
+}
+
+// x (Bsz, S, H, hd), dt (Bsz, S, H), A (H,), Bm and Cm (Bsz, S, N), float32;
+// strides: 13 element strides, x (b, s, h, d), dt (b, s, h), Bm (b, s, n),
+// Cm (b, s, n); y: contiguous (Bsz, S, H, hd), state: contiguous
+// (Bsz, H, hd, N); ws: ssd_scan_workspace_floats(...) float32 elements.
+// *launched is set to the number of CUDA launches the call made (4 when
+// S > 0; S == 0 runs the state pass alone).  Returns the first error of the
+// launches (cudaGetLastError() after each), or cudaErrorInvalidValue
+// without a launch for hd or N above 128.
+extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A, const void* Bm,
+                            const void* Cm, void* y, void* state, void* ws, int Bsz, int S,
+                            int H, int hd, int N, const long long* strides, void* stream,
+                            int* launched) {
+  *launched = 0;
+  if (Bsz == 0 || H == 0 || hd == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  Geometry g;
+  if (!geometry(g, Bsz, S, H, hd, N, strides) || Bsz > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto rows16 = [](const void* p, long long s_b, long long s_row, long long s_col) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s_col == 1 && s_b % 4 == 0 &&
+           s_row % 4 == 0;
+  };
+  g.vec = (rows16(x, g.xs[0], g.xs[1], g.xs[3]) && g.xs[2] % 4 == 0 ? kVecX : 0) |
+          (rows16(Bm, g.bs[0], g.bs[1], g.bs[2]) ? kVecB : 0) |
+          (rows16(Cm, g.cs[0], g.cs[1], g.cs[2]) ? kVecC : 0) | (N % 4 == 0 ? kVecSt : 0);
+  Work w;
+  ws_floats(g, &w, static_cast<float*>(ws));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const float* Bf = static_cast<const float*>(Bm);
+  const float* Cf = static_cast<const float*>(Cm);
+  cudaError_t e;
+  if (g.nc > 0) {
+    const long long f1 = prep_floats(g.NP), f2 = state_floats(g.HP, g.NP),
+                    f4 = out_floats(g.HP, g.NP);
+    if ((e = allow_smem(ssd_prep_kernel, f1)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = allow_smem(ssd_state_kernel, f2)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = allow_smem(ssd_out_kernel, f4)) != cudaSuccess) return static_cast<int>(e);
+    ssd_prep_kernel<<<dim3(g.nc, Bsz), kThreads, f1 * sizeof(float), s>>>(dtf, Af, Bf, Cf, g,
+                                                                           w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    ++*launched;
+    ssd_state_kernel<<<dim3(g.nc, H, Bsz), kThreads, f2 * sizeof(float), s>>>(xf, dtf, Bf, g,
+                                                                               w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    ++*launched;
+  }
+  const int v = (static_cast<long long>(hd) * N) % 4 == 0 ? 4 : 1;
+  const long long total = static_cast<long long>(Bsz) * H * hd * N / v;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  const unsigned grid = static_cast<unsigned>(blocks < 65535 ? blocks : 65535);
+  if (v == 4)
+    ssd_pass_kernel<4><<<grid, kThreads, 0, s>>>(g, w, static_cast<float*>(state));
+  else
+    ssd_pass_kernel<1><<<grid, kThreads, 0, s>>>(g, w, static_cast<float*>(state));
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  ++*launched;
+  if (g.nc > 0) {
+    ssd_out_kernel<<<dim3(g.nc, H, Bsz), kThreads, out_floats(g.HP, g.NP) * sizeof(float), s>>>(
+        xf, dtf, Cf, static_cast<float*>(y), g, w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    ++*launched;
+  }
+  return static_cast<int>(cudaSuccess);
 }

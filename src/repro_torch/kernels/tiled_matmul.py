@@ -15,17 +15,26 @@ transposed view or an expanded batch costs no copy), and takes the plain
 PyTorch version, `matmul_plain`, only for tensors on the CPU.  The plain
 version is ``a.float() @ b.float()``; on the card it is a full float32
 product only with TF32 off, which `repro_torch.device.resolve` sets.
+
+`plan` chooses the kernel's template from the operands' layout and shape,
+openly and before the launch: the stream templates (a ring of 16-byte
+asynchronous copies; tall 128-row tiles for M > 32, small 32-row tiles
+otherwise) take operands whose contiguous axis has unit stride and whose
+other strides and address are 16-byte aligned; every other layout takes
+the general template.  Every block walks the whole of K for its tile and
+writes it once, so a rerun gives the same bits.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-#: launches of the CUDA kernel since the last reset (the plain version on
-#: CPU tensors does not count)
+#: launches of the CUDA kernel since the last reset, one a call (the plain
+#: version on CPU tensors does not count)
 launches = 0
 
 #: dtype codes of the kernel's C interface
@@ -33,6 +42,40 @@ _DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 #: the kernel's grid puts the batch on its z axis
 _MAX_BATCH = 65535
 _INT_MAX = 2 ** 31 - 1
+
+#: the kernel's templates, by their codes in the C interface
+GENERAL, STREAM_TALL, STREAM_SMALL = 0, 1, 2
+TEMPLATES = {GENERAL: "general", STREAM_TALL: "stream_tall", STREAM_SMALL: "stream_small"}
+#: output tile (rows, columns) of each template
+TILES = {GENERAL: (64, 32), STREAM_TALL: (128, 32), STREAM_SMALL: (32, 32)}
+
+class Plan(NamedTuple):
+    """How one product is launched: the template, each operand's element
+    strides as passed (batch, row, column; an axis of extent 1 takes
+    whichever stride the template reads it with) and whether each operand's
+    contiguous axis is K.  Every block walks the whole of K."""
+    template: int
+    a_strides: tuple
+    b_strides: tuple
+    a_inner_k: bool
+    b_inner_k: bool
+
+    @property
+    def tile(self) -> tuple:
+        return TILES[self.template]
+
+    def grid(self, batch: int, M: int, N: int) -> tuple:
+        """The launch grid (x, y, z) = (column tiles, row tiles, batch), as
+        the C side computes it."""
+        bm, bn = self.tile
+        return (-(-N // bn), -(-M // bm), batch)
+
+    def block(self, x: int, y: int, z: int, M: int, N: int, K: int) -> tuple:
+        """The (batch entry, rows, columns, K range) block (x, y, z) of the
+        grid computes, as the kernel derives it from its indices."""
+        bm, bn = self.tile
+        n0, m0 = x * bn, y * bm
+        return z, range(m0, min(M, m0 + bm)), range(n0, min(N, n0 + bn)), range(0, K)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -77,20 +120,60 @@ def geometry(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return batch, M, N, K, strides(a), strides(b)
 
 
+def _stream_layout(strides: tuple, extents: tuple, itemsize: int, misalign: int):
+    """Whether an operand (batch, rows, columns) of these extents can be
+    streamed by 16-byte copies: returns ``(strides as passed, contiguous
+    axis is the columns)`` or None.  The contiguous axis needs unit stride,
+    the other strides a whole number of 16-byte chunks, the address 16-byte
+    alignment; an axis of extent 1 takes stride 1 as the contiguous axis and
+    0 otherwise."""
+    if misalign % 16:
+        return None
+    v = 16 // itemsize
+    for inner in (2, 1):                     # prefer the columns contiguous
+        s = list(strides)
+        for ax in (0, 1, 2):
+            if extents[ax] == 1:
+                s[ax] = 1 if ax == inner else 0
+        if s[inner] == 1 and all(s[ax] % v == 0 for ax in (0, 1, 2) if ax != inner):
+            return tuple(s), inner == 2
+    return None
+
+
+def plan(geom: tuple, a_itemsize: int, b_itemsize: int, a_misalign: int = 0,
+         b_misalign: int = 0) -> Plan:
+    """The launch of a product of `geometry` ``geom`` with operand element
+    sizes in bytes and their addresses' residues mod 16: a stream template
+    when both operands can be streamed (tall tiles for M > 32, small ones
+    otherwise), else the general template."""
+    batch, M, N, K, sa, sb = geom
+    a = _stream_layout(sa, (batch, M, K), a_itemsize, a_misalign)
+    # B's columns are N: its contiguous axis is K when it is the rows
+    b = _stream_layout(sb, (batch, K, N), b_itemsize, b_misalign)
+    if a is None or b is None:
+        return Plan(GENERAL, sa, sb, sa[2] == 1, sb[1] == 1 and sb[2] != 1)
+    template = STREAM_TALL if M > 32 else STREAM_SMALL
+    return Plan(template, a[0], b[0], a[1], not b[1])
+
+
 def _kernel(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     global launches
-    batch, M, N, K, sa, sb = geometry(a, b)
+    geom = geometry(a, b)
+    batch, M, N, K = geom[:4]
+    p = plan(geom, a.element_size(), b.element_size(), a.data_ptr() % 16, b.data_ptr() % 16)
     out = torch.empty((batch, M, N), dtype=torch.float32, device=a.device)
     fn = _build.load("tiled_matmul").tiled_matmul
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
                    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), _DTYPES[a.dtype], *sa, b.data_ptr(), _DTYPES[b.dtype], *sb,
-             out.data_ptr(), batch, M, N, K, stream)
+    err = fn(a.data_ptr(), _DTYPES[a.dtype], *p.a_strides, b.data_ptr(), _DTYPES[b.dtype],
+             *p.b_strides, out.data_ptr(), batch, M, N, K, p.template, int(p.a_inner_k),
+             int(p.b_inner_k), stream)
     if err != 0:
-        raise RuntimeError(f"tiled_matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"tiled_matmul kernel launch failed ({TEMPLATES[p.template]} "
+                           f"template): CUDA error {err}")
     launches += 1
     out = out if a.dim() == 3 or b.dim() == 3 else out[0]
     return out if out_dtype == torch.float32 else out.to(out_dtype)
@@ -100,9 +183,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``C = A @ B`` with float32 accumulation: (M, K) or (n, M, K) times
     (K, N) or (n, K, N), a 2-D operand broadcast over the other's batch.
-    Launches the CUDA kernel on CUDA tensors; CPU tensors take
-    `matmul_plain`."""
+    Launches the CUDA kernel on CUDA tensors (the template `plan` names);
+    CPU tensors take `matmul_plain`."""
     _check(a, b)
     if a.device.type == "cpu":
         return matmul_plain(a, b, out_dtype=out_dtype)
     return _kernel(a, b, out_dtype)
+

@@ -114,3 +114,69 @@ def test_cpu_tensors_take_the_plain_version_and_bad_inputs_raise():
         ss.ssd_scan(x.double(), dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="do not match"):
         ss.ssd_scan(x, dt[:, :8], A, Bm, Cm)
+
+
+#: kernel 6's gate on the card (chip_smoke.py, phase kernels_ssd)
+SSD_GATE = 1e-4
+#: (inputs, the plain version's chunk as the card's check passes it, the
+#: reference's chunk for `_ssd_chunked`, a divisor of S, and whether the
+#: inputs are well conditioned).  With decays of |dt·A| up to 1e3 a step the
+#: cumulative sums reach 1e4–1e5 and exp(cs_q − cs_k) is a difference of
+#: large float32 numbers: the plain version's 150-position chunks and the
+#: kernel's 128-position ones then round apart by up to about the gate
+#: whatever the products (here 0.88 of it with exact float32 products), so
+#: there the split is held to exact products instead of to half the gate.
+ARITH_CASES = {
+    "random": (dict(seed=21, B=2, S=300, H=3, hd=64, N=128), 256, 100, True),
+    "mixed decays, |cs| to 1e5": (dict(seed=22, B=2, S=300, H=2, hd=64, N=128, dt_scale=20.0,
+                                       a_scale=50.0), 256, 100, False),
+    "small heads, shared B and C": (dict(seed=23, B=2, S=64, H=3, hd=16, N=8), 16, 16, True),
+}
+
+
+def _fold(x, dt, A, B, C):
+    """(B, S, H, ·) as the reference kernel's folded (B·H, S, ·), each head a
+    row with its own copy of B and C."""
+    Bsz, S, H, hd = x.shape
+    rows = lambda t: np.repeat(t, H, axis=0)  # noqa: E731
+    return (x.transpose(0, 2, 1, 3).reshape(Bsz * H, S, hd),
+            dt.transpose(0, 2, 1).reshape(Bsz * H, S), np.tile(A, Bsz),
+            rows(B), rows(C))
+
+
+def _share(got, want):
+    """max|got − want| as a share of the gate on max|want|."""
+    return float((got - want).abs().max() / want.abs().max()) / SSD_GATE
+
+
+@pytest.mark.parametrize("case", sorted(ARITH_CASES))
+@pytest.mark.parametrize("products", ["split", "single"])
+def test_kernel_arithmetic_holds_the_chip_gate_only_with_split_products(case, products):
+    """The chunk-parallel kernel's arithmetic, emulated.  With split TF32
+    products: within 5 % of the card's gate (1e-4·max|·|) of the same
+    arithmetic with exact float32 products, in y and the final state; within
+    half the gate of the plain version on well-conditioned inputs and within
+    the gate on mixed decays (see ARITH_CASES); within the gate of the
+    reference's `_ssd_chunked` and sequential `ref.ssd_scan_ref`.  With one
+    TF32 product y leaves the gate."""
+    cfg, plain_chunk, ref_chunk, conditioned = ARITH_CASES[case]
+    cfg = dict(cfg)
+    seed = cfg.pop("seed")
+    args = _inputs(seed, **cfg)
+    t_args = [torch.tensor(a) for a in args]
+    y, s = ss.ssd_scan_emulated(*t_args, products=products)
+    yp, sp = ss.ssd_scan_plain(*t_args, chunk=plain_chunk)
+    if products == "single":
+        assert _share(y, yp) > 1.0, _share(y, yp)
+        return
+    ye, se = ss.ssd_scan_emulated(*t_args, products="exact")
+    assert _share(y, ye) <= 0.05 and _share(s, se) <= 0.05, (_share(y, ye), _share(s, se))
+    limit = 0.5 if conditioned else 1.0
+    assert _share(y, yp) <= limit and _share(s, sp) <= limit, (_share(y, yp), _share(s, sp))
+    y_ref, s_ref = (torch.tensor(np.asarray(a))
+                    for a in _ssd_chunked(*map(jnp.asarray, args), chunk=ref_chunk))
+    assert _share(y, y_ref) <= 1.0 and _share(s, s_ref) <= 1.0
+    y_seq = torch.tensor(np.asarray(ref.ssd_scan_ref(*map(jnp.asarray, _fold(*args)))))
+    y_fold = y.permute(0, 2, 1, 3).reshape(y_seq.shape)
+    assert _share(y_fold, y_seq) <= 1.0
+

@@ -1,6 +1,7 @@
 """The port's tiled matmul (`repro_torch.kernels.tiled_matmul`) and its
 `ops.basis_project` / `ops.glm_hessian` against the reference Pallas
-kernel in interpret mode, on the CPU.
+kernel in interpret mode, on the CPU; and the wrapper's launch plan (its
+template and grid) at the path's shapes.
 
 On the CPU the wrapper runs its plain version, ``a.float() @ b.float()``;
 the CUDA kernel is held against the same plain version and float64 on the
@@ -108,6 +109,96 @@ def test_kernel_geometry_addresses_every_operand_element(case):
     assert batch == (1 if case == "2d" else 5)
     assert torch.equal(a.as_strided((batch, M, K), sa), a.expand(batch, M, K))
     assert torch.equal(b.as_strided((batch, K, N), sb), b.expand(batch, K, N))
+    # the strides the plan passes reach the same elements, and its blocks
+    # cover the product once
+    p = tm.plan((batch, M, N, K, sa, sb), a.element_size(), b.element_size())
+    assert torch.equal(a.as_strided((batch, M, K), p.a_strides), a.expand(batch, M, K))
+    assert torch.equal(b.as_strided((batch, K, N), p.b_strides), b.expand(batch, K, N))
+    _assert_exact_cover(p, batch, M, N, K)
+
+
+def _assert_exact_cover(p, batch, M, N, K):
+    """The plan's grid computes every (batch, m, n, k) of the product exactly
+    once: per batch entry its blocks are the product of a partition of the
+    rows and one of the columns, each over the whole of K."""
+    gx, gy, gz = p.grid(batch, M, N)
+    assert gz == batch
+    blocks = {}
+    for z in range(gz):
+        for y in range(gy):
+            for x in range(gx):
+                b, mr, nr, kr = p.block(x, y, z, M, N, K)
+                assert len(mr) and len(nr) and (len(kr) or K == 0)
+                blocks.setdefault(b, []).append((mr, nr, kr))
+    assert sorted(blocks) == list(range(batch))
+
+    def partition(ranges, n):
+        ranges = sorted(set(ranges), key=lambda r: r.start)
+        assert [r.start for r in ranges] == [0] + [r.stop for r in ranges[:-1]]
+        assert ranges[-1].stop == n
+        return ranges
+
+    for parts in blocks.values():
+        ms = partition([mr for mr, _, _ in parts], M)
+        ns = partition([nr for _, nr, _ in parts], N)
+        ks = partition([kr for _, _, kr in parts], K) if K else [range(0)]
+        assert len(parts) == len(set(parts)) == len(ms) * len(ns) * len(ks)
+        # every block walks the whole of K
+        assert ks == [range(0, K)] or K == 0
+
+
+def _meta(*shape, dtype=torch.float64):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+#: products whose plan is checked: the kernel route's Γ = VᵀAV at fig2's and
+#: Newton-XL's widths, the reference sweep in three types and transposed,
+#: K = 1 and a broadcast operand
+PLAN_CASES = {
+    "newton-xl T": (lambda: (_meta(512, 1200, 1200), _meta(512, 1200, 32)), "stream_tall"),
+    "newton-xl G": (lambda: (_meta(512, 1200, 32).transpose(-1, -2),
+                             _meta(512, 1200, 32, dtype=torch.float32)), "stream_small"),
+    "fig2 T": (lambda: (_meta(10, 120, 120), _meta(10, 120, 24)), "stream_tall"),
+    "fig2 G": (lambda: (_meta(10, 120, 24).transpose(-1, -2),
+                        _meta(10, 120, 24, dtype=torch.float32)), "stream_small"),
+    "K = 1": (lambda: (_meta(128, 1), _meta(1, 7)), "stream_tall"),
+    "f64 few tiles": (lambda: (_meta(300, 500), _meta(500, 200)), "stream_tall"),
+    "f64 few tiles transposed": (lambda: (_meta(500, 300).T, _meta(200, 500).T), "stream_tall"),
+    "odd row length": (lambda: (_meta(513, 128), _meta(128, 255)), "general"),
+    "bf16 broadcast": (lambda: (_meta(3, 70, 90, dtype=torch.float32),
+                                _meta(90, 33, dtype=torch.bfloat16)), "general"),
+    "broadcast V": (lambda: (_meta(6, 96, 96), _meta(96, 8)), "stream_tall"),
+}
+for M, K, N in SWEEP:
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        PLAN_CASES[f"sweep {M}x{K}x{N} {dt}"] = (
+            lambda M=M, K=K, N=N, dt=dt: (_meta(M, K, dtype=dt), _meta(K, N, dtype=dt)), None)
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan_covers_every_element_once(case):
+    """The planner's template and grid at the path's shapes, the sweep,
+    K = 1 and broadcast operands: every (batch, m, n, k) computed once."""
+    make, template = PLAN_CASES[case]
+    a, b = make()
+    geom = tm.geometry(a, b)
+    p = tm.plan(geom, a.element_size(), b.element_size())
+    if template is not None:
+        assert tm.TEMPLATES[p.template] == template
+    _assert_exact_cover(p, *geom[:4])
+
+
+def test_plan_streams_only_aligned_layouts():
+    """A misaligned address, a row stride that is not a whole number of
+    16-byte chunks, or no unit-stride axis takes the general template."""
+    geom = tm.geometry(_meta(64, 64), _meta(64, 64))
+    assert tm.plan(geom, 8, 8).template == tm.STREAM_TALL
+    assert tm.plan(geom, 8, 8, a_misalign=8).template == tm.GENERAL
+    assert tm.plan(geom, 8, 8, b_misalign=4).template == tm.GENERAL
+    strided = tm.geometry(_meta(64, 128)[:, ::2], _meta(64, 64))
+    assert tm.plan(strided, 8, 8).template == tm.GENERAL
+    odd = tm.geometry(_meta(64, 65)[:, :64], _meta(64, 64))
+    assert tm.plan(odd, 8, 8).template == tm.GENERAL
 
 
 @pytest.mark.parametrize("shared_v", [False, True], ids=["per_client_V", "shared_V"])
