@@ -13,10 +13,12 @@ is non-zero and no result line is printed:
   1. device   — the card's name, and its name and power limit from nvidia-smi;
   2. build    — compile every CUDA source of the port (one nvcc each, in
                 parallel) from this checkout;
-  3. kernels  — the threshold kernel against its plain PyTorch version on the
-                card, bitwise, on the main path's shapes and on edge-case
-                rows, and timed beside its plain version, its library call
-                and its bound;
+  3. kernels  — the threshold kernel against its plain PyTorch version,
+                `torch.topk` and its radix select emulated in PyTorch on the
+                card, bitwise, on the main path's shapes, on edge-case rows
+                and on rows past its register path (staged in shared memory,
+                and re-read from global memory), and timed beside its plain
+                version, its library call and its bound;
   4. kernels_matmul — the tiled-matmul kernel against its plain version and
                 float64 (within 1e-5 of the larger magnitude of each), and
                 bitwise equal to itself on a second call, at the
@@ -44,16 +46,25 @@ is non-zero and no result line is printed:
                 problem on both routes, the kernel route held to the
                 float64 one within 2e-6, with seconds per round and peak
                 memory;
-  8. kernels_bldnn — the fused Top-K compress-sum kernel (bitwise) and the
-                basis-transform kernel (within 1e-5·max|ref| of its plain
-                version, 1e-6·max|ref| of float64) at BL-DNN's shapes and on
-                edge-case rows, timed at those shapes and at one larger one,
-                and the threshold kernel timed at the gradient leg's shapes;
+  8. kernels_bldnn — the fused Top-K compress-sum kernel (bitwise against
+                its plain version, the two-pass selection and its
+                selection rebuilt from the radix emulation, with the CUDA
+                launches each call made against its plan's: 1 on the
+                cluster path, 2 otherwise) and the basis-transform kernel
+                (within 1e-5·max|ref| of its plain version, 1e-6·max|ref| of
+                float64) at BL-DNN's shapes, at 1, 3 and 9 clients, on rows
+                too long for shared memory, on a misaligned stack, in the
+                forms its plan does not take at (8, 3072) and on edge-case
+                rows, timed at those shapes and at one larger one (beside
+                the two-launch form), and the threshold kernel timed at the
+                gradient leg's shapes; with --profile, each kernel's device
+                time there;
   9. fig-dnn / fig-dnn-ship — BL-DNN through
                 `repro_torch.fed.bldnn.run_bldnn` from the carried problem
                 (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
                 FedAvg, BLDNN_int8, BLDNN_dct and BLDNN_hadamard against
-                their artifacts under results/exp/.
+                their artifacts under results/exp/, with the compress-sum
+                kernel's CUDA launches (one a call on the 8-client path).
   10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
                 float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
@@ -120,6 +131,8 @@ GAP_RTOL, GAP_ATOL = 1e-8, 1e-12
 #: tensor cores (the kernel's operations are 32-bit integer compares/adds)
 HBM_BYTES_PER_S = 3.35e12
 OPS32_PER_S = 67e12
+#: the Top-K kernels' radix select: passes over the keys
+RADIX_PASSES = 4
 #: fig1-xl timing repeats (each a 1-round and a full run)
 XL_REPEATS = 5
 #: BL-DNN: rounds whose loss and error rate are held to the artifact
@@ -203,21 +216,53 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fns: dict, reps: int = 50) -> dict:
+    """Device time a call of each of `fns` (name → callable), by CUDA
+    kernel, from torch.profiler over `reps` calls after a warm-up call.  A
+    trace that holds no kernel (the profiler now and then records none) is
+    taken again, up to three times in all; an empty dict says it never
+    did."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            out[name] = {kernel_name(ev.key): ev.self_device_time_total / reps / 1e3
+                         for ev in prof.key_averages()
+                         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+            if out[name]:
+                break
+    return out
+
+
+def kernel_name(key: str) -> str:
+    """A profiler's kernel key without its return type, namespace and
+    parameter list."""
+    return key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+
+
 def threshold_bound_ms(rows: int, T: int) -> tuple:
     """Least time for the threshold of a (rows, T) f32 input: one read of
-    the input and one write of the (rows, 1) output, or 31 passes of a
-    compare and an add per element, whichever is larger."""
+    the input and one write of the (rows, 1) output, or the radix select's
+    passes of a compare and a count per element, whichever is larger."""
     bytes_ms = (rows * T * 4 + rows * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * 31 * rows * T / OPS32_PER_S * 1e3
+    ops_ms = 2 * RADIX_PASSES * rows * T / OPS32_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def compress_sum_bound_ms(n: int, T: int) -> tuple:
     """Least time for the fused compress-sum of an (n, T) f32 stack: read v
-    and write dense once, write the (T,) sum, or 31 compare+add passes over
-    the n·T keys, whichever is larger."""
+    and write dense once, write the (T,) sum, or the radix select's passes
+    of a compare and a count over the n·T keys, whichever is larger."""
     bytes_ms = (2 * n * T * 4 + T * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * 31 * n * T / OPS32_PER_S * 1e3
+    ops_ms = 2 * RADIX_PASSES * n * T / OPS32_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -397,9 +442,11 @@ def history_dict(hist) -> dict:
             "legs": hist.legs}
 
 
-def kernel_phase(torch, tk) -> dict:
-    """The threshold kernel against its plain version and torch.topk,
-    bitwise, then keep-masks from both thresholds; then its timings."""
+def kernel_phase(torch, tk, profile: bool) -> dict:
+    """The threshold kernel against its plain version, torch.topk and its
+    radix select emulated in PyTorch, bitwise (and the emulation's count
+    above the threshold against a direct count), then keep-masks from both
+    thresholds; then its timings (with `profile`, its device time)."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -422,6 +469,11 @@ def kernel_phase(torch, tk) -> dict:
                       ("subnormal", subn), ("neg_zero", negz)):
         for k in (1, 24, 300, 576):
             cases.append((name, torch.abs(dev(arr)).contiguous(), k))
+    # the longest register run, then rows staged in shared memory
+    # (T ≤ 12288) and re-read from global memory (T > 12288)
+    for T in LONG_ROWS:
+        for k in (1, T // 10, T):
+            cases.append((f"random4x{T}", dev(np.abs(rng.standard_normal((4, T)))), k))
 
     max_err = 0.0
     for name, a, k in cases:
@@ -429,10 +481,14 @@ def kernel_phase(torch, tk) -> dict:
         t_kernel = tk.topk_row_threshold(a, k)
         t_plain = tk.topk_row_threshold_plain(a, k)
         t_lib = torch.topk(a, kk, dim=1).values[:, -1:].contiguous()
+        t_emul, above = tk.topk_row_threshold_radix_emulated(a, k)
         torch.cuda.synchronize()
-        for other, label in ((t_plain, "plain"), (t_lib, "torch.topk")):
+        for other, label in ((t_plain, "plain"), (t_lib, "torch.topk"),
+                             (t_emul, "radix emulation")):
             if not torch.equal(t_kernel.view(torch.int32), other.view(torch.int32)):
                 raise AssertionError(f"threshold kernel != {label} on {name} k={k}")
+        if not torch.equal(above, (a > t_kernel).sum(dim=1, keepdim=True)):
+            raise AssertionError(f"radix emulation's count above t is off on {name} k={k}")
         m_kernel = tk.keep_mask(a, t_kernel, kk)
         if not torch.equal(m_kernel, tk.keep_mask(a, t_plain, kk)):
             raise AssertionError(f"keep_mask differs on {name} k={k}")
@@ -453,6 +509,9 @@ def kernel_phase(torch, tk) -> dict:
             "library_ms": cuda_ms(
                 torch, lambda: torch.topk(a, k, dim=1).values[:, -1:], 500),
             "bound_ms": bound, "bound_by": by}
+        if profile:
+            timings[path]["device_ms"] = device_ms(
+                torch, {"kernel": lambda: tk.topk_row_threshold(a, k)})["kernel"]
     return {"cases": len(cases), "max_abs_err": max_err, "timings": timings}
 
 
@@ -462,15 +521,45 @@ def kernel_phase(torch, tk) -> dict:
 DNN_STACKS = ((8, 3072, 307), (8, 2048, 204), (8, 2048, 204), (8, 128, 12))
 DNN_ROTATIONS = ((96, 96, 32, 32), (32, 32, 64, 64), (64, 64, 32, 32), (32, 32, 4, 4))
 LARGE_STACK = (512, 16384, 1638)
+#: kernel 2 at 1 and 3 clients (part of a cluster) and at 9 (two launches),
+#: and at the longest register run (17 keys a thread)
+EDGE_STACKS = ((1, 3072, 307), (3, 2048, 204), (9, 3072, 307), (2, 4352, 435))
+#: kernel 1 rows at the end of its register path (17 keys a thread), past
+#: it (staged in shared memory), and too long for shared memory (48 KB)
+LONG_ROWS = (4352, 5000, 20000)
 LARGE_ROTATION = (64, 1024, 1024, 1024, 1024)    # n, da, d1, d2, db
 
 
-def bldnn_kernel_phase(torch, tk, bt) -> dict:
+#: kernel 2 rows too long for shared memory (two launches, stage "global"),
+#: and a stack whose rows are odd-length and start one float past an
+#: aligned address, at 5 clients (cluster) and 9 (two launches)
+GLOBAL_STACK = (2, 50000, 5000)
+MISALIGNED_STACKS = ((5, 5001, 500), (9, 5001, 500))
+
+
+def emulated_dense(torch, tk, v, k: int):
+    """Kernel 2's selection rebuilt from the radix emulation: per row the
+    |v| above the emulated threshold and the earliest ties up to k − above
+    (its count of keys above)."""
+    kk = max(1, min(k, v.shape[1]))
+    a = v.abs()
+    t, above = tk.topk_row_threshold_radix_emulated(a, kk)
+    eq = a == t
+    return torch.where((a > t) | (eq & (eq.cumsum(dim=1) <= kk - above)), v, 0.0)
+
+
+def bldnn_kernel_phase(torch, tk, bt, profile: bool) -> dict:
     """The fused compress-sum kernel against its plain version (dense and
-    row-order sum bitwise) and the two-pass selection (dense bitwise), and
-    the basis-transform kernel against its plain version and float64;
-    then times at the path's shapes and at one larger shape each, and the
-    threshold kernel's time at the gradient leg's shapes."""
+    row-order sum bitwise), the two-pass selection and its selection
+    rebuilt from the radix emulation (dense bitwise), in the plan's form
+    and in every other form at (8, 3072), with its CUDA launches a call
+    against its plan's, and the basis-transform kernel
+    against its plain version and float64; then times at the path's shapes
+    and at one larger shape each, and the threshold kernel's time at the
+    gradient leg's shapes (with `profile`, the Top-K kernels' device
+    times)."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.core.compressors import TopK
@@ -482,7 +571,7 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
 
     tiny = np.finfo(np.float32).smallest_subnormal
     cases = []
-    for n, T, k in DNN_STACKS + ((4, 40, 10 ** 6),):
+    for n, T, k in DNN_STACKS + ((4, 40, 10 ** 6),) + EDGE_STACKS:
         infs = rng.standard_normal((n, T))
         infs[:, rng.integers(0, T, max(1, T // 16))] = np.inf
         infs[0, :3] = -np.inf
@@ -491,14 +580,48 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
                           ("zeros", np.zeros((n, T))),
                           ("inf", infs),
                           ("subnormal", rng.integers(-40, 41, (n, T)) * tiny)):
-            cases.append((f"{name}{n}x{T}", dev(arr), k))
+            cases.append((f"{name}{n}x{T}", dev(arr), k, None))
+    for n, T, k in (LARGE_STACK, GLOBAL_STACK):
+        cases.append((f"random{n}x{T}", dev(rng.standard_normal((n, T))), k, None))
+    for n, T, k in MISALIGNED_STACKS:
+        buf = dev(rng.standard_normal(n * T + 1))
+        cases.append((f"misaligned{n}x{T}", buf[1:].view(n, T), k, None))
+    # the forms the plan does not take at (8, 3072): two launches, and the
+    # row staged in shared memory (in a cluster and in two launches)
+    n, T, k = DNN_STACKS[0]
+    plan = tk.compress_sum_plan(n, T)
+    two = dataclasses.replace(plan, cluster=False, slice_cols=0)
+    for form, forced in (("two_launch", two),
+                         ("shared", dataclasses.replace(plan, stage="shared")),
+                         ("two_launch_shared", dataclasses.replace(two, stage="shared"))):
+        for name, arr in (("random", rng.standard_normal((n, T))),
+                          ("ties", rng.integers(-3, 4, (n, T)))):
+            cases.append((f"{name}{n}x{T}_{form}", dev(arr), k, forced))
     cs_err = 0.0
-    for name, v, k in cases:
-        dense, col_sum = tk.topk_compress_sum(v, k)
+    cs_launches = {}
+    cs_forms = {}
+    for name, v, k, forced in cases:
+        n, T = v.shape
+        plan = forced or tk.compress_sum_plan(n, T)
+        if forced is None and plan.cluster != (n <= tk.MAX_CLUSTER and T * 4 <= 160 * 1024):
+            raise AssertionError(f"{name}: a cluster launch exactly for ≤ 8 rows of ≤ 160 KB, "
+                                 f"yet the plan is {plan}")
+        made = tk.compress_sum_cuda_launches
+        if forced is None:
+            dense, col_sum = tk.topk_compress_sum(v, k)
+        else:
+            dense, col_sum = tk._compress_sum_kernel(v, max(1, min(k, T)), forced)
+        made = tk.compress_sum_cuda_launches - made
+        if made != plan.launches:
+            raise AssertionError(f"{name}: {made} CUDA launches, the plan says {plan.launches}")
+        cs_launches[name] = made
+        cs_forms[name] = f"{'cluster' if plan.cluster else 'two_launch'}/{plan.stage}"
         p_dense, p_sum = tk.topk_compress_sum_plain(v, k)
         two_pass, _ = TopK(k=k).compress(None, v)
+        e_dense = emulated_dense(torch, tk, v, k)
         torch.cuda.synchronize()
-        for other, what in ((p_dense, "plain dense"), (two_pass, "two-pass TopK.compress")):
+        for other, what in ((p_dense, "plain dense"), (two_pass, "two-pass TopK.compress"),
+                            (e_dense, "radix emulation's dense")):
             if not torch.equal(dense.view(torch.int32), other.view(torch.int32)):
                 raise AssertionError(f"topk_compress_sum != {what} on {name} k={k}")
         if not torch.equal(col_sum.view(torch.int32), p_sum.view(torch.int32)):
@@ -559,21 +682,42 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
             "plain_ms": cuda_ms(torch, lambda: tk.topk_row_threshold_plain(a, k), 10),
             "library_ms": cuda_ms(torch, lambda: torch.topk(a, k, dim=1).values[:, -1:], 200),
             "bound_ms": bound, "bound_by": by}
+        if profile:
+            th_times[f"{n}x{T}"]["device_ms"] = device_ms(
+                torch, {"kernel": lambda: tk.topk_row_threshold(a, k)})["kernel"]
     for n, T, k in sorted(set(DNN_STACKS)) + [LARGE_STACK]:
         v = dev(rng.standard_normal((n, T)))
         iters = 200 if n * T < 10 ** 6 else 20
         bound, by = compress_sum_bound_ms(n, T)
+        plan = tk.compress_sum_plan(n, T)
+        # the CUDA launches one call makes, as the C entry reports them
+        made = tk.compress_sum_cuda_launches
+        tk.topk_compress_sum(v, k)
+        made = tk.compress_sum_cuda_launches - made
+        if made != plan.launches:
+            raise AssertionError(f"{n}x{T}: {made} CUDA launches, the plan says {plan.launches}")
+        calls = {"plan": lambda: tk.topk_compress_sum(v, k)}
+        if plan.cluster:
+            # the same call in two launches: what the cluster form saves
+            two = dataclasses.replace(plan, cluster=False, slice_cols=0)
+            calls["two_launch"] = lambda two=two: tk._compress_sum_kernel(v, max(1, min(k, T)),
+                                                                          two)
 
         def two_pass():
             dense, _ = TopK(k=k).compress(None, v)
             return dense.sum(dim=0)
 
         cs_times[f"{n}x{T}"] = {
-            "shape": [n, T], "k": k,
-            "kernel_ms": cuda_ms(torch, lambda: tk.topk_compress_sum(v, k), iters),
+            "shape": [n, T], "k": k, "plan": dataclasses.asdict(plan),
+            "cuda_launches_per_call": made,
+            "kernel_ms": cuda_ms(torch, calls["plan"], iters),
+            "kernel_ms_forms": {form: cuda_ms(torch, fn, iters) for form, fn in calls.items()
+                                if form != "plan"},
             "plain_ms": cuda_ms(torch, lambda: tk.topk_compress_sum_plain(v, k), 10),
             "two_pass_ms": cuda_ms(torch, two_pass, iters),
             "bound_ms": bound, "bound_by": by}
+        if profile:
+            cs_times[f"{n}x{T}"]["device_ms"] = device_ms(torch, calls, 50 if iters > 20 else 10)
     for key, (A, g, B) in operands.items():
         n, da, d1, d2, db = key
         iters = 200 if d1 < 512 else 3
@@ -588,6 +732,7 @@ def bldnn_kernel_phase(torch, tk, bt) -> dict:
     del operands
     torch.cuda.empty_cache()
     return {"compress_sum_cases": len(cases), "compress_sum_max_abs_err": cs_err,
+            "compress_sum_cuda_launches": cs_launches, "compress_sum_forms": cs_forms,
             "basis_transform_max_abs_err": bt_err, "threshold_timings": th_times,
             "compress_sum_timings": cs_times, "basis_transform_timings": bt_times}
 
@@ -596,16 +741,20 @@ def drive(torch, k, run) -> tuple:
     """Drive one path, ``run()``, with every kernel's launch count reset
     just before it and read just after (``k`` holds the kernel modules
     ``tk``, ``tm``, ``bt``, ``fa``, ``ss``); returns (result, seconds,
-    launches by kernel).  Kernel 6's CUDA launches (``ss.cuda_launches``)
-    are reset too, for the caller to read."""
+    launches by kernel, with the CUDA launches of kernel 2's calls as
+    ``topk_compress_sum_cuda``).  Kernel 6's CUDA launches
+    (``ss.cuda_launches``) are reset too, for the caller to read."""
     torch.cuda.synchronize()
-    k.tk.launches = k.tk.compress_sum_launches = k.tm.launches = k.bt.launches = 0
+    k.tk.launches = k.tk.compress_sum_launches = k.tk.compress_sum_cuda_launches = 0
+    k.tm.launches = k.bt.launches = 0
     k.fa.launches = k.ss.launches = k.ss.cuda_launches = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, {"topk_row_threshold": k.tk.launches,
                                            "topk_compress_sum": k.tk.compress_sum_launches,
+                                           "topk_compress_sum_cuda":
+                                               k.tk.compress_sum_cuda_launches,
                                            "tiled_matmul": k.tm.launches,
                                            "basis_transform": k.bt.launches,
                                            "flash_attention": k.fa.launches,
@@ -1032,9 +1181,9 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
 
 
 #: substrings of the hand-written kernels' names in a profiler trace
-HAND_KERNELS = ("threshold", "select_rows", "column_sum", "tiled_matmul", "stream_kernel",
-                "basis_transform", "flash_kernel", "ssd_prep", "ssd_state", "ssd_pass",
-                "ssd_out")
+HAND_KERNELS = ("threshold", "select_rows", "column_sum", "compress_sum", "tiled_matmul",
+                "stream_kernel", "basis_transform", "flash_kernel", "ssd_prep", "ssd_state",
+                "ssd_pass", "ssd_out")
 
 
 def profile_run(torch, run, steps: int) -> dict:
@@ -1103,7 +1252,7 @@ def main(argv) -> int:
     emit({"phase": "build", "sources": list(SOURCES),
           "seconds": time.perf_counter() - t0})
 
-    kern = kernel_phase(torch, tk)
+    kern = kernel_phase(torch, tk, "--profile" in argv)
     emit({"phase": "kernels", "kernel": "topk_row_threshold", **kern})
     km = matmul_kernel_phase(torch, tm, ops)
     emit({"phase": "kernels_matmul", "kernel": "tiled_matmul", **km})
@@ -1233,7 +1382,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- BL-DNN kernels -------------------------------------------------------
-    kb = bldnn_kernel_phase(torch, tk, bt)
+    kb = bldnn_kernel_phase(torch, tk, bt, "--profile" in argv)
     emit({"phase": "kernels_bldnn", **kb})
 
     # ---- fig-dnn / fig-dnn-ship from the carried problem ---------------------
@@ -1255,6 +1404,9 @@ def main(argv) -> int:
         if cell.basis is not None:
             want["basis_transform"] = 4 * cell.steps
         need(f"{cell.experiment}/{cell.name}", counts, want)
+        if counts["topk_compress_sum_cuda"] != counts["topk_compress_sum"]:
+            raise AssertionError(f"{cell.experiment}/{cell.name}: the 8-client compress-sum "
+                                 f"should make one CUDA launch a call: {counts}")
         dnn_launches[cell.name] = counts
         emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps,
               "setup_s": setup_s, "run_s": secs, "s_per_round": secs / cell.steps,
@@ -1299,7 +1451,9 @@ def main(argv) -> int:
         "launches": main["topk_compress_sum"], "max_abs_err": kb["compress_sum_max_abs_err"],
         "ms": cs["kernel_ms"], "plain_ms": cs["plain_ms"], "bound_ms": cs["bound_ms"],
         "bound_by": cs["bound_by"], "library_ms": None,
-        "two_pass_ms": cs["two_pass_ms"], "shape": cs["shape"]}, {
+        "two_pass_ms": cs["two_pass_ms"], "shape": cs["shape"],
+        "cuda_launches": main["topk_compress_sum_cuda"],
+        "cuda_launches_per_call": cs["cuda_launches_per_call"]}, {
         "name": "tiled_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
         "replaces": "src/repro/kernels/tiled_matmul.py:70",

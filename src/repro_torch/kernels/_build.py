@@ -11,6 +11,7 @@ source, all at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -93,3 +94,13 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, *_start(name))
             lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, fn: str, argtypes: tuple, restype=ctypes.c_int):
+    """Entry point `fn` of ``csrc/<name>.cu`` with its ctypes prototype set,
+    once per process (setting it costs host time on every call)."""
+    f = getattr(load(name), fn)
+    f.argtypes = list(argtypes)
+    f.restype = restype
+    return f

@@ -5,8 +5,12 @@ On the CPU the wrapper runs its plain PyTorch version; the CUDA kernel is
 held against the same plain version on the card by chip_smoke.py.  Every
 comparison here is bitwise (int32 views), the reference's own contract:
 the threshold equals the k-th largest value and `keep_mask` keeps exactly
-k entries per row.
+k entries per row.  The kernels' radix select is held to the same
+thresholds through its PyTorch emulation, and the fused kernel's plan (one
+cluster launch or two) is checked for the columns its blocks sum.
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -197,3 +201,130 @@ def test_compress_sum_on_cpu_does_not_count_launches():
     before = ttk.compress_sum_launches
     ttk.topk_compress_sum(torch.from_numpy(_signed("random", 2, 16, seed=1)), 3)
     assert ttk.compress_sum_launches == before
+
+
+# --------------------------------------------------------------------------
+# the kernels' radix select, emulated in PyTorch, and the fused kernel's plan
+# --------------------------------------------------------------------------
+def _signed_zero_rows(rows: int, T: int, seed: int) -> np.ndarray:
+    """Non-negative rows with half their entries the pattern of -0.0."""
+    rng = np.random.default_rng(seed)
+    a = np.abs(rng.standard_normal((rows, T))).astype(np.float32)
+    a[rng.random((rows, T)) < 0.5] = -0.0
+    return a
+
+
+RADIX_CASES = [(kind, rows, T, k)
+               for kind, rows, T in (("random", 5, 300), ("random", 3, 1000),
+                                     ("ties", 4, 257), ("zeros", 2, 64), ("inf", 3, 300),
+                                     ("subnormal", 3, 300), ("neg_zero", 3, 300),
+                                     ("signed_zero", 3, 300))
+               for k in (1, T // 2, T)]
+
+
+def _radix_rows(kind: str, rows: int, T: int, seed: int) -> np.ndarray:
+    if kind == "signed_zero":
+        return _signed_zero_rows(rows, T, seed)
+    return _rows(kind, rows, T, seed)
+
+
+@pytest.mark.parametrize("kind,rows,T,k", RADIX_CASES)
+def test_radix_emulation_matches_plain_and_reference_bitwise(kind, rows, T, k):
+    """The kernels' four-pass radix select finds the plain version's and
+    the reference Pallas kernel's threshold, bit for bit (T is no multiple
+    of 256 but in the 64-key case; a -0.0 pattern counts as +0.0, as in
+    both)."""
+    a = _radix_rows(kind, rows, T, seed=rows * 1000 + T + k)
+    t_radix, _ = ttk.topk_row_threshold_radix_emulated(torch.from_numpy(a), k)
+    t_plain = ttk.topk_row_threshold_plain(torch.from_numpy(a), k)
+    t_pallas = jtk.topk_row_threshold(jnp.asarray(a), k, interpret=True)
+    assert t_radix.shape == (rows, 1) and t_radix.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(t_radix.numpy()), _bits(t_plain.numpy()))
+    np.testing.assert_array_equal(_bits(t_radix.numpy()), _bits(t_pallas))
+
+
+@pytest.mark.parametrize("kind,rows,T,k", RADIX_CASES)
+def test_radix_emulation_counts_keys_above_threshold(kind, rows, T, k):
+    """The count of keys above t that the passes accumulate (what the fused
+    kernel keeps before its ties) is the direct count."""
+    a = torch.from_numpy(_radix_rows(kind, rows, T, seed=rows * 1000 + T + k))
+    t, above = ttk.topk_row_threshold_radix_emulated(a, k)
+    assert above.shape == (rows, 1)
+    assert torch.equal(above, (a > t).sum(dim=1, keepdim=True))
+    assert bool((above < min(k, T)).all())
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 512])
+@pytest.mark.parametrize("T,fits", [(128, True), (3072, True), (16384, True), (5001, True),
+                                    (40960, True), (40961, False), (50000, False)])
+def test_compress_sum_plan_takes_one_cluster_launch_exactly_for_small_stacks(n, T, fits):
+    plan = ttk.compress_sum_plan(n, T)
+    assert plan.cluster == (n <= ttk.MAX_CLUSTER and fits)
+    assert plan.launches == (1 if plan.cluster else 2)
+    assert (plan.stage, plan.run) == ttk.row_stage(T, ttk._COMPRESS_SUM_SMEM_LIMIT)
+    assert (plan.stage == "global") == (not fits)
+    assert plan.slice_cols == (-(-T // n) if plan.cluster else 0)
+
+
+@pytest.mark.parametrize("T,smem_limit,stage", [
+    (1, 48 * 1024, "registers"), (576, 48 * 1024, "registers"), (3072, 48 * 1024, "registers"),
+    (17 * 256, 48 * 1024, "registers"), (17 * 256 + 1, 48 * 1024, "shared"),
+    (12288, 48 * 1024, "shared"), (12289, 48 * 1024, "global"),
+    (20000, 160 * 1024, "shared"), (50000, 160 * 1024, "global")])
+def test_row_stage_takes_registers_then_shared_then_global(T, smem_limit, stage):
+    """Both kernels' rows: runs of up to 17 keys a thread in registers, a
+    longer row staged in shared memory when it fits, else read from global
+    memory; the runs are odd and cover the row."""
+    got, run = ttk.row_stage(T, smem_limit)
+    assert got == stage
+    assert run % 2 == 1 and run * ttk.THREADS >= T and (run - 2) * ttk.THREADS < T
+    assert (run <= ttk.MAX_REGISTER_RUN) == (stage == "registers")
+
+
+@pytest.mark.parametrize("n,T", [(1, 3072), (3, 2048), (8, 3072), (8, 128), (8, 3), (7, 1030),
+                                 (5, 5001)])
+def test_cluster_column_slices_cover_columns_once_and_sum_in_row_order(n, T):
+    """Each cluster block sums its slice of columns over the rows in order
+    from +0.0: the slices cover every column exactly once, and the
+    slice-wise sums are bitwise the plain version's column sum, a column of
+    -0.0 included (it sums to +0.0)."""
+    plan = ttk.compress_sum_plan(n, T)
+    assert plan.cluster
+    cover = np.zeros(T, np.int64)
+    for c0, c1 in plan.column_slices():
+        assert 0 <= c0 <= c1 <= T
+        cover[c0:c1] += 1
+    assert (cover == 1).all()
+
+    v = _signed("random", n, T, seed=n * 31 + T)
+    v[:, T // 2] = -0.0
+    dense, col_sum = ttk.topk_compress_sum_plain(torch.from_numpy(v), T)
+    assert (_bits(dense[:, T // 2].numpy()) == _bits(np.float32(-0.0))).all()
+    sliced = torch.empty(T)
+    for c0, c1 in plan.column_slices():
+        acc = torch.zeros(c1 - c0)
+        for row in dense[:, c0:c1]:
+            acc = acc + row
+        sliced[c0:c1] = acc
+    np.testing.assert_array_equal(_bits(sliced.numpy()), _bits(col_sum.numpy()))
+    assert _bits(col_sum.numpy())[T // 2] == 0
+
+
+def test_bind_sets_the_prototype_once(monkeypatch):
+    """The wrappers' ctypes entry points are bound once per process, not
+    on every call."""
+    loads = []
+
+    class Entry:
+        argtypes = restype = None
+
+    def load(name):
+        loads.append(name)
+        return type("Lib", (), {"entry": Entry()})()
+
+    monkeypatch.setattr(_build, "load", load)
+    name = f"fake-{id(loads)}"
+    first = _build.bind(name, "entry", (ctypes.c_void_p, ctypes.c_int))
+    again = _build.bind(name, "entry", (ctypes.c_void_p, ctypes.c_int))
+    assert first is again and loads == [name]
+    assert first.argtypes == [ctypes.c_void_p, ctypes.c_int] and first.restype is ctypes.c_int
