@@ -50,21 +50,34 @@ is non-zero and no result line is printed:
                 its plain version, the two-pass selection and its
                 selection rebuilt from the radix emulation, with the CUDA
                 launches each call made against its plan's: 1 on the
-                cluster path, 2 otherwise) and the basis-transform kernel
-                (within 1e-5·max|ref| of its plain version, 1e-6·max|ref| of
-                float64) at BL-DNN's shapes, at 1, 3 and 9 clients, on rows
-                too long for shared memory, on a misaligned stack, in the
-                forms its plan does not take at (8, 3072) and on edge-case
-                rows, timed at those shapes and at one larger one (beside
-                the two-launch form), and the threshold kernel timed at the
-                gradient leg's shapes; with --profile, each kernel's device
-                time there;
+                cluster path, 2 otherwise) at BL-DNN's shapes, at 1, 3 and
+                9 clients, on rows too long for shared memory, on a
+                misaligned stack, in the forms its plan does not take at
+                (8, 3072) and on edge-case rows, timed at those shapes and
+                at one larger one (beside the two-launch form), and the
+                threshold kernel timed at the gradient leg's shapes; then
+                the basis-transform kernel (within 1e-5·max|ref| of its
+                plain version, 1e-6·max|ref| of float64) in its plan's form
+                (fused: one launch; two-stage: two) at BL-DNN's leaves with
+                A as rotate passes it (U.mT) and contiguous, at (64; 1024³)
+                in both layouts, at odd widths, one client, d1 = 8000 and
+                widths TMA cannot take, in the other form too where it runs
+                (bitwise equal), with each call's CUDA launches against its
+                form's and its distance to the kernel's arithmetic emulated
+                in PyTorch; the forms must refuse a stripe past shared
+                memory and odd widths on TMA; timed in both forms at the
+                leaves and at 1024² beside the plain version, the library
+                pair matmul(matmul(A, g), B), the float32 bound and the
+                3xTF32 bound, with the first leaf's device time; with
+                --profile, every kernel's device time there;
   9. fig-dnn / fig-dnn-ship — BL-DNN through
                 `repro_torch.fed.bldnn.run_bldnn` from the carried problem
                 (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
                 FedAvg, BLDNN_int8, BLDNN_dct and BLDNN_hadamard against
                 their artifacts under results/exp/, with the compress-sum
-                kernel's CUDA launches (one a call on the 8-client path).
+                and basis-transform kernels' CUDA launches (one a call on
+                the 8-client path); with --profile, the CUDA launches a
+                round of BLDNN.
   10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
                 float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
@@ -271,6 +284,15 @@ def basis_transform_bound_ms(n: int, da: int, d1: int, d2: int, db: int) -> tupl
     and out once, or 2n(da·d1·d2 + da·d2·db) operations at the f32 rate."""
     bytes_ms = (da * d1 + n * d1 * d2 + d2 * db + n * da * db) * 4 / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * n * (da * d1 * d2 + da * d2 * db) / OPS32_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def basis_transform_bound_tc_ms(n: int, da: int, d1: int, d2: int, db: int) -> tuple:
+    """Least time for the same work as kernel 4 does it: the bytes of A, g,
+    B and out once, or three TF32 products of 2n(da·d1·d2 + da·d2·db)
+    operations each at the TF32 tensor-core rate, whichever is larger."""
+    bytes_ms = (da * d1 + n * d1 * d2 + d2 * db + n * da * db) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = TF32_SPLIT_PRODUCTS * 2 * n * (da * d1 * d2 + da * d2 * db) / TF32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -548,16 +570,14 @@ def emulated_dense(torch, tk, v, k: int):
     return torch.where((a > t) | (eq & (eq.cumsum(dim=1) <= kk - above)), v, 0.0)
 
 
-def bldnn_kernel_phase(torch, tk, bt, profile: bool) -> dict:
+def bldnn_kernel_phase(torch, tk, profile: bool) -> dict:
     """The fused compress-sum kernel against its plain version (dense and
     row-order sum bitwise), the two-pass selection and its selection
     rebuilt from the radix emulation (dense bitwise), in the plan's form
     and in every other form at (8, 3072), with its CUDA launches a call
-    against its plan's, and the basis-transform kernel
-    against its plain version and float64; then times at the path's shapes
-    and at one larger shape each, and the threshold kernel's time at the
-    gradient leg's shapes (with `profile`, the Top-K kernels' device
-    times)."""
+    against its plan's; then its times at the path's shapes and at one
+    larger shape, and the threshold kernel's time at the gradient leg's
+    shapes (with `profile`, the Top-K kernels' device times)."""
     import dataclasses
 
     import numpy as np
@@ -635,43 +655,7 @@ def bldnn_kernel_phase(torch, tk, bt, profile: bool) -> dict:
             if bool(((col_sum - dense.sum(dim=0)).abs() > ulps).any()):
                 raise AssertionError(f"col_sum leaves n·ulp of dense.sum(0) on {name}")
 
-    bt_err = {"plain": 0.0, "f64": 0.0, "plain_rel": 0.0, "f64_rel": 0.0}
-    rotations = [(8,) + r for r in DNN_ROTATIONS] + [LARGE_ROTATION]
-    operands = {}
-    for n, da, d1, d2, db in rotations:
-        if d1 >= 512:
-            # a basis is orthogonal: random orthogonal factors at the large shape
-            A = torch.linalg.qr(torch.randn((da, d1), device="cuda", dtype=torch.float64))[0]
-            B = torch.linalg.qr(torch.randn((d2, db), device="cuda", dtype=torch.float64))[0]
-            A, B = A.float().contiguous(), B.float().contiguous()
-            g = torch.randn((n, d1, d2), device="cuda", dtype=torch.float32)
-        else:
-            A, g, B = (dev(rng.standard_normal(s)) for s in ((da, d1), (n, d1, d2), (d2, db)))
-        operands[(n, da, d1, d2, db)] = (A, g, B)
-        out = bt.basis_transform(A, g, B)
-        plain = bt.basis_transform_plain(A, g, B)
-        ref = torch.einsum("ab,nbc,cd->nad", A.double(), g.double(), B.double())
-        torch.cuda.synchronize()
-        scale = float(ref.abs().max())
-        e_plain = float((out - plain).abs().max())
-        e_f64 = float((out.double() - ref).abs().max())
-        if e_plain > BT_TOL_PLAIN * scale or e_f64 > BT_TOL_F64 * scale:
-            raise AssertionError(
-                f"basis_transform at {(n, da, d1, d2, db)}: |Δ plain| {e_plain}, "
-                f"|Δ f64| {e_f64}, max|ref| {scale}")
-        bt_err["plain"] = max(bt_err["plain"], e_plain)
-        bt_err["f64"] = max(bt_err["f64"], e_f64)
-        bt_err["plain_rel"] = max(bt_err["plain_rel"], e_plain / scale)
-        bt_err["f64_rel"] = max(bt_err["f64_rel"], e_f64 / scale)
-    try:
-        bt.basis_transform(*(torch.zeros(s, device="cuda") for s in
-                             ((8, 8000), (1, 8000, 64), (64, 8))))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("basis_transform took rows that do not fit shared memory")
-
-    cs_times, bt_times, th_times = {}, {}, {}
+    cs_times, th_times = {}, {}
     for n, T, k in sorted(set(DNN_STACKS)):
         # the gradient leg's threshold alone: |v| of one leaf's stack
         a = torch.abs(dev(rng.standard_normal((n, T)))).contiguous()
@@ -718,35 +702,198 @@ def bldnn_kernel_phase(torch, tk, bt, profile: bool) -> dict:
             "bound_ms": bound, "bound_by": by}
         if profile:
             cs_times[f"{n}x{T}"]["device_ms"] = device_ms(torch, calls, 50 if iters > 20 else 10)
-    for key, (A, g, B) in operands.items():
-        n, da, d1, d2, db = key
-        iters = 200 if d1 < 512 else 3
-        bound, by = basis_transform_bound_ms(n, da, d1, d2, db)
-        bt_times[f"{n}x{da}x{d1}x{d2}x{db}"] = {
-            "shape": list(key),
-            "kernel_ms": cuda_ms(torch, lambda: bt.basis_transform(A, g, B), iters, warmup=2),
-            "plain_ms": cuda_ms(torch, lambda: bt.basis_transform_plain(A, g, B), iters, warmup=2),
-            "library_ms": cuda_ms(torch, lambda: torch.matmul(torch.matmul(A, g), B), iters,
-                                  warmup=2),
-            "bound_ms": bound, "bound_by": by}
-    del operands
-    torch.cuda.empty_cache()
     return {"compress_sum_cases": len(cases), "compress_sum_max_abs_err": cs_err,
             "compress_sum_cuda_launches": cs_launches, "compress_sum_forms": cs_forms,
-            "basis_transform_max_abs_err": bt_err, "threshold_timings": th_times,
-            "compress_sum_timings": cs_times, "basis_transform_timings": bt_times}
+            "threshold_timings": th_times, "compress_sum_timings": cs_times}
+
+
+#: kernel 4 beyond the path's leaves: odd widths, one client (its A read
+#: from its transpose, as rotate passes U.mT), a long K (d1 = 8000, the
+#: two-stage form; the fused form runs it too), widths TMA cannot take and
+#: a path leaf whose gᵢ starts one float past 16 bytes (both the fused form
+#: by cp.async), each (n, da, d1, d2, db, A transposed, g offset)
+BT_EXTRA = ((8, 5, 7, 3, 6, False, False), (1, 96, 96, 32, 32, True, False),
+            (1, 8, 8000, 64, 8, False, False), (3, 130, 70, 200, 9, False, False),
+            (8, 96, 96, 32, 32, True, True))
+#: forms and loaders the operands cannot take, which must raise: a stripe
+#: past a fused block's shared memory, odd widths on the two-stage form,
+#: and TMA for a gᵢ that starts one float past 16 bytes, fused and
+#: two-stage; each (n, da, d1, d2, db, form, loader, g offset)
+BT_REFUSED = ((2, 16, 16, 4096, 16, "fused", "cp_async", False),
+              (8, 5, 7, 3, 6, "two_stage", "tma", False),
+              (8, 96, 96, 32, 32, "fused", "tma", True),
+              (1, 8, 8000, 64, 8, "two_stage", "tma", True))
+
+
+def basis_transform_phase(torch, bt, profile: bool) -> dict:
+    """Kernel 4 through its wrapper, `basis_transform`, in the form and
+    loader its plan takes, against its plain version (within
+    BT_TOL_PLAIN·max|ref|) and float64 (BT_TOL_F64·max|ref|), at the path's
+    leaves with A as rotate passes it (U.mT) and contiguous (TMA asserted
+    there), at 1024² (both layouts) and at BT_EXTRA; where the other form
+    can run (the path's leaves, 1024², d1 = 8000), that form too, forced,
+    bitwise equal to the plan's; the CUDA launches of each call against
+    its form's; the distance to its arithmetic emulated in PyTorch; the
+    refusals of BT_REFUSED.  Then times the wrapper at the path's leaves
+    (U.mT) and at 1024², and the other form forced, beside the plain
+    version, `matmul(matmul(A, g), B)` and both bounds, with the device
+    time of the first leaf's call (with `profile`, of every timed call).
+    Fails where a time falls under the 3xTF32 bound, and where at 1024²
+    the plan's form is slower than the library pair or than the other form
+    (the two-stage form's reason to be)."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+
+    def operands(n, da, d1, d2, db, transposed, offset=False):
+        if d1 >= 512 and da == d1 and d2 == db:
+            # a basis is orthogonal: random orthogonal factors at the large shape
+            A = torch.linalg.qr(torch.randn((da, d1), device="cuda", dtype=torch.float64))[0]
+            B = torch.linalg.qr(torch.randn((d2, db), device="cuda", dtype=torch.float64))[0]
+            A, B = A.float(), B.float().contiguous()
+            g = torch.randn((n, d1, d2), device="cuda", dtype=torch.float32)
+        else:
+            A, g, B = (torch.as_tensor(rng.standard_normal(s).astype(np.float32), device="cuda")
+                       for s in ((da, d1), (n, d1, d2), (d2, db)))
+        # A as rotate passes it: the transpose of a contiguous U
+        A = A.T.contiguous().T if transposed else A.contiguous()
+        if offset:   # gᵢ one float past 16 bytes
+            g = torch.cat([g.new_zeros(1), g.flatten()])[1:].view(g.shape)
+        return A, g, B
+
+    def forced(p, form, loader):
+        return dataclasses.replace(p, form=form, bm=bt.BM[form], loader=loader)
+
+    def other_form(p):
+        if p.form == bt.FUSED:
+            return forced(p, bt.TWO_STAGE, bt.TMA)
+        return forced(p, bt.FUSED, p.loader)
+
+    def counted(fn):
+        """One call of fn, and the CUDA launches it made."""
+        made = bt.cuda_launches
+        out = fn()
+        return out, bt.cuda_launches - made
+
+    path = [(8,) + r for r in DNN_ROTATIONS]
+    cases = ([(s, True, False, True) for s in path] + [(s, False, False, True) for s in path]
+             + [(LARGE_ROTATION, False, False, True), (LARGE_ROTATION, True, False, False)]
+             + [(s[:5], s[5], s[6], s[2] == 8000) for s in BT_EXTRA])
+    err = {"plain": 0.0, "f64": 0.0, "plain_rel": 0.0, "f64_rel": 0.0, "emulated_rel": 0.0}
+    results = {}
+    for shape, transposed, offset, both in cases:
+        A, g, B = operands(*shape, transposed, offset)
+        p = bt.plan(*shape, transposed, not offset)
+        name = "x".join(map(str, shape)) + ("_At" if transposed else "") + ("_g+1" if offset
+                                                                            else "")
+        if bt.plan(*shape, bt._transposed(A), bt._aligned(A, g, B)) != p:
+            raise AssertionError(f"basis_transform {name}: the wrapper plans otherwise")
+        if shape in path and not offset and p.loader != bt.TMA:
+            raise AssertionError(f"basis_transform {name}: a path leaf loads by {p.loader}")
+        runs = {p.form: counted(lambda: bt.basis_transform(A, g, B))}
+        if both:
+            q = other_form(p)
+            runs[q.form] = counted(lambda: bt._kernel(A, g, B, q))
+        plain = bt.basis_transform_plain(A, g, B)
+        ref = torch.einsum("ab,nbc,cd->nad", A.double(), g.double(), B.double())
+        emulated = bt.basis_transform_emulated(A, g, B)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        rec = {"shape": list(shape), "a_transposed": transposed, "g_offset": offset,
+               "form": p.form, "loader": p.loader, "cuda_launches": {}}
+        for form, (out, made) in runs.items():
+            want = 1 if form == bt.FUSED else 2
+            if made != want:
+                raise AssertionError(f"basis_transform {name} ({form}): {made} CUDA launches, "
+                                     f"its form makes {want}")
+            e_plain = float((out - plain).abs().max())
+            e_f64 = float((out.double() - ref).abs().max())
+            if e_plain > BT_TOL_PLAIN * scale or e_f64 > BT_TOL_F64 * scale:
+                raise AssertionError(f"basis_transform {name} ({form}): |Δ plain| {e_plain}, "
+                                     f"|Δ f64| {e_f64}, max|ref| {scale}")
+            e_emul = float((out - emulated).abs().max()) / scale
+            rec["cuda_launches"][form] = made
+            rec[f"rel_err_{form}"] = {"plain": e_plain / scale, "f64": e_f64 / scale,
+                                      "emulated": e_emul}
+            for key, val in (("plain", e_plain), ("f64", e_f64), ("plain_rel", e_plain / scale),
+                             ("f64_rel", e_f64 / scale), ("emulated_rel", e_emul)):
+                err[key] = max(err[key], val)
+        if both:
+            (a, _), (b, _) = runs.values()
+            rec["forms_bitwise"] = bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+            if not rec["forms_bitwise"]:
+                raise AssertionError(f"basis_transform {name}: the fused and two-stage forms "
+                                     f"differ (same products, same order)")
+        results[name] = rec
+    refused = []
+    for n, da, d1, d2, db, form, loader, offset in BT_REFUSED:
+        A, g, B = operands(n, da, d1, d2, db, False, offset)
+        try:
+            bt._kernel(A, g, B, forced(bt.plan(n, da, d1, d2, db), form, loader))
+        except ValueError:
+            refused.append([n, da, d1, d2, db, form, loader, offset])
+        else:
+            raise AssertionError(f"basis_transform's {form} form by {loader} took "
+                                 f"{(n, da, d1, d2, db)}" + (" with gᵢ off 16 bytes" if offset
+                                                             else ""))
+
+    timings = {}
+    for shape, transposed in [(s, True) for s in path] + [(LARGE_ROTATION, False)]:
+        A, g, B = operands(*shape, transposed)
+        p = bt.plan(*shape, transposed)
+        q = other_form(p)
+        large = shape == LARGE_ROTATION
+        iters = 200 if not large else 5
+        _, made = counted(lambda: bt.basis_transform(A, g, B))
+        bound, by = basis_transform_bound_tc_ms(*shape)
+        bound_f32, by_f32 = basis_transform_bound_ms(*shape)
+        calls = {p.form: lambda: bt.basis_transform(A, g, B),
+                 q.form: lambda: bt._kernel(A, g, B, q),
+                 "library": lambda: torch.matmul(torch.matmul(A, g), B)}
+        kernel_ms = cuda_ms(torch, calls[p.form], iters, warmup=2)
+        rec = {
+            "shape": list(shape), "a_transposed": transposed, "form": p.form,
+            "loader": p.loader, "cuda_launches_per_call": made, "kernel_ms": kernel_ms,
+            "kernel_ms_forms": {q.form: cuda_ms(torch, calls[q.form], 2 if large else iters,
+                                                warmup=1)},
+            "plain_ms": cuda_ms(torch, lambda: bt.basis_transform_plain(A, g, B), iters // 2 + 1,
+                                warmup=2),
+            "library_ms": cuda_ms(torch, calls["library"], iters, warmup=2),
+            # the kernel's three split TF32 products on the tensor cores;
+            # float32 FMAs on the CUDA cores, which the kernel does not use
+            # and so may beat
+            "bound_ms": bound, "bound_by": by, "share": bound / kernel_ms,
+            "bound_tf32x3_ms": bound,
+            "bound_f32_ms": bound_f32, "bound_f32_by": by_f32, "share_f32": bound_f32 / kernel_ms}
+        if rec["share"] > 1.0:
+            raise AssertionError(f"basis_transform ran under a bound it cannot beat: {rec}")
+        if large and not kernel_ms <= min(rec["library_ms"], rec["kernel_ms_forms"][q.form]):
+            raise AssertionError(f"basis_transform at {shape}: the plan's {p.form} form "
+                                 f"({kernel_ms} ms) is slower than the library pair or the "
+                                 f"{q.form} form: {rec}")
+        if profile or shape == path[0]:
+            dev = device_ms(torch, calls, 5 if large else 50)
+            rec["device_ms"] = {call_name: sum(by_kernel.values()) if by_kernel else None
+                                for call_name, by_kernel in dev.items()}
+            rec["device_ms_by_kernel"] = dev
+        timings["x".join(map(str, shape))] = rec
+    return {"basis_transform_cases": results, "basis_transform_max_abs_err": err,
+            "basis_transform_refused": refused, "basis_transform_timings": timings}
 
 
 def drive(torch, k, run) -> tuple:
     """Drive one path, ``run()``, with every kernel's launch count reset
     just before it and read just after (``k`` holds the kernel modules
     ``tk``, ``tm``, ``bt``, ``fa``, ``ss``); returns (result, seconds,
-    launches by kernel, with the CUDA launches of kernel 2's calls as
-    ``topk_compress_sum_cuda``).  Kernel 6's CUDA launches
-    (``ss.cuda_launches``) are reset too, for the caller to read."""
+    launches by kernel, with the CUDA launches of kernel 2's and kernel 4's
+    calls as ``topk_compress_sum_cuda`` and ``basis_transform_cuda``).
+    Kernel 6's CUDA launches (``ss.cuda_launches``) are reset too, for the
+    caller to read."""
     torch.cuda.synchronize()
     k.tk.launches = k.tk.compress_sum_launches = k.tk.compress_sum_cuda_launches = 0
-    k.tm.launches = k.bt.launches = 0
+    k.tm.launches = k.bt.launches = k.bt.cuda_launches = 0
     k.fa.launches = k.ss.launches = k.ss.cuda_launches = 0
     t0 = time.perf_counter()
     out = run()
@@ -757,6 +904,7 @@ def drive(torch, k, run) -> tuple:
                                                k.tk.compress_sum_cuda_launches,
                                            "tiled_matmul": k.tm.launches,
                                            "basis_transform": k.bt.launches,
+                                           "basis_transform_cuda": k.bt.cuda_launches,
                                            "flash_attention": k.fa.launches,
                                            "ssd_scan": k.ss.launches}
 
@@ -1187,9 +1335,9 @@ HAND_KERNELS = ("threshold", "select_rows", "column_sum", "compress_sum", "tiled
 
 
 def profile_run(torch, run, steps: int) -> dict:
-    """Device time by CUDA kernel, and host time by operator, over
-    `run()`, a `steps`-round run (torch.profiler; a first profiled run
-    warms the profiler up)."""
+    """Device time by CUDA kernel, the CUDA launches (kernels, copies and
+    sets), and host time by operator, over `run()`, a `steps`-round run
+    (torch.profiler; a first profiled run warms the profiler up)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1208,7 +1356,9 @@ def profile_run(torch, run, steps: int) -> dict:
     host = sorted(((ev.self_cpu_time_total, ev.key, ev.count) for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0),
                   reverse=True)
+    launched = sum(r[2] for r in rows)
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "cuda_launches": launched, "cuda_launches_per_step": launched / steps,
             "top": [{"name": k[:100], "device_ms": us / 1e3, "calls": c}
                     for us, k, c in rows[:15]],
             "hand_kernels": [{"name": k[:100], "device_ms": us / 1e3, "calls": c}
@@ -1382,7 +1532,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- BL-DNN kernels -------------------------------------------------------
-    kb = bldnn_kernel_phase(torch, tk, bt, "--profile" in argv)
+    kb = bldnn_kernel_phase(torch, tk, "--profile" in argv)
+    kb.update(basis_transform_phase(torch, bt, "--profile" in argv))
     emit({"phase": "kernels_bldnn", **kb})
 
     # ---- fig-dnn / fig-dnn-ship from the carried problem ---------------------
@@ -1407,6 +1558,9 @@ def main(argv) -> int:
         if counts["topk_compress_sum_cuda"] != counts["topk_compress_sum"]:
             raise AssertionError(f"{cell.experiment}/{cell.name}: the 8-client compress-sum "
                                  f"should make one CUDA launch a call: {counts}")
+        if counts["basis_transform_cuda"] != counts["basis_transform"]:
+            raise AssertionError(f"{cell.experiment}/{cell.name}: every leaf's rotation "
+                                 f"should be one fused CUDA launch: {counts}")
         dnn_launches[cell.name] = counts
         emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps,
               "setup_s": setup_s, "run_s": secs, "s_per_round": secs / cell.steps,
@@ -1433,6 +1587,7 @@ def main(argv) -> int:
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]
     bt_path = kb["basis_transform_timings"]["8x96x96x32x32"]
+    bt_large = kb["basis_transform_timings"]["x".join(map(str, LARGE_ROTATION))]
     mm, mg = km["timings"]["newton-xl/T"], km["timings"]["newton-xl/G"]
     fg, fw = ka["timings"]["global"], ka["timings"]["window1024"]
     sd = ks["timing"]
@@ -1474,7 +1629,19 @@ def main(argv) -> int:
         "max_abs_err": kb["basis_transform_max_abs_err"]["plain"],
         "ms": bt_path["kernel_ms"], "plain_ms": bt_path["plain_ms"],
         "bound_ms": bt_path["bound_ms"], "bound_by": bt_path["bound_by"],
-        "library_ms": bt_path["library_ms"], "shape": bt_path["shape"]}, {
+        "library_ms": bt_path["library_ms"], "shape": bt_path["shape"],
+        "bound_f32_ms": bt_path["bound_f32_ms"],
+        "a_transposed": bt_path["a_transposed"], "form": bt_path["form"],
+        "loader": bt_path["loader"],
+        "cuda_launches": main["basis_transform_cuda"],
+        "cuda_launches_per_call": bt_path["cuda_launches_per_call"],
+        "device_ms": bt_path["device_ms"][bt_path["form"]],
+        "library_device_ms": bt_path["device_ms"]["library"],
+        "bound_tf32x3_ms": bt_path["bound_tf32x3_ms"],
+        "large": {key: bt_large[key] for key in (
+            "shape", "form", "loader", "kernel_ms", "kernel_ms_forms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_tf32x3_ms", "bound_f32_ms",
+            "cuda_launches_per_call")}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",

@@ -144,11 +144,14 @@ def quantize_ship_factor(M: torch.Tensor, ship: comm.BasisShipSpec
 
 def _two_sided(A: torch.Tensor, g: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """One rotated leaf, ``(A @ g) @ B``.  A client-stacked float32 leaf on
-    the card goes through the `basis_transform` kernel; anything else (the
-    CPU, the 2-D fleet mean) is the plain product."""
+    the card goes through the `basis_transform` kernel, which reads a
+    transposed factor (``U.mT``) in place; anything else (the CPU, the 2-D
+    fleet mean) is the plain product."""
     if (g.dim() == 3 and g.is_cuda and g.dtype == torch.float32
             and A.dtype == torch.float32 and B.dtype == torch.float32):
-        return basis_transform(A.contiguous(), g.contiguous(), B.contiguous())
+        if not (A.is_contiguous() or A.mT.is_contiguous()):
+            A = A.contiguous()
+        return basis_transform(A, g.contiguous(), B.contiguous())
     return A @ g @ B
 
 

@@ -59,7 +59,7 @@ class BLDNNConfig:
     drift_threshold: float = 0.0
 
 
-_JAX_RANDOM = ("draws from jax.random, which is not ported yet: ROADMAP.md §1 "
+_JAX_RANDOM = ("draws on jax.random, which is not ported yet: ROADMAP.md §1 "
                "item 9 (PRNG) brings it; until then carry a problem across "
                "from the reference (repro_torch.core.convert.dnn_problem_from_numpy, "
                "ROADMAP.md §1 item 11)")
