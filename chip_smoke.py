@@ -18,7 +18,9 @@ is non-zero and no result line is printed:
                 card, bitwise, on the main path's shapes, on edge-case rows
                 and on rows past its register path (staged in shared memory,
                 and re-read from global memory), and timed beside its plain
-                version, its library call and its bound;
+                version, its library call and its bound at the main path's
+                shapes and the stochastic cells' (BL3's and fig6's full
+                (10, 120²) layouts, the (10, 120) model streams);
   4. kernels_matmul — the tiled-matmul kernel against its plain version and
                 float64 (within 1e-5 of the larger magnitude of each), and
                 bitwise equal to itself on a second call, at the
@@ -32,20 +34,39 @@ is non-zero and no result line is printed:
                 `torch.matmul` yardsticks: float64 on the same operands
                 (the library time), float32 with the casts timed, and
                 float32 on copies made outside the timing;
-  5. fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
+  5. prng     — the port's threefry draws (`repro_torch.core.prng`) on
+                the card and on the CPU against the committed table of
+                jax.random draws in both threefry settings
+                (src/repro_torch/exp/data/prng_table.json), the card's draws
+                at the path's shapes bitwise equal to the CPU's, and the host
+                time and CUDA launches a round's draws cost;
+     fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
                 `repro_torch.core.bl.bl1` / `core.baselines.newton` against
                 the committed artifacts results/exp/fig1r1/*.seed0.json;
   6. fig2     — Newton without a basis and in the data basis on the default
                 float64 route against results/exp/fig2/*.seed0.json, and in
                 the data basis on the kernel route (Γ in float32 through the
                 tiled-matmul kernel) within |Δ| ≤ 2e-6·|ref| + 1e-12;
+     fig4, fig6, fig3, fig5, fig1r1/NL1, fig1r3 — the stochastic paper
+                cells (`problems.STOCHASTIC_CELLS`: BL2 and BL3 with
+                partial participation, the composed compressors, BL1 with
+                p < 1, NL1) through `bl.bl1/bl2/bl3` and `baselines.nl1`
+                against their artifacts, the threshold kernel launched
+                exactly once a round for each leg that selects by Top-K;
   7. fig1-xl  — BL1 at full width (n=512, d=1200) against
                 results/exp/fig1-xl/BL1.seed0.json, with seconds per round,
                 the Newton reference time and peak device memory; then
                 newton-xl: 6 Newton rounds in the data basis on the same
                 problem on both routes, the kernel route held to the
                 float64 one within 2e-6, with seconds per round and peak
-                memory;
+                memory; then bl2-xl: BL2 at the same widths with τ = 256
+                (src/repro_torch/exp/data/bl2_xl_seed0.json, written by the
+                JAX package through tools/bl2_xl_reference.py): the card's
+                participation masks and every bit stream equal to the
+                reference's, the threshold kernel once a round, three full
+                runs bitwise equal, seconds a round, peak memory and CUDA
+                launches a round; and the same run on the fleet narrowed to
+                d = 40 against the reference's whole history;
   8. kernels_bldnn — the fused Top-K compress-sum kernel (bitwise against
                 its plain version, the two-pass selection and its
                 selection rebuilt from the radix emulation, with the CUDA
@@ -73,11 +94,13 @@ is non-zero and no result line is printed:
   9. fig-dnn / fig-dnn-ship — BL-DNN through
                 `repro_torch.fed.bldnn.run_bldnn` from the carried problem
                 (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
-                FedAvg, BLDNN_int8, BLDNN_dct and BLDNN_hadamard against
-                their artifacts under results/exp/, with the compress-sum
-                and basis-transform kernels' CUDA launches (one a call on
-                the 8-client path); with --profile, the CUDA launches a
-                round of BLDNN.
+                FedAvg, BLDNN_int8, BLDNN_dct, BLDNN_hadamard and RTopK
+                (dithering draws from the round keys; the threshold kernel
+                exactly 8 times and the basis transform exactly 4 times a
+                round) against their artifacts under results/exp/, with the
+                compress-sum and basis-transform kernels' CUDA launches (one
+                a call on the 8-client path); with --profile, the CUDA
+                launches a round of BLDNN.
   10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
                 float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
@@ -118,7 +141,10 @@ is non-zero and no result line is printed:
                 logits or cache leaf, its index) and both sides' values.
 
 GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
-every bit stream exactly.  BL-DNN bit streams must agree exactly over
+every bit stream exactly; a NaN gap agrees only with a NaN in the
+artifact's same round, except the two rounds `problems.REFERENCE_SVD_NAN`
+names (the reference's CPU SVD did not converge there; the port's gap must
+be finite and the artifact's NaN).  BL-DNN bit streams must agree exactly over
 every round, the loss within 1e-4·|ref| and the error rate exactly over
 rounds 0–3 (training is chaotic at the ulp level; later rounds are
 reported), and every loss must be finite.  Each path resets the kernels'
@@ -132,6 +158,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import pathlib
 from statistics import median
 import subprocess
@@ -148,6 +175,23 @@ OPS32_PER_S = 67e12
 RADIX_PASSES = 4
 #: fig1-xl timing repeats (each a 1-round and a full run)
 XL_REPEATS = 5
+#: bl2-xl timing repeats (each a 1-round and a full run); every full run's
+#: history must equal the first's bit for bit
+BL2_XL_REPEATS = 3
+#: kernel 1 at the stochastic cells' other shapes (rows, T, k, where): the
+#: full (10, 120²) layout of BL3 (fig4, k = 120; fig5/BL3-BC, k = 60) and
+#: of fig6's BL2 in the standard basis (k = 40), and the (10, 120) model
+#: streams (fig3 and fig1r3 k = 12, fig5 k = 24 and 60, fig6 k = 40), one
+#: client's for BL1-BC; fig3's Hessian leg is fig1r1's (10, 576) k = 24
+STOCHASTIC_THRESHOLD_SHAPES = (
+    (10, 14400, 120, "fig4/BL3"), (10, 14400, 60, "fig5/BL3-BC"),
+    (10, 14400, 40, "fig6/BL2_p0.33"), (10, 120, 12, "model/k12"),
+    (10, 120, 24, "model/k24"), (10, 120, 40, "model/k40"), (10, 120, 60, "model/k60"),
+    (1, 120, 24, "fig5/BL1-BC/model"))
+#: compressor kinds that select through kernel 1 (`topk_keep_mask`)
+TOPK_KINDS = ("topk", "rtopk", "ntopk")
+#: rounds of simulated draws timed in the prng phase
+PRNG_COST_ROUNDS = 50
 #: BL-DNN: rounds whose loss and error rate are held to the artifact
 DNN_HELD_ROUNDS = 4
 DNN_LOSS_RTOL = 1e-4
@@ -202,6 +246,86 @@ SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, "flash_attention"),
 #: the reduced configs of the card-against-CPU check (gemma3 with grouped
 #: KV heads, as at full width)
 SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {}}
+
+
+#: the committed table of jax.random draws in both threefry settings
+#: (written by tests/test_torch_prng.py), the card's draws are held to
+PRNG_TABLE = ROOT / "src" / "repro_torch" / "exp" / "data" / "prng_table.json"
+
+
+def prng_draws(r) -> dict:
+    """The draws of the PRNG table through a random module ``r`` (the
+    port's, `PortRandom`, or jax's in the test that writes the table):
+    split into 3 and 4, fold_in, bernoulli from a float64 and a float32 p,
+    randint int32 and int64, uniform float32 and float64 over shapes of 5
+    and 6 (odd and even counter counts), and choice of 1 and 5 of 60
+    without replacement — as nested lists."""
+    out = {}
+    for seed in (0, 3):
+        key = r.PRNGKey(seed)
+        out[f"split3/{seed}"] = r.split(key, 3)
+        out[f"split4/{seed}"] = r.split(key, 4)
+        out[f"fold_in/{seed}"] = r.fold_in(key, 7)
+        for n in (5, 6):
+            tag = f"{n}/{seed}"
+            out[f"bernoulli_f64/{tag}"] = r.bernoulli(key, 0.3, (n,))
+            out[f"bernoulli_f32/{tag}"] = r.bernoulli(
+                key, r.f32([i / (n - 1) for i in range(n)]), None)
+            out[f"randint_i32/{tag}"] = r.randint(key, (n,), 0, 512, "int32")
+            out[f"randint_i64/{tag}"] = r.randint(key, (n,), 0, 10, "int64")
+            out[f"uniform_f32/{tag}"] = r.uniform(key, (n,), "float32")
+            out[f"uniform_f64/{tag}"] = r.uniform(key, (n,), "float64")
+        out[f"choice60x1/{seed}"] = r.choice(key, 60, (1,), False)
+        out[f"choice60x5/{seed}"] = r.choice(key, 60, (5,), False)
+    return {k: r.tolist(v) for k, v in out.items()}
+
+
+def prng_table(r) -> dict:
+    """`prng_draws` under both threefry settings."""
+    table = {}
+    for flag in (False, True):
+        with r.setting(flag):
+            table[f"partitionable={flag}"] = prng_draws(r)
+    return table
+
+
+class PortRandom:
+    """`prng_draws`'s random module over `repro_torch.core.prng`: keys on
+    the host, every draw on ``device``."""
+
+    def __init__(self, torch, prng, device):
+        self.torch, self.prng, self.device = torch, prng, device
+        self.setting = prng.threefry_partitionable
+
+    def PRNGKey(self, seed):
+        return self.prng.PRNGKey(seed)
+
+    def split(self, key, num):
+        return self.prng.split(key, num, device=self.device)
+
+    def fold_in(self, key, data):
+        return self.prng.fold_in(key, data, device=self.device)
+
+    def f32(self, values):
+        return self.torch.tensor(values, dtype=self.torch.float32, device=self.device)
+
+    def bernoulli(self, key, p, shape):
+        return self.prng.bernoulli(key, p, shape, device=self.device)
+
+    def randint(self, key, shape, lo, hi, dtype):
+        return self.prng.randint(key, shape, lo, hi, getattr(self.torch, dtype),
+                                 device=self.device)
+
+    def uniform(self, key, shape, dtype):
+        return self.prng.uniform(key, shape, getattr(self.torch, dtype), device=self.device)
+
+    def choice(self, key, n, shape, replace):
+        return self.prng.choice(key, n, shape, replace, device=self.device)
+
+    def tolist(self, x):
+        if x.device.type != self.torch.device(self.device).type:
+            raise AssertionError(f"a draw landed on {x.device}, not {self.device}")
+        return x.cpu().tolist()
 
 
 def emit(obj) -> None:
@@ -429,33 +553,55 @@ def matmul_kernel_phase(torch, tm, ops) -> dict:
 
 def check_bits(name: str, hist, ref: dict) -> list:
     """Every bit stream (uplink, downlink, each ledger leg) exactly the
-    reference's; returns the names of the streams compared."""
+    reference's; returns the names of the streams compared.  A reference
+    without legs (NL1's loop) needs a history without them."""
+    legs = ref["legs"] or {}
+    if ref["legs"] is None and hist.legs is not None:
+        raise AssertionError(f"{name}: legs {sorted(hist.legs)} where the reference has none")
     streams = {"up_bits": hist.up_bits, "down_bits": hist.down_bits,
-               **{f"legs.{k}": hist.legs[k] for k in ref["legs"]}}
+               **{f"legs.{k}": hist.legs[k] for k in legs}}
     want = {"up_bits": ref["up_bits"], "down_bits": ref["down_bits"],
-            **{f"legs.{k}": v for k, v in ref["legs"].items()}}
+            **{f"legs.{k}": v for k, v in legs.items()}}
     for k, v in streams.items():
         if list(v) != list(want[k]):
             raise AssertionError(f"{name}: bit stream {k} {v} != reference {want[k]}")
     return sorted(streams)
 
 
-def check_history(name: str, hist, ref: dict, rtol: float = GAP_RTOL) -> dict:
-    """Gaps within |Δ| ≤ rtol·|ref| + 1e-12 and every bit stream exact."""
+def check_history(name: str, hist, ref: dict, rtol: float = GAP_RTOL,
+                  svd_nan_round=None) -> dict:
+    """Gaps within |Δ| ≤ rtol·|ref| + 1e-12 and every bit stream exact.  A
+    NaN gap agrees only with a NaN in the artifact's same round; at
+    ``svd_nan_round`` (`problems.REFERENCE_SVD_NAN`: a NaN the reference's
+    non-converged CPU SVD wrote) the artifact must be NaN and the port's
+    gap finite, and the pair is reported."""
     import numpy as np
 
     g, gr = np.asarray(hist.gaps), np.asarray(ref["gaps"])
-    if g.shape != gr.shape or not np.all(np.isfinite(g)):
+    if g.shape != gr.shape:
         raise AssertionError(f"{name}: gaps {g} against reference {gr}")
-    err = np.abs(g - gr)
-    bad = err > rtol * np.abs(gr) + GAP_ATOL
+    nan_pair = np.isnan(g) & np.isnan(gr)
+    reported = {}
+    if svd_nan_round is not None:
+        t = svd_nan_round
+        if not (np.isnan(gr[t]) and np.isfinite(g[t])):
+            raise AssertionError(f"{name}: round {t} should be NaN in the artifact and "
+                                 f"finite here: {g[t]} vs {gr[t]}")
+        nan_pair[t] = True
+        reported = {"reference_svd_nan_round": t, "gap_at_that_round": float(g[t])}
+    if not np.all(np.isfinite(g) | nan_pair):
+        raise AssertionError(f"{name}: gaps {g} against reference {gr}")
+    err = np.where(nan_pair, 0.0, np.abs(g - gr))
+    bad = ~nan_pair & ~(err <= rtol * np.abs(gr) + GAP_ATOL)
     if bad.any():
         raise AssertionError(f"{name}: gaps leave |Δ| ≤ {rtol}·|ref| + 1e-12 at rounds "
                              f"{np.nonzero(bad)[0].tolist()}: {g} vs {gr}")
-    big = np.abs(gr) > 1e-9                  # the tail's relative error is noise
+    big = ~nan_pair & (np.abs(gr) > 1e-9)   # the tail's relative error is noise
     return {"max_gap_abs_err": float(err.max()),
             "max_gap_rel_err_above_1e-9": float((err[big] / np.abs(gr[big])).max(initial=0.0)),
-            "gaps": list(map(float, g)), "bit_streams_equal": check_bits(name, hist, ref)}
+            "nan_rounds_agreeing": np.nonzero(np.isnan(g) & np.isnan(gr))[0].tolist(),
+            **reported, "gaps": list(map(float, g)),
+            "bit_streams_equal": check_bits(name, hist, ref)}
 
 
 def history_dict(hist) -> dict:
@@ -521,7 +667,8 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
         max_err = max(max_err, float(diff.max()))
 
     timings = {}
-    for rows, T, k, path in ((10, 576, 24, "fig1r1"), (512, 1024, 1024, "fig1-xl")):
+    for rows, T, k, path in ((10, 576, 24, "fig1r1"), (512, 1024, 1024, "fig1-xl"),
+                             *STOCHASTIC_THRESHOLD_SHAPES):
         a = dev(np.abs(rng.standard_normal((rows, T))))
         bound, by = threshold_bound_ms(rows, T)
         timings[path] = {
@@ -881,6 +1028,166 @@ def basis_transform_phase(torch, bt, profile: bool) -> dict:
         timings["x".join(map(str, shape))] = rec
     return {"basis_transform_cases": results, "basis_transform_max_abs_err": err,
             "basis_transform_refused": refused, "basis_transform_timings": timings}
+
+
+def prng_phase(torch, prng, rounds, device: str = "cuda") -> dict:
+    """The port's threefry draws on the card: the committed table of
+    jax.random draws (both settings) drawn on the card and on the CPU, equal
+    to it entry for entry; draws at the path's shapes (a 512-client split
+    and participation mask, the dithering's float32 level draws, Rand-K's
+    choice, a 5000-long permutation) on the card bitwise equal to the CPU's;
+    then the host time and CUDA launches a round's draws cost, replayed
+    without the round's arithmetic, for bl2-xl, fig3/RTopK and
+    fig-dnn/RTopK."""
+    table = json.loads(PRNG_TABLE.read_text())
+    for where in (device, "cpu"):
+        got = prng_table(PortRandom(torch, prng, where))
+        for flag, draws in table.items():
+            bad = [k for k in draws if got[flag][k] != draws[k]]
+            if bad:
+                raise AssertionError(f"prng on {where}, {flag}: draws {bad} differ from jax's")
+    key = prng.PRNGKey(0)
+    p32 = torch.rand((10, 24), generator=torch.Generator().manual_seed(0))
+    cases = {
+        "split_512": lambda dev: prng.split(key, 512, device=dev),
+        "bernoulli_f64_512": lambda dev: prng.bernoulli(key, 0.5, (512,), device=dev),
+        "dither_levels_10x24": lambda dev: prng.bernoulli(
+            prng.split(key, 10, device=dev), p32.to(dev), (24,)),
+        "randk_choice_10x60": lambda dev: prng.choice(
+            prng.split(key, 10, device=dev), 60, (1,), False),
+        "permutation_5000": lambda dev: prng.permutation(key, 5000, device=dev),
+        "randint_i64_7": lambda dev: prng.randint(key, (7,), 0, 512, device=dev),
+    }
+    for flag in (False, True):
+        with prng.threefry_partitionable(flag):
+            for name, fn in cases.items():
+                card, host = fn(device), fn("cpu")
+                if card.device.type != device or not torch.equal(card.cpu(), host):
+                    raise AssertionError(f"prng {name} (partitionable={flag}): card != CPU")
+
+    dev = torch.device(device)
+    R512 = rounds.VmapReducer(n=512, device=dev)
+    R10 = rounds.VmapReducer(n=10, device=dev)
+    R8 = rounds.VmapReducer(n=8, device=dev)
+    p10 = p32.to(dev)
+    leaves = [(8, k) for k in (307, 204, 204, 12)]
+    pleaf = [torch.rand((8, k), device=dev) for _, k in leaves]
+    keys = prng.split(prng.PRNGKey(0), PRNG_COST_ROUNDS)
+
+    def bl2_xl(t):
+        k_part = prng.split(keys[t], 4)[0]
+        return rounds.participation(R512, k_part, 256)
+
+    def fig3_rtopk(t):
+        k_part, _, k_h, k_xi = prng.split(keys[t], 4)
+        rounds.participation(R10, k_part, 10)
+        prng.bernoulli(R10.client_keys(k_h), p10, (24,))
+        return rounds.xi_mask(R10, k_xi, 0.1)
+
+    def fig_dnn_rtopk(t):
+        k_g, k_f = prng.split(keys[t], 2)
+        out = []
+        for leg in (k_g, k_f):
+            for k_leaf, p in zip(prng.split(leg, 4), pleaf):
+                out.append(prng.bernoulli(R8.client_keys(k_leaf), p, (p.shape[1],)))
+        return out
+
+    cost = {}
+    for name, fn in (("bl2-xl", bl2_xl), ("fig3/RTopK", fig3_rtopk),
+                     ("fig-dnn/RTopK", fig_dnn_rtopk)):
+        def run(fn=fn):
+            for t in range(PRNG_COST_ROUNDS):
+                fn(t)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = profile_run(torch, run, PRNG_COST_ROUNDS)
+        cost[name] = {"host_ms_per_round": wall / PRNG_COST_ROUNDS * 1e3,
+                      "cuda_launches_per_round": prof["cuda_launches_per_step"],
+                      "device_ms_per_round": prof["device_busy_ms"] / PRNG_COST_ROUNDS}
+    return {"table_entries": sum(len(v) for v in table.values()),
+            "card_vs_cpu_cases": sorted(cases), "draw_cost": cost}
+
+
+def topk_legs(cell) -> int:
+    """Kernel-1 calls a round of a GLM cell: one for each leg whose
+    compressor selects by Top-K (the Hessian leg, the model stream)."""
+    return sum(1 for comp in (cell.hess_comp, cell.model_comp)
+               if comp is not None and comp[0] in TOPK_KINDS)
+
+
+def need_exact(name: str, counts: dict, want: dict) -> None:
+    """Fail unless every kernel ran exactly as often as `want` says."""
+    bad = {kn: (counts[kn], n) for kn, n in want.items() if counts[kn] != n}
+    if bad:
+        raise AssertionError(f"{name}: kernel launches (counted, expected) {bad}")
+
+
+def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -> int:
+    """BL2 at fig1-xl's widths (n=512, d=1200, τ = 256, 8 rounds) on the
+    fig1-xl problem ``prob``, held to the JAX package's reference
+    (`problems.BL2_XL_REFERENCE`): the participation masks the port draws
+    on the card, every bit stream of each full run, kernel 1 exactly once a
+    round; the gaps of every full run bitwise equal to the first's (the
+    reference's own full-width gaps are not in the file); seconds a round
+    by differencing a 1-round and the full run, medians of
+    `BL2_XL_REPEATS`; peak memory; CUDA launches a round (torch.profiler
+    over a 1-round and a 3-round run, differenced).  Then the same run on
+    the fleet narrowed to d = 40, held to the reference's whole history.
+    Returns kernel 1's launches in the last full run."""
+    cell = problems.BL2_XL
+    ref = json.loads(cell.artifact.read_text())
+    R = rounds.VmapReducer(n=cell.problem.n_clients, device=torch.device(device))
+    keys = prng.split(prng.PRNGKey(0), cell.steps)
+    tau = dict(cell.params)["tau"]
+    masks = []
+    for t in range(cell.steps):
+        mask, _ = rounds.participation(R, prng.split(keys[t], 4)[0], tau)
+        masks.append("".join("1" if b else "0" for b in mask.tolist()))
+    if masks != ref["masks"]:
+        raise AssertionError("bl2-xl: the card's participation masks differ from the reference's")
+    problems.run_cell(cell, prob, steps=1)                    # warm-up round
+    per_round, t_ones, t_alls, gaps = [], [], [], []
+    want = None
+    for rep in range(BL2_XL_REPEATS):
+        _, t_one, _ = drive(torch, k, lambda: problems.run_cell(cell, prob, steps=1))
+        if rep == BL2_XL_REPEATS - 1:
+            torch.cuda.reset_peak_memory_stats()
+        hist, t_all, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
+        if want is None:
+            want = dict.fromkeys(counts, 0)
+            want["topk_row_threshold"] = topk_legs(cell) * cell.steps
+        need_exact("bl2-xl", counts, want)
+        res = check_bits("bl2-xl", hist, ref["xl"])
+        gaps.append(hist.gaps)
+        t_ones.append(t_one)
+        t_alls.append(t_all)
+        per_round.append((t_all - t_one) / (cell.steps - 1))
+    peak = torch.cuda.max_memory_allocated()
+    if any(g != gaps[0] for g in gaps) or not all(map(math.isfinite, gaps[0])):
+        raise AssertionError(f"bl2-xl: the full runs' gaps differ or are not finite: {gaps}")
+    one = profile_run(torch, lambda: problems.run_cell(cell, prob, steps=1), 1)
+    three = profile_run(torch, lambda: problems.run_cell(cell, prob, steps=3), 3)
+    emit({"phase": "bl2-xl", "steps": cell.steps, "tau": tau,
+          "participants": [m.count("1") for m in masks], "masks_equal": True,
+          "run_1_round_s": t_ones, "run_s": t_alls, "s_per_round": sorted(per_round),
+          "s_per_round_median": median(per_round), "max_memory_allocated": peak,
+          "cuda_launches_per_round": (three["cuda_launches"] - one["cuda_launches"]) / 2,
+          "device_busy_ms_per_round": (three["device_busy_ms"] - one["device_busy_ms"]) / 2,
+          "launches": counts, "gaps": gaps[0], "reruns_bitwise": BL2_XL_REPEATS,
+          "bit_streams_equal": res})
+
+    narrow = problems.BL2_XL_NARROW
+    nprob = problems.build_problem(narrow.problem, device=device)
+    hist, secs, counts = drive(torch, k, lambda: problems.run_cell(narrow, nprob))
+    res = check_history("bl2-xl/BL2_d40", hist, ref["history"])
+    need_exact("bl2-xl/BL2_d40", counts, want)
+    emit({"phase": "bl2-xl", "cell": narrow.name, "d": narrow.problem.d, "run_s": secs,
+          "launches": counts, **res})
+    return want["topk_row_threshold"]
 
 
 def drive(torch, k, run) -> tuple:
@@ -1381,7 +1688,7 @@ def main(argv) -> int:
     from types import SimpleNamespace
 
     from repro_torch import device as _device
-    from repro_torch.core import baselines, client_batch
+    from repro_torch.core import baselines, client_batch, prng, rounds
     from repro_torch.exp import problems
     from repro_torch.kernels import SOURCES, _build, ops
     from repro_torch.kernels import basis_transform as bt
@@ -1406,6 +1713,7 @@ def main(argv) -> int:
     emit({"phase": "kernels", "kernel": "topk_row_threshold", **kern})
     km = matmul_kernel_phase(torch, tm, ops)
     emit({"phase": "kernels_matmul", "kernel": "tiled_matmul", **km})
+    emit({"phase": "prng", **prng_phase(torch, prng, rounds)})
 
     def need(name, counts, want):
         """Fail unless every kernel ran at least (or, for 0, exactly) as
@@ -1454,6 +1762,20 @@ def main(argv) -> int:
         cell = problems.FIG2["newton_basis"]
         emit({"phase": "profile_fig2_newton_basis_kernel", **profile_run(
             torch, lambda: problems.run_cell(cell, prob, steps=4, basis_project="kernel"), 4)})
+
+    # ---- the stochastic paper cells: fig4, fig6, fig3, fig5, NL1, fig1r3 ----
+    stochastic = {}
+    for cell in problems.STOCHASTIC_CELLS:
+        name = f"{cell.experiment}/{cell.name}"
+        hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
+        res = check_history(name, hist, json.loads(cell.artifact.read_text())["history"],
+                            svd_nan_round=problems.REFERENCE_SVD_NAN.get(name))
+        want = dict.fromkeys(counts, 0)
+        want["topk_row_threshold"] = topk_legs(cell) * cell.steps
+        need_exact(name, counts, want)
+        stochastic[name] = counts["topk_row_threshold"]
+        emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps, "run_s": secs,
+              "s_per_round": secs / cell.steps, "launches": counts, **res})
 
     # ---- fig1-xl: full width on one card ------------------------------------
     cell = problems.FIG1_XL
@@ -1528,6 +1850,9 @@ def main(argv) -> int:
     if "--profile" in argv:
         emit({"phase": "profile_newton-xl_kernel",
               **profile_run(torch, lambda: newton_xl("kernel", steps=2), 2)})
+
+    # ---- bl2-xl: BL2 at fig1-xl's widths with τ = 256 ---------------------
+    launches["bl2-xl"] = bl2_xl_phase(torch, k, problems, prng, rounds, prob)
     del prob
     torch.cuda.empty_cache()
 
@@ -1545,16 +1870,26 @@ def main(argv) -> int:
     dnn_launches = {}
     for cell in (problems.FIG_DNN["BLDNN"], problems.FIG_DNN["TopK"],
                  problems.FIG_DNN["FedAvg"], problems.FIG_DNN_SHIP["BLDNN_int8"],
-                 problems.FIG_DNN_SHIP["BLDNN_dct"], problems.FIG_DNN_SHIP["BLDNN_hadamard"]):
+                 problems.FIG_DNN_SHIP["BLDNN_dct"], problems.FIG_DNN_SHIP["BLDNN_hadamard"],
+                 problems.FIG_DNN["RTopK"]):
         hist, secs, counts = drive(torch, k, lambda: problems.run_dnn_cell(cell, prob))
         res = check_dnn_history(f"{cell.experiment}/{cell.name}", hist,
                                 json.loads(cell.artifact.read_text())["history"])
-        want = {"tiled_matmul": 0}
-        if cell.compressor == "topk":
-            want["topk_row_threshold"] = want["topk_compress_sum"] = 4 * cell.steps
-        if cell.basis is not None:
-            want["basis_transform"] = 4 * cell.steps
-        need(f"{cell.experiment}/{cell.name}", counts, want)
+        if cell.compressor == "rtopk":
+            # RTop-K selects through kernel 1 on both legs of all 4 leaves
+            # (its compress-sum is the two-pass one: no kernel 2); the
+            # gradient leg's 4 rotations through kernel 4
+            want = dict.fromkeys(counts, 0)
+            want["topk_row_threshold"] = 8 * cell.steps
+            want["basis_transform"] = want["basis_transform_cuda"] = 4 * cell.steps
+            need_exact(f"{cell.experiment}/{cell.name}", counts, want)
+        else:
+            want = {"tiled_matmul": 0}
+            if cell.compressor == "topk":
+                want["topk_row_threshold"] = want["topk_compress_sum"] = 4 * cell.steps
+            if cell.basis is not None:
+                want["basis_transform"] = 4 * cell.steps
+            need(f"{cell.experiment}/{cell.name}", counts, want)
         if counts["topk_compress_sum_cuda"] != counts["topk_compress_sum"]:
             raise AssertionError(f"{cell.experiment}/{cell.name}: the 8-client compress-sum "
                                  f"should make one CUDA launch a call: {counts}")
@@ -1599,7 +1934,12 @@ def main(argv) -> int:
         "launches": main["topk_row_threshold"], "max_abs_err": kern["max_abs_err"],
         "ms": xl["kernel_ms"], "plain_ms": xl["plain_ms"], "bound_ms": xl["bound_ms"],
         "bound_by": xl["bound_by"], "library_ms": xl["library_ms"],
-        "shape": xl["shape"], "launches_fig1-xl": launches["fig1-xl"]}, {
+        "shape": xl["shape"], "launches_fig1-xl": launches["fig1-xl"],
+        "launches_bl2-xl": launches["bl2-xl"], "launches_stochastic_cells": stochastic,
+        "launches_fig-dnn/RTopK": dnn_launches["RTopK"]["topk_row_threshold"],
+        "path_shapes": {tag: {key: kern["timings"][tag][key] for key in (
+            "shape", "k", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for *_, tag in STOCHASTIC_THRESHOLD_SHAPES}}, {
         "name": "topk_compress_sum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk_compress_sum.cu",
         "replaces": "src/repro/kernels/topk_threshold.py:123",

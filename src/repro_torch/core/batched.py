@@ -1,10 +1,11 @@
 """Batched execution engine — the configuration layer of the fast path;
-port of `repro.core.batched` for BL1 and Newton.
+port of `repro.core.batched` for BL1, BL2, BL3 and Newton.
 
 Per-client state lives in leading-axis-`n` stacked tensors (`ClientBatch`,
 `BatchedBasis`); this module validates and stacks the fleet, builds the
-frozen `specs.BL1Spec` or `specs.NewtonSpec`, runs it on
-`rounds.run_rounds`, and turns the streams into a `History`.  Raises
+frozen method spec (`specs.BL1Spec`, `BL2Spec`, `BL3Spec`, `NewtonSpec`),
+runs it on `rounds.run_rounds` with the run's seed, and turns the streams
+into a `History`.  Raises
 `FastPathUnavailable` for fleets the stacked representation cannot
 express (heterogeneous shapes, mixed basis kinds, mixed or unported
 compressors).
@@ -19,19 +20,24 @@ import torch
 from . import client_batch, comm, rounds, specs
 from .bl import History
 from .comm import FLOAT_BITS
-from .compressors import Compressor, Identity, RankR, TopK
+from .compressors import (ComposedRankR, ComposedTopK, Compressor, Identity,
+                          NaturalCompression, RandK, RandomDithering, RankR, TopK)
 
 
 class FastPathUnavailable(Exception):
     """This configuration cannot run batched; use the reference backend."""
 
 
-_SUPPORTED = (Identity, TopK, RankR)
+_SUPPORTED = (Identity, TopK, RandK, RankR, RandomDithering, NaturalCompression,
+              ComposedTopK, ComposedRankR)
 
 
 def _check_supported(comp: Compressor) -> None:
     if type(comp) not in _SUPPORTED:
         raise FastPathUnavailable(f"unsupported compressor {type(comp).__name__}")
+    for inner in ("inner", "inner_u", "inner_v"):
+        if hasattr(comp, inner):
+            _check_supported(getattr(comp, inner))
 
 
 def _one_of(comps: Sequence[Compressor], what: str) -> Compressor:
@@ -78,17 +84,19 @@ def _f_star(batch, x_star) -> torch.Tensor:
 
 def _block_mode(basisb, comp) -> bool:
     """True when coefficient state can live in compact (n, r, r) blocks: the
-    data basis with a flat Top-K keeping K ≤ r² (its output and bits are
-    invariant to dropping the padding zeros)."""
+    data basis with a flat Top-K, plain or composed, keeping K ≤ r² (its
+    output and bits are invariant to dropping the padding zeros)."""
     if basisb is None or basisb.kind != "data_outer":
         return False
     rb = basisb.r_max
-    return type(comp) is TopK and not comp.symmetrize and comp.k <= rb * rb
+    if type(comp) is TopK and not comp.symmetrize and comp.k <= rb * rb:
+        return True
+    return type(comp) is ComposedTopK and comp.k <= rb * rb
 
 
-def _run(spec, batch, basisb, x0, x_star, steps, *, stream=None) -> History:
-    evals, leds = rounds.run_rounds(spec, batch, basisb, x0,
-                                    _f_star(batch, x_star), steps, stream=stream)
+def _run(spec, batch, basisb, x0, x_star, steps, seed=0, *, stream=None) -> History:
+    evals, leds = rounds.run_rounds(spec, batch, basisb, x0, _f_star(batch, x_star),
+                                    steps, seed=seed, stream=stream)
     return _history(evals, leds)
 
 
@@ -97,7 +105,6 @@ def _run(spec, batch, basisb, x0, x_star, steps, *, stream=None) -> History:
 # ==========================================================================
 def bl1_setup(clients, bases, hess_comp, model_comp, alpha=1.0, eta=1.0,
               p=1.0, mu=None, init_exact_hessian=True, basis_project="einsum"):
-    rounds.xi_scalar(p)  # p < 1 raises before any work
     batch, basisb = _stack_or_raise(clients, bases, basis_project)
     hc = _one_of(list(hess_comp), "hessian")
     _check_supported(model_comp)
@@ -115,12 +122,64 @@ def bl1_setup(clients, bases, hess_comp, model_comp, alpha=1.0, eta=1.0,
 def bl1_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
              alpha=1.0, eta=1.0, p=1.0, mu=None, seed=0,
              init_exact_hessian=True, stream=None, basis_project="einsum") -> History:
-    """BL1 on the stacked single-device engine.  ``seed`` is unused by the
-    ported deterministic configurations (see `repro_torch.core.bl.bl1`)."""
+    """BL1 on the stacked single-device engine."""
     spec, batch, basisb = bl1_setup(
         clients, bases, hess_comp, model_comp, alpha=alpha, eta=eta, p=p,
         mu=mu, init_exact_hessian=init_exact_hessian, basis_project=basis_project)
-    return _run(spec, batch, basisb, x0, x_star, steps, stream=stream)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream)
+
+
+# ==========================================================================
+# BL2 — Algorithm 2 (fast path)
+# ==========================================================================
+def bl2_setup(clients, bases, hess_comp, model_comp, alpha=1.0, eta=1.0,
+              p=1.0, tau=None, init_exact_hessian=True):
+    batch, basisb = _stack_or_raise(clients, bases)
+    hc = _one_of(list(hess_comp), "hessian")
+    mc = _one_of(list(model_comp), "model")
+    spec = specs.BL2Spec(
+        hess_comp=hc, model_comp=mc, alpha=alpha, eta=eta, p=p,
+        tau=batch.n if tau is None else tau, init_exact=init_exact_hessian,
+        init_hess_bits=basisb.init_coeff_bits_mean(init_exact_hessian),
+        basis_bits=basisb.transmission_bits_mean(),
+        block=_block_mode(basisb, hc),
+    )
+    return spec, batch, basisb
+
+
+def bl2_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
+             alpha=1.0, eta=1.0, p=1.0, tau=None, seed=0,
+             init_exact_hessian=True, stream=None) -> History:
+    """BL2 on the stacked single-device engine."""
+    spec, batch, basisb = bl2_setup(
+        clients, bases, hess_comp, model_comp, alpha=alpha, eta=eta, p=p,
+        tau=tau, init_exact_hessian=init_exact_hessian)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream)
+
+
+# ==========================================================================
+# BL3 — Algorithm 3 (fast path, PSD basis of Example 5.1)
+# ==========================================================================
+def bl3_setup(clients, hess_comp, model_comp, alpha=1.0, eta=1.0, p=1.0,
+              tau=None, c=1e-8, option=2):
+    batch, _ = _stack_or_raise(clients)
+    hc = _one_of(list(hess_comp), "hessian")
+    mc = _one_of(list(model_comp), "model")
+    spec = specs.BL3Spec(
+        hess_comp=hc, model_comp=mc, alpha=alpha, eta=eta, p=p,
+        tau=batch.n if tau is None else tau, c=c, option=option,
+    )
+    return spec, batch, None
+
+
+def bl3_fast(clients, hess_comp, model_comp, x0, x_star, steps, alpha=1.0,
+             eta=1.0, p=1.0, tau=None, c=1e-8, option=2, seed=0,
+             stream=None) -> History:
+    """BL3 on the stacked single-device engine."""
+    spec, batch, basisb = bl3_setup(
+        clients, hess_comp, model_comp, alpha=alpha, eta=eta, p=p, tau=tau,
+        c=c, option=option)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream)
 
 
 # ==========================================================================

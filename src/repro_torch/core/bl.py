@@ -1,11 +1,13 @@
-"""BL1 (Algorithm 1) — public API and backend dispatch; port of
-`repro.core.bl`.
+"""BL1 / BL2 / BL3 (Algorithms 1–3) — public API and backend dispatch;
+port of `repro.core.bl`.
 
-`bl1` takes ``backend="auto"|"fast"|"fast+sharded"|"reference"``.  The
-port runs "auto" and "fast" on its single-device fast path
-(`repro_torch.core.batched`); "fast+sharded" and "reference" raise
+`bl1`, `bl2` and `bl3` take ``backend="auto"|"fast"|"fast+sharded"|
+"reference"``.  The port runs "auto" and "fast" on its single-device fast
+path (`repro_torch.core.batched`); "fast+sharded" and "reference" raise
 `NotImplementedError` until ROADMAP.md §1 items 13 and 17 port them
-(`run_fast`, shared with `repro_torch.core.baselines.newton`).
+(`run_fast`, shared with `repro_torch.core.baselines`).  Draws follow
+`repro_torch.core.prng` under the caller's `prng.threefry_partitionable`
+setting (default False, the setting of every committed artifact).
 
 Conventions are the reference's: compression acts on coefficient matrices
 h^i(∇²f_i) in the client's basis; with the data basis the Hessian's data
@@ -44,6 +46,37 @@ class History:
     legs: Optional[Dict[str, List[float]]] = None
     #: extra named evaluation streams beyond the gap (None for GLM methods)
     metrics: Optional[Dict[str, List[float]]] = None
+    #: per-round `rounds.EVENT_*` bitmasks; the batch drivers leave it None
+    events: Optional[List[int]] = None
+
+    def append(self, gap, up, down):
+        self.gaps.append(float(max(gap, 0.0)))
+        self.up_bits.append(float(up))
+        self.down_bits.append(float(down))
+
+
+# --------------------------------------------------------------------------
+# PSD-basis helpers of Example 5.1 (§5), on (..., d, d) stacks
+# --------------------------------------------------------------------------
+def _psd_sum_matrix(d: int, dtype, device) -> torch.Tensor:
+    """Σ_{j,l} B^{jl} for the PSD basis (ordered pairs + diagonal)."""
+    return (2.0 * torch.ones((d, d), dtype=dtype, device=device)
+            + (2.0 * d - 3.0) * torch.eye(d, dtype=dtype, device=device))
+
+
+def _psd_h_tilde(A: torch.Tensor) -> torch.Tensor:
+    """h̃(A): symmetric coefficient matrix (halved off-diagonals) — §5."""
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    off = (A - torch.diag_embed(diag)) / 2.0
+    rowsum = A.sum(dim=-1) - diag
+    return off + torch.diag_embed(diag - rowsum)
+
+
+def _psd_reconstruct_full(M: torch.Tensor) -> torch.Tensor:
+    """Σ_{j,l} M_{jl} B^{jl} over all ordered pairs, for symmetric M."""
+    diag = torch.diagonal(M, dim1=-2, dim2=-1)
+    off = M - torch.diag_embed(diag)
+    return 2.0 * off + torch.diag_embed(diag + 2.0 * off.sum(dim=-1))
 
 
 def _to(device, clients, bases, x0, x_star):
@@ -114,10 +147,8 @@ def bl1(
     inputs elsewhere are moved there; and ``basis_project``, the route of
     the data basis's Γ = VᵀAV in the full (n, d, d) layout: "einsum"
     (float64, the default) or "kernel" (float32 through the tiled-matmul
-    kernel, the reference's ``REPRO_BL_PALLAS=1`` route).  ``seed`` is
-    accepted for the reference's signature; the ported deterministic
-    configurations (Top-K, Rank-R or Identity compressors, p = 1) draw
-    nothing from it.
+    kernel, the reference's ``REPRO_BL_PALLAS=1`` route).  ``seed`` keys
+    the rounds: the fleet-wide ξ for p < 1 and any stochastic compressor.
 
     Returns a `History` with per-round gaps, cumulative per-node uplink and
     downlink bits, and the per-leg `CommLedger` streams in ``legs``."""
@@ -131,3 +162,78 @@ def bl1(
             basis_project=basis_project)
 
     return run_fast(backend, device, clients, bases, x0, x_star, fast)
+
+
+def bl2(
+    clients: Sequence[glm.ClientData],
+    bases: Sequence[MatrixBasis],
+    hess_comp: Sequence[Compressor],
+    model_comp: Sequence[Compressor],
+    x0: torch.Tensor,
+    x_star: torch.Tensor,
+    steps: int,
+    alpha: float = 1.0,
+    eta: float = 1.0,
+    p: float = 1.0,
+    tau: Optional[int] = None,
+    seed: int = 0,
+    init_exact_hessian: bool = True,
+    backend: str = "auto",
+    stream=None,
+    *,
+    device=None,
+) -> History:
+    """Basis Learn with Bidirectional Compression and Partial Participation
+    (Algorithm 2).  StandardBasis ≡ FedNL-PP (Rank-R, identity model comp).
+
+    Args are the reference's (`repro.core.bl.bl2`): ``model_comp`` is per
+    client (client-individual z_i streams), ``tau`` the expected
+    participants a round (Bernoulli(τ/n) with a force-one-client fallback;
+    None is full participation), ``p`` the per-client gradient-refresh
+    probability; plus ``device`` (``None`` means ``"cuda"``).  The
+    reference's ``exact`` selects the sharded reducer's collectives
+    (ROADMAP.md §1 item 13); the port's single-device backend reduces
+    exactly and takes no such argument."""
+    from . import batched
+
+    def fast(clients, bases, x0, x_star):
+        return batched.bl2_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
+                                alpha=alpha, eta=eta, p=p, tau=tau, seed=seed,
+                                init_exact_hessian=init_exact_hessian, stream=stream)
+
+    return run_fast(backend, device, clients, bases, x0, x_star, fast)
+
+
+def bl3(
+    clients: Sequence[glm.ClientData],
+    hess_comp: Sequence[Compressor],
+    model_comp: Sequence[Compressor],
+    x0: torch.Tensor,
+    x_star: torch.Tensor,
+    steps: int,
+    alpha: float = 1.0,
+    eta: float = 1.0,
+    p: float = 1.0,
+    tau: Optional[int] = None,
+    c: float = 1e-8,
+    option: int = 2,
+    seed: int = 0,
+    backend: str = "auto",
+    stream=None,
+    *,
+    device=None,
+) -> History:
+    """BL3 with the PSD basis of Example 5.1 (both β options, Algorithm 3).
+
+    Args are `bl2`'s without ``bases`` (the PSD basis is built in) and
+    ``init_exact_hessian`` (BL3 starts from the exact h̃), plus ``c``, the
+    γ_i floor (γ_i = max(c, max|L_i|)), and ``option``, the β_i candidate
+    (1: previous-iterate numerator; 2: current target)."""
+    from . import batched
+
+    def fast(clients, _bases, x0, x_star):
+        return batched.bl3_fast(clients, hess_comp, model_comp, x0, x_star, steps,
+                                alpha=alpha, eta=eta, p=p, tau=tau, c=c, option=option,
+                                seed=seed, stream=stream)
+
+    return run_fast(backend, device, clients, None, x0, x_star, fast)

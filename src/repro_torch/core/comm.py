@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from fractions import Fraction
 from typing import NamedTuple, Union
 
 import torch
@@ -153,6 +154,20 @@ class CommLedger:
             model_down=self.model_down + model_down,
             basis_ship=self.basis_ship + basis_ship,
         )
+
+    def add_fleet_sums(self, n: int, **sums: float) -> "CommLedger":
+        """Add per-node shares of fleet bit sums (host floats) to a host
+        ledger: each leg becomes ``leg + sum·(1/n)`` rounded once, as the
+        reference's compiled round computes it (a fused multiply-add by the
+        rounded reciprocal), so the streams agree to the last bit for any
+        n."""
+        inv = 1.0 / n
+        new = {leg: getattr(self, leg) for leg in self.LEGS}
+        for leg, total in sums.items():
+            old = new[leg]
+            exact = Fraction(float(total)) * Fraction(inv) + Fraction(float(old))
+            new[leg] = torch.tensor(float(exact), dtype=torch.float64, device=old.device)
+        return CommLedger(**new)
 
     @property
     def uplink(self) -> torch.Tensor:

@@ -1,0 +1,310 @@
+"""Counter-based random numbers — port of the `jax.random` functions the
+JAX package calls, on jax's default generator, threefry2x32.
+
+Keys are ``(..., 2)`` int64 tensors holding uint32 words; a key with
+leading dimensions is a batch of keys, and every draw from it gains those
+dimensions in front of its own shape (the port's form of ``jax.vmap`` over
+keys).  Words and counts are held in int64 and masked to 32 bits after
+every add and shift, so no value ever needs an unsigned 64-bit type: a
+64-bit draw is the pair of its (high, low) words.
+
+The bits are jax's, for both settings of ``jax_threefry_partitionable``:
+
+  * ``False`` (the default here, and the setting every committed artifact
+    was written under): a split or a draw hashes one iota of counters
+    whose first half and second half form the pairs, and the output words
+    are the first halves' hashes followed by the second halves';
+  * ``True`` (jax 0.9.0's own default): pair i is (0, i) (the 64-bit iota
+    of the output shape), a split key is the pair's two hashes and a
+    32-bit draw their xor.
+
+The setting is an argument of every function (``partitionable=``), or, for
+calls that leave it as None, the innermost `threefry_partitionable`
+context — never a process-wide flag a caller could leave set.
+
+``jax_enable_x64`` is on in the JAX package, so the port follows its
+conventions: a Python-float ``p`` draws float64 uniforms from 64-bit bits,
+and `randint` defaults to int64.
+
+Where the draws run: on ``device`` (default: the key's device).  A single
+key held on the CPU hashes small counts (at most `HOST_PAIRS` pairs) in
+Python integers, on the host, and passes its words to a device draw as
+scalars, so per-round key arithmetic costs no device launch and no copy;
+every draw over a client or entry axis runs on the device it is asked for.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+
+M32 = 0xFFFFFFFF
+#: key-schedule parity constant of Threefry (Salmon et al., 2011)
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+#: pairs hashed in Python integers for a single CPU key and a CPU result
+HOST_PAIRS = 16
+
+_PARTITIONABLE = contextvars.ContextVar("threefry_partitionable", default=False)
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool):
+    """Within the block, calls that pass ``partitionable=None`` lay out
+    their counters as jax does under ``jax.threefry_partitionable(flag)``."""
+    token = _PARTITIONABLE.set(bool(flag))
+    try:
+        yield
+    finally:
+        _PARTITIONABLE.reset(token)
+
+
+def _part(partitionable: Optional[bool]) -> bool:
+    return _PARTITIONABLE.get() if partitionable is None else bool(partitionable)
+
+
+def _rotl(x, r: int):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def _threefry(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds, on Python ints or int64 tensors holding
+    uint32 values (broadcasting); returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, x1
+
+
+Counts = Union[int, range, Sequence[int]]
+
+
+def _as_list(c: Counts, n: int) -> list:
+    return [c] * n if isinstance(c, int) else list(c)
+
+
+def _as_tensor(c: Counts, device):
+    if isinstance(c, int):
+        return c
+    if isinstance(c, range):
+        return torch.arange(c.start, c.stop, dtype=torch.int64, device=device)
+    return torch.tensor(list(c), dtype=torch.int64, device=device)
+
+
+def _out_device(key: torch.Tensor, device) -> torch.device:
+    return key.device if device is None else torch.device(device)
+
+
+def _hash(key: torch.Tensor, x0: Counts, x1: Counts, n: int, device=None,
+          zero_last: bool = False):
+    """Hash the n counter pairs (x0[i], x1[i]) under every key of ``key``
+    (..., 2), with x1's last counter replaced by 0 if ``zero_last``:
+    ``(y0, y1)``, each (..., n) int64 on ``device``."""
+    dev = _out_device(key, device)
+    if key.dim() == 1 and key.device.type == "cpu":
+        k0, k1 = key.tolist()
+        if dev.type == "cpu" and n <= HOST_PAIRS:
+            c1 = _as_list(x1, n)
+            if zero_last:
+                c1[-1] = 0
+            ys = [_threefry(k0, k1, a, b) for a, b in zip(_as_list(x0, n), c1)]
+            return (torch.tensor([y[0] for y in ys], dtype=torch.int64),
+                    torch.tensor([y[1] for y in ys], dtype=torch.int64))
+    else:
+        key = key.to(dev)
+        k0, k1 = key[..., 0, None], key[..., 1, None]
+    c1 = _as_tensor(x1, dev)
+    if zero_last:
+        c1[-1] = 0
+    y0, y1 = _threefry(k0, k1, _as_tensor(x0, dev), c1)
+    shape = tuple(key.shape[:-1]) + (n,)
+    return y0.expand(shape), y1.expand(shape)
+
+
+def _iota_words(key: torch.Tensor, n_words: int, device=None) -> torch.Tensor:
+    """jax's ``threefry_2x32(key, iota(n_words))``: the counters' halves
+    form the pairs (an odd count pads the second half with a 0), the output
+    is the first words, then the second, trimmed to ``n_words``."""
+    h = (n_words + 1) // 2
+    y0, y1 = _hash(key, range(0, h), range(h, 2 * h), h, device, zero_last=n_words % 2 == 1)
+    return torch.cat([y0, y1], dim=-1)[..., :n_words]
+
+
+def _numel(shape: Sequence[int]) -> int:
+    return math.prod(int(s) for s in shape)
+
+
+# ==========================================================================
+# Keys
+# ==========================================================================
+def PRNGKey(seed: int, *, device=None) -> torch.Tensor:
+    """The key of an integer seed: its 64 bits as (high, low) words."""
+    s = int(seed) & ((1 << 64) - 1)
+    return torch.tensor([s >> 32, s & M32], dtype=torch.int64,
+                        device="cpu" if device is None else device)
+
+
+def split(key: torch.Tensor, num: int = 2, *, device=None,
+          partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.split``: (..., 2) → (..., num, 2)."""
+    num = int(num)
+    if _part(partitionable):
+        y0, y1 = _hash(key, 0, range(num), num, device)
+        return torch.stack([y0, y1], dim=-1)
+    w = _iota_words(key, 2 * num, device)
+    return w.reshape(tuple(w.shape[:-1]) + (num, 2))
+
+
+def fold_in(key: torch.Tensor, data: int, *, device=None) -> torch.Tensor:
+    """``jax.random.fold_in``: hash the pair (0, data) for a uint32
+    ``data`` — the same in both settings."""
+    if not 0 <= int(data) <= M32:
+        raise ValueError(f"fold_in takes data in [0, 2**32), got {data}")
+    y0, y1 = _hash(key, [0], [int(data)], 1, device)
+    return torch.cat([y0, y1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, bit_width: int, shape: Sequence[int] = (), *,
+                device=None, partitionable: Optional[bool] = None):
+    """``jax.random.bits`` of width 32 (an int64 tensor of uint32 values)
+    or 64 (a ``(high, low)`` pair of them), shaped (..., *shape)."""
+    shape = tuple(int(s) for s in shape)
+    size = _numel(shape)
+    if size >= M32:
+        raise ValueError(f"random_bits draws fewer than 2**32 - 1 words, got {size}")
+    batch = tuple(key.shape[:-1])
+    if bit_width == 32:
+        if _part(partitionable):
+            y0, y1 = _hash(key, 0, range(size), size, device)
+            bits = y0 ^ y1
+        else:
+            bits = _iota_words(key, size, device)
+        return bits.reshape(batch + shape)
+    if bit_width == 64:
+        if _part(partitionable):
+            hi, lo = _hash(key, 0, range(size), size, device)
+        else:
+            w = _iota_words(key, 2 * size, device)
+            hi, lo = w[..., :size], w[..., size:]
+        return hi.reshape(batch + shape), lo.reshape(batch + shape)
+    raise ValueError(f"random_bits supports widths 32 and 64, got {bit_width}")
+
+
+# ==========================================================================
+# Distributions
+# ==========================================================================
+_FLOAT_ONE = {torch.float32: 0x3F800000, torch.float64: 0x3FF0000000000000}
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float64, *,
+            device=None, partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.uniform`` on [0, 1) (the only range the JAX package
+    draws): the mantissa from the top bits of a draw of the type's width,
+    with the exponent of 1.0, minus 1."""
+    if dtype == torch.float32:
+        bits = random_bits(key, 32, shape, device=device, partitionable=partitionable)
+        f = ((bits >> 9) | _FLOAT_ONE[dtype]).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        hi, lo = random_bits(key, 64, shape, device=device, partitionable=partitionable)
+        mant = (hi << 20) | (lo >> 12)                  # the draw's top 52 bits
+        f = (mant | _FLOAT_ONE[dtype]).view(torch.float64)
+    else:
+        raise ValueError(f"uniform draws float32 or float64, got {dtype}")
+    return f - 1.0
+
+
+def bernoulli(key: torch.Tensor, p: Union[float, torch.Tensor] = 0.5,
+              shape: Optional[Sequence[int]] = None, *, device=None,
+              partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.bernoulli``: ``uniform < p`` in p's type — float64 for
+    a Python float (x64), a tensor's own dtype otherwise.  ``shape``
+    defaults to p's shape after the key's batch dimensions."""
+    batch = tuple(key.shape[:-1])
+    if isinstance(p, torch.Tensor):
+        dtype = p.dtype
+        if shape is None:
+            shape = tuple(p.shape[len(batch):])
+        if device is None:
+            device = p.device
+    else:
+        dtype = torch.float64
+        shape = () if shape is None else shape
+    u = uniform(key, shape, dtype, device=device, partitionable=partitionable)
+    return u < p
+
+
+def _mod_span(hi: torch.Tensor, lo: torch.Tensor, span: int) -> torch.Tensor:
+    """(hi·2³² + lo) mod span, for span < 2³¹."""
+    return ((hi % span) * ((1 << 32) % span) + lo % span) % span
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
+            dtype=torch.int64, *, device=None,
+            partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.randint``: two draws of the type's width, reduced by
+    the multiplier-remainder identity of jax (``(a·b) mod N`` from ``a mod
+    N`` and ``b mod N``).  Spans up to 2³¹ − 1."""
+    nbits = {torch.int32: 32, torch.int64: 64}.get(dtype)
+    if nbits is None:
+        raise ValueError(f"randint draws int32 or int64, got {dtype}")
+    minval, maxval = int(minval), int(maxval)
+    span = 1 if maxval <= minval else maxval - minval
+    if span >= 1 << 31:
+        raise ValueError(f"randint spans below 2**31, got {span}")
+    k1, k2 = split(key, 2, partitionable=partitionable).unbind(-2)
+    higher = random_bits(k1, nbits, shape, device=device, partitionable=partitionable)
+    lower = random_bits(k2, nbits, shape, device=device, partitionable=partitionable)
+    mult = pow(2, nbits // 2, span)
+    if nbits == 32:
+        # uint32 arithmetic, wrapping as jax's does
+        mult = ((mult * mult) & M32) % span
+        a, b = higher % span, lower % span
+        off = (((a * mult) & M32) + b) & M32
+    else:
+        mult = (mult * mult) % span
+        off = _mod_span(*higher, span) * mult + _mod_span(*lower, span)
+    return (minval + off % span).to(dtype)
+
+
+def _shuffle_rounds(n: int) -> int:
+    """jax's static round count: ⌈3·ln n / ln(2³² − 1)⌉ stable sorts on
+    fresh 32-bit keys."""
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(M32)))
+
+
+def permutation(key: torch.Tensor, n: int, *, device=None,
+                partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: (..., n) int64."""
+    n = int(n)
+    dev = _out_device(key, device)
+    batch = tuple(key.shape[:-1])
+    x = torch.arange(n, dtype=torch.int64, device=dev).expand(batch + (n,))
+    for _ in range(_shuffle_rounds(n)):
+        key, sub = split(key, 2, partitionable=partitionable).unbind(-2)
+        sort_keys = random_bits(sub, 32, (n,), device=dev, partitionable=partitionable)
+        order = torch.sort(sort_keys, dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
+
+
+def choice(key: torch.Tensor, n: int, shape: Sequence[int] = (), replace: bool = True, *,
+           device=None, partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace)`` (uniform, no ``p``):
+    with replacement a `randint`, without it the head of a `permutation`."""
+    shape = tuple(int(s) for s in shape)
+    draws = _numel(shape)
+    if replace:
+        return randint(key, shape, 0, n, device=device, partitionable=partitionable)
+    if draws > n:
+        raise ValueError(f"cannot take {draws} of {n} without replacement")
+    perm = permutation(key, n, device=device, partitionable=partitionable)
+    return perm[..., :draws].reshape(tuple(key.shape[:-1]) + shape)

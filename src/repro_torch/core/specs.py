@@ -1,6 +1,6 @@
 """Declarative method specs for the round engine — port of
-`repro.core.specs` (the `MethodSpec` hooks, `BL1Spec`, `NewtonSpec` and
-`BLDNNSpec`).
+`repro.core.specs` (the `MethodSpec` hooks, `BL1Spec`, `BL2Spec`,
+`BL3Spec`, `NewtonSpec` and `BLDNNSpec`).
 
 A spec is a frozen dataclass holding a method's hyperparameters and the
 hooks `rounds.run_rounds` calls:
@@ -13,8 +13,10 @@ hooks `rounds.run_rounds` calls:
     and the cumulative `comm.CommLedger` at the round's start;
   * ``eval_streams(batch, xs_t, f_star)`` — the post-loop evaluation.
 
-BL2, BL3, FedNL-BAG and the other baselines come with ROADMAP.md §1
-item 10.
+A round's keys are split from ``rc.key`` as the reference splits them, on
+the host; a spec whose compressors all draw nothing (and, for BL1, p = 1)
+splits none, which changes no bit.  FedNL-BAG and the first-order
+baselines come with ROADMAP.md §1 item 10.
 """
 from __future__ import annotations
 
@@ -23,13 +25,38 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from . import client_batch, comm
-from .bl import proj_mu
-from .comm import CommLedger
+from . import client_batch, comm, prng
+from .bl import _psd_h_tilde, _psd_reconstruct_full, _psd_sum_matrix, proj_mu
+from .comm import FLOAT_BITS, CommLedger
 from .compressors import Compressor
 from .pytree import tree_leaves, tree_map
-from .rounds import (coeff_layout, default_gap_stream, global_grad, refresh_due,
-                     shift_update, tree_shift_update, tree_shift_update_sum, xi_scalar)
+from .rounds import (client_keys_for, coeff_layout, default_gap_stream, downlink_broadcast,
+                     global_grad, participation, refresh_due, shift_update,
+                     tree_shift_update, tree_shift_update_sum, xi_mask, xi_scalar)
+
+
+def _sym_b(H: torch.Tensor) -> torch.Tensor:
+    """(n, d, d) batched symmetrization."""
+    return (H + H.mT) / 2.0
+
+
+def _fro_b(H: torch.Tensor) -> torch.Tensor:
+    """(n, d, d) → (n,) Frobenius norms."""
+    return torch.sqrt((H * H).sum(dim=(1, 2)))
+
+
+def _bill_fleet(R, led: CommLedger, bits: dict, down: torch.Tensor) -> CommLedger:
+    """A partial-participation round's bill: the participants' fleet bit
+    sums (Hessian leg, gradient leg, model downlink), moved to the host in
+    one copy and added to the host ledger per node."""
+    s, g, dn = torch.stack([bits["s"], bits["g"], down]).tolist()
+    return led.add_fleet_sums(R.n_total, hess_up=s, grad_up=g, model_down=dn)
+
+
+def _round_keys(key: torch.Tensor, num: int, draws: bool):
+    """``split(key, num)`` as a tuple of keys when the round draws, else
+    ``num`` Nones."""
+    return tuple(prng.split(key, num)) if draws else (None,) * num
 
 
 class MethodSpec:
@@ -85,11 +112,14 @@ class BL1Spec(MethodSpec):
         z, w, L, H, grad_w, xi, led = carry
         lay = env.extra
         ys = (z, led)  # gap evaluated at z, after the loop
+        draws = self.p < 1.0 or self.hess_comp.stochastic or self.model_comp.stochastic
+        k_h, k_m, k_xi = _round_keys(rc.key, 3, draws)
 
         # client-side legs: gradients + Hessian-coefficient learning, then
         # one uplink reduction for the round
         S, L_n, counts = shift_update(
-            lambda delta: self.hess_comp.compress(None, delta),
+            lambda delta: self.hess_comp.compress(client_keys_for(R, self.hess_comp, k_h),
+                                                  delta),
             lay.target_at(z), L, self.alpha)
         red = R.reduce_tree(
             {"grad_z": client_batch.grads(env.batch, z),
@@ -112,11 +142,197 @@ class BL1Spec(MethodSpec):
             return z - torch.linalg.solve(Hmu, g)
 
         x_next = R.once(server_step, H, grad_z, z, w, grad_w, xi)
-        v, vbits = self.model_comp(None, x_next - z)
+        v, vbits = self.model_comp(k_m if self.model_comp.stochastic else None, x_next - z)
         led = led.add(model_down=vbits)
         z_n = z + self.eta * v
-        xi_n = xi_scalar(self.p, device=z.device)
+        xi_n = xi_scalar(k_xi, self.p, device=z.device)
         return (z_n, w_n, L_n, H_n, grad_w_n, xi_n, led), ys
+
+
+# ==========================================================================
+# BL2 — Algorithm 2
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class BL2Spec(MethodSpec):
+    """Partial participation: each round the server solves with the fleet
+    means of the clients' carried (Hᵢ, lᵢ, gᵢ), broadcasts the compressed
+    model to Bernoulli(τ/n) participants, and only they learn their
+    Hessian coefficients and (with probability p) refresh their gradient
+    term; absent clients' state is frozen."""
+
+    hess_comp: Compressor
+    model_comp: Compressor
+    alpha: float
+    eta: float
+    p: float
+    tau: int
+    init_exact: bool
+    init_hess_bits: float
+    basis_bits: float
+    block: bool
+
+    def prepare(self, R, batch, basisb, x0):
+        return coeff_layout(R, batch, basisb, x0, self.block)
+
+    def init(self, R, env):
+        lay = env.extra
+        x0 = env.x0
+        x0b = x0.expand(R.n_local, env.batch.d)
+        L0 = (lay.target_at(x0) if self.init_exact
+              else torch.zeros(lay.shape, dtype=x0.dtype, device=x0.device))
+        Hi0 = lay.recon(L0) + lay.ridge
+        Hs0 = _sym_b(Hi0)
+        li0 = _fro_b(Hs0 - client_batch.hess(env.batch, x0b))
+        gi0 = (client_batch.bmv(Hs0, x0b) + li0[:, None] * x0b
+               - client_batch.grads(env.batch, x0b))
+        # the ledger stays on the host: every round adds the participants'
+        # bit sums, moved there once (`CommLedger.add_fleet_sums`)
+        led0 = CommLedger.create(hess_up=self.init_hess_bits, basis_ship=self.basis_bits)
+        return (x0b, x0b, L0, Hi0, li0, gi0, led0)
+
+    def step(self, R, env, carry, rc):
+        z, w, L, Hi, li, gi, led = carry
+        batch = env.batch
+        d = batch.d
+        lay = env.extra
+        eye = torch.eye(d, dtype=env.x0.dtype, device=env.x0.device)
+
+        # one uplink reduction for the server system, one solve per fleet
+        red = R.reduce_tree({"H": Hi, "l": li, "g": gi})
+        x_cur = R.once(lambda H, l_avg, g: torch.linalg.solve((H + H.T) / 2.0 + l_avg * eye, g),
+                       red["H"], red["l"], red["g"])
+        ys = (x_cur, led)  # gap evaluated at x_cur, after the loop
+
+        k_part, k_m, k_h, k_xi = prng.split(rc.key, 4)
+        part, _ = participation(R, k_part, self.tau, avail=rc.avail)
+
+        # compressed model broadcast (participants only)
+        z_n, dbits = downlink_broadcast(R, self.model_comp, k_m, z, x_cur, self.eta, part)
+
+        # Hessian-coefficient learning
+        S, L_plus, counts = shift_update(
+            lambda delta: self.hess_comp.compress(client_keys_for(R, self.hess_comp, k_h),
+                                                  delta),
+            lay.target_at(z_n), L, self.alpha)
+        sbits = comm.price(self.hess_comp.wire, counts)
+        pm = part[:, None, None]
+        L_n = torch.where(pm, L_plus, L)
+        # each (n, d, d) stream is dropped once spent: at bl2-xl's widths
+        # one is 5.9 GB (PERF.md §5: peak memory)
+        del L_plus
+        Hi_n = torch.where(pm, Hi + lay.recon(self.alpha * S), Hi)
+        del S
+        Hs_n = _sym_b(Hi_n)
+        li_n = torch.where(part, _fro_b(Hs_n - client_batch.hess(batch, z_n)), li)
+
+        xi = xi_mask(R, k_xi, self.p) & part
+        w_n = torch.where(xi[:, None], z_n, w)
+        # ξ=1: fresh g_i at the new w; ξ=0: server-reconstructed difference.
+        # Non-participants: Hi_n = Hi and li_n = li exactly, so gi_recon = gi.
+        gi_fresh = (client_batch.bmv(Hs_n, w_n) + li_n[:, None] * w_n
+                    - client_batch.grads(batch, w_n))
+        gi_recon = gi + client_batch.bmv(Hs_n - _sym_b(Hi), w) + (li_n - li)[:, None] * w
+        del Hs_n
+        gi_n = torch.where(xi[:, None], gi_fresh, gi_recon)
+
+        g_bits = torch.where(xi, float(d * FLOAT_BITS), FLOAT_BITS + 1.0).to(torch.float64)
+        bits = R.reduce_tree({"s": torch.where(part, sbits, 0.0),
+                              "g": torch.where(part, g_bits, 0.0)}, "sum")
+        led = _bill_fleet(R, led, bits, dbits)
+        return (z_n, w_n, L_n, Hi_n, li_n, gi_n, led), ys
+
+
+# ==========================================================================
+# BL3 — Algorithm 3 (PSD basis of Example 5.1)
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class BL3Spec(MethodSpec):
+    """BL3: coefficients h̃(∇²fᵢ) in the PSD basis, the server system
+    β·A − C assembled from carried per-client (Aᵢ, Cᵢ, g1ᵢ, g2ᵢ, βᵢ), with
+    BL2's participation and gradient-refresh draws."""
+
+    hess_comp: Compressor
+    model_comp: Compressor
+    alpha: float
+    eta: float
+    p: float
+    tau: int
+    c: float
+    option: int
+
+    def prepare(self, R, batch, basisb, x0):
+        return _psd_sum_matrix(batch.d, x0.dtype, x0.device)
+
+    def init(self, R, env):
+        Ssum = env.extra
+        x0b = env.x0.expand(R.n_local, env.batch.d)
+        L0 = _psd_h_tilde(client_batch.hess(env.batch, x0b))
+        gam0 = torch.clamp(L0.abs().amax(dim=(1, 2)), min=self.c)
+        A0 = _psd_reconstruct_full(L0) + 2.0 * gam0[:, None, None] * Ssum
+        C0 = 2.0 * gam0[:, None, None] * Ssum
+        # h̃(∇²f_i(w⁰)) = L⁰ at init, so β_i⁰ = 1 exactly
+        beta0 = torch.ones((R.n_local,), dtype=env.x0.dtype, device=env.x0.device)
+        g1_0 = client_batch.bmv(A0, x0b)
+        g2_0 = client_batch.bmv(C0, x0b) + client_batch.grads(env.batch, x0b)
+        led0 = CommLedger.create(hess_up=(env.batch.d * (env.batch.d + 1) // 2) * FLOAT_BITS)
+        return (x0b, x0b, x0b, L0, gam0, A0, C0, g1_0, g2_0, beta0, led0)
+
+    def step(self, R, env, carry, rc):
+        z, w, zprev, L, gam, A_i, C_i, g1, g2, beta_i, led = carry
+        batch = env.batch
+        d = batch.d
+        Ssum = env.extra
+
+        # four means and the β max in one uplink reduction; the server
+        # system assembles and solves once per fleet
+        red = R.reduce_tree(
+            {"A": A_i, "C": C_i, "g1": g1, "g2": g2, "beta": beta_i},
+            {"A": "mean", "C": "mean", "g1": "mean", "g2": "mean", "beta": "max"})
+        x_cur = R.once(
+            lambda beta, A, C, g1m, g2m: torch.linalg.solve(beta * A - C, beta * g1m - g2m),
+            red["beta"], red["A"], red["C"], red["g1"], red["g2"])
+        ys = (x_cur, led)  # gap evaluated at x_cur, after the loop
+
+        k_part, k_m, k_h, k_xi = prng.split(rc.key, 4)
+        part, _ = participation(R, k_part, self.tau, avail=rc.avail)
+
+        zprev_n = torch.where(part[:, None], z, zprev)
+        z_n, dbits = downlink_broadcast(R, self.model_comp, k_m, z, x_cur, self.eta, part)
+
+        target = _psd_h_tilde(client_batch.hess(batch, z_n))
+        S, L_plus, counts = shift_update(
+            lambda delta: self.hess_comp.compress(client_keys_for(R, self.hess_comp, k_h),
+                                                  delta),
+            target, L, self.alpha)
+        sbits = comm.price(self.hess_comp.wire, counts)
+        pm = part[:, None, None]
+        L_n = torch.where(pm, L_plus, L)
+        gam_n = torch.where(part, torch.clamp(L_n.abs().amax(dim=(1, 2)), min=self.c), gam)
+        num = _psd_h_tilde(client_batch.hess(batch, zprev_n)) if self.option == 1 else target
+        g2n = 2.0 * gam_n[:, None, None]
+        beta_cand = ((num + g2n) / (L_n + g2n)).amax(dim=(1, 2))
+        beta_i_n = torch.where(part, beta_cand, beta_i)
+        dgam = (gam_n - gam)[:, None, None]
+        A_n = torch.where(pm, A_i + _psd_reconstruct_full(L_n - L) + 2.0 * dgam * Ssum, A_i)
+        C_n = torch.where(pm, C_i + 2.0 * dgam * Ssum, C_i)
+
+        xi = xi_mask(R, k_xi, self.p) & part
+        w_n = torch.where(xi[:, None], z_n, w)
+        g1_fresh = client_batch.bmv(A_n, w_n)
+        g2_fresh = client_batch.bmv(C_n, w_n) + client_batch.grads(batch, w_n)
+        # non-participants: A_n = A_i, C_n = C_i ⇒ the recon branch keeps g1/g2
+        g1_recon = g1 + client_batch.bmv(A_n - A_i, w)
+        g2_recon = g2 + client_batch.bmv(C_n - C_i, w)
+        g1_n = torch.where(xi[:, None], g1_fresh, g1_recon)
+        g2_n = torch.where(xi[:, None], g2_fresh, g2_recon)
+
+        # every participant's β_i reaches the server (one float, billed with
+        # the Hessian leg; silent clients send nothing)
+        g_bits = torch.where(xi, 2.0 * d * FLOAT_BITS, 2.0 * FLOAT_BITS + 1.0).to(torch.float64)
+        bits = R.reduce_tree({"s": torch.where(part, sbits + FLOAT_BITS, 0.0),
+                              "g": torch.where(part, g_bits, 0.0)}, "sum")
+        led = _bill_fleet(R, led, bits, dbits)
+        return (z_n, w_n, zprev_n, L_n, gam_n, A_n, C_n, g1_n, g2_n, beta_i_n, led), ys
 
 
 # ==========================================================================
@@ -261,8 +477,13 @@ class BLDNNSpec(MethodSpec):
         g = torch.func.vmap(torch.func.grad(self.loss_fn), in_dims=(None, 0))(
             params, env.batch.data)
         coeff = g if basis is None else basis.rotate(g)
+        n_leaves = len(tree_leaves(params))
+        draws = any(c.stochastic for c in self.grad_comps + self.fisher_comps)
+        k_g, k_f = _round_keys(rc.key, 2, draws)
+        gks = _round_keys(k_g, n_leaves, draws)
         S, shift_n, gauxs = tree_shift_update(
-            lambda i, delta: self.grad_comps[i].compress(None, delta),
+            lambda i, delta: self.grad_comps[i].compress(
+                client_keys_for(R, self.grad_comps[i], gks[i]), delta),
             coeff, shift, self.alpha)
         gbits = self._bill(self.grad_comps, gauxs)
 
@@ -270,8 +491,10 @@ class BLDNNSpec(MethodSpec):
             # the second-order leg: the Fisher diagonal g² through the same
             # recursion, with the fused compress-then-sum codec
             ftarget = tree_map(lambda gi: gi.to(torch.float32).square(), g)
+            fks = _round_keys(k_f, n_leaves, draws)
             Fc, fshift_n, fauxs, fsums = tree_shift_update_sum(
-                lambda i, delta: self.fisher_comps[i].compress_sum(None, delta),
+                lambda i, delta: self.fisher_comps[i].compress_sum(
+                    client_keys_for(R, self.fisher_comps[i], fks[i]), delta),
                 ftarget, fshift, self.fisher_alpha)
             fbits = self._bill(self.fisher_comps, fauxs)
         else:

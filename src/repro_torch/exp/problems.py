@@ -9,8 +9,9 @@ run through a public entry point by `run_cell`:
     lines 203-218): BL1, data basis, n=10, m=60, d=120, r=24, Top-K k=24,
     12 rounds, the "loop" Newton reference;
   * `FIG1R1_CELLS` — that cell and fig1r1's ``Newton`` (no basis, 12
-    rounds) and ``FedNL`` (BL1 in the standard basis with a Rank-1
-    Hessian compressor, 12 rounds); NL1 waits for the PRNG port;
+    rounds), ``FedNL`` (BL1 in the standard basis with a Rank-1 Hessian
+    compressor, 12 rounds) and ``NL1`` (line 215: NewtonLearn-1 with
+    Rand-1, 12 rounds);
   * `FIG2` — ``newton_std`` and ``newton_basis`` (registry lines 258-268):
     Newton without a basis and in the data basis, 10 rounds, on the same
     problem;
@@ -21,8 +22,27 @@ run through a public entry point by `run_cell`:
     sharded backend, which is bitwise equal to the single-device one; the
     port runs it on one card with the "fast" backend.
 
-Every BL1 cell runs an Identity model stream with α = η = p = 1, as the
-reference's ``engine.run_cell`` does when a cell sets no params.
+  * the stochastic paper cells, each drawing from `repro_torch.core.prng`
+    (all written under ``jax_threefry_partitionable=False``): `FIG1R3`
+    (lines 239-257: BL2 in the standard basis with Rank-1, RRank-1 and
+    NRank-1, a Top-12 model stream, p = 0.1), `FIG3` (lines 270-288: BL2
+    in the data basis with Top-24, RTop-24 and NTop-24, a Top-12 model
+    stream, p = 0.1), `FIG4` (lines 289-307: BL2 in the data basis with
+    Top-24 and BL3 with Top-120 at τ ∈ {10, 5, 2}, 24 rounds), `FIG5`
+    (lines 322-330: BL1-BC at p = 0.5 and seed 3, BL2-BC, BL3-BC) and
+    `FIG6` (lines 338-356: BL2 in the standard basis and BL3, Top-K both
+    ways with k = ⌊p·d⌋, τ = 5, p ∈ {1, 1/3});
+  * `BL2_XL` — BL2 at fig1-xl's widths (n=512, d=1200, Top-K k=r²=1024,
+    block mode) with τ = 256, 8 rounds: no registered cell.  Its reference,
+    `BL2_XL_REFERENCE`, written by the JAX package
+    (``tools/bl2_xl_reference.py``), holds the participation masks and
+    bit streams at full width and the whole history of `BL2_XL_NARROW`,
+    the same run on the fleet narrowed to d = 40.
+
+A cell's compressors are ``(kind, size)`` pairs (`make_compressor`) and
+its ``params`` the keyword arguments the reference's ``engine.run_cell``
+passes its entry point; a cell that sets none runs α = η = p = 1, full
+participation and seed 0.
 
 The BL-DNN cells of ``fig-dnn`` (registry lines 437-468: BLDNN, TopK,
 RTopK, FedAvg) and ``fig-dnn-ship`` (lines 478-509) on `DNN_FIG`, the
@@ -46,14 +66,17 @@ import torch
 from .. import device as _device
 from ..core import basis as _basis
 from ..core import baselines, bl, client_batch, glm
-from ..core.compressors import Identity, RankR, TopK
+from ..core.compressors import Compressor, Identity, RankR, TopK, nrankr, ntopk, rrankr, rtopk
 from ..core.convert import dnn_problem_from_numpy
 from ..core.pytree import tree_leaves
 from ..fed import bldnn
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+DATA = pathlib.Path(__file__).resolve().parent / "data"
 #: the carried fig-dnn problem (seed 0)
-DNN_FIXTURE = pathlib.Path(__file__).resolve().parent / "data" / "fig_dnn_seed0.npz"
+DNN_FIXTURE = DATA / "fig_dnn_seed0.npz"
+#: the JAX package's BL2 trajectory at fig1-xl's widths (`BL2_XL`)
+BL2_XL_REFERENCE = DATA / "bl2_xl_seed0.json"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +96,36 @@ class ProblemSpec:
     solver: str = "loop"
 
 
+#: compressor kinds of a cell: (kind, size) → compressor for a d-wide problem
+_COMPRESSORS = {
+    "identity": lambda size, d: Identity(),
+    "topk": lambda k, d: TopK(k=k),
+    "rankr": lambda r, d: RankR(r=r),
+    "rtopk": lambda k, d: rtopk(k),
+    "ntopk": lambda k, d: ntopk(k),
+    "rrankr": lambda r, d: rrankr(r, d),
+    "nrankr": lambda r, d: nrankr(r),
+}
+
+
+def make_compressor(kind_size: Tuple[str, int], d: int) -> Compressor:
+    """The compressor of a cell's ``(kind, size)`` pair on a d-wide problem
+    (the reference's ``engine.build_compressor``)."""
+    kind, size = kind_size
+    if kind not in _COMPRESSORS:
+        raise ValueError(f"unknown compressor kind {kind!r} (expected one of "
+                         f"{sorted(_COMPRESSORS)})")
+    return _COMPRESSORS[kind](size, d)
+
+
 @dataclasses.dataclass(frozen=True)
 class GLMCell:
-    """One GLM curve at seed 0: ``method`` "bl1" (with an Identity model
-    stream) or "newton", the basis registry name (None: Newton without a
-    basis), the Hessian compressor as ``(kind, size)`` — ``("topk", k)``
-    or ``("rankr", r)``, BL1 only — `steps` rounds, and its committed
-    artifact."""
+    """One GLM curve: ``method`` "bl1", "bl2", "bl3", "newton" or "nl1",
+    the basis registry name (None: no basis), the Hessian and model-stream
+    compressors as ``(kind, size)`` pairs, `steps` rounds, the entry
+    point's keyword ``params`` (``p``, ``tau``, ``seed``), and its
+    reference trajectory: the committed artifact under ``results/exp``, or
+    ``reference`` where given."""
 
     experiment: str
     name: str
@@ -88,20 +134,65 @@ class GLMCell:
     method: str = "bl1"
     basis: Optional[str] = None
     hess_comp: Optional[Tuple[str, int]] = None
+    model_comp: Tuple[str, int] = ("identity", 0)
+    params: Tuple[Tuple[str, object], ...] = ()
+    reference: Optional[pathlib.Path] = None
 
     @property
     def artifact(self) -> pathlib.Path:
+        if self.reference is not None:
+            return self.reference
         return REPO_ROOT / "results" / "exp" / self.experiment / f"{self.name}.seed0.json"
 
 
-FIG1R1 = GLMCell("fig1r1", "BL1", ProblemSpec(), 12, basis="data_outer",
-                 hess_comp=("topk", 24))
+_P = ProblemSpec()
+_R, _D, _N = _P.r, _P.d, _P.n_clients
+FIG1R1 = GLMCell("fig1r1", "BL1", _P, 12, basis="data_outer", hess_comp=("topk", _R))
 FIG1R1_CELLS: Dict[str, GLMCell] = {c.name: c for c in (
     FIG1R1,
-    GLMCell("fig1r1", "FedNL", ProblemSpec(), 12, basis="standard",
-            hess_comp=("rankr", 1)),
-    GLMCell("fig1r1", "Newton", ProblemSpec(), 12, method="newton"),
+    GLMCell("fig1r1", "FedNL", _P, 12, basis="standard", hess_comp=("rankr", 1)),
+    GLMCell("fig1r1", "NL1", _P, 12, method="nl1"),
+    GLMCell("fig1r1", "Newton", _P, 12, method="newton"),
 )}
+FIG1R3: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("fig1r3", name, _P, 12, method="bl2", basis="standard", hess_comp=(kind, 1),
+            model_comp=("topk", _D // 10), params=(("p", 0.1),))
+    for name, kind in (("RankR", "rankr"), ("RRankR", "rrankr"), ("NRankR", "nrankr")))}
+FIG3: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("fig3", name, _P, 12, method="bl2", basis="data_outer", hess_comp=(kind, _R),
+            model_comp=("topk", _R // 2), params=(("p", _R / (2 * _D)),))
+    for name, kind in (("TopK", "topk"), ("RTopK", "rtopk"), ("NTopK", "ntopk")))}
+_TAUS = (("full", _N), ("half", _N // 2), ("quarter", _N // 4))
+FIG4: Dict[str, GLMCell] = {c.name: c for c in (
+    *(GLMCell("fig4", f"BL2_tau_{tag}", _P, 24, method="bl2", basis="data_outer",
+              hess_comp=("topk", _R), params=(("tau", tau),)) for tag, tau in _TAUS),
+    *(GLMCell("fig4", f"BL3_tau_{tag}", _P, 24, method="bl3", hess_comp=("topk", _D),
+              params=(("tau", tau),)) for tag, tau in _TAUS))}
+FIG5: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("fig5", "BL1-BC", _P, 24, basis="data_outer", hess_comp=("topk", _R),
+            model_comp=("topk", _R), params=(("p", 0.5), ("seed", 3))),
+    GLMCell("fig5", "BL2-BC", _P, 24, method="bl2", basis="data_outer",
+            hess_comp=("topk", _R), model_comp=("topk", _R), params=(("p", 0.5),)),
+    GLMCell("fig5", "BL3-BC", _P, 12, method="bl3", hess_comp=("topk", _D // 2),
+            model_comp=("topk", _D // 2), params=(("p", 0.5),)),
+)}
+FIG6: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("fig6", f"{meth.upper()}_p{p:.2f}", _P, 24, method=meth,
+            basis="standard" if meth == "bl2" else None,
+            hess_comp=("topk", max(1, int(p * _D))), model_comp=("topk", max(1, int(p * _D))),
+            params=(("tau", _N // 2), ("p", p)))
+    for p in (1.0, 1 / 3) for meth in ("bl2", "bl3"))}
+#: artifact rounds whose NaN the reference's CPU SVD put there, not the
+#: method: LAPACK's gesdd fails to converge on one client's round-10
+#: Hessian difference (numpy's and scipy's gesdd fail on the same matrix;
+#: gesvd and MKL's gesdd converge), jax fills that client's factors with
+#: NaN, and the next round's gap is NaN.  The port's SVD converges, so at
+#: these rounds its gap is finite (ROADMAP.md §3).
+REFERENCE_SVD_NAN: Dict[str, int] = {"fig1r3/RRankR": 11, "fig1r3/NRankR": 11}
+#: the stochastic GLM cells held to their artifacts
+STOCHASTIC_CELLS: Tuple[GLMCell, ...] = (
+    *FIG4.values(), *FIG6.values(), *FIG3.values(), *FIG5.values(),
+    FIG1R1_CELLS["NL1"], *FIG1R3.values())
 FIG2: Dict[str, GLMCell] = {c.name: c for c in (
     GLMCell("fig2", "newton_std", ProblemSpec(), 10, method="newton"),
     GLMCell("fig2", "newton_basis", ProblemSpec(), 10, method="newton",
@@ -111,6 +202,13 @@ FIG1_XL = GLMCell("fig1-xl", "BL1", ProblemSpec(seed=0, n_clients=512, m=32, d=1
                                                 r=32, lam=1e-3, newton_iters=12,
                                                 solver="fused"),
                   8, basis="data_outer", hess_comp=("topk", 32 * 32))
+BL2_XL = GLMCell("bl2-xl", "BL2", FIG1_XL.problem, 8, method="bl2", basis="data_outer",
+                 hess_comp=("topk", 32 * 32), params=(("tau", 256),),
+                 reference=BL2_XL_REFERENCE)
+#: `BL2_XL` on its fleet narrowed to d = 40, which the reference ran in full
+#: (its history is `BL2_XL_REFERENCE`'s ``history``)
+BL2_XL_NARROW = dataclasses.replace(
+    BL2_XL, name="BL2_d40", problem=dataclasses.replace(FIG1_XL.problem, d=40))
 
 
 @dataclasses.dataclass
@@ -155,24 +253,36 @@ def build_problem(spec: ProblemSpec, *, device=None) -> Problem:
     return Problem(spec=spec, clients=clients, x0=x0, x_star=x_star)
 
 
-_HESS_COMPS = {"topk": lambda k: TopK(k=k), "rankr": lambda r: RankR(r=r)}
-
-
 def run_cell(cell: GLMCell, prob: Problem, *, steps=None, backend: str = "fast",
              basis_project: str = "einsum") -> bl.History:
-    """Run a GLM cell through its public entry point (`bl.bl1` or
-    `baselines.newton`) on the problem's device; ``basis_project`` routes
-    the data basis's Γ = VᵀAV (see `bl.bl1`)."""
+    """Run a GLM cell through its public entry point (`bl.bl1`, `bl.bl2`,
+    `bl.bl3`, `baselines.newton` or `baselines.nl1`) on the problem's
+    device, with the cell's params, as the reference's ``engine.run_cell``
+    dispatches; ``basis_project`` routes the data basis's Γ = VᵀAV of BL1
+    and Newton (see `bl.bl1`)."""
     steps = cell.steps if steps is None else steps
     bases = prob.bases(cell.basis) if cell.basis else None
+    dev = prob.x0.device
+    params = dict(cell.params)
+    args = (prob.x0, prob.x_star, steps)
     if cell.method == "newton":
-        return baselines.newton(prob.clients, prob.x0, prob.x_star, steps, bases=bases,
-                                backend=backend, device=prob.x0.device,
-                                basis_project=basis_project)
-    kind, size = cell.hess_comp
-    return bl.bl1(prob.clients, bases, [_HESS_COMPS[kind](size)] * prob.n, Identity(),
-                  prob.x0, prob.x_star, steps, backend=backend, device=prob.x0.device,
-                  basis_project=basis_project)
+        return baselines.newton(prob.clients, *args, bases=bases, backend=backend,
+                                device=dev, basis_project=basis_project, **params)
+    if cell.method == "nl1":
+        return baselines.nl1(prob.clients, *args, device=dev, **params)
+    d = prob.spec.d
+    hc = [make_compressor(cell.hess_comp, d)] * prob.n
+    mc = make_compressor(cell.model_comp, d)
+    if cell.method == "bl1":
+        return bl.bl1(prob.clients, bases, hc, mc, *args, backend=backend, device=dev,
+                      basis_project=basis_project, **params)
+    if cell.method == "bl2":
+        return bl.bl2(prob.clients, bases, hc, [mc] * prob.n, *args, backend=backend,
+                      device=dev, **params)
+    if cell.method == "bl3":
+        return bl.bl3(prob.clients, hc, [mc] * prob.n, *args, backend=backend, device=dev,
+                      **params)
+    raise ValueError(f"unknown method {cell.method!r} in cell {cell.name!r}")
 
 
 # ==========================================================================

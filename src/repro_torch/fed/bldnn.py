@@ -12,10 +12,11 @@ public `run_bldnn`.
 
 Parameters are nested dicts of float32 tensors (`repro_torch.core.pytree`),
 data a `client_batch.TreeBatch` ``{"x": (n, m, d), "y": (n, m)}``.  The
-reference draws its synthetic fleet and initial weights from
-``jax.random``, which the port does not have yet: a problem is carried
-across from the reference as numpy arrays
-(`repro_torch.core.convert.dnn_problem_from_numpy`).
+reference draws its synthetic fleet and initial weights with
+``jax.random.normal``, whose inverse-erf transform the port does not
+reproduce bit for bit: a problem is carried across from the reference as
+numpy arrays (`repro_torch.core.convert.dnn_problem_from_numpy`).  The
+rounds' own draws (RTop-K's dithering) come from `repro_torch.core.prng`.
 """
 from __future__ import annotations
 
@@ -59,19 +60,20 @@ class BLDNNConfig:
     drift_threshold: float = 0.0
 
 
-_JAX_RANDOM = ("draws on jax.random, which is not ported yet: ROADMAP.md §1 "
-               "item 9 (PRNG) brings it; until then carry a problem across "
-               "from the reference (repro_torch.core.convert.dnn_problem_from_numpy, "
-               "ROADMAP.md §1 item 11)")
+_JAX_RANDOM = ("draws on jax.random.normal, whose inverse-erf transform "
+               "(XLA's erf_inv) torch.erfinv does not reproduce bit for bit: "
+               "ROADMAP.md §1 item 9's remainder (normal / erf_inv) brings it; "
+               "until then carry a problem across from the reference "
+               "(repro_torch.core.convert.dnn_problem_from_numpy, ROADMAP.md §1 item 11)")
 
 
 def init_mlp_classifier(*args, **kwargs):
-    """The reference's initializer; raises until the PRNG port."""
+    """The reference's initializer; raises until the port draws normals."""
     raise NotImplementedError(f"init_mlp_classifier {_JAX_RANDOM}")
 
 
 def make_synthetic_classification(*args, **kwargs):
-    """The reference's synthetic fleet; raises until the PRNG port."""
+    """The reference's synthetic fleet; raises until the port draws normals."""
     raise NotImplementedError(f"make_synthetic_classification {_JAX_RANDOM}")
 
 
@@ -146,9 +148,10 @@ def run_bldnn(loss_fn, eval_fn, params0: dict, batch: TreeBatch, steps: int,
 
     Args are the reference's (`repro.fed.bldnn.run_bldnn`), plus ``device``:
     the run's device, ``None`` meaning ``"cuda"`` (raises without a GPU);
-    parameters, data and basis are moved there.  ``seed`` and ``exact`` are
-    accepted for the reference's signature: the ported compressors draw
-    nothing and the "fast" backend reduces exactly.  ``basis`` overrides
+    parameters, data and basis are moved there.  ``seed`` keys the rounds
+    (the per-leaf draws of a stochastic compressor, ``rtopk``); ``exact``
+    is accepted for the reference's signature: the "fast" backend reduces
+    exactly.  ``basis`` overrides
     the basis built from ``params0`` (carry the reference's per-layer SVD
     factors here: they are not unique).  "fast+sharded" raises until
     ROADMAP.md §1 item 13.
@@ -183,5 +186,5 @@ def run_bldnn(loss_fn, eval_fn, params0: dict, batch: TreeBatch, steps: int,
         basis, ship_bits = basis.to(dev).shipped(ship)
     spec = build_spec(loss_fn, eval_fn, params0, cfg, basis_ship_bits=ship_bits)
     evals, leds = rounds.run_rounds(spec, batch, basis, params0, 0.0, steps,
-                                    stream=stream)
+                                    seed=seed, stream=stream)
     return batched._history(evals, leds)

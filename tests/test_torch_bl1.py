@@ -158,8 +158,20 @@ def test_unported_backends_raise_naming_roadmap_item(small, backend, item):
 
 
 def test_p_below_one_raises_until_prng_port(small):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbl.bl1(*_args(small[-1]), p=0.5, device="cpu")
+    """Since the PRNG port (ROADMAP.md §1 item 9) p < 1 no longer raises:
+    BL1 draws its fleet-wide ξ from the round keys, as the reference
+    does (fig5/BL1-BC runs p = 0.5 at seed 3)."""
+    clients, jbases, x0, x_star, port = small
+    import jax
+
+    with jax.threefry_partitionable(False):
+        ref = jbl.bl1(clients, jbases, [jcomp.TopK(k=6)] * 4, jcomp.TopK(k=6), x0, x_star,
+                      8, p=0.5, seed=3, backend="fast")
+    h = tbl.bl1(port.clients, port.bases, [tcomp.TopK(k=6)] * 4, tcomp.TopK(k=6), port.x0,
+                port.x_star, 8, p=0.5, seed=3, device="cpu")
+    assert_same_history(h, ref.gaps, ref.up_bits, ref.down_bits, ref.legs)
+    steps = np.diff(h.legs["grad_up"])
+    assert (steps == 0).any() and (steps > 0).any()       # ξ drew both ways
 
 
 def test_symmetrized_topk_raises(small):

@@ -385,24 +385,38 @@ def test_fig_dnn_bldnn_from_fixture_matches_artifact():
 # what is not ported raises, naming its ROADMAP item
 # --------------------------------------------------------------------------
 def test_unported_paths_raise_naming_their_item(small):
+    """fig-dnn/RTopK and the composed Top-K run since the PRNG port (see
+    `test_fig_dnn_rtopk_from_fixture_matches_artifact`); drawing the fleet
+    itself (jax.random.normal) stays item 9's remainder."""
     _, _, _, conv = small
-    with pytest.raises(NotImplementedError, match="item 9"):
-        problems.run_dnn_cell(problems.FIG_DNN["RTopK"],
+    h = problems.run_dnn_cell(problems.FIG_DNN["RTopK"],
                               problems.DNNProblem(problems.DNN_FIG, conv.batch, conv.params0,
-                                                  conv.basis, None, None), steps=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tcomp.ComposedTopK(k=3)
-    with pytest.raises(NotImplementedError, match="item 9"):
+                                                  conv.basis, tbldnn.make_loss_fn(4),
+                                                  tbldnn.make_eval_fn()), steps=1)
+    assert len(h.gaps) == 1 and np.isfinite(h.metrics["loss"]).all()
+    assert tcomp.ComposedTopK(k=3, inner=tcomp.NaturalCompression()).stochastic
+    with pytest.raises(NotImplementedError, match="item 9's remainder"):
         tbldnn.make_synthetic_classification(seed=0, n_clients=2, m=4, d=6,
                                              classes=2, width=4)
     with pytest.raises(NotImplementedError, match="item 13"):
         tbldnn.run_bldnn(None, None, conv.params0, conv.batch, 1,
                          backend="fast+sharded", device="cpu")
-    with pytest.raises(ValueError, match="pytree basis"):
-        tbldnn.run_bldnn(None, None, conv.params0, conv.batch, 1,
-                         tbldnn.BLDNNConfig(basis_kind="data_outer"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tbasis.make_bases("eigen", [])
+
+
+def test_fig_dnn_rtopk_from_fixture_matches_artifact():
+    """fig-dnn/RTopK (per-leaf RTop-K dithering draws from the round keys)
+    from the carried problem: bits exact over every round; loss within
+    1e-4·|ref| and the error rate exact over rounds 0–3."""
+    prob = problems.load_dnn_problem(device="cpu")
+    cell = problems.FIG_DNN["RTopK"]
+    ref = json.loads(cell.artifact.read_text())["history"]
+    h = problems.run_dnn_cell(cell, prob)
+    assert h.up_bits == ref["up_bits"] and h.down_bits == ref["down_bits"]
+    assert all(h.legs[k] == v for k, v in ref["legs"].items())
+    n = ARTIFACT_ROUNDS
+    loss, lr = np.asarray(h.metrics["loss"][:n]), np.asarray(ref["metrics"]["loss"][:n])
+    assert (np.abs(loss - lr) <= 1e-4 * np.abs(lr)).all(), (loss, lr)
+    assert h.gaps[:n] == ref["gaps"][:n]
 
 
 def test_tree_batch_validates_client_axis():

@@ -1,0 +1,265 @@
+"""The port's threefry2x32 PRNG (`repro_torch.core.prng`) against
+`jax.random`, bitwise, in both settings of ``jax_threefry_partitionable``.
+
+Every jax call runs under ``jax.threefry_partitionable(flag)`` and every
+port call under ``prng.threefry_partitionable(flag)`` (or its explicit
+``partitionable=`` argument), so no test leaves a setting behind.  Shapes
+with odd and even element counts matter: the original layout pads an odd
+counter array.  The JAX package runs with x64 on, so a Python-float ``p``
+draws float64 uniforms and `randint` defaults to int64.
+
+``python tests/test_torch_prng.py`` rewrites the committed table of jax
+draws (``src/repro_torch/exp/data/prng_table.json``) that ``chip_smoke.py``
+holds the card's draws to.
+"""
+import json
+import pathlib
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import rounds as jrounds  # noqa: F401  (turns on x64, as the package does)
+from repro_torch.core import prng
+from repro_torch.exp import problems
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the repo root's smoke script: its table adapter)
+
+TABLE = problems.DATA / "prng_table.json"
+SEEDS = (0, 3, 2**40 + 7, -1)
+SETTINGS = (False, True)
+
+
+def _np(x) -> np.ndarray:
+    """A draw as numpy: bools stay bool, integer words int64."""
+    a = np.asarray(x)
+    return a if a.dtype.kind in "bf" else a.astype(np.int64)
+
+
+def _same(jx, tx):
+    a, b = _np(jx), tx.numpy()
+    assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, (a.shape, b.shape, a.dtype, b.dtype)
+    if a.dtype.kind == "f":
+        assert a.dtype == b.dtype
+        assert a.tobytes() == b.tobytes(), (a, b)
+    else:
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(params=SETTINGS, ids=["original", "partitionable"])
+def setting(request):
+    with jax.threefry_partitionable(request.param), \
+            prng.threefry_partitionable(request.param):
+        yield request.param
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prng_key(seed):
+    _same(jax.random.PRNGKey(seed), prng.PRNGKey(seed))
+
+
+@pytest.mark.parametrize("num", [1, 2, 3, 4, 17, 24])
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_split(setting, seed, num):
+    _same(jax.random.split(jax.random.PRNGKey(seed), num),
+          prng.split(prng.PRNGKey(seed), num))
+
+
+@pytest.mark.parametrize("data", [0, 5, 2**31, 2**32 - 1])
+def test_fold_in(setting, data):
+    _same(jax.random.fold_in(jax.random.PRNGKey(7), data),
+          prng.fold_in(prng.PRNGKey(7), data))
+
+
+@pytest.mark.parametrize("data", [-1, 2**32])
+def test_fold_in_refuses_what_is_not_a_uint32(data):
+    with pytest.raises(OverflowError):
+        jax.random.fold_in(jax.random.PRNGKey(7), data)
+    with pytest.raises(ValueError, match="fold_in"):
+        prng.fold_in(prng.PRNGKey(7), data)
+
+
+SHAPES = [(), (1,), (5,), (6,), (3, 7), (2, 4)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_random_bits(setting, shape):
+    jk, tk = jax.random.PRNGKey(11), prng.PRNGKey(11)
+    _same(jax.random.bits(jk, shape, jnp.uint32), prng.random_bits(tk, 32, shape))
+    hi, lo = prng.random_bits(tk, 64, shape)
+    b64 = np.asarray(jax.random.bits(jk, shape, jnp.uint64)).astype(np.uint64)
+    np.testing.assert_array_equal((b64 >> np.uint64(32)).astype(np.int64), hi.numpy())
+    np.testing.assert_array_equal((b64 & np.uint64(0xFFFFFFFF)).astype(np.int64), lo.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_uniform(setting, shape, dtype):
+    jk, tk = jax.random.PRNGKey(5), prng.PRNGKey(5)
+    _same(jax.random.uniform(jk, shape, getattr(jnp, dtype)),
+          prng.uniform(tk, shape, getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_bernoulli_float64_from_a_python_p(setting, shape):
+    """x64: a Python-float p draws float64 uniforms from 64-bit bits."""
+    for p in (0.3, 0.5, 0.1):
+        _same(jax.random.bernoulli(jax.random.PRNGKey(2), p, shape),
+              prng.bernoulli(prng.PRNGKey(2), p, shape))
+
+
+@pytest.mark.parametrize("T", [7, 8, 24])
+def test_bernoulli_float32_from_a_tensor_p(setting, T):
+    """The dithering's draw: float32 p of the key's batch and entry axes."""
+    p = np.random.default_rng(T).random((3, T)).astype(np.float32)
+    jks = jax.random.split(jax.random.PRNGKey(4), 3)
+    want = jax.vmap(lambda k, pp: jax.random.bernoulli(k, pp))(jks, p)
+    _same(want, prng.bernoulli(prng.split(prng.PRNGKey(4), 3), torch.tensor(p)))
+    _same(jax.random.bernoulli(jks[0], p[0]), prng.bernoulli(prng.split(prng.PRNGKey(4), 3)[0],
+                                                             torch.tensor(p[0])))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("span", [1, 2, 10, 512, 60000, 2**31 - 1])
+@pytest.mark.parametrize("shape", [(), (5,), (6,)], ids=str)
+def test_randint(setting, shape, span, dtype):
+    jk, tk = jax.random.PRNGKey(9), prng.PRNGKey(9)
+    _same(jax.random.randint(jk, shape, 0, span, getattr(jnp, dtype)),
+          prng.randint(tk, shape, 0, span, getattr(torch, dtype)))
+    _same(jax.random.randint(jk, shape, -3, span - 3, getattr(jnp, dtype)),
+          prng.randint(tk, shape, -3, span - 3, getattr(torch, dtype)))
+
+
+def test_randint_defaults_to_int64_and_empty_span(setting):
+    jk, tk = jax.random.PRNGKey(1), prng.PRNGKey(1)
+    want = jax.random.randint(jk, (4,), 0, 10)
+    assert want.dtype == jnp.int64
+    _same(want, prng.randint(tk, (4,), 0, 10))
+    _same(jax.random.randint(jk, (3,), 5, 5), prng.randint(tk, (3,), 5, 5))
+
+
+@pytest.mark.parametrize("n", [1, 2, 60, 1625, 1700])
+def test_permutation(setting, n):
+    """1625 and 1700 straddle the size where jax's shuffle takes a second
+    round of stable sorts."""
+    _same(jax.random.permutation(jax.random.PRNGKey(8), n),
+          prng.permutation(prng.PRNGKey(8), n))
+
+
+@pytest.mark.parametrize("n,shape,replace", [(60, (1,), False), (60, (5,), False),
+                                             (7, (7,), False), (60, (4,), True),
+                                             (10, (), True)])
+def test_choice(setting, n, shape, replace):
+    jks = jax.random.split(jax.random.PRNGKey(6), 4)
+    tks = prng.split(prng.PRNGKey(6), 4)
+    _same(jax.random.choice(jks[1], n, shape, replace=replace),
+          prng.choice(tks[1], n, shape, replace=replace))
+    _same(jax.vmap(lambda k: jax.random.choice(k, n, shape, replace=replace))(jks),
+          prng.choice(tks, n, shape, replace=replace))
+
+
+def test_batched_keys_split_and_bits(setting):
+    jks = jax.random.split(jax.random.PRNGKey(3), 5)
+    tks = prng.split(prng.PRNGKey(3), 5)
+    _same(jax.vmap(lambda k: jax.random.split(k, 4))(jks), prng.split(tks, 4))
+    _same(jax.vmap(lambda k: jax.random.bits(k, (9,), jnp.uint32))(jks),
+          prng.random_bits(tks, 32, (9,)))
+    _same(jax.vmap(lambda k: jax.random.fold_in(k, 3))(jks), prng.fold_in(tks, 3))
+
+
+def test_host_and_tensor_paths_agree(monkeypatch):
+    """A CPU key's small counts hash in Python ints; the tensor path (any
+    device) gives the same words."""
+    k = prng.PRNGKey(12)
+    host = [prng.split(k, 4, partitionable=f) for f in SETTINGS] + [prng.fold_in(k, 3)]
+    monkeypatch.setattr(prng, "HOST_PAIRS", 0)
+    tensor = [prng.split(k, 4, partitionable=f) for f in SETTINGS] + [prng.fold_in(k, 3)]
+    for a, b in zip(host, tensor):
+        assert torch.equal(a, b)
+
+
+def test_setting_is_scoped_and_explicit_argument_wins():
+    k = prng.PRNGKey(0)
+    orig, part = prng.split(k, partitionable=False), prng.split(k, partitionable=True)
+    assert not torch.equal(orig, part)
+    assert torch.equal(prng.split(k), orig)                 # the default: False
+    with prng.threefry_partitionable(True):
+        assert torch.equal(prng.split(k), part)
+        assert torch.equal(prng.split(k, partitionable=False), orig)
+    assert torch.equal(prng.split(k), orig)
+
+
+def test_bad_arguments_raise():
+    k = prng.PRNGKey(0)
+    with pytest.raises(ValueError, match="32 and 64"):
+        prng.random_bits(k, 16, (2,))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        prng.uniform(k, (2,), torch.float16)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        prng.randint(k, (2,), 0, 3, torch.int16)
+    with pytest.raises(ValueError, match="spans below"):
+        prng.randint(k, (2,), 0, 2**31)
+    with pytest.raises(ValueError, match="without replacement"):
+        prng.choice(k, 3, (4,), replace=False)
+
+
+# --------------------------------------------------------------------------
+# the committed table the card is held to (chip_smoke.py phase `prng`)
+# --------------------------------------------------------------------------
+class _Jax:
+    """`chip_smoke.prng_draws`'s random module over `jax.random`."""
+
+    PRNGKey = staticmethod(jax.random.PRNGKey)
+    split = staticmethod(jax.random.split)
+    fold_in = staticmethod(jax.random.fold_in)
+    setting = staticmethod(jax.threefry_partitionable)
+
+    @staticmethod
+    def f32(values):
+        return jnp.asarray(values, jnp.float32)
+
+    @staticmethod
+    def bernoulli(key, p, shape):
+        return jax.random.bernoulli(key, p, shape)
+
+    @staticmethod
+    def randint(key, shape, lo, hi, dtype):
+        return jax.random.randint(key, shape, lo, hi, getattr(jnp, dtype))
+
+    @staticmethod
+    def uniform(key, shape, dtype):
+        return jax.random.uniform(key, shape, getattr(jnp, dtype))
+
+    @staticmethod
+    def choice(key, n, shape, replace):
+        return jax.random.choice(key, n, shape, replace=replace)
+
+    @staticmethod
+    def tolist(x):
+        return np.asarray(x).tolist()
+
+
+def jax_table() -> dict:
+    """The table of `jax.random` draws in both settings."""
+    return chip_smoke.prng_table(_Jax)
+
+
+def test_committed_table_is_jax():
+    """The table the card is held to is jax's, draw for draw."""
+    assert json.loads(TABLE.read_text()) == jax_table()
+
+
+def test_port_draws_the_committed_table():
+    """The port's draws of the table on the CPU, through the adapter
+    chip_smoke.py holds the card's draws with."""
+    assert chip_smoke.prng_table(chip_smoke.PortRandom(torch, prng, "cpu")) == \
+        json.loads(TABLE.read_text())
+
+
+if __name__ == "__main__":
+    TABLE.write_text(json.dumps(jax_table(), sort_keys=True) + "\n")
+    print(f"wrote {TABLE}")
