@@ -19,8 +19,11 @@ is non-zero and no result line is printed:
                 and on rows past its register path (staged in shared memory,
                 and re-read from global memory), and timed beside its plain
                 version, its library call and its bound at the main path's
-                shapes and the stochastic cells' (BL3's and fig6's full
-                (10, 120²) layouts, the (10, 120) model streams);
+                shapes and the other cells' (BL3's and fig6's full
+                (10, 120²) layouts, the (10, 120) model streams,
+                FedNL-BC's (10, 7260) upper triangles at k = 7200, the
+                basis grid's blocks at k = T and full layouts, a1a's
+                blocks), each also held bitwise at k = T − 1 and T;
   4. kernels_matmul — the tiled-matmul kernel against its plain version and
                 float64 (within 1e-5 of the larger magnitude of each), and
                 bitwise equal to itself on a second call, at the
@@ -53,6 +56,19 @@ is non-zero and no result line is printed:
                 p < 1, NL1) through `bl.bl1/bl2/bl3` and `baselines.nl1`
                 against their artifacts, the threshold kernel launched
                 exactly once a round for each leg that selects by Top-K;
+     fig1r2, fig5, fig1-bag — the rest of the paper's figures
+                (`problems.BASELINE_CELLS`): BL1, GD, DIANA, ADIANA and
+                Local-GD; FedNL-BC (symmetrized Top-K on the Hessian's
+                upper triangle) and DORE (Top-K both ways); FedNL and
+                FedNL-BAG at q = 0.5 and 1, through their public entry
+                points against their artifacts, the threshold kernel
+                exactly once a round for each Top-K leg and no other kernel;
+     basis-grid — BL1 on fig1r1's problem for 16 rounds in the standard,
+                symmetric, data, eigen and DCT bases under Top-576 and
+                Rank-2, and on Table 2's a1a in the data basis with Top-64,
+                against the JAX package's histories
+                (src/repro_torch/exp/data/basis_grid_seed0.json, written by
+                tools/basis_grid_reference.py), held the same way;
   7. fig1-xl  — BL1 at full width (n=512, d=1200) against
                 results/exp/fig1-xl/BL1.seed0.json, with seconds per round,
                 the Newton reference time and peak device memory; then
@@ -93,8 +109,10 @@ is non-zero and no result line is printed:
                 --profile, every kernel's device time there;
   9. fig-dnn / fig-dnn-ship — BL-DNN through
                 `repro_torch.fed.bldnn.run_bldnn` from the carried problem
-                (src/repro_torch/exp/data/fig_dnn_seed0.npz): BLDNN, TopK,
-                FedAvg, BLDNN_int8, BLDNN_dct, BLDNN_hadamard and RTopK
+                (src/repro_torch/exp/data/fig_dnn_seed0.npz): fig-dnn's
+                BLDNN, TopK and FedAvg, fig-dnn-ship's TopK, BLDNN_f32,
+                BLDNN_bf16, BLDNN_int8, BLDNN_dct and BLDNN_hadamard, and
+                fig-dnn's RTopK
                 (dithering draws from the round keys; the threshold kernel
                 exactly 8 times and the basis transform exactly 4 times a
                 round) against their artifacts under results/exp/, with the
@@ -182,14 +200,22 @@ BL2_XL_REPEATS = 3
 #: full (10, 120²) layout of BL3 (fig4, k = 120; fig5/BL3-BC, k = 60) and
 #: of fig6's BL2 in the standard basis (k = 40), and the (10, 120) model
 #: streams (fig3 and fig1r3 k = 12, fig5 k = 24 and 60, fig6 k = 40), one
-#: client's for BL1-BC; fig3's Hessian leg is fig1r1's (10, 576) k = 24
+#: client's for BL1-BC; fig3's Hessian leg is fig1r1's (10, 576) k = 24.
+#: Then the shapes of the rest of the paper's figures and the basis grid:
+#: FedNL-BC's upper triangles (10, 120·121/2) with k = 7200 (the 61st
+#: smallest key), one client's model stream and DORE's downlink (1, 120)
+#: k = 60 (DORE's uplink is the (10, 120) k = 60 row), the grid's data
+#: basis in blocks at k = T = 576 and its full layouts (10, 120²) at
+#: k = 576, and a1a's blocks (16, 64²) at k = 64
 STOCHASTIC_THRESHOLD_SHAPES = (
     (10, 14400, 120, "fig4/BL3"), (10, 14400, 60, "fig5/BL3-BC"),
     (10, 14400, 40, "fig6/BL2_p0.33"), (10, 120, 12, "model/k12"),
     (10, 120, 24, "model/k24"), (10, 120, 40, "model/k40"), (10, 120, 60, "model/k60"),
-    (1, 120, 24, "fig5/BL1-BC/model"))
+    (1, 120, 24, "fig5/BL1-BC/model"), (10, 7260, 7200, "fig5/FedNL-BC"),
+    (1, 120, 60, "one/k60"), (10, 576, 576, "basis-grid/data_outer"),
+    (10, 14400, 576, "basis-grid/full"), (16, 4096, 64, "table2/a1a"))
 #: compressor kinds that select through kernel 1 (`topk_keep_mask`)
-TOPK_KINDS = ("topk", "rtopk", "ntopk")
+TOPK_KINDS = ("topk", "topk_sym", "rtopk", "ntopk")
 #: rounds of simulated draws timed in the prng phase
 PRNG_COST_ROUNDS = 50
 #: BL-DNN: rounds whose loss and error rate are held to the artifact
@@ -642,6 +668,12 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
     for T in LONG_ROWS:
         for k in (1, T // 10, T):
             cases.append((f"random4x{T}", dev(np.abs(rng.standard_normal((4, T)))), k))
+    # every path shape at its k and at both ends of the radix select
+    # (k = T - 1 and k = T)
+    for rows, T, k, tag in STOCHASTIC_THRESHOLD_SHAPES:
+        a = dev(np.abs(rng.standard_normal((rows, T))))
+        for kk in sorted({k, T - 1, T}):
+            cases.append((tag, a, kk))
 
     max_err = 0.0
     for name, a, k in cases:
@@ -670,6 +702,8 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
     for rows, T, k, path in ((10, 576, 24, "fig1r1"), (512, 1024, 1024, "fig1-xl"),
                              *STOCHASTIC_THRESHOLD_SHAPES):
         a = dev(np.abs(rng.standard_normal((rows, T))))
+        if not torch.equal(tk.topk_row_threshold(a, k), tk.topk_row_threshold_plain(a, k)):
+            raise AssertionError(f"threshold kernel != plain at {path} ({rows}, {T}) k={k}")
         bound, by = threshold_bound_ms(rows, T)
         timings[path] = {
             "shape": [rows, T], "k": k,
@@ -1188,6 +1222,37 @@ def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -
     emit({"phase": "bl2-xl", "cell": narrow.name, "d": narrow.problem.d, "run_s": secs,
           "launches": counts, **res})
     return want["topk_row_threshold"]
+
+
+def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
+                    device: str = "cuda") -> dict:
+    """Run GLM cells on the card, each held to its reference history
+    (`GLMCell.reference_history`: the artifact or the reference file) at
+    the GLM gate (`check_history`, with the cell's
+    `problems.REFERENCE_SVD_NAN` round), bits exact, kernel 1 launched
+    exactly once a round for each leg that selects by Top-K and no other
+    kernel; ``paper`` is
+    fig1r1's problem, a cell on another regime builds its own.  Emits one
+    line a cell (under ``phase``, default the cell's experiment) and
+    returns kernel 1's launches by cell."""
+    out = {}
+    for cell in cells:
+        name = f"{cell.experiment}/{cell.name}"
+        t0 = time.perf_counter()
+        prob = paper if cell.problem == paper.spec else problems.build_problem(
+            cell.problem, device=device)
+        setup_s = time.perf_counter() - t0
+        hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
+        res = check_history(name, hist, cell.reference_history(),
+                            svd_nan_round=problems.REFERENCE_SVD_NAN.get(name))
+        want = dict.fromkeys(counts, 0)
+        want["topk_row_threshold"] = topk_legs(cell) * cell.steps
+        need_exact(name, counts, want)
+        out[name] = counts["topk_row_threshold"]
+        emit({"phase": phase or cell.experiment, "cell": cell.name, "method": cell.method,
+              "basis": cell.basis, "steps": cell.steps, "setup_s": setup_s, "run_s": secs,
+              "s_per_round": secs / cell.steps, "launches": counts, **res})
+    return out
 
 
 def drive(torch, k, run) -> tuple:
@@ -1764,18 +1829,12 @@ def main(argv) -> int:
             torch, lambda: problems.run_cell(cell, prob, steps=4, basis_project="kernel"), 4)})
 
     # ---- the stochastic paper cells: fig4, fig6, fig3, fig5, NL1, fig1r3 ----
-    stochastic = {}
-    for cell in problems.STOCHASTIC_CELLS:
-        name = f"{cell.experiment}/{cell.name}"
-        hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
-        res = check_history(name, hist, json.loads(cell.artifact.read_text())["history"],
-                            svd_nan_round=problems.REFERENCE_SVD_NAN.get(name))
-        want = dict.fromkeys(counts, 0)
-        want["topk_row_threshold"] = topk_legs(cell) * cell.steps
-        need_exact(name, counts, want)
-        stochastic[name] = counts["topk_row_threshold"]
-        emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps, "run_s": secs,
-              "s_per_round": secs / cell.steps, "launches": counts, **res})
+    stochastic = glm_cells_phase(torch, k, problems, problems.STOCHASTIC_CELLS, prob)
+
+    # ---- fig1r2, fig5 (FedNL-BC, DORE), fig1-bag; then the basis grid and a1a
+    baseline = glm_cells_phase(torch, k, problems, problems.BASELINE_CELLS, prob)
+    grid = glm_cells_phase(torch, k, problems, (*problems.BASIS_GRID.values(),
+                                                problems.TABLE2_A1A), prob, "basis-grid")
 
     # ---- fig1-xl: full width on one card ------------------------------------
     cell = problems.FIG1_XL
@@ -1869,9 +1928,10 @@ def main(argv) -> int:
     setup_s = time.perf_counter() - t0
     dnn_launches = {}
     for cell in (problems.FIG_DNN["BLDNN"], problems.FIG_DNN["TopK"],
-                 problems.FIG_DNN["FedAvg"], problems.FIG_DNN_SHIP["BLDNN_int8"],
-                 problems.FIG_DNN_SHIP["BLDNN_dct"], problems.FIG_DNN_SHIP["BLDNN_hadamard"],
-                 problems.FIG_DNN["RTopK"]):
+                 problems.FIG_DNN["FedAvg"], problems.FIG_DNN_SHIP["TopK"],
+                 problems.FIG_DNN_SHIP["BLDNN_f32"], problems.FIG_DNN_SHIP["BLDNN_bf16"],
+                 problems.FIG_DNN_SHIP["BLDNN_int8"], problems.FIG_DNN_SHIP["BLDNN_dct"],
+                 problems.FIG_DNN_SHIP["BLDNN_hadamard"], problems.FIG_DNN["RTopK"]):
         hist, secs, counts = drive(torch, k, lambda: problems.run_dnn_cell(cell, prob))
         res = check_dnn_history(f"{cell.experiment}/{cell.name}", hist,
                                 json.loads(cell.artifact.read_text())["history"])
@@ -1896,7 +1956,7 @@ def main(argv) -> int:
         if counts["basis_transform_cuda"] != counts["basis_transform"]:
             raise AssertionError(f"{cell.experiment}/{cell.name}: every leaf's rotation "
                                  f"should be one fused CUDA launch: {counts}")
-        dnn_launches[cell.name] = counts
+        dnn_launches[f"{cell.experiment}/{cell.name}"] = counts
         emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps,
               "setup_s": setup_s, "run_s": secs, "s_per_round": secs / cell.steps,
               "launches": counts, **res})
@@ -1926,7 +1986,7 @@ def main(argv) -> int:
     mm, mg = km["timings"]["newton-xl/T"], km["timings"]["newton-xl/G"]
     fg, fw = ka["timings"]["global"], ka["timings"]["window1024"]
     sd = ks["timing"]
-    main = dnn_launches["BLDNN"]
+    main = dnn_launches["fig-dnn/BLDNN"]
     emit({"kernels": [{
         "name": "topk_row_threshold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk_threshold.cu",
@@ -1936,7 +1996,8 @@ def main(argv) -> int:
         "bound_by": xl["bound_by"], "library_ms": xl["library_ms"],
         "shape": xl["shape"], "launches_fig1-xl": launches["fig1-xl"],
         "launches_bl2-xl": launches["bl2-xl"], "launches_stochastic_cells": stochastic,
-        "launches_fig-dnn/RTopK": dnn_launches["RTopK"]["topk_row_threshold"],
+        "launches_fig-dnn/RTopK": dnn_launches["fig-dnn/RTopK"]["topk_row_threshold"],
+        "launches_baseline_cells": baseline, "launches_basis_grid": grid,
         "path_shapes": {tag: {key: kern["timings"][tag][key] for key in (
             "shape", "k", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
             for *_, tag in STOCHASTIC_THRESHOLD_SHAPES}}, {

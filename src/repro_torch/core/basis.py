@@ -1,14 +1,21 @@
-"""Basis Learn: changes of basis in R^{d×d} (paper §2.3, §4) and on
-parameter pytrees (BL-DNN) — the part of `repro.core.basis` that BL1's and
-BL-DNN's main paths run.
+"""Basis Learn: changes of basis in R^{d×d} and S^d (paper §2.3, §4, §5)
+and on parameter pytrees (BL-DNN) — port of `repro.core.basis`.
 
 A `MatrixBasis` provides the coefficient transform h(A) and the
-reconstruction A = Σ_{jl} h_{jl} B^{jl}.  Ported bases:
+reconstruction A = Σ_{jl} h_{jl} B^{jl}.  Registered bases
+(`make_bases`):
 
   * ``standard``      — Example 4.1 (h(A) = A);
+  * ``symmetric``     — Example 4.2 on S^d: h(A) is A's lower triangle;
+  * ``psd``           — Example 5.1: B^{jl} ⪰ 0 (BL3's basis);
   * ``data_outer``    — §2.3: client data spans G_i = span{v_1..v_r}; the
                         coefficient matrix of A = Σ γ_tl v_t v_lᵀ is the
                         r×r Γ = VᵀAV, embedded top-left in a d×d zero array;
+  * ``eigen``         — B^{jl} = q_j q_lᵀ for the eigenvectors Q of the
+                        fleet's averaged Hessian at x⁰, shipped once (d²
+                        floats on the ``basis_ship`` leg);
+  * ``dct``           — the same rotation with the orthonormal DCT-II
+                        factor, a convention both sides build (free);
   * ``per_layer_svd`` — the pytree basis of BL-DNN: every 2-D weight leaf
                         gets the complete SVD factors (U, V) of its
                         initialization; gradients travel as Uᵀ g V;
@@ -17,9 +24,8 @@ reconstruction A = Σ_{jl} h_{jl} B^{jl}.  Ported bases:
                         shapes (nothing shipped).
 
 A client-stacked float32 leaf on the card is rotated by the hand-written
-`repro_torch.kernels.basis_transform` kernel.  The other registered bases
-of the reference (``symmetric``, ``psd``, ``eigen``, ``dct``) raise
-`NotImplementedError` until ROADMAP.md §1 item 10 ports them.
+`repro_torch.kernels.basis_transform` kernel; the float64 GLM rotations of
+``eigen`` and ``dct`` are einsums, as in the reference.
 """
 from __future__ import annotations
 
@@ -88,6 +94,90 @@ class DataOuterBasis(MatrixBasis):
         return self.V @ H[: self.r, : self.r] @ self.V.T
 
 
+@dataclasses.dataclass
+class SymmetricBasis(MatrixBasis):
+    """Example 4.2 on symmetric A: h(A) is the lower triangle; B^{jl}
+    (j > l) has ones at (j, l) and (l, j), B^{jj} one at (j, j)."""
+    d: int
+
+    def __post_init__(self):
+        self.n_coeff = self.d * (self.d + 1) // 2
+
+    def h(self, A):
+        return torch.tril(A)
+
+    def reconstruct(self, H):
+        return torch.tril(H) + torch.tril(H, -1).T
+
+
+@dataclasses.dataclass
+class PSDBasis(MatrixBasis):
+    """Example 5.1: for j ≠ l, B^{jl} has ones at (j,l), (l,j), (j,j) and
+    (l,l), so every B^{jl} ⪰ 0.  For symmetric A: c_{jl} = A_{jl} (j > l)
+    and c_{jj} = A_{jj} − Σ_{l≠j} A_{jl}."""
+    d: int
+
+    def __post_init__(self):
+        self.n_coeff = self.d * (self.d + 1) // 2
+
+    def h(self, A):
+        diag = torch.diagonal(A)
+        return torch.tril(A, -1) + torch.diag(diag - (A.sum(dim=1) - diag))
+
+    def reconstruct(self, H):
+        off = torch.tril(H, -1)
+        sym_off = off + off.T
+        return sym_off + torch.diag(torch.diagonal(H) + sym_off.sum(dim=1))
+
+
+@dataclasses.dataclass
+class RotationBasis(MatrixBasis):
+    """B^{jl} = q_j q_lᵀ for one orthogonal Q (d, d): h(A) = QᵀAQ and
+    A = Q h Qᵀ for every matrix (no data span, no analytic ridge)."""
+    Q: torch.Tensor
+
+    def __post_init__(self):
+        self.d = int(self.Q.shape[0])
+        self.n_coeff = self.d * self.d
+
+    def h(self, A):
+        return self.Q.T @ A @ self.Q
+
+    def reconstruct(self, H):
+        return self.Q @ H @ self.Q.T
+
+
+@dataclasses.dataclass
+class EigenBasis(RotationBasis):
+    """The eigenvectors of the fleet's averaged initial Hessian: data
+    dependent, so Q ships once (d² floats, `basis_transmission_bits`)."""
+
+
+class DCTBasis(RotationBasis):
+    """The orthonormal DCT-II rotation (float64): a convention both sides
+    build, so nothing ships."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__(Q=_dct_matrix(d, device, dtype=torch.float64))
+
+
+def eigen_basis_from_clients(clients, x0: Optional[torch.Tensor] = None
+                             ) -> List[EigenBasis]:
+    """One `EigenBasis` shared by every client: the eigenvectors of the
+    fleet's averaged Hessian ∇²f(x⁰) (x⁰ = 0 by default).  The list holds
+    the same object n times; `client_batch.stack_bases` requires one Q."""
+    from . import glm
+
+    clients = list(clients)
+    d = int(clients[0].A.shape[1])
+    if x0 is None:
+        x0 = torch.zeros(d, dtype=clients[0].A.dtype, device=clients[0].A.device)
+    H0 = glm.global_hess(clients, x0)
+    _, Q = torch.linalg.eigh((H0 + H0.T) / 2.0)
+    basis = EigenBasis(Q=Q)
+    return [basis for _ in clients]
+
+
 def orth_basis_from_data(A_data: torch.Tensor, rcond: float = 1e-10) -> DataOuterBasis:
     """Orthonormal basis of the row space of the client's data (m, d), as
     the paper's use of scipy.linalg.orth (§6.1).
@@ -104,9 +194,11 @@ def orth_basis_from_data(A_data: torch.Tensor, rcond: float = 1e-10) -> DataOute
 
 def basis_transmission_bits(basis: MatrixBasis, float_bits: int = FLOAT_BITS) -> float:
     """One-time cost of shipping the basis (Table 1: rd floats for the data
-    basis); convention bases cost nothing."""
+    basis, d² for the eigenbasis); convention bases cost nothing."""
     if isinstance(basis, DataOuterBasis):
         return float(basis.d * basis.r * float_bits)
+    if isinstance(basis, EigenBasis):
+        return float(basis.d * basis.d * float_bits)
     return 0.0
 
 
@@ -240,13 +332,14 @@ class StructuredTreeBasis(PerLayerSVDBasis):
         return self, 0.0
 
 
-def _dct_matrix(d: int, device=None) -> torch.Tensor:
-    """Orthonormal DCT-II factor (columns = basis vectors), float32."""
+def _dct_matrix(d: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """Orthonormal DCT-II factor (columns = basis vectors) in ``dtype``;
+    in float64 it is `repro.core.basis.DCTBasis`'s Q bit for bit."""
     j = np.arange(d)[:, None]
     t = np.arange(d)[None, :]
     C = np.sqrt(2.0 / d) * np.cos(np.pi * (t + 0.5) * j / d)
     C[0] *= np.sqrt(0.5)
-    return torch.tensor(C.T, dtype=torch.float32, device=device)
+    return torch.tensor(C.T, dtype=dtype, device=device)
 
 
 def _hadamard_matrix(d: int, device=None) -> torch.Tensor:
@@ -282,13 +375,13 @@ def structured_tree_basis(params, kind: str = "dct",
 #: matrices; `make_bases` takes the parameter tree for them
 PYTREE_BASES = ("dct_tree", "hadamard_tree", "per_layer_svd")
 
-#: the reference's registered basis names and the ROADMAP.md item that
-#: ports each one still missing here
-_PENDING = {"symmetric": 10, "psd": 10, "eigen": 10, "dct": 10}
+#: the registered d×d bases that are conventions of their width, by name
+CONVENTION_BASES = {"standard": StandardBasis, "symmetric": SymmetricBasis,
+                    "psd": PSDBasis}
 
 
 def available_bases() -> List[str]:
-    return sorted(("data_outer", "standard") + PYTREE_BASES)
+    return sorted(("data_outer", "eigen", "dct") + tuple(CONVENTION_BASES) + PYTREE_BASES)
 
 
 def is_pytree_basis(name: str) -> bool:
@@ -307,16 +400,19 @@ def make_bases(name: str, clients: Sequence, x0: Optional[torch.Tensor] = None,
     if name in ("dct_tree", "hadamard_tree"):
         return structured_tree_basis(clients, kind=name[:-len("_tree")], **kw)
     clients = list(clients)
-    if name == "standard":
-        d = int(clients[0].A.shape[1])
-        return [StandardBasis(d) for _ in clients]
     if name == "data_outer":
         rcond = kw.pop("rcond", 1e-10)
         if kw:
             raise TypeError(f"unexpected data_outer options {sorted(kw)}")
         return [orth_basis_from_data(c.A, rcond=rcond) for c in clients]
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"basis {name!r} is not ported yet: ROADMAP.md §1 item "
-            f"{_PENDING[name]} brings it")
-    raise KeyError(f"unknown basis {name!r}; registered: {available_bases()}")
+    if name not in available_bases():
+        raise KeyError(f"unknown basis {name!r}; registered: {available_bases()}")
+    if kw:
+        raise TypeError(f"unexpected {name} options {sorted(kw)}")
+    if name == "eigen":
+        return eigen_basis_from_clients(clients, x0=x0)
+    d = int(clients[0].A.shape[1])
+    if name == "dct":
+        basis = DCTBasis(d, device=clients[0].A.device)
+        return [basis for _ in clients]
+    return [CONVENTION_BASES[name](d) for _ in clients]

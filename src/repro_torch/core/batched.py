@@ -1,9 +1,11 @@
 """Batched execution engine — the configuration layer of the fast path;
-port of `repro.core.batched` for BL1, BL2, BL3 and Newton.
+port of `repro.core.batched` for BL1, BL2, BL3, GD, DIANA, Newton and
+FedNL-BAG.
 
 Per-client state lives in leading-axis-`n` stacked tensors (`ClientBatch`,
 `BatchedBasis`); this module validates and stacks the fleet, builds the
-frozen method spec (`specs.BL1Spec`, `BL2Spec`, `BL3Spec`, `NewtonSpec`),
+frozen method spec (`specs.BL1Spec`, `BL2Spec`, `BL3Spec`, `GDSpec`,
+`DianaSpec`, `NewtonSpec`, `FedNLBAGSpec`),
 runs it on `rounds.run_rounds` with the run's seed, and turns the streams
 into a `History`.  Raises
 `FastPathUnavailable` for fleets the stacked representation cannot
@@ -183,6 +185,34 @@ def bl3_fast(clients, hess_comp, model_comp, x0, x_star, steps, alpha=1.0,
 
 
 # ==========================================================================
+# First-order baselines (fast path): GD, DIANA
+# ==========================================================================
+def gd_fast(clients, x0, x_star, steps, lr=None) -> History:
+    """GD on the stacked single-device engine; ``lr`` defaults to 1/L."""
+    from .baselines import smoothness_constant
+
+    batch, _ = _stack_or_raise(clients)
+    spec = specs.GDSpec(lr=1.0 / smoothness_constant(clients) if lr is None else lr)
+    return _run(spec, batch, None, x0, x_star, steps)
+
+
+def diana_fast(clients, x0, x_star, steps, comp: Compressor, omega: float,
+               lr=None, seed: int = 0) -> History:
+    """DIANA on the stacked single-device engine, with the reference's
+    theoretical step size unless ``lr`` is given."""
+    from .baselines import smoothness_constant
+
+    batch, _ = _stack_or_raise(clients)
+    _check_supported(comp)
+    alpha_h = 1.0 / (omega + 1.0)
+    if lr is None:
+        L = smoothness_constant(clients)
+        lr = min(alpha_h / (2.0 * batch.lam), 1.0 / (L * (1.0 + 6.0 * omega / batch.n)))
+    spec = specs.DianaSpec(comp=comp, alpha_h=alpha_h, lr=lr)
+    return _run(spec, batch, None, x0, x_star, steps, seed)
+
+
+# ==========================================================================
 # Newton (fast path)
 # ==========================================================================
 def newton_fast(clients, x0, x_star, steps, bases=None,
@@ -206,3 +236,30 @@ def newton_fast(clients, x0, x_star, steps, bases=None,
     spec = specs.NewtonSpec(hess_bits=hess_bits, grad_bits=grad_bits,
                             basis_bits=basis_bits)
     return _run(spec, batch, basisb, x0, x_star, steps)
+
+
+# ==========================================================================
+# FedNL-BAG (fast path)
+# ==========================================================================
+def fednl_bag_setup(clients, bases, hess_comp, alpha=1.0, q=0.5, eta=None,
+                    mu=None, init_exact_hessian=True):
+    batch, basisb = _stack_or_raise(clients, bases)
+    hc = _one_of(list(hess_comp), "hessian")
+    spec = specs.FedNLBAGSpec(
+        hess_comp=hc, alpha=alpha, q=q, eta=q if eta is None else eta,
+        mu=batch.lam if mu is None else mu, init_exact=init_exact_hessian,
+        init_hess_bits=basisb.init_coeff_bits_mean(init_exact_hessian),
+        basis_bits=basisb.transmission_bits_mean(),
+        block=_block_mode(basisb, hc),
+    )
+    return spec, batch, basisb
+
+
+def fednl_bag_fast(clients, bases, hess_comp, x0, x_star, steps, alpha=1.0,
+                   q=0.5, eta=None, mu=None, seed=0, init_exact_hessian=True) -> History:
+    """FedNL-BAG on the stacked single-device engine; ``eta`` defaults to
+    q (damping matched to the aggregation probability)."""
+    spec, batch, basisb = fednl_bag_setup(
+        clients, bases, hess_comp, alpha=alpha, q=q, eta=eta, mu=mu,
+        init_exact_hessian=init_exact_hessian)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed)

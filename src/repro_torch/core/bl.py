@@ -17,6 +17,7 @@ cumulative downlink bits/node.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
@@ -24,7 +25,7 @@ import torch
 
 from .. import device as _device
 from . import glm
-from .basis import DataOuterBasis, MatrixBasis
+from .basis import DataOuterBasis, MatrixBasis, RotationBasis
 from .compressors import Compressor
 
 _BACKENDS = ("auto", "fast", "fast+sharded", "reference")
@@ -79,14 +80,29 @@ def _psd_reconstruct_full(M: torch.Tensor) -> torch.Tensor:
     return 2.0 * off + torch.diag_embed(diag + 2.0 * off.sum(dim=-1))
 
 
+def _basis_to(device, b):
+    """A basis with its tensors on `device`."""
+    if isinstance(b, DataOuterBasis):
+        return DataOuterBasis(V=b.V.to(device))
+    if isinstance(b, RotationBasis):
+        moved = copy.copy(b)
+        moved.Q = b.Q.to(device)
+        return moved
+    return b
+
+
 def _to(device, clients, bases, x0, x_star):
     """The run's inputs on `device` (a no-op for tensors already there);
-    ``bases`` may be None."""
+    ``bases`` may be None.  A basis object shared by several clients stays
+    shared."""
     clients = [glm.ClientData(A=c.A.to(device), b=c.b.to(device), lam=c.lam)
                for c in clients]
     if bases is not None:
-        bases = [DataOuterBasis(V=b.V.to(device)) if isinstance(b, DataOuterBasis)
-                 else b for b in bases]
+        moved = {}
+        for b in bases:
+            if id(b) not in moved:
+                moved[id(b)] = _basis_to(device, b)
+        bases = [moved[id(b)] for b in bases]
     return clients, bases, x0.to(device), x_star.to(device)
 
 

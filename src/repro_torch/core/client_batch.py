@@ -1,10 +1,12 @@
 """Stacked per-client state for the batched BL engine — port of
-`repro.core.client_batch` for the ``standard`` and ``data_outer`` kinds.
+`repro.core.client_batch`.
 
   * `ClientBatch`  — data ``A (n, m, d)``, labels ``b (n, m)``, shared λ;
-  * `BatchedBasis` — one basis kind for the whole fleet, with per-client
-    data-basis matrices zero-padded to a common ``r_max``
-    (``V (n, d, r_max)``; padded columns are exactly zero);
+  * `BatchedBasis` — one basis kind for the whole fleet: ``standard``,
+    ``symmetric``, ``psd``, ``data_outer`` (per-client matrices
+    zero-padded to a common ``r_max``, ``V (n, d, r_max)``; padded columns
+    are exactly zero), or a rotation, ``eigen`` or ``dct`` (one Q for the
+    fleet, stacked ``Q (n, d, d)``);
   * `TreeBatch`    — the BL-DNN fleet: any pytree (nested dict) of data
     leaves stacked on a leading client axis.
 
@@ -21,7 +23,7 @@ import torch
 from ..kernels import ops
 from . import glm
 from .pytree import tree_leaves
-from .basis import DataOuterBasis, MatrixBasis, StandardBasis
+from .basis import CONVENTION_BASES, DCTBasis, DataOuterBasis, EigenBasis, MatrixBasis
 from .comm import FLOAT_BITS
 
 #: routes of the data basis's projection Γ = VᵀAV: "einsum" is the float64
@@ -62,18 +64,24 @@ class ClientBatch:
         return self.A.shape[2]
 
 
+#: the rotation kinds: B^{jl} = q_j q_lᵀ for one orthogonal Q
+ROTATION_KINDS = ("eigen", "dct")
+
+
 @dataclasses.dataclass
 class BatchedBasis:
-    """A fleet-wide basis: one kind (``standard`` or ``data_outer``), with
-    per-client ranks ``rs`` kept for the bit accounting (the wire cost
-    depends on r_i, not r_max) and the route of Γ = VᵀAV (``project``, one
-    of `PROJECT_ROUTES`; it changes no bit count)."""
+    """A fleet-wide basis: one kind, with per-client ranks ``rs`` kept for
+    the bit accounting (the wire cost depends on r_i, not r_max; d for
+    every kind but ``data_outer``) and the route of the data basis's
+    Γ = VᵀAV (``project``, one of `PROJECT_ROUTES`; it changes no bit
+    count)."""
 
     kind: str
     d: int
     rs: Tuple[int, ...]
     V: Optional[torch.Tensor] = None  # (n, d, r_max) for kind == "data_outer"
     project: str = "einsum"
+    Q: Optional[torch.Tensor] = None  # (n, d, d) for the rotation kinds
 
     @property
     def r_max(self) -> int:
@@ -88,14 +96,19 @@ class BatchedBasis:
         return self.d * FLOAT_BITS
 
     def transmission_bits_mean(self) -> float:
-        """One-time basis shipping cost averaged over clients."""
+        """One-time basis shipping cost averaged over clients (rd floats
+        for the data basis, d² for the eigenbasis; conventions are free)."""
         if self.kind == "data_outer":
             return sum(self.d * r * FLOAT_BITS for r in self.rs) / len(self.rs)
+        if self.kind == "eigen":
+            return float(self.d * self.d * FLOAT_BITS)
         return 0.0
 
     def coeff_count_mean(self) -> float:
         if self.kind == "data_outer":
             return sum(r * r for r in self.rs) / len(self.rs)
+        if self.kind in ("symmetric", "psd"):
+            return self.d * (self.d + 1) / 2
         return self.d * self.d
 
     def init_coeff_bits_mean(self, init_exact: bool) -> float:
@@ -106,6 +119,16 @@ class BatchedBasis:
         """Batched coefficient matrices: A (n, d, d) → (n, d, d)."""
         if self.kind == "standard":
             return A
+        if self.kind == "symmetric":
+            return torch.tril(A)
+        if self.kind == "psd":
+            off = torch.tril(A, -1)
+            diag_v = torch.diagonal(A, dim1=-2, dim2=-1)
+            rowsum = A.sum(dim=-1) - diag_v
+            eye = torch.eye(self.d, dtype=A.dtype, device=A.device)
+            return off + eye * (diag_v - rowsum)[..., :, None]
+        if self.kind in ROTATION_KINDS:
+            return torch.einsum("ndr,nde,nes->nrs", self.Q, A, self.Q)
         out = torch.zeros(A.shape, dtype=A.dtype, device=A.device)
         # the kernel route's float32 Γ is cast into the float64 array, as the
         # reference's ``out.at[...].set(gamma)`` does
@@ -116,12 +139,22 @@ class BatchedBasis:
         """Batched Σ_{jl} H_{jl} B^{jl}: H (n, d, d) → (n, d, d)."""
         if self.kind == "standard":
             return H
+        if self.kind == "symmetric":
+            return torch.tril(H) + torch.tril(H, -1).mT
+        if self.kind == "psd":
+            off = torch.tril(H, -1)
+            sym_off = off + off.mT
+            diag_v = torch.diagonal(H, dim1=-2, dim2=-1) + sym_off.sum(dim=-1)
+            eye = torch.eye(self.d, dtype=H.dtype, device=H.device)
+            return sym_off + eye * diag_v[..., :, None]
+        if self.kind in ROTATION_KINDS:
+            return torch.einsum("ndr,nrs,nes->nde", self.Q, H, self.Q)
         gamma = H[:, : self.r_max, : self.r_max]
         return torch.einsum("ndr,nrs,nes->nde", self.V, gamma, self.V)
 
     def server_reconstruct(self, H: torch.Tensor, lam: float) -> torch.Tensor:
         """`reconstruct` plus the analytic λI ridge for the data basis, as
-        the server adds it; the standard basis encodes the full Hessian."""
+        the server adds it; every other kind encodes the full Hessian."""
         out = self.reconstruct(H)
         if self.kind == "data_outer":
             out = out + lam * torch.eye(self.d, dtype=out.dtype, device=out.device)
@@ -189,16 +222,24 @@ def from_clients(clients: Sequence[glm.ClientData]) -> Optional[ClientBatch]:
 def stack_bases(bases: Sequence[MatrixBasis],
                 project: str = "einsum") -> Optional[BatchedBasis]:
     """Stack a homogeneous-kind basis list, its Γ on the `project` route;
-    None if mixed or unported kinds."""
+    None if the kinds are mixed, or for a rotation whose clients do not
+    share one Q."""
     bases = list(bases)
     if not bases:
         return None
     b0 = bases[0]
     if any(b.d != b0.d for b in bases):
         return None
-    if all(type(b) is StandardBasis for b in bases):
-        return BatchedBasis(kind="standard", d=b0.d, rs=tuple(b.d for b in bases),
-                            project=project)
+    rs = tuple(b.d for b in bases)
+    for kind, cls in CONVENTION_BASES.items():
+        if all(type(b) is cls for b in bases):
+            return BatchedBasis(kind=kind, d=b0.d, rs=rs, project=project)
+    for cls, kind in ((DCTBasis, "dct"), (EigenBasis, "eigen")):
+        if all(type(b) is cls for b in bases):
+            if not all(b.Q is b0.Q or torch.equal(b.Q, b0.Q) for b in bases[1:]):
+                return None
+            return BatchedBasis(kind=kind, d=b0.d, rs=rs, project=project,
+                                Q=torch.stack([b.Q for b in bases]))
     if all(type(b) is DataOuterBasis for b in bases):
         rs = tuple(b.r for b in bases)
         r_max = max(rs)

@@ -128,20 +128,34 @@ def topk_keep_mask(v: torch.Tensor, k: int) -> torch.Tensor:
 class TopK(Compressor):
     """Greedy sparsification (Eq. 21): keep K largest-|.| entries.
 
-    Contractive with δ = K/numel.  Deterministic.  Only the flat selection
-    is ported; ``symmetrize=True`` (the triangular-half codec of §A.2)
-    raises until ROADMAP.md §1 item 10 (its first entry)."""
+    Contractive with δ = K/numel.  Deterministic.  ``symmetrize=True`` is
+    the triangular-half codec of §A.2 for a stack of square matrices: the
+    upper triangle (diagonal included) is gathered into an (n, d(d+1)/2)
+    row in ``triu_indices``' row-major order, Top-K selects there (its
+    tie-break by earliest index runs over that order), and the kept upper
+    half is mirrored below the diagonal; min(K, d(d+1)/2) floats and
+    indices travel.  Anything else is selected flat."""
     k: int
     symmetrize: bool = False
 
     def __post_init__(self):
         self.deterministic = True
-        if self.symmetrize:
-            raise NotImplementedError(
-                "TopK(symmetrize=True) is not ported yet: ROADMAP.md §1 "
-                "item 10 (the rest of the paper's figures) brings it")
+
+    def _symmetrized(self, x):
+        n, d = x.shape[0], x.shape[1]
+        rows, cols = torch.triu_indices(d, d, device=x.device)   # row-major
+        v = x[:, rows, cols]                                  # (n, T)
+        kk = min(self.k, v.shape[1])
+        keep = torch.zeros((n, d, d), dtype=torch.bool, device=x.device)
+        keep[:, rows, cols] = topk_keep_mask(v, kk)
+        out = torch.where(keep, x, 0.0)
+        out = out + torch.triu(out, 1).mT
+        c = _full(n, kk, x.device)
+        return out, comm.Counts(floats=c, indices=c)
 
     def compress(self, keys, x):
+        if self.symmetrize and x.dim() == 3 and x.shape[1] == x.shape[2]:
+            return self._symmetrized(x)
         n = x.shape[0]
         v = x.reshape(n, -1)
         kk = min(self.k, v.shape[1])
@@ -152,9 +166,9 @@ class TopK(Compressor):
     def compress_sum(self, keys, x):
         # a flat float32 stack runs the fused codec (the kernel on the card,
         # its plain version on the CPU); its dense output and counts equal
-        # the two-pass default bitwise.  float64 streams take the default,
-        # as in the reference.
-        if x.dtype != torch.float32:
+        # the two-pass default bitwise.  float64 streams and the
+        # symmetrized codec take the default, as in the reference.
+        if self.symmetrize or x.dtype != torch.float32:
             return super().compress_sum(keys, x)
         n = x.shape[0]
         v = x.reshape(n, -1).contiguous()

@@ -1,6 +1,7 @@
 """Declarative method specs for the round engine — port of
 `repro.core.specs` (the `MethodSpec` hooks, `BL1Spec`, `BL2Spec`,
-`BL3Spec`, `NewtonSpec` and `BLDNNSpec`).
+`BL3Spec`, `GDSpec`, `DianaSpec`, `NewtonSpec`, `FedNLBAGSpec` and
+`BLDNNSpec`).
 
 A spec is a frozen dataclass holding a method's hyperparameters and the
 hooks `rounds.run_rounds` calls:
@@ -15,8 +16,8 @@ hooks `rounds.run_rounds` calls:
 
 A round's keys are split from ``rc.key`` as the reference splits them, on
 the host; a spec whose compressors all draw nothing (and, for BL1, p = 1)
-splits none, which changes no bit.  FedNL-BAG and the first-order
-baselines come with ROADMAP.md §1 item 10.
+splits none, which changes no bit.  The cohort hooks of `FedNLBAGSpec`
+come with ROADMAP.md §1 item 15 (the cohort engine).
 """
 from __future__ import annotations
 
@@ -336,6 +337,47 @@ class BL3Spec(MethodSpec):
 
 
 # ==========================================================================
+# First-order baselines: GD, DIANA
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class GDSpec(MethodSpec):
+    """Distributed gradient descent: d floats a client a round."""
+
+    lr: float
+
+    def init(self, R, env):
+        return (env.x0, CommLedger.create(device=env.x0.device))
+
+    def step(self, R, env, carry, rc):
+        x, led = carry
+        x_n = x - self.lr * global_grad(R, env.batch, x)
+        return (x_n, led.add(grad_up=env.batch.d * FLOAT_BITS)), (x, led)
+
+
+@dataclasses.dataclass(frozen=True)
+class DianaSpec(MethodSpec):
+    """DIANA: every client sends C(∇fᵢ − hᵢ) with its round key and moves
+    its shift hᵢ by α_h of it; the server steps with the mean of hᵢ + C(·)."""
+
+    comp: Compressor
+    alpha_h: float
+    lr: float
+
+    def init(self, R, env):
+        h0 = torch.zeros((R.n_local, env.batch.d), dtype=env.x0.dtype, device=env.x0.device)
+        return (env.x0, h0, CommLedger.create(device=env.x0.device))
+
+    def step(self, R, env, carry, rc):
+        x, h, led = carry
+        gi = client_batch.grads(env.batch, x)
+        q, counts = self.comp.compress(client_keys_for(R, self.comp, rc.key), gi - h)
+        red = R.reduce_tree({"ghat": h + q, "bits": comm.price(self.comp.wire, counts)})
+        h_n = h + self.alpha_h * q
+        x_n = x - self.lr * red["ghat"]
+        return (x_n, h_n, led.add(grad_up=red["bits"])), (x, led)
+
+
+# ==========================================================================
 # Newton — Table 1's naive (§2.1) and data-basis (§2.3) columns
 # ==========================================================================
 @dataclasses.dataclass(frozen=True)
@@ -362,6 +404,78 @@ class NewtonSpec(MethodSpec):
         red = R.reduce_tree({"H": Hc, "g": client_batch.grads(batch, x)})
         x_n = R.once(lambda H, g: x - torch.linalg.solve(H, g), red["H"], red["g"])
         return (x_n, led.add(hess_up=self.hess_bits, grad_up=self.grad_bits)), (x, led)
+
+
+# ==========================================================================
+# FedNL-BAG — FedNL's Hessian learning + Bernoulli gradient aggregation
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class FedNLBAGSpec(MethodSpec):
+    """Newton-type method with compressed Hessian learning and a
+    Bernoulli-lazy gradient uplink (after arXiv 2206.03588): every round
+    each client reports its exact gradient with probability q, the server
+    keeps the latest gradient of every client and takes the damped,
+    μ-projected Newton step with the mean of that table.
+
+    The ledger stays on the host: every round adds the fleet sums of both
+    legs (`comm.CommLedger.add_fleet_sums`), rounded once as the
+    reference's compiled round adds ``sum / n``."""
+
+    hess_comp: Compressor
+    alpha: float
+    q: float
+    eta: float
+    mu: float
+    init_exact: bool
+    init_hess_bits: float
+    basis_bits: float
+    block: bool
+
+    def prepare(self, R, batch, basisb, x0):
+        return coeff_layout(R, batch, basisb, x0, self.block)
+
+    def init(self, R, env):
+        lay = env.extra
+        x0 = env.x0
+        L0 = (lay.target_at(x0) if self.init_exact
+              else torch.zeros(lay.shape, dtype=x0.dtype, device=x0.device))
+        H0 = R.mean(lay.recon(L0)) + lay.ridge
+        gtab0 = client_batch.grads(env.batch, x0)     # exact initial gradients
+        led0 = CommLedger.create(hess_up=self.init_hess_bits,
+                                 grad_up=env.batch.d * FLOAT_BITS,
+                                 basis_ship=self.basis_bits)
+        return (x0, L0, H0, gtab0, led0)
+
+    def step(self, R, env, carry, rc):
+        z, L, H, gtab, led = carry
+        batch = env.batch
+        lay = env.extra
+        ys = (z, led)  # gap evaluated at z, after the loop
+
+        k_h, k_b = prng.split(rc.key, 2)
+        # reporters refresh their row of the table; silent clients' stale
+        # rows are reused
+        send = prng.bernoulli(k_b, self.q, (R.n,), device=R.device)
+        gtab_n = torch.where(send[:, None], client_batch.grads(batch, z), gtab)
+
+        S, L_n, counts = shift_update(
+            lambda delta: self.hess_comp.compress(client_keys_for(R, self.hess_comp, k_h),
+                                                  delta),
+            lay.target_at(z), L, self.alpha)
+        red = R.reduce_tree(
+            {"ghat": gtab_n, "dH": lay.recon(self.alpha * S),
+             "gbits": torch.where(send, float(batch.d * FLOAT_BITS), 0.0).to(torch.float64),
+             "sbits": comm.price(self.hess_comp.wire, counts)},
+            {"ghat": "mean", "dH": "mean", "gbits": "sum", "sbits": "sum"})
+        s, g = torch.stack([red["sbits"], red["gbits"]]).tolist()
+        led = led.add_fleet_sums(R.n_total, hess_up=s, grad_up=g)
+        H_n = H + red["dH"]
+
+        # damped Newton step (η = 1 and q = 1 recover FedNL), once a fleet
+        z_n = R.once(
+            lambda H_n, ghat: z - self.eta * torch.linalg.solve(proj_mu(H_n, self.mu), ghat),
+            H_n, red["ghat"])
+        return (z_n, L_n, H_n, gtab_n, led), ys
 
 
 # ==========================================================================

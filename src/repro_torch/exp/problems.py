@@ -32,6 +32,23 @@ run through a public entry point by `run_cell`:
     (lines 322-330: BL1-BC at p = 0.5 and seed 3, BL2-BC, BL3-BC) and
     `FIG6` (lines 338-356: BL2 in the standard basis and BL3, Top-K both
     ways with k = ⌊p·d⌋, τ = 5, p ∈ {1, 1/3});
+  * the rest of the paper's figures: `FIG1R2` (registry lines 220-237:
+    BL1 against GD, DIANA and ADIANA with s = 10 dithering, and Local-GD
+    with 5 local steps; 60 rounds, Local-GD 15), `FIG5_REST` (lines
+    309-336: FedNL-BC, BL1 in the standard basis with Top-7200 on the
+    Hessian's upper triangle and Top-60 on the model stream, 12 rounds;
+    DORE with Top-60 both ways, 60 rounds) and `FIG1_BAG` (lines
+    514-531: FedNL, and FedNL-BAG at q = 0.5 and at q = 1 with η = 1,
+    Rank-1 in the standard basis, 24 rounds);
+    `BASELINE_CELLS` holds these ten;
+  * `BASIS_GRID` — BL1 on fig1r1's problem for 16 rounds in each of the
+    ``standard``, ``symmetric``, ``data_outer``, ``eigen`` and ``dct``
+    bases under Top-576 (K = r²) and Rank-2, the configurations of
+    ``benchmarks/run.py::basis_matrix``, and `TABLE2_A1A`, BL1 on Table 2's
+    ``a1a`` regime (n=16, m=100, d=123, r=64) in the data basis with
+    Top-64 for 12 rounds.  No artifact exists for them: their reference,
+    `BASIS_GRID_REFERENCE`, holds the JAX package's histories
+    (``tools/basis_grid_reference.py``);
   * `BL2_XL` — BL2 at fig1-xl's widths (n=512, d=1200, Top-K k=r²=1024,
     block mode) with τ = 256, 8 rounds: no registered cell.  Its reference,
     `BL2_XL_REFERENCE`, written by the JAX package
@@ -57,6 +74,7 @@ were written under (``tests/test_torch_bldnn.py`` regenerates it).
 from __future__ import annotations
 
 import dataclasses
+import json
 import pathlib
 from typing import Dict, List, Optional, Tuple
 
@@ -66,7 +84,8 @@ import torch
 from .. import device as _device
 from ..core import basis as _basis
 from ..core import baselines, bl, client_batch, glm
-from ..core.compressors import Compressor, Identity, RankR, TopK, nrankr, ntopk, rrankr, rtopk
+from ..core.compressors import (Compressor, Identity, RandomDithering, RankR, TopK, nrankr,
+                                ntopk, rrankr, rtopk)
 from ..core.convert import dnn_problem_from_numpy
 from ..core.pytree import tree_leaves
 from ..fed import bldnn
@@ -77,15 +96,20 @@ DATA = pathlib.Path(__file__).resolve().parent / "data"
 DNN_FIXTURE = DATA / "fig_dnn_seed0.npz"
 #: the JAX package's BL2 trajectory at fig1-xl's widths (`BL2_XL`)
 BL2_XL_REFERENCE = DATA / "bl2_xl_seed0.json"
+#: the JAX package's histories of `BASIS_GRID` and `TABLE2_A1A`
+BASIS_GRID_REFERENCE = DATA / "basis_grid_seed0.json"
 
 
 @dataclasses.dataclass(frozen=True)
 class ProblemSpec:
-    """A synthetic federated GLM regime (`glm.make_synthetic`) plus the
-    reference-optimum solver: "loop" is `glm.newton_solve`, "fused" is
-    `client_batch.newton_solve_fused` (no (n, d, d) intermediate)."""
+    """A federated GLM regime plus the reference-optimum solver: kind
+    "synthetic" draws `glm.make_synthetic` at these sizes, "table2" the
+    named `glm.TABLE2` regime (its own sizes); solver "loop" is
+    `glm.newton_solve`, "fused" `client_batch.newton_solve_fused` (no
+    (n, d, d) intermediate)."""
 
     kind: str = "synthetic"
+    name: Optional[str] = None
     seed: int = 0
     n_clients: int = 10
     m: int = 60
@@ -100,6 +124,8 @@ class ProblemSpec:
 _COMPRESSORS = {
     "identity": lambda size, d: Identity(),
     "topk": lambda k, d: TopK(k=k),
+    "topk_sym": lambda k, d: TopK(k=k, symmetrize=True),
+    "dither": lambda s, d: RandomDithering(s=s),
     "rankr": lambda r, d: RankR(r=r),
     "rtopk": lambda k, d: rtopk(k),
     "ntopk": lambda k, d: ntopk(k),
@@ -120,12 +146,14 @@ def make_compressor(kind_size: Tuple[str, int], d: int) -> Compressor:
 
 @dataclasses.dataclass(frozen=True)
 class GLMCell:
-    """One GLM curve: ``method`` "bl1", "bl2", "bl3", "newton" or "nl1",
-    the basis registry name (None: no basis), the Hessian and model-stream
-    compressors as ``(kind, size)`` pairs, `steps` rounds, the entry
-    point's keyword ``params`` (``p``, ``tau``, ``seed``), and its
-    reference trajectory: the committed artifact under ``results/exp``, or
-    ``reference`` where given."""
+    """One GLM curve: ``method`` "bl1", "bl2", "bl3", "newton", "nl1",
+    "fednl_bag", "gd", "diana", "adiana", "local_gd" or "dore", the basis
+    registry name (None: no basis), the Hessian and model-stream
+    compressors as ``(kind, size)`` pairs (the first-order methods'
+    gradient compressor is ``hess_comp``, DORE's downlink ``model_comp``),
+    `steps` rounds, the entry point's keyword ``params`` (``p``, ``tau``,
+    ``q``, ``eta``, ``seed``), and its reference trajectory: the committed
+    artifact under ``results/exp``, or ``reference`` where given."""
 
     experiment: str
     name: str
@@ -143,6 +171,13 @@ class GLMCell:
         if self.reference is not None:
             return self.reference
         return REPO_ROOT / "results" / "exp" / self.experiment / f"{self.name}.seed0.json"
+
+    def reference_history(self) -> dict:
+        """The reference's history of this cell: the artifact's
+        ``history``, or this cell's entry of a reference file that holds
+        several runs."""
+        ref = json.loads(self.artifact.read_text())
+        return ref["runs"][self.name] if "runs" in ref else ref["history"]
 
 
 _P = ProblemSpec()
@@ -193,6 +228,41 @@ REFERENCE_SVD_NAN: Dict[str, int] = {"fig1r3/RRankR": 11, "fig1r3/NRankR": 11}
 STOCHASTIC_CELLS: Tuple[GLMCell, ...] = (
     *FIG4.values(), *FIG6.values(), *FIG3.values(), *FIG5.values(),
     FIG1R1_CELLS["NL1"], *FIG1R3.values())
+_DITHER = ("dither", 10)        # s = 10 ≈ √d dithering levels
+FIG1R2: Dict[str, GLMCell] = {c.name: c for c in (
+    dataclasses.replace(FIG1R1, experiment="fig1r2"),
+    GLMCell("fig1r2", "GD", _P, 60, method="gd"),
+    GLMCell("fig1r2", "DIANA", _P, 60, method="diana", hess_comp=_DITHER),
+    GLMCell("fig1r2", "ADIANA", _P, 60, method="adiana", hess_comp=_DITHER),
+    GLMCell("fig1r2", "LocalGD", _P, 15, method="local_gd"),
+)}
+FIG5_REST: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("fig5", "FedNL-BC", _P, 12, basis="standard", hess_comp=("topk_sym", _D * _D // 2),
+            model_comp=("topk", _D // 2)),
+    GLMCell("fig5", "DORE", _P, 60, method="dore", hess_comp=("topk", _D // 2),
+            model_comp=("topk", _D // 2)),
+)}
+FIG1_BAG: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("fig1-bag", "FedNL", _P, 24, basis="standard", hess_comp=("rankr", 1)),
+    GLMCell("fig1-bag", "BAG_q0.5", _P, 24, method="fednl_bag", basis="standard",
+            hess_comp=("rankr", 1), params=(("q", 0.5),)),
+    GLMCell("fig1-bag", "BAG_q1.0", _P, 24, method="fednl_bag", basis="standard",
+            hess_comp=("rankr", 1), params=(("q", 1.0), ("eta", 1.0))),
+)}
+#: the ten artifact cells of the first-order baselines, FedNL-BC, DORE and
+#: FedNL-BAG (with the two BL1 / FedNL cells they are drawn beside)
+BASELINE_CELLS: Tuple[GLMCell, ...] = (
+    *FIG1R2.values(), *FIG5_REST.values(), *FIG1_BAG.values())
+#: BL1 in every registered d×d basis but ``psd`` (BL3's) under Top-K with
+#: K = r² and Rank-2, as ``benchmarks/run.py::basis_matrix`` runs it
+GRID_BASES = ("standard", "symmetric", "data_outer", "eigen", "dct")
+BASIS_GRID: Dict[str, GLMCell] = {c.name: c for c in (
+    GLMCell("basis-grid", f"{b}_{kind}", _P, 16, basis=b, hess_comp=(kind, size),
+            reference=BASIS_GRID_REFERENCE)
+    for b in GRID_BASES for kind, size in (("topk", _R * _R), ("rankr", 2)))}
+TABLE2_A1A = GLMCell("table2", "a1a_BL1", ProblemSpec(kind="table2", name="a1a"), 12,
+                     basis="data_outer", hess_comp=("topk", 64),
+                     reference=BASIS_GRID_REFERENCE)
 FIG2: Dict[str, GLMCell] = {c.name: c for c in (
     GLMCell("fig2", "newton_std", ProblemSpec(), 10, method="newton"),
     GLMCell("fig2", "newton_basis", ProblemSpec(), 10, method="newton",
@@ -226,6 +296,10 @@ class Problem:
     def n(self) -> int:
         return len(self.clients)
 
+    @property
+    def d(self) -> int:
+        return int(self.x0.shape[0])
+
     def bases(self, name: str) -> list:
         if name not in self._bases:
             self._bases[name] = _basis.make_bases(name, self.clients, x0=self.x0)
@@ -233,16 +307,21 @@ class Problem:
 
 
 def build_problem(spec: ProblemSpec, *, device=None) -> Problem:
-    """Materialize a synthetic `ProblemSpec` on `device`."""
-    if spec.kind != "synthetic":
-        raise NotImplementedError(
-            f"problem kind {spec.kind!r} is not ported yet: ROADMAP.md §1 "
-            "items 10 (table2) and 15 (synthetic_stream) bring it")
+    """Materialize a "synthetic" or "table2" `ProblemSpec` on `device`."""
     dev = _device.resolve(device)
-    clients = glm.make_synthetic(seed=spec.seed, n_clients=spec.n_clients,
-                                 m=spec.m, d=spec.d, r=spec.r, lam=spec.lam,
-                                 device=dev)
-    x0 = torch.zeros(spec.d, dtype=torch.float64, device=dev)
+    if spec.kind == "table2":
+        clients = glm.make_table2(spec.name, seed=spec.seed, lam=spec.lam, device=dev)
+    elif spec.kind == "synthetic":
+        clients = glm.make_synthetic(seed=spec.seed, n_clients=spec.n_clients,
+                                     m=spec.m, d=spec.d, r=spec.r, lam=spec.lam,
+                                     device=dev)
+    elif spec.kind == "synthetic_stream":
+        raise NotImplementedError(
+            "problem kind 'synthetic_stream' is not ported yet: ROADMAP.md §1 "
+            "item 15 (the cohort engine) brings it")
+    else:
+        raise ValueError(f"unknown problem kind {spec.kind!r}")
+    x0 = torch.zeros(int(clients[0].A.shape[1]), dtype=torch.float64, device=dev)
     if spec.solver == "fused":
         batch = client_batch.from_clients(clients)
         x_star = client_batch.newton_solve_fused(batch, x0, spec.newton_iters)
@@ -256,22 +335,40 @@ def build_problem(spec: ProblemSpec, *, device=None) -> Problem:
 def run_cell(cell: GLMCell, prob: Problem, *, steps=None, backend: str = "fast",
              basis_project: str = "einsum") -> bl.History:
     """Run a GLM cell through its public entry point (`bl.bl1`, `bl.bl2`,
-    `bl.bl3`, `baselines.newton` or `baselines.nl1`) on the problem's
-    device, with the cell's params, as the reference's ``engine.run_cell``
-    dispatches; ``basis_project`` routes the data basis's Γ = VᵀAV of BL1
-    and Newton (see `bl.bl1`)."""
+    `bl.bl3`, or `baselines.newton`, `nl1`, `fednl_bag`, `gd`, `diana`,
+    `adiana`, `local_gd`, `dore_like`) on the problem's device, with the
+    cell's params, as the reference's ``engine.run_cell`` dispatches;
+    ``basis_project`` routes the data basis's Γ = VᵀAV of BL1 and Newton
+    (see `bl.bl1`)."""
     steps = cell.steps if steps is None else steps
     bases = prob.bases(cell.basis) if cell.basis else None
     dev = prob.x0.device
     params = dict(cell.params)
     args = (prob.x0, prob.x_star, steps)
+    d = prob.d
     if cell.method == "newton":
         return baselines.newton(prob.clients, *args, bases=bases, backend=backend,
                                 device=dev, basis_project=basis_project, **params)
     if cell.method == "nl1":
         return baselines.nl1(prob.clients, *args, device=dev, **params)
-    d = prob.spec.d
+    if cell.method == "gd":
+        return baselines.gd(prob.clients, *args, backend=backend, device=dev, **params)
+    if cell.method == "local_gd":
+        return baselines.local_gd(prob.clients, *args, device=dev, **params)
+    if cell.method in ("diana", "adiana"):
+        comp = make_compressor(cell.hess_comp, d)
+        if cell.method == "diana":
+            return baselines.diana(prob.clients, *args, comp, comp.omega_for(d),
+                                   backend=backend, device=dev, **params)
+        return baselines.adiana(prob.clients, *args, comp, comp.omega_for(d), device=dev,
+                                **params)
+    if cell.method == "dore":
+        return baselines.dore_like(prob.clients, *args, make_compressor(cell.hess_comp, d),
+                                   make_compressor(cell.model_comp, d), device=dev, **params)
     hc = [make_compressor(cell.hess_comp, d)] * prob.n
+    if cell.method == "fednl_bag":
+        return baselines.fednl_bag(prob.clients, bases, hc, *args, backend=backend,
+                                   device=dev, **params)
     mc = make_compressor(cell.model_comp, d)
     if cell.method == "bl1":
         return bl.bl1(prob.clients, bases, hc, mc, *args, backend=backend, device=dev,

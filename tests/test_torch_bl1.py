@@ -175,10 +175,17 @@ def test_p_below_one_raises_until_prng_port(small):
 
 
 def test_symmetrized_topk_raises(small):
-    port = small[-1]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tbl.bl1(port.clients, port.bases, [tcomp.TopK(k=6, symmetrize=True)] * 4,
-                tcomp.Identity(), port.x0, port.x_star, 2, device="cpu")
+    """Since the triangular-half codec is ported, BL1 with a symmetrized
+    Top-K runs (in the full layout: block mode refuses the codec) and
+    matches the reference, bits exact."""
+    clients, jbases, x0, x_star, port = small
+    ref = jbl.bl1(clients, jbases, [jcomp.TopK(k=30, symmetrize=True)] * 4, jcomp.TopK(k=8),
+                  x0, x_star, 6, backend="fast")
+    comp = tcomp.TopK(k=30, symmetrize=True)
+    assert not batched._block_mode(batched.client_batch.stack_bases(port.bases), comp)
+    h = tbl.bl1(port.clients, port.bases, [comp] * 4, tcomp.TopK(k=8), port.x0,
+                port.x_star, 6, device="cpu")
+    assert_same_history(h, ref.gaps, ref.up_bits, ref.down_bits, ref.legs)
 
 
 def test_fleet_the_fast_path_cannot_stack(small):

@@ -186,9 +186,12 @@ def test_basis_h_and_reconstruct_round_trip(fleet, bases):
 
 
 def test_make_bases_errors(fleet):
+    """An unknown name raises KeyError; ``eigen`` (ported) builds one
+    shared eigenbasis for the fleet."""
     _, tclients, _ = fleet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbasis.make_bases("eigen", tclients)
+    eig = tbasis.make_bases("eigen", tclients)
+    assert len(eig) == N and all(b is eig[0] for b in eig)
+    assert isinstance(eig[0], tbasis.EigenBasis)
     with pytest.raises(KeyError):
         tbasis.make_bases("no_such_basis", tclients)
     assert all(isinstance(b, tbasis.StandardBasis)
@@ -337,8 +340,19 @@ def test_compressor_constants_match_reference():
 
 
 def test_topk_symmetrize_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcomp.TopK(k=3, symmetrize=True)
+    """The triangular-half codec is ported: on symmetric stacks with ties
+    spanning the k-th key it keeps the reference's entries bitwise (the
+    tie-break runs over the triangle's row-major order), mirrors them, and
+    bills min(k, d(d+1)/2) floats and indices."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(-3, 4, (3, 7, 7)).astype(np.float64)
+    x = a + a.transpose(0, 2, 1)
+    for k in (1, 5, 13, 28, 40):
+        t_out, t_counts = tcomp.TopK(k=k, symmetrize=True).compress(None, torch.tensor(x))
+        j_out, j_counts = jcomp.TopK(k=k, symmetrize=True).compress(None, jnp.asarray(x))
+        np.testing.assert_array_equal(_np(t_out), np.asarray(j_out))
+        np.testing.assert_array_equal(_np(tcomm.price(tcomm.WireFormat(), t_counts)),
+                                      np.asarray(jcomm.price(jcomm.WireFormat(), j_counts)))
 
 
 # --------------------------------------------------------------------------
