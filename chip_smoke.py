@@ -44,8 +44,11 @@ is non-zero and no result line is printed:
                 at the path's shapes bitwise equal to the CPU's, and the host
                 time and CUDA launches a round's draws cost;
      fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
-                `repro_torch.core.bl.bl1` / `core.baselines.newton` against
-                the committed artifacts results/exp/fig1r1/*.seed0.json;
+                the experiment engine (`repro_torch.exp.problems.run_cell`
+                → `exp.engine.run_cell` → `core.bl.bl1` /
+                `core.baselines.newton`; every cell phase below goes the
+                same way) against the committed artifacts
+                results/exp/fig1r1/*.seed0.json;
   6. fig2     — Newton without a basis and in the data basis on the default
                 float64 route against results/exp/fig2/*.seed0.json, and in
                 the data basis on the kernel route (Γ in float32 through the
@@ -119,6 +122,18 @@ is non-zero and no result line is printed:
                 compress-sum and basis-transform kernels' CUDA launches (one
                 a call on the 8-client path); with --profile, the CUDA
                 launches a round of BLDNN.
+     exp      — the experiment layer: ``python -m repro_torch.exp run --fig
+                fig1r1 --fig fig-dnn --fig fig1-xl`` in-process on the card
+                into a temporary directory: every artifact's config digest
+                equal to the committed one, its history in the gates below,
+                ``bits_to_tol.reached`` as committed, each CSV's header and
+                length, tools/schema_diff.py exiting 0, every kernel's
+                launches equal to the per-cell phases' counts of the same
+                cells, a second run all "cached" with byte-identical CSVs,
+                and the bare ``python3 -m repro_torch.exp run --fig fig1r1``
+                (no --device: the card) in a subprocess; each experiment's
+                wall and set-up seconds, and s/round through the engine
+                beside the per-cell phases'.
   10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
                 float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
@@ -177,6 +192,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import pathlib
 from statistics import median
 import subprocess
@@ -215,9 +231,12 @@ STOCHASTIC_THRESHOLD_SHAPES = (
     (1, 120, 60, "one/k60"), (10, 576, 576, "basis-grid/data_outer"),
     (10, 14400, 576, "basis-grid/full"), (16, 4096, 64, "table2/a1a"))
 #: compressor kinds that select through kernel 1 (`topk_keep_mask`)
-TOPK_KINDS = ("topk", "topk_sym", "rtopk", "ntopk")
+TOPK_KINDS = ("topk", "rtopk", "ntopk")
 #: rounds of simulated draws timed in the prng phase
 PRNG_COST_ROUNDS = 50
+#: the experiments the exp phase runs through the CLI: the paper's headline
+#: cell (kernel 1), BL-DNN (kernels 1, 2 and 4) and the full-width fig1-xl
+EXP_FIGS = ("fig1r1", "fig-dnn", "fig1-xl")
 #: BL-DNN: rounds whose loss and error rate are held to the artifact
 DNN_HELD_ROUNDS = 4
 DNN_LOSS_RTOL = 1e-4
@@ -1150,7 +1169,7 @@ def topk_legs(cell) -> int:
     """Kernel-1 calls a round of a GLM cell: one for each leg whose
     compressor selects by Top-K (the Hessian leg, the model stream)."""
     return sum(1 for comp in (cell.hess_comp, cell.model_comp)
-               if comp is not None and comp[0] in TOPK_KINDS)
+               if comp is not None and comp.kind in TOPK_KINDS)
 
 
 def need_exact(name: str, counts: dict, want: dict) -> None:
@@ -1227,7 +1246,7 @@ def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -
 def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
                     device: str = "cuda") -> dict:
     """Run GLM cells on the card, each held to its reference history
-    (`GLMCell.reference_history`: the artifact or the reference file) at
+    (`problems.Cell.reference_history`: the artifact or the reference file) at
     the GLM gate (`check_history`, with the cell's
     `problems.REFERENCE_SVD_NAN` round), bits exact, kernel 1 launched
     exactly once a round for each leg that selects by Top-K and no other
@@ -1706,6 +1725,156 @@ HAND_KERNELS = ("threshold", "select_rows", "column_sum", "compress_sum", "tiled
                 "ssd_pass", "ssd_out")
 
 
+class _StampedLines:
+    """A text sink for the CLI's standard output that keeps each line with
+    the host time it was written at."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, text: str) -> int:
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        self.lines += [(time.perf_counter(), line) for line in done]
+        return len(text)
+
+    def flush(self) -> None:
+        pass
+
+
+def exp_phase(torch, k, per_cell: dict, direct_s_per_round: dict,
+              device: str = "cuda") -> dict:
+    """The experiment layer on the card: ``python -m repro_torch.exp run
+    --fig fig1r1 --fig fig-dnn --fig fig1-xl`` in-process
+    (`repro_torch.exp.__main__.main`, ``--device cuda``) into a temporary
+    directory, launch counts reset just before it.  Holds every artifact's
+    ``config_digest`` to the committed one, its history to the GLM or
+    BL-DNN gates, ``bits_to_tol.reached`` to the committed value, each CSV's
+    header and length, ``tools/schema_diff.py`` (exit 0), the launches of
+    every kernel to the sum of the per-cell phases' counts of the same
+    cells (``per_cell``), and a second identical run to all "cached" with
+    byte-identical CSVs; then the bare ``python3 -m repro_torch.exp run
+    --fig fig1r1`` (no ``--device``: the card) in a subprocess.  Reports
+    each experiment's wall and set-up seconds (wall less its cells' runs)
+    and s/round through the engine beside ``direct_s_per_round``."""
+    import contextlib
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.exp import __main__ as cli
+    from repro_torch.exp import artifacts, engine, registry
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as tmp:
+        argv = ["run", *(a for n in EXP_FIGS for a in ("--fig", n)), "--out", tmp,
+                "--artifacts", f"{tmp}/exp", "--device", device]
+        sink = _StampedLines()
+        with contextlib.redirect_stdout(sink):
+            rc, wall, counts = drive(torch, k, lambda: cli.main(argv))
+        if rc != 0:
+            raise AssertionError(f"exp: the CLI exited {rc}: {sink.lines}")
+        stamps = {line: t for t, line in sink.lines}
+        csvs = {}
+        for name in EXP_FIGS:
+            exp = registry.get_experiment(name)
+            t0 = stamps[f"== {name}: {exp.title}"]
+            t1 = next(t for line, t in stamps.items() if line.startswith(f"== {name} done in"))
+            cells, run_total = {}, 0.0
+            for cell in exp.cells:
+                rec = artifacts.load_json(artifacts.artifact_path(f"{tmp}/exp", name,
+                                                                  cell.name, 0))
+                ref = json.loads((ROOT / "results" / "exp" / name /
+                                  f"{cell.name}.seed0.json").read_text())
+                tag = f"exp/{name}/{cell.name}"
+                if rec["config_digest"] != ref["config_digest"]:
+                    raise AssertionError(f"{tag}: digest {rec['config_digest']} != "
+                                         f"committed {ref['config_digest']}")
+                hist = SimpleNamespace(**rec["history"])
+                if cell.method == "bldnn":
+                    held = check_dnn_history(tag, hist, ref["history"])
+                else:
+                    held = check_history(tag, hist, ref["history"])
+                if rec["bits_to_tol"]["reached"] != ref["bits_to_tol"]["reached"]:
+                    raise AssertionError(f"{tag}: bits_to_tol {rec['bits_to_tol']} vs "
+                                         f"committed {ref['bits_to_tol']}")
+                path = pathlib.Path(artifacts.csv_path(tmp, name, cell.name))
+                csvs[path] = path.read_bytes()
+                rows = path.read_text().splitlines()
+                if rows[0] != ",".join(artifacts.CSV_COLUMNS) or len(rows) != cell.steps + 1:
+                    raise AssertionError(f"{tag}: CSV header {rows[0]!r}, {len(rows)} lines")
+                run_total += rec["runtime_s"]
+                cells[cell.name] = {
+                    "steps": cell.steps, "runtime_s": rec["runtime_s"],
+                    "s_per_round": rec["runtime_s"] / cell.steps,
+                    "bits_to_tol": rec["bits_to_tol"],
+                    "max_gap_abs_err": held.get("max_gap_abs_err"),
+                    "max_loss_rel_err_held": held.get("max_loss_rel_err_held")}
+            res[name] = {"wall_s": t1 - t0, "setup_s": t1 - t0 - run_total, "cells": cells}
+        diff = subprocess.run([sys.executable, str(ROOT / "tools" / "schema_diff.py"), tmp,
+                               str(ROOT / "results")], capture_output=True, text=True,
+                              timeout=120)
+        if diff.returncode != 0:
+            raise AssertionError(f"exp: schema_diff exited {diff.returncode}: {diff.stdout}")
+        again = _StampedLines()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(again):
+            rc = cli.main(argv)
+        cached_s = time.perf_counter() - t0
+        statuses = [line.split("[")[1].split("]")[0] for _, line in again.lines
+                    if " seed=0 [" in line]
+        if rc != 0 or statuses != ["cached"] * len(csvs) or any(
+                p.read_bytes() != b for p, b in csvs.items()):
+            raise AssertionError(f"exp: the rerun is not all cached with the same CSVs: "
+                                 f"rc {rc}, {statuses}")
+
+        bare = pathlib.Path(tmp) / "bare"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.exp", "run", "--fig",
+                               "fig1r1", "--out", str(bare), "--artifacts", str(bare / "exp")],
+                              capture_output=True, text=True, timeout=600, cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        bare_s = time.perf_counter() - t0
+        written = sorted(p.name for p in (bare / "exp" / "fig1r1").glob("*.json"))
+        if proc.returncode != 0 or len(written) != 4:
+            raise AssertionError(f"exp: bare CLI exited {proc.returncode}, wrote {written}: "
+                                 f"{proc.stderr[-2000:]}")
+    want = {kn: sum(c[kn] for c in per_cell.values()) for kn in counts}
+    need_exact("exp", counts, want)
+    for kn in ("topk_row_threshold", "topk_compress_sum", "basis_transform"):
+        if not counts[kn]:
+            raise AssertionError(f"exp: kernel {kn} was not launched: {counts}")
+    engine_vs_direct = {
+        tag: {"engine": res[tag.split("/")[0]]["cells"][tag.split("/")[1]]["s_per_round"],
+              **direct} for tag, direct in direct_s_per_round.items()}
+    if "fig1-xl" in EXP_FIGS:
+        # a cell's runtime_s holds its problem's basis build (the engine
+        # builds bases inside run_cell, as the reference does) and the
+        # first run on a fresh problem, which the per-cell phase times
+        # apart or warms up: time the build, then two engine runs, on a
+        # fresh problem
+        xl = registry.get_experiment("fig1-xl")
+        prob = engine.build_problem(xl.problem, device)
+        runs = []
+        for step in [lambda: prob.bases(xl.cells[0].basis)] + [
+                lambda: engine.run_cell(xl, xl.cells[0], prob, device=device)] * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        del prob
+        engine.build_problem.cache_clear()
+        run = res["fig1-xl"]["cells"]["BL1"]
+        engine_vs_direct["fig1-xl/BL1"].update(
+            bases_s=runs[0], engine_less_bases=(run["runtime_s"] - runs[0]) / run["steps"],
+            engine_run_cell_s_per_round=[t / run["steps"] for t in runs[1:]])
+    return {"experiments": res, "cli_s": wall, "launches": counts, "launches_expected": want,
+            "digests_equal": len(csvs), "schema_diff": "ok", "cached_rerun_s": cached_s,
+            "cached_rerun": statuses, "bare_cli": {"rc": proc.returncode, "artifacts": written,
+                                                   "wall_s": bare_s},
+            "s_per_round_engine_vs_direct": engine_vs_direct}
+
+
 def profile_run(torch, run, steps: int) -> dict:
     """Device time by CUDA kernel, the CUDA launches (kernels, copies and
     sets), and host time by operator, over `run()`, a `steps`-round run
@@ -1797,6 +1966,9 @@ def main(argv) -> int:
     setup_s = time.perf_counter() - t0
     hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
     launches["fig1r1"] = counts["topk_row_threshold"]
+    # the exp phase's launches are held to these per-cell phases' counts
+    per_cell = {"fig1r1/BL1": counts}
+    direct = {"fig1r1/BL1": {"direct": secs / cell.steps}}
     res = check_history("fig1r1", hist, json.loads(cell.artifact.read_text())["history"])
     need("fig1r1", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0})
     emit({"phase": "fig1r1", "setup_s": setup_s, "run_s": secs, "launches": counts, **res})
@@ -1805,6 +1977,7 @@ def main(argv) -> int:
         res = check_history(f"fig1r1/{cell.name}", hist,
                             json.loads(cell.artifact.read_text())["history"])
         need(f"fig1r1/{cell.name}", counts, {"tiled_matmul": 0})
+        per_cell[f"fig1r1/{cell.name}"] = counts
         emit({"phase": "fig1r1", "cell": cell.name, "run_s": secs, "launches": counts, **res})
 
     # ---- fig2: Newton without and with the data basis, both Γ routes -------
@@ -1830,6 +2003,8 @@ def main(argv) -> int:
 
     # ---- the stochastic paper cells: fig4, fig6, fig3, fig5, NL1, fig1r3 ----
     stochastic = glm_cells_phase(torch, k, problems, problems.STOCHASTIC_CELLS, prob)
+    per_cell["fig1r1/NL1"] = {**dict.fromkeys(counts, 0),
+                              "topk_row_threshold": stochastic["fig1r1/NL1"]}
 
     # ---- fig1r2, fig5 (FedNL-BC, DORE), fig1-bag; then the basis grid and a1a
     baseline = glm_cells_phase(torch, k, problems, problems.BASELINE_CELLS, prob)
@@ -1865,6 +2040,9 @@ def main(argv) -> int:
         t_alls.append(t_all)
         per_round.append((t_all - t_one) / (cell.steps - 1))
     peak = torch.cuda.max_memory_allocated()
+    per_cell["fig1-xl/BL1"] = counts
+    direct["fig1-xl/BL1"] = {"direct": median(per_round),
+                             "direct_full_run": t_alls[-1] / cell.steps}
     res = check_history("fig1-xl", hist, json.loads(cell.artifact.read_text())["history"])
     need("fig1-xl", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0})
     emit({"phase": "fig1-xl", "problem_build_s": build_s, "newton_s": newton_s,
@@ -1913,6 +2091,7 @@ def main(argv) -> int:
     # ---- bl2-xl: BL2 at fig1-xl's widths with τ = 256 ---------------------
     launches["bl2-xl"] = bl2_xl_phase(torch, k, problems, prng, rounds, prob)
     del prob
+    problems.build_problem.cache_clear()         # the engine's memo holds fig1-xl's
     torch.cuda.empty_cache()
 
     # ---- BL-DNN kernels -------------------------------------------------------
@@ -1922,7 +2101,7 @@ def main(argv) -> int:
 
     # ---- fig-dnn / fig-dnn-ship from the carried problem ---------------------
     t0 = time.perf_counter()
-    prob = problems.load_dnn_problem(device="cuda")
+    prob = problems.build_problem(problems.DNN_FIG, device="cuda")
     problems.run_dnn_cell(problems.FIG_DNN["BLDNN"], prob, steps=2)   # warm-up
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1935,7 +2114,7 @@ def main(argv) -> int:
         hist, secs, counts = drive(torch, k, lambda: problems.run_dnn_cell(cell, prob))
         res = check_dnn_history(f"{cell.experiment}/{cell.name}", hist,
                                 json.loads(cell.artifact.read_text())["history"])
-        if cell.compressor == "rtopk":
+        if cell.hess_comp.kind == "rtopk":
             # RTop-K selects through kernel 1 on both legs of all 4 leaves
             # (its compress-sum is the two-pass one: no kernel 2); the
             # gradient leg's 4 rotations through kernel 4
@@ -1945,7 +2124,7 @@ def main(argv) -> int:
             need_exact(f"{cell.experiment}/{cell.name}", counts, want)
         else:
             want = {"tiled_matmul": 0}
-            if cell.compressor == "topk":
+            if cell.hess_comp.kind == "topk":
                 want["topk_row_threshold"] = want["topk_compress_sum"] = 4 * cell.steps
             if cell.basis is not None:
                 want["basis_transform"] = 4 * cell.steps
@@ -1957,6 +2136,10 @@ def main(argv) -> int:
             raise AssertionError(f"{cell.experiment}/{cell.name}: every leaf's rotation "
                                  f"should be one fused CUDA launch: {counts}")
         dnn_launches[f"{cell.experiment}/{cell.name}"] = counts
+        if cell.experiment == "fig-dnn":
+            per_cell[f"fig-dnn/{cell.name}"] = counts
+        if (cell.experiment, cell.name) == ("fig-dnn", "BLDNN"):
+            dnn_s_per_round = secs / cell.steps
         emit({"phase": cell.experiment, "cell": cell.name, "steps": cell.steps,
               "setup_s": setup_s, "run_s": secs, "s_per_round": secs / cell.steps,
               "launches": counts, **res})
@@ -1964,8 +2147,14 @@ def main(argv) -> int:
         cell = problems.FIG_DNN["BLDNN"]
         emit({"phase": "profile_fig-dnn_BLDNN",
               **profile_run(torch, lambda: problems.run_dnn_cell(cell, prob, steps=4), 4)})
+    direct["fig-dnn/BLDNN"] = {"direct": dnn_s_per_round}
 
+    # ---- exp: the CLI over fig1r1, fig-dnn and fig1-xl ----------------------
     del prob
+    problems.build_problem.cache_clear()         # the CLI builds its problems itself
+    torch.cuda.empty_cache()
+    emit({"phase": "exp", **exp_phase(torch, k, per_cell, direct)})
+    problems.build_problem.cache_clear()
     torch.cuda.empty_cache()
 
     # ---- LM serving: kernels 5 and 6, then gemma3-4b and mamba2-370m --------

@@ -1,8 +1,9 @@
 """Matrix/vector compression operators (paper §3, §A.2, §A.5) — port of
 `repro.core.compressors`: `Identity`, `TopK` (BL1's and BL-DNN's main
 paths), `RankR` (FedNL's Hessian codec), the unbiased `RandK`,
-`RandomDithering` and `NaturalCompression`, and the composed codecs
-`ComposedTopK` (RTop-K, NTop-K) and `ComposedRankR` (RRank-R, NRank-R).
+`RandomDithering`, `NaturalCompression` and `BernoulliLazy`, and the
+composed codecs `ComposedTopK` (RTop-K, NTop-K) and `ComposedRankR`
+(RRank-R, NRank-R).
 
 One natively-batched contract: ``compress(keys, x)`` takes a stack of n
 inputs (leading client axis) and per-client PRNG keys (n, 2)
@@ -399,6 +400,27 @@ class ComposedRankR(Compressor):
                   comm.Counts(*(_count_sum(c, n, rr) for c in cu)),
                   comm.Counts(*(_count_sum(c, n, rr) for c in cv)))
         return out, counts
+
+
+@dataclasses.dataclass(unsafe_hash=True)
+class BernoulliLazy(Compressor):
+    """Lazy Bernoulli compressor (§A.8): send the full tensor w.p. p, else
+    zero.  Unbiased with ω = 1/p − 1.  Client i draws one
+    ``bernoulli(keys[i], p)``, as the reference's vmap over its keys."""
+    p: float
+
+    def __post_init__(self):
+        self.is_unbiased = True
+        self.omega = 1.0 / self.p - 1.0
+
+    def compress(self, keys, x):
+        n = x.shape[0]
+        keys = self._require_keys(keys, n)
+        send = prng.bernoulli(keys, self.p, (), device=x.device)
+        bshape = (n,) + (1,) * (x.dim() - 1)
+        out = torch.where(send.reshape(bshape), x / self.p, torch.zeros_like(x))
+        floats = torch.where(send, float(_numel(x)), 0.0).to(torch.float64)
+        return out, comm.Counts(floats=floats)
 
 
 def rtopk(k: int) -> ComposedTopK:

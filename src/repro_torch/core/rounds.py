@@ -17,15 +17,14 @@ holds that skeleton's pieces as plain functions on client-stacked tensors:
   * `run_rounds`: a Python loop over rounds (the reference's
     `lax.scan`) fed the per-round keys ``split(PRNGKey(seed), steps)``,
     with the trajectory evaluated after the loop (`default_gap_stream`) as
-    the reference does.
+    the reference does, and an optional mid-sweep `StreamHook`.
 
 Keys follow `repro_torch.core.prng`: a round's key and the keys split from
 it stay on the host, and every draw over the client or an entry axis runs
 on the reducer's device.  Compressors that draw nothing get no keys (the
 reference derives them and ignores them, which changes no bit).
 
-The sharded reducer (ROADMAP.md §1 item 13) and the mid-sweep stream hook
-(item 11) are not ported yet.
+The sharded reducer (ROADMAP.md §1 item 13) is not ported yet.
 """
 from __future__ import annotations
 
@@ -313,6 +312,23 @@ class Env:
     extra: object  # spec-specific precomputation (e.g. a CoeffLayout)
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamHook:
+    """Mid-sweep instrumentation hook for long runs (`repro_torch.exp`
+    sweeps): `run_rounds` calls ``callback(t, eval_x, ledger)`` at rounds
+    t = 0, every, 2·every, … with round t's own outputs — its evaluation
+    iterate and the cumulative per-leg `comm.CommLedger` that
+    ``spec.step`` returned for it, as row 0 of the reference's chunk of
+    ``every`` rounds gives them.  Instrumentation only: the loop is the
+    same with or without a hook, so histories are bitwise unchanged."""
+
+    every: int
+    callback: Callable
+
+    def _emit(self, t, eval_x, ledger):
+        self.callback(int(t), eval_x, ledger)
+
+
 def default_gap_stream(batch, xs_t: torch.Tensor, f_star: torch.Tensor) -> torch.Tensor:
     """f(x_t) − f* for a whole (steps, d) GLM trajectory, evaluated after
     the round loop (the default `MethodSpec.eval_streams`)."""
@@ -329,15 +345,12 @@ def run_rounds(spec, batch, basisb, x0, f_star, steps: int, *, seed: int = 0,
     parameter pytree; the trajectory reaches ``eval_streams`` stacked leaf
     by leaf, (steps, ...).  Round t's key is row t of
     ``split(PRNGKey(seed), steps)``, as the reference's batch driver
-    splits them (`repro.core.batched._run`)."""
+    splits them (`repro.core.batched._run`).  ``stream`` is an optional
+    `StreamHook`."""
     if sharded:
         raise NotImplementedError(
             "the sharded reducer is not ported yet: ROADMAP.md §1 item 13 "
             "(torch.distributed reducer) brings it")
-    if stream is not None:
-        raise NotImplementedError(
-            "StreamHook is not ported yet: ROADMAP.md §1 item 11 "
-            "(experiment layer) brings it")
     if steps < 1:
         raise ValueError(f"run_rounds needs steps >= 1, got {steps}")
     R = VmapReducer(n=batch.n, device=tree_leaves(x0)[0].device)
@@ -345,9 +358,12 @@ def run_rounds(spec, batch, basisb, x0, f_star, steps: int, *, seed: int = 0,
               extra=spec.prepare(R, batch, basisb, x0))
     carry = spec.init(R, env)
     keys = prng.split(prng.PRNGKey(seed), int(steps))
+    every = None if stream is None else max(1, int(stream.every))
     xs, leds = [], []
     for t in range(int(steps)):
         carry, (eval_x, led) = spec.step(R, env, carry, RoundCtx(t=t, key=keys[t]))
+        if every is not None and t % every == 0:
+            stream._emit(t, eval_x, led)
         xs.append(eval_x)
         leds.append(led)
     evals = spec.eval_streams(batch, tree_map(lambda *x: torch.stack(x), *xs), f_star)

@@ -9,6 +9,7 @@ held to the GLM gate: gaps within |Δ| ≤ 1e-8·|ref| + 1e-12 and every bit
 stream exact.  Runs that draw are held under both settings of
 ``jax_threefry_partitionable``; the artifacts were written under False.
 """
+import dataclasses
 import json
 
 import jax
@@ -197,11 +198,9 @@ def test_baseline_cell_matches_artifact(paper, cell):
     assert cfg["problem"]["n_clients"] == cell.problem.n_clients and cfg["steps"] == cell.steps
     assert cfg["cell"]["method"] == cell.method
     assert cfg["cell"]["basis"] == cell.basis and dict(cfg["cell"]["params"]) == dict(cell.params)
-    hc = cfg["cell"]["hess_comp"]
-    if hc is not None:
-        kind = {"topk": "topk_sym" if hc["symmetrize"] else "topk"}.get(hc["kind"], hc["kind"])
-        size = {"dither": hc["s"], "rankr": hc["r"]}.get(hc["kind"], hc["k"])
-        assert cell.hess_comp == (kind, size)
+    for leg in ("hess_comp", "model_comp"):
+        want = getattr(cell, leg)
+        assert cfg["cell"][leg] == (None if want is None else dataclasses.asdict(want))
     h = problems.run_cell(cell, paper)
     ref = art["history"]
     g, gr = np.asarray(h.gaps), np.asarray(ref["gaps"])

@@ -215,11 +215,14 @@ def test_basis_grid_reference_describes_the_cells():
     assert tuple(cfg["grid"]["bases"]) == problems.GRID_BASES
     for cell in problems.BASIS_GRID.values():
         assert cell.steps == cfg["grid"]["steps"] and cell.problem == problems.ProblemSpec()
+        hc = cell.hess_comp
         want = {"topk": cfg["grid"]["topk_k"], "rankr": cfg["grid"]["rankr_r"]}
-        assert cell.hess_comp[1] == want[cell.hess_comp[0]]
+        assert (hc.k if hc.kind == "topk" else hc.r) == want[hc.kind]
+        assert cell.model_comp.kind == cfg["grid"]["model_comp"]
     a1a = problems.TABLE2_A1A
     assert (a1a.steps, a1a.basis, a1a.hess_comp) == (
-        cfg["a1a"]["steps"], cfg["a1a"]["basis"], ("topk", cfg["a1a"]["topk_k"]))
+        cfg["a1a"]["steps"], cfg["a1a"]["basis"],
+        problems.CompressorCfg(kind="topk", k=cfg["a1a"]["topk_k"]))
     assert ref["threefry_partitionable"] is False
 
 

@@ -6,6 +6,7 @@ fig1r1 on one CPU differs from its artifact by up to 5.3e-16 absolute,
 which at the 5e-13 tail is 1.7e-4 relative, so a purely relative bound
 cannot hold even for the reference.  Every bit stream must agree exactly.
 """
+import dataclasses
 import json
 import pathlib
 
@@ -114,7 +115,7 @@ def test_fig1r1_from_port_problem_matches_artifact():
     cfg = art["config"]
     assert cfg["problem"]["n_clients"] == cell.problem.n_clients
     assert (cfg["problem"]["d"], cfg["problem"]["r"]) == (cell.problem.d, cell.problem.r)
-    assert ("topk", cfg["cell"]["hess_comp"]["k"]) == cell.hess_comp
+    assert cfg["cell"] == json.loads(json.dumps(dataclasses.asdict(cell.cell)))
     assert cfg["steps"] == cell.steps
     prob = problems.build_problem(cell.problem, device="cpu")
     h = problems.run_cell(cell, prob)
@@ -132,9 +133,9 @@ def test_fig1_xl_cell_matches_its_artifact_config():
             p["solver"]) == (cell.problem.n_clients, cell.problem.m, cell.problem.d,
                              cell.problem.r, cell.problem.lam,
                              cell.problem.newton_iters, cell.problem.solver)
-    kind, k = cell.hess_comp
-    assert cfg["cell"]["hess_comp"] == {"kind": kind, "k": k, "r": 0, "s": 0,
+    assert cfg["cell"]["hess_comp"] == {"kind": "topk", "k": 1024, "r": 0, "s": 0,
                                         "p": 0.0, "symmetrize": False}
+    assert cfg["cell"] == json.loads(json.dumps(dataclasses.asdict(cell.cell)))
     assert cfg["steps"] == cell.steps and cfg["cell"]["basis"] == cell.basis
 
 
@@ -207,7 +208,13 @@ def test_run_rounds_options_not_ported_raise(small):
     f_star = torch.tensor(0.0, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="item 13"):
         rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 2, sharded=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 2, stream=object())
+    # the stream hook is ported (the experiment layer): it fires every round
+    # here and leaves the run bitwise as it is without it
+    seen = []
+    hook = rounds.StreamHook(every=1, callback=lambda t, x, led: seen.append(t))
+    with_hook = rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 2, stream=hook)
+    plain = rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 2)
+    assert seen == [0, 1]
+    assert torch.equal(with_hook[0]["gap"], plain[0]["gap"])
     with pytest.raises(ValueError, match="steps"):
         rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 0)

@@ -357,7 +357,8 @@ def test_bl2_xl_reference_describes_the_cell():
     p = cell.problem
     assert (cfg["n_clients"], cfg["m"], cfg["d"], cfg["r"], cfg["lam"]) == \
         (p.n_clients, p.m, p.d, p.r, p.lam)
-    assert ("topk", cfg["hess_comp"]["k"]) == cell.hess_comp and cfg["steps"] == cell.steps
+    assert cfg["hess_comp"] == {"kind": cell.hess_comp.kind, "k": cell.hess_comp.k}
+    assert cfg["model_comp"] == {"kind": cell.model_comp.kind} and cfg["steps"] == cell.steps
     assert dict(cell.params) == {"tau": cfg["tau"]} and ref["threefry_partitionable"] is False
     assert problems.BL2_XL_NARROW.problem.d == cfg["narrow_d"]
     assert [m.count("1") for m in ref["masks"]] == ref["participants"]

@@ -30,7 +30,8 @@ def test_port_files_are_found():
             "bldnn.py", "basis_transform.py", "pytree.py", "layers.py",
             "baselines.py", "tiled_matmul.py", "ops.py", "flash_attention.py",
             "ssd_scan.py", "model.py", "steps.py", "config.py", "convert.py", "serve.py",
-            "shapes.py", "gemma3_4b.py", "mamba2_370m.py"} <= names
+            "shapes.py", "gemma3_4b.py", "mamba2_370m.py", "registry.py", "engine.py",
+            "artifacts.py", "metrics.py", "__main__.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
