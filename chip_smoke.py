@@ -23,7 +23,9 @@ is non-zero and no result line is printed:
                 (10, 120²) layouts, the (10, 120) model streams,
                 FedNL-BC's (10, 7260) upper triangles at k = 7200, the
                 basis grid's blocks at k = T and full layouts, a1a's
-                blocks), each also held bitwise at k = T − 1 and T;
+                blocks, and the cohort path's (512, 576) k = 48 and
+                (16, 64) k = 16, whose device time is taken on every run),
+                each also held bitwise at k = T − 1 and T;
   4. kernels_matmul — the tiled-matmul kernel against its plain version and
                 float64 (within 1e-5 of the larger magnitude of each), and
                 bitwise equal to itself on a second call, at the
@@ -134,6 +136,25 @@ is non-zero and no result line is printed:
                 (no --device: the card) in a subprocess; each experiment's
                 wall and set-up seconds, and s/round through the engine
                 beside the per-cell phases'.
+     cohort   — the cohort-streaming engine (`repro_torch.core.cohort`):
+                fig1-xxl's BL2 and FedNL-BAG at 131,072 clients (cohorts of
+                512, 4 rounds a cohort, 16 rounds) and cohort-smoke's BL2
+                through `exp.engine.run_cell`, each held to the JAX
+                package's file (src/repro_torch/exp/data/fig1_xxl_seed0.json,
+                written by tools/cohort_reference.py): the store's sha256,
+                f* within 1e-14, every epoch's cohort, each round's
+                participants (BL2) or report senders (FedNL-BAG) drawn on
+                the card, every bit stream exact, gaps in the GLM gate, the
+                threshold kernel exactly once a round; then cohort-smoke
+                through ``python3 -m repro_torch.exp run --fig
+                cohort-smoke`` in a subprocess, its artifact held the same
+                way; the bytes moved to the card per fig1-xxl epoch
+                (exactly 512·(8·24 + 8)·8 = 819,200), prefetch on and off
+                bitwise equal, set-up seconds (store, x*, fleet init),
+                s/round, the prefetch's overlap, CUDA launches a round, and
+                the s/round of the same BL2 on a 1,024-client store, which
+                fig1-xxl's may exceed by at most 2x (a per-round O(n) step
+                would show as ~128x).
   10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
                 float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
@@ -190,6 +211,7 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -230,8 +252,19 @@ STOCHASTIC_THRESHOLD_SHAPES = (
     (1, 120, 24, "fig5/BL1-BC/model"), (10, 7260, 7200, "fig5/FedNL-BC"),
     (1, 120, 60, "one/k60"), (10, 576, 576, "basis-grid/data_outer"),
     (10, 14400, 576, "basis-grid/full"), (16, 4096, 64, "table2/a1a"))
+#: kernel 1 on the cohort-streaming path (rows, T, k, where): BL2's and
+#: FedNL-BAG's Hessian leg in the standard basis, one row a cohort slot:
+#: fig1-xxl's (512, 24²) k = 48 and cohort-smoke's (16, 8²) k = 16; timed
+#: with their device time on every run
+COHORT_THRESHOLD_SHAPES = ((512, 576, 48, "fig1-xxl"), (16, 64, 16, "cohort-smoke"))
 #: compressor kinds that select through kernel 1 (`topk_keep_mask`)
 TOPK_KINDS = ("topk", "rtopk", "ntopk")
+#: the cohort phase: the comparison fleet for the flat-in-n check (the same
+#: cohort, τ and epochs as fig1-xxl's BL2), the s/round ratio it must stay
+#: under, and the 16-round chunks timed on each fleet (median)
+COHORT_FLAT_N = 1024
+COHORT_FLAT_RATIO = 2.0
+COHORT_TIMED_CHUNKS = 3
 #: rounds of simulated draws timed in the prng phase
 PRNG_COST_ROUNDS = 50
 #: the experiments the exp phase runs through the CLI: the paper's headline
@@ -689,7 +722,7 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
             cases.append((f"random4x{T}", dev(np.abs(rng.standard_normal((4, T)))), k))
     # every path shape at its k and at both ends of the radix select
     # (k = T - 1 and k = T)
-    for rows, T, k, tag in STOCHASTIC_THRESHOLD_SHAPES:
+    for rows, T, k, tag in STOCHASTIC_THRESHOLD_SHAPES + COHORT_THRESHOLD_SHAPES:
         a = dev(np.abs(rng.standard_normal((rows, T))))
         for kk in sorted({k, T - 1, T}):
             cases.append((tag, a, kk))
@@ -719,7 +752,7 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
 
     timings = {}
     for rows, T, k, path in ((10, 576, 24, "fig1r1"), (512, 1024, 1024, "fig1-xl"),
-                             *STOCHASTIC_THRESHOLD_SHAPES):
+                             *STOCHASTIC_THRESHOLD_SHAPES, *COHORT_THRESHOLD_SHAPES):
         a = dev(np.abs(rng.standard_normal((rows, T))))
         if not torch.equal(tk.topk_row_threshold(a, k), tk.topk_row_threshold_plain(a, k)):
             raise AssertionError(f"threshold kernel != plain at {path} ({rows}, {T}) k={k}")
@@ -731,7 +764,7 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
             "library_ms": cuda_ms(
                 torch, lambda: torch.topk(a, k, dim=1).values[:, -1:], 500),
             "bound_ms": bound, "bound_by": by}
-        if profile:
+        if profile or path in {tag for *_, tag in COHORT_THRESHOLD_SHAPES}:
             timings[path]["device_ms"] = device_ms(
                 torch, {"kernel": lambda: tk.topk_row_threshold(a, k)})["kernel"]
     return {"cases": len(cases), "max_abs_err": max_err, "timings": timings}
@@ -1271,6 +1304,213 @@ def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
         emit({"phase": phase or cell.experiment, "cell": cell.name, "method": cell.method,
               "basis": cell.basis, "steps": cell.steps, "setup_s": setup_s, "run_s": secs,
               "s_per_round": secs / cell.steps, "launches": counts, **res})
+    return out
+
+
+def _stream_arrays(ys) -> list:
+    """A cohort run's (eval_x, ledger, events) streams as host tensors."""
+    x, led, ev = ys
+    return [x.cpu(), *(getattr(led, leg).cpu() for leg in led.LEGS), ev.cpu()]
+
+
+def cohort_phase(torch, k, problems, prng, device: str = "cuda") -> dict:
+    """The cohort-streaming engine on the card: fig1-xxl's BL2 and FedNL-BAG
+    at 131,072 clients through `exp.engine.run_cell`, held to the JAX
+    package's file (`problems.COHORT_REFERENCE`): the store's sha256, f*
+    within 1e-14 relative, the cohorts of every epoch, each round's
+    uploading clients as the run itself drew them (`History.uploads`: BL2's
+    participants, FedNL-BAG's senders), every bit stream exact and the gaps
+    in the GLM gate; kernel 1 exactly once a round and no other kernel;
+    cohort-smoke's BL2 the same way in-process, then through ``python3 -m
+    repro_torch.exp run --fig cohort-smoke`` in a subprocess (its artifact
+    held to the file).  Then, on engines built directly: the bytes the
+    engine copies to the card an epoch (every copy, counted where it is
+    made: the cohort's A and b, exactly c·(m·d + m)·8, its carry rows, its
+    int32 indices and the frozen statistics), equal at both fleet sizes,
+    and the rows copied back; prefetch on and off bitwise equal; set-up
+    seconds (store, x*, fleet init), s/round over `COHORT_TIMED_CHUNKS`
+    16-round chunks, the prefetch's overlap, and CUDA launches a round
+    (torch.profiler over one 4-round epoch, its load included); the same
+    BL2 on a `COHORT_FLAT_N`-client store, whose s/round must be at least
+    1/`COHORT_FLAT_RATIO` of fig1-xxl's."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import client_batch, cohort
+    from repro_torch.exp import engine
+
+    ref_all = json.loads(problems.COHORT_REFERENCE.read_text())["experiments"]
+    out = {}
+
+    def hold(name, cell, prob, ref):
+        p = cell.cell.params_dict()
+        sha = {a: hashlib.sha256(getattr(prob.store, a).tobytes()).hexdigest() for a in "Ab"}
+        if sha != ref["store_sha256"]:
+            raise AssertionError(f"{name}: store sha256 {sha} != reference {ref['store_sha256']}"
+                                 " (numpy's default_rng stream differs)")
+        f_star = cohort.store_loss(prob.store, prob.x_star)
+        if not abs(f_star - ref["f_star"]) <= 1e-14 * abs(ref["f_star"]):
+            raise AssertionError(f"{name}: f* {f_star!r} != reference {ref['f_star']!r}")
+        seed64 = cohort.sampler_seed(prng.PRNGKey(0))
+        rpc, c, n = p["rounds_per_cohort"], p["cohort"], prob.n
+        cohorts = [cohort.cohort_indices(seed64, n, c, e) for e in range(len(ref["cohorts"]))]
+        if [x.tolist() for x in cohorts] != ref["cohorts"]:
+            raise AssertionError(f"{name}: the epochs' cohorts differ from the reference's")
+        run = ref["runs"][cell.name]
+        t0 = time.perf_counter()
+        hist, secs, counts = drive(torch, k, lambda: engine.run_cell(cell.exp, cell.cell, prob,
+                                                                     device=device))
+        want = dict.fromkeys(counts, 0)
+        want["topk_row_threshold"] = topk_legs(cell) * cell.steps
+        need_exact(name, counts, want)
+        kind = "participants" if cell.method == "bl2" else "senders"
+        if hist.uploads != run[kind]:
+            raise AssertionError(f"{name}: the run's {kind} differ from the reference's")
+        if not all(set(u) <= set(cohorts[t // rpc].tolist()) for t, u in enumerate(hist.uploads)):
+            raise AssertionError(f"{name}: a round's {kind} lie outside its epoch's cohort")
+        res = check_history(name, hist, run)
+        emit({"phase": "cohort", "cell": name, "steps": cell.steps, "run_cell_s": secs,
+              "wall_s": time.perf_counter() - t0, "launches": counts, "f_star": f_star,
+              "store_sha256_equal": True, "epochs_equal": len(cohorts),
+              f"{kind}_per_round": [len(u) for u in hist.uploads], f"{kind}_equal": True,
+              **res})
+        return counts["topk_row_threshold"]
+
+    # ---- fig1-xxl at full size ---------------------------------------------
+    cells = problems.FIG1_XXL
+    spec = cells["BL2"].problem
+    t0 = time.perf_counter()
+    client_batch.synthetic_store(spec.seed, spec.n_clients, spec.m, spec.d, lam=spec.lam)
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prob = engine.build_problem(spec, device)
+    build_s = time.perf_counter() - t0
+    launches = {}
+    for name, cell in cells.items():
+        launches[f"fig1-xxl/{name}"] = hold(f"fig1-xxl/{name}", cell, prob, ref_all["fig1-xxl"])
+
+    def stream_engine(store, prefetch=True, cell=cells["BL2"]):
+        sspec, basis, csize, rpc, seed = engine.build_stream_spec(
+            cell.cell, store.d, store.n, store.lam, cell.cell.params_dict())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = cohort.CohortEngine(sspec, store, torch.zeros(store.d, dtype=torch.float64,
+                                                            device=device),
+                                  cohort=csize, rounds_per_cohort=rpc,
+                                  root_key=prng.PRNGKey(seed), basis=basis, prefetch=prefetch)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def timed_chunks(eng, steps):
+        per_round, first = [], None
+        for i in range(COHORT_TIMED_CHUNKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = eng.run_chunk(i * steps, steps)
+            torch.cuda.synchronize()
+            per_round.append((time.perf_counter() - t0) / steps)
+            first = ys if first is None else first
+        return per_round, first
+
+    def epoch_bytes(eng) -> dict:
+        """The bytes an epoch copies to the card, by kind, from the shapes:
+        the cohort's data, its carry rows, its int32 indices and the float64
+        frozen statistics (the rows also come back when the epoch ends)."""
+        c, st = eng.cohort, eng.store
+        return {"data": c * (st.A[0].nbytes + st.b[0].nbytes),
+                "rows": c * sum(v[0].nbytes for v in st.state.values()),
+                "indices": c * 4,
+                "frozen": sum(st.state[leaf][0].astype(np.float64).nbytes
+                              for leaf, _ in eng.spec.cohort_aggregates().values())}
+
+    steps = cells["BL2"].steps
+    timing = {}
+    for n_fleet in (spec.n_clients, COHORT_FLAT_N):
+        st = prob.store if n_fleet == spec.n_clients else client_batch.synthetic_store(
+            spec.seed, n_fleet, spec.m, spec.d, lam=spec.lam)
+        eng, init_s = stream_engine(st)
+        per_round, ys_on = timed_chunks(eng, steps)
+        m = dict(eng.metrics)
+        row = {"n": n_fleet, "fleet_init_s": init_s, "s_per_round": per_round,
+               "s_per_round_median": median(per_round), "prefetch_overlap": eng.prefetch_overlap,
+               "h2d_bytes_per_epoch": m["h2d_bytes"] / m["epochs_loaded"],
+               "h2d_bytes_per_epoch_by_kind": epoch_bytes(eng), "metrics": m}
+        if n_fleet == spec.n_clients:
+            epoch, start = eng.rpc, [COHORT_TIMED_CHUNKS * steps]
+
+            def next_epoch():
+                eng.run_chunk(start[0], epoch)
+                start[0] += epoch
+
+            # each profiled run is a fresh epoch: its (prefetched) load included
+            prof = profile_run(torch, next_epoch, epoch)
+            row.update(cuda_launches_per_round=prof["cuda_launches_per_step"],
+                       device_busy_ms_per_round=prof["device_busy_ms"] / epoch,
+                       profile_top=prof["top"][:6])
+            m = dict(eng.metrics)
+            row["metrics"] = m
+            by_kind = epoch_bytes(eng)
+            # the registered config's c·(m·d + m)·8: 819,200 at fig1-xxl
+            want = cells["BL2"].cell.params_dict()["cohort"] * (spec.m * spec.d + spec.m) * 8
+            if by_kind["data"] != want:
+                raise AssertionError(f"cohort: the cohort's A and b are {by_kind['data']} "
+                                     f"bytes, not c·(m·d + m)·8 = {want}")
+            if m["h2d_bytes"] != sum(by_kind.values()) * m["epochs_loaded"]:
+                raise AssertionError(f"cohort: {m['h2d_bytes']} bytes copied to the card in "
+                                     f"{m['epochs_loaded']} epochs, not {by_kind} an epoch")
+            if m["d2h_bytes"] != by_kind["rows"] * (m["epochs_loaded"] - 1):
+                raise AssertionError(f"cohort: {m['d2h_bytes']} bytes copied back in "
+                                     f"{m['epochs_loaded'] - 1} unloads, not "
+                                     f"{by_kind['rows']} each")
+            eng.close()
+            eng, _ = stream_engine(st, prefetch=False)
+            ys_off = eng.run_chunk(0, steps)
+            if not all(torch.equal(a, b) for a, b in zip(_stream_arrays(ys_on),
+                                                         _stream_arrays(ys_off))):
+                raise AssertionError("cohort: prefetch on and off give different streams")
+            row["prefetch_off_bitwise"] = True
+        eng.close()
+        timing[n_fleet] = row
+    if (timing[spec.n_clients]["h2d_bytes_per_epoch"]
+            != timing[COHORT_FLAT_N]["h2d_bytes_per_epoch"]):
+        raise AssertionError("cohort: the bytes an epoch copies to the card grow with the fleet")
+    ratio = (timing[spec.n_clients]["s_per_round_median"]
+             / timing[COHORT_FLAT_N]["s_per_round_median"])
+    if not ratio <= COHORT_FLAT_RATIO:
+        raise AssertionError(f"cohort: s/round at n={spec.n_clients} is {ratio:.3f}x "
+                             f"n={COHORT_FLAT_N}'s (limit {COHORT_FLAT_RATIO})")
+    out["fig1-xxl"] = {"store_s": store_s, "build_problem_s": build_s,
+                       "newton_s": build_s - store_s, "timing": timing,
+                       "s_per_round_ratio": ratio}
+    del prob
+    engine.build_problem.cache_clear()
+
+    # ---- cohort-smoke: in-process, then the CLI in a subprocess --------------
+    cell = problems.COHORT_SMOKE
+    prob = engine.build_problem(cell.problem, device)
+    launches["cohort-smoke/BL2"] = hold("cohort-smoke/BL2", cell, prob, ref_all["cohort-smoke"])
+    engine.build_problem.cache_clear()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cohort_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.exp", "run", "--fig",
+                               "cohort-smoke", "--out", tmp, "--artifacts", f"{tmp}/exp"],
+                              capture_output=True, text=True, timeout=600, cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        cli_s = time.perf_counter() - t0
+        path = pathlib.Path(tmp) / "exp" / "cohort-smoke" / "BL2.seed0.json"
+        if proc.returncode != 0 or not path.is_file():
+            raise AssertionError(f"cohort: the CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        from types import SimpleNamespace
+
+        rec = json.loads(path.read_text())
+        held = check_history("cohort/cli/cohort-smoke", SimpleNamespace(**rec["history"]),
+                             cell.reference_history())
+    out["cohort-smoke_cli"] = {"rc": proc.returncode, "wall_s": cli_s,
+                               "runtime_s": rec["runtime_s"],
+                               "max_gap_abs_err": held["max_gap_abs_err"]}
+    out["launches"] = launches
     return out
 
 
@@ -2157,6 +2397,12 @@ def main(argv) -> int:
     problems.build_problem.cache_clear()
     torch.cuda.empty_cache()
 
+    # ---- cohort: fig1-xxl (131,072 clients) and cohort-smoke, streamed ------
+    co = cohort_phase(torch, k, problems, prng)
+    emit({"phase": "cohort", **co})
+    problems.build_problem.cache_clear()
+    torch.cuda.empty_cache()
+
     # ---- LM serving: kernels 5 and 6, then gemma3-4b and mamba2-370m --------
     ka = attention_kernel_phase(torch, fa)
     emit({"phase": "kernels_attn", "kernel": "flash_attention", **ka})
@@ -2187,9 +2433,13 @@ def main(argv) -> int:
         "launches_bl2-xl": launches["bl2-xl"], "launches_stochastic_cells": stochastic,
         "launches_fig-dnn/RTopK": dnn_launches["fig-dnn/RTopK"]["topk_row_threshold"],
         "launches_baseline_cells": baseline, "launches_basis_grid": grid,
+        "launches_cohort": co["launches"],
         "path_shapes": {tag: {key: kern["timings"][tag][key] for key in (
             "shape", "k", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-            for *_, tag in STOCHASTIC_THRESHOLD_SHAPES}}, {
+            for *_, tag in STOCHASTIC_THRESHOLD_SHAPES},
+        "cohort_shapes": {tag: {key: kern["timings"][tag][key] for key in (
+            "shape", "k", "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for *_, tag in COHORT_THRESHOLD_SHAPES}}, {
         "name": "topk_compress_sum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk_compress_sum.cu",
         "replaces": "src/repro/kernels/topk_threshold.py:123",

@@ -49,6 +49,9 @@ class History:
     metrics: Optional[Dict[str, List[float]]] = None
     #: per-round `rounds.EVENT_*` bitmasks; the batch drivers leave it None
     events: Optional[List[int]] = None
+    #: per round, the global indices of the clients that uploaded (the
+    #: cohort-streaming engine's `CohortEngine.uploads`); None elsewhere
+    uploads: Optional[List[List[int]]] = None
 
     def append(self, gap, up, down):
         self.gaps.append(float(max(gap, 0.0)))

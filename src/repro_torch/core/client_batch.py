@@ -8,7 +8,10 @@
     are exactly zero), or a rotation, ``eigen`` or ``dct`` (one Q for the
     fleet, stacked ``Q (n, d, d)``);
   * `TreeBatch`    — the BL-DNN fleet: any pytree (nested dict) of data
-    leaves stacked on a leading client axis.
+    leaves stacked on a leading client axis;
+  * `ClientStore`  — a fleet kept on the host in numpy for the
+    cohort-streaming engine (`repro_torch.core.cohort`), and
+    `synthetic_store`, its synthetic logistic-regression fleet.
 
 The batched GLM math mirrors `glm` one-to-one, vectorized over the client
 axis, in the reference's formulas and association order.
@@ -18,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels import ops
@@ -247,6 +251,62 @@ def stack_bases(bases: Sequence[MatrixBasis],
                          for b in bases])                # zero cols beyond r_i
         return BatchedBasis(kind="data_outer", d=b0.d, rs=rs, V=V, project=project)
     return None
+
+
+# --------------------------------------------------------------------------
+# host-resident client store (cohort streaming)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class ClientStore:
+    """The full fleet's data and per-client carry state, on the host.
+
+    The stacked engine puts all n clients on the device; the
+    cohort-streaming engine (`repro_torch.core.cohort`) keeps the fleet
+    here, float64 numpy arrays in host memory, and each epoch moves only
+    the sampled cohort's rows to the device.  ``state`` holds the
+    client-stacked carry leaves between the rounds a client is sampled;
+    an absent client's state stays frozen (Alg. 2–3), which is exactly
+    what "rows not gathered this epoch do not move" gives."""
+
+    A: np.ndarray             # (n, m, d) float64
+    b: np.ndarray             # (n, m) float64
+    lam: float
+    state: dict = dataclasses.field(default_factory=dict)  # name -> (n, ...)
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def d(self) -> int:
+        return self.A.shape[2]
+
+    def gather_data(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side cohort gather: (A[idx], b[idx]) as fresh numpy arrays."""
+        return self.A[idx], self.b[idx]
+
+    def gather_batch(self, idx: np.ndarray, device=None) -> ClientBatch:
+        """The cohort's `ClientBatch` on ``device`` (default: the CPU)."""
+        A, b = self.gather_data(idx)
+        return ClientBatch(A=torch.from_numpy(A).to(device), b=torch.from_numpy(b).to(device),
+                           lam=self.lam)
+
+
+def synthetic_store(seed: int, n_clients: int, m: int, d: int,
+                    lam: float = 1e-3, noise: float = 0.1) -> ClientStore:
+    """Vectorized synthetic logistic-regression fleet for the streaming
+    engine: a planted model with flip-noise labels, drawn in one shot from
+    numpy's ``default_rng(seed)`` as the reference draws it (rows are full
+    rank: store-backed problems run the standard basis)."""
+    rng = np.random.default_rng(seed)
+    x_true = rng.standard_normal(d) / np.sqrt(d)
+    A = rng.standard_normal((n_clients, m, d)) / np.sqrt(d)
+    logits = A @ x_true
+    p = 1.0 / (1.0 + np.exp(-logits))
+    b = np.where(rng.random((n_clients, m)) < (1 - noise) * p + noise * 0.5,
+                 1.0, -1.0)
+    return ClientStore(A=np.asarray(A, np.float64),
+                       b=np.asarray(b, np.float64), lam=lam)
 
 
 # --------------------------------------------------------------------------

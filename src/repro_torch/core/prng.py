@@ -164,9 +164,20 @@ def split(key: torch.Tensor, num: int = 2, *, device=None,
     return w.reshape(tuple(w.shape[:-1]) + (num, 2))
 
 
-def fold_in(key: torch.Tensor, data: int, *, device=None) -> torch.Tensor:
+def fold_in(key: torch.Tensor, data, *, device=None) -> torch.Tensor:
     """``jax.random.fold_in``: hash the pair (0, data) for a uint32
-    ``data`` — the same in both settings."""
+    ``data`` — the same in both settings.  ``data`` may also be a 1-D
+    integer tensor of c values in [0, 2**32) (not checked: that would cost
+    a device sync), folded into one key in one hash on the data's device
+    (or ``device``): the (c, 2) keys of ``jax.vmap(lambda i: fold_in(key,
+    i))(data)``."""
+    if isinstance(data, torch.Tensor) and data.dim() == 1:
+        if key.dim() != 1:
+            raise ValueError(f"fold_in folds a vector into one (2,) key, got {tuple(key.shape)}")
+        x1 = data.to(device=data.device if device is None else device, dtype=torch.int64)
+        k0, k1 = key.tolist()
+        y0, y1 = _threefry(k0, k1, torch.zeros_like(x1), x1)
+        return torch.stack([y0, y1], dim=-1)
     if not 0 <= int(data) <= M32:
         raise ValueError(f"fold_in takes data in [0, 2**32), got {data}")
     y0, y1 = _hash(key, [0], [int(data)], 1, device)

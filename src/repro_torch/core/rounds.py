@@ -17,14 +17,25 @@ holds that skeleton's pieces as plain functions on client-stacked tensors:
   * `run_rounds`: a Python loop over rounds (the reference's
     `lax.scan`) fed the per-round keys ``split(PRNGKey(seed), steps)``,
     with the trajectory evaluated after the loop (`default_gap_stream`) as
-    the reference does, and an optional mid-sweep `StreamHook`.
+    the reference does, and an optional mid-sweep `StreamHook`;
+  * the chunked driver (`serve_init`, `init_serve_carry`, `run_chunk`):
+    rounds [t0, t0 + steps) from an explicit carry, round t keyed
+    ``fold_in(root_key, t)``, so a trajectory does not depend on where it
+    is cut; `carry_client_flags` tells the carry's client-stacked elements
+    from its server ones;
+  * the cohort chunk (`CohortReducer`, `run_cohort_chunk`): the rounds of
+    one epoch of the cohort-streaming engine (`repro_torch.core.cohort`),
+    the spec seeing a sampled cohort as the fleet.
 
 Keys follow `repro_torch.core.prng`: a round's key and the keys split from
 it stay on the host, and every draw over the client or an entry axis runs
 on the reducer's device.  Compressors that draw nothing get no keys (the
 reference derives them and ignores them, which changes no bit).
 
-The sharded reducer (ROADMAP.md §1 item 13) is not ported yet.
+The sharded reducer (ROADMAP.md §1 item 13), the program cache (item 16,
+the reference's `warm_chunk_program` and `warm_cohort_chunk_program`) and
+fault injection in the chunked driver (`run_chunk`'s ``avail``, which the
+service loop of item 14 feeds) are not ported yet.
 """
 from __future__ import annotations
 
@@ -95,6 +106,107 @@ class VmapReducer:
     def once(self, f: Callable, *args):
         """Run server-only math ``f(*args)`` once per fleet."""
         return f(*args)
+
+
+class CohortReducer:
+    """Reducer view of a sampled cohort standing in for the whole fleet.
+
+    Wraps the cohort's `VmapReducer` ``inner`` so a spec's `step` runs
+    unchanged: ``n``, ``n_local``, ``device``, `client_keys` and `once` are
+    the cohort axis's; ``n_total`` is the fleet's size, so bills and
+    participation stay fleet-denominated; ``idx`` holds each slot's global
+    client index.  `reduce_tree` adds the host's ``frozen`` sums of the
+    absent clients' state to a ``mean`` (and takes the max with their max
+    for ``max``); a ``mean`` without a frozen entry is delta-style and
+    divides the cohort's sum alone by ``n_total``.  Bare `mean` and `max`
+    raise: an unnamed fleet reduction cannot be matched to a frozen
+    statistic.  ``uploads`` collects each round's upload mask over the
+    cohort (`note_uploads`), so the engine can report who took part."""
+
+    is_cohort = True
+
+    def __init__(self, inner: VmapReducer, idx: torch.Tensor, frozen: dict, n_global: int):
+        self.inner = inner
+        self.idx = idx
+        self.frozen = frozen
+        self.n_global = int(n_global)
+        self.uploads: list = []
+
+    # ---- cohort axis (delegated) ------------------------------------------
+    @property
+    def n(self) -> int:
+        return self.inner.n
+
+    @property
+    def n_local(self) -> int:
+        return self.inner.n_local
+
+    @property
+    def n_total(self) -> int:
+        return self.n_global
+
+    @property
+    def device(self) -> torch.device:
+        return self.inner.device
+
+    def client_keys(self, key: torch.Tensor) -> torch.Tensor:
+        return self.inner.client_keys(key)
+
+    def once(self, f: Callable, *args):
+        return self.inner.once(f, *args)
+
+    # ---- fleet reductions --------------------------------------------------
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Fleet sum of a quantity absent clients hold at 0 (participation
+        masks, bit counts)."""
+        return self.inner.sum(x)
+
+    def mean(self, x):
+        raise NotImplementedError(
+            "CohortReducer cannot take an unnamed fleet mean: absent clients' "
+            "contributions live in named frozen sums; use reduce_tree({'name': x})")
+
+    def max(self, x):
+        raise NotImplementedError(
+            "CohortReducer cannot take an unnamed fleet max: use reduce_tree with a "
+            "named leaf and a frozen fleet statistic")
+
+    def reduce_tree(self, tree, ops="mean") -> dict:
+        if not isinstance(tree, dict):
+            raise NotImplementedError(
+                "CohortReducer.reduce_tree needs a flat {name: leaf} dict (frozen "
+                f"fleet statistics are matched by name); got {type(tree)}")
+        ops_d = {name: ops for name in tree} if isinstance(ops, str) else dict(ops)
+        for name in tree:
+            if ops_d[name] not in _REDUCE_OPS:
+                raise ValueError(f"reduce_tree op must be one of {_REDUCE_OPS}, "
+                                 f"got {ops_d[name]!r}")
+        red = self.inner.reduce_tree(
+            tree, {name: "max" if ops_d[name] == "max" else "sum" for name in tree})
+        out = {}
+        for name in tree:
+            op = ops_d[name]
+            if op == "sum":
+                out[name] = red[name]
+            elif op == "mean":
+                froz = self.frozen.get(name)
+                s = red[name] if froz is None else froz + red[name]
+                out[name] = s / self.n_total
+            else:
+                if name not in self.frozen:
+                    raise ValueError(
+                        f"max-aggregate {name!r} needs a frozen fleet statistic (the "
+                        "absent clients' max); the cohort engine computes one an epoch")
+                out[name] = torch.maximum(self.frozen[name], red[name])
+        return out
+
+    def tree_mean(self, tree):
+        raise NotImplementedError(
+            "pytree coefficient streams (BL-DNN) are not cohort-capable")
+
+    def tree_mean_presummed(self, tree, local_sums):
+        raise NotImplementedError(
+            "pytree coefficient streams (BL-DNN) are not cohort-capable")
 
 
 #: `participation`'s per-round event bits (OR-combined)
@@ -198,6 +310,8 @@ def participation(R: VmapReducer, key: torch.Tensor, tau: int,
         raise ValueError(
             f"participation needs τ ≥ 1 expected clients per round, got "
             f"τ={tau} — pass τ in [1, n] (τ=n is full participation)")
+    if getattr(R, "is_cohort", False):
+        return _cohort_participation(R, key, tau, avail)
     n, dev = R.n, R.device
     ar = torch.arange(n, device=dev)
     if tau >= n:
@@ -220,6 +334,37 @@ def participation(R: VmapReducer, key: torch.Tensor, tau: int,
     event = (EVENT_DEGRADED * ((n_surv < drawn.sum()) & (n_surv < tau))
              + EVENT_FORCED * need_force + EVENT_ALL_DOWN * (n_avail == 0))
     return part, event.to(torch.int32)
+
+
+def _cohort_participation(R: CohortReducer, key: torch.Tensor, tau: int, avail
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Participation over a sampled cohort: each slot draws
+    Bernoulli(τ/n_total) from ``fold_in(k_mask, its global index)``, so a
+    client's draw for a round depends only on the round key and its id
+    (one hash over the cohort's (c, 2) keys).  The force-one-client
+    fallback picks the slot with the least global index.  Fault injection
+    is refused: availability masks address the stacked fleet."""
+    if avail is not None:
+        raise ValueError(
+            "cohort streaming does not support fault injection (avail must be None): "
+            "fault plans address the stacked fleet by index")
+    tau = min(tau, R.n_total)
+    k_mask, _ = prng.split(key)
+    keys_i = prng.fold_in(k_mask, R.idx)
+    drawn = prng.bernoulli(keys_i, tau / R.n_total, ())
+    n_surv = R.sum(drawn.to(torch.int32))
+    need = n_surv == 0
+    part = drawn | (need & (R.idx == R.idx.amin()))
+    event = torch.where(need, EVENT_FORCED, EVENT_NONE)
+    note_uploads(R, part)
+    return part, event.to(torch.int32)
+
+
+def note_uploads(R, mask: torch.Tensor) -> None:
+    """Record a round's upload mask (participants, or FedNL-BAG's
+    reporters) on a `CohortReducer`; other reducers keep nothing."""
+    if getattr(R, "is_cohort", False):
+        R.uploads.append(mask)
 
 
 def xi_mask(R: VmapReducer, key: torch.Tensor, p: float) -> torch.Tensor:
@@ -361,10 +506,126 @@ def run_rounds(spec, batch, basisb, x0, f_star, steps: int, *, seed: int = 0,
     every = None if stream is None else max(1, int(stream.every))
     xs, leds = [], []
     for t in range(int(steps)):
-        carry, (eval_x, led) = spec.step(R, env, carry, RoundCtx(t=t, key=keys[t]))
+        carry, (eval_x, led, _event) = spec.step(R, env, carry, RoundCtx(t=t, key=keys[t]))
         if every is not None and t % every == 0:
             stream._emit(t, eval_x, led)
         xs.append(eval_x)
         leds.append(led)
     evals = spec.eval_streams(batch, tree_map(lambda *x: torch.stack(x), *xs), f_star)
     return evals, comm.CommLedger.stack(leds)
+
+
+# ==========================================================================
+# Chunked driver: rounds [t0, t0 + steps) from an explicit carry
+# ==========================================================================
+def _device_of(x0) -> torch.device:
+    return tree_leaves(x0)[0].device
+
+
+def _elem_shapes(elem) -> list:
+    """The shapes of a carry element's leaves: a tensor, a `CommLedger` or
+    a pytree of tensors."""
+    if isinstance(elem, comm.CommLedger):
+        return [tuple(getattr(elem, leg).shape) for leg in comm.CommLedger.LEGS]
+    return [tuple(leaf.shape) for leaf in tree_leaves(elem)]
+
+
+def _meta(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    shape = tuple(x.shape) if n is None else (n,) + tuple(x.shape[1:])
+    return torch.empty(shape, dtype=x.dtype, device="meta")
+
+
+def serve_init(spec, R, batch, basisb, x0):
+    """The round-0 carry: ``spec.init`` after ``spec.prepare``, the init
+    the stacked driver and the cohort engine's fleet init share."""
+    env = Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(R, batch, basisb, x0))
+    return spec.init(R, env)
+
+
+def carry_client_flags(spec, batch, basisb, x0) -> tuple:
+    """Which carry elements are client-stacked: one tuple of flags (one a
+    leaf) per top-level carry element.  ``spec.init`` runs on shapes only
+    (``torch.device("meta")``) at n and at 2n clients, and exactly the
+    leaves whose shape moved carry the client axis; no spec declares
+    anything."""
+    n = batch.n
+
+    def shapes_at(nn: int) -> list:
+        b = client_batch.ClientBatch(A=_meta(batch.A, nn), b=_meta(batch.b, nn), lam=batch.lam)
+        bb = basisb
+        if basisb is not None and not getattr(spec, "basis_replicated", False):
+            bb = dataclasses.replace(basisb, **{f: _meta(getattr(basisb, f), nn)
+                                                for f in ("V", "Q")
+                                                if getattr(basisb, f) is not None})
+        xm = tree_map(_meta, x0)
+        carry = serve_init(spec, VmapReducer(n=nn, device=torch.device("meta")), b, bb, xm)
+        return [_elem_shapes(e) for e in carry]
+
+    s1, s2 = shapes_at(n), shapes_at(2 * n)
+    return tuple(tuple(a != b for a, b in zip(e1, e2)) for e1, e2 in zip(s1, s2))
+
+
+def init_serve_carry(spec, batch, basisb, x0):
+    """The round-0 carry of the chunked driver on ``x0``'s device."""
+    return serve_init(spec, VmapReducer(n=batch.n, device=_device_of(x0)), batch, basisb, x0)
+
+
+def _stack_streams(outs: list) -> tuple:
+    """(eval_x, ledger, event) of each round → (steps, ...) streams."""
+    xs, leds, evs = zip(*outs)
+    dev = _device_of(xs[0])
+    events = torch.stack([torch.as_tensor(e, dtype=torch.int32, device=dev) for e in evs])
+    return (tree_map(lambda *x: torch.stack(x), *xs), comm.CommLedger.stack(leds), events)
+
+
+def concat_streams(parts: list) -> tuple:
+    """Concatenate the (eval_x, ledger, events) streams of consecutive
+    chunks along the round axis."""
+    if len(parts) == 1:
+        return parts[0]
+    xs, leds, evs = zip(*parts)
+    return (tree_map(lambda *x: torch.cat(x), *xs),
+            comm.CommLedger(*(torch.cat([getattr(l, leg) for l in leds])
+                              for leg in comm.CommLedger.LEGS)),
+            torch.cat(evs))
+
+
+def run_chunk(spec, batch, basisb, x0, carry, t0: int, steps: int, root_key):
+    """Run rounds [t0, t0 + steps) from an explicit carry; returns
+    ``(carry, (eval_x stream, CommLedger of per-leg streams, events
+    stream))``.  Round t's key is ``fold_in(root_key, t)``, a function of
+    the absolute round index only, so a trajectory does not depend on how
+    it is cut into chunks."""
+    dev = _device_of(x0)
+    R = VmapReducer(n=batch.n, device=dev)
+    env = Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(R, batch, basisb, x0))
+    outs = []
+    for t in range(int(t0), int(t0) + int(steps)):
+        carry, ys = spec.step(R, env, carry, RoundCtx(t=t, key=prng.fold_in(root_key, t)))
+        outs.append(ys)
+    return carry, _stack_streams(outs)
+
+
+# ==========================================================================
+# Cohort chunk (repro_torch.core.cohort)
+# ==========================================================================
+def run_cohort_chunk(spec, batch, basisb, x0, carry, t0: int, steps: int, root_key, *,
+                     cidx, frozen: dict, n_global: int):
+    """Run ``steps`` cohort rounds from absolute round ``t0``: ``batch`` is
+    the cohort's `ClientBatch` (c rows gathered from the
+    `client_batch.ClientStore`), ``carry`` the cohort's carry, ``cidx`` the
+    slots' global client indices (c,), ``frozen`` the absent clients' fleet
+    statistics for the epoch.  The spec sees a `CohortReducer`; round t's
+    key is ``fold_in(root_key, t)`` as in `run_chunk`.  Returns ``(carry,
+    (eval_x, ledger, events) streams, uploads)``, ``uploads`` the rounds'
+    (steps, c) bool upload masks (`note_uploads`)."""
+    dev = batch.A.device
+    CR = CohortReducer(VmapReducer(n=batch.n, device=dev),
+                       idx=torch.as_tensor(cidx, dtype=torch.int32, device=dev),
+                       frozen=frozen, n_global=n_global)
+    env = Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(CR, batch, basisb, x0))
+    outs = []
+    for t in range(int(t0), int(t0) + int(steps)):
+        carry, ys = spec.step(CR, env, carry, RoundCtx(t=t, key=prng.fold_in(root_key, t)))
+        outs.append(ys)
+    return carry, _stack_streams(outs), torch.stack(CR.uploads)

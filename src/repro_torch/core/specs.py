@@ -10,14 +10,23 @@ hooks `rounds.run_rounds` calls:
     `rounds.CoeffLayout`);
   * ``init(R, env)``                 — the carry at round 0;
   * ``step(R, env, carry, rc)``      — one round, returning
-    ``(carry, (eval_x, ledger))``: the iterate the round is evaluated at
-    and the cumulative `comm.CommLedger` at the round's start;
+    ``(carry, (eval_x, ledger, event))``: the iterate the round is
+    evaluated at, the cumulative `comm.CommLedger` at the round's start
+    and the round's `rounds.EVENT_*` bits (an int32 tensor from
+    `rounds.participation`, else ``EVENT_NONE``);
   * ``eval_streams(batch, xs_t, f_star)`` — the post-loop evaluation.
 
 A round's keys are split from ``rc.key`` as the reference splits them, on
 the host; a spec whose compressors all draw nothing (and, for BL1, p = 1)
-splits none, which changes no bit.  The cohort hooks of `FedNLBAGSpec`
-come with ROADMAP.md §1 item 15 (the cohort engine).
+splits none, which changes no bit.
+
+The cohort contract (`MethodSpec.supports_cohort`, `carry_names`,
+`cohort_aggregates`, `cohort_init_extras`, `cohort_server_init`) lets
+`BL2Spec`, `BL3Spec` and `FedNLBAGSpec` run under the cohort-streaming
+engine (`repro_torch.core.cohort`): every fleet reduction of their step is
+a named `reduce_tree` entry, so the engine can hand the absent clients'
+frozen contributions in, and each round's upload mask (participants, or
+BAG's reporters) is recorded with `rounds.note_uploads`.
 """
 from __future__ import annotations
 
@@ -31,9 +40,9 @@ from .bl import _psd_h_tilde, _psd_reconstruct_full, _psd_sum_matrix, proj_mu
 from .comm import FLOAT_BITS, CommLedger
 from .compressors import Compressor
 from .pytree import tree_leaves, tree_map
-from .rounds import (client_keys_for, coeff_layout, default_gap_stream, downlink_broadcast,
-                     global_grad, participation, refresh_due, shift_update,
-                     tree_shift_update, tree_shift_update_sum, xi_mask, xi_scalar)
+from .rounds import (EVENT_NONE, client_keys_for, coeff_layout, default_gap_stream,
+                     downlink_broadcast, global_grad, note_uploads, participation, refresh_due,
+                     shift_update, tree_shift_update, tree_shift_update_sum, xi_mask, xi_scalar)
 
 
 def _sym_b(H: torch.Tensor) -> torch.Tensor:
@@ -62,6 +71,38 @@ def _round_keys(key: torch.Tensor, num: int, draws: bool):
 
 class MethodSpec:
     """Base hooks; subclasses are frozen dataclasses."""
+
+    #: True for specs whose `step` runs under the cohort-streaming engine
+    #: (`repro_torch.core.cohort`): every fleet reduction goes through a
+    #: named `reduce_tree` entry declared in `cohort_aggregates`, so the
+    #: engine can supply the absent clients' frozen contributions
+    supports_cohort = False
+
+    #: names of the top-level carry elements, in order: the streaming
+    #: engine's handle for splitting the carry into host-resident client
+    #: state (`client_batch.ClientStore.state`) and server state
+    carry_names: Tuple[str, ...] = ()
+
+    def cohort_aggregates(self):
+        """Fleet aggregates `step` reduces over raw carry leaves:
+        ``{aggregate: (carry_leaf, op)}`` with op "mean" or "max".  The
+        engine keeps each mean leaf's fleet sum and hands the chunk
+        ``frozen[aggregate]``, the absent clients' sum (or, for "max",
+        their max).  Delta-style means (absent clients add exactly 0) are
+        not declared: a missing frozen entry is a zero."""
+        return {}
+
+    def cohort_init_extras(self, R, env, carry):
+        """Per-client stacked tensors whose fleet sum feeds a server
+        element of the init carry (``{name: (n, ...) tensor}``), summed by
+        the engine over its init slabs."""
+        return {}
+
+    def cohort_server_init(self, env, sums, n_total: int, carry):
+        """Server carry elements that need a fleet reduction at init,
+        ``{carry_name: value}``, from the slabs' `cohort_init_extras`
+        sums; every other server element keeps its first slab's value."""
+        return {}
 
     def prepare(self, R, batch, basisb, x0):
         return None
@@ -112,7 +153,7 @@ class BL1Spec(MethodSpec):
     def step(self, R, env, carry, rc):
         z, w, L, H, grad_w, xi, led = carry
         lay = env.extra
-        ys = (z, led)  # gap evaluated at z, after the loop
+        ys = (z, led, EVENT_NONE)  # gap evaluated at z, after the loop
         draws = self.p < 1.0 or self.hess_comp.stochastic or self.model_comp.stochastic
         k_h, k_m, k_xi = _round_keys(rc.key, 3, draws)
 
@@ -172,6 +213,14 @@ class BL2Spec(MethodSpec):
     basis_bits: float
     block: bool
 
+    supports_cohort = True        # Alg. 2: absent clients' state freezes
+    carry_names = ("z", "w", "L", "Hi", "li", "gi", "led")
+
+    def cohort_aggregates(self):
+        # the server system is assembled from raw per-client carry state
+        # every round, so absent clients' frozen rows keep contributing
+        return {"H": ("Hi", "mean"), "l": ("li", "mean"), "g": ("gi", "mean")}
+
     def prepare(self, R, batch, basisb, x0):
         return coeff_layout(R, batch, basisb, x0, self.block)
 
@@ -205,7 +254,7 @@ class BL2Spec(MethodSpec):
         ys = (x_cur, led)  # gap evaluated at x_cur, after the loop
 
         k_part, k_m, k_h, k_xi = prng.split(rc.key, 4)
-        part, _ = participation(R, k_part, self.tau, avail=rc.avail)
+        part, pev = participation(R, k_part, self.tau, avail=rc.avail)
 
         # compressed model broadcast (participants only)
         z_n, dbits = downlink_broadcast(R, self.model_comp, k_m, z, x_cur, self.eta, part)
@@ -240,7 +289,7 @@ class BL2Spec(MethodSpec):
         bits = R.reduce_tree({"s": torch.where(part, sbits, 0.0),
                               "g": torch.where(part, g_bits, 0.0)}, "sum")
         led = _bill_fleet(R, led, bits, dbits)
-        return (z_n, w_n, L_n, Hi_n, li_n, gi_n, led), ys
+        return (z_n, w_n, L_n, Hi_n, li_n, gi_n, led), (*ys, pev)
 
 
 # ==========================================================================
@@ -260,6 +309,13 @@ class BL3Spec(MethodSpec):
     tau: int
     c: float
     option: int
+
+    supports_cohort = True        # Alg. 3: absent clients' state freezes
+    carry_names = ("z", "w", "zprev", "L", "gam", "A", "C", "g1", "g2", "beta", "led")
+
+    def cohort_aggregates(self):
+        return {"A": ("A", "mean"), "C": ("C", "mean"), "g1": ("g1", "mean"),
+                "g2": ("g2", "mean"), "beta": ("beta", "max")}
 
     def prepare(self, R, batch, basisb, x0):
         return _psd_sum_matrix(batch.d, x0.dtype, x0.device)
@@ -295,7 +351,7 @@ class BL3Spec(MethodSpec):
         ys = (x_cur, led)  # gap evaluated at x_cur, after the loop
 
         k_part, k_m, k_h, k_xi = prng.split(rc.key, 4)
-        part, _ = participation(R, k_part, self.tau, avail=rc.avail)
+        part, pev = participation(R, k_part, self.tau, avail=rc.avail)
 
         zprev_n = torch.where(part[:, None], z, zprev)
         z_n, dbits = downlink_broadcast(R, self.model_comp, k_m, z, x_cur, self.eta, part)
@@ -333,7 +389,8 @@ class BL3Spec(MethodSpec):
         bits = R.reduce_tree({"s": torch.where(part, sbits + FLOAT_BITS, 0.0),
                               "g": torch.where(part, g_bits, 0.0)}, "sum")
         led = _bill_fleet(R, led, bits, dbits)
-        return (z_n, w_n, zprev_n, L_n, gam_n, A_n, C_n, g1_n, g2_n, beta_i_n, led), ys
+        return ((z_n, w_n, zprev_n, L_n, gam_n, A_n, C_n, g1_n, g2_n, beta_i_n, led),
+                (*ys, pev))
 
 
 # ==========================================================================
@@ -351,7 +408,7 @@ class GDSpec(MethodSpec):
     def step(self, R, env, carry, rc):
         x, led = carry
         x_n = x - self.lr * global_grad(R, env.batch, x)
-        return (x_n, led.add(grad_up=env.batch.d * FLOAT_BITS)), (x, led)
+        return (x_n, led.add(grad_up=env.batch.d * FLOAT_BITS)), (x, led, EVENT_NONE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -374,7 +431,7 @@ class DianaSpec(MethodSpec):
         red = R.reduce_tree({"ghat": h + q, "bits": comm.price(self.comp.wire, counts)})
         h_n = h + self.alpha_h * q
         x_n = x - self.lr * red["ghat"]
-        return (x_n, h_n, led.add(grad_up=red["bits"])), (x, led)
+        return (x_n, h_n, led.add(grad_up=red["bits"])), (x, led, EVENT_NONE)
 
 
 # ==========================================================================
@@ -403,7 +460,8 @@ class NewtonSpec(MethodSpec):
             Hc = env.basisb.server_reconstruct(coef, batch.lam)
         red = R.reduce_tree({"H": Hc, "g": client_batch.grads(batch, x)})
         x_n = R.once(lambda H, g: x - torch.linalg.solve(H, g), red["H"], red["g"])
-        return (x_n, led.add(hess_up=self.hess_bits, grad_up=self.grad_bits)), (x, led)
+        return ((x_n, led.add(hess_up=self.hess_bits, grad_up=self.grad_bits)),
+                (x, led, EVENT_NONE))
 
 
 # ==========================================================================
@@ -431,6 +489,24 @@ class FedNLBAGSpec(MethodSpec):
     basis_bits: float
     block: bool
 
+    supports_cohort = True        # the lazy table is frozen absent state
+    carry_names = ("z", "L", "H", "gtab", "led")
+
+    def cohort_aggregates(self):
+        # ĝ is the mean of the raw gradient table: absent clients' stale
+        # rows keep contributing.  dH and the bits are delta-style (absent
+        # clients add 0), so they are not declared
+        return {"ghat": ("gtab", "mean")}
+
+    def cohort_init_extras(self, R, env, carry):
+        # H⁰ = meanᵢ recon(L⁰ᵢ) + ridge is a fleet reduction: the engine
+        # sums the per-client reconstructions over its init slabs
+        _, L0, _, _, _ = carry
+        return {"recL": env.extra.recon(L0)}
+
+    def cohort_server_init(self, env, sums, n_total, carry):
+        return {"H": sums["recL"] / n_total + env.extra.ridge}
+
     def prepare(self, R, batch, basisb, x0):
         return coeff_layout(R, batch, basisb, x0, self.block)
 
@@ -450,12 +526,13 @@ class FedNLBAGSpec(MethodSpec):
         z, L, H, gtab, led = carry
         batch = env.batch
         lay = env.extra
-        ys = (z, led)  # gap evaluated at z, after the loop
+        ys = (z, led, EVENT_NONE)  # gap evaluated at z, after the loop
 
         k_h, k_b = prng.split(rc.key, 2)
         # reporters refresh their row of the table; silent clients' stale
         # rows are reused
         send = prng.bernoulli(k_b, self.q, (R.n,), device=R.device)
+        note_uploads(R, send)
         gtab_n = torch.where(send[:, None], client_batch.grads(batch, z), gtab)
 
         S, L_n, counts = shift_update(
@@ -584,7 +661,7 @@ class BLDNNSpec(MethodSpec):
             params, shift, fshift, server_f, led, drift = carry
         else:
             params, shift, fshift, server_f, led = carry
-        ys = (params, led)  # evaluated after the loop
+        ys = (params, led, EVENT_NONE)  # evaluated after the loop
         basis = env.basisb
 
         # per-client gradients, rotated into the per-layer basis

@@ -81,8 +81,9 @@ def _cmd_run(args) -> int:
             failures += 1
             continue
         finally:
-            if "xl" in exp.tags:
-                # XL problems pin GBs in build_problem's memo; evict so the
+            if {"xl", "stream"} & set(exp.tags):
+                # XL and streaming problems pin GBs in build_problem's memo
+                # (fig1-xxl's store on the host); evict so the
                 # remaining (small, shared) figure problems rebuild cheaply
                 build_problem.cache_clear()
                 if torch.cuda.is_available():

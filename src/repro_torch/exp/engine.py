@@ -24,8 +24,10 @@ Where the port differs, and why:
   * backends (`resolve_backend`): a cell registered ``"fast+sharded"``
     (fig1-xl) runs the single-device fast path while the process is one
     rank — the reference's one-device mesh, which it holds bitwise equal
-    to ``"fast"`` — and raises across ranks (item 13); the ``"cohort"``
-    backends and ``synthetic_stream`` problems raise (item 15).
+    to ``"fast"`` — and raises across ranks (item 13); ``"cohort"`` runs
+    ``synthetic_stream`` problems (fig1-xxl, cohort-smoke) through the
+    cohort-streaming engine (`repro_torch.core.cohort`), and
+    ``"cohort+sharded"`` raises (item 13).
 
 Long cells can stream progress: ``progress_every=N`` attaches a
 `repro_torch.core.rounds.StreamHook` that reports (round, gap,
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..core import baselines, bl, client_batch, compressors, glm
+from ..core import baselines, batched, bl, client_batch, cohort, compressors, glm, prng, specs
 from ..core.basis import PerLayerSVDBasis, is_pytree_basis, make_bases
 from ..core.convert import dnn_problem_from_numpy
 from ..core.pytree import tree_leaves
@@ -122,6 +124,27 @@ class Problem:
 
 
 @dataclasses.dataclass
+class StreamProblem:
+    """A built ``synthetic_stream`` regime: the fleet lives on the host in a
+    `client_batch.ClientStore` (never stacked on the device) and the
+    reference optimum comes from the slab-wise host Newton solver; the
+    problem form the cohort-streaming engine consumes."""
+
+    spec: ProblemSpec
+    store: client_batch.ClientStore
+    x0: torch.Tensor
+    x_star: np.ndarray
+
+    @property
+    def d(self) -> int:
+        return int(self.x0.shape[0])
+
+    @property
+    def n(self) -> int:
+        return self.store.n
+
+
+@dataclasses.dataclass
 class DNNProblem:
     """A built `DNNProblemSpec`: client-stacked data, the student's
     parameters, the carried per-layer SVD basis, and the (stable,
@@ -183,9 +206,12 @@ def _build_problem(spec, dev: torch.device):
                 "item 9's remainder (normal / erf_inv) brings it")
         return load_dnn_problem(DNN_FIXTURE, spec, device=dev)
     if spec.kind == "synthetic_stream":
-        raise NotImplementedError(
-            "problem kind 'synthetic_stream' is not ported yet: ROADMAP.md §1 "
-            "item 15 (the cohort engine) brings it")
+        store = client_batch.synthetic_store(spec.seed, spec.n_clients, spec.m, spec.d,
+                                             lam=spec.lam)
+        x_star = cohort.store_newton_solve(store, np.zeros(spec.d), iters=spec.newton_iters)
+        return StreamProblem(spec=spec, store=store,
+                             x0=torch.zeros(spec.d, dtype=torch.float64, device=dev),
+                             x_star=x_star)
     if spec.kind == "table2":
         clients = glm.make_table2(spec.name, seed=spec.seed, lam=spec.lam, device=dev)
     elif spec.kind == "synthetic":
@@ -209,7 +235,7 @@ def build_problem(spec, device=None):
     """Materialize a `ProblemSpec` or `DNNProblemSpec` on `device`
     (``None``: the card), memoized on (spec, device) — figures share
     regimes.  ``build_problem.cache_clear()`` drops the memo (the CLI does
-    after an ``"xl"`` experiment)."""
+    after an ``"xl"`` or ``"stream"`` experiment)."""
     return _build_problem(spec, _device.resolve(device))
 
 
@@ -225,7 +251,7 @@ def resolve_backend(backend: str) -> str:
     """The backend a cell declared, as this process runs it:
     ``"fast+sharded"`` is the single-device ``"fast"`` path while the
     process is one rank (the reference's one-device mesh, bitwise equal to
-    ``"fast"``) and raises across ranks; the cohort backends raise."""
+    ``"fast"``) and raises across ranks; ``"cohort+sharded"`` raises."""
     if backend == "fast+sharded":
         if _world_size() > 1:
             raise NotImplementedError(
@@ -233,10 +259,10 @@ def resolve_backend(backend: str) -> str:
                 "ported yet: ROADMAP.md §1 item 13 (torch.distributed reducer) "
                 "brings it")
         return "fast"
-    if backend in ("cohort", "cohort+sharded"):
+    if backend == "cohort+sharded":
         raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: ROADMAP.md §1 item 15 "
-            "(the cohort engine) brings it")
+            "backend 'cohort+sharded' is not ported yet: ROADMAP.md §1 item 13 "
+            "(torch.distributed reducer) brings it")
     return backend
 
 
@@ -251,6 +277,80 @@ def _comp(cfg: Optional[CompressorCfg], d: int, what: str):
     if cfg is None:
         raise ValueError(f"cell needs a {what} compressor config")
     return build_compressor(cfg, d)
+
+
+def build_stream_spec(cell: MethodCell, d: int, n: int, lam: float, params: dict):
+    """`MethodSpec` and basis kind of a store-backed streaming cell, built
+    from the cell's config (the stacked setups of `repro_torch.core.batched`
+    start from client lists, which a streaming fleet never holds), with the
+    fields and bit accounting of `bl2_setup`, `bl3_setup` and
+    `fednl_bag_setup`.  Pops the engine's params (cohort, rounds_per_cohort,
+    seed) from ``params`` and returns ``(spec, basis, cohort,
+    rounds_per_cohort, seed)``."""
+    m = cell.method
+    cohort_size = int(params.pop("cohort", n))
+    rpc = int(params.pop("rounds_per_cohort", 1))
+    seed = int(params.pop("seed", 0))
+    hc = _comp(cell.hess_comp, d, "hessian")
+    if m == "bl2":
+        mc = _comp(cell.model_comp, d, "model")
+        bb = cohort.standard_basisb(d, n)
+        init_exact = bool(params.pop("init_exact_hessian", True))
+        spec = specs.BL2Spec(
+            hess_comp=hc, model_comp=mc,
+            alpha=params.pop("alpha", 1.0), eta=params.pop("eta", 1.0),
+            p=params.pop("p", 1.0), tau=int(params.pop("tau", n)),
+            init_exact=init_exact, init_hess_bits=bb.init_coeff_bits_mean(init_exact),
+            basis_bits=bb.transmission_bits_mean(), block=False)
+        basis = "standard"
+    elif m == "bl3":
+        mc = _comp(cell.model_comp, d, "model")
+        spec = specs.BL3Spec(
+            hess_comp=hc, model_comp=mc,
+            alpha=params.pop("alpha", 1.0), eta=params.pop("eta", 1.0),
+            p=params.pop("p", 1.0), tau=int(params.pop("tau", n)),
+            c=params.pop("c", 1e-8), option=int(params.pop("option", 2)))
+        basis = None
+    elif m == "fednl_bag":
+        bb = cohort.standard_basisb(d, n)
+        init_exact = bool(params.pop("init_exact_hessian", True))
+        q = params.pop("q", 0.5)
+        eta = params.pop("eta", None)
+        mu = params.pop("mu", None)
+        spec = specs.FedNLBAGSpec(
+            hess_comp=hc, alpha=params.pop("alpha", 1.0), q=q,
+            eta=q if eta is None else eta, mu=lam if mu is None else mu,
+            init_exact=init_exact, init_hess_bits=bb.init_coeff_bits_mean(init_exact),
+            basis_bits=bb.transmission_bits_mean(), block=False)
+        basis = "standard"
+    else:
+        raise ValueError(f"method {m!r} has no cohort-streaming path (bl2, bl3 and "
+                         "fednl_bag stream: see MethodSpec.supports_cohort)")
+    if params:
+        raise ValueError(f"unused streaming cell params {sorted(params)} for {m!r}")
+    return spec, basis, cohort_size, rpc, seed
+
+
+def _run_stream_cell(cell: MethodCell, prob: StreamProblem, steps: int, params: dict,
+                     dev: torch.device) -> bl.History:
+    spec, basis, csize, rpc, seed = build_stream_spec(cell, prob.d, prob.n, prob.store.lam,
+                                                      params)
+    eng = cohort.CohortEngine(spec, prob.store, prob.x0.to(dev), cohort=csize,
+                              rounds_per_cohort=rpc, root_key=prng.PRNGKey(seed), basis=basis)
+    try:
+        eval_x, leds, _events = eng.run_chunk(0, steps)
+        uploads = None if eng.uploads is None else [u.tolist() for u in eng.uploads]
+    finally:
+        eng.close()
+    # the fleet's gaps are evaluated slab by slab on the host: the device
+    # never holds more than a cohort
+    xs = eval_x.cpu().numpy()
+    f_star = cohort.store_loss(prob.store, prob.x_star)
+    gaps = torch.tensor([cohort.store_loss(prob.store, xs[t]) - f_star
+                         for t in range(xs.shape[0])], dtype=torch.float64)
+    hist = batched._history({"gap": gaps}, leds)
+    hist.uploads = uploads
+    return hist
 
 
 def run_cell(exp: Experiment, cell: MethodCell, prob, *,
@@ -281,6 +381,14 @@ def run_cell(exp: Experiment, cell: MethodCell, prob, *,
     params = cell.params_dict()
     if seed is not None and m in _SEEDED_METHODS:
         params.setdefault("seed", seed)
+
+    if isinstance(prob, StreamProblem):
+        if backend == "auto":
+            backend = "cohort"
+        if backend != "cohort":
+            raise ValueError(f"cell {cell.name!r}: a synthetic_stream problem runs on the "
+                             f"cohort backends, got backend={backend!r}")
+        return _run_stream_cell(cell, prob, steps, params, _device.resolve(device))
     if basis_project != "einsum" and m not in ("bl1", "newton"):
         raise ValueError(f"basis_project={basis_project!r} routes Γ of bl1 and "
                          f"newton only, not of {m!r}")

@@ -17,6 +17,11 @@ Registered cells, each held to its committed artifact under
   * the BL-DNN cells `FIG_DNN` and `FIG_DNN_SHIP` on `DNN_FIG`, the
     problem carried in `DNN_FIXTURE` (`engine.load_dnn_problem`).
 
+Registered cells without an artifact, held to a file the JAX package
+writes: the cohort-streaming experiments `FIG1_XXL` (BL2 and FedNL-BAG on
+131,072 clients, 512 a cohort) and `COHORT_SMOKE` (BL2 on 96 clients, 16 a
+cohort), held to `COHORT_REFERENCE` (``tools/cohort_reference.py``).
+
 Cells the registry lacks, in experiments built here and not registered,
 each held to a file the JAX package writes:
 
@@ -40,7 +45,7 @@ from typing import Dict, Optional, Tuple
 
 from ..core.pytree import tree_leaves
 from . import engine
-from .engine import DATA, Problem
+from .engine import DATA, Problem, StreamProblem
 # the handles the tests, tools and chip_smoke.py reach through this module
 from .engine import DNN_FIXTURE, DNNProblem, build_problem, load_dnn_problem  # noqa: F401
 from .registry import CompressorCfg, Experiment, MethodCell, ProblemSpec, get_experiment
@@ -50,6 +55,9 @@ REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BL2_XL_REFERENCE = DATA / "bl2_xl_seed0.json"
 #: the JAX package's histories of `BASIS_GRID` and `TABLE2_A1A`
 BASIS_GRID_REFERENCE = DATA / "basis_grid_seed0.json"
+#: the JAX package's runs of fig1-xxl and cohort-smoke (`FIG1_XXL`,
+#: `COHORT_SMOKE`): store checksums, f*, cohorts, participants, histories
+COHORT_REFERENCE = DATA / "fig1_xxl_seed0.json"
 #: the BL-DNN regime of fig-dnn and fig-dnn-ship, the one the fixture holds
 DNN_FIG = engine.DNN_FIXTURE_SPEC
 
@@ -111,21 +119,25 @@ class Cell:
         ``history``, or this cell's entry of a reference file that holds
         several runs."""
         ref = json.loads(self.artifact.read_text())
+        if "experiments" in ref:
+            ref = ref["experiments"][self.experiment]
         return ref["runs"][self.name] if "runs" in ref else ref["history"]
 
 
-def cells(experiment, names=None) -> Dict[str, Cell]:
+def cells(experiment, names=None, reference: Optional[pathlib.Path] = None) -> Dict[str, Cell]:
     """The cells of an experiment (a registered name or an `Experiment`),
-    all or the named ones, by name."""
+    all or the named ones, by name, held to their artifacts or to the file
+    ``reference``."""
     exp = get_experiment(experiment) if isinstance(experiment, str) else experiment
-    return {c.name: Cell(exp, c) for c in exp.cells if names is None or c.name in names}
+    return {c.name: Cell(exp, c, reference) for c in exp.cells
+            if names is None or c.name in names}
 
 
 def run_cell(cell: Cell, prob, *, steps=None, basis_project: str = "einsum"):
     """Run a cell through `engine.run_cell` on the problem's device;
     ``basis_project`` routes the data basis's Γ = VᵀAV of BL1 and Newton
     (see `engine.run_cell`)."""
-    x = prob.x0 if isinstance(prob, Problem) else tree_leaves(prob.params0)[0]
+    x = prob.x0 if isinstance(prob, (Problem, StreamProblem)) else tree_leaves(prob.params0)[0]
     return engine.run_cell(cell.exp, cell.cell, prob, steps=steps, device=x.device,
                            basis_project=basis_project)
 
@@ -163,6 +175,8 @@ BASELINE_CELLS: Tuple[Cell, ...] = (
     *FIG1R2.values(), *FIG5_REST.values(), *FIG1_BAG.values())
 FIG_DNN = cells("fig-dnn")
 FIG_DNN_SHIP = cells("fig-dnn-ship")
+FIG1_XXL = cells("fig1-xxl", reference=COHORT_REFERENCE)
+COHORT_SMOKE = cells("cohort-smoke", reference=COHORT_REFERENCE)["BL2"]
 
 _P = ProblemSpec()
 _IDENT = CompressorCfg(kind="identity")

@@ -191,8 +191,11 @@ def test_table2_problem_kind():
     prob = problems.build_problem(spec, device="cpu")
     shape = jglm.TABLE2["a1a"]
     assert (prob.n, prob.d) == (shape["n_clients"], shape["d"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        problems.build_problem(problems.ProblemSpec(kind="synthetic_stream"), device="cpu")
+    stream = problems.build_problem(
+        problems.ProblemSpec(kind="synthetic_stream", n_clients=12, m=8, d=6), device="cpu")
+    assert (stream.n, stream.d, stream.store.A.shape) == (12, 6, (12, 8, 6))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        problems.engine.resolve_backend("cohort+sharded")
     with pytest.raises(ValueError, match="unknown problem kind"):
         problems.build_problem(problems.ProblemSpec(kind="libsvm"), device="cpu")
 

@@ -176,10 +176,11 @@ def test_fast_sharded_across_ranks_raises_item_13(monkeypatch):
 
 
 def test_unported_problems_and_backends_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        engine.build_problem(registry.get_experiment("cohort-smoke").problem, "cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        engine.resolve_backend("cohort")
+    smoke = engine.build_problem(registry.get_experiment("cohort-smoke").problem, "cpu")
+    assert isinstance(smoke, engine.StreamProblem) and smoke.n == 96
+    assert engine.resolve_backend("cohort") == "cohort"
+    with pytest.raises(NotImplementedError, match="cohort\\+sharded.*item 13"):
+        engine.resolve_backend("cohort+sharded")
     with pytest.raises(NotImplementedError, match="item 9's remainder"):
         engine.build_problem(registry.DNNProblemSpec(seed=1), "cpu")
     exp = registry.get_experiment("fig1r1")
