@@ -155,6 +155,25 @@ is non-zero and no result line is printed:
                 the s/round of the same BL2 on a 1,024-client store, which
                 fig1-xxl's may exceed by at most 2x (a per-round O(n) step
                 would show as ~128x).
+     serve    — the service loop (`repro_torch.launch.fed_serve`) in a
+                temporary checkpoint directory: fig1-xxl/BL2 at 131,072
+                clients (16 rounds in chunks of 8) and fig1-xl/BL1 at full
+                width (8 rounds in chunks of 4), each served uninterrupted
+                and stopped half way then resumed from its checkpoint, the
+                two records equal and held to the JAX package's file
+                (participants included) and the artifact; fig4/BL2_tau_half
+                through ``python3 -m repro_torch.launch.fed_serve`` with
+                dropout, killed by ``--crash-after-round 14`` (exit -9) and
+                restarted, equal to the uninterrupted CLI serve, and
+                written on the CPU to round 12 then resumed on the card
+                (its coefficients mapped into the card's SVD basis); it and
+                fig4/BL3_tau_half and fig1-bag/BAG_q0.5 (outages,
+                stragglers; 8 rounds extended to 24) in-process, each held
+                to src/repro_torch/exp/data/fed_serve_ref.json (written by
+                tools/serve_reference.py: events and bits exact, gaps in
+                the GLM gate); kernel 1 exactly once a round a Top-K leg;
+                s/round served beside the direct call's, checkpoint bytes,
+                write and load seconds, time to first round.
   10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
                 float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
@@ -220,6 +239,7 @@ from statistics import median
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GAP_RTOL, GAP_ATOL = 1e-8, 1e-12
@@ -1277,7 +1297,7 @@ def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -
 
 
 def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
-                    device: str = "cuda") -> dict:
+                    device: str = "cuda", s_per_round: Optional[dict] = None) -> dict:
     """Run GLM cells on the card, each held to its reference history
     (`problems.Cell.reference_history`: the artifact or the reference file) at
     the GLM gate (`check_history`, with the cell's
@@ -1286,7 +1306,8 @@ def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
     kernel; ``paper`` is
     fig1r1's problem, a cell on another regime builds its own.  Emits one
     line a cell (under ``phase``, default the cell's experiment) and
-    returns kernel 1's launches by cell."""
+    returns kernel 1's launches by cell; ``s_per_round`` (a dict) collects
+    each cell's seconds a round."""
     out = {}
     for cell in cells:
         name = f"{cell.experiment}/{cell.name}"
@@ -1301,6 +1322,8 @@ def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
         want["topk_row_threshold"] = topk_legs(cell) * cell.steps
         need_exact(name, counts, want)
         out[name] = counts["topk_row_threshold"]
+        if s_per_round is not None:
+            s_per_round[name] = secs / cell.steps
         emit({"phase": phase or cell.experiment, "cell": cell.name, "method": cell.method,
               "basis": cell.basis, "steps": cell.steps, "setup_s": setup_s, "run_s": secs,
               "s_per_round": secs / cell.steps, "launches": counts, **res})
@@ -1483,14 +1506,12 @@ def cohort_phase(torch, k, problems, prng, device: str = "cuda") -> dict:
     out["fig1-xxl"] = {"store_s": store_s, "build_problem_s": build_s,
                        "newton_s": build_s - store_s, "timing": timing,
                        "s_per_round_ratio": ratio}
-    del prob
-    engine.build_problem.cache_clear()
+    # fig1-xxl's problem stays in the engine's memo: the serve phase serves it
 
     # ---- cohort-smoke: in-process, then the CLI in a subprocess --------------
     cell = problems.COHORT_SMOKE
     prob = engine.build_problem(cell.problem, device)
     launches["cohort-smoke/BL2"] = hold("cohort-smoke/BL2", cell, prob, ref_all["cohort-smoke"])
-    engine.build_problem.cache_clear()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cohort_") as tmp:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "repro_torch.exp", "run", "--fig",
@@ -1512,6 +1533,261 @@ def cohort_phase(torch, k, problems, prng, device: str = "cuda") -> dict:
                                "max_gap_abs_err": held["max_gap_abs_err"]}
     out["launches"] = launches
     return out
+
+
+SERVE_CRASH_AFTER = 14          # case (a): the kill lands mid-run, after round 14
+SERVE_XL_CHUNK = 4              # case (c): fig1-xl/BL1, 8 rounds, stopped at 4
+SERVE_XXL = (0, 16, 8)          # case (d): fig1-xxl/BL2 seed, rounds, chunk (stopped at 8)
+SERVE_CROSS_STOP = 12           # case (a): written on the CPU to here, resumed on the card
+
+
+def hold_serve(name: str, rec: dict, ref: dict) -> dict:
+    """A serve record against the reference's, ``meta`` aside on both:
+    events and every bit stream exact, gaps in the GLM gate, everything
+    else (config, digest, rounds, degraded count) equal."""
+    from types import SimpleNamespace
+
+    res = check_history(name, SimpleNamespace(**rec["history"]), ref["history"])
+    if rec["history"]["events"] != ref["history"]["events"]:
+        raise AssertionError(f"{name}: events {rec['history']['events']} != reference "
+                             f"{ref['history']['events']}")
+    rest = {k for k in ref if k not in ("meta", "history") and rec.get(k) != ref[k]}
+    if rest:
+        raise AssertionError(f"{name}: the record's {sorted(rest)} differ from the reference's")
+    res.pop("gaps")
+    return res
+
+
+def strip_meta(rec: dict) -> dict:
+    return {k: v for k, v in rec.items() if k != "meta"}
+
+
+def ckpt_bytes(ckpt_dir) -> int:
+    """Bytes of the newest checkpoint in a directory (its npz and manifest)."""
+    from repro_torch.exp import artifacts
+
+    t, manifest = artifacts.list_checkpoints(str(ckpt_dir))[-1]
+    return os.path.getsize(manifest) + os.path.getsize(str(manifest)[:-len(".json")] + ".npz")
+
+
+def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
+    """The service loop (`repro_torch.launch.fed_serve`) on the card, in a
+    temporary checkpoint directory it deletes:
+
+      (d) fig1-xxl/BL2 at 131,072 clients (the cohort phase's memoized
+          problem): 16 rounds in chunks of 8 uninterrupted, and stopped at
+          round 8 then resumed from its ckpt@2 ``host_state`` checkpoint;
+          the two records equal (``meta`` aside), and equal to the JAX
+          package's file `problems.COHORT_REFERENCE` (gaps in the GLM gate,
+          bits exact, each round's participants as the serve drew them);
+      (c) fig1-xl/BL1 at n = 512, d = 1200 on its registered backend
+          (``fast+sharded``: one rank runs the single-device path), 8
+          rounds in chunks of 4, uninterrupted and stopped at 4 then
+          resumed; equal, and equal to results/exp/fig1-xl/BL1.seed0.json
+          (BL1 with Top-K and Identity draws nothing);
+      (a) fig4/BL2_tau_half through ``python3 -m repro_torch.launch.fed_serve``
+          with the reference CI's serve-smoke command: uninterrupted, killed
+          by ``--crash-after-round 14`` (exit -9, newest checkpoint below
+          30), restarted; the restart's record equals the uninterrupted one
+          and both the JAX package's (`problems.SERVE_REFERENCE`); then the
+          same serve in-process, counted and timed; then written on the CPU
+          to round 12 and resumed on the card, held to the same file: its L
+          is in the CPU's data basis, whose SVD column signs may differ
+          from cuSOLVER's, and the resume maps it into the card's
+          (`fed_serve.basis_fingerprint`; the flipped columns are counted);
+      (b) fig4/BL3_tau_half and fig1-bag/BAG_q0.5 (8 rounds, then extended
+          to 24 from its checkpoint) in-process with their fault plans,
+          against the same file.
+
+    Every in-process serve runs under `drive`: kernel 1 exactly once a
+    round a Top-K leg, no other kernel.  Each case reports s/round served
+    (the record's runtime less its checkpoint writes, over the rounds it
+    ran: the carry's init or the load, the rounds and the final gap
+    evaluation) and s/round in its chunks alone (``meta.chunk_s``) beside
+    the direct call's, the newest checkpoint's bytes, its write and load
+    seconds, and ``ttfr_s``."""
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.exp import artifacts, engine
+    from repro_torch.launch import fed_serve
+
+    ref = json.loads(problems.SERVE_REFERENCE.read_text())["cases"]
+    quiet = {"log": lambda *a: None}
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+
+    def want_k1(name, cell, rounds_run, counts):
+        want = dict.fromkeys(counts, 0)
+        want["topk_row_threshold"] = topk_legs(cell) * rounds_run
+        need_exact(name, counts, want)
+        launches[name] = launches.get(name, 0) + counts["topk_row_threshold"]
+
+    def timing(rec, secs, ckpt_dir) -> dict:
+        m = rec["meta"]
+        ran = rec["rounds"] - (m["resumed_from"] or 0)
+        return {"rounds_run": ran, "wall_s": secs, "runtime_s": m["runtime_s"],
+                "s_per_round_served": (m["runtime_s"] - sum(m["checkpoint_s"])) / ran,
+                "s_per_round_chunks": sum(m["chunk_s"]) / ran,
+                "ttfr_s": m["ttfr_s"], "checkpoint_write_s": m["checkpoint_s"],
+                "checkpoint_load_s": m["restore_s"], "checkpoint_bytes": ckpt_bytes(ckpt_dir),
+                "resumed_from": m["resumed_from"]}
+
+    def served(name, cell, ckpt_dir, **kw):
+        rec, secs, counts = drive(torch, k, lambda: fed_serve.serve(
+            exp_name=cell.experiment, cell_name=cell.name, ckpt_dir=str(ckpt_dir),
+            device=device, **quiet, **kw))
+        want_k1(name, cell, rec["rounds"] - (rec["meta"]["resumed_from"] or 0), counts)
+        rec = json.loads(json.dumps(rec))        # the record as its JSON file holds it
+        return rec, timing(rec, secs, ckpt_dir)
+
+    def split_equal(name, cell, whole, stop, **kw):
+        """Stop at ``stop`` rounds, resume to the end in a second call: the
+        record equals ``whole`` (meta aside)."""
+        d = tmp / f"{name.replace('/', '_')}_split"
+        first, t1 = served(f"{name} (to {stop})", cell, d, max_rounds=stop, **kw)
+        rec, t2 = served(f"{name} (resumed)", cell, d, max_rounds=whole["rounds"], **kw)
+        if rec["meta"]["resumed_from"] != stop:
+            raise AssertionError(f"{name}: resumed from {rec['meta']['resumed_from']}, not {stop}")
+        if strip_meta(rec) != strip_meta(whole):
+            raise AssertionError(f"{name}: resumed at round {stop}, the record differs from "
+                                 "the uninterrupted serve's")
+        shutil.rmtree(d)
+        return first, rec, t1, t2
+
+    try:
+        # ---- (d) fig1-xxl/BL2 at 131,072 clients ---------------------------------
+        cell = problems.FIG1_XXL["BL2"]
+        name = "fig1-xxl/BL2"
+        seed, total, chunk = SERVE_XXL
+        fref = json.loads(problems.COHORT_REFERENCE.read_text())["experiments"]["fig1-xxl"]
+        whole, tw = served(name, cell, tmp / "xxl", seed=seed, chunk=chunk, max_rounds=total)
+        shutil.rmtree(tmp / "xxl")
+        first, rec, t1, t2 = split_equal(name, cell, whole, total // 2, seed=seed, chunk=chunk)
+        run = fref["runs"]["BL2"]
+        if whole["meta"]["uploads"] != run["participants"] or \
+                first["meta"]["uploads"] + rec["meta"]["uploads"] != run["participants"]:
+            raise AssertionError(f"{name}: the serve's participants differ from the reference's")
+        res = check_history(name, SimpleNamespace(**whole["history"]), run)
+        res.pop("gaps")
+        out[name] = {"n_clients": whole["meta"]["n_clients"], "uninterrupted": tw,
+                     "stopped": t1, "resumed": t2, "participants_equal": True,
+                     "s_per_round_direct": direct[name], **res}
+        emit({"phase": "serve", "case": "d", "cell": name, **out[name]})
+        engine.build_problem.cache_clear()
+        torch.cuda.empty_cache()
+
+        # ---- (c) fig1-xl/BL1 at full width ---------------------------------------
+        cell = problems.FIG1_XL
+        name = "fig1-xl/BL1"
+        t0 = time.perf_counter()
+        engine.build_problem(cell.problem, device).bases(cell.basis)
+        build_s = time.perf_counter() - t0
+        whole, tw = served(name, cell, tmp / "xl", chunk=SERVE_XL_CHUNK, max_rounds=cell.steps)
+        shutil.rmtree(tmp / "xl")
+        _, rec, t1, t2 = split_equal(name, cell, whole, SERVE_XL_CHUNK, chunk=SERVE_XL_CHUNK)
+        registered = "fast" if cell.cell.backend == "auto" else cell.cell.backend
+        if whole["config"]["backend"] != registered:        # fig1-xl: "fast+sharded"
+            raise AssertionError(f"{name}: served on {whole['config']['backend']!r}, not the "
+                                 f"registered {registered!r}")
+        res = check_history(name, SimpleNamespace(**whole["history"]),
+                            json.loads(cell.artifact.read_text())["history"])
+        res.pop("gaps")
+        out[name] = {"problem_build_s": build_s, "uninterrupted": tw, "stopped": t1,
+                     "resumed": t2, "s_per_round_direct": direct[name], **res}
+        emit({"phase": "serve", "case": "c", "cell": name, **out[name]})
+        engine.build_problem.cache_clear()
+        torch.cuda.empty_cache()
+
+        # ---- (a) kill -9 through the CLI -----------------------------------------
+        name = "fig4/BL2_tau_half"
+        case = ref[name]
+
+        def cli(ckpt, *extra):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.fed_serve", *case["args"],
+                 "--ckpt-dir", str(ckpt), "--device", device, *extra], capture_output=True,
+                text=True,
+                timeout=600, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+            return proc, time.perf_counter() - t0
+
+        p_ref, s_ref = cli(tmp / "cli_ref", "--result", str(tmp / "cli_ref.json"))
+        if p_ref.returncode != 0:
+            raise AssertionError(f"{name}: the CLI exited {p_ref.returncode}: "
+                                 f"{p_ref.stderr[-2000:]}")
+        p_kill, s_kill = cli(tmp / "cli_crash", "--crash-after-round", str(SERVE_CRASH_AFTER))
+        ts = [t for t, _ in artifacts.list_checkpoints(str(tmp / "cli_crash"))]
+        if p_kill.returncode != -9 or not ts or max(ts) >= case["record"]["rounds"]:
+            raise AssertionError(f"{name}: the armed CLI exited {p_kill.returncode} with "
+                                 f"checkpoints {ts}: {p_kill.stderr[-2000:]}")
+        p_res, s_res = cli(tmp / "cli_crash", "--result", str(tmp / "cli_res.json"))
+        if p_res.returncode != 0 or "resumed from checkpoint" not in p_res.stdout:
+            raise AssertionError(f"{name}: the restart exited {p_res.returncode}: "
+                                 f"{p_res.stdout[-1000:]} {p_res.stderr[-2000:]}")
+        whole = json.loads((tmp / "cli_ref.json").read_text())
+        resumed = json.loads((tmp / "cli_res.json").read_text())
+        if resumed["meta"]["resumed_from"] != max(ts) or strip_meta(resumed) != strip_meta(whole):
+            raise AssertionError(f"{name}: kill -9 and restart differ from the uninterrupted "
+                                 "serve")
+        held = hold_serve(name, whole, case["record"])
+        rec, tin = served(name, problems.FIG4["BL2_tau_half"], tmp / "inproc",
+                          **_serve_kwargs(case))
+        hold_serve(f"{name} (in-process)", rec, case["record"])
+        xd = tmp / "cross_device"
+        fed_serve.serve(exp_name="fig4", cell_name="BL2_tau_half", ckpt_dir=str(xd),
+                        device="cpu", **quiet,
+                        **{**_serve_kwargs(case), "max_rounds": SERVE_CROSS_STOP})
+        digest = case["record"]["config_digest"]
+        pivots_cpu = artifacts.load_checkpoint(str(xd), config_digest=digest)["host_state"]
+        rec_x, tx = served(f"{name} (CPU checkpoint)", problems.FIG4["BL2_tau_half"], xd,
+                           **_serve_kwargs(case))
+        if rec_x["meta"]["resumed_from"] != SERVE_CROSS_STOP:
+            raise AssertionError(f"{name}: the card resumed the CPU's checkpoint from "
+                                 f"{rec_x['meta']['resumed_from']}")
+        hold_serve(f"{name} (CPU checkpoint, resumed on the card)", rec_x, case["record"])
+        pivots_card = artifacts.load_checkpoint(str(xd), config_digest=digest)["host_state"]
+        flipped = int((pivots_card["basis/pivot_val"] * pivots_cpu["basis/pivot_val"] < 0).sum())
+        out[name] = {"cpu_checkpoint_on_card": {**tx, "columns_flipped": flipped,
+                                                "columns": int(pivots_cpu["basis/pivot_val"].size)},
+                     "cli_s": {"uninterrupted": s_ref, "killed": s_kill, "restart": s_res},
+                     "killed_rc": p_kill.returncode, "checkpoints_at_kill": ts,
+                     "resumed_from": resumed["meta"]["resumed_from"],
+                     "cli_ttfr_s": {"uninterrupted": whole["meta"]["ttfr_s"],
+                                    "restart": resumed["meta"]["ttfr_s"]},
+                     "cli_checkpoint_load_s": resumed["meta"]["restore_s"],
+                     "in_process": tin, "s_per_round_direct": direct[name], **held}
+        emit({"phase": "serve", "case": "a", "cell": name, **out[name]})
+
+        # ---- (b) in-process against the file ---------------------------------------
+        for name, cell, ckpt in (("fig4/BL3_tau_half", problems.FIG4["BL3_tau_half"], "bl3"),
+                                 ("fig1-bag/BAG_q0.5@8", problems.FIG1_BAG["BAG_q0.5"], "bag"),
+                                 ("fig1-bag/BAG_q0.5@24", problems.FIG1_BAG["BAG_q0.5"], "bag")):
+            case = ref[name]
+            rec, tin = served(name, cell, tmp / ckpt, **_serve_kwargs(case))
+            if rec["meta"]["resumed_from"] != case["resumed_from"]:
+                raise AssertionError(f"{name}: resumed from {rec['meta']['resumed_from']}")
+            held = hold_serve(name, rec, case["record"])
+            out[name] = {**tin, "degraded_rounds": rec["degraded_rounds"],
+                         "s_per_round_direct": direct[name.split("@")[0]], **held}
+            emit({"phase": "serve", "case": "b", "cell": name, **out[name]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _serve_kwargs(case: dict) -> dict:
+    """`fed_serve.serve` keyword arguments from a reference case: its CLI
+    arguments through the CLI's own parser and fault-plan builder."""
+    from repro_torch.launch import fed_serve
+
+    a = fed_serve._parser().parse_args(case["args"])
+    return {"seed": a.seed, "chunk": a.chunk, "max_rounds": a.max_rounds,
+            "plan": fed_serve._build_plan(a, case["record"]["config"]["faults"]["n"])}
 
 
 def drive(torch, k, run) -> tuple:
@@ -2242,12 +2518,15 @@ def main(argv) -> int:
             torch, lambda: problems.run_cell(cell, prob, steps=4, basis_project="kernel"), 4)})
 
     # ---- the stochastic paper cells: fig4, fig6, fig3, fig5, NL1, fig1r3 ----
-    stochastic = glm_cells_phase(torch, k, problems, problems.STOCHASTIC_CELLS, prob)
+    cell_s = {}                                  # s/round by cell, for the serve phase
+    stochastic = glm_cells_phase(torch, k, problems, problems.STOCHASTIC_CELLS, prob,
+                                 s_per_round=cell_s)
     per_cell["fig1r1/NL1"] = {**dict.fromkeys(counts, 0),
                               "topk_row_threshold": stochastic["fig1r1/NL1"]}
 
     # ---- fig1r2, fig5 (FedNL-BC, DORE), fig1-bag; then the basis grid and a1a
-    baseline = glm_cells_phase(torch, k, problems, problems.BASELINE_CELLS, prob)
+    baseline = glm_cells_phase(torch, k, problems, problems.BASELINE_CELLS, prob,
+                               s_per_round=cell_s)
     grid = glm_cells_phase(torch, k, problems, (*problems.BASIS_GRID.values(),
                                                 problems.TABLE2_A1A), prob, "basis-grid")
 
@@ -2400,6 +2679,15 @@ def main(argv) -> int:
     # ---- cohort: fig1-xxl (131,072 clients) and cohort-smoke, streamed ------
     co = cohort_phase(torch, k, problems, prng)
     emit({"phase": "cohort", **co})
+
+    # ---- serve: the service loop, kill -9 and resume (fig1-xxl still memoized)
+    xxl = problems.FIG1_XXL["BL2"].problem.n_clients
+    sv = serve_phase(torch, k, problems, {
+        "fig1-xl/BL1": direct["fig1-xl/BL1"]["direct"],
+        "fig1-xxl/BL2": co["fig1-xxl"]["timing"][xxl]["s_per_round_median"],
+        **{name: cell_s[name] for name in ("fig4/BL2_tau_half", "fig4/BL3_tau_half",
+                                           "fig1-bag/BAG_q0.5")}})
+    emit({"phase": "serve", "seconds": sv["seconds"], "launches": sv["launches"]})
     problems.build_problem.cache_clear()
     torch.cuda.empty_cache()
 
@@ -2433,7 +2721,7 @@ def main(argv) -> int:
         "launches_bl2-xl": launches["bl2-xl"], "launches_stochastic_cells": stochastic,
         "launches_fig-dnn/RTopK": dnn_launches["fig-dnn/RTopK"]["topk_row_threshold"],
         "launches_baseline_cells": baseline, "launches_basis_grid": grid,
-        "launches_cohort": co["launches"],
+        "launches_cohort": co["launches"], "launches_serve": sv["launches"],
         "path_shapes": {tag: {key: kern["timings"][tag][key] for key in (
             "shape", "k", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
             for *_, tag in STOCHASTIC_THRESHOLD_SHAPES},

@@ -32,11 +32,12 @@ When ``cohort >= n`` the engine runs in **full mode**: the fleet is
 gathered once and the rounds go to the stacked `rounds.run_chunk`, so that
 configuration is the stacked engine bit for bit.
 
-`checkpoint_payload` and `restore` carry a run across a process in memory
-(the carry's leaves and the host state: store rows, aggregate totals, the
-epoch's frozen statistics); the reference's ckpt@2 file format belongs to
-the service loop (ROADMAP.md §1 item 14).  The sharded reducer is ROADMAP
-item 13.
+`checkpoint_payload` and `restore` carry a run across a process (the
+carry's leaves and the host state: store rows, aggregate totals, the
+epoch's frozen statistics); the service loop
+(`repro_torch.launch.fed_serve`) writes them as the ckpt@2 ``host_state``
+payload (`repro_torch.exp.artifacts.save_checkpoint`).  The sharded reducer
+is ROADMAP.md §1 item 13.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import client_batch, comm, prng, rounds
+from . import client_batch, prng, rounds
 
 #: fold_in salt separating the cohort sampler's stream from the per-round
 #: keys (rounds use fold_in(root_key, t) with small t)
@@ -134,21 +135,6 @@ def _slab_extras(spec, R, batch, basisb, x0, carry) -> dict:
     """`MethodSpec.cohort_init_extras` for one init slab."""
     env = rounds.Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(R, batch, basisb, x0))
     return spec.cohort_init_extras(R, env, carry)
-
-
-def _leaves(elem) -> list:
-    """A carry element's tensors: itself, or a ledger's legs."""
-    if isinstance(elem, comm.CommLedger):
-        return [getattr(elem, leg) for leg in comm.CommLedger.LEGS]
-    return [elem]
-
-
-def _rebuild(like, leaves):
-    """A carry element shaped like ``like`` from its leaves."""
-    if isinstance(like, comm.CommLedger):
-        return comm.CommLedger(*leaves)
-    (leaf,) = leaves
-    return leaf
 
 
 class CohortEngine:
@@ -488,7 +474,7 @@ class CohortEngine:
         return rounds.concat_streams(outs)
 
     # ------------------------------------------------------------------
-    # checkpoint plumbing (in memory)
+    # checkpoint plumbing (repro.exp/ckpt@2)
     # ------------------------------------------------------------------
     def carry_template(self) -> tuple:
         """Shape and dtype template of the device carry."""
@@ -503,13 +489,10 @@ class CohortEngine:
     def unflatten_carry(self, leaves) -> tuple:
         """A carry from `checkpoint_payload`'s leaves, each put on the
         device (and in the dtype) of the template's leaf."""
-        it = iter(leaves)
-        out = []
-        for elem in self.carry_template():
-            like = _leaves(elem)
-            out.append(_rebuild(elem, [self._to_device(np.asarray(next(it))).to(t.dtype)
-                                       for t in like]))
-        return tuple(out)
+        template = self.carry_template()
+        return rounds.carry_from_leaves(template, [
+            self._to_device(np.asarray(x)).to(device=t.device, dtype=t.dtype)
+            for x, t in zip(leaves, rounds.carry_leaves(template))])
 
     def checkpoint_payload(self):
         """``(carry_leaves, host_state)``: numpy copies of the device
@@ -520,7 +503,7 @@ class CohortEngine:
         if self._cur is None:
             raise RuntimeError("no rounds have run: nothing to checkpoint")
         leaves = [leaf.detach().cpu().numpy().copy()
-                  for elem in self._cur["carry"] for leaf in _leaves(elem)]
+                  for leaf in rounds.carry_leaves(self._cur["carry"])]
         if self.full:
             return leaves, {}
         host = {f"store/{k}": v.copy() for k, v in self.store.state.items()}

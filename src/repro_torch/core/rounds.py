@@ -21,8 +21,11 @@ holds that skeleton's pieces as plain functions on client-stacked tensors:
   * the chunked driver (`serve_init`, `init_serve_carry`, `run_chunk`):
     rounds [t0, t0 + steps) from an explicit carry, round t keyed
     ``fold_in(root_key, t)``, so a trajectory does not depend on where it
-    is cut; `carry_client_flags` tells the carry's client-stacked elements
-    from its server ones;
+    is cut, under an optional availability schedule from the fault layer
+    (`repro_torch.core.faults`); `carry_client_flags` tells the carry's
+    client-stacked elements from its server ones, and `carry_leaves` /
+    `carry_from_leaves` are the carry's checkpoint leaf order (the
+    reference's ``jax.tree_util`` flattening);
   * the cohort chunk (`CohortReducer`, `run_cohort_chunk`): the rounds of
     one epoch of the cohort-streaming engine (`repro_torch.core.cohort`),
     the spec seeing a sampled cohort as the fleet.
@@ -32,16 +35,16 @@ it stay on the host, and every draw over the client or an entry axis runs
 on the reducer's device.  Compressors that draw nothing get no keys (the
 reference derives them and ignores them, which changes no bit).
 
-The sharded reducer (ROADMAP.md §1 item 13), the program cache (item 16,
-the reference's `warm_chunk_program` and `warm_cohort_chunk_program`) and
-fault injection in the chunked driver (`run_chunk`'s ``avail``, which the
-service loop of item 14 feeds) are not ported yet.
+The sharded reducer (ROADMAP.md §1 item 13) and the program cache (item 16,
+the reference's `warm_chunk_program` and `warm_cohort_chunk_program`) are
+not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import client_batch, comm, prng
@@ -590,20 +593,64 @@ def concat_streams(parts: list) -> tuple:
             torch.cat(evs))
 
 
-def run_chunk(spec, batch, basisb, x0, carry, t0: int, steps: int, root_key):
+def run_chunk(spec, batch, basisb, x0, carry, t0: int, steps: int, root_key, *,
+              avail=None):
     """Run rounds [t0, t0 + steps) from an explicit carry; returns
     ``(carry, (eval_x stream, CommLedger of per-leg streams, events
     stream))``.  Round t's key is ``fold_in(root_key, t)``, a function of
     the absolute round index only, so a trajectory does not depend on how
-    it is cut into chunks."""
+    it is cut into chunks.  ``avail`` is an optional ``(steps, n)`` bool
+    availability schedule from the fault layer (`faults.FaultPlan.schedule`):
+    row i reaches the spec as round t0 + i's `RoundCtx.avail`, on the
+    carry's device.  ``None`` (every client reachable) is bitwise an
+    all-ones schedule."""
     dev = _device_of(x0)
+    steps = int(steps)
+    if avail is not None:
+        avail = (avail.to(device=dev, dtype=torch.bool) if isinstance(avail, torch.Tensor)
+                 else torch.as_tensor(np.asarray(avail, dtype=bool), device=dev))
+        if tuple(avail.shape) != (steps, batch.n):
+            raise ValueError(
+                f"avail schedule must be (steps, n) = ({steps}, {batch.n}), "
+                f"got {tuple(avail.shape)}")
     R = VmapReducer(n=batch.n, device=dev)
     env = Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(R, batch, basisb, x0))
     outs = []
-    for t in range(int(t0), int(t0) + int(steps)):
-        carry, ys = spec.step(R, env, carry, RoundCtx(t=t, key=prng.fold_in(root_key, t)))
+    for i, t in enumerate(range(int(t0), int(t0) + steps)):
+        rc = RoundCtx(t=t, key=prng.fold_in(root_key, t),
+                      avail=None if avail is None else avail[i])
+        carry, ys = spec.step(R, env, carry, rc)
         outs.append(ys)
     return carry, _stack_streams(outs)
+
+
+def carry_leaves(carry) -> list:
+    """A carry's tensors in the reference's checkpoint leaf order — that of
+    ``jax.tree_util.tree_flatten`` on its carry: tuple order, a
+    `comm.CommLedger` leg by leg in field order, dict keys sorted."""
+    if isinstance(carry, (tuple, list)):
+        return [leaf for elem in carry for leaf in carry_leaves(elem)]
+    if isinstance(carry, comm.CommLedger):
+        return [getattr(carry, leg) for leg in comm.CommLedger.LEGS]
+    return tree_leaves(carry)
+
+
+def carry_from_leaves(template, leaves):
+    """The carry shaped like ``template`` holding ``leaves`` (in
+    `carry_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(e) for e in node)
+        if isinstance(node, comm.CommLedger):
+            return comm.CommLedger(*(next(it) for _ in comm.CommLedger.LEGS))
+        return tree_unflatten(node, [next(it) for _ in tree_leaves(node)])
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the carry has")
+    return out
 
 
 # ==========================================================================

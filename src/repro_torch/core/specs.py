@@ -26,7 +26,10 @@ The cohort contract (`MethodSpec.supports_cohort`, `carry_names`,
 engine (`repro_torch.core.cohort`): every fleet reduction of their step is
 a named `reduce_tree` entry, so the engine can hand the absent clients'
 frozen contributions in, and each round's upload mask (participants, or
-BAG's reporters) is recorded with `rounds.note_uploads`.
+BAG's reporters) is recorded with `rounds.note_uploads`.  The same three
+specs read the fault layer's availability mask (`RoundCtx.avail`,
+`MethodSpec.supports_faults`): an unavailable client neither participates
+nor reports, and the round's events say so.
 """
 from __future__ import annotations
 
@@ -40,9 +43,10 @@ from .bl import _psd_h_tilde, _psd_reconstruct_full, _psd_sum_matrix, proj_mu
 from .comm import FLOAT_BITS, CommLedger
 from .compressors import Compressor
 from .pytree import tree_leaves, tree_map
-from .rounds import (EVENT_NONE, client_keys_for, coeff_layout, default_gap_stream,
-                     downlink_broadcast, global_grad, note_uploads, participation, refresh_due,
-                     shift_update, tree_shift_update, tree_shift_update_sum, xi_mask, xi_scalar)
+from .rounds import (EVENT_ALL_DOWN, EVENT_DEGRADED, EVENT_NONE, client_keys_for, coeff_layout,
+                     default_gap_stream, downlink_broadcast, global_grad, note_uploads,
+                     participation, refresh_due, shift_update, tree_shift_update,
+                     tree_shift_update_sum, xi_mask, xi_scalar)
 
 
 def _sym_b(H: torch.Tensor) -> torch.Tensor:
@@ -71,6 +75,12 @@ def _round_keys(key: torch.Tensor, num: int, draws: bool):
 
 class MethodSpec:
     """Base hooks; subclasses are frozen dataclasses."""
+
+    #: True for specs whose round reacts to the fault layer's availability
+    #: mask (`RoundCtx.avail`): the partial-participation methods (BL2/BL3)
+    #: and the Bernoulli-lazy uplink (FedNL-BAG).  `repro_torch.launch.fed_serve`
+    #: refuses to inject faults into any other spec rather than ignore them
+    supports_faults = False
 
     #: True for specs whose `step` runs under the cohort-streaming engine
     #: (`repro_torch.core.cohort`): every fleet reduction goes through a
@@ -213,6 +223,7 @@ class BL2Spec(MethodSpec):
     basis_bits: float
     block: bool
 
+    supports_faults = True        # partial participation absorbs dropouts
     supports_cohort = True        # Alg. 2: absent clients' state freezes
     carry_names = ("z", "w", "L", "Hi", "li", "gi", "led")
 
@@ -230,7 +241,11 @@ class BL2Spec(MethodSpec):
         x0b = x0.expand(R.n_local, env.batch.d)
         L0 = (lay.target_at(x0) if self.init_exact
               else torch.zeros(lay.shape, dtype=x0.dtype, device=x0.device))
-        Hi0 = lay.recon(L0) + lay.ridge
+        # recon's einsum comes out transposed in memory and every round's
+        # update keeps its input's layout: start contiguous, the layout a
+        # carry restored from a checkpoint has, so the reductions over Hᵢ
+        # sum in one order whether the run was resumed or not
+        Hi0 = (lay.recon(L0) + lay.ridge).contiguous()
         Hs0 = _sym_b(Hi0)
         li0 = _fro_b(Hs0 - client_batch.hess(env.batch, x0b))
         gi0 = (client_batch.bmv(Hs0, x0b) + li0[:, None] * x0b
@@ -310,6 +325,7 @@ class BL3Spec(MethodSpec):
     c: float
     option: int
 
+    supports_faults = True        # partial participation absorbs dropouts
     supports_cohort = True        # Alg. 3: absent clients' state freezes
     carry_names = ("z", "w", "zprev", "L", "gam", "A", "C", "g1", "g2", "beta", "led")
 
@@ -489,6 +505,7 @@ class FedNLBAGSpec(MethodSpec):
     basis_bits: float
     block: bool
 
+    supports_faults = True        # the lazy table reuses silent clients' rows
     supports_cohort = True        # the lazy table is frozen absent state
     carry_names = ("z", "L", "H", "gtab", "led")
 
@@ -526,12 +543,20 @@ class FedNLBAGSpec(MethodSpec):
         z, L, H, gtab, led = carry
         batch = env.batch
         lay = env.extra
-        ys = (z, led, EVENT_NONE)  # gap evaluated at z, after the loop
 
         k_h, k_b = prng.split(rc.key, 2)
         # reporters refresh their row of the table; silent clients' stale
-        # rows are reused
+        # rows are reused.  Clients the fault layer marks unavailable stay
+        # silent, and the event stream records the outage
         send = prng.bernoulli(k_b, self.q, (R.n,), device=R.device)
+        if rc.avail is None:
+            ev = EVENT_NONE
+        else:
+            avail = rc.avail.to(device=R.device, dtype=torch.bool)
+            n_av = avail.sum()
+            ev = (EVENT_DEGRADED * (n_av < R.n) + EVENT_ALL_DOWN * (n_av == 0)).to(torch.int32)
+            send = send & avail
+        ys = (z, led, ev)  # gap evaluated at z, after the loop
         note_uploads(R, send)
         gtab_n = torch.where(send[:, None], client_batch.grads(batch, z), gtab)
 

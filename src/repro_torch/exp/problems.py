@@ -58,6 +58,9 @@ BASIS_GRID_REFERENCE = DATA / "basis_grid_seed0.json"
 #: the JAX package's runs of fig1-xxl and cohort-smoke (`FIG1_XXL`,
 #: `COHORT_SMOKE`): store checksums, f*, cohorts, participants, histories
 COHORT_REFERENCE = DATA / "fig1_xxl_seed0.json"
+#: the JAX package's service-loop records (`tools/serve_reference.py`): each
+#: case's `repro_torch.launch.fed_serve` arguments and its record, meta aside
+SERVE_REFERENCE = DATA / "fed_serve_ref.json"
 #: the BL-DNN regime of fig-dnn and fig-dnn-ship, the one the fixture holds
 DNN_FIG = engine.DNN_FIXTURE_SPEC
 

@@ -303,9 +303,8 @@ def test_full_mode_bitwise_equals_stacked_run_chunk():
     assert eng.full
     ys2 = rounds.concat_streams([eng.run_chunk(0, 3), eng.run_chunk(3, 3)])
     _assert_streams_equal(ys1, ys2, "full mode != the stacked run_chunk")
-    for a, b in zip(c1, eng._cur["carry"]):
-        for x, y in zip(cohort._leaves(a), cohort._leaves(b)):
-            assert torch.equal(x, y)
+    for x, y in zip(rounds.carry_leaves(c1), rounds.carry_leaves(eng._cur["carry"])):
+        assert torch.equal(x, y)
     eng.close()
 
 
@@ -323,9 +322,8 @@ def test_stacked_run_chunk_does_not_depend_on_cuts(make):
     ca, ya = rounds.run_chunk(spec, batch, bb, x0, c0, 3, 2, prng.PRNGKey(1))
     cb, yb = rounds.run_chunk(spec, batch, bb, x0, ca, 5, 2, prng.PRNGKey(1))
     _assert_streams_equal(ys, rounds.concat_streams([ya, yb]), "cuts changed the run")
-    for a, b in zip(c1, cb):
-        for x, y in zip(cohort._leaves(a), cohort._leaves(b)):
-            assert torch.equal(x, y)
+    for x, y in zip(rounds.carry_leaves(c1), rounds.carry_leaves(cb)):
+        assert torch.equal(x, y)
 
 
 def test_carry_client_flags_on_shapes_only():

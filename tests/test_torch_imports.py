@@ -31,7 +31,8 @@ def test_port_files_are_found():
             "baselines.py", "tiled_matmul.py", "ops.py", "flash_attention.py",
             "ssd_scan.py", "model.py", "steps.py", "config.py", "convert.py", "serve.py",
             "shapes.py", "gemma3_4b.py", "mamba2_370m.py", "registry.py", "engine.py",
-            "artifacts.py", "metrics.py", "__main__.py", "cohort.py"} <= names
+            "artifacts.py", "metrics.py", "__main__.py", "cohort.py", "faults.py",
+            "fed_serve.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -114,6 +115,18 @@ def test_lm_entry_points_without_device_raise_when_cuda_is_unavailable(monkeypat
         convert.params_from_numpy({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="CUDA device"):
         serve.main(["--arch", "gemma3_4b", "--debug"])
+
+
+def test_fed_serve_without_device_raises_when_cuda_is_unavailable(monkeypatch, tmp_path):
+    from repro_torch.launch import fed_serve
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        fed_serve.serve(exp_name="fig4", cell_name="BL2_tau_half", max_rounds=2,
+                        ckpt_dir=str(tmp_path), log=lambda *a: None)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        fed_serve.main(["--exp", "fig4", "--cell", "BL2_tau_half", "--ckpt-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
