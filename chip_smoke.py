@@ -174,6 +174,34 @@ is non-zero and no result line is printed:
                 the GLM gate); kernel 1 exactly once a round a Top-K leg;
                 s/round served beside the direct call's, checkpoint bytes,
                 write and load seconds, time to first round.
+     sharded  — the client-sharded reducer (`repro_torch.core.rounds.
+                ShardedReducer` over `repro_torch.launch.mesh`'s client
+                group), its ranks sharing the one card through gloo, each a
+                ``chip_smoke.py --sharded-worker JOB`` process with the
+                environment torchrun sets (any rank failing fails the
+                phase): fig1-xl/BL1 on its registered fast+sharded backend
+                in this process (one rank) bitwise the "fast" run and in
+                the artifact's gate; at W = 4 fig1r1/BL1 (2 of the 4 ranks
+                hold its 10 clients), fig4/BL2_tau_half and BL3_tau_half,
+                fig1-bag/BAG_q0.5 and fig-dnn/BLDNN, exact (every rank
+                bitwise the one-process run, in the artifact's gate, each
+                kernel of the cell launched as often as on one process on
+                every rank holding clients) and exact=False (in the
+                reference's envelope of the exact run: gaps 1e-6 relative
+                + 1e-12, bits 1e-9; BL-DNN's loss in its rounds-0–3 gate,
+                reading kernel 2's local sums), cohort-smoke on
+                cohort+sharded (bitwise the one-process run, held to the
+                JAX package's file with its participants) and
+                fig4/BL2_tau_half served under the serve smoke's fault plan
+                to round 12, then resumed here on one rank: bitwise the
+                uninterrupted one-rank serve and held to fed_serve_ref.json;
+                at W = 2 fig1-xl/BL1 (3 rounds at full width) exact and
+                exact=False, and fig1-xxl/BL2 on cohort+sharded held to its
+                file with the participants equal.  Each case prints W, the
+                ranks holding clients, the process-group backend, s/round
+                beside the one-process run's, the bytes each rank's
+                collectives delivered a round and each rank's peak device
+                memory, beside the card's name and power limit.
   10. kernels_attn — the attention kernels (bfloat16: wgmma fed by TMA;
                 float32: CUDA-core FMAs) against their plain version (within
                 1e-5·max|plain| in float32; in bfloat16 elementwise within
@@ -345,6 +373,21 @@ SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, "flash_attention"),
 #: KV heads, as at full width)
 SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {}}
 
+
+#: the sharded phase (the client-sharded reducer, its ranks sharing the one
+#: card through gloo): the world sizes, the cells held at W = 4 (exact and
+#: exact=False), fig1-xl's rounds at W = 2 (each exact round gathers its
+#: (512, 1200, 1200) float64 stack to both ranks), the serve case written at
+#: W = 4 up to a round and resumed on one rank, each spawn's time limit
+SHARDED_W, SHARDED_XL_W = 4, 2
+SHARDED_CELLS = (("fig1r1", "BL1"), ("fig4", "BL2_tau_half"), ("fig4", "BL3_tau_half"),
+                 ("fig1-bag", "BAG_q0.5"), ("fig-dnn", "BLDNN"))
+SHARDED_XL_STEPS = 3
+SERVE_SMOKE_CASE, SERVE_SMOKE_STOP = "fig4/BL2_tau_half", 12
+SHARDED_TIMEOUT_S = 400
+#: the reference's envelope of exact=False around the exact run
+#: (tests/test_sharding_multidev.py): gaps, and the bit streams
+ENV_RTOL, ENV_ATOL, ENV_BITS_RTOL = 1e-6, 1e-12, 1e-9
 
 #: the committed table of jax.random draws in both threefry settings
 #: (written by tests/test_torch_prng.py), the card's draws are held to
@@ -1393,6 +1436,7 @@ def cohort_phase(torch, k, problems, prng, device: str = "cuda") -> dict:
         if not all(set(u) <= set(cohorts[t // rpc].tolist()) for t, u in enumerate(hist.uploads)):
             raise AssertionError(f"{name}: a round's {kind} lie outside its epoch's cohort")
         res = check_history(name, hist, run)
+        out.setdefault("run_cell_s", {})[name] = secs
         emit({"phase": "cohort", "cell": name, "steps": cell.steps, "run_cell_s": secs,
               "wall_s": time.perf_counter() - t0, "launches": counts, "f_star": f_star,
               "store_sha256_equal": True, "epochs_equal": len(cohorts),
@@ -2424,7 +2468,418 @@ def profile_run(torch, run, steps: int) -> dict:
                          for us, k, c in host[:15]]}
 
 
+# ==========================================================================
+# sharded: the client-sharded reducer, W ranks sharing the one card (gloo)
+# ==========================================================================
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_worker(job_file: str) -> int:
+    """One rank of the sharded phase (``chip_smoke.py --sharded-worker
+    JOB``), started by `run_ranks` with the environment ``torchrun`` sets:
+    runs the job's cases through the port's entry points, each with the
+    kernels' launch counts and the collectives' bytes reset just before it
+    and read just after, and writes what it saw to ``rank{r}.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from types import SimpleNamespace
+
+    from repro_torch.core import cohort, rounds
+    from repro_torch.exp import engine, registry
+    from repro_torch.kernels import basis_transform as bt
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import tiled_matmul as tm
+    from repro_torch.kernels import topk_threshold as tk
+    from repro_torch.launch import fed_serve, mesh
+
+    job = json.loads(pathlib.Path(job_file).read_text())
+    mesh.init_from_env("cuda")
+    rank, size = mesh.world()
+    k = SimpleNamespace(tk=tk, tm=tm, bt=bt, fa=fa, ss=ss)
+    out, probs = {}, {}
+    for case in job["cases"]:
+        exp = registry.get_experiment(case["exp"])
+        if case["kind"] == "serve":
+            a = fed_serve._parser().parse_args(case["args"])
+            t0 = time.perf_counter()
+            rec = fed_serve.serve(exp_name=a.exp, cell_name=a.cell, seed=a.seed, chunk=a.chunk,
+                                  max_rounds=case["stop"], ckpt_dir=case["ckpt_dir"],
+                                  plan=fed_serve._build_plan(a, case["n"]),
+                                  backend="fast+sharded", device="cuda", log=lambda *x: None)
+            out[case["key"]] = {"meta": rec["meta"], "seconds": time.perf_counter() - t0}
+            continue
+        cell = exp.cell(case["cell"])
+        if exp.problem not in probs:
+            probs[exp.problem] = engine.build_problem(exp.problem, "cuda")
+        prob = probs[exp.problem]
+        steps = case["steps"] or cell.steps
+
+        def run(steps=steps):
+            return engine.run_cell(exp, cell, prob, steps=steps, backend=case["backend"],
+                                   exact=case["exact"], device="cuda")
+
+        if case["warmup"]:
+            run(1)
+        rounds.collective_stats.update(collectives=0, bytes=0)
+        torch.cuda.reset_peak_memory_stats()
+        hist, secs, counts = drive(torch, k, run)
+        stats = dict(rounds.collective_stats)
+        n = (cohort.capacity(int(cell.params_dict()["cohort"]), prob.n)
+             if isinstance(prob, engine.StreamProblem) else prob.n)
+        out[case["key"]] = {
+            "history": {**history_dict(hist), "metrics": hist.metrics, "uploads": hist.uploads},
+            "seconds": secs, "steps": steps, "launches": counts,
+            "collectives": stats["collectives"], "collective_bytes": stats["bytes"],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "layout": mesh.client_group(n, "cuda").describe()}
+    (pathlib.Path(job["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def run_ranks(world: int, cases: list, tmp: pathlib.Path, timeout: float) -> dict:
+    """Start ``world`` ranks of `sharded_worker` on the one card (gloo: the
+    ranks share it) with the job ``cases``; every rank must exit 0 within
+    ``timeout`` seconds, or the phase fails (and every rank still running is
+    killed).  Returns {rank: its results}."""
+    tag = f"w{world}_{len(list(tmp.glob('job*.json')))}"
+    out = tmp / tag
+    out.mkdir()
+    job = tmp / f"job_{tag}.json"
+    job.write_text(json.dumps({"cases": cases, "out": str(out)}))
+    port = _free_port()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                       OMP_NUM_THREADS="2", REPRO_DIST_TIMEOUT_S=str(int(timeout)))
+            logs.append(open(out / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                           "--sharded-worker", str(job)], env=env,
+                                          stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            time.sleep(0.5)
+            if any(p.returncode not in (None, 0) for p in procs):
+                time.sleep(5.0)        # the others leave their collective
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = {r: p.returncode for r, p in enumerate(procs) if p.returncode != 0}
+    if bad:
+        tails = {r: (out / f"rank{r}.log").read_text()[-3000:] for r in bad}
+        raise AssertionError(f"sharded ranks failed (rank: exit code) {bad}: {tails}")
+    return {r: json.loads((out / f"rank{r}.json").read_text()) for r in range(world)}
+
+
+def _sharded_launches(sh: dict, kernel: str) -> dict:
+    """A kernel's launches on each rank in phase sharded's cases, where it
+    ran: {case: [rank 0's, rank 1's, ...]}."""
+    out = {}
+    for case, row in sh.items():
+        if isinstance(row, dict) and "launches_by_rank" in row:
+            counts = [row["launches_by_rank"][r][kernel] for r in sorted(row["launches_by_rank"])]
+            if any(counts):
+                out[case] = counts
+    return out
+
+
+def _hist_tuple(h: dict) -> tuple:
+    return (h["gaps"], h["up_bits"], h["down_bits"], h["legs"], h.get("metrics"))
+
+
+def _envelope(name: str, ap: dict, ex: dict, dnn: bool) -> dict:
+    """exact=False against exact: the reference's envelope (gaps rtol
+    1e-6, atol 1e-12; bits rtol 1e-9); BL-DNN's loss in its rounds-0–3
+    gate, its error rate and bits exact."""
+    import numpy as np
+
+    if dnn:
+        loss, le = np.asarray(ap["metrics"]["loss"]), np.asarray(ex["metrics"]["loss"])
+        h = DNN_HELD_ROUNDS
+        rel = np.abs(loss - le) / np.abs(le)
+        if (rel[:h] > DNN_LOSS_RTOL).any() or ap["gaps"][:h] != ex["gaps"][:h] \
+                or ap["legs"] != ex["legs"] or not np.all(np.isfinite(loss)):
+            raise AssertionError(f"{name}: exact=False leaves BL-DNN's gate: loss {loss[:h]} "
+                                 f"vs {le[:h]}, error {ap['gaps'][:h]} vs {ex['gaps'][:h]}")
+        return {"max_loss_rel_diff_held": float(rel[:h].max())}
+    g, ge = np.asarray(ap["gaps"]), np.asarray(ex["gaps"])
+    if not np.all(np.abs(g - ge) <= ENV_RTOL * np.abs(ge) + ENV_ATOL):
+        raise AssertionError(f"{name}: exact=False gaps {g} leave the envelope of {ge}")
+    for key in ("up_bits", "down_bits"):
+        if not np.allclose(ap[key], ex[key], rtol=ENV_BITS_RTOL, atol=0.0):
+            raise AssertionError(f"{name}: exact=False {key} {ap[key]} vs {ex[key]}")
+    return {"max_gap_abs_diff": float(np.abs(g - ge).max()),
+            "bits_equal": ap["up_bits"] == ex["up_bits"] and ap["down_bits"] == ex["down_bits"]}
+
+
+def sharded_phase(torch, k, problems, smi: str, one_s_per_round: dict) -> dict:
+    """The client-sharded reducer (`repro_torch.core.rounds.ShardedReducer`)
+    with W ranks sharing the one card through gloo; see the module
+    docstring's phase ``sharded``.  Every case prints one line with W,
+    the ranks holding clients, the process-group backend, s/round beside
+    the one-process run's, the bytes a rank's collectives delivered a round
+    and each rank's peak device memory, beside the card's name and power
+    limit."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.exp import engine, registry
+    from repro_torch.launch import fed_serve
+
+    res = {}
+    t_phase = time.perf_counter()
+    # exact runs that are not bitwise the one-process run: collected so one
+    # call reports every case, and the phase fails at its end
+    not_bitwise = {}
+
+    def bitwise(case: str, ranks: dict, one: dict) -> bool:
+        """Every rank's history bitwise ``one``; else the first round and
+        the largest gap difference are noted under ``case``."""
+        import numpy as np
+
+        for r in sorted(ranks):
+            got = ranks[r]["history"]
+            if _hist_tuple(got) != _hist_tuple(one):
+                g, go = np.asarray(got["gaps"]), np.asarray(one["gaps"])
+                diff = np.nonzero(g != go)[0]
+                not_bitwise[case] = {
+                    "rank": r, "first_round": int(diff[0]) if diff.size else None,
+                    "max_gap_abs_diff": float(np.abs(g - go).max()),
+                    "bits_equal": (got["up_bits"], got["down_bits"], got["legs"]) ==
+                                  (one["up_bits"], one["down_bits"], one["legs"])}
+                return False
+        return True
+
+    def line(case: str, ranks: dict, one: Optional[float], extra: dict) -> None:
+        r0 = ranks[0]
+        row = {"phase": "sharded", "case": case, "card": smi, "W": len(ranks),
+               "ndev": r0["layout"]["ndev"], "process_group": r0["layout"]["backend"],
+               "s_per_round": r0["seconds"] / r0["steps"], "one_process_s_per_round": one,
+               "collective_bytes_a_round_a_rank": [
+                   ranks[r]["collective_bytes"] / ranks[r]["steps"] for r in sorted(ranks)],
+               "collectives_a_round": r0["collectives"] / r0["steps"],
+               "peak_bytes_a_rank": [ranks[r]["peak_bytes"] for r in sorted(ranks)],
+               "launches_by_rank": {r: ranks[r]["launches"] for r in sorted(ranks)}, **extra}
+        emit(row)
+        res[case] = row
+
+    def need_rank_launches(case: str, ranks: dict, want: dict) -> None:
+        """Every rank that holds clients launched each named kernel exactly
+        ``want`` times (a rank off the client group none)."""
+        for r, got in ranks.items():
+            active = r < got["layout"]["ndev"]
+            bad = {kn: (got["launches"][kn], n if active else 0) for kn, n in want.items()
+                   if got["launches"][kn] != (n if active else 0)}
+            if bad:
+                raise AssertionError(f"{case} rank {r}: kernel launches (counted, needed) {bad}")
+
+    # ---- one rank: fig1-xl's registered fast+sharded is "fast", bit for bit
+    xl = problems.FIG1_XL
+    prob = problems.build_problem(xl.problem, device="cuda")
+    engine.run_cell(xl.exp, xl.cell, prob, steps=1, backend="fast", device="cuda")  # warm-up
+    one_xl, secs_one, counts = drive(torch, k, lambda: engine.run_cell(
+        xl.exp, xl.cell, prob, backend="fast", device="cuda"))
+    sh1, secs_sh1, counts1 = drive(torch, k, lambda: problems.run_cell(xl, prob))
+    if _hist_tuple(history_dict(sh1) | {"metrics": None}) != \
+            _hist_tuple(history_dict(one_xl) | {"metrics": None}):
+        raise AssertionError("fig1-xl: fast+sharded on one rank is not bitwise fast")
+    held = check_history("fig1-xl (fast+sharded, one rank)", sh1,
+                         json.loads(xl.artifact.read_text())["history"])
+    need_exact("fig1-xl one rank", counts1, {"topk_row_threshold": xl.steps, "tiled_matmul": 0})
+    emit({"phase": "sharded", "case": "fig1-xl/BL1 W=1", "card": smi, "W": 1, "ndev": 1,
+          "process_group": "none", "s_per_round": secs_sh1 / xl.steps,
+          "one_process_s_per_round": secs_one / xl.steps, "bitwise_fast": True,
+          "launches": counts1, "max_gap_abs_err": held["max_gap_abs_err"]})
+    xl_one, xl_one_s, _ = drive(torch, k, lambda: engine.run_cell(
+        xl.exp, xl.cell, prob, steps=SHARDED_XL_STEPS, backend="fast", device="cuda"))
+    xl_one = history_dict(xl_one) | {"metrics": None}
+    del prob, one_xl, sh1
+    problems.build_problem.cache_clear()
+    torch.cuda.empty_cache()
+
+    # ---- the one-process runs the W = 4 cells are held to -------------------
+    ones = {}
+    for exp_name, cell_name in SHARDED_CELLS:
+        exp = registry.get_experiment(exp_name)
+        cell = exp.cell(cell_name)
+        prob = engine.build_problem(exp.problem, "cuda")
+        engine.run_cell(exp, cell, prob, steps=1, backend="fast", device="cuda")   # warm-up
+        hist, secs, counts = drive(torch, k, lambda: engine.run_cell(
+            exp, cell, prob, backend="fast", device="cuda"))
+        ones[f"{exp_name}/{cell_name}"] = (history_dict(hist) | {"metrics": hist.metrics},
+                                           secs / cell.steps, counts)
+    smoke = registry.get_experiment("cohort-smoke")
+    sprob = engine.build_problem(smoke.problem, "cuda")
+    hist, secs, _ = drive(torch, k, lambda: engine.run_cell(
+        smoke, smoke.cell("BL2"), sprob, device="cuda"))
+    ones["cohort-smoke/BL2"] = (history_dict(hist) | {"metrics": None, "uploads": hist.uploads},
+                                secs / smoke.cell("BL2").steps, None)
+    serve_case = json.loads((ROOT / "src/repro_torch/exp/data/fed_serve_ref.json").read_text())
+    serve_case = serve_case["cases"][SERVE_SMOKE_CASE]
+    problems.build_problem.cache_clear()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        tmp = pathlib.Path(tmp)
+        # ---- W = 4: the cells exact and exact=False, cohort-smoke, a serve
+        cases = [{"key": f"{e}/{c}/{'exact' if ex else 'ring'}", "kind": "cell", "exp": e,
+                  "cell": c, "steps": None, "backend": "fast+sharded", "exact": ex,
+                  "warmup": True}
+                 for e, c in SHARDED_CELLS for ex in (True, False)]
+        cases.append({"key": "cohort-smoke/BL2", "kind": "cell", "exp": "cohort-smoke",
+                      "cell": "BL2", "steps": None, "backend": "cohort+sharded",
+                      "exact": True, "warmup": False})
+        a = fed_serve._parser().parse_args(serve_case["args"])
+        cases.append({"key": "serve", "kind": "serve", "exp": a.exp, "args": serve_case["args"],
+                      "stop": SERVE_SMOKE_STOP, "ckpt_dir": str(tmp / "serve"),
+                      "n": serve_case["record"]["config"]["faults"]["n"]})
+        t0 = time.perf_counter()
+        w4 = run_ranks(SHARDED_W, cases, tmp, SHARDED_TIMEOUT_S)
+        w4_s = time.perf_counter() - t0
+        for e, c in SHARDED_CELLS:
+            name = f"{e}/{c}"
+            one, one_s, one_counts = ones[name]
+            ex = {r: w4[r][f"{name}/exact"] for r in w4}
+            ring = {r: w4[r][f"{name}/ring"] for r in w4}
+            dnn = e == "fig-dnn"
+            for r in w4:
+                if ring[r]["history"] != ring[0]["history"]:
+                    raise AssertionError(f"{name}: rank {r}'s exact=False run differs from "
+                                         "rank 0's")
+            exact_bitwise = bitwise(name, ex, one)
+            cellobj = registry.get_experiment(e).cell(c)
+            art = json.loads((ROOT / "results/exp" / e / f"{c}.seed0.json").read_text())
+            h0 = SimpleNamespace(**ex[0]["history"])
+            held = (check_dnn_history(name, h0, art["history"]) if dnn
+                    else check_history(name, h0, art["history"]))
+            held.pop("gaps", None)
+            held.pop("loss_rel_err", None)
+            held.pop("error_rate_diff", None)
+            want = {kn: one_counts[kn] for kn in ("topk_row_threshold", "topk_compress_sum",
+                                                   "basis_transform") if one_counts[kn]}
+            need_rank_launches(name, ex, want)
+            need_rank_launches(f"{name} exact=False", ring, want)
+            env = _envelope(name, ring[0]["history"], ex[0]["history"], dnn)
+            line(f"{name} W={SHARDED_W} exact", ex, one_s,
+                 {"bitwise_one_process": exact_bitwise, "artifact": held,
+                  "steps": cellobj.steps})
+            line(f"{name} W={SHARDED_W} exact=False", ring, one_s, {"envelope": env})
+        co = {r: w4[r]["cohort-smoke/BL2"] for r in w4}
+        one = ones["cohort-smoke/BL2"][0]
+        co_bitwise = bitwise("cohort-smoke/BL2", co, one)
+        for r in co:
+            if co[r]["history"]["uploads"] != one["uploads"]:
+                raise AssertionError(f"cohort-smoke: rank {r}'s participants are not the "
+                                     "one-process run's")
+        file = json.loads(problems.COHORT_REFERENCE.read_text())["experiments"]["cohort-smoke"]
+        held = check_history("cohort-smoke (cohort+sharded)",
+                             SimpleNamespace(**co[0]["history"]), file["runs"]["BL2"])
+        if co[0]["history"]["uploads"] != file["runs"]["BL2"]["participants"]:
+            raise AssertionError("cohort-smoke (cohort+sharded): participants differ from file")
+        need_rank_launches("cohort-smoke", co, {"topk_row_threshold": smoke.cell("BL2").steps})
+        held.pop("gaps")
+        line(f"cohort-smoke/BL2 W={SHARDED_W} cohort+sharded", co,
+             ones["cohort-smoke/BL2"][1], {"bitwise_one_process": co_bitwise, "file": held})
+
+        # the serve: written at W = 4 to round SERVE_SMOKE_STOP, resumed here
+        # on one rank; the uninterrupted one-rank serve beside it
+        kw = _serve_kwargs(serve_case)
+        t0 = time.perf_counter()
+        resumed = fed_serve.serve(exp_name=a.exp, cell_name=a.cell, ckpt_dir=str(tmp / "serve"),
+                                  backend="fast+sharded", device="cuda",
+                                  log=lambda *x: None, **kw)
+        resumed_s = time.perf_counter() - t0
+        whole = fed_serve.serve(exp_name=a.exp, cell_name=a.cell, ckpt_dir=str(tmp / "whole"),
+                                backend="fast+sharded", device="cuda",
+                                log=lambda *x: None, **kw)
+        if resumed["meta"]["resumed_from"] != SERVE_SMOKE_STOP or \
+                strip_meta(resumed) != strip_meta(whole):
+            raise AssertionError("serve: the W=4 checkpoint resumed on one rank is not the "
+                                 "uninterrupted one-rank serve")
+        ref = serve_case["record"]
+        held = check_history("serve (W=4 → 1)", SimpleNamespace(**resumed["history"]),
+                             ref["history"])
+        if resumed["history"]["events"] != ref["history"]["events"]:
+            raise AssertionError("serve (W=4 → 1): events differ from the reference's")
+        held.pop("gaps")
+        sv = {r: w4[r]["serve"] for r in w4}
+        emit({"phase": "sharded", "case": f"serve {SERVE_SMOKE_CASE} W={SHARDED_W} → 1",
+              "card": smi, "W": SHARDED_W, "ndev": sv[0]["meta"]["layout"]["ndev"],
+              "process_group": sv[0]["meta"]["layout"]["backend"],
+              "rounds_at_W": SERVE_SMOKE_STOP, "seconds_at_W": sv[0]["seconds"],
+              "chunk_s_at_W": sv[0]["meta"]["chunk_s"], "resumed_seconds_one_rank": resumed_s,
+              "resumed_from": resumed["meta"]["resumed_from"],
+              "equals_uninterrupted": True, "reference": held})
+        res["serve"] = held
+
+        # ---- W = 2: fig1-xl at full width, fig1-xxl on cohort+sharded ------
+        cases = [{"key": "fig1-xl/ring", "kind": "cell", "exp": "fig1-xl", "cell": "BL1",
+                  "steps": SHARDED_XL_STEPS, "backend": "fast+sharded", "exact": False,
+                  "warmup": True},
+                 {"key": "fig1-xl/exact", "kind": "cell", "exp": "fig1-xl", "cell": "BL1",
+                  "steps": SHARDED_XL_STEPS, "backend": "fast+sharded", "exact": True,
+                  "warmup": False},
+                 {"key": "fig1-xxl/BL2", "kind": "cell", "exp": "fig1-xxl", "cell": "BL2",
+                  "steps": None, "backend": "cohort+sharded", "exact": True,
+                  "warmup": False}]
+        t0 = time.perf_counter()
+        w2 = run_ranks(SHARDED_XL_W, cases, tmp, SHARDED_TIMEOUT_S)
+        w2_s = time.perf_counter() - t0
+    ex = {r: w2[r]["fig1-xl/exact"] for r in w2}
+    ring = {r: w2[r]["fig1-xl/ring"] for r in w2}
+    xl_bitwise = bitwise("fig1-xl/BL1", ex, xl_one)
+    held_xl = check_history(f"fig1-xl W={SHARDED_XL_W}", SimpleNamespace(**ex[0]["history"]),
+                            xl_one)
+    held_xl.pop("gaps")
+    need_rank_launches("fig1-xl", ex, {"topk_row_threshold": SHARDED_XL_STEPS})
+    need_rank_launches("fig1-xl exact=False", ring, {"topk_row_threshold": SHARDED_XL_STEPS})
+    line(f"fig1-xl/BL1 W={SHARDED_XL_W} exact", ex, xl_one_s / SHARDED_XL_STEPS,
+         {"bitwise_one_process": xl_bitwise, "one_process": held_xl,
+          "steps": SHARDED_XL_STEPS})
+    line(f"fig1-xl/BL1 W={SHARDED_XL_W} exact=False", ring, xl_one_s / SHARDED_XL_STEPS,
+         {"envelope": _envelope("fig1-xl", ring[0]["history"], ex[0]["history"], False),
+          "steps": SHARDED_XL_STEPS})
+    xxl = {r: w2[r]["fig1-xxl/BL2"] for r in w2}
+    file = json.loads(problems.COHORT_REFERENCE.read_text())["experiments"]["fig1-xxl"]
+    held = check_history("fig1-xxl (cohort+sharded)", SimpleNamespace(**xxl[0]["history"]),
+                         file["runs"]["BL2"])
+    held.pop("gaps")
+    for r in xxl:
+        if xxl[r]["history"] != xxl[0]["history"]:
+            raise AssertionError(f"fig1-xxl: rank {r} differs from rank 0")
+    if xxl[0]["history"]["uploads"] != file["runs"]["BL2"]["participants"]:
+        raise AssertionError("fig1-xxl (cohort+sharded): participants differ from the file")
+    need_rank_launches("fig1-xxl", xxl, {"topk_row_threshold": problems.FIG1_XXL["BL2"].steps})
+    # s/round here is `engine.run_cell`'s wall over its rounds (the fleet init
+    # and the host's gap evaluation included), as is the one-process figure
+    line(f"fig1-xxl/BL2 W={SHARDED_XL_W} cohort+sharded", xxl,
+         one_s_per_round.get("fig1-xxl/BL2"), {"file": held, "participants_equal": True,
+                                                "s_per_round_is": "run_cell wall / rounds"})
+    res["seconds"] = time.perf_counter() - t_phase
+    res["spawn_seconds"] = {"W4": w4_s, "W2": w2_s}
+    if not_bitwise:
+        raise AssertionError(f"sharded: exact runs not bitwise the one-process run: "
+                             f"{not_bitwise}")
+    return res
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--sharded-worker"]:
+        return sharded_worker(argv[1])
     import torch
 
     if not torch.cuda.is_available():
@@ -2691,6 +3146,13 @@ def main(argv) -> int:
     problems.build_problem.cache_clear()
     torch.cuda.empty_cache()
 
+    # ---- sharded: the client-sharded reducer, W ranks on the one card ------
+    sh = sharded_phase(torch, k, problems, smi, {
+        "fig1-xxl/BL2": co["run_cell_s"]["fig1-xxl/BL2"] / problems.FIG1_XXL["BL2"].steps})
+    emit({"phase": "sharded", "seconds": sh["seconds"], "spawn_seconds": sh["spawn_seconds"]})
+    problems.build_problem.cache_clear()
+    torch.cuda.empty_cache()
+
     # ---- LM serving: kernels 5 and 6, then gemma3-4b and mamba2-370m --------
     ka = attention_kernel_phase(torch, fa)
     emit({"phase": "kernels_attn", "kernel": "flash_attention", **ka})
@@ -2722,6 +3184,7 @@ def main(argv) -> int:
         "launches_fig-dnn/RTopK": dnn_launches["fig-dnn/RTopK"]["topk_row_threshold"],
         "launches_baseline_cells": baseline, "launches_basis_grid": grid,
         "launches_cohort": co["launches"], "launches_serve": sv["launches"],
+        "launches_sharded": _sharded_launches(sh, "topk_row_threshold"),
         "path_shapes": {tag: {key: kern["timings"][tag][key] for key in (
             "shape", "k", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
             for *_, tag in STOCHASTIC_THRESHOLD_SHAPES},
@@ -2736,7 +3199,8 @@ def main(argv) -> int:
         "bound_by": cs["bound_by"], "library_ms": None,
         "two_pass_ms": cs["two_pass_ms"], "shape": cs["shape"],
         "cuda_launches": main["topk_compress_sum_cuda"],
-        "cuda_launches_per_call": cs["cuda_launches_per_call"]}, {
+        "cuda_launches_per_call": cs["cuda_launches_per_call"],
+        "launches_sharded": _sharded_launches(sh, "topk_compress_sum")}, {
         "name": "tiled_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
         "replaces": "src/repro/kernels/tiled_matmul.py:70",
@@ -2763,6 +3227,7 @@ def main(argv) -> int:
         "loader": bt_path["loader"],
         "cuda_launches": main["basis_transform_cuda"],
         "cuda_launches_per_call": bt_path["cuda_launches_per_call"],
+        "launches_sharded": _sharded_launches(sh, "basis_transform"),
         "device_ms": bt_path["device_ms"][bt_path["form"]],
         "library_device_ms": bt_path["device_ms"]["library"],
         "bound_tf32x3_ms": bt_path["bound_tf32x3_ms"],

@@ -101,14 +101,15 @@ def newton(
     ``device`` (``None`` means ``"cuda"``, which raises without a GPU) and
     ``basis_project``, the route of Γ = VᵀAV: "einsum" (float64, the
     default) or "kernel" (float32 through the tiled-matmul kernel).
-    "auto" and "fast" run the single-device fast path; bases of another
-    kind raise `batched.FastPathUnavailable` under "fast" and
-    `NotImplementedError` under "auto"."""
+    "auto" and "fast" run the single-device fast path, "fast+sharded" the
+    sharded reducer; bases of another kind raise
+    `batched.FastPathUnavailable` under "fast" and `NotImplementedError`
+    under "auto"."""
     from . import batched
 
-    def fast(clients, bases, x0, x_star):
+    def fast(clients, bases, x0, x_star, sharded):
         return batched.newton_fast(clients, x0, x_star, steps, bases=bases,
-                                   basis_project=basis_project)
+                                   basis_project=basis_project, sharded=sharded)
 
     return run_fast(backend, device, clients, bases, x0, x_star, fast)
 
@@ -179,25 +180,22 @@ def fednl_bag(
     """FedNL with Bernoulli-lazy gradient aggregation (`specs.FedNLBAGSpec`
     on the round engine).  Args are the reference's
     (`repro.core.baselines.fednl_bag`), plus ``device``.  Spec-only, as in
-    the reference: ``backend="reference"`` raises `ValueError`; the
-    sharded reducer's ``exact=False`` collectives and ``"fast+sharded"``
-    wait for ROADMAP.md §1 item 13."""
+    the reference: ``backend="reference"`` raises `ValueError`.  ``exact``
+    selects the "fast+sharded" reducer's collectives (the bitwise gather,
+    or the spec's `rounds.ReducePlan`); ignored off that backend."""
     from . import batched
 
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
     if backend == "reference":
         raise ValueError("fednl_bag is spec-only; no reference backend")
-    if not exact:
-        raise NotImplementedError(
-            "fednl_bag(exact=False) selects the sharded reducer's approximate "
-            "collectives: ROADMAP.md §1 item 13 (torch.distributed reducer) brings it")
 
-    def fast(clients, bases, x0, x_star):
+    def fast(clients, bases, x0, x_star, sharded):
         try:
             return batched.fednl_bag_fast(
                 clients, bases, hess_comp, x0, x_star, steps, alpha=alpha, q=q,
-                eta=eta, mu=mu, seed=seed, init_exact_hessian=init_exact_hessian)
+                eta=eta, mu=mu, seed=seed, init_exact_hessian=init_exact_hessian,
+                sharded=sharded, exact=exact)
         except batched.FastPathUnavailable as e:
             raise ValueError(f"fednl_bag requires a stackable homogeneous fleet ({e})") from e
 
@@ -215,8 +213,8 @@ def gd(clients, x0, x_star, steps, lr: Optional[float] = None,
     billed."""
     from . import batched
 
-    def fast(clients, _bases, x0, x_star):
-        return batched.gd_fast(clients, x0, x_star, steps, lr=lr)
+    def fast(clients, _bases, x0, x_star, sharded):
+        return batched.gd_fast(clients, x0, x_star, steps, lr=lr, sharded=sharded)
 
     return run_fast(backend, device, clients, None, x0, x_star, fast)
 
@@ -232,8 +230,9 @@ def diana(clients, x0, x_star, steps, comp: Compressor, omega: float,
     as in the reference's fast path."""
     from . import batched
 
-    def fast(clients, _bases, x0, x_star):
-        return batched.diana_fast(clients, x0, x_star, steps, comp, omega, lr=lr, seed=seed)
+    def fast(clients, _bases, x0, x_star, sharded):
+        return batched.diana_fast(clients, x0, x_star, steps, comp, omega, lr=lr, seed=seed,
+                                  sharded=sharded)
 
     return run_fast(backend, device, clients, None, x0, x_star, fast)
 

@@ -6,8 +6,9 @@ Per-client state lives in leading-axis-`n` stacked tensors (`ClientBatch`,
 `BatchedBasis`); this module validates and stacks the fleet, builds the
 frozen method spec (`specs.BL1Spec`, `BL2Spec`, `BL3Spec`, `GDSpec`,
 `DianaSpec`, `NewtonSpec`, `FedNLBAGSpec`),
-runs it on `rounds.run_rounds` with the run's seed, and turns the streams
-into a `History`.  Raises
+runs it on `rounds.run_rounds` with the run's seed (on one device, or
+``sharded`` over the ranks of a `torch.distributed` world with ``exact``
+choosing the collectives), and turns the streams into a `History`.  Raises
 `FastPathUnavailable` for fleets the stacked representation cannot
 express (heterogeneous shapes, mixed basis kinds, mixed or unported
 compressors).
@@ -96,9 +97,11 @@ def _block_mode(basisb, comp) -> bool:
     return type(comp) is ComposedTopK and comp.k <= rb * rb
 
 
-def _run(spec, batch, basisb, x0, x_star, steps, seed=0, *, stream=None) -> History:
+def _run(spec, batch, basisb, x0, x_star, steps, seed=0, *, stream=None,
+         sharded=False, exact=True) -> History:
     evals, leds = rounds.run_rounds(spec, batch, basisb, x0, _f_star(batch, x_star),
-                                    steps, seed=seed, stream=stream)
+                                    steps, seed=seed, stream=stream, sharded=sharded,
+                                    exact=exact)
     return _history(evals, leds)
 
 
@@ -123,12 +126,14 @@ def bl1_setup(clients, bases, hess_comp, model_comp, alpha=1.0, eta=1.0,
 
 def bl1_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
              alpha=1.0, eta=1.0, p=1.0, mu=None, seed=0,
-             init_exact_hessian=True, stream=None, basis_project="einsum") -> History:
-    """BL1 on the stacked single-device engine."""
+             init_exact_hessian=True, stream=None, basis_project="einsum",
+             sharded=False, exact=True) -> History:
+    """BL1 on the stacked engine."""
     spec, batch, basisb = bl1_setup(
         clients, bases, hess_comp, model_comp, alpha=alpha, eta=eta, p=p,
         mu=mu, init_exact_hessian=init_exact_hessian, basis_project=basis_project)
-    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream,
+                sharded=sharded, exact=exact)
 
 
 # ==========================================================================
@@ -151,12 +156,13 @@ def bl2_setup(clients, bases, hess_comp, model_comp, alpha=1.0, eta=1.0,
 
 def bl2_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
              alpha=1.0, eta=1.0, p=1.0, tau=None, seed=0,
-             init_exact_hessian=True, stream=None) -> History:
-    """BL2 on the stacked single-device engine."""
+             init_exact_hessian=True, stream=None, sharded=False, exact=True) -> History:
+    """BL2 on the stacked engine."""
     spec, batch, basisb = bl2_setup(
         clients, bases, hess_comp, model_comp, alpha=alpha, eta=eta, p=p,
         tau=tau, init_exact_hessian=init_exact_hessian)
-    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream,
+                sharded=sharded, exact=exact)
 
 
 # ==========================================================================
@@ -176,30 +182,31 @@ def bl3_setup(clients, hess_comp, model_comp, alpha=1.0, eta=1.0, p=1.0,
 
 def bl3_fast(clients, hess_comp, model_comp, x0, x_star, steps, alpha=1.0,
              eta=1.0, p=1.0, tau=None, c=1e-8, option=2, seed=0,
-             stream=None) -> History:
-    """BL3 on the stacked single-device engine."""
+             stream=None, sharded=False, exact=True) -> History:
+    """BL3 on the stacked engine."""
     spec, batch, basisb = bl3_setup(
         clients, hess_comp, model_comp, alpha=alpha, eta=eta, p=p, tau=tau,
         c=c, option=option)
-    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed, stream=stream,
+                sharded=sharded, exact=exact)
 
 
 # ==========================================================================
 # First-order baselines (fast path): GD, DIANA
 # ==========================================================================
-def gd_fast(clients, x0, x_star, steps, lr=None) -> History:
-    """GD on the stacked single-device engine; ``lr`` defaults to 1/L."""
+def gd_fast(clients, x0, x_star, steps, lr=None, sharded=False) -> History:
+    """GD on the stacked engine; ``lr`` defaults to 1/L."""
     from .baselines import smoothness_constant
 
     batch, _ = _stack_or_raise(clients)
     spec = specs.GDSpec(lr=1.0 / smoothness_constant(clients) if lr is None else lr)
-    return _run(spec, batch, None, x0, x_star, steps)
+    return _run(spec, batch, None, x0, x_star, steps, sharded=sharded)
 
 
 def diana_fast(clients, x0, x_star, steps, comp: Compressor, omega: float,
-               lr=None, seed: int = 0) -> History:
-    """DIANA on the stacked single-device engine, with the reference's
-    theoretical step size unless ``lr`` is given."""
+               lr=None, seed: int = 0, sharded=False) -> History:
+    """DIANA on the stacked engine, with the reference's theoretical step
+    size unless ``lr`` is given."""
     from .baselines import smoothness_constant
 
     batch, _ = _stack_or_raise(clients)
@@ -209,15 +216,15 @@ def diana_fast(clients, x0, x_star, steps, comp: Compressor, omega: float,
         L = smoothness_constant(clients)
         lr = min(alpha_h / (2.0 * batch.lam), 1.0 / (L * (1.0 + 6.0 * omega / batch.n)))
     spec = specs.DianaSpec(comp=comp, alpha_h=alpha_h, lr=lr)
-    return _run(spec, batch, None, x0, x_star, steps, seed)
+    return _run(spec, batch, None, x0, x_star, steps, seed, sharded=sharded)
 
 
 # ==========================================================================
 # Newton (fast path)
 # ==========================================================================
 def newton_fast(clients, x0, x_star, steps, bases=None,
-                basis_project="einsum") -> History:
-    """Newton on the stacked single-device engine: d² + d floats a round
+                basis_project="einsum", sharded=False) -> History:
+    """Newton on the stacked engine: d² + d floats a round
     without a basis, r² + r with the data basis (plus its one-time dr
     shipment)."""
     batch, basisb = _stack_or_raise(clients, bases, basis_project)
@@ -235,7 +242,7 @@ def newton_fast(clients, x0, x_star, steps, bases=None,
         grad_bits = sum(float(r) for r in rs) / len(rs) * FLOAT_BITS
     spec = specs.NewtonSpec(hess_bits=hess_bits, grad_bits=grad_bits,
                             basis_bits=basis_bits)
-    return _run(spec, batch, basisb, x0, x_star, steps)
+    return _run(spec, batch, basisb, x0, x_star, steps, sharded=sharded)
 
 
 # ==========================================================================
@@ -256,10 +263,11 @@ def fednl_bag_setup(clients, bases, hess_comp, alpha=1.0, q=0.5, eta=None,
 
 
 def fednl_bag_fast(clients, bases, hess_comp, x0, x_star, steps, alpha=1.0,
-                   q=0.5, eta=None, mu=None, seed=0, init_exact_hessian=True) -> History:
-    """FedNL-BAG on the stacked single-device engine; ``eta`` defaults to
-    q (damping matched to the aggregation probability)."""
+                   q=0.5, eta=None, mu=None, seed=0, init_exact_hessian=True,
+                   sharded=False, exact=True) -> History:
+    """FedNL-BAG on the stacked engine; ``eta`` defaults to q (damping
+    matched to the aggregation probability)."""
     spec, batch, basisb = fednl_bag_setup(
         clients, bases, hess_comp, alpha=alpha, q=q, eta=eta, mu=mu,
         init_exact_hessian=init_exact_hessian)
-    return _run(spec, batch, basisb, x0, x_star, steps, seed)
+    return _run(spec, batch, basisb, x0, x_star, steps, seed, sharded=sharded, exact=exact)

@@ -3,9 +3,12 @@ port of `repro.core.bl`.
 
 `bl1`, `bl2` and `bl3` take ``backend="auto"|"fast"|"fast+sharded"|
 "reference"``.  The port runs "auto" and "fast" on its single-device fast
-path (`repro_torch.core.batched`); "fast+sharded" and "reference" raise
-`NotImplementedError` until ROADMAP.md §1 items 13 and 17 port them
-(`run_fast`, shared with `repro_torch.core.baselines`).  Draws follow
+path (`repro_torch.core.batched`) and "fast+sharded" on the same path with
+its clients sharded over the ranks of a `torch.distributed` world
+(`rounds.ShardedReducer`; one process is a one-rank world), ``exact``
+choosing its collectives as the reference's does; "reference" raises
+`NotImplementedError` until ROADMAP.md §1 item 17 ports it (`run_fast`,
+shared with `repro_torch.core.baselines`).  Draws follow
 `repro_torch.core.prng` under the caller's `prng.threefry_partitionable`
 setting (default False, the setting of every committed artifact).
 
@@ -111,11 +114,12 @@ def _to(device, clients, bases, x0, x_star):
 
 def run_fast(backend: str, device, clients, bases, x0, x_star, fast):
     """Dispatch a public entry point: validate ``backend``, move the inputs
-    to the resolved device and run ``fast(clients, bases, x0, x_star)`` on
-    the single-device fast path.  "reference" and "fast+sharded" raise
-    until their ROADMAP items; a fleet the fast path cannot stack raises
-    `batched.FastPathUnavailable` under "fast" and `NotImplementedError`
-    under "auto", whose reference fallback is not ported."""
+    to the resolved device and run ``fast(clients, bases, x0, x_star,
+    sharded=backend == "fast+sharded")`` on the fast path.  "reference"
+    raises until ROADMAP.md §1 item 17; a fleet the fast path cannot stack
+    raises `batched.FastPathUnavailable` under "fast" and
+    `NotImplementedError` under "auto", whose reference fallback is not
+    ported."""
     from . import batched
 
     if backend not in _BACKENDS:
@@ -124,13 +128,9 @@ def run_fast(backend: str, device, clients, bases, x0, x_star, fast):
         raise NotImplementedError(
             "backend='reference' (the op-by-op loops) is not ported yet: "
             "ROADMAP.md §1 item 17 brings it")
-    if backend == "fast+sharded":
-        raise NotImplementedError(
-            "backend='fast+sharded' is not ported yet: ROADMAP.md §1 item 13 "
-            "(torch.distributed reducer) brings it")
     dev = _device.resolve(device)
     try:
-        return fast(*_to(dev, clients, bases, x0, x_star))
+        return fast(*_to(dev, clients, bases, x0, x_star), sharded=backend == "fast+sharded")
     except batched.FastPathUnavailable as e:
         if backend == "auto":
             raise NotImplementedError(
@@ -155,6 +155,7 @@ def bl1(
     init_exact_hessian: bool = True,
     backend: str = "auto",
     stream=None,
+    exact: bool = True,
     *,
     device=None,
     basis_project: str = "einsum",
@@ -168,17 +169,20 @@ def bl1(
     (float64, the default) or "kernel" (float32 through the tiled-matmul
     kernel, the reference's ``REPRO_BL_PALLAS=1`` route).  ``seed`` keys
     the rounds: the fleet-wide ξ for p < 1 and any stochastic compressor.
+    ``exact`` selects the "fast+sharded" reducer's collectives: the
+    bitwise gather (default) or the spec's `rounds.ReducePlan`; ignored
+    off that backend.
 
     Returns a `History` with per-round gaps, cumulative per-node uplink and
     downlink bits, and the per-leg `CommLedger` streams in ``legs``."""
     from . import batched
 
-    def fast(clients, bases, x0, x_star):
+    def fast(clients, bases, x0, x_star, sharded):
         return batched.bl1_fast(
             clients, bases, hess_comp, model_comp, x0, x_star, steps,
             alpha=alpha, eta=eta, p=p, mu=mu, seed=seed,
             init_exact_hessian=init_exact_hessian, stream=stream,
-            basis_project=basis_project)
+            basis_project=basis_project, sharded=sharded, exact=exact)
 
     return run_fast(backend, device, clients, bases, x0, x_star, fast)
 
@@ -199,6 +203,7 @@ def bl2(
     init_exact_hessian: bool = True,
     backend: str = "auto",
     stream=None,
+    exact: bool = True,
     *,
     device=None,
 ) -> History:
@@ -209,16 +214,15 @@ def bl2(
     client (client-individual z_i streams), ``tau`` the expected
     participants a round (Bernoulli(τ/n) with a force-one-client fallback;
     None is full participation), ``p`` the per-client gradient-refresh
-    probability; plus ``device`` (``None`` means ``"cuda"``).  The
-    reference's ``exact`` selects the sharded reducer's collectives
-    (ROADMAP.md §1 item 13); the port's single-device backend reduces
-    exactly and takes no such argument."""
+    probability, ``exact`` the "fast+sharded" reducer's collectives (as in
+    `bl1`); plus ``device`` (``None`` means ``"cuda"``)."""
     from . import batched
 
-    def fast(clients, bases, x0, x_star):
+    def fast(clients, bases, x0, x_star, sharded):
         return batched.bl2_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
                                 alpha=alpha, eta=eta, p=p, tau=tau, seed=seed,
-                                init_exact_hessian=init_exact_hessian, stream=stream)
+                                init_exact_hessian=init_exact_hessian, stream=stream,
+                                sharded=sharded, exact=exact)
 
     return run_fast(backend, device, clients, bases, x0, x_star, fast)
 
@@ -239,6 +243,7 @@ def bl3(
     seed: int = 0,
     backend: str = "auto",
     stream=None,
+    exact: bool = True,
     *,
     device=None,
 ) -> History:
@@ -250,9 +255,9 @@ def bl3(
     (1: previous-iterate numerator; 2: current target)."""
     from . import batched
 
-    def fast(clients, _bases, x0, x_star):
+    def fast(clients, _bases, x0, x_star, sharded):
         return batched.bl3_fast(clients, hess_comp, model_comp, x0, x_star, steps,
                                 alpha=alpha, eta=eta, p=p, tau=tau, c=c, option=option,
-                                seed=seed, stream=stream)
+                                seed=seed, stream=stream, sharded=sharded, exact=exact)
 
     return run_fast(backend, device, clients, None, x0, x_star, fast)

@@ -253,6 +253,26 @@ def stack_bases(bases: Sequence[MatrixBasis],
     return None
 
 
+def shard_batch(batch, sl: slice):
+    """The clients ``sl`` of a `ClientBatch` or `TreeBatch` (views)."""
+    if isinstance(batch, TreeBatch):
+        return TreeBatch(data=_tree_rows(batch.data, sl), n_clients=len(range(batch.n)[sl]))
+    return ClientBatch(A=batch.A[sl], b=batch.b[sl], lam=batch.lam)
+
+
+def _tree_rows(tree, sl: slice):
+    if isinstance(tree, dict):
+        return {k: _tree_rows(v, sl) for k, v in tree.items()}
+    return tree[sl]
+
+
+def shard_basis(basisb: BatchedBasis, sl: slice) -> BatchedBasis:
+    """The clients ``sl`` of a `BatchedBasis`: its per-client factors
+    sliced (views), ``rs`` kept whole (the bills are fleet averages)."""
+    return dataclasses.replace(basisb, **{f: getattr(basisb, f)[sl] for f in ("V", "Q")
+                                          if getattr(basisb, f) is not None})
+
+
 # --------------------------------------------------------------------------
 # host-resident client store (cohort streaming)
 # --------------------------------------------------------------------------
@@ -318,6 +338,27 @@ def bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M * v[:, None, :]).sum(dim=-1)
 
 
+#: elements in one step of torch's widest CPU vector loop (two AVX-512
+#: vectors of float64)
+_CPU_STEP = 16
+
+
+def rowwise(fn, z: torch.Tensor) -> torch.Tensor:
+    """``fn(z)`` for an elementwise ``fn`` of a client-stacked (n, m) tensor,
+    each client's values the same whatever n is.  torch's CPU loops run
+    whole vector steps through SLEEF and the elements left over through the
+    scalar libm, which can round another way, so a client's values would
+    depend on where its row falls in the batch — on how many clients a
+    sharded rank holds.  On the CPU each row is padded to whole steps, so
+    every element takes the vector path (in one thread: a parallel loop
+    cuts the range where it likes); the card computes every element alike,
+    and takes ``fn(z)`` as it is."""
+    pad = -z.shape[-1] % _CPU_STEP
+    if z.device.type != "cpu" or pad == 0:
+        return fn(z)
+    return fn(torch.nn.functional.pad(z, (0, pad)))[..., :z.shape[-1]]
+
+
 def _per_client_x(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
     """Broadcast a shared iterate (d,) to (n, d); pass (n, d) through."""
     if x.dim() == 1:
@@ -328,7 +369,7 @@ def _per_client_x(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
 def losses(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
     xb = _per_client_x(batch, x)
     z = bmv(batch.A, xb) * batch.b
-    data = torch.logaddexp(torch.zeros_like(z), -z).mean(dim=1)
+    data = rowwise(lambda t: torch.logaddexp(torch.zeros_like(t), -t), z).mean(dim=1)
     return data + 0.5 * batch.lam * (xb * xb).sum(dim=1)
 
 
@@ -340,8 +381,11 @@ def grads(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
     """Per-client gradients (n, d) at a shared or per-client iterate."""
     xb = _per_client_x(batch, x)
     z = bmv(batch.A, xb) * batch.b
-    coef = -batch.b * glm.sigmoid(-z)
-    return torch.einsum("nmd,nm->nd", batch.A, coef) / batch.m + batch.lam * xb
+    coef = -batch.b * rowwise(glm.sigmoid, -z)
+    # multiply+reduce over the samples, as `bmv`: the batched GEMV an einsum
+    # would run picks its cuBLAS algorithm by the number of clients, and a
+    # client's gradient would change bits with it
+    return (batch.A * coef[..., None]).sum(dim=1) / batch.m + batch.lam * xb
 
 
 def global_grad(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
@@ -351,7 +395,7 @@ def global_grad(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
 def hess_weights(batch: ClientBatch, x: torch.Tensor) -> torch.Tensor:
     xb = _per_client_x(batch, x)
     z = bmv(batch.A, xb) * batch.b
-    s = glm.sigmoid(z)
+    s = rowwise(glm.sigmoid, z)
     return s * (1.0 - s)
 
 

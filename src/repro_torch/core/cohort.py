@@ -36,8 +36,16 @@ configuration is the stacked engine bit for bit.
 carry's leaves and the host state: store rows, aggregate totals, the
 epoch's frozen statistics); the service loop
 (`repro_torch.launch.fed_serve`) writes them as the ckpt@2 ``host_state``
-payload (`repro_torch.exp.artifacts.save_checkpoint`).  The sharded reducer
-is ROADMAP.md §1 item 13.
+payload (`repro_torch.exp.artifacts.save_checkpoint`).
+
+``sharded=True`` (the ``cohort+sharded`` backend) splits each cohort over
+the ranks of the process's `torch.distributed` world: the capacity is
+padded to a multiple of the rank count (padded slots hold client 0's rows
+and never reduce), each rank gathers and runs its slots under a
+`rounds.ShardedReducer`, and at unload the cohort's rows are gathered to
+every rank, so every rank's `ClientStore` stays the same store.
+Checkpoints keep the one-rank layout: the carry's cohort rows without
+padding.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..launch import mesh
 from . import client_batch, prng, rounds
 
 #: fold_in salt separating the cohort sampler's stream from the per-round
@@ -131,6 +140,16 @@ def cohort_indices(seed64: int, n: int, c: int, epoch: int) -> np.ndarray:
     return np.sort(idx).astype(np.int64)
 
 
+def capacity(cohort: int, n: int) -> int:
+    """Slots a sharded cohort of ``cohort`` clients (of a fleet of n)
+    runs in: the cohort padded to a multiple of the world's rank count (the
+    whole fleet, unpadded, when the cohort covers it)."""
+    if cohort >= n:
+        return n
+    size = mesh.world()[1]
+    return -(-cohort // size) * size
+
+
 def _slab_extras(spec, R, batch, basisb, x0, carry) -> dict:
     """`MethodSpec.cohort_init_extras` for one init slab."""
     env = rounds.Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(R, batch, basisb, x0))
@@ -152,7 +171,10 @@ class CohortEngine:
         COHORT_SALT)``.
       basis: ``"standard"`` or None (BL3): store-backed problems use
         convention bases only.
-      sharded: the sharded reducer, not ported (ROADMAP.md §1 item 13).
+      sharded: split each cohort over the ranks of the process's world
+        (``cohort+sharded``); every rank of the world constructs the
+        engine and calls it alike.
+      exact: the sharded reducer's collectives (`rounds.ShardedReducer`).
       slab: clients a fleet-init slab holds on the device.
       prefetch: gather (and on a CUDA device, copy) the next epoch's data
         behind the current epoch's rounds; moves data only, changes no bit.
@@ -168,16 +190,12 @@ class CohortEngine:
 
     def __init__(self, spec, store: client_batch.ClientStore, x0: torch.Tensor, *,
                  cohort: int, rounds_per_cohort: int, root_key,
-                 basis: Optional[str] = "standard", sharded: bool = False, slab: int = 4096,
-                 prefetch: bool = True):
+                 basis: Optional[str] = "standard", sharded: bool = False,
+                 exact: bool = True, slab: int = 4096, prefetch: bool = True):
         if rounds_per_cohort < 1:
             raise ValueError(f"rounds_per_cohort must be >= 1, got {rounds_per_cohort}")
         if cohort < 1:
             raise ValueError(f"cohort must be >= 1, got {cohort}")
-        if sharded:
-            raise NotImplementedError(
-                "CohortEngine(sharded=True) needs the sharded reducer, not ported yet: "
-                "ROADMAP.md §1 item 13 (torch.distributed reducer) brings it")
         self.spec = spec
         self.store = store
         self.device = x0.device
@@ -189,6 +207,16 @@ class CohortEngine:
         self.slab = int(slab)
         self.full = int(cohort) >= self.n
         self.cohort = self.n if self.full else int(cohort)
+        self.sharded = bool(sharded)
+        self.exact = bool(exact)
+        if self.sharded:
+            mesh.init_from_env(self.device)
+        # the device axis: the cohort's slots, padded when sharded
+        self.cap = capacity(self.cohort, self.n) if self.sharded else self.cohort
+        self._R = rounds.make_reducer(spec, self.cap, self.device, sharded=self.sharded,
+                                      exact=self.exact)
+        self._slots = (self._R.group.client_slice if self.sharded
+                       else slice(0, self.cap))
         if not self.full and not getattr(spec, "supports_cohort", False):
             raise ValueError(
                 f"{type(spec).__name__} is not cohort-capable (MethodSpec.supports_cohort "
@@ -199,7 +227,7 @@ class CohortEngine:
                 f"cohort streaming supports the 'standard' convention basis or None, got "
                 f"{basis!r} (per-client basis arrays would have to stream with the cohort)")
         self._basis_kind = basis
-        self._basis_cohort = self._make_basis(self.cohort)
+        self._basis_cohort = self._make_basis(self._slots.stop - self._slots.start)
         self._basis_full = self._make_basis(self.n)
         self._seed64 = sampler_seed(self.root_key)
         self._aggs = dict(spec.cohort_aggregates()) if not self.full else {}
@@ -307,21 +335,31 @@ class CohortEngine:
     # ------------------------------------------------------------------
     # data movement: the epoch's A and b onto the device
     # ------------------------------------------------------------------
+    def _padded(self, idx: np.ndarray):
+        """The cohort over the engine's ``cap`` slots: global indices (0 in
+        a padded slot) and the mask of slots that hold a client."""
+        pidx = np.zeros(self.cap, np.int64)
+        pidx[:idx.size] = idx
+        real = np.zeros(self.cap, bool)
+        real[:idx.size] = True
+        return pidx, real
+
     def _gather(self, epoch: int, side_stream: bool):
-        """The epoch's cohort and its data on the device.  With
-        ``side_stream`` (a CUDA device) the rows are gathered straight
-        into pinned host memory and copied on the engine's copy stream;
-        the returned event marks the copy's end."""
+        """The epoch's cohort and the data of this rank's slots on the
+        device.  With ``side_stream`` (a CUDA device) the rows are gathered
+        straight into pinned host memory and copied on the engine's copy
+        stream; the returned event marks the copy's end."""
         idx = self.cohort_indices(epoch)
+        rows = self._padded(idx)[0][self._slots]
         if not side_stream:
-            A, b = self.store.gather_data(idx)
+            A, b = self.store.gather_data(rows)
             return (idx, torch.tensor(A, device=self.device),
                     torch.tensor(b, device=self.device), None)
         st = self.store
-        A_h = torch.empty((idx.size,) + st.A.shape[1:], dtype=torch.float64, pin_memory=True)
-        b_h = torch.empty((idx.size,) + st.b.shape[1:], dtype=torch.float64, pin_memory=True)
-        np.take(st.A, idx, axis=0, out=A_h.numpy())
-        np.take(st.b, idx, axis=0, out=b_h.numpy())
+        A_h = torch.empty((rows.size,) + st.A.shape[1:], dtype=torch.float64, pin_memory=True)
+        b_h = torch.empty((rows.size,) + st.b.shape[1:], dtype=torch.float64, pin_memory=True)
+        np.take(st.A, rows, axis=0, out=A_h.numpy())
+        np.take(st.b, rows, axis=0, out=b_h.numpy())
         with torch.cuda.stream(self._copy_stream):
             A = A_h.to(self.device, non_blocking=True)
             b = b_h.to(self.device, non_blocking=True)
@@ -369,6 +407,12 @@ class CohortEngine:
         return self._gather(epoch, False)[:3]
 
     @property
+    def layout(self) -> Optional[dict]:
+        """How a sharded engine lays its slots over the world
+        (`mesh.ClientGroup.describe`); None unsharded."""
+        return self._R.group.describe() if self.sharded else None
+
+    @property
     def prefetch_overlap(self) -> float:
         """Share of the prefetch work hidden behind compute, 1 − wait/work
         over the prefetched epochs (1.0: fully overlapped)."""
@@ -381,9 +425,11 @@ class CohortEngine:
     # epoch residency
     # ------------------------------------------------------------------
     def _epoch_state(self, epoch, idx, batch, carry, frozen_np) -> dict:
+        pidx, real = self._padded(idx)
         return {"epoch": epoch, "idx": idx,
-                "cidx": self._to_device(idx.astype(np.int32)), "batch": batch,
-                "carry": tuple(carry),
+                "cidx": self._to_device(pidx[self._slots].astype(np.int32)),
+                "real": None if real.all() else self._to_device(real[self._slots]),
+                "batch": batch, "carry": tuple(carry),
                 "frozen": {k: self._to_device(v) for k, v in frozen_np.items()},
                 "frozen_np": frozen_np}
 
@@ -392,7 +438,8 @@ class CohortEngine:
         self._count_h2d(A, b)
         self.metrics["epochs_loaded"] += 1
         batch = client_batch.ClientBatch(A=A, b=b, lam=self.store.lam)
-        elems = [self._to_device(self.store.state[name][idx]) if cl else self._server[name]
+        rows = self._padded(idx)[0][self._slots]
+        elems = [self._to_device(self.store.state[name][rows]) if cl else self._server[name]
                  for name, cl in zip(self._names, self._is_client)]
         frozen_np = {}
         for agg, (leaf, op) in self._aggs.items():
@@ -406,14 +453,27 @@ class CohortEngine:
         self._cur = self._epoch_state(int(epoch), idx, batch, elems, frozen_np)
         self._prefetch_submit(epoch + 1)
 
+    def _cohort_rows(self, carry) -> dict:
+        """The client-stacked carry elements with the cohort's rows, padded
+        slots (always the last) dropped: gathered from every rank when
+        sharded (one collective a dtype), so every rank's store takes every
+        row."""
+        elems = {name: elem for name, elem, cl in zip(self._names, carry, self._is_client)
+                 if cl}
+        if self.sharded:
+            elems = {name: rows[:self.cohort] for name, rows in
+                     self._R.fleet_tree(elems).items()}
+        return elems
+
     def _unload_current(self):
         cur = self._cur
         if cur is None:
             return
         new_rows = {}
+        cohort_rows = self._cohort_rows(cur["carry"])
         for name, elem, cl in zip(self._names, cur["carry"], self._is_client):
             if cl:
-                rows = elem.cpu().numpy()
+                rows = cohort_rows[name].cpu().numpy()
                 self.metrics["d2h_bytes"] += rows.nbytes
                 self.store.state[name][cur["idx"]] = rows
                 new_rows[name] = rows
@@ -430,11 +490,27 @@ class CohortEngine:
         return tuple(self._to_device(self.store.state[name]) if cl else self._server[name]
                      for name, cl in zip(self._names, self._is_client))
 
+    def _local_carry(self, carry) -> tuple:
+        """This rank's shard of a one-rank-layout carry: its slots' rows of
+        the client-stacked elements, a padded slot taking client 0's rows
+        (None off the client group)."""
+        if not self.sharded:
+            return tuple(carry)
+        if not self._R.group.active:
+            return None
+        pad = self.cap - (self.n if self.full else self.cohort)
+        out = []
+        for name, elem, cl in zip(self._names, carry, self._is_client):
+            if cl and pad:
+                elem = torch.cat([elem, elem[:1].expand((pad,) + tuple(elem.shape[1:]))])
+            out.append(elem[self._slots].clone() if cl else elem)
+        return tuple(out)
+
     def _full_state(self, carry) -> dict:
         batch = self.store.gather_batch(np.arange(self.n), self.device)
         self._count_h2d(batch.A, batch.b)
         return {"epoch": None, "idx": np.arange(self.n), "batch": batch,
-                "carry": tuple(carry), "frozen_np": {}}
+                "carry": self._local_carry(carry), "frozen_np": {}}
 
     # ------------------------------------------------------------------
     # driver
@@ -456,7 +532,8 @@ class CohortEngine:
                 cur = self._cur
                 seg = end - t
                 carry, ys = rounds.run_chunk(self.spec, cur["batch"], self._basis_full, self.x0,
-                                             cur["carry"], t, seg, self.root_key)
+                                             cur["carry"], t, seg, self.root_key,
+                                             sharded=self.sharded, exact=self.exact)
             else:
                 e = t // self.rpc
                 if self._cur is None or self._cur["epoch"] != e:
@@ -466,8 +543,9 @@ class CohortEngine:
                 seg = min(end, (e + 1) * self.rpc) - t
                 carry, ys, ups = rounds.run_cohort_chunk(
                     self.spec, cur["batch"], self._basis_cohort, self.x0, cur["carry"], t, seg,
-                    self.root_key, cidx=cur["cidx"], frozen=cur["frozen"], n_global=self.n)
-                self.uploads += [cur["idx"][row] for row in ups.cpu().numpy()]
+                    self.root_key, cidx=cur["cidx"], frozen=cur["frozen"], n_global=self.n,
+                    real=cur["real"], sharded=self.sharded, exact=self.exact, cap=self.cap)
+                self.uploads += [cur["idx"][row[:self.cohort]] for row in ups.cpu().numpy()]
             cur["carry"] = carry
             outs.append(ys)
             t += seg
@@ -477,7 +555,8 @@ class CohortEngine:
     # checkpoint plumbing (repro.exp/ckpt@2)
     # ------------------------------------------------------------------
     def carry_template(self) -> tuple:
-        """Shape and dtype template of the device carry."""
+        """Shape and dtype template of the device carry, in the one-rank
+        layout (a sharded engine's checkpoints are the one-rank engine's)."""
         if self.full:
             return self._full_carry()
         return tuple(
@@ -494,16 +573,30 @@ class CohortEngine:
             self._to_device(np.asarray(x)).to(device=t.device, dtype=t.dtype)
             for x, t in zip(leaves, rounds.carry_leaves(template))])
 
+    def _one_rank_carry(self, carry) -> tuple:
+        """A carry in the one-rank layout: sharded, the slots' rows gathered
+        from every rank and the padded slots dropped."""
+        if not self.sharded:
+            return carry
+        rows = self._cohort_rows(carry)
+        return tuple(rows[name] if cl else elem
+                     for name, elem, cl in zip(self._names, carry, self._is_client))
+
     def checkpoint_payload(self):
         """``(carry_leaves, host_state)``: numpy copies of the device
-        carry's leaves and, when streaming, of the host state — the store
-        (the resident cohort's rows at their epoch-start values), the
-        aggregate totals and the epoch's frozen statistics — all `restore`
-        needs to resume bit for bit mid-epoch or at a boundary."""
+        carry's leaves (the one-rank layout; sharded, every rank of the
+        client group must call, and gets the same payload) and, when
+        streaming, of the host state — the store (the resident cohort's
+        rows at their epoch-start values), the aggregate totals and the
+        epoch's frozen statistics — all `restore` needs to resume bit for
+        bit mid-epoch or at a boundary.  A rank off the client group (full
+        mode) gets None leaves."""
         if self._cur is None:
             raise RuntimeError("no rounds have run: nothing to checkpoint")
+        if self._cur["carry"] is None:
+            return None, {}
         leaves = [leaf.detach().cpu().numpy().copy()
-                  for leaf in rounds.carry_leaves(self._cur["carry"])]
+                  for leaf in rounds.carry_leaves(self._one_rank_carry(self._cur["carry"]))]
         if self.full:
             return leaves, {}
         host = {f"store/{k}": v.copy() for k, v in self.store.state.items()}
@@ -537,7 +630,7 @@ class CohortEngine:
         idx, A, b, _ = self._gather(e, False)
         self._count_h2d(A, b)
         batch = client_batch.ClientBatch(A=A, b=b, lam=self.store.lam)
-        self._cur = self._epoch_state(e, idx, batch, carry, frozen_np)
+        self._cur = self._epoch_state(e, idx, batch, self._local_carry(carry), frozen_np)
         self._prefetch_submit(e + 1)
 
     def close(self):

@@ -14,11 +14,16 @@ hooks `rounds.run_rounds` calls:
     evaluated at, the cumulative `comm.CommLedger` at the round's start
     and the round's `rounds.EVENT_*` bits (an int32 tensor from
     `rounds.participation`, else ``EVENT_NONE``);
-  * ``eval_streams(batch, xs_t, f_star)`` — the post-loop evaluation.
+  * ``eval_streams(batch, xs_t, f_star)`` — the post-loop evaluation, on
+    the fleet's batch;
+  * ``reduce_plan`` — the `rounds.ReducePlan` of the sharded reducer's
+    ``exact=False`` collectives.
 
 A round's keys are split from ``rc.key`` as the reference splits them, on
 the host; a spec whose compressors all draw nothing (and, for BL1, p = 1)
-splits none, which changes no bit.
+splits none, which changes no bit.  Client-stacked tensors carry the
+reducer's ``n_local`` rows; fleet-wide draws are made over ``R.n`` and cut
+to the rank's rows with ``R.shard``.
 
 The cohort contract (`MethodSpec.supports_cohort`, `carry_names`,
 `cohort_aggregates`, `cohort_init_extras`, `cohort_server_init`) lets
@@ -43,7 +48,8 @@ from .bl import _psd_h_tilde, _psd_reconstruct_full, _psd_sum_matrix, proj_mu
 from .comm import FLOAT_BITS, CommLedger
 from .compressors import Compressor
 from .pytree import tree_leaves, tree_map
-from .rounds import (EVENT_ALL_DOWN, EVENT_DEGRADED, EVENT_NONE, client_keys_for, coeff_layout,
+from .rounds import (EVENT_ALL_DOWN, EVENT_DEGRADED, EVENT_NONE, ReducePlan, client_keys_for,
+                     coeff_layout,
                      default_gap_stream, downlink_broadcast, global_grad, note_uploads,
                      participation, refresh_due, shift_update, tree_shift_update,
                      tree_shift_update_sum, xi_mask, xi_scalar)
@@ -55,8 +61,12 @@ def _sym_b(H: torch.Tensor) -> torch.Tensor:
 
 
 def _fro_b(H: torch.Tensor) -> torch.Tensor:
-    """(n, d, d) → (n,) Frobenius norms."""
-    return torch.sqrt((H * H).sum(dim=(1, 2)))
+    """(n, d, d) → (n,) Frobenius norms, summed row by row and then over
+    the rows.  ATen's CUDA reduction splits one d·d-long sum a client
+    across blocks as the number of clients in the call decides; sums d long
+    are not split at the engine's widths, so a client's norm has the same
+    bits on a rank holding n/W clients as on one process holding n."""
+    return torch.sqrt((H * H).sum(dim=2).sum(dim=1))
 
 
 def _bill_fleet(R, led: CommLedger, bits: dict, down: torch.Tensor) -> CommLedger:
@@ -92,6 +102,10 @@ class MethodSpec:
     #: engine's handle for splitting the carry into host-resident client
     #: state (`client_batch.ClientStore.state`) and server state
     carry_names: Tuple[str, ...] = ()
+
+    #: the sharded reducer's collective modes under ``exact=False``
+    #: (`rounds.ReducePlan`); the default all-reduces every leg as a sum
+    reduce_plan = ReducePlan()
 
     def cohort_aggregates(self):
         """Fleet aggregates `step` reduces over raw carry leaves:
@@ -556,6 +570,7 @@ class FedNLBAGSpec(MethodSpec):
             n_av = avail.sum()
             ev = (EVENT_DEGRADED * (n_av < R.n) + EVENT_ALL_DOWN * (n_av == 0)).to(torch.int32)
             send = send & avail
+        send = R.shard(send)    # drawn fleet-wide, the rank's rows kept
         ys = (z, led, ev)  # gap evaluated at z, after the loop
         note_uploads(R, send)
         gtab_n = torch.where(send[:, None], client_batch.grads(batch, z), gtab)
@@ -649,6 +664,13 @@ class BLDNNSpec(MethodSpec):
 
     WIRE_FLOAT_BITS = 32          # DNN tensors are f32 on the wire
 
+    basis_replicated = True       # the pytree basis is fleet-global
+
+    #: exact=False collectives: the f32 coefficient and Fisher payloads
+    #: all-reduce as means (local partials stay O(1) in f32), the f64 bit
+    #: counts as sums (integers in f64: the order does not matter)
+    reduce_plan = ReducePlan(dense="pmean", vector="pmean", scalar="psum")
+
     def _bill(self, comps, auxs):
         """Per-client bits: per-leaf counts priced at the f32 wire, summed
         over leaves."""
@@ -733,6 +755,8 @@ class BLDNNSpec(MethodSpec):
         g_hat = red["coeff"] if basis is None else basis.unrotate(red["coeff"])
 
         if self.precondition:
+            # exact reducers reduce Fc; exact=False reduces the codec's local
+            # column sums (kernel 2's second output) instead
             fmeans = R.tree_mean_presummed(Fc, fsums)
             server_f_n = tree_map(lambda sf, fm: sf + self.fisher_alpha * fm, server_f, fmeans)
             update = tree_map(

@@ -15,6 +15,14 @@ included, whose digests the port reproduces — are skipped unless
 (smoke tests) and is refused into the committed ``results/`` tree.
 ``--device`` picks the card (``cuda``, the default) or ``cpu``.
 ``--progress-every`` streams (round, gap, Mbits) for BL cells.
+
+A ``+sharded`` cell runs over the ranks of a `torch.distributed` world:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.exp run \
+        --fig fig1-xl --out /tmp/x --artifacts /tmp/x/exp
+
+(gloo on the CPU or on one shared card, NCCL when every rank has a card:
+`repro_torch.launch.mesh`); every rank runs, rank 0 prints and writes.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import time
 
 import torch
 
+from ..launch import mesh
 from .engine import build_problem, run_experiment
 from .registry import available_experiments, get_experiment
 
@@ -63,9 +72,12 @@ def _cmd_run(args) -> int:
                   "(e.g. --out /tmp/exp-smoke --artifacts /tmp/exp-smoke/exp)",
                   file=sys.stderr)
             return 2
+    # under torchrun: the world first (the backend rule reads the device)
+    mesh.init_from_env(args.device)
+    say = mesh.rank0(print)
     failures = 0
     for name, exp in zip(names, exps):
-        print(f"== {name}: {exp.title}")
+        say(f"== {name}: {exp.title}")
         t0 = time.perf_counter()
         try:
             run_experiment(
@@ -88,7 +100,7 @@ def _cmd_run(args) -> int:
                 build_problem.cache_clear()
                 if torch.cuda.is_available():
                     torch.cuda.empty_cache()
-        print(f"== {name} done in {time.perf_counter() - t0:.1f}s")
+        say(f"== {name} done in {time.perf_counter() - t0:.1f}s")
     return 1 if failures else 0
 
 

@@ -21,13 +21,15 @@ Where the port differs, and why:
     and the reference's per-layer SVD factors, which are not unique and
     which ``per_layer_svd`` cells rotate with — and refuses any other
     `DNNProblemSpec`;
-  * backends (`resolve_backend`): a cell registered ``"fast+sharded"``
-    (fig1-xl) runs the single-device fast path while the process is one
-    rank — the reference's one-device mesh, which it holds bitwise equal
-    to ``"fast"`` — and raises across ranks (item 13); ``"cohort"`` runs
+  * backends (`resolve_backend`): ``"fast+sharded"`` (fig1-xl's) runs the
+    sharded reducer (`repro_torch.core.rounds.ShardedReducer`) over the
+    ranks of this process's `torch.distributed` world — ``torchrun
+    --nproc-per-node W -m repro_torch.exp run …`` — and on one rank (the
+    reference's one-device mesh) is bitwise ``"fast"``; ``"cohort"`` runs
     ``synthetic_stream`` problems (fig1-xxl, cohort-smoke) through the
     cohort-streaming engine (`repro_torch.core.cohort`), and
-    ``"cohort+sharded"`` raises (item 13).
+    ``"cohort+sharded"`` shards its cohorts the same way.  Under a world
+    of several ranks only rank 0 writes artifacts and figure CSVs.
 
 Long cells can stream progress: ``progress_every=N`` attaches a
 `repro_torch.core.rounds.StreamHook` that reports (round, gap,
@@ -51,6 +53,7 @@ from ..core.convert import dnn_problem_from_numpy
 from ..core.pytree import tree_leaves
 from ..core.rounds import StreamHook
 from ..fed import bldnn
+from ..launch import mesh
 from . import artifacts
 from .registry import (
     CompressorCfg,
@@ -242,27 +245,17 @@ def build_problem(spec, device=None):
 build_problem.cache_clear = _build_problem.cache_clear
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+#: the engine backends a cell may name
+BACKENDS = ("auto", "fast", "fast+sharded", "reference", "cohort", "cohort+sharded")
 
 
 def resolve_backend(backend: str) -> str:
-    """The backend a cell declared, as this process runs it:
-    ``"fast+sharded"`` is the single-device ``"fast"`` path while the
-    process is one rank (the reference's one-device mesh, bitwise equal to
-    ``"fast"``) and raises across ranks; ``"cohort+sharded"`` raises."""
-    if backend == "fast+sharded":
-        if _world_size() > 1:
-            raise NotImplementedError(
-                f"backend 'fast+sharded' across {_world_size()} ranks is not "
-                "ported yet: ROADMAP.md §1 item 13 (torch.distributed reducer) "
-                "brings it")
-        return "fast"
-    if backend == "cohort+sharded":
-        raise NotImplementedError(
-            "backend 'cohort+sharded' is not ported yet: ROADMAP.md §1 item 13 "
-            "(torch.distributed reducer) brings it")
+    """The backend a cell declared, as this process runs it: every backend
+    runs as named — ``"fast+sharded"`` and ``"cohort+sharded"`` over the
+    ranks of this process's world (one process: a one-rank world) — and
+    an unknown name raises ``ValueError``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     return backend
 
 
@@ -332,11 +325,13 @@ def build_stream_spec(cell: MethodCell, d: int, n: int, lam: float, params: dict
 
 
 def _run_stream_cell(cell: MethodCell, prob: StreamProblem, steps: int, params: dict,
-                     dev: torch.device) -> bl.History:
+                     dev: torch.device, sharded: bool = False,
+                     exact: bool = True) -> bl.History:
     spec, basis, csize, rpc, seed = build_stream_spec(cell, prob.d, prob.n, prob.store.lam,
                                                       params)
     eng = cohort.CohortEngine(spec, prob.store, prob.x0.to(dev), cohort=csize,
-                              rounds_per_cohort=rpc, root_key=prng.PRNGKey(seed), basis=basis)
+                              rounds_per_cohort=rpc, root_key=prng.PRNGKey(seed), basis=basis,
+                              sharded=sharded, exact=exact)
     try:
         eval_x, leds, _events = eng.run_chunk(0, steps)
         uploads = None if eng.uploads is None else [u.tolist() for u in eng.uploads]
@@ -357,7 +352,7 @@ def run_cell(exp: Experiment, cell: MethodCell, prob, *,
              steps: Optional[int] = None, seed: Optional[int] = None,
              backend: Optional[str] = None,
              stream: Optional[StreamHook] = None, device=None,
-             basis_project: str = "einsum") -> bl.History:
+             basis_project: str = "einsum", exact: bool = True) -> bl.History:
     """Run one cell and return its `History`.
 
     Args:
@@ -374,6 +369,10 @@ def run_cell(exp: Experiment, cell: MethodCell, prob, *,
         and ``newton``: "einsum" (float64, the reference's default) or
         "kernel" (float32 through the tiled-matmul kernel, the reference's
         ``REPRO_BL_PALLAS=1`` route).
+      exact: the ``+sharded`` backends' collectives (the bitwise gather, or
+        the spec's `repro_torch.core.rounds.ReducePlan`) for the methods on
+        the round engine that take it (bl1, bl2, bl3, fednl_bag, bldnn and
+        the streaming cells).
     """
     m = cell.method
     steps = cell.steps if steps is None else steps
@@ -385,10 +384,11 @@ def run_cell(exp: Experiment, cell: MethodCell, prob, *,
     if isinstance(prob, StreamProblem):
         if backend == "auto":
             backend = "cohort"
-        if backend != "cohort":
+        if backend not in ("cohort", "cohort+sharded"):
             raise ValueError(f"cell {cell.name!r}: a synthetic_stream problem runs on the "
                              f"cohort backends, got backend={backend!r}")
-        return _run_stream_cell(cell, prob, steps, params, _device.resolve(device))
+        return _run_stream_cell(cell, prob, steps, params, _device.resolve(device),
+                                sharded=backend == "cohort+sharded", exact=exact)
     if basis_project != "einsum" and m not in ("bl1", "newton"):
         raise ValueError(f"basis_project={basis_project!r} routes Γ of bl1 and "
                          f"newton only, not of {m!r}")
@@ -415,7 +415,7 @@ def run_cell(exp: Experiment, cell: MethodCell, prob, *,
         basis = prob.basis if cell.basis == "per_layer_svd" else None
         return bldnn.run_bldnn(prob.loss_fn, prob.eval_fn, prob.params0,
                                prob.batch, steps, cfg, seed=run_seed,
-                               backend=eng_backend, basis=basis, stream=stream,
+                               backend=eng_backend, exact=exact, basis=basis, stream=stream,
                                device=device)
 
     n, d = prob.n, prob.d
@@ -426,18 +426,20 @@ def run_cell(exp: Experiment, cell: MethodCell, prob, *,
         if m == "bl1":
             mc = _comp(cell.model_comp, d, "model")
             return bl.bl1(clients, prob.bases(cell.basis), hc, mc, x0, xs,
-                          steps, backend=backend, stream=stream,
+                          steps, backend=backend, stream=stream, exact=exact,
                           basis_project=basis_project, device=device, **params)
         if m == "bl2":
             mc = [_comp(cell.model_comp, d, "model")] * n
             return bl.bl2(clients, prob.bases(cell.basis), hc, mc, x0, xs,
-                          steps, backend=backend, stream=stream, device=device, **params)
+                          steps, backend=backend, stream=stream, exact=exact, device=device,
+                          **params)
         if m == "bl3":
             mc = [_comp(cell.model_comp, d, "model")] * n
             return bl.bl3(clients, hc, mc, x0, xs, steps, backend=backend,
-                          stream=stream, device=device, **params)
+                          stream=stream, exact=exact, device=device, **params)
         return baselines.fednl_bag(clients, prob.bases(cell.basis), hc, x0,
-                                   xs, steps, backend=backend, device=device, **params)
+                                   xs, steps, backend=backend, exact=exact, device=device,
+                                   **params)
     if m == "newton":
         bases = prob.bases(cell.basis) if cell.basis else None
         return baselines.newton(clients, x0, xs, steps, bases=bases,
@@ -492,6 +494,14 @@ def _progress_hook(exp: Experiment, cell: MethodCell, prob: Problem,
     return StreamHook(every=every, callback=report)
 
 
+def _layout_n(cell: MethodCell, prob) -> int:
+    """The client count a sharded cell spreads over the ranks: the fleet,
+    or a streaming cell's cohort capacity."""
+    if isinstance(prob, StreamProblem):
+        return cohort.capacity(int(cell.params_dict().get("cohort", prob.n)), prob.n)
+    return prob.n
+
+
 def run_experiment(exp: Experiment, out_dir: str, artifacts_dir: str, *,
                    force: bool = False, max_steps: Optional[int] = None,
                    cells: Optional[Sequence[str]] = None,
@@ -504,10 +514,15 @@ def run_experiment(exp: Experiment, out_dir: str, artifacts_dir: str, *,
     are *skipped* (status "cached") unless ``force`` — re-running a partial
     sweep is idempotent and completes only the missing cells.  Figure CSVs
     are regenerated from the artifacts every time.  ``device`` (``None``:
-    the card) is resolved only when a cell runs.  Returns one summary dict
-    per (cell, seed).
+    the card) is resolved only when a cell runs.  Under a world of several
+    ranks (``torchrun``) every rank runs the cells and rank 0 alone logs
+    and writes.  Returns one summary dict per (cell, seed).
     """
     summaries = []
+    # under a world of several ranks every rank runs the cells, rank 0 writes
+    mesh.init_from_env(device)
+    writer = mesh.world()[0] == 0
+    log = mesh.rank0(log)
     sweep_seeds = tuple(seeds) if seeds is not None else exp.seeds
     run_cells = (exp.cells if cells is None
                  else tuple(exp.cell(c) for c in cells))
@@ -528,9 +543,11 @@ def run_experiment(exp: Experiment, out_dir: str, artifacts_dir: str, *,
                     dev = _device.resolve(device)
                     prob = build_problem(exp.problem, dev)
                 backend = resolve_backend(cell.backend)
-                if backend != cell.backend:
-                    log(f"  {exp.name}/{cell.name}: backend {cell.backend} → "
-                        f"{backend} (one rank)")
+                if backend.endswith("+sharded"):
+                    lay = mesh.client_group(_layout_n(cell, prob), dev).describe()
+                    log(f"  {exp.name}/{cell.name}: backend {backend} on "
+                        f"{lay['world_size']} rank(s), {lay['ndev']} holding clients "
+                        f"({lay['n_local']} each), process group {lay['backend']}")
                 stream = None
                 if progress_every and cell.method in ("bl1", "bl2", "bl3"):
                     stream = _progress_hook(exp, cell, prob,
@@ -543,10 +560,11 @@ def run_experiment(exp: Experiment, out_dir: str, artifacts_dir: str, *,
                 runtime = time.perf_counter() - t0
                 record = artifacts.cell_record(exp, cell, seed, eff_steps,
                                                hist, runtime_s=runtime)
-                artifacts.write_json(path, record)
+                if writer:
+                    artifacts.write_json(path, record)
                 status = "ran"
             csv_file = None
-            if seed == sweep_seeds[0]:
+            if seed == sweep_seeds[0] and writer:
                 csv_file = artifacts.write_fig_csv(out_dir, record)
             b2t = record["bits_to_tol"]
             summaries.append({

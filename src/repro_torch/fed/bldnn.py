@@ -149,12 +149,14 @@ def run_bldnn(loss_fn, eval_fn, params0: dict, batch: TreeBatch, steps: int,
     Args are the reference's (`repro.fed.bldnn.run_bldnn`), plus ``device``:
     the run's device, ``None`` meaning ``"cuda"`` (raises without a GPU);
     parameters, data and basis are moved there.  ``seed`` keys the rounds
-    (the per-leaf draws of a stochastic compressor, ``rtopk``); ``exact``
-    is accepted for the reference's signature: the "fast" backend reduces
-    exactly.  ``basis`` overrides
-    the basis built from ``params0`` (carry the reference's per-layer SVD
-    factors here: they are not unique).  "fast+sharded" raises until
-    ROADMAP.md §1 item 13.
+    (the per-leaf draws of a stochastic compressor, ``rtopk``).
+    "fast+sharded" shards the clients over the ranks of a
+    `torch.distributed` world (`rounds.ShardedReducer`; one process is a
+    one-rank world) and ``exact`` chooses its collectives: the bitwise
+    gather (default), or `BLDNNSpec.reduce_plan`, under which the Fisher
+    leg reduces the compress-sum codec's local sums (kernel 2's second
+    output).  ``basis`` overrides the basis built from ``params0`` (carry
+    the reference's per-layer SVD factors here: they are not unique).
 
     Returns a `History`: ``gaps`` is the training error rate,
     ``metrics["loss"]`` the loss stream, ``legs`` the per-leg bit streams
@@ -162,10 +164,6 @@ def run_bldnn(loss_fn, eval_fn, params0: dict, batch: TreeBatch, steps: int,
     ``hess_up``, the basis shipment on ``basis_ship``)."""
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-    if backend == "fast+sharded":
-        raise NotImplementedError(
-            "backend='fast+sharded' is not ported yet: ROADMAP.md §1 item 13 "
-            "(torch.distributed reducer) brings it")
     dev = _device.resolve(device)
     params0 = tree_map(lambda p: p.to(dev), params0)
     batch = TreeBatch(data=tree_map(lambda x: x.to(dev), batch.data),
@@ -186,5 +184,6 @@ def run_bldnn(loss_fn, eval_fn, params0: dict, batch: TreeBatch, steps: int,
         basis, ship_bits = basis.to(dev).shipped(ship)
     spec = build_spec(loss_fn, eval_fn, params0, cfg, basis_ship_bits=ship_bits)
     evals, leds = rounds.run_rounds(spec, batch, basis, params0, 0.0, steps,
-                                    seed=seed, stream=stream)
+                                    seed=seed, stream=stream,
+                                    sharded=backend == "fast+sharded", exact=exact)
     return batched._history(evals, leds)

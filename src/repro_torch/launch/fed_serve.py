@@ -54,10 +54,18 @@ engine.  Fault injection additionally requires the method to react to
 availability (`MethodSpec.supports_faults`: bl2/bl3 partial participation,
 fednl_bag lazy aggregation) — serving bl1 works, but injecting faults into
 it is refused rather than silently ignored.  Runs on the card unless
-``device="cpu"`` / ``--device cpu``.  ``fast+sharded`` runs the
-single-device path while the process is one rank (the serve config keeps
-the string, so the digest is the reference's); across ranks it, and
-``cohort+sharded``, raise (ROADMAP.md §1 item 13).
+``device="cpu"`` / ``--device cpu``.
+
+``fast+sharded`` and ``cohort+sharded`` shard the fleet (or each cohort)
+over the ranks of a `torch.distributed` world (``torchrun --nproc-per-node
+W -m repro_torch.launch.fed_serve …``; one process is a one-rank world):
+each rank runs its clients' rows of the carry, rank 0 writes the ckpt@2
+checkpoints from carries gathered to the one-rank layout (and the result
+record), and a checkpoint taken at one world size resumes at another bit
+for bit.  A rank killed mid-run ends the others with an error from the
+next collective (they time out after ``REPRO_DIST_TIMEOUT_S`` at the
+latest), never a hang or a zero exit.  The record's ``meta.layout`` states
+the world, the ranks holding clients and the process-group backend.
 """
 from __future__ import annotations
 
@@ -76,6 +84,7 @@ from ..core import batched, cohort, comm, faults, prng, rounds
 from ..exp import artifacts
 from ..exp.engine import StreamProblem, _comp, build_problem, build_stream_spec, resolve_backend
 from ..exp.registry import get_experiment
+from . import mesh
 
 #: methods the serve loop can drive (GLM specs; the DNN spec's pytree
 #: eval stream needs a different stream accumulator)
@@ -129,9 +138,8 @@ def serve_config(exp, cell, seed: int, backend: str, plan: faults.FaultPlan) -> 
 
 
 def _resolve_backend(cell, override: Optional[str]) -> str:
-    """The serve config's backend string; ``fast+sharded`` runs the
-    single-device path on one rank and raises across ranks
-    (`exp.engine.resolve_backend`)."""
+    """The serve config's backend string: ``fast``, or ``fast+sharded``
+    over the ranks of this process's world."""
     backend = override or cell.backend
     if backend == "auto":
         backend = "fast"
@@ -140,8 +148,7 @@ def _resolve_backend(cell, override: Optional[str]) -> str:
             f"fed_serve runs on the engine backends 'fast' or "
             f"'fast+sharded', not {backend!r} (the reference backend has "
             "no checkpointable scan carry)")
-    resolve_backend(backend)
-    return backend
+    return resolve_backend(backend)
 
 
 def _resolve_cohort_backend(cell, override: Optional[str]) -> str:
@@ -153,8 +160,7 @@ def _resolve_cohort_backend(cell, override: Optional[str]) -> str:
             f"a synthetic_stream cell serves on the 'cohort' or "
             f"'cohort+sharded' backends, not {backend!r} (the stacked "
             "backends would materialize the whole fleet on device)")
-    resolve_backend(backend)        # cohort+sharded: ROADMAP.md §1 item 13
-    return backend
+    return resolve_backend(backend)
 
 
 def _host(x) -> np.ndarray:
@@ -416,7 +422,10 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
     root_key = prng.PRNGKey(seed)
     t0_wall = time.perf_counter()      # time-to-first-round starts here
     eng = cohort.CohortEngine(spec, prob.store, prob.x0, cohort=csize, rounds_per_cohort=rpc,
-                              root_key=root_key, basis=basis)
+                              root_key=root_key, basis=basis,
+                              sharded=backend == "cohort+sharded")
+    writer = mesh.world()[0] == 0
+    log = mesh.rank0(log)
     w0 = time.perf_counter()
     ck = artifacts.load_checkpoint(ckpt_dir, config_digest=digest)
     resumed_from = restore_s = None
@@ -433,7 +442,7 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
         log(f"[serve] {exp.name}/{cell.name}: fresh run (config {digest}, "
             f"cohort {eng.cohort}/{eng.n})")
 
-    sink = MetricsSink(metrics_out) if metrics_out else None
+    sink = MetricsSink(metrics_out) if metrics_out and writer else None
     f_star = cohort.store_loss(prob.store, prob.x_star) if sink else None
     chunks_run = 0
     ttfr_s = None
@@ -462,10 +471,11 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
                 crash.maybe_crash(t - 1)
             w0 = time.perf_counter()
             leaves, host_state = eng.checkpoint_payload()
-            artifacts.save_checkpoint(
-                ckpt_dir, t=t, carry_leaves=leaves, streams=streams,
-                root_key=_key_data(root_key), config_digest=digest, keep=keep,
-                host_state=host_state)
+            if writer:
+                artifacts.save_checkpoint(
+                    ckpt_dir, t=t, carry_leaves=leaves, streams=streams,
+                    root_key=_key_data(root_key), config_digest=digest, keep=keep,
+                    host_state=host_state)
             ckpt_s.append(time.perf_counter() - w0)
     finally:
         eng.close()
@@ -498,8 +508,9 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
         # each round this call ran: the global indices of the clients that
         # uploaded (`CohortEngine.uploads`; None in full mode)
         "uploads": uploads if not eng.full else None,
+        "layout": eng.layout,
     })
-    if result_path:
+    if result_path and writer:
         artifacts.write_json(result_path, record)
         log(f"[serve] result → {result_path}")
     log(f"[serve] {t} rounds, final gap {record['history']['gaps'][-1]:.3e}, "
@@ -551,17 +562,32 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
     crash = (faults.CrashInjector(crash_after_round)
              if crash_after_round is not None else None)
     x0, x_star = prob.x0, prob.x_star
+    sharded = backend == "fast+sharded"
+    R = rounds.make_reducer(spec, batch.n, x0.device, sharded=sharded)
+    # the ranks off the client group hold no carry: they serve the streams
+    # rank 0 shares, and rank 0 alone logs and writes
+    active = not sharded or R.group.active
+    writer = mesh.world()[0] == 0
+    log = mesh.rank0(log)
+    flags = rounds.carry_client_flags(spec, batch, basisb, x0) if sharded else None
 
     config = serve_config(exp, cell, seed, backend, plan)
     digest = artifacts.config_digest(config)
     t0_wall = time.perf_counter()      # time-to-first-round starts here
-    template = rounds.init_serve_carry(spec, batch, basisb, x0)
+    template = rounds.init_serve_carry(spec, batch, basisb, x0, sharded=sharded)
     w0 = time.perf_counter()
     ck = artifacts.load_checkpoint(ckpt_dir, config_digest=digest)
     resumed_from = restore_s = None
     if ck is not None:
         t = int(ck["t"])
-        carry = _rebase_coefficients(ck, _restore_carry(ck, template), basisb, cell.method)
+        carry = None
+        if active:
+            # the checkpoint holds the one-rank carry: rebased in the fleet's
+            # basis, then cut to this rank's rows
+            fleet = _rebase_coefficients(
+                ck, _restore_carry(ck, rounds.fleet_template(template, R, flags)),
+                basisb, cell.method)
+            carry = rounds.shard_carry(fleet, R, flags)
         streams = {name: np.asarray(ck["streams"][name]) for name in _STREAMS}
         root_key = torch.as_tensor(np.asarray(ck["root_key"]).astype(np.int64))
         resumed_from, restore_s = t, time.perf_counter() - w0
@@ -574,7 +600,7 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
         root_key = prng.PRNGKey(seed)
         log(f"[serve] {exp.name}/{cell.name}: fresh run (config {digest})")
 
-    sink = MetricsSink(metrics_out) if metrics_out else None
+    sink = MetricsSink(metrics_out) if metrics_out and writer else None
     f_star = batched._f_star(batch, x_star)
     chunks_run = 0
     waited_total = 0.0
@@ -589,7 +615,7 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
         else:
             avail, waited = plan.schedule(t, steps)
         carry, ys = rounds.run_chunk(spec, batch, basisb, x0, carry, t, steps, root_key,
-                                     avail=avail)
+                                     avail=avail, sharded=sharded)
         streams = _append_chunk(streams, ys)
         chunk_s.append(time.perf_counter() - w0)
         t += steps
@@ -614,10 +640,15 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
             # the resume path must recompute it (the acceptance scenario)
             crash.maybe_crash(t - 1)
         w0 = time.perf_counter()
-        artifacts.save_checkpoint(
-            ckpt_dir, t=t, carry_leaves=[_host(leaf) for leaf in rounds.carry_leaves(carry)],
-            streams=streams, root_key=_key_data(root_key), config_digest=digest, keep=keep,
-            host_state=fingerprint)
+        if active:
+            # the carry gathered to the one-rank layout (a collective over
+            # the client group); rank 0 writes it
+            leaves = [_host(leaf) for leaf in rounds.carry_leaves(carry, R, flags)]
+            if writer:
+                artifacts.save_checkpoint(
+                    ckpt_dir, t=t, carry_leaves=leaves, streams=streams,
+                    root_key=_key_data(root_key), config_digest=digest, keep=keep,
+                    host_state=fingerprint)
         ckpt_s.append(time.perf_counter() - w0)
 
     evals = spec.eval_streams(batch, torch.as_tensor(streams["eval_x"], device=x0.device), f_star)
@@ -635,8 +666,9 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
         "checkpoint_s": ckpt_s,
         "restore_s": restore_s,
         "progcache": None,
+        "layout": R.group.describe() if sharded else None,
     })
-    if result_path:
+    if result_path and writer:
         artifacts.write_json(result_path, record)
         log(f"[serve] result → {result_path}")
     log(f"[serve] {t} rounds, final gap {record['history']['gaps'][-1]:.3e}, "
@@ -722,6 +754,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
+    # under torchrun: the world first (the backend rule reads the device)
+    mesh.init_from_env(args.device)
     exp = get_experiment(args.exp)
     prob = build_problem(exp.problem, device=_device.resolve(args.device))
     serve(exp_name=args.exp, cell_name=args.cell, seed=args.seed,

@@ -11,8 +11,8 @@ runs at full width in bfloat16 at the `--shape`'s sizes (`sizes`): its
 batch, prompts of half its length and a cache of its length; the
 `decode_4k_*` shapes are the ones one card holds.  Weights are drawn from
 a generator seeded 0 (there is no checkpoint), prompts from numpy's
-generator seeded 0.  Runs on the CUDA device unless `--device cpu`.  `--multi-pod` needs the sharded port
-(ROADMAP.md §1 item 13) and raises.
+generator seeded 0.  Runs on the CUDA device unless `--device cpu`.  `--multi-pod` needs LM sharding
+(ROADMAP.md §1 item 18.7) and raises.
 """
 from __future__ import annotations
 
@@ -104,7 +104,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.multi_pod:
         raise NotImplementedError("--multi-pod serves on a sharded mesh: ROADMAP.md §1 "
-                                  "item 13 (sharding) brings it")
+                                  "item 18.7 (LM sharding) brings it")
 
     if args.debug:
         cfg = get_config(args.arch).reduced()

@@ -2,8 +2,8 @@
 the port's one-card serve shapes.
 
 The reference's sharded ``*_struct`` input specs describe
-inputs on a production mesh; they come with the sharded port (ROADMAP.md
-§1 item 13).
+inputs on a production mesh; they come with LM sharding (ROADMAP.md §1
+item 18.7).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
 def _sharded(name):
     def stub(*args, **kwargs):
         raise NotImplementedError(f"{name} builds sharded input specs on a production "
-                                  f"mesh: ROADMAP.md §1 item 13 (sharding) brings it")
+                                  f"mesh: ROADMAP.md §1 item 18.7 (LM sharding) brings it")
     stub.__name__ = name
     return stub
 

@@ -2,8 +2,8 @@
 `repro.models.steps`.
 
 Each factory closes over the config and returns a plain function.  The
-reference's factories also take sharding rules; the port runs on one
-device and has none (ROADMAP.md §1 item 13).  The train step, the fused
+reference's factories also take sharding rules; the port runs the LM on
+one device and has none (LM sharding is ROADMAP.md §1 item 18.7).  The train step, the fused
 vocabulary-parallel cross entropy and AdamW are ROADMAP.md §1 item 18's
 later part.
 """

@@ -171,10 +171,14 @@ def test_fednl_bag_errors(small):
     args = (tc, tmake_bases("standard", tc), [tcomp.RankR(1)] * N, tx0, txs, 2)
     with pytest.raises(ValueError, match="spec-only"):
         tbase.fednl_bag(*args, backend="reference", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tbase.fednl_bag(*args, exact=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tbase.fednl_bag(*args, backend="fast+sharded", device="cpu")
+    # the sharded reducer (ROADMAP.md §1 item 13): one process is a one-rank
+    # world, bitwise the fast path in both modes (exact is ignored off it)
+    fast = tbase.fednl_bag(*args, device="cpu")
+    for kw in ({"exact": False}, {"backend": "fast+sharded"},
+               {"backend": "fast+sharded", "exact": False}):
+        h = tbase.fednl_bag(*args, device="cpu", **kw)
+        assert (h.gaps, h.up_bits, h.down_bits, h.legs) == \
+            (fast.gaps, fast.up_bits, fast.down_bits, fast.legs), kw
     with pytest.raises(ValueError, match="stackable"):
         tbase.fednl_bag(*args[:2], [tcomp.RankR(1)] * (N - 1) + [tcomp.RankR(2)], *args[3:],
                         device="cpu")

@@ -194,8 +194,8 @@ def test_table2_problem_kind():
     stream = problems.build_problem(
         problems.ProblemSpec(kind="synthetic_stream", n_clients=12, m=8, d=6), device="cpu")
     assert (stream.n, stream.d, stream.store.A.shape) == (12, 6, (12, 8, 6))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        problems.engine.resolve_backend("cohort+sharded")
+    # the sharded cohort backend runs as named (ROADMAP.md §1 item 13)
+    assert problems.engine.resolve_backend("cohort+sharded") == "cohort+sharded"
     with pytest.raises(ValueError, match="unknown problem kind"):
         problems.build_problem(problems.ProblemSpec(kind="libsvm"), device="cpu")
 

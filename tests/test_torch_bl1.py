@@ -154,6 +154,11 @@ def test_unknown_backend_raises_value_error(small):
 
 @pytest.mark.parametrize("backend,item", [("reference", "17"), ("fast+sharded", "13")])
 def test_unported_backends_raise_naming_roadmap_item(small, backend, item):
+    if backend == "fast+sharded":
+        # item 13 is ported: one process is a one-rank world, bitwise "fast"
+        assert tbl.bl1(*_args(small[-1]), backend=backend, device="cpu") == \
+            tbl.bl1(*_args(small[-1]), backend="fast", device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
         tbl.bl1(*_args(small[-1]), backend=backend, device="cpu")
 
@@ -206,8 +211,13 @@ def test_run_rounds_options_not_ported_raise(small):
     spec, batch, basisb = batched.bl1_setup(port.clients, port.bases,
                                             [tcomp.TopK(k=6)] * 4, tcomp.Identity())
     f_star = torch.tensor(0.0, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 2, sharded=True)
+    # the sharded reducer (ROADMAP.md §1 item 13) on a one-rank world: the
+    # reference's one-device mesh, bitwise the single-device run
+    ev_s, led_s = rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 2, sharded=True)
+    ev_v, led_v = rounds.run_rounds(spec, batch, basisb, port.x0, f_star, 2)
+    assert torch.equal(ev_s["gap"], ev_v["gap"])
+    assert all(torch.equal(getattr(led_s, leg), getattr(led_v, leg))
+               for leg in led_v.LEGS)
     # the stream hook is ported (the experiment layer): it fires every round
     # here and leaves the run bitwise as it is without it
     seen = []

@@ -398,9 +398,15 @@ def test_unported_paths_raise_naming_their_item(small):
     with pytest.raises(NotImplementedError, match="item 9's remainder"):
         tbldnn.make_synthetic_classification(seed=0, n_clients=2, m=4, d=6,
                                              classes=2, width=4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tbldnn.run_bldnn(None, None, conv.params0, conv.batch, 1,
-                         backend="fast+sharded", device="cpu")
+    # "fast+sharded" (ROADMAP.md §1 item 13) on a one-rank world: bitwise
+    # the fast path, in both modes
+    fns = (tbldnn.make_loss_fn(4), tbldnn.make_eval_fn())
+    fast = tbldnn.run_bldnn(*fns, conv.params0, conv.batch, 2, basis=conv.basis,
+                            device="cpu")
+    for exact in (True, False):
+        h = tbldnn.run_bldnn(*fns, conv.params0, conv.batch, 2, basis=conv.basis,
+                             backend="fast+sharded", exact=exact, device="cpu")
+        assert (h.gaps, h.metrics, h.legs) == (fast.gaps, fast.metrics, fast.legs)
 
 
 def test_fig_dnn_rtopk_from_fixture_matches_artifact():

@@ -433,9 +433,20 @@ def test_constructor_and_restore_refuse_bad_input():
     with pytest.raises(ValueError, match="convention basis"):
         cohort.CohortEngine(_bl2(8, 8), store, x0, cohort=8, rounds_per_cohort=1,
                             root_key=key, basis="data_outer")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cohort.CohortEngine(_bl2(8, 8), store, x0, cohort=4, rounds_per_cohort=1,
-                            root_key=key, sharded=True)
+    # sharded=True (ROADMAP.md §1 item 13) on a one-rank world: the cohort
+    # engine unsharded, bit for bit
+    runs = []
+    for sharded in (False, True):
+        fleet = client_batch.synthetic_store(1, 8, M, D)
+        e = cohort.CohortEngine(_bl2(8, 8), fleet, torch.zeros(D, dtype=torch.float64), cohort=4,
+                                rounds_per_cohort=1, root_key=key, sharded=sharded)
+        runs.append((e.run_chunk(0, 3), e.uploads, fleet.state))
+        e.close()
+    (xa, la, _), ua, sa = runs[0]
+    (xb, lb, _), ub, sb = runs[1]
+    assert torch.equal(xa, xb) and torch.equal(la.hess_up, lb.hess_up)
+    assert [u.tolist() for u in ua] == [u.tolist() for u in ub]
+    assert all(np.array_equal(sa[k], sb[k]) for k in sa)
     eng = _engine(64, 16, 16)
     with pytest.raises(ValueError, match="lacks.*frozen"):
         eng.restore(4, eng.carry_template(), {})
@@ -461,8 +472,8 @@ def test_bare_cohort_reducer_mean_and_max_raise():
 
 def test_stream_backends():
     assert engine.resolve_backend("cohort") == "cohort"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        engine.resolve_backend("cohort+sharded")
+    # the sharded cohort backend (ROADMAP.md §1 item 13) runs as named
+    assert engine.resolve_backend("cohort+sharded") == "cohort+sharded"
     exp = registry.get_experiment("fig1-xxl")
     assert exp.problem.kind == "synthetic_stream" and exp.problem.n_clients == 131072
     assert {c.backend for c in exp.cells} == {"cohort"}

@@ -1,7 +1,7 @@
 """The port's sweep engine on the CPU: `run_experiment` for fig1r1 (4 cells,
 12 rounds) and fig-dnn's BLDNN cell (40 rounds) against the committed
-artifacts, resume, the stream hook, the one-rank ``"fast+sharded"``
-backend and what is not ported yet."""
+artifacts, resume, the stream hook, ``"fast+sharded"`` on one rank and
+across 4 gloo ranks, and what is not ported yet."""
 import dataclasses
 import json
 import os
@@ -154,8 +154,10 @@ def _narrow_xl():
 
 
 def test_fast_sharded_cell_runs_single_device_path_on_one_rank(tmp_path):
+    """fig1-xl's backend runs the sharded reducer; one process is a
+    one-rank world, the reference's one-device mesh: bitwise "fast"."""
     exp, cell = _narrow_xl()
-    assert cell.backend == "fast+sharded" and engine.resolve_backend(cell.backend) == "fast"
+    assert cell.backend == "fast+sharded" and engine.resolve_backend(cell.backend) == cell.backend
     prob = engine.build_problem(exp.problem, "cpu")
     h = engine.run_cell(exp, cell, prob, device="cpu")
     assert h == engine.run_cell(exp, cell, prob, backend="fast", device="cpu")
@@ -163,24 +165,61 @@ def test_fast_sharded_cell_runs_single_device_path_on_one_rank(tmp_path):
     lines = []
     engine.run_experiment(exp, str(tmp_path), str(tmp_path / "exp"), log=lines.append,
                           device="cpu")
-    assert "fig1-xl/BL1: backend fast+sharded → fast (one rank)" in lines[0]
+    assert ("fig1-xl/BL1: backend fast+sharded on 1 rank(s), 1 holding clients (6 each), "
+            "process group none") in lines[0]
 
 
-def test_fast_sharded_across_ranks_raises_item_13(monkeypatch):
+_ACROSS_RANKS = """
+import dataclasses, json, sys
+import torch
+from repro_torch.exp import engine, registry
+torch.set_num_threads(1)
+exp = registry.get_experiment("fig1-xl")
+cell = dataclasses.replace(exp.cells[0], steps=3,
+                           hess_comp=registry.CompressorCfg(kind="topk", k=64))
+exp = dataclasses.replace(exp, problem=dataclasses.replace(exp.problem, n_clients=6, m=8,
+                                                           d=24, r=8), cells=(cell,))
+h = engine.run_cell(exp, cell, engine.build_problem(exp.problem, "cpu"), device="cpu")
+print(json.dumps([h.gaps, h.up_bits, h.down_bits, h.legs]))
+"""
+
+
+def test_fast_sharded_across_ranks_raises_item_13():
+    """fig1-xl's "fast+sharded" across 4 ranks (ROADMAP.md §1 item 13 is
+    ported): 3 of them hold the 6 clients, one sits out, and every rank
+    returns the one-process history bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
     exp, cell = _narrow_xl()
     prob = engine.build_problem(exp.problem, "cpu")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 4)
-    with pytest.raises(NotImplementedError, match="across 4 ranks.*item 13"):
-        engine.run_cell(exp, cell, prob, device="cpu")
+    one = engine.run_cell(exp, cell, prob, backend="fast", device="cpu")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(4):
+        env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(r),
+                   WORLD_SIZE="4", LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="4")
+        procs.append(subprocess.Popen([sys.executable, "-c", _ACROSS_RANKS], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert json.loads(out.splitlines()[-1]) == [one.gaps, one.up_bits, one.down_bits,
+                                                     one.legs]
 
 
 def test_unported_problems_and_backends_raise_naming_their_item():
     smoke = engine.build_problem(registry.get_experiment("cohort-smoke").problem, "cpu")
     assert isinstance(smoke, engine.StreamProblem) and smoke.n == 96
     assert engine.resolve_backend("cohort") == "cohort"
-    with pytest.raises(NotImplementedError, match="cohort\\+sharded.*item 13"):
-        engine.resolve_backend("cohort+sharded")
+    # the sharded cohort backend (ROADMAP.md §1 item 13) runs as named
+    assert engine.resolve_backend("cohort+sharded") == "cohort+sharded"
     with pytest.raises(NotImplementedError, match="item 9's remainder"):
         engine.build_problem(registry.DNNProblemSpec(seed=1), "cpu")
     exp = registry.get_experiment("fig1r1")

@@ -32,7 +32,7 @@ def test_port_files_are_found():
             "ssd_scan.py", "model.py", "steps.py", "config.py", "convert.py", "serve.py",
             "shapes.py", "gemma3_4b.py", "mamba2_370m.py", "registry.py", "engine.py",
             "artifacts.py", "metrics.py", "__main__.py", "cohort.py", "faults.py",
-            "fed_serve.py"} <= names
+            "fed_serve.py", "mesh.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

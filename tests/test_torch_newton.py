@@ -215,6 +215,11 @@ def _newton_args(port):
 
 @pytest.mark.parametrize("backend,item", [("reference", "17"), ("fast+sharded", "13")])
 def test_unported_backends_raise_naming_roadmap_item(small, backend, item):
+    if backend == "fast+sharded":
+        # item 13 is ported: one process is a one-rank world, bitwise "fast"
+        assert baselines.newton(*_newton_args(small[-1]), backend=backend, device="cpu") == \
+            baselines.newton(*_newton_args(small[-1]), backend="fast", device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
         baselines.newton(*_newton_args(small[-1]), backend=backend, device="cpu")
 

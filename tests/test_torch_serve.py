@@ -28,7 +28,7 @@ mirroring `tests/test_serve.py` and `tests/test_cohort.py`'s serve tests.
   * `MetricsSink` overwrites a torn tail and a resume emits no round twice;
   * the refusals: faults on bl1 ("synchronous"), a fault plan or a stacked
     backend on a cohort cell, the reference backend, ``--progcache-dir``
-    (item 16), ``cohort+sharded`` (item 13).
+    (item 16); and ``cohort+sharded`` served on a one-rank world.
 """
 import contextlib
 import io
@@ -527,7 +527,9 @@ def test_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 16"):
         fed_serve.serve(exp_name="fig4", cell_name="BL2_tau_half", ckpt_dir=d, max_rounds=2,
                         progcache_dir=d, device="cpu", **QUIET)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fed_serve.serve(exp_name="cohort-smoke", cell_name="BL2", ckpt_dir=d, max_rounds=2,
-                        backend="cohort+sharded", device="cpu", **QUIET)
     assert artifacts.list_checkpoints(d) == []
+    # cohort+sharded (ROADMAP.md §1 item 13) serves, here on a one-rank world
+    rec = fed_serve.serve(exp_name="cohort-smoke", cell_name="BL2", ckpt_dir=str(tmp_path / "s"),
+                          max_rounds=2, backend="cohort+sharded", device="cpu", **QUIET)
+    assert rec["rounds"] == 2 and rec["meta"]["layout"]["ndev"] == 1
+    assert len(artifacts.list_checkpoints(str(tmp_path / "s"))) == 1
