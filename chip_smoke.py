@@ -23,8 +23,10 @@ is non-zero and no result line is printed:
                 (10, 120²) layouts, the (10, 120) model streams,
                 FedNL-BC's (10, 7260) upper triangles at k = 7200, the
                 basis grid's blocks at k = T and full layouts, a1a's
-                blocks, and the cohort path's (512, 576) k = 48 and
-                (16, 64) k = 16, whose device time is taken on every run),
+                blocks, the cohort path's (512, 576) k = 48 and
+                (16, 64) k = 16, and a sharded rank's rows (5, 576),
+                (5, 14400), (256, 1024) and (256, 576), whose device time
+                is taken on every run),
                 each also held bitwise at k = T − 1 and T;
   4. kernels_matmul — the tiled-matmul kernel against its plain version and
                 float64 (within 1e-5 of the larger magnitude of each), and
@@ -195,7 +197,7 @@ is non-zero and no result line is printed:
                 fig4/BL2_tau_half served under the serve smoke's fault plan
                 to round 12, then resumed here on one rank: bitwise the
                 uninterrupted one-rank serve and held to fed_serve_ref.json;
-                at W = 2 fig1-xl/BL1 (3 rounds at full width) exact and
+                at W = 2 fig1-xl/BL1 (2 rounds at full width) exact and
                 exact=False, and fig1-xxl/BL2 on cohort+sharded held to its
                 file with the participants equal.  Each case prints W, the
                 ranks holding clients, the process-group backend, s/round
@@ -239,7 +241,41 @@ is non-zero and no result line is printed:
                 prefill, no other kernel, and no launch in decode.  A
                 reduced reading above 10x the usual 2.4e-6 prints one more
                 line: the largest differences, where they sit (the compared
-                logits or cache leaf, its index) and both sides' values.
+                logits or cache leaf, its index) and both sides' values;
+  13. kernels_attn_bwd / kernels_ssd_bwd — the backward kernels of kernels
+                5 and 6 (`flash_attention_bwd.cu`, `ssd_scan_bwd.cu`)
+                through their autograd Functions against autograd through
+                the plain versions in float64, the truth (kernel 5's dq, dk,
+                dv within 1e-4·max|f64| in f32, elementwise within one bf16
+                ulp of the f64 value + 1e-4·max|f64| in bf16; kernel 6's dx,
+                ddt, dA, dB, dC within 1e-4·max|f64|), at the train path's
+                shapes (gemma3's global and window-1024 layers at (1, 4096,
+                8 | 4, 256) in both types; mamba2's layer at (8, 4096, 32,
+                64), N 128, with A and dt drawn as its init makes them) and
+                edge cases (among them decays of up to exp(−550) a step),
+                bitwise over two reruns at the path's shapes, each launch's
+                registers and spill bytes printed, and timed beside the
+                plain version's backward, the library's (SDPA's backward;
+                none for the SSD) and the bound;
+  14. train   — the LM training path (`repro_torch.launch.train`,
+                `models.steps.make_train_step`): gemma3-4b and mamba2-370m
+                reduced in float32 on the card against the CPU from the same
+                weights and batches (3 steps' losses within 2e-4 relative,
+                step 0's gradients within 2e-4·max|ref| a leaf), then at full
+                width through `launch.train.main` (gemma3-4b at
+                train_4k_b1, mamba2-370m at train_4k_b8; bf16 weights and
+                AdamW moments, remat; 4 steps): every loss finite and
+                exactly 68 kernel-5 forward and 34 backward calls a step
+                (gemma3) or 96 kernel-6 forward and 48 backward (mamba2),
+                no other kernel; s/step, tokens/s, peak memory and set-up s;
+                then each cell again through the plain versions (losses
+                within 1e-2 relative of the kernels' at step 0, 5e-2 at
+                steps 1–3); and the bf16 witness: gemma3-4b at full width,
+                cut to 6 layers, one gradient on one 4096-token batch
+                through the kernels and through the plain versions in bf16,
+                each leaf's relative distance from the float32 plain
+                versions' gradient at most twice the bf16 plain versions'
+                (or 2⁻⁸).
 
 GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
 every bit stream exactly; a NaN gap agrees only with a NaN in the
@@ -257,8 +293,10 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import io
 import json
 import math
 import os
@@ -305,6 +343,13 @@ STOCHASTIC_THRESHOLD_SHAPES = (
 #: fig1-xxl's (512, 24²) k = 48 and cohort-smoke's (16, 8²) k = 16; timed
 #: with their device time on every run
 COHORT_THRESHOLD_SHAPES = ((512, 576, 48, "fig1-xxl"), (16, 64, 16, "cohort-smoke"))
+#: kernel 1 on the sharded path, a rank's rows (rows, T, k, where): fig1r1's
+#: and fig4/BL2's (5, 576) k = 24 and fig4/BL3's (5, 14400) k = 120 at W = 4
+#: (two ranks hold the 10 clients), fig1-xl's (256, 1024) k = 1024 and
+#: fig1-xxl's (256, 576) k = 48 at W = 2; timed with their device time
+SHARDED_THRESHOLD_SHAPES = ((5, 576, 24, "sharded/fig1r1"), (5, 14400, 120, "sharded/fig4-BL3"),
+                            (256, 1024, 1024, "sharded/fig1-xl"),
+                            (256, 576, 48, "sharded/fig1-xxl"))
 #: compressor kinds that select through kernel 1 (`topk_keep_mask`)
 TOPK_KINDS = ("topk", "rtopk", "ntopk")
 #: the cohort phase: the comparison fleet for the flat-in-n check (the same
@@ -313,8 +358,10 @@ TOPK_KINDS = ("topk", "rtopk", "ntopk")
 COHORT_FLAT_N = 1024
 COHORT_FLAT_RATIO = 2.0
 COHORT_TIMED_CHUNKS = 3
-#: rounds of simulated draws timed in the prng phase
-PRNG_COST_ROUNDS = 50
+#: rounds of simulated draws timed in the prng phase: the launch counts a
+#: round are exact at any length, and the profiled pass over fig-dnn/RTopK
+#: costs ~1.6 s a round (50 rounds held the whole script ~80 s longer)
+PRNG_COST_ROUNDS = 10
 #: the experiments the exp phase runs through the CLI: the paper's headline
 #: cell (kernel 1), BL-DNN (kernels 1, 2 and 4) and the full-width fig1-xl
 EXP_FIGS = ("fig1r1", "fig-dnn", "fig1-xl")
@@ -372,6 +419,58 @@ SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, "flash_attention"),
 #: the reduced configs of the card-against-CPU check (gemma3 with grouped
 #: KV heads, as at full width)
 SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {}}
+#: the backward kernels against float64 autograd through the plain versions,
+#: share of max|f64| (PERF.md §2); bf16 adds one bf16 ulp of the f64 value
+BWD_TOL = 1e-4
+#: gemma3-4b's training attention at train_4k_b1: (B, S, H, KVH, hd, window)
+#: of its global and its window-1024 layers
+ATTN_BWD_PATH = ((1, 4096, 8, 4, 256, None), (1, 4096, 8, 4, 256, 1024))
+#: edge cases: (name, B, Sq, Sk, H, KVH, hd, causal, window)
+ATTN_BWD_SWEEP = (("GQA rep 2, hd 64", 2, 128, 128, 4, 2, 64, True, None),
+                  ("window 64, hd 256", 1, 256, 256, 8, 4, 256, True, 64),
+                  ("Sq != Sk, non-causal", 2, 100, 260, 4, 2, 128, False, None),
+                  ("rows that see no key", 1, 90, 40, 2, 1, 64, False, 8),
+                  ("S 333 ragged, window 100", 1, 333, 333, 8, 4, 256, True, 100),
+                  ("S 77 ragged, hd 32", 3, 77, 77, 2, 2, 32, True, None),
+                  ("hd 80, padded to 128", 2, 64, 64, 2, 1, 80, True, None),
+                  ("GQA rep 8", 1, 128, 128, 8, 1, 64, True, 24))
+#: mamba2-370m's training SSD at train_4k_b8: (B, S, H, hd, N), 32 of
+#: kernel 6's 128-position chunks
+SSD_BWD_PATH = (8, 4096, 32, 64, 128)
+#: edge cases: (name, B, S, H, hd, N, with the final state's gradient,
+#: dt scale, A scale, dt's least value), dt uniform in [least, least +
+#: scale] and A in −scale·[0.1, 1.1]; None for the scales draws A and dt as
+#: mamba2-370m's init makes them (`ssd_bwd_phase`).  "strong decays" reach
+#: exp(−8) a step; "mixed decays" reach exp(−550) beside exp(−0.05), so
+#: a chunk's cumulative decay runs to −10⁴ while neighbours differ by
+#: −0.05 (kernel 6b's ddt read 2e-4 of max|f64| off here while it summed
+#: that decay in float32)
+SSD_BWD_SWEEP = (("two chunks, state gradient", 2, 256, 3, 64, 128, True, 0.5, 1.0, 0.01),
+                 ("S 200 ragged, N 16", 1, 200, 2, 32, 16, True, 0.5, 1.0, 0.01),
+                 ("head size 5, state size 3", 2, 150, 3, 5, 3, False, 0.5, 1.0, 0.01),
+                 ("hd 128, N 64", 1, 384, 4, 128, 64, True, 0.5, 1.0, 0.01),
+                 ("strong decays", 2, 300, 2, 64, 128, True, 0.7, 10.0, 0.01),
+                 ("mixed decays", 2, 300, 2, 64, 128, False, 10.0, 50.0, 0.01),
+                 ("mamba2 init, 3 chunks ragged, state gradient", 2, 300, 32, 64, 128, True,
+                  None, None, None))
+#: the train phase: full-width cells (arch, one-card shape, kernel), steps;
+#: the reduced card-against-CPU check's steps and its (batch, tokens)
+TRAIN_CELLS = (("gemma3_4b", "train_4k_b1", "flash_attention"),
+               ("mamba2_370m", "train_4k_b8", "ssd_scan"))
+TRAIN_STEPS = 4
+TRAIN_REDUCED_STEPS, TRAIN_REDUCED_SIZES = 3, (4, 64)
+TRAIN_TOL = 2e-4
+#: the bfloat16 witness (PERF.md §2): gemma3-4b at full width cut to one
+#: period of its layer pattern (5 window-1024 layers, then a global one),
+#: one gradient on one train_4k_b1 batch; a leaf's (and the loss's)
+#: relative distance from the float32 plain versions may be at most
+#: WITNESS_FACTOR times the bf16 plain versions', or WITNESS_FLOOR (one
+#: bf16 ulp, 2⁻⁸, relative; storing a gradient in bf16 alone costs half
+#: that); the full-depth cells' losses through the plain versions within
+#: WITNESS_LOSS_TOL of the kernels' (step 0, steps 1–3)
+WITNESS_LAYERS = 6
+WITNESS_FACTOR, WITNESS_FLOOR = 2.0, 2.0 ** -8
+WITNESS_LOSS_TOL = (1e-2, 5e-2)
 
 
 #: the sharded phase (the client-sharded reducer, its ranks sharing the one
@@ -382,7 +481,7 @@ SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {}}
 SHARDED_W, SHARDED_XL_W = 4, 2
 SHARDED_CELLS = (("fig1r1", "BL1"), ("fig4", "BL2_tau_half"), ("fig4", "BL3_tau_half"),
                  ("fig1-bag", "BAG_q0.5"), ("fig-dnn", "BLDNN"))
-SHARDED_XL_STEPS = 3
+SHARDED_XL_STEPS = 2
 SERVE_SMOKE_CASE, SERVE_SMOKE_STOP = "fig4/BL2_tau_half", 12
 SHARDED_TIMEOUT_S = 400
 #: the reference's envelope of exact=False around the exact run
@@ -469,7 +568,14 @@ class PortRandom:
         return x.cpu().tolist()
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's wall seconds so
+    far (`wall_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "wall_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -815,7 +921,8 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
 
     timings = {}
     for rows, T, k, path in ((10, 576, 24, "fig1r1"), (512, 1024, 1024, "fig1-xl"),
-                             *STOCHASTIC_THRESHOLD_SHAPES, *COHORT_THRESHOLD_SHAPES):
+                             *STOCHASTIC_THRESHOLD_SHAPES, *COHORT_THRESHOLD_SHAPES,
+                             *SHARDED_THRESHOLD_SHAPES):
         a = dev(np.abs(rng.standard_normal((rows, T))))
         if not torch.equal(tk.topk_row_threshold(a, k), tk.topk_row_threshold_plain(a, k)):
             raise AssertionError(f"threshold kernel != plain at {path} ({rows}, {T}) k={k}")
@@ -827,7 +934,8 @@ def kernel_phase(torch, tk, profile: bool) -> dict:
             "library_ms": cuda_ms(
                 torch, lambda: torch.topk(a, k, dim=1).values[:, -1:], 500),
             "bound_ms": bound, "bound_by": by}
-        if profile or path in {tag for *_, tag in COHORT_THRESHOLD_SHAPES}:
+        if profile or path in {tag for *_, tag in (*COHORT_THRESHOLD_SHAPES,
+                                                    *SHARDED_THRESHOLD_SHAPES)}:
             timings[path]["device_ms"] = device_ms(
                 torch, {"kernel": lambda: tk.topk_row_threshold(a, k)})["kernel"]
     return {"cases": len(cases), "max_abs_err": max_err, "timings": timings}
@@ -1841,11 +1949,13 @@ def drive(torch, k, run) -> tuple:
     launches by kernel, with the CUDA launches of kernel 2's and kernel 4's
     calls as ``topk_compress_sum_cuda`` and ``basis_transform_cuda``).
     Kernel 6's CUDA launches (``ss.cuda_launches``) are reset too, for the
-    caller to read."""
+    caller to read; the backward kernels' calls count as
+    ``flash_attention_bwd`` and ``ssd_scan_bwd``."""
     torch.cuda.synchronize()
     k.tk.launches = k.tk.compress_sum_launches = k.tk.compress_sum_cuda_launches = 0
     k.tm.launches = k.bt.launches = k.bt.cuda_launches = 0
     k.fa.launches = k.ss.launches = k.ss.cuda_launches = 0
+    k.fa.bwd_launches = k.ss.bwd_launches = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -1857,7 +1967,9 @@ def drive(torch, k, run) -> tuple:
                                            "basis_transform": k.bt.launches,
                                            "basis_transform_cuda": k.bt.cuda_launches,
                                            "flash_attention": k.fa.launches,
-                                           "ssd_scan": k.ss.launches}
+                                           "ssd_scan": k.ss.launches,
+                                           "flash_attention_bwd": k.fa.bwd_launches,
+                                           "ssd_scan_bwd": k.ss.bwd_launches}
 
 
 def check_dnn_history(name: str, hist, ref: dict) -> dict:
@@ -2136,6 +2248,440 @@ def ssd_kernel_phase(torch, ss) -> dict:
     return {"cases": cases, "max_abs_err": err, "timing": timing,
             "mixed_decay_y_rel_err": mixed, "cuda_launches_per_call": cuda_launches,
             "workspace_bytes_at_path_shape": 4 * lib.ssd_scan_workspace_floats(*SSD_PATH)}
+
+
+def attention_bwd_bound_ms(q, k, causal: bool, window) -> tuple:
+    """Least time for attention's gradient: q, k, v and dO read once and dq,
+    dk, dv written once in their type, or five products of 2·hd operations
+    a visible pair and query head (s, dP, dv, dq, dk) at the bfloat16
+    tensor-core rate (bfloat16 inputs) or the float32 rate, whichever is
+    larger."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    eb = q.element_size()
+    bytes_ms = eb * (3 * B * Sq * H * hd + 4 * B * Sk * KVH * hd) / HBM_BYTES_PER_S * 1e3
+    rate = BF16_OPS_PER_S if str(q.dtype) == "torch.bfloat16" else OPS32_PER_S
+    ops_ms = 10 * hd * B * H * attention_pairs(Sq, Sk, causal, window) / rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ssd_bwd_ops_bytes(B: int, S: int, H: int, hd: int, N: int, chunk: int) -> tuple:
+    """Operations of the SSD's gradient by the chunked algorithm at chunk c
+    from the forward's saved chunk states: per batch entry and chunk, M·B
+    and Mᵀ·C once for the heads (2 x 2c²N), and per head dy·uᵀ and Pᵀ·dy
+    (2 x 2c²hd) and five state products (dy ⊗ C summed into the state
+    gradient, R·B, C·S_in, and the state terms of dC and dB; 5 x 2c·hd·N);
+    and the bytes of x, dt, A, B, C, dy and the saved states read once and of
+    dx, ddt, dA, dB, dC written once, all float32."""
+    c = min(chunk, S)
+    nc = -(-S // c)
+    ops = B * nc * (4 * c * c * N + H * (4 * c * c * hd + 10 * c * hd * N))
+    bytes_ = 4 * (3 * B * S * H * hd + 2 * B * S * H + 2 * H + 4 * B * S * N
+                  + B * nc * H * hd * N)
+    return ops, bytes_
+
+
+def _bwd_err(name: str, got: dict, want: dict, bf16: bool) -> dict:
+    """Each output of a backward kernel against its float64 truth: the
+    largest |Δ| over max|f64| and the largest share of the limit (BWD_TOL ·
+    max|f64|, plus one bf16 ulp of the f64 value in bf16) an element takes;
+    raises past the limit."""
+    import torch
+
+    out = {}
+    for key, w in want.items():
+        d = (got[key].double() - w).abs()
+        scale = float(w.abs().max())
+        lim = torch.full_like(w, BWD_TOL * scale)
+        if bf16:
+            lim += torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w),
+                                                        torch.frexp(w)[1] - 8))
+        share = float((d / lim).max())
+        if not share <= 1.0:
+            raise AssertionError(f"{name}: {key} off its float64 truth by {float(d.max())} "
+                                 f"(max|f64| {scale}; {share:.3f} of the limit)")
+        out[key] = {"abs": float(d.max()), "rel": float(d.max()) / scale,
+                    "limit_share": share}
+    return out
+
+
+def attention_bwd_phase(torch, fa) -> dict:
+    """Kernel 5's backward through `FlashAttention` against float64 autograd
+    through `flash_attention_plain` (see _bwd_err), bitwise over reruns at
+    the path's shapes, then timed there in bf16 beside the plain version's
+    backward, SDPA's and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    def grads(q, k, v, do, causal, window):
+        ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*ins, causal=causal, window=window)
+        if out.grad_fn is None or out.dtype != q.dtype:
+            raise AssertionError("flash_attention on tensors that require a gradient "
+                                 "returned no grad_fn")
+        return dict(zip(("dq", "dk", "dv"), torch.autograd.grad(out, ins, do)))
+
+    def truth(q, k, v, do, causal, window):
+        ins = [x.double().detach().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention_plain(*ins, causal=causal, window=window)
+        return dict(zip(("dq", "dk", "dv"), torch.autograd.grad(out, ins, do.double())))
+
+    cases, errs, bitwise = [], {}, {}
+    for B, S, H, KVH, hd, w in ATTN_BWD_PATH:
+        cases.append((f"gemma3 train, window {w}", B, S, S, H, KVH, hd, True, w, True))
+    cases += [c + (False,) for c in ATTN_BWD_SWEEP]
+    for name, B, Sq, Sk, H, KVH, hd, causal, window, path in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            q, do = rnd(B, Sq, H, hd, dtype=dt), rnd(B, Sq, H, hd, dtype=dt)
+            k, v = rnd(B, Sk, KVH, hd, dtype=dt), rnd(B, Sk, KVH, hd, dtype=dt)
+            got = grads(q, k, v, do, causal, window)
+            tag = f"{name} ({str(dt)[6:]})"
+            errs[tag] = _bwd_err(f"flash_attention backward on {tag}", got,
+                                 truth(q, k, v, do, causal, window), dt == torch.bfloat16)
+            if path:
+                again = grads(q, k, v, do, causal, window)
+                bitwise[tag] = all(torch.equal(got[key], again[key]) for key in got)
+                if not bitwise[tag]:
+                    raise AssertionError(f"flash_attention backward on {tag}: two runs differ")
+            del q, k, v, do, got
+            torch.cuda.empty_cache()
+
+    timings = {}
+    for B, S, H, KVH, hd, w in ATTN_BWD_PATH:
+        q, do = rnd(B, S, H, hd, dtype=torch.bfloat16), rnd(B, S, H, hd, dtype=torch.bfloat16)
+        k, v = (rnd(B, S, KVH, hd, dtype=torch.bfloat16) for _ in range(2))
+        ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out_plain = fa.flash_attention_plain(*ins, causal=True, window=w)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+        if w is None:
+            out_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+            out_sdpa = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=fa.mask(S, S, True, w, q.device), enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def kernel():
+            return fa._kernel_bwd(q, k, v, do, True, w)
+
+        bound, by = attention_bwd_bound_ms(q, k, True, w)
+        fa.bwd_cuda_launches = 0
+        kernel()
+        cuda_launches = fa.bwd_cuda_launches
+        kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
+        timings["global" if w is None else f"window{w}"] = {
+            "shape": [B, S, H, KVH, hd], "window": w, "dtype": "bfloat16",
+            "kernel_ms": kernel_ms,
+            "device_ms": device_ms(torch, {"bwd": kernel}, reps=3)["bwd"],
+            "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                out_plain, ins, do, retain_graph=True), 3, warmup=1),
+            "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                out_sdpa, (qt, kt, vt), dot, retain_graph=True), 5, warmup=1),
+            "bound_ms": bound, "bound_by": by, "share": bound / kernel_ms,
+            "pairs_per_head": attention_pairs(S, S, True, w),
+            "cuda_launches_per_call": cuda_launches}
+        del q, k, v, do, ins, out_plain, qt, kt, vt, out_sdpa, dot
+        torch.cuda.empty_cache()
+    attrs = fa.backward_attributes()
+    return {"cases": len(cases) * 2, "errors": errs, "bitwise_reruns": bitwise,
+            "max_abs_err": max(e["abs"] for c in errs.values() for e in c.values()),
+            "max_rel_err": max(e["rel"] for c in errs.values() for e in c.values()),
+            "timings": timings, "templates": attrs,
+            "spills": {key: a["local_bytes"] for key, a in attrs.items() if a["local_bytes"]}}
+
+
+def ssd_bwd_phase(torch, ss) -> dict:
+    """Kernel 6's backward through `SSDScan` against float64 autograd
+    through `ssd_scan_plain` (see _bwd_err), bitwise over reruns at the
+    path's shape, then timed there beside the plain version's backward and
+    the bound (no single PyTorch call computes it)."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+
+    def inputs(B, S, H, hd, N, dt_scale=None, a_scale=None, dt_min=None):
+        """Scales None: A and dt as mamba2-370m's init makes them, A =
+        −exp(A_log) with A_log = log(1..H), dt = softplus(z + dt_bias) with
+        dt_bias 0 and z ~ N(0, 1), in_proj's dt columns (scale d^-½) on an
+        RMS-normalised input; dt·A reaches about −22 a step at the last
+        head, more in the tail of z."""
+        x = torch.randn(B, S, H, hd, device="cuda", generator=gen)
+        if dt_scale is None:
+            A = -torch.exp(torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                                  device="cuda")))
+            dt = torch.nn.functional.softplus(torch.randn(B, S, H, device="cuda",
+                                                          generator=gen))
+        else:
+            dt = torch.rand(B, S, H, device="cuda", generator=gen) * dt_scale + dt_min
+            A = -(torch.rand(H, device="cuda", generator=gen) + 0.1) * a_scale
+        Bm, Cm = (torch.randn(B, S, N, device="cuda", generator=gen) for _ in range(2))
+        return x, dt, A, Bm, Cm
+
+    names = ("dx", "ddt", "dA", "dB", "dC")
+
+    def grads(args, dy, ds):
+        ins = [t.detach().requires_grad_(True) for t in args]
+        y, s = ss.ssd_scan(*ins)
+        if y.grad_fn is None:
+            raise AssertionError("ssd_scan on tensors that require a gradient returned no "
+                                 "grad_fn")
+        outs, gs = ([y, s], [dy, ds]) if ds is not None else ([y], [dy])
+        return dict(zip(names, torch.autograd.grad(outs, ins, gs)))
+
+    def truth(args, dy, ds, chunk):
+        ins = [t.double().detach().requires_grad_(True) for t in args]
+        y, s = ss.ssd_scan_plain(*ins, chunk=chunk)
+        outs, gs = (([y, s], [dy.double(), ds.double()]) if ds is not None
+                    else ([y], [dy.double()]))
+        return dict(zip(names, torch.autograd.grad(outs, ins, gs)))
+
+    errs, bitwise = {}, {}
+    cases = [("mamba2 train", *SSD_BWD_PATH, False, None, None, None)] + list(SSD_BWD_SWEEP)
+    for name, B, S, H, hd, N, with_state, dts, As, dt_min in cases:
+        args = inputs(B, S, H, hd, N, dts, As, dt_min)
+        dy = torch.randn(B, S, H, hd, device="cuda", generator=gen)
+        ds = torch.randn(B, H, hd, N, device="cuda", generator=gen) if with_state else None
+        got = grads(args, dy, ds)
+        errs[name] = _bwd_err(f"ssd_scan backward on {name}", got,
+                              truth(args, dy, ds, 256 if S % 256 == 0 else S), False)
+        if name == "mamba2 train":
+            again = grads(args, dy, ds)
+            bitwise[name] = all(torch.equal(got[key], again[key]) for key in got)
+            if not bitwise[name]:
+                raise AssertionError(f"ssd_scan backward on {name}: two runs differ")
+        del args, dy, ds, got
+        torch.cuda.empty_cache()
+
+    args = inputs(*SSD_BWD_PATH)
+    dy = torch.randn(*SSD_BWD_PATH[:4], device="cuda", generator=gen)
+    _, _, fws = ss._kernel(*args)
+    ss.bwd_cuda_launches = 0
+    ss._kernel_bwd(*args, dy, None, fws)
+    cuda_launches = ss.bwd_cuda_launches
+
+    def kernel():
+        return ss._kernel_bwd(*args, dy, None, fws)
+
+    ins = [t.detach().requires_grad_(True) for t in args]
+    y_plain = ss.ssd_scan_plain(*ins, chunk=256)[0]
+    ops, bytes_ = ssd_bwd_ops_bytes(*SSD_BWD_PATH, chunk=ss.KERNEL_CHUNK)
+    # the card's peak for float32 products is three split TF32 products on
+    # the tensor cores, as kernel 6's bound counts them; the CUDA cores'
+    # float32 rate, which this kernel's FMAs run at, is bound_f32_ms
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = TF32_SPLIT_PRODUCTS * ops / TF32_OPS_PER_S * 1e3
+    ops_f32_ms = ops / OPS32_PER_S * 1e3
+    kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
+    timing = {"shape": list(SSD_BWD_PATH), "kernel_chunk": ss.KERNEL_CHUNK,
+              "kernel_ms": kernel_ms,
+              "device_ms": device_ms(torch, {"bwd": kernel}, reps=3)["bwd"],
+              "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                  y_plain, ins, dy, retain_graph=True), 3, warmup=1),
+              "library_ms": None,
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "bound_bytes_ms": bytes_ms, "share": max(bytes_ms, ops_ms) / kernel_ms,
+              "bound_f32_ms": max(bytes_ms, ops_f32_ms),
+              "bound_f32_by": "bytes" if bytes_ms >= ops_f32_ms else "operations",
+              "cuda_launches_per_call": cuda_launches}
+    del args, dy, fws, ins, y_plain
+    torch.cuda.empty_cache()
+    attrs = ss.backward_attributes()
+    return {"cases": len(cases), "errors": errs, "bitwise_reruns": bitwise,
+            "max_abs_err": max(e["abs"] for c in errs.values() for e in c.values()),
+            "max_rel_err": max(e["rel"] for c in errs.values() for e in c.values()),
+            "timing": timing, "templates": attrs,
+            "spills": {key: a["local_bytes"] for key, a in attrs.items() if a["local_bytes"]}}
+
+
+def train_phase(torch, k) -> dict:
+    """The LM training path: the reduced configs on the card against the CPU,
+    then the full-width cells through the launcher (see the module
+    docstring)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw_init
+
+    res = {}
+    for arch, shape, kernel in TRAIN_CELLS:
+        # ---- reduced, float32: the card's kernels against the CPU's plain versions
+        cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
+        n_layers = sum(1 for s in cfg.layer_specs()
+                       if (s.mixer == "attn") == (kernel == "flash_attention"))
+        cpu = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+        card = _tree_map(lambda t: t.cuda(), cpu)
+        Bsz, S = TRAIN_REDUCED_SIZES
+        gen = pipeline.SyntheticTokens(cfg.vocab_size, S + 1, Bsz, seed=0)
+        batches = [torch.as_tensor(gen.batch(i)) for i in range(TRAIN_REDUCED_STEPS)]
+        grad_fn = steps.make_grad_fn(cfg, remat=False)
+        l_cpu, _, g_cpu = grad_fn(cpu, {"tokens": batches[0]})
+        (l_card, _, g_card), _, counts = drive(
+            torch, k, lambda: grad_fn(card, {"tokens": batches[0].cuda()}))
+        want = {name: 0 for name in counts}
+        want[kernel] = want[f"{kernel}_bwd"] = n_layers
+        if counts != want:
+            raise AssertionError(f"{arch} reduced gradient: kernel launches {counts}, "
+                                 f"want {want}")
+        grad_rel = {}
+        for (name, a), (_, b) in zip(_leaves(g_card), _leaves(g_cpu)):
+            e, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
+            if not e <= TRAIN_TOL * scale:
+                raise AssertionError(f"{arch} reduced, step-0 gradient {name}: |Δ| {e} > "
+                                     f"{TRAIN_TOL}·{scale}")
+            grad_rel[name] = e / scale if scale else 0.0
+        step = steps.make_train_step(cfg, remat=False)
+        losses = {}
+        for where, params, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+            opt = adamw_init(params)
+            losses[where] = []
+            for b in batches:
+                params, opt, m = step(params, opt, {"tokens": b.to(dev)})
+                losses[where].append(float(m["loss"]))
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
+        if not (max(loss_rel) <= TRAIN_TOL and all(map(math.isfinite, losses["card"]))):
+            raise AssertionError(f"{arch} reduced: losses {losses}")
+        reduced = {"config": cfg.name, "layers": cfg.n_layers, "loss_rel": loss_rel,
+                   "losses": losses, "loss0": [float(l_card), float(l_cpu)],
+                   "grad_max_rel": max(grad_rel.values()), "launches_grad": counts}
+        del cpu, card, g_cpu, g_card
+        torch.cuda.empty_cache()
+
+        # ---- full width through the launcher
+        cfg = configs.get_config(arch)
+        n_layers = sum(1 for s in cfg.layer_specs()
+                       if (s.mixer == "attn") == (kernel == "flash_attention"))
+        torch.cuda.reset_peak_memory_stats()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            out, wall, counts = drive(torch, k, lambda: train.main(
+                ["--arch", arch, "--shape", shape, "--steps", str(TRAIN_STEPS)]))
+        peak = torch.cuda.max_memory_allocated()
+        if not all(map(math.isfinite, out["losses"])):
+            raise AssertionError(f"{arch} {shape}: losses {out['losses']}")
+        want = {name: 0 for name in counts}
+        want[kernel] = 2 * n_layers * TRAIN_STEPS          # the forward, then its remat
+        want[f"{kernel}_bwd"] = n_layers * TRAIN_STEPS
+        if counts != want:
+            raise AssertionError(f"{arch} {shape}: kernel launches {counts}, want {want} "
+                                 f"({TRAIN_STEPS} steps)")
+        s_step = median(out["step_s"][1:])
+        tokens = out["batch"] * out["seq_len"]
+        # the same run through the plain versions: is the loss's course the
+        # kernels' or the optimiser's?
+        torch.cuda.empty_cache()
+        with plain_routes(), contextlib.redirect_stdout(io.StringIO()):
+            plain, _, counts_plain = drive(torch, k, lambda: train.main(
+                ["--arch", arch, "--shape", shape, "--steps", str(TRAIN_STEPS)]))
+        if any(counts_plain.values()):
+            raise AssertionError(f"{arch} {shape} through the plain versions launched "
+                                 f"kernels: {counts_plain}")
+        plain_rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], plain["losses"])]
+        if not (plain_rel[0] <= WITNESS_LOSS_TOL[0]
+                and max(plain_rel[1:]) <= WITNESS_LOSS_TOL[1]):
+            raise AssertionError(f"{arch} {shape}: losses {out['losses']} through the "
+                                 f"kernels, {plain['losses']} through the plain versions")
+        res[arch] = {"reduced": reduced, "config": cfg.name, "layers": cfg.n_layers,
+                     "params": out["params"], "shape": shape, "batch": out["batch"],
+                     "seq_len": out["seq_len"], "steps": TRAIN_STEPS, "losses": out["losses"],
+                     "step_s": out["step_s"], "s_per_step": s_step,
+                     "tokens_per_s": tokens / s_step, "setup_s": out["setup_s"],
+                     "wall_s_run": wall, "max_memory_allocated": peak,
+                     "launches": counts,
+                     "launches_per_step": {key: n / TRAIN_STEPS for key, n in counts.items()},
+                     "plain_losses": plain["losses"], "plain_loss_rel": plain_rel,
+                     "plain_step_s": plain["step_s"],
+                     "log": text.getvalue().splitlines()}
+        emit({"phase": f"train-{arch.split('_')[0]}", **res[arch]})
+        torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """`kernels.ops`' attention and SSD through their plain versions, for
+    the bfloat16 witness only: the paths the gates count never run here."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+
+    saved = ops.flash_attention, ops.ssd_scan
+    ops.flash_attention, ops.ssd_scan = fa.flash_attention_plain, ss.ssd_scan_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.ssd_scan = saved
+
+
+def bf16_witness(torch, k) -> dict:
+    """Gemma3-4b's bf16 training composition (wgmma forward, kernel 5's
+    backward, the fused cross entropy's bf16 dlogits) at full width, depth
+    cut to WITNESS_LAYERS: one gradient on one train_4k_b1 batch through the
+    kernels and through the plain versions, both in bf16 from the same
+    weights, each against the plain versions in float32 from those weights
+    (see WITNESS_FACTOR)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import shapes
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+
+    full = configs.get_config("gemma3_4b")
+    cfg = dataclasses.replace(full, n_layers=WITNESS_LAYERS, group=full.group[:WITNESS_LAYERS])
+    shp = shapes.SHAPES["train_4k_b1"]
+    batch = next(make_batch_iterator(cfg.vocab_size, shp.seq_len + 1, shp.global_batch,
+                                     seed=0, dtype=torch.bfloat16, device="cuda"))
+    params = M.init_params(cfg, torch.bfloat16,
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    grad_fn = steps.make_grad_fn(cfg, remat=True)
+    (loss_k, _, g_k), _, counts = drive(torch, k, lambda: grad_fn(params, batch))
+    want = {name: 0 for name in counts}
+    want["flash_attention"], want["flash_attention_bwd"] = 2 * WITNESS_LAYERS, WITNESS_LAYERS
+    if counts != want:
+        raise AssertionError(f"bf16 witness: kernel launches {counts}, want {want}")
+    g_k = _tree_map(lambda t: t.cpu(), g_k)
+    with plain_routes():
+        (loss_p, _, g_p), _, counts = drive(torch, k, lambda: grad_fn(params, batch))
+    if any(counts.values()):
+        raise AssertionError(f"bf16 witness through the plain versions launched {counts}")
+    g_p = _tree_map(lambda t: t.cpu(), g_p)
+    params = _tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    with plain_routes():
+        loss_t, _, g_t = grad_fn(params, batch)
+
+    def dist(got, truth):
+        scale = float(truth.norm())
+        return float((got.to(truth.device, torch.float32) - truth).norm()) / (scale or 1.0)
+
+    leaves = {"loss": (dist(loss_k, loss_t), dist(loss_p, loss_t))}
+    for (name, t), (_, a), (_, b) in zip(_leaves(g_t), _leaves(g_k), _leaves(g_p)):
+        leaves[name] = (dist(a, t), dist(b, t))
+    for name, (ek, ep) in leaves.items():
+        if not ek <= max(WITNESS_FACTOR * ep, WITNESS_FLOOR):
+            raise AssertionError(f"bf16 witness, {name}: the kernels' gradient is {ek} "
+                                 f"(relative) off the float32 plain versions', the bf16 "
+                                 f"plain versions' {ep}")
+    del params, g_t, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"config": f"{full.name} at full width, {WITNESS_LAYERS} layers",
+            "tokens": shp.global_batch * shp.seq_len,
+            "losses": {"kernels_bf16": float(loss_k), "plain_bf16": float(loss_p),
+                       "plain_f32": float(loss_t)},
+            "rel_dist_kernels": {name: v[0] for name, v in leaves.items()},
+            "rel_dist_plain": {name: v[1] for name, v in leaves.items()},
+            "max_rel_dist": {"kernels_bf16": max(v[0] for v in leaves.values()),
+                             "plain_bf16": max(v[1] for v in leaves.values())}}
 
 
 def _tree_map(fn, tree):
@@ -3164,6 +3710,17 @@ def main(argv) -> int:
                                      "--profile" in argv)
         emit({"phase": f"serve-{arch.split('_')[0]}", **serve_res[arch]})
 
+    # ---- LM training: the backward kernels, then gemma3-4b and mamba2-370m
+    kab = attention_bwd_phase(torch, fa)
+    emit({"phase": "kernels_attn_bwd", "kernel": "flash_attention_bwd", **kab})
+    ksb = ssd_bwd_phase(torch, ss)
+    emit({"phase": "kernels_ssd_bwd", "kernel": "ssd_scan_bwd", **ksb})
+    tr = train_phase(torch, k)
+    emit({"phase": "train", "cells": {arch: {key: r[key] for key in (
+        "shape", "s_per_step", "tokens_per_s", "max_memory_allocated", "setup_s",
+        "plain_loss_rel")} for arch, r in tr.items()}})
+    emit({"phase": "train-bf16-witness", **bf16_witness(torch, k)})
+
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]
     bt_path = kb["basis_transform_timings"]["8x96x96x32x32"]
@@ -3171,6 +3728,8 @@ def main(argv) -> int:
     mm, mg = km["timings"]["newton-xl/T"], km["timings"]["newton-xl/G"]
     fg, fw = ka["timings"]["global"], ka["timings"]["window1024"]
     sd = ks["timing"]
+    fbg, fbw = kab["timings"]["global"], kab["timings"]["window1024"]
+    sbd = ksb["timing"]
     main = dnn_launches["fig-dnn/BLDNN"]
     emit({"kernels": [{
         "name": "topk_row_threshold", "route": "cuda",
@@ -3190,7 +3749,10 @@ def main(argv) -> int:
             for *_, tag in STOCHASTIC_THRESHOLD_SHAPES},
         "cohort_shapes": {tag: {key: kern["timings"][tag][key] for key in (
             "shape", "k", "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")} for *_, tag in COHORT_THRESHOLD_SHAPES}}, {
+            "bound_by")} for *_, tag in COHORT_THRESHOLD_SHAPES},
+        "sharded_shapes": {tag: {key: kern["timings"][tag][key] for key in (
+            "shape", "k", "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for *_, tag in SHARDED_THRESHOLD_SHAPES}}, {
         "name": "topk_compress_sum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk_compress_sum.cu",
         "replaces": "src/repro/kernels/topk_threshold.py:123",
@@ -3244,7 +3806,8 @@ def main(argv) -> int:
         "bound_by": fg["bound_by"], "library_ms": fg["library_ms"],
         "shape": fg["shape"] + ["global"], "window1024": {
             key: fw[key] for key in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}}, {
+                                     "library_ms")},
+        "launches_train": tr["gemma3_4b"]["launches"]["flash_attention"]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:73",
@@ -3254,7 +3817,33 @@ def main(argv) -> int:
         "bound_by": sd["bound_by"], "library_ms": None, "shape": sd["shape"],
         "bound_f32_ms": sd["bound_f32_ms"],
         "cuda_launches": serve_res["mamba2_370m"]["ssd_scan_cuda_launches_prefill"],
-        "cuda_launches_per_call": ks["cuda_launches_per_call"]}]})
+        "cuda_launches_per_call": ks["cuda_launches_per_call"],
+        "launches_train": tr["mamba2_370m"]["launches"]["ssd_scan"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:129",
+        "replaces_note": "no TPU kernel: jax.grad of _blocked_attn, the function of "
+                         "src/repro/kernels/flash_attention.py:86",
+        "launches": tr["gemma3_4b"]["launches"]["flash_attention_bwd"],
+        "max_abs_err": kab["max_abs_err"], "max_rel_err": kab["max_rel_err"],
+        "ms": fbg["kernel_ms"], "device_ms": fbg["device_ms"], "plain_ms": fbg["plain_ms"],
+        "bound_ms": fbg["bound_ms"], "bound_by": fbg["bound_by"],
+        "library_ms": fbg["library_ms"], "shape": fbg["shape"] + ["global"],
+        "window1024": {key: fbw[key] for key in ("kernel_ms", "device_ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms")},
+        "cuda_launches_per_call": fbg["cuda_launches_per_call"],
+        "spills": kab["spills"]}, {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/layers.py:554",
+        "replaces_note": "no TPU kernel: jax.grad of _ssd_chunked, the function of "
+                         "src/repro/kernels/ssd_scan.py:73",
+        "launches": tr["mamba2_370m"]["launches"]["ssd_scan_bwd"],
+        "max_abs_err": ksb["max_abs_err"], "max_rel_err": ksb["max_rel_err"],
+        "ms": sbd["kernel_ms"], "device_ms": sbd["device_ms"], "plain_ms": sbd["plain_ms"],
+        "bound_ms": sbd["bound_ms"], "bound_by": sbd["bound_by"], "library_ms": None,
+        "shape": sbd["shape"], "cuda_launches_per_call": sbd["cuda_launches_per_call"],
+        "bound_f32_ms": sbd["bound_f32_ms"], "spills": ksb["spills"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

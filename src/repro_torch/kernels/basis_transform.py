@@ -30,6 +30,7 @@ import functools
 import torch
 
 from . import _build
+from ._autograd import refuse_grad
 
 #: wrapper calls that launched the kernel since the last reset, one a call
 #: (the plain version on CPU tensors does not count)
@@ -272,6 +273,7 @@ def basis_transform(A: torch.Tensor, g: torch.Tensor, B: torch.Tensor) -> torch.
     tensors in `plan`'s form and loader (raising `ValueError` for shapes
     it cannot take); CPU tensors take `basis_transform_plain`."""
     a_trans = _check(A, g, B)
+    refuse_grad("basis_transform", A, g, B)
     if g.device.type == "cpu":
         return basis_transform_plain(A, g, B)
     n, d1, d2 = g.shape

@@ -22,6 +22,14 @@ raises `ValueError`, nothing is copied); float32 runs FMAs on the CUDA
 cores through any strides.  The plain version is the reference's
 `attention_ref` in the GQA layout: one float32 einsum for the scores, the
 masked softmax, one einsum for P·V.
+
+Gradients: when grad mode is on and an input requires one, a CUDA call goes
+through `FlashAttention`, an autograd Function whose backward launches the
+hand-written backward (``csrc/flash_attention_bwd.cu``: dq, dk and dv in
+float32 sums, deterministic, any strides, both types); the reference
+differentiates its attention with jax.grad.  A CPU call takes
+`flash_attention_plain`, which autograd differentiates.  Without a gradient
+to take, a CUDA call launches the forward kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -35,6 +43,10 @@ from . import _build
 #: launches of the CUDA kernel since the last reset (the plain version on
 #: CPU tensors does not count)
 launches = 0
+#: calls of the CUDA backward since the last reset, one a call, and the CUDA
+#: launches they made (two a call)
+bwd_launches = 0
+bwd_cuda_launches = 0
 
 #: the largest head size the kernel takes
 MAX_HEAD_DIM = 256
@@ -47,6 +59,10 @@ _BF16_QUERIES_A_BLOCK = 128
 TEMPLATES = {"float32": (32, 64, 128, 256), "bfloat16": (64, 128, 256)}
 _NEG = -1e30
 _lib = None
+#: the backward's C entry: q, k, v, dO, dq, dk, dv, workspace; type, B, Sq,
+#: Sk, H, KVH, hd, causal, window; strides, stream, launches made
+_BWD_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9
+             + (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)))
 
 
 def _library():
@@ -64,12 +80,15 @@ def _library():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int]) -> None:
+           window: Optional[int], plain: bool = False) -> None:
+    """Raise for what neither version takes; `plain` also admits float64
+    (the plain version's float64 runs are the backward's yardstick)."""
+    types = (*_DTYPES, torch.float64) if plain else tuple(_DTYPES)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dim() != 4:
             raise ValueError(f"attention takes (batch, seq, heads, head_dim) tensors; "
                              f"{name} has shape {tuple(x.shape)}")
-        if x.dtype not in _DTYPES:
+        if x.dtype not in types:
             raise TypeError(f"attention takes float32 or bfloat16; {name} is {x.dtype}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k and v differ in type: {q.dtype}, {k.dtype}, {v.dtype}")
@@ -108,15 +127,17 @@ def mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
-    """The exact masked softmax in float32, cast to the input type."""
-    _check(q, k, v, window)
+    """The exact masked softmax in float32 (float64 for float64 inputs), cast
+    to the input type."""
+    _check(q, k, v, window, plain=True)
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    qg = q.float().reshape(B, Sq, KVH, H // KVH, hd)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * hd ** -0.5
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.to(wide).reshape(B, Sq, KVH, H // KVH, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(wide)) * hd ** -0.5
     s = torch.where(mask(Sq, Sk, causal, window, q.device), s, _NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(wide))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -188,12 +209,74 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out
 
 
+def backward_attributes() -> dict:
+    """Registers a thread and local (spill) bytes a thread of the backward's
+    two launches (``dq``, ``dkdv``), by type and padded head size."""
+    fn = _build.bind("flash_attention_bwd", "flash_attention_bwd_attributes",
+                     (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    out = {}
+    for dtype in TEMPLATES:
+        for hdp in (32, 64, 128, 256):
+            for which, name in enumerate(("dq", "dkdv")):
+                vals = (ctypes.c_int * 3)()
+                err = fn(_DTYPES[getattr(torch, dtype)], hdp, which,
+                         ctypes.cast(vals, ctypes.c_void_p))
+                if err != 0:
+                    raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+                out[f"{dtype}/hd{hdp}/{name}"] = {"num_regs": vals[0],
+                                                  "local_bytes": vals[1]}
+    return out
+
+
+def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                causal: bool, window: Optional[int]) -> tuple:
+    """(dq, dk, dv) through the backward kernel, contiguous, of q's type."""
+    global bwd_launches, bwd_cuda_launches
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    do = do.to(q.dtype)
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KVH, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    ws = torch.empty(3 * B * H * Sq, dtype=torch.float32, device=q.device)
+    fn = _build.bind("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS)
+    strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(), *do.stride())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    made = ctypes.c_int(0)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KVH,
+             hd, int(causal), 0 if window is None else int(window),
+             ctypes.cast(strides, ctypes.c_void_p), stream, ctypes.byref(made))
+    bwd_cuda_launches += made.value
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel 5 forward and its backward kernel, for CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _kernel(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _kernel_bwd(q, k, v, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Masked softmax attention, (B, Sq, H, hd) × (B, Sk, KVH, hd)² →
-    (B, Sq, H, hd).  Launches the CUDA kernel on CUDA tensors; CPU tensors
-    take `flash_attention_plain`."""
+    (B, Sq, H, hd).  CUDA tensors go through `FlashAttention` (the forward
+    kernel; its backward kernel when a gradient is taken), CPU tensors
+    through `flash_attention_plain`."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    return _kernel(q, k, v, causal, window)
+    return FlashAttention.apply(q, k, v, causal, window)

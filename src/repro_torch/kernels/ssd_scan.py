@@ -26,6 +26,14 @@ library gives (`ssd_scan_workspace_floats`), with every product on the
 tensor cores as three TF32 products of split operands.  `ssd_scan_emulated`
 is the kernel's arithmetic in PyTorch, at any chunk length, for accuracy
 studies; no path runs it.
+
+Gradients: when grad mode is on and an input requires one, a CUDA call goes
+through `SSDScan`, an autograd Function that keeps the forward's workspace
+(its chunk-entry states, decays and C·Bᵀ) for the hand-written backward
+(``csrc/ssd_scan_bwd.cu``: dx, ddt, dA, dB and dC in float32, five CUDA
+launches, deterministic); the reference differentiates `_ssd_chunked` with
+jax.grad.  A CPU call takes `ssd_scan_plain`, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -40,17 +48,34 @@ from . import _build
 launches = 0
 #: CUDA launches those calls made, as the library reports them
 cuda_launches = 0
+#: calls of the CUDA backward since the last reset, one a call, and the CUDA
+#: launches they made (five a call)
+bwd_launches = 0
+bwd_cuda_launches = 0
 
 #: positions of the kernel's chunks, and the largest head size and state
 #: size (each padded to a multiple of 32) it takes
 KERNEL_CHUNK, MAX_PADDED = 128, 128
 _MAX_BATCH = 65535
 _NEG = -1e30
+#: the C entries' prototypes: the workspace sizes (B, S, H, hd, N); the
+#: forward (x, dt, A, B, C, y, state, workspace; sizes; strides, stream,
+#: launches made); the backward (x, dt, A, B, C, dy, dstate, the forward's
+#: workspace, its own, dx, ddt, dA, dB, dC; sizes; strides, stream, launches)
+_SIZES = (ctypes.c_int,) * 5
+_FWD_ARGS = ((ctypes.c_void_p,) * 8 + _SIZES + (ctypes.c_void_p,) * 2
+             + (ctypes.POINTER(ctypes.c_int),))
+_BWD_ARGS = ((ctypes.c_void_p,) * 14 + _SIZES + (ctypes.c_void_p,) * 2
+             + (ctypes.POINTER(ctypes.c_int),))
 
 
-def _check(x, dt, A, B, C) -> None:
+def _check(x, dt, A, B, C, plain: bool = False) -> None:
+    """Raise for what neither version takes; `plain` also admits float64
+    operands, all of that type (the plain version's float64 runs are the
+    backward's yardstick)."""
+    want = x.dtype if plain and x.dtype == torch.float64 else torch.float32
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
-        if t.dtype != torch.float32:
+        if t.dtype != want:
             raise TypeError(f"ssd_scan is float32-only; {name} is {t.dtype}")
     if x.dim() != 4:
         raise ValueError(f"x must be (batch, seq, heads, head_dim), got {tuple(x.shape)}")
@@ -69,8 +94,8 @@ def _check(x, dt, A, B, C) -> None:
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor, *, chunk: int = 256) -> tuple:
     """`_ssd_chunked` in PyTorch: returns (y (B, S, H, hd), final state
-    (B, H, hd, N))."""
-    _check(x, dt, A, B, C)
+    (B, H, hd, N)), in float32 (or float64 for float64 operands)."""
+    _check(x, dt, A, B, C, plain=True)
     Bsz, S, H, hd = x.shape
     N = B.shape[-1]
     c = max(1, min(chunk, S))
@@ -173,7 +198,12 @@ def ssd_scan_emulated(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: tor
     return y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * L, H, hd)[:, :S], s
 
 
+def _strides(x, dt, B, C):
+    return (ctypes.c_longlong * 13)(*x.stride(), *dt.stride(), *B.stride(), *C.stride())
+
+
 def _kernel(x, dt, A, B, C) -> tuple:
+    """(y, final state, the workspace the call filled)."""
     global launches, cuda_launches
     Bsz, S, H, hd = x.shape
     N = B.shape[-1]
@@ -181,39 +211,102 @@ def _kernel(x, dt, A, B, C) -> tuple:
         raise ValueError(
             f"the SSD kernel takes head_dim and d_state up to {MAX_PADDED} (batch and heads "
             f"up to {_MAX_BATCH}); got head_dim={hd}, d_state={N}, batch={Bsz}, heads={H}")
-    lib = _build.load("ssd_scan")
     y = torch.empty((Bsz, S, H, hd), dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, hd, N), dtype=torch.float32, device=x.device)
-    ws_fn = lib.ssd_scan_workspace_floats
-    ws_fn.argtypes = [ctypes.c_int] * 5
-    ws_fn.restype = ctypes.c_longlong
+    ws_fn = _build.bind("ssd_scan", "ssd_scan_workspace_floats", _SIZES, ctypes.c_longlong)
     ws = torch.empty(ws_fn(Bsz, S, H, hd, N), dtype=torch.float32, device=x.device)
     A = A.contiguous()
-    fn = lib.ssd_scan_f32
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.POINTER(ctypes.c_int)])
-    fn.restype = ctypes.c_int
-    strides = (ctypes.c_longlong * 13)(*x.stride(), *dt.stride(), *B.stride(), *C.stride())
+    fn = _build.bind("ssd_scan", "ssd_scan_f32", _FWD_ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     made = ctypes.c_int(0)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
              y.data_ptr(), state.data_ptr(), ws.data_ptr(), Bsz, S, H, hd, N,
-             ctypes.cast(strides, ctypes.c_void_p), stream, ctypes.byref(made))
+             ctypes.cast(_strides(x, dt, B, C), ctypes.c_void_p), stream, ctypes.byref(made))
     cuda_launches += made.value
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     launches += 1
-    return y, state
+    return y, state, ws
+
+
+def _kernel_bwd(x, dt, A, B, C, dy, dstate, fws) -> tuple:
+    """(dx, ddt, dA, dB, dC) through the backward kernel, from the forward's
+    workspace `fws` on the same inputs; `dstate` may be None (zero)."""
+    global bwd_launches, bwd_cuda_launches
+    Bsz, S, H, hd = x.shape
+    N = B.shape[-1]
+    fwd_floats = _build.bind("ssd_scan_bwd", "ssd_scan_bwd_forward_workspace_floats", _SIZES,
+                             ctypes.c_longlong)(Bsz, S, H, hd, N)
+    if fwd_floats != fws.numel():
+        raise RuntimeError(f"ssd_scan backward reads a forward workspace of {fwd_floats} "
+                           f"floats; the forward left {fws.numel()}")
+    ws_floats = _build.bind("ssd_scan_bwd", "ssd_scan_bwd_workspace_floats", _SIZES,
+                            ctypes.c_longlong)(Bsz, S, H, hd, N)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((Bsz, S, H, hd), **f32)
+    ddt = torch.empty((Bsz, S, H), **f32)
+    dA = torch.zeros((H,), **f32)
+    dB = torch.empty((Bsz, S, N), **f32)
+    dC = torch.empty((Bsz, S, N), **f32)
+    ws = torch.empty(ws_floats, **f32)
+    dy = dy.contiguous()
+    dstate = dstate.contiguous() if dstate is not None else None
+    A = A.contiguous()
+    fn = _build.bind("ssd_scan_bwd", "ssd_scan_bwd_f32", _BWD_ARGS)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    made = ctypes.c_int(0)
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+             dy.data_ptr(), None if dstate is None else dstate.data_ptr(), fws.data_ptr(),
+             ws.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+             dC.data_ptr(), Bsz, S, H, hd, N, ctypes.cast(_strides(x, dt, B, C), ctypes.c_void_p),
+             stream, ctypes.byref(made))
+    bwd_cuda_launches += made.value
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+def backward_attributes() -> dict:
+    """Registers a thread and local (spill) bytes a thread of the backward's
+    launches that stage products (``e``, ``head``, ``bc``), at the widest
+    template (hd and N padded to 128)."""
+    fn = _build.bind("ssd_scan_bwd", "ssd_scan_bwd_attributes", (ctypes.c_void_p,))
+    vals = (ctypes.c_int * 6)()
+    err = fn(ctypes.cast(vals, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    return {name: {"num_regs": vals[2 * i], "local_bytes": vals[2 * i + 1]}
+            for i, name in enumerate(("e", "head", "bc"))}
+
+
+class SSDScan(torch.autograd.Function):
+    """Kernel 6 forward and its backward kernel, for CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        y, state, ws = _kernel(x, dt, A, B, C)
+        ctx.save_for_backward(x, dt, A, B, C, ws)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, ws = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return _kernel_bwd(x, dt, A, B, C, dy, dstate, ws)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, *, chunk: int = 256) -> tuple:
     """The SSD over every position, (y (B, S, H, hd), final state
-    (B, H, hd, N)).  Launches the CUDA kernel on CUDA tensors; CPU tensors
-    take `ssd_scan_plain` with chunks of `chunk` positions.  `chunk` is the
+    (B, H, hd, N)).  CUDA tensors go through `SSDScan` (the forward kernel;
+    its backward kernel when a gradient is taken), CPU tensors through
+    `ssd_scan_plain` with chunks of `chunk` positions.  `chunk` is the
     plain version's rounding choice only: the kernel walks its own
     `KERNEL_CHUNK`-position chunks whatever it says."""
     _check(x, dt, A, B, C)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-    return _kernel(x, dt, A, B, C)
+    return SSDScan.apply(x, dt, A, B, C)

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._autograd import refuse_grad
 
 #: launches of the CUDA kernel since the last reset, one a call (the plain
 #: version on CPU tensors does not count)
@@ -46,6 +47,11 @@ _INT_MAX = 2 ** 31 - 1
 #: the kernel's templates, by their codes in the C interface
 GENERAL, STREAM_TALL, STREAM_SMALL = 0, 1, 2
 TEMPLATES = {GENERAL: "general", STREAM_TALL: "stream_tall", STREAM_SMALL: "stream_small"}
+#: the C entry's prototype: a, its type and strides; b, its type and strides;
+#: the output; batch, M, N, K, template, inner-k flags; the stream
+_ARGS = ((ctypes.c_void_p, ctypes.c_int) + (ctypes.c_longlong,) * 3
+         + (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_longlong,) * 3
+         + (ctypes.c_void_p,) + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
 #: output tile (rows, columns) of each template
 TILES = {GENERAL: (64, 32), STREAM_TALL: (128, 32), STREAM_SMALL: (32, 32)}
 
@@ -162,11 +168,7 @@ def _kernel(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.T
     batch, M, N, K = geom[:4]
     p = plan(geom, a.element_size(), b.element_size(), a.data_ptr() % 16, b.data_ptr() % 16)
     out = torch.empty((batch, M, N), dtype=torch.float32, device=a.device)
-    fn = _build.load("tiled_matmul").tiled_matmul
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.bind("tiled_matmul", "tiled_matmul", _ARGS)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(a.data_ptr(), _DTYPES[a.dtype], *p.a_strides, b.data_ptr(), _DTYPES[b.dtype],
              *p.b_strides, out.data_ptr(), batch, M, N, K, p.template, int(p.a_inner_k),
@@ -186,6 +188,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     Launches the CUDA kernel on CUDA tensors (the template `plan` names);
     CPU tensors take `matmul_plain`."""
     _check(a, b)
+    refuse_grad("tiled_matmul", a, b)
     if a.device.type == "cpu":
         return matmul_plain(a, b, out_dtype=out_dtype)
     return _kernel(a, b, out_dtype)

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from . import _build
+from ._autograd import refuse_grad
 
 #: launches of the threshold kernel since the last reset (the plain version
 #: on a CPU tensor does not count)
@@ -166,6 +167,7 @@ def topk_row_threshold(a32: torch.Tensor, k: int) -> torch.Tensor:
     (rows, 1); k is clamped to [1, T].  Launches the CUDA kernel on a CUDA
     tensor; a CPU tensor takes `topk_row_threshold_plain`."""
     _check(a32)
+    refuse_grad("topk_row_threshold", a32)
     if a32.device.type == "cpu":
         return topk_row_threshold_plain(a32, k)
     return _kernel(a32, _clamp_k(k, a32.shape[1]))
@@ -264,6 +266,7 @@ def topk_compress_sum(v: torch.Tensor, k: int):
     that fails raises; nothing falls back to the other form); a CPU tensor
     takes `topk_compress_sum_plain`."""
     _check(v, "topk_compress_sum")
+    refuse_grad("topk_compress_sum", v)
     if v.device.type == "cpu":
         return topk_compress_sum_plain(v, k)
     n, T = v.shape

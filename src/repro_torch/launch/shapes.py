@@ -1,5 +1,5 @@
 """The four assigned input shapes — port of `repro.launch.shapes` — and
-the port's one-card serve shapes.
+the port's one-card serve and train shapes.
 
 The reference's sharded ``*_struct`` input specs describe
 inputs on a production mesh; they come with LM sharding (ROADMAP.md §1
@@ -31,6 +31,15 @@ SHAPES = {
     # or 8 (mamba2-370m) requests into a 4096-token cache
     "decode_4k_b4": InputShape("decode_4k_b4", 4_096, 4, "decode"),
     "decode_4k_b8": InputShape("decode_4k_b8", 4_096, 8, "decode"),
+    # one H100: train_4k's 256 sequences are a pod's batch; one card holds
+    # gemma3-4b's weights, gradients and bf16 AdamW moments (31 GB) beside the
+    # fused cross entropy's float32 logits of one 4096-token sequence (4.3 GB
+    # each for the logits and the softmax) and one rematerialised 17-layer
+    # group, ~50 GB at its peak, and mamba2-370m's (~3.4 GB) beside those of 8
+    # (its vocabulary is a fifth of gemma3's), ~25 GB: train_4k with the batch
+    # cut from 256 to 1 and to 8, the sequence length kept
+    "train_4k_b1": InputShape("train_4k_b1", 4_096, 1, "train"),
+    "train_4k_b8": InputShape("train_4k_b8", 4_096, 8, "train"),
 }
 
 

@@ -1,4 +1,4 @@
-"""Carry the reference's parameter and cache pytrees across.
+"""Carry the reference's parameter, cache and optimizer-state pytrees across.
 
 The JAX package's trees are nested dicts of arrays with the stacked
 ``layers`` leaves (leading ``n_groups`` axis); the port's are nested dicts
@@ -43,3 +43,12 @@ def cache_from_numpy(tree, *, dtype: Optional[torch.dtype] = None, device=None) 
     leaf (same rule for types as `params_from_numpy`)."""
     return _tree(tree, dtype, _device.resolve(device))
 
+
+
+def opt_state_from_numpy(tree, *, dtype: Optional[torch.dtype] = None, device=None) -> dict:
+    """The port's optimizer state from the reference's (`adamw_init`'s
+    ``{"m", "v", "step"}`` or `sgdm_init`'s ``{"mom", "step"}``): the
+    moments leaf by leaf as `params_from_numpy` carries parameters, the step
+    an int32 scalar."""
+    dev = _device.resolve(device)
+    return {k: _tree(v, torch.int32 if k == "step" else dtype, dev) for k, v in tree.items()}

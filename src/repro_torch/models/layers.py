@@ -10,6 +10,11 @@ in `repro.models.layers`.  Full-sequence attention goes through
 `kernels.ops.ssd` (kernel 6); the single-token decode branches are the
 reference's plain einsums.  Caches are updated in place and returned (the
 reference's functional updates would copy the whole cache every step).
+The train branches (no cache) write nothing in place, so autograd
+differentiates them; on CUDA tensors kernels 5 and 6 run there through
+their autograd Functions, and the Mamba2 block's float32 `A_log`, `D` and
+`dt_bias` get their gradients through them (A = −exp(A_log) feeds kernel
+6's dA).
 M-RoPE, cross-attention and MoE are ROADMAP.md §1 item 18's later part.
 """
 from __future__ import annotations

@@ -6,7 +6,8 @@ Layers are stacked by *group* as in the reference: every leaf of
 the heterogeneity inside a group (gemma3's sliding/global pattern) is a
 loop over the group's `LayerSpec`s.  The reference scans over groups; here
 a Python loop walks them, indexing each group's slice of the stacked
-leaves in place.
+leaves in place (a view, through which the gradient of the stacked leaf
+flows).
 
 MoE, encoder–decoder (cross-attention), prefix embeddings and M-RoPE are
 ROADMAP.md §1 item 18's later part: `init_params` and `forward` raise for
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from . import layers as L
@@ -145,17 +147,33 @@ def _apply_layer(lp: Params, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor,
     return h
 
 
+def _run_group(gp: Params, gc: Optional[Params], cfg: ModelConfig, h: torch.Tensor,
+               pos: torch.Tensor, cache_pos) -> torch.Tensor:
+    for i, spec in enumerate(cfg.group):
+        h = _apply_layer(gp[f"l{i}"], spec, cfg, h, pos,
+                         gc[f"l{i}"] if gc is not None else None, cache_pos)
+    return h
+
+
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Optional[Params] = None, cache_pos: Optional[int] = None,
             prefix_embeds: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None
+            frames: Optional[torch.Tensor] = None, remat: bool = True,
+            return_hidden: bool = False
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (logits, cache, aux_loss) as the reference does.
 
     Modes: train (cache=None; logits at every position), prefill (cache
     given, S > 1, cache_pos 0; last-position logits), decode (cache given,
     S == 1, cache_pos the token's position).  The cache is updated in place
-    and returned.  Logits of the padded vocabulary slots are −1e30."""
+    and returned.  Logits of the padded vocabulary slots are −1e30.
+
+    ``remat`` (train mode, when a gradient is being taken) runs each group
+    under `torch.utils.checkpoint` (non-reentrant), so the backward
+    recomputes a group's activations instead of keeping them, as the
+    reference's ``jax.checkpoint(..., nothing_saveable)`` does.
+    ``return_hidden`` returns the final-normed hidden states in place of the
+    logits (the fused cross entropy's input)."""
     _check_supported(cfg)
     if prefix_embeds is not None or frames is not None:
         raise NotImplementedError(f"prefix embeddings and encoder frames {_ITEM_18}")
@@ -173,17 +191,22 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
             base = base + int(cache_pos)
         pos = base[None].expand(B, S)
 
+    checkpointed = remat and cache is None and torch.is_grad_enabled()
     for g in range(cfg.n_groups):
         gp = _index(p["layers"], g)
-        gc = _index(cache, g) if cache is not None else None
-        for i, spec in enumerate(cfg.group):
-            h = _apply_layer(gp[f"l{i}"], spec, cfg, h, pos,
-                             gc[f"l{i}"] if gc is not None else None, cache_pos)
+        if checkpointed:
+            h = checkpoint(_run_group, gp, None, cfg, h, pos, cache_pos, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _run_group(gp, _index(cache, g) if cache is not None else None, cfg, h, pos,
+                           cache_pos)
 
     if cache is not None and not decode:
         h = h[:, -1:, :]           # prefill: only the last position's logits
     h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if return_hidden:
+        return h, cache, aux
     unemb = p["embed"].T if cfg.tie_embeddings else p["unembed"]
     logits = torch.einsum("bsd,dv->bsv", h, unemb)
     if cfg.padded_vocab != cfg.vocab_size:

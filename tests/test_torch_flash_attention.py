@@ -216,3 +216,47 @@ def test_bf16_kernel_layout_rules(case):
     else:
         with pytest.raises(ValueError):
             fa.check_tma_layout("q", bad)
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2)], ids=["rep1", "rep2"])
+@pytest.mark.parametrize("window", [None, 8])
+def test_plain_gradients_match_jax_grad_of_blocked_attention(heads, window):
+    """The training path on CPU tensors: autograd through the plain version
+    against jax.grad of the model's `_blocked_attn` (float32, the causal mask
+    with and without a window, GQA), within the reference's float32
+    tolerance."""
+    import jax
+
+    H, KVH = heads
+    B, S, hd = 2, 48, 16
+    rng = np.random.default_rng(100 + H * 10 + KVH + (window or 0))
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, KVH, hd)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    if window is None:
+        mask = lambda qi, ki: ki <= qi  # noqa: E731
+    else:
+        mask = lambda qi, ki: (ki <= qi) & (ki > qi - window)  # noqa: E731
+
+    def ref_loss(q, k, v):
+        o = JL._blocked_attn(q.reshape(B, S, KVH, H // KVH, hd), k, v, mask, 16, None,
+                             window=window)
+        return jnp.sum(o * jnp.asarray(do))
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=True, window=window)
+    out.backward(torch.tensor(do))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **F32_TOL)
+
+
+def test_cuda_path_is_an_autograd_function():
+    """On a CUDA tensor that requires a gradient the wrapper goes through
+    `FlashAttention` (its forward and backward kernels); on the CPU the plain
+    version, which autograd differentiates, as the test above holds."""
+    assert issubclass(fa.FlashAttention, torch.autograd.Function)
+    q = torch.zeros((1, 4, 2, 8), requires_grad=True)
+    kv = torch.zeros((1, 4, 1, 8))
+    out = fa.flash_attention(q, kv, kv)
+    assert out.grad_fn is not None and fa.bwd_launches == 0

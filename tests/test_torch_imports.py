@@ -12,6 +12,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+CUDA_SOURCES = {p.name for p in (REPO / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}
 
 
 def _imported_roots(path: pathlib.Path):
@@ -32,7 +33,8 @@ def test_port_files_are_found():
             "ssd_scan.py", "model.py", "steps.py", "config.py", "convert.py", "serve.py",
             "shapes.py", "gemma3_4b.py", "mamba2_370m.py", "registry.py", "engine.py",
             "artifacts.py", "metrics.py", "__main__.py", "cohort.py", "faults.py",
-            "fed_serve.py", "mesh.py"} <= names
+            "fed_serve.py", "mesh.py", "adamw.py", "pipeline.py", "train.py",
+            "flash_attention_bwd.cu", "ssd_scan_bwd.cu"} <= names | CUDA_SOURCES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -115,6 +117,23 @@ def test_lm_entry_points_without_device_raise_when_cuda_is_unavailable(monkeypat
         convert.params_from_numpy({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="CUDA device"):
         serve.main(["--arch", "gemma3_4b", "--debug"])
+
+
+def test_train_entry_points_without_device_raise_when_cuda_is_unavailable(monkeypatch):
+    import numpy as np
+
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        train.main(["--arch", "gemma3_4b", "--debug", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        next(make_batch_iterator(100, 9, 2))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        convert.opt_state_from_numpy({"m": {"w": np.zeros(2, np.float32)},
+                                      "step": np.zeros((), np.int32)})
 
 
 def test_fed_serve_without_device_raises_when_cuda_is_unavailable(monkeypatch, tmp_path):

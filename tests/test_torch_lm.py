@@ -96,8 +96,10 @@ def test_config_is_the_references(arch):
 
 
 def test_one_card_serve_shapes():
-    """Beside the reference's four shapes, only the one-card serve shapes."""
-    assert set(shapes.SHAPES) - set(jshapes.SHAPES) == {"decode_4k_b4", "decode_4k_b8"}
+    """Beside the reference's four shapes, only the one-card serve and train
+    shapes."""
+    assert set(shapes.SHAPES) - set(jshapes.SHAPES) == {"decode_4k_b4", "decode_4k_b8",
+                                                        "train_4k_b1", "train_4k_b8"}
     assert serve.sizes(shapes.SHAPES["decode_4k_b4"]) == (4, 2048, 4096)
     assert serve.sizes(shapes.SHAPES["decode_4k_b8"]) == (8, 2048, 4096)
     assert serve.sizes(shapes.SHAPES["decode_32k"]) == (128, 16384, 32768)
@@ -384,7 +386,15 @@ def test_unported_entry_points_raise_naming_their_item():
         serve.main(["--arch", "gemma3_4b", "--multi-pod", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 18.7"):
         shapes.batch_struct(None, None, None)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        steps.make_train_step(None)
+    # the train step is ported (it raised here until then): one step runs
+    cfg = configs.get_config("gemma3_4b").reduced()
+    params = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)),
+                             dtype=torch.int32)
+    from repro_torch.optim import adamw_init
+    _, _, metrics = steps.make_train_step(cfg, remat=False)(params, adamw_init(params),
+                                                            {"tokens": tokens})
+    assert bool(torch.isfinite(metrics["loss"]))
     with pytest.raises(NotImplementedError, match="M-RoPE.*item 18"):
         L.apply_rope(torch.zeros((1, 2, 1, 4)), torch.zeros((3, 1, 2)), 1e4, mrope=True)

@@ -180,3 +180,42 @@ def test_kernel_arithmetic_holds_the_chip_gate_only_with_split_products(case, pr
     y_fold = y.permute(0, 2, 1, 3).reshape(y_seq.shape)
     assert _share(y_fold, y_seq) <= 1.0
 
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_plain_gradients_match_jax_grad_of_ssd_chunked(chunk):
+    """The training path on CPU tensors: autograd through the plain version
+    against jax.grad of the model's `_ssd_chunked` (float32; dx, ddt, dA, dB,
+    dC of a loss on y and on the final state), within the reference's
+    1e-3."""
+    import jax
+
+    x, dt, A, Bm, Cm = _inputs(21 + chunk, 2, 64, 3, 16, 8)
+    rng = np.random.default_rng(chunk)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    ds = rng.standard_normal((2, 3, 16, 8)).astype(np.float32)
+
+    def ref_loss(*args):
+        y, s = _ssd_chunked(*args, chunk=chunk)
+        return jnp.sum(y * dy) + jnp.sum(s * ds)
+
+    want = jax.grad(ref_loss, argnums=tuple(range(5)))(*map(jnp.asarray, (x, dt, A, Bm, Cm)))
+    ins = [torch.tensor(a, requires_grad=True) for a in (x, dt, A, Bm, Cm)]
+    y, s = ss.ssd_scan(*ins, chunk=chunk)
+    torch.autograd.backward([y, s], [torch.tensor(dy), torch.tensor(ds)])
+    for t, w in zip(ins, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=1e-3, atol=1e-3 * np.abs(w).max())
+
+
+def test_plain_version_takes_float64_and_the_cuda_path_is_an_autograd_function():
+    """float64 runs of the plain version are the card's yardstick for the
+    backward kernel; the wrapper still refuses float64."""
+    x, dt, A, Bm, Cm = (torch.tensor(a) for a in _inputs(4, 1, 32, 2, 8, 4))
+    y64, s64 = ss.ssd_scan_plain(*(t.double() for t in (x, dt, A, Bm, Cm)), chunk=8)
+    y, s = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=8)
+    assert y64.dtype == torch.float64
+    np.testing.assert_allclose(y.numpy(), y64.numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError, match="float32-only"):
+        ss.ssd_scan(*(t.double() for t in (x, dt, A, Bm, Cm)))
+    assert issubclass(ss.SSDScan, torch.autograd.Function)
