@@ -254,9 +254,10 @@ is non-zero and no result line is printed:
                 64), N 128, with A and dt drawn as its init makes them) and
                 edge cases (among them decays of up to exp(−550) a step),
                 bitwise over two reruns at the path's shapes, each launch's
-                registers and spill bytes printed, and timed beside the
-                plain version's backward, the library's (SDPA's backward;
-                none for the SSD) and the bound;
+                registers and spill bytes printed (kernel 5's bfloat16
+                templates must be its wgmma kernels and spill nothing), and
+                timed beside the plain version's backward, the library's
+                (SDPA's backward; none for the SSD) and the bound;
   14. train   — the LM training path (`repro_torch.launch.train`,
                 `models.steps.make_train_step`): gemma3-4b and mamba2-370m
                 reduced in float32 on the card against the CPU from the same
@@ -2387,6 +2388,11 @@ def attention_bwd_phase(torch, fa) -> dict:
         del q, k, v, do, ins, out_plain, qt, kt, vt, out_sdpa, dot
         torch.cuda.empty_cache()
     attrs = fa.backward_attributes()
+    for key, a in attrs.items():
+        if key.startswith("bfloat16/") and (a["kernel"] != fa.BWD_KERNELS["bfloat16"][
+                key.endswith("dkdv")] or a["local_bytes"]):
+            raise AssertionError(f"flash_attention backward template {key} is {a}: bfloat16 "
+                                 f"runs the wgmma kernels, without spills")
     return {"cases": len(cases) * 2, "errors": errs, "bitwise_reruns": bitwise,
             "max_abs_err": max(e["abs"] for c in errs.values() for e in c.values()),
             "max_rel_err": max(e["rel"] for c in errs.values() for e in c.values()),

@@ -26,10 +26,18 @@ masked softmax, one einsum for P·V.
 Gradients: when grad mode is on and an input requires one, a CUDA call goes
 through `FlashAttention`, an autograd Function whose backward launches the
 hand-written backward (``csrc/flash_attention_bwd.cu``: dq, dk and dv in
-float32 sums, deterministic, any strides, both types); the reference
-differentiates its attention with jax.grad.  A CPU call takes
-`flash_attention_plain`, which autograd differentiates.  Without a gradient
-to take, a CUDA call launches the forward kernel alone, as before.
+float32 sums, deterministic, two launches); the reference differentiates its
+attention with jax.grad.  Its bfloat16 kernels run on the tensor cores as
+the forward's does (wgmma fed by TMA, warp-specialised): a dq launch that
+recomputes each row's softmax statistics, and a dk/dv launch in which one
+consumer warpgroup owns dv and another dk, P passing between them through
+shared memory.  P (into dv) and dS (into dq, dk) enter wgmma split into two
+bfloat16 terms, since one bfloat16 rounding of either leaves the backward's
+gate.  They take q, k and v in TMA's layout (as the forward) and a
+contiguous dO (copied when it is not); float32 runs FMAs on the CUDA cores
+through any strides.  A CPU call takes `flash_attention_plain`, which
+autograd differentiates.  Without a gradient to take, a CUDA call launches
+the forward kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -57,6 +65,9 @@ _MAX_GRID_YZ = 65535
 _BF16_QUERIES_A_BLOCK = 128
 #: the kernels' templates by type: padded head sizes
 TEMPLATES = {"float32": (32, 64, 128, 256), "bfloat16": (64, 128, 256)}
+#: the backward's kernels by type: (dq launch, dk/dv launch)
+BWD_KERNELS = {"float32": ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel"),
+               "bfloat16": ("attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma")}
 _NEG = -1e30
 _lib = None
 #: the backward's C entry: q, k, v, dO, dq, dk, dv, workspace; type, B, Sq,
@@ -211,19 +222,21 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def backward_attributes() -> dict:
     """Registers a thread and local (spill) bytes a thread of the backward's
-    two launches (``dq``, ``dkdv``), by type and padded head size."""
+    two launches (``dq``, ``dkdv``), by type and padded head size, with the
+    kernel each template is (`BWD_KERNELS`)."""
     fn = _build.bind("flash_attention_bwd", "flash_attention_bwd_attributes",
                      (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
     out = {}
-    for dtype in TEMPLATES:
-        for hdp in (32, 64, 128, 256):
+    for dtype, hdps in TEMPLATES.items():
+        for hdp in hdps:
             for which, name in enumerate(("dq", "dkdv")):
                 vals = (ctypes.c_int * 3)()
                 err = fn(_DTYPES[getattr(torch, dtype)], hdp, which,
                          ctypes.cast(vals, ctypes.c_void_p))
                 if err != 0:
                     raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
-                out[f"{dtype}/hd{hdp}/{name}"] = {"num_regs": vals[0],
+                out[f"{dtype}/hd{hdp}/{name}"] = {"kernel": BWD_KERNELS[dtype][which],
+                                                  "num_regs": vals[0],
                                                   "local_bytes": vals[1]}
     return out
 
@@ -235,10 +248,16 @@ def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     do = do.to(q.dtype)
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, x)
+        do = do.contiguous()
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KVH, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    ws = torch.empty(3 * B * H * Sq, dtype=torch.float32, device=q.device)
+    ws_floats = _build.bind("flash_attention_bwd", "flash_attention_bwd_workspace_floats",
+                            (ctypes.c_int,) * 3, ctypes.c_longlong)(B, Sq, H)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
     fn = _build.bind("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS)
     strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(), *do.stride())
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -32,8 +32,11 @@ through `SSDScan`, an autograd Function that keeps the forward's workspace
 (its chunk-entry states, decays and C·Bᵀ) for the hand-written backward
 (``csrc/ssd_scan_bwd.cu``: dx, ddt, dA, dB and dC in float32, five CUDA
 launches, deterministic); the reference differentiates `_ssd_chunked` with
-jax.grad.  A CPU call takes `ssd_scan_plain`, which autograd
-differentiates.
+jax.grad.  The backward sums its cumulative decays again in double and runs
+every product on the tensor cores as the forward does (three TF32 products
+of split operands, operands staged whole by cp.async);
+`ssd_scan_bwd_emulated` is its arithmetic in PyTorch, for accuracy studies.
+A CPU call takes `ssd_scan_plain`, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -149,17 +152,13 @@ def _product(a: torch.Tensor, b: torch.Tensor, products: str) -> torch.Tensor:
     return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
 
 
-def ssd_scan_emulated(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                      C: torch.Tensor, *, chunk: int = KERNEL_CHUNK,
-                      products: str = "split") -> tuple:
-    """What the chunk-parallel kernel computes, in PyTorch on any device:
-    chunks of `chunk` positions (zero past S); per chunk the in-order
-    float32 cumulative decay, its end at the last real position and C·Bᵀ
-    once for the heads; per head the chunk state xᵀ·(w∘B), w = exp(cs_end −
-    cs)·dt; the state pass s ← s·exp(cs_end) + state, in order; and y =
-    exp(cs_q) C_q·s_in + M·x with M masked before its exponential; every
-    product as `_product` takes it.  Returns (y, final state)."""
-    _check(x, dt, A, B, C)
+def _emulated_workspace(x, dt, A, B, C, chunk: int, products: str) -> dict:
+    """The forward kernel's arithmetic up to its workspace: the inputs in
+    chunks of `chunk` positions (zero past S), the in-order float32
+    cumulative decays and their ends at each chunk's last real position, C·Bᵀ
+    once for the heads, the chunk states xᵀ·(w∘B) with w = exp(cs_end −
+    cs)·dt, and the state pass s ← s·exp(cs_end) + state, in order: the
+    chunk-entry states and the final state."""
     Bsz, S, H, hd = x.shape
     N = B.shape[-1]
     L = chunk
@@ -188,14 +187,108 @@ def ssd_scan_emulated(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: tor
     for c in range(nc):
         s_in.append(s)
         s = s * torch.exp(cs_end[:, c])[:, :, None, None] + states[:, c]
-    s_in = torch.stack(s_in, dim=1)
-    y = _product(Cc[:, :, None], s_in.transpose(-1, -2), products)   # (B, nc, H, q, hd)
+    return dict(pad=pad, xc=xc, dtc=dtc, Bc=Bc, Cc=Cc, cs=cs, last=last, CB=CB,
+                s_in=torch.stack(s_in, dim=1), state=s)
+
+
+def ssd_scan_emulated(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, *, chunk: int = KERNEL_CHUNK,
+                      products: str = "split") -> tuple:
+    """What the chunk-parallel kernel computes, in PyTorch on any device:
+    its workspace (`_emulated_workspace`), then y = exp(cs_q) C_q·s_in + M·x
+    with M masked before its exponential; every product as `_product`
+    takes it.  Returns (y, final state)."""
+    _check(x, dt, A, B, C)
+    Bsz, S, H, hd = x.shape
+    L = chunk
+    w = _emulated_workspace(x, dt, A, B, C, chunk, products)
+    cs, dtc, Cc = w["cs"], w["dtc"], w["Cc"]
+    nc = cs.shape[1]
+    y = _product(Cc[:, :, None], w["s_in"].transpose(-1, -2), products)   # (B, nc, H, q, hd)
     y = y * torch.exp(cs).permute(0, 1, 3, 2)[..., None]
-    causal = torch.ones((L, L), dtype=torch.bool, device=dev).tril()[None, None, :, :, None]
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
     seg = torch.where(causal, cs[:, :, :, None, :] - cs[:, :, None, :, :], _NEG)
-    M = torch.where(causal, CB[..., None] * torch.exp(seg) * dtc[:, :, None], 0.0)
-    y = y + _product(M.permute(0, 1, 4, 2, 3), xc.permute(0, 1, 3, 2, 4), products)
-    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * L, H, hd)[:, :S], s
+    M = torch.where(causal, w["CB"][..., None] * torch.exp(seg) * dtc[:, :, None], 0.0)
+    y = y + _product(M.permute(0, 1, 4, 2, 3), w["xc"].permute(0, 1, 3, 2, 4), products)
+    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * L, H, hd)[:, :S], w["state"]
+
+
+def ssd_scan_bwd_emulated(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                          C: torch.Tensor, dy: torch.Tensor, dstate=None, *,
+                          chunk: int = KERNEL_CHUNK, products: str = "split") -> tuple:
+    """What the backward kernel computes (``csrc/ssd_scan_bwd.cu``), in
+    PyTorch on any device, from the forward kernel's workspace as
+    `_emulated_workspace` gives it: the cumulative decays summed again in
+    double and every decay difference taken in double, rounded once; the
+    state gradients R_c by the reverse pass; per head and chunk G = dy·uᵀ
+    (u = dt·x), the strict row and column sums of L∘(C·Bᵀ)∘G for dcs, the
+    read-out term C·S_inᵀ, du = exp(cs_end − cs_k)·B·Rᵀ + Pᵀ·dy with P =
+    L∘(C·Bᵀ), dx = dt·du, and ddt and dA's shares from the reverse cumsum of
+    dcs in double; per chunk dC = M·B + Σ_h exp(cs_q)·dy·S_in and dB = Mᵀ·C
+    + Σ_h exp(cs_end − cs_k)·u·R with M = Σ_h L∘G; dA summed in double.
+    Every product as `_product` takes it ("split": three TF32 products of
+    split operands, as the kernel's mma.sync; "single"; "exact").  Returns
+    (dx, ddt, dA, dB, dC), float32."""
+    _check(x, dt, A, B, C)
+    Bsz, S, H, hd = x.shape
+    N = B.shape[-1]
+    L = chunk
+    dev = x.device
+    w = _emulated_workspace(x, dt, A, B, C, chunk, products)
+    xc, dtc, Bc, Cc, CB, s_in, last = (w[k] for k in ("xc", "dtc", "Bc", "Cc", "CB", "s_in",
+                                                         "last"))
+    nc = xc.shape[1]
+    dyc = w["pad"](dy).reshape(Bsz, nc, L, H, hd).permute(0, 1, 3, 2, 4)   # (B, nc, H, L, hd)
+    real = (last + 1)[:, None]                                             # (nc, 1)
+    live = (torch.arange(L, device=dev)[None, :] < real).float()           # (nc, L)
+
+    # launch 1: cs in double, exp(cs_q) and exp(cs_end − cs_k), Σ_q exp(cs_q) dy_q ⊗ C_q
+    csd = torch.cumsum(dtc.double() * A.double(), dim=2).permute(0, 1, 3, 2)   # (B, nc, H, L)
+    cs_end = csd.gather(3, last.view(1, nc, 1, 1).expand(Bsz, nc, H, 1))      # (B, nc, H, 1)
+    ex = torch.exp(csd.float())
+    e_end = torch.exp((cs_end - csd).float())
+    dec = torch.exp(cs_end[..., 0].float())                                   # (B, nc, H)
+    E = _product((ex[..., None] * dyc).transpose(-1, -2), Cc[:, :, None], products)
+    # launch 2: R_c, the gradient of the state after chunk c, in reverse order
+    s = dstate if dstate is not None else torch.zeros((Bsz, H, hd, N), device=dev)
+    R = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        R[c] = s
+        s = s * dec[:, c, :, None, None] + E[:, c]
+    R = torch.stack(R, dim=1)                                                 # (B, nc, H, hd, N)
+
+    # launch 3, per head: dcs, du, dx, ddt, dA's shares
+    u = (dtc[..., None] * xc).permute(0, 1, 3, 2, 4)                          # (B, nc, H, L, hd)
+    G = _product(dyc, u.transpose(-1, -2), products)                          # (B, nc, H, q, k)
+    Lm = torch.exp((csd[..., :, None] - csd[..., None, :]).float())
+    tri = torch.ones((L, L), dtype=torch.bool, device=dev)
+    Z = torch.where(tri.tril(-1), Lm * CB[:, :, None] * G, 0.0)
+    P = torch.where(tri.tril(), Lm * CB[:, :, None], 0.0)
+    Y = _product(Cc[:, :, None], s_in.transpose(-1, -2), products)          # (B, nc, H, q, hd)
+    dcs = Z.sum(-1) + ex * (dyc * Y).sum(-1)
+    du = _product(Bc[:, :, None], R.transpose(-1, -2), products) * e_end[..., None]
+    wS = (u * du).sum(-1) * live[:, None]
+    du = du + _product(P.transpose(-1, -2), dyc, products)
+    dx = dtc.permute(0, 1, 3, 2)[..., None] * du
+    xdu = (xc.permute(0, 1, 3, 2, 4) * du).sum(-1)
+    dcs_end = dec * (R * s_in).sum((-1, -2)) + wS.sum(-1)
+    at_end = (torch.arange(L, device=dev)[None, :] == last[:, None])[:, None]  # (nc, 1, L)
+    dcs = (dcs - wS - Z.sum(-2) + torch.where(at_end, dcs_end[..., None], 0.0)) * live[:, None]
+    run = torch.flip(torch.cumsum(torch.flip(dcs.double(), [-1]), -1), [-1])
+    ddt = A[:, None] * run.float() + xdu                                      # (B, nc, H, L)
+    dA = (dtc.permute(0, 1, 3, 2).double() * run).sum((0, 1, 3)).float()
+
+    # launch 4, per chunk: dC and dB, summed over the heads
+    M = torch.where(tri.tril(), Lm * G, 0.0).sum(2)                           # (B, nc, q, k)
+    dC = _product(M, Bc, products) + _product(ex[..., None] * dyc, s_in, products).sum(2)
+    dB = (_product(M.transpose(-1, -2), Cc, products)
+          + _product(e_end[..., None] * u, R, products).sum(2))
+
+    def unpad(t):                                                             # (B, nc, L, ...)
+        return t.reshape((Bsz, nc * L) + t.shape[3:])[:, :S]
+
+    return (unpad(dx.permute(0, 1, 3, 2, 4)), unpad(ddt.permute(0, 1, 3, 2)), dA, unpad(dB),
+            unpad(dC))
 
 
 def _strides(x, dt, B, C):
@@ -269,8 +362,8 @@ def _kernel_bwd(x, dt, A, B, C, dy, dstate, fws) -> tuple:
 
 def backward_attributes() -> dict:
     """Registers a thread and local (spill) bytes a thread of the backward's
-    launches that stage products (``e``, ``head``, ``bc``), at the widest
-    template (hd and N padded to 128)."""
+    launches that stage products (``e``, ``head``, ``bc``; ``head`` at
+    hd ≤ 64, the train path's template)."""
     fn = _build.bind("ssd_scan_bwd", "ssd_scan_bwd_attributes", (ctypes.c_void_p,))
     vals = (ctypes.c_int * 6)()
     err = fn(ctypes.cast(vals, ctypes.c_void_p))

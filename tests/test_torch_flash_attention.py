@@ -197,6 +197,87 @@ def test_bf16_kernel_arithmetic_holds_the_chip_gate_only_with_p_split(mask, p_ro
         assert share > 1.0, share
 
 
+def _bwd_kernel_arithmetic(q, k, v, do, causal, window, split_p, split_ds, bk=32):
+    """What the bfloat16 backward kernels compute, in torch on the CPU:
+    bfloat16 inputs and exact float32 products s = q·kᵀ, dP = dO·vᵀ; the
+    scale applied in float32 after them, in base 2; launch 1's pass over
+    `bk`-key tiles keeping each row's running max m, denominator l and
+    Σ exp2(x − m)·dP; then P = exp2(x − m)/l and dS = P ∘ (dP − D), each
+    entering its product in bfloat16 — split into bf16(x) and
+    bf16(x − bf16(x)), or rounded once — with float32 sums: dq = dS·k·scale,
+    dk = dSᵀ·q·scale, dv = Pᵀ·dO.  Returns float32 (dq, dk, dv) before their
+    final bfloat16 rounding."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, KVH, H // KVH, hd)
+    dog = do.float().reshape(B, Sq, KVH, H // KVH, hd)
+    kf, vf = k.float(), v.float()
+    keep = fa.mask(Sq, Sk, causal, window)
+    scale = float(np.float32(1 / np.sqrt(hd)))
+    scale_log2 = float(np.float32(np.log2(np.e) / np.sqrt(hd)))
+    m = torch.full((B, KVH, H // KVH, Sq), -1e30)
+    l = torch.zeros_like(m)
+    dsum = torch.zeros_like(m)
+    for k0 in range(0, Sk, bk):
+        x = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf[:, k0:k0 + bk]) * scale_log2
+        x = torch.where(keep[:, k0:k0 + bk], x, -1e30)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf[:, k0:k0 + bk])
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        dsum = dsum * alpha + (p * dp).sum(-1)
+        m = m_new
+    inv = 1 / l.clamp_min(1e-30)
+    x = torch.where(keep, torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale_log2, -1e30)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
+    p = torch.exp2(x - m[..., None]) * inv[..., None]
+    ds = torch.where(keep, p * (dp - (dsum * inv)[..., None]), 0.0)
+
+    def terms(a, split):
+        hi = a.bfloat16().float()
+        return (hi, (a - hi).bfloat16().float()) if split else (hi,)
+
+    dq = sum(torch.einsum("bgrqk,bkgd->bqgrd", t, kf) for t in terms(ds, split_ds)) * scale
+    dk = sum(torch.einsum("bgrqk,bqgrd->bkgd", t, qg) for t in terms(ds, split_ds)) * scale
+    dv = sum(torch.einsum("bgrqk,bqgrd->bkgd", t, dog) for t in terms(p, split_p))
+    return dq.reshape(B, Sq, H, hd), dk, dv
+
+
+@pytest.mark.parametrize("mask", [(True, None), (True, 100)], ids=["causal", "window100"])
+@pytest.mark.parametrize("rounding", ["split", "single_p", "single_ds"])
+def test_bf16_backward_arithmetic_holds_the_chip_gate_only_with_p_and_ds_split(mask, rounding):
+    """The bfloat16 backward kernels take P (into dv) and dS (into dq and dk)
+    in bfloat16.  Held to float64 autograd through the plain version under
+    chip_smoke.py's backward gate (one bfloat16 ulp of the float64 value +
+    1e-4·max|f64|, elementwise; compared before the outputs' bfloat16
+    rounding), both split into two bfloat16 terms use at most half the gate
+    at hd 256; one bfloat16 rounding of P leaves it in dv, of dS in dq and
+    dk."""
+    causal, window = mask
+    B, S, H, KVH, hd = 1, 300, 4, 2, 256
+    rng = np.random.default_rng(16)
+    q, do = (torch.tensor(rng.standard_normal((B, S, H, hd)), dtype=torch.float32).bfloat16()
+             for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((B, S, KVH, hd)),
+                         dtype=torch.float32).bfloat16() for _ in range(2))
+    got = _bwd_kernel_arithmetic(q, k, v, do, causal, window,
+                                 split_p=rounding != "single_p", split_ds=rounding != "single_ds")
+    ins = [x.double().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention_plain(*ins, causal=causal, window=window)
+    want = torch.autograd.grad(out, ins, do.double())
+    share = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8))
+        share[name] = float(((g.double() - w).abs() / (1e-4 * w.abs().max() + ulp)).max())
+    if rounding == "split":
+        assert max(share.values()) <= 0.5, share
+    elif rounding == "single_p":
+        assert share["dv"] > 1.0 and share["dq"] <= 0.5 and share["dk"] <= 0.5, share
+    else:
+        assert share["dq"] > 1.0 and share["dk"] > 1.0 and share["dv"] <= 0.5, share
+
+
 @pytest.mark.parametrize("case", ["ok", "hd_stride", "odd_stride", "hd_not_8", "misaligned"])
 def test_bf16_kernel_layout_rules(case):
     """The bfloat16 kernel reads q, k, v in place through TMA: unit head-dim

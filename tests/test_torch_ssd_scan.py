@@ -9,6 +9,9 @@ kernel in interpret mode, to the sequential oracle `ref.ssd_scan_ref` and to
 `_ssd_chunked` (y and the final state), within the reference's own 1e-3
 (rtol and atol, `tests/test_kernels.py`).
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,11 +32,18 @@ SWEEP = [
 ]
 
 
-def _inputs(seed, B, S, H, hd, N, dt_scale=0.5, a_scale=1.0):
+def _inputs(seed, B, S, H, hd, N, dt_scale=0.5, a_scale=1.0, mamba2_init=False):
+    """Seeded inputs; `mamba2_init` draws A and dt as mamba2-370m's init
+    makes them: A = −exp(log(1..H)), dt = softplus of a N(0, 1)
+    pre-activation (dt_bias 0)."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, S, H, hd)).astype(np.float32)
-    dt = (rng.random((B, S, H)) * dt_scale + 0.01).astype(np.float32)
-    A = ((-rng.random(H) - 0.1) * a_scale).astype(np.float32)
+    if mamba2_init:
+        dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32)
+        A = -np.arange(1, H + 1).astype(np.float32)
+    else:
+        dt = (rng.random((B, S, H)) * dt_scale + 0.01).astype(np.float32)
+        A = ((-rng.random(H) - 0.1) * a_scale).astype(np.float32)
     Bm = rng.standard_normal((B, S, N)).astype(np.float32)
     Cm = rng.standard_normal((B, S, N)).astype(np.float32)
     return x, dt, A, Bm, Cm
@@ -188,8 +198,6 @@ def test_plain_gradients_match_jax_grad_of_ssd_chunked(chunk):
     against jax.grad of the model's `_ssd_chunked` (float32; dx, ddt, dA, dB,
     dC of a loss on y and on the final state), within the reference's
     1e-3."""
-    import jax
-
     x, dt, A, Bm, Cm = _inputs(21 + chunk, 2, 64, 3, 16, 8)
     rng = np.random.default_rng(chunk)
     dy = rng.standard_normal(x.shape).astype(np.float32)
@@ -219,3 +227,70 @@ def test_plain_version_takes_float64_and_the_cuda_path_is_an_autograd_function()
     with pytest.raises(TypeError, match="float32-only"):
         ss.ssd_scan(*(t.double() for t in (x, dt, A, Bm, Cm)))
     assert issubclass(ss.SSDScan, torch.autograd.Function)
+
+
+#: kernel 6b's arithmetic, emulated: (inputs, whether a final-state gradient
+#: is taken).  "mixed decays" is chip_smoke.py's case of that name (dt·A from
+#: −0.05 to −550 a step, cumulative decays to −10⁴); "mamba2 init" draws A
+#: and dt as mamba2-370m's init does, at its widths (32 heads × 64, N 128)
+BWD_ARITH_CASES = {
+    "random": (dict(seed=31, B=2, S=300, H=3, hd=64, N=128), True),
+    "mixed decays": (dict(seed=32, B=2, S=300, H=2, hd=64, N=128, dt_scale=10.0,
+                          a_scale=50.0), False),
+    "mamba2 init": (dict(seed=33, B=1, S=300, H=32, hd=64, N=128, mamba2_init=True), True),
+}
+_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_case(case):
+    """(inputs, dy, the final state's gradient or None, jax.grad of
+    `_ssd_chunked` in float64).  The reference is taken in float64: in
+    float32 its cumulative decays reach −10⁴ on "mixed decays", where their
+    ulp is ~1e-3, and its own ddt and dA read 4–7× the gate off float64
+    there (the repair of kernel 6b's first version)."""
+    cfg, with_state = BWD_ARITH_CASES[case]
+    cfg = dict(cfg)
+    seed = cfg.pop("seed")
+    args = _inputs(seed, **cfg)
+    rng = np.random.default_rng(seed + 100)
+    dy = rng.standard_normal(args[0].shape).astype(np.float32)
+    ds = (rng.standard_normal((cfg["B"], cfg["H"], cfg["hd"], cfg["N"])).astype(np.float32)
+          if with_state else None)
+
+    def loss(*a):
+        y, s = _ssd_chunked(*a, chunk=100)
+        out = jnp.sum(y * dy)
+        return out if ds is None else out + jnp.sum(s * ds)
+
+    with jax.enable_x64(True):
+        want = jax.grad(loss, argnums=tuple(range(5)))(
+            *(jnp.asarray(a, jnp.float64) for a in args))
+        want = tuple(torch.tensor(np.asarray(w)) for w in want)
+    return ([torch.tensor(a) for a in args], torch.tensor(dy),
+            None if ds is None else torch.tensor(ds), want)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_ARITH_CASES))
+@pytest.mark.parametrize("products", ["split", "single"])
+def test_backward_arithmetic_holds_the_chip_gate_only_with_split_products(case, products):
+    """Kernel 6b's arithmetic, emulated (`ssd_scan_bwd_emulated`).  With
+    split TF32 products: dx, ddt, dB and dC within 5 % of the card's gate
+    (1e-4·max|·|) of the same arithmetic with exact float32 products, and dA
+    no further from the reference than the exact products' dA plus 5 % (dA
+    sums d(dt·A) over every position with cancellation, so float32 noise in
+    either reads up to 10 % of the gate there); every output within half the
+    gate of jax.grad of the reference's `_ssd_chunked` (float64).  With one
+    TF32 product an output leaves the gate."""
+    args, dy, ds, want = _bwd_case(case)
+    got = ss.ssd_scan_bwd_emulated(*args, dy, ds, products=products)
+    to_ref = {n: _share(g.double(), w) for n, g, w in zip(_BWD_NAMES, got, want)}
+    if products == "single":
+        assert max(to_ref.values()) > 1.0, to_ref
+        return
+    exact = ss.ssd_scan_bwd_emulated(*args, dy, ds, products="exact")
+    to_exact = {n: _share(g, e) for n, g, e in zip(_BWD_NAMES, got, exact)}
+    exact_to_ref = _share(exact[2].double(), want[2])
+    assert all(to_exact[n] <= 0.05 for n in ("dx", "ddt", "dB", "dC")), to_exact
+    assert to_ref["dA"] <= exact_to_ref + 0.05, (to_ref["dA"], exact_to_ref)
+    assert max(to_ref.values()) <= 0.5, to_ref
