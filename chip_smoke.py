@@ -41,12 +41,25 @@ is non-zero and no result line is printed:
                 `torch.matmul` yardsticks: float64 on the same operands
                 (the library time), float32 with the casts timed, and
                 float32 on copies made outside the timing;
+     kernels_entry_points — ROADMAP item 20's entry points on the card:
+                `topk_threshold` and `ops.topk_compress` (kernel 1) at
+                (256, 256) k = 512 and one 1200² row k = 14,400 bitwise
+                against their plain twin, `ops.matmul` (kernel 3) at 512²
+                to float32 and bfloat16, `ops.basis_transform` (kernel 4)
+                at fig-dnn's first leaf, each in its kernel's gate, one
+                launch a call, timed beside its plain version, bound and
+                library call;
   5. prng     — the port's threefry draws (`repro_torch.core.prng`) on
                 the card and on the CPU against the committed table of
                 jax.random draws in both threefry settings
-                (src/repro_torch/exp/data/prng_table.json), the card's draws
-                at the path's shapes bitwise equal to the CPU's, and the host
-                time and CUDA launches a round's draws cost;
+                (src/repro_torch/exp/data/prng_table.json, `normal` among
+                them), the card's draws at the path's shapes bitwise equal
+                to the CPU's, `normal` at every draw shape of the LM init
+                and BL-DNN (whole leaves to 2²¹ draws; gemma3-4b's
+                671M-draw embedding and the other large leaves drawn whole
+                on the card in chunks and held in three windows) in both
+                settings, and the host time and CUDA launches a round's
+                draws cost;
      fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
                 the experiment engine (`repro_torch.exp.problems.run_cell`
                 → `exp.engine.run_cell` → `core.bl.bl1` /
@@ -126,6 +139,15 @@ is non-zero and no result line is printed:
                 compress-sum and basis-transform kernels' CUDA launches (one
                 a call on the 8-client path); with --profile, the CUDA
                 launches a round of BLDNN.
+     dnn-drawn — a BL-DNN problem the port draws (`DNNProblemSpec(seed=1)`
+                at fig-dnn's widths; numpy's and jax.random.normal's draws
+                on the host, the per-layer SVD basis by host LAPACK) built
+                for the card and for the CPU through `engine.build_problem`,
+                fig-dnn/BLDNN and TopK for 40 rounds on each, the card held
+                to the CPU in the BL-DNN gate with kernel 1, 2 and 4 launch
+                counts exact; and the port's draw of fig-dnn's own spec
+                against the carried fixture (x bitwise, y equal, the input
+                layer bitwise, the other leaves within 1e-5·max|ref|).
      exp      — the experiment layer: ``python -m repro_torch.exp run --fig
                 fig1r1 --fig fig-dnn --fig fig1-xl`` in-process on the card
                 into a temporary directory: every artifact's config digest
@@ -234,7 +256,8 @@ is non-zero and no result line is printed:
                 the CPU (prefill logits, every decode step's logits and the
                 cache within 2e-4·max|ref|, 8 greedy tokens equal, decode
                 after an 8-token prefill equal to the full forward), then
-                the full-width config in bfloat16 with seeded weights: 4
+                the full-width config in bfloat16 with the reference's
+                weights of PRNGKey(0) (init seconds and peak reported): 4
                 (gemma3) or 8 (mamba2) requests of 2048-token prompts and
                 32 decode steps, every logit finite, exactly one kernel-5
                 (gemma3, 34) or kernel-6 (mamba2, 48) launch a layer in the
@@ -268,7 +291,8 @@ is non-zero and no result line is printed:
                 AdamW moments, remat; 4 steps): every loss finite and
                 exactly 68 kernel-5 forward and 34 backward calls a step
                 (gemma3) or 96 kernel-6 forward and 48 backward (mamba2),
-                no other kernel; s/step, tokens/s, peak memory and set-up s;
+                no other kernel; s/step, tokens/s, peak memory, set-up and
+                init s (the reference's weights of PRNGKey(0));
                 then each cell again through the plain versions (losses
                 within 1e-2 relative of the kernels' at step 0, 5e-2 at
                 steps 1–3); and the bf16 witness: gemma3-4b at full width,
@@ -498,9 +522,10 @@ def prng_draws(r) -> dict:
     """The draws of the PRNG table through a random module ``r`` (the
     port's, `PortRandom`, or jax's in the test that writes the table):
     split into 3 and 4, fold_in, bernoulli from a float64 and a float32 p,
-    randint int32 and int64, uniform float32 and float64 over shapes of 5
-    and 6 (odd and even counter counts), and choice of 1 and 5 of 60
-    without replacement — as nested lists."""
+    randint int32 and int64, uniform float32 and float64 and normal float32
+    over shapes of 5 and 6 (odd and even counter counts) and normal over
+    (3, 7), and choice of 1 and 5 of 60 without replacement — as nested
+    lists."""
     out = {}
     for seed in (0, 3):
         key = r.PRNGKey(seed)
@@ -516,6 +541,8 @@ def prng_draws(r) -> dict:
             out[f"randint_i64/{tag}"] = r.randint(key, (n,), 0, 10, "int64")
             out[f"uniform_f32/{tag}"] = r.uniform(key, (n,), "float32")
             out[f"uniform_f64/{tag}"] = r.uniform(key, (n,), "float64")
+            out[f"normal_f32/{tag}"] = r.normal(key, (n,))
+        out[f"normal_f32x2/{seed}"] = r.normal(key, (3, 7))
         out[f"choice60x1/{seed}"] = r.choice(key, 60, (1,), False)
         out[f"choice60x5/{seed}"] = r.choice(key, 60, (5,), False)
     return {k: r.tolist(v) for k, v in out.items()}
@@ -559,6 +586,9 @@ class PortRandom:
 
     def uniform(self, key, shape, dtype):
         return self.prng.uniform(key, shape, getattr(self.torch, dtype), device=self.device)
+
+    def normal(self, key, shape):
+        return self.prng.normal(key, shape, device=self.device)
 
     def choice(self, key, n, shape, replace):
         return self.prng.choice(key, n, shape, replace, device=self.device)
@@ -687,6 +717,88 @@ def matmul_bound_ms(a, b) -> tuple:
 MM_PATHS = (("fig2", 10, 120, 24), ("newton-xl", 512, 1200, 32))
 #: the reference's matmul test sweep (tests/test_kernels.py), (M, K, N)
 MM_SWEEP = ((64, 64, 64), (300, 500, 200), (128, 1, 7), (1, 257, 129), (513, 128, 255))
+
+
+#: the entry points of item 20 at the reference's benchmark lanes' shapes:
+#: ``ktopk``'s (256, 256) k = 512, one 1200² row (the threshold's
+#: `threshold_global` template) with k = 14,400, ``kmatmul``'s 512², and
+#: kernel 4 at fig-dnn's first leaf
+ENTRY_TOPK = (((256, 256), 512, "ktopk"), ((1, 1200 * 1200), 14400, "global_1200sq"))
+ENTRY_MATMUL = (512, 512, 512)
+ENTRY_ROTATION = (8, 96, 96, 32, 32)
+
+
+def entry_points_phase(torch, k) -> dict:
+    """The four entry points of ROADMAP item 20 on the card: kernel 1's
+    `topk_threshold` and `ops.topk_compress` bitwise against their plain
+    twin (dense, threshold, kept), `ops.matmul` within MM_TOL of its plain
+    version in float32 and bfloat16 out, `ops.basis_transform` within
+    kernel 4's 1e-5·max|plain|; each timed beside its plain version, its
+    bound and the library call (`torch.topk` of the flattened |x|,
+    `torch.matmul`), with the kernel launches one call makes."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    out = {}
+    for shape, kk, tag in ENTRY_TOPK:
+        x = torch.randn(shape, device="cuda", generator=gen)
+        for name, fn in (("topk_threshold", lambda: k.tk.topk_threshold(x, kk)),
+                         ("topk_compress", lambda: ops.topk_compress(x, kk))):
+            got, secs, counts = drive(torch, k, fn)
+            plain = k.tk.topk_threshold_plain(x, kk)
+            want = plain if name == "topk_threshold" else (plain[0], plain[2])
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} {tag}: the kernel route differs from its plain "
+                                     f"twin")
+            err = max(float((torch.as_tensor(a).double() - torch.as_tensor(b).double())
+                            .abs().max()) for a, b in zip(got, want))
+            if counts["topk_row_threshold"] != 1 or int(got[-1]) != min(kk, x.numel()):
+                raise AssertionError(f"{name} {tag}: launches {counts}, kept {int(got[-1])}")
+            bytes_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3   # read x, write dense
+            out[f"{name}/{tag}"] = {
+                "shape": list(shape), "k": kk, "launches_per_call": counts["topk_row_threshold"],
+                "max_abs_err": err, "kernel_ms": cuda_ms(torch, fn, 20),
+                "plain_ms": cuda_ms(torch, lambda: k.tk.topk_threshold_plain(x, kk), 5, 1),
+                "library_ms": cuda_ms(torch, lambda: torch.topk(x.abs().flatten(), kk), 20),
+                "bound_ms": bytes_ms, "bound_by": "bytes"}
+    M, K, N = ENTRY_MATMUL
+    a = torch.randn(M, K, device="cuda", generator=gen)
+    b = torch.randn(K, N, device="cuda", generator=gen)
+    for dt in (torch.float32, torch.bfloat16):
+        fn = lambda dt=dt: ops.matmul(a, b, out_dtype=dt)         # noqa: E731
+        got, _, counts = drive(torch, k, fn)
+        want = k.tm.matmul_plain(a, b, out_dtype=dt)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        tol = MM_TOL if dt == torch.float32 else 2.0 ** -8       # one bfloat16 rounding
+        if got.dtype != dt or counts["tiled_matmul"] != 1 or not err <= tol * scale:
+            raise AssertionError(f"ops.matmul {M}x{K}x{N} -> {dt}: |Δ| {err} vs {tol}·{scale}, "
+                                 f"launches {counts}")
+        bound, by = matmul_bound_ms(a, b)
+        out[f"matmul/{M}x{K}x{N}/{str(dt).replace('torch.', '')}"] = {
+            "launches_per_call": counts["tiled_matmul"], "max_abs_err": err,
+            "kernel_ms": cuda_ms(torch, fn, 50),
+            "plain_ms": cuda_ms(torch, lambda dt=dt: k.tm.matmul_plain(a, b, out_dtype=dt), 50),
+            "library_ms": cuda_ms(torch, lambda: torch.matmul(a, b), 50),
+            "bound_ms": bound, "bound_by": by}
+    n, da, d1, d2, db = ENTRY_ROTATION
+    A = torch.linalg.qr(torch.randn(da, d1, device="cuda", generator=gen))[0].contiguous()
+    B = torch.linalg.qr(torch.randn(d2, db, device="cuda", generator=gen))[0].contiguous()
+    g = torch.randn(n, d1, d2, device="cuda", generator=gen)
+    fn = lambda: ops.basis_transform(A, g, B)                     # noqa: E731
+    got, _, counts = drive(torch, k, fn)
+    want = k.bt.basis_transform_plain(A, g, B)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if counts["basis_transform"] != 1 or not err <= 1e-5 * scale:
+        raise AssertionError(f"ops.basis_transform: |Δ| {err} vs 1e-5·{scale}, {counts}")
+    bound, by = basis_transform_bound_tc_ms(n, da, d1, d2, db)
+    out["basis_transform/" + "x".join(map(str, ENTRY_ROTATION))] = {
+        "launches_per_call": counts["basis_transform"], "max_abs_err": err,
+        "kernel_ms": cuda_ms(torch, fn, 50),
+        "plain_ms": cuda_ms(torch, lambda: k.bt.basis_transform_plain(A, g, B), 50),
+        "library_ms": cuda_ms(torch, lambda: torch.matmul(torch.matmul(A, g), B), 50),
+        "bound_ms": bound, "bound_by": by}
+    return out
 
 
 def matmul_kernel_phase(torch, tm, ops) -> dict:
@@ -1294,7 +1406,8 @@ def prng_phase(torch, prng, rounds, device: str = "cuda") -> dict:
     to it entry for entry; draws at the path's shapes (a 512-client split
     and participation mask, the dithering's float32 level draws, Rand-K's
     choice, a 5000-long permutation) on the card bitwise equal to the CPU's;
-    then the host time and CUDA launches a round's draws cost, replayed
+    `normal` at every draw shape of the path (`normal_phase`); then the host
+    time and CUDA launches a round's draws cost, replayed
     without the round's arithmetic, for bl2-xl, fig3/RTopK and
     fig-dnn/RTopK."""
     table = json.loads(PRNG_TABLE.read_text())
@@ -1367,7 +1480,73 @@ def prng_phase(torch, prng, rounds, device: str = "cuda") -> dict:
                       "cuda_launches_per_round": prof["cuda_launches_per_step"],
                       "device_ms_per_round": prof["device_busy_ms"] / PRNG_COST_ROUNDS}
     return {"table_entries": sum(len(v) for v in table.values()),
-            "card_vs_cpu_cases": sorted(cases), "draw_cost": cost}
+            "card_vs_cpu_cases": sorted(cases), "draw_cost": cost,
+            "normal": normal_phase(torch, prng)}
+
+
+#: normal draws held card = CPU over the whole leaf up to this many draws;
+#: a larger leaf is drawn whole on the card (in chunks) and held in windows
+NORMAL_WHOLE = 1 << 21
+#: the windows' length (start, across the half ⌈n/2⌉ where the original
+#: layout's pairs split, end)
+NORMAL_WINDOW = 1 << 16
+
+
+def normal_draw_shapes() -> list:
+    """The shapes of every `jax.random.normal` draw the main path makes:
+    gemma3-4b's and mamba2-370m's weights at full width (one draw a leaf,
+    a stacked leaf one per group) and fig-dnn's four leaves."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    shapes = {(96, 32), (32, 64), (64, 32), (32, 4)}
+    for arch in ("gemma3_4b", "mamba2_370m"):
+        for name, leaf in _leaves(M.param_shapes(configs.get_config(arch))):
+            if leaf.dim() < 2 or name.endswith("scale"):
+                continue                        # norms, A_log, D, dt_bias: not drawn
+            shapes.add(tuple(leaf.shape[1:]) if name.startswith("layers") else tuple(leaf.shape))
+    return sorted(shapes, key=math.prod)
+
+
+def normal_phase(torch, prng) -> dict:
+    """`prng.normal` on the card against the CPU at every draw shape of the
+    path, in both threefry settings: whole leaves up to NORMAL_WHOLE draws,
+    larger ones (up to gemma3-4b's 671M-draw embedding) drawn whole on the
+    card in chunks and held to the CPU's draw of three windows; bitwise.
+    Times the card's whole-leaf draw."""
+    out = {}
+    for flag in (False, True):
+        with prng.threefry_partitionable(flag):
+            for shape in normal_draw_shapes():
+                n = math.prod(shape)
+                key = prng.fold_in(prng.PRNGKey(27), n % (1 << 32))
+                card = torch.empty(n, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for start, z in prng.normal_chunks(key, shape, device="cuda"):
+                    card[start:start + z.numel()] = z
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                h, w = (n + 1) // 2, NORMAL_WINDOW
+                whole = n <= NORMAL_WHOLE
+                windows = [(0, n)] if whole else [(0, w), (h - w // 2, h + w // 2), (n - w, n)]
+                host = card.cpu()
+                for lo, hi in windows:
+                    for start, z in prng.normal_chunks(key, shape, device="cpu",
+                                                       chunk=None if whole else w,
+                                                       start=lo, stop=hi):
+                        got = host[start:start + z.numel()]
+                        if not torch.equal(got.view(torch.int32), z.view(torch.int32)):
+                            raise AssertionError(f"normal {shape} (partitionable={flag}): "
+                                                 f"card != CPU at [{start}, "
+                                                 f"{start + z.numel()})")
+                if not bool(torch.isfinite(card).all()):
+                    raise AssertionError(f"normal {shape}: a draw is not finite")
+                out[f"{'x'.join(map(str, shape))}/partitionable={flag}"] = {
+                    "draws": n, "held": "whole" if whole else "3 windows",
+                    "card_s": secs, "card_ns_per_draw": secs / n * 1e9}
+                del card, host
+    return out
 
 
 def topk_legs(cell) -> int:
@@ -1994,6 +2173,76 @@ def check_dnn_history(name: str, hist, ref: dict) -> dict:
             "bit_streams_equal": check_bits(name, hist, ref)}
 
 
+#: the BL-DNN problem the port draws for phase dnn-drawn: fig-dnn's widths
+#: (n = 8, m = 64, d = 96) at another seed
+DRAWN_DNN_SEED = 1
+#: the carried fixture's leaves against the port's own draw: the teacher's
+#: re-spectralising SVD is another LAPACK call (share of max|ref|)
+DRAWN_DNN_TOL = 1e-5
+
+
+def dnn_drawn_phase(torch, k, problems) -> dict:
+    """A BL-DNN problem the port draws (`DNNProblemSpec(seed=1)` at fig-dnn's
+    widths) through `engine.build_problem` on the card and on the CPU, then
+    fig-dnn/BLDNN and fig-dnn/TopK for their rounds through the engine, the
+    card held to the CPU in the BL-DNN gate (bits exact every round, loss
+    within 1e-4·|ref| and the error rate equal over rounds 0–3) with kernel
+    1, 2 and 4 launch counts exact; then the port's draw of fig-dnn's own
+    spec, made for the card, against the carried fixture: x bit for bit, y
+    equal, the student's input layer bit for bit, its other leaves within
+    DRAWN_DNN_TOL."""
+    import dataclasses
+
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.exp import engine
+
+    spec = dataclasses.replace(problems.DNN_FIG, seed=DRAWN_DNN_SEED)
+    t0 = time.perf_counter()
+    card = problems.build_problem(spec, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cpu = problems.build_problem(spec, device="cpu")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(card.params0),
+                                                       tree_leaves(cpu.params0))):
+        raise AssertionError("dnn-drawn: the card's problem is not the CPU's")
+    cells = {}
+    for cell in (problems.FIG_DNN["BLDNN"], problems.FIG_DNN["TopK"]):
+        hist, secs, counts = drive(torch, k, lambda: problems.run_dnn_cell(cell, card))
+        t0 = time.perf_counter()
+        ref = problems.run_dnn_cell(cell, cpu)
+        cpu_s = time.perf_counter() - t0
+        res = check_dnn_history(f"dnn-drawn/{cell.name}", hist,
+                                {**history_dict(ref), "metrics": ref.metrics})
+        want = dict.fromkeys(counts, 0)
+        want["topk_row_threshold"] = want["topk_compress_sum"] = 4 * cell.steps
+        want["topk_compress_sum_cuda"] = 4 * cell.steps
+        if cell.basis is not None:
+            want["basis_transform"] = want["basis_transform_cuda"] = 4 * cell.steps
+        need_exact(f"dnn-drawn/{cell.name}", counts, want)
+        cells[cell.name] = {"steps": cell.steps, "run_s": secs, "cpu_run_s": cpu_s,
+                            "s_per_round": secs / cell.steps, "launches": counts,
+                            "losses": list(hist.metrics["loss"]), **res}
+    # fig-dnn's own spec, drawn by the port for the card, against the fixture
+    drawn = engine.draw_dnn_problem(problems.DNN_FIG, device="cuda")
+    fix = problems.load_dnn_problem(device="cpu")
+    x, y = drawn.batch.data["x"].cpu(), drawn.batch.data["y"].cpu()
+    if not (torch.equal(x.view(torch.int32), fix.batch.data["x"].view(torch.int32))
+            and torch.equal(y, fix.batch.data["y"])):
+        raise AssertionError("dnn-drawn: the port's draw of fig-dnn's x or y is not the "
+                             "fixture's")
+    leaf_rel = {}
+    for (name, a), b in zip(_leaves(drawn.params0), tree_leaves(fix.params0)):
+        a = a.cpu()
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        exact = torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if not rel <= DRAWN_DNN_TOL or (name == "in" and not exact):
+            raise AssertionError(f"dnn-drawn: the port's fig-dnn leaf {name} is {rel} "
+                                 f"(relative) off the fixture's (bitwise: {exact})")
+        leaf_rel[name] = {"max_rel_err": rel, "bitwise": exact}
+    return {"spec": dataclasses.asdict(spec), "setup_s": setup_s, "cells": cells,
+            "fixture": {"x_bitwise": True, "y_equal": True, "params0": leaf_rel}}
+
+
 def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     """Visible (query, key) pairs of one head: keys j ≤ i (causal) and
     j > i − window; a row that sees no key averages all Sk values."""
@@ -2509,6 +2758,7 @@ def train_phase(torch, k) -> dict:
     import numpy as np
 
     from repro_torch import configs
+    from repro_torch.core import prng
     from repro_torch.data import pipeline
     from repro_torch.launch import train
     from repro_torch.models import model as M
@@ -2521,8 +2771,7 @@ def train_phase(torch, k) -> dict:
         cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
         n_layers = sum(1 for s in cfg.layer_specs()
                        if (s.mixer == "attn") == (kernel == "flash_attention"))
-        cpu = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(0),
-                            device="cpu")
+        cpu = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
         card = _tree_map(lambda t: t.cuda(), cpu)
         Bsz, S = TRAIN_REDUCED_SIZES
         gen = pipeline.SyntheticTokens(cfg.vocab_size, S + 1, Bsz, seed=0)
@@ -2599,6 +2848,7 @@ def train_phase(torch, k) -> dict:
                      "seq_len": out["seq_len"], "steps": TRAIN_STEPS, "losses": out["losses"],
                      "step_s": out["step_s"], "s_per_step": s_step,
                      "tokens_per_s": tokens / s_step, "setup_s": out["setup_s"],
+                     "init_s": out["init_s"],
                      "wall_s_run": wall, "max_memory_allocated": peak,
                      "launches": counts,
                      "launches_per_step": {key: n / TRAIN_STEPS for key, n in counts.items()},
@@ -2636,6 +2886,7 @@ def bf16_witness(torch, k) -> dict:
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.core import prng
     from repro_torch.data import make_batch_iterator
     from repro_torch.launch import shapes
     from repro_torch.models import model as M
@@ -2646,9 +2897,7 @@ def bf16_witness(torch, k) -> dict:
     shp = shapes.SHAPES["train_4k_b1"]
     batch = next(make_batch_iterator(cfg.vocab_size, shp.seq_len + 1, shp.global_batch,
                                      seed=0, dtype=torch.bfloat16, device="cuda"))
-    params = M.init_params(cfg, torch.bfloat16,
-                           generator=torch.Generator(device="cuda").manual_seed(0),
-                           device="cuda")
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cuda")
     grad_fn = steps.make_grad_fn(cfg, remat=True)
     (loss_k, _, g_k), _, counts = drive(torch, k, lambda: grad_fn(params, batch))
     want = {name: 0 for name in counts}
@@ -2710,6 +2959,7 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
     import numpy as np
 
     from repro_torch import configs
+    from repro_torch.core import prng
     from repro_torch.launch import serve, shapes
     from repro_torch.models import model as M
 
@@ -2737,8 +2987,7 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
     cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
     n_kernel_layers = sum(1 for s in cfg.layer_specs()
                           if (s.mixer == "attn") == (kernel == "flash_attention"))
-    cpu_params = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(0),
-                               device="cpu")
+    cpu_params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
     params = _tree_map(lambda t: t.cuda(), cpu_params)
     B, prompt, max_seq = serve.DEBUG_SIZES
     prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
@@ -2777,7 +3026,8 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
               "items": diagnosis})
     del params, cpu_params, out, ref
 
-    # ---- full width, bfloat16, seeded weights drawn on the card
+    # ---- full width, bfloat16, the reference's weights of PRNGKey(0) drawn
+    # on the card
     cfg = configs.get_config(arch)
     B, prompt, max_seq = serve.sizes(shapes.SHAPES[shape])
     n_kernel_layers = sum(1 for s in cfg.layer_specs()
@@ -2786,8 +3036,10 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.bfloat16,
-                           generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     cache = M.init_cache(cfg, B, max_seq, torch.bfloat16, device="cuda")
     prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
                               dtype=torch.int32, device="cuda")
@@ -2815,6 +3067,7 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
     result = {"reduced": reduced, "config": cfg.name, "layers": cfg.n_layers,
               "params": M.count_params(params), "shape": shape, "requests": B, "prompt": prompt,
               "max_seq": max_seq, "decode_steps": steps, "setup_s": setup_s,
+              "init_s": init_s, "init_max_memory_allocated": init_peak,
               "prefill_s": pre["seconds"], "prefill_tok_s": B * prompt / pre["seconds"],
               "decode_s": dec["seconds"], "decode_s_per_step": dec["seconds"] / steps,
               "decode_tok_s": B * steps / dec["seconds"], "max_memory_allocated": peak,
@@ -3470,6 +3723,8 @@ def main(argv) -> int:
     emit({"phase": "kernels", "kernel": "topk_row_threshold", **kern})
     km = matmul_kernel_phase(torch, tm, ops)
     emit({"phase": "kernels_matmul", "kernel": "tiled_matmul", **km})
+    ep = entry_points_phase(torch, k)
+    emit({"phase": "kernels_entry_points", **ep})
     emit({"phase": "prng", **prng_phase(torch, prng, rounds)})
 
     def need(name, counts, want):
@@ -3675,6 +3930,12 @@ def main(argv) -> int:
               **profile_run(torch, lambda: problems.run_dnn_cell(cell, prob, steps=4), 4)})
     direct["fig-dnn/BLDNN"] = {"direct": dnn_s_per_round}
 
+    # ---- dnn-drawn: a BL-DNN problem the port draws, card against CPU ------
+    drawn = dnn_drawn_phase(torch, k, problems)
+    emit({"phase": "dnn-drawn", **drawn})
+    for name, res in drawn["cells"].items():
+        dnn_launches[f"dnn-drawn/{name}"] = res["launches"]
+
     # ---- exp: the CLI over fig1r1, fig-dnn and fig1-xl ----------------------
     del prob
     problems.build_problem.cache_clear()         # the CLI builds its problems itself
@@ -3723,7 +3984,7 @@ def main(argv) -> int:
     emit({"phase": "kernels_ssd_bwd", "kernel": "ssd_scan_bwd", **ksb})
     tr = train_phase(torch, k)
     emit({"phase": "train", "cells": {arch: {key: r[key] for key in (
-        "shape", "s_per_step", "tokens_per_s", "max_memory_allocated", "setup_s",
+        "shape", "s_per_step", "tokens_per_s", "max_memory_allocated", "setup_s", "init_s",
         "plain_loss_rel")} for arch, r in tr.items()}})
     emit({"phase": "train-bf16-witness", **bf16_witness(torch, k)})
 
@@ -3747,6 +4008,9 @@ def main(argv) -> int:
         "shape": xl["shape"], "launches_fig1-xl": launches["fig1-xl"],
         "launches_bl2-xl": launches["bl2-xl"], "launches_stochastic_cells": stochastic,
         "launches_fig-dnn/RTopK": dnn_launches["fig-dnn/RTopK"]["topk_row_threshold"],
+        "launches_dnn-drawn": {name: c["topk_row_threshold"] for name, c in
+                               dnn_launches.items() if name.startswith("dnn-drawn/")},
+        "entry_points": {key: v for key, v in ep.items() if key.startswith("topk_")},
         "launches_baseline_cells": baseline, "launches_basis_grid": grid,
         "launches_cohort": co["launches"], "launches_serve": sv["launches"],
         "launches_sharded": _sharded_launches(sh, "topk_row_threshold"),
@@ -3768,6 +4032,8 @@ def main(argv) -> int:
         "two_pass_ms": cs["two_pass_ms"], "shape": cs["shape"],
         "cuda_launches": main["topk_compress_sum_cuda"],
         "cuda_launches_per_call": cs["cuda_launches_per_call"],
+        "launches_dnn-drawn": {name: c["topk_compress_sum"] for name, c in
+                               dnn_launches.items() if name.startswith("dnn-drawn/")},
         "launches_sharded": _sharded_launches(sh, "topk_compress_sum")}, {
         "name": "tiled_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
@@ -3778,6 +4044,7 @@ def main(argv) -> int:
         "library_cast_f32_ms": mm["library_cast_f32_ms"],
         "library_f32_copies_ms": mm["library_f32_copies_ms"],
         "shape": [mm["a"], mm["b"]], "launches_fig2": fig2_launches["newton_basis/kernel"],
+        "entry_points": {key: v for key, v in ep.items() if key.startswith("matmul/")},
         "gamma": {key: mg[key] for key in ("a", "b", "template", "kernel_ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms",
                                            "library_cast_f32_ms",
@@ -3795,6 +4062,8 @@ def main(argv) -> int:
         "loader": bt_path["loader"],
         "cuda_launches": main["basis_transform_cuda"],
         "cuda_launches_per_call": bt_path["cuda_launches_per_call"],
+        "launches_dnn-drawn": dnn_launches["dnn-drawn/BLDNN"]["basis_transform"],
+        "entry_points": {key: v for key, v in ep.items() if key.startswith("basis_transform/")},
         "launches_sharded": _sharded_launches(sh, "basis_transform"),
         "device_ms": bt_path["device_ms"][bt_path["form"]],
         "library_device_ms": bt_path["device_ms"]["library"],

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -151,6 +151,13 @@ class RotationBasis(MatrixBasis):
 class EigenBasis(RotationBasis):
     """The eigenvectors of the fleet's averaged initial Hessian: data
     dependent, so Q ships once (d² floats, `basis_transmission_bits`)."""
+
+    def shipped(self, ship: comm.BasisShipSpec) -> Tuple["EigenBasis", float]:
+        """The basis as it arrives after a compressed shipment — Q through
+        `quantize_ship_factor` — and the shipment's exact bits; the
+        receiver rotates with the quantized Q."""
+        Q, bits = quantize_ship_factor(self.Q, ship)
+        return EigenBasis(Q=Q), bits
 
 
 class DCTBasis(RotationBasis):
@@ -307,13 +314,20 @@ def per_layer_svd_basis(params, use_basis: bool = True,
     component outside the weight's row space).
 
     The factors of a rank-deficient weight are not unique, and LAPACK and
-    cuSOLVER pick different ones; runs that must match the reference carry
-    its factors across (`repro_torch.core.convert`)."""
+    cuSOLVER pick different ones, so the SVD is always LAPACK's ``sgesdd``
+    through scipy on the host — the routine jax's CPU SVD calls, so on one
+    machine the factors of equal weights are the reference's bit for bit —
+    and the factors go to the leaves' device (set-up work on leaves of a
+    few hundred rows).  Runs that must match a reference computed elsewhere
+    carry its factors across (`repro_torch.core.convert`)."""
+    import scipy.linalg
+
     out = []
     for p in tree_leaves(params):
         if use_basis and p.dim() == 2 and min(p.shape) >= min_dim:
-            u, _, vt = torch.linalg.svd(p.to(torch.float32), full_matrices=True)
-            out.append((u, vt.mT))
+            u, _, vt = scipy.linalg.svd(p.detach().to("cpu", torch.float32).numpy(),
+                                        full_matrices=True, lapack_driver="gesdd")
+            out.append((torch.from_numpy(u).to(p.device), torch.from_numpy(vt).to(p.device).mT))
         else:
             out.append(None)
     return PerLayerSVDBasis(UV=tuple(out))
@@ -371,17 +385,37 @@ def structured_tree_basis(params, kind: str = "dct",
     return StructuredTreeBasis(UV=tuple(out))
 
 
-#: registered bases that transform parameter pytrees (BL-DNN), not d×d
-#: matrices; `make_bases` takes the parameter tree for them
-PYTREE_BASES = ("dct_tree", "hadamard_tree", "per_layer_svd")
-
 #: the registered d×d bases that are conventions of their width, by name
 CONVENTION_BASES = {"standard": StandardBasis, "symmetric": SymmetricBasis,
                     "psd": PSDBasis}
 
+# --------------------------------------------------------------------------
+# registry: "which basis" as a configuration axis
+# --------------------------------------------------------------------------
+BasisFactory = Callable[..., object]
+#: basis factories by name (`register_basis`)
+BASIS_REGISTRY: Dict[str, BasisFactory] = {}
+#: registered names whose basis transforms parameter pytrees (BL-DNN), not
+#: d×d matrices: their factory takes the parameter tree where a matrix
+#: basis takes the client fleet
+PYTREE_BASES: set = set()
+
+
+def register_basis(name: str, *, pytree: bool = False):
+    """Register a fleet-level basis factory ``factory(clients, x0=None,
+    **kw) -> [MatrixBasis, ...]`` under `name`; ``pytree=True`` marks a
+    pytree-basis factory ``factory(params, x0=None, **kw)`` that returns
+    the fleet-global basis object."""
+    def deco(factory: BasisFactory) -> BasisFactory:
+        BASIS_REGISTRY[name] = factory
+        if pytree:
+            PYTREE_BASES.add(name)
+        return factory
+    return deco
+
 
 def available_bases() -> List[str]:
-    return sorted(("data_outer", "eigen", "dct") + tuple(CONVENTION_BASES) + PYTREE_BASES)
+    return sorted(BASIS_REGISTRY)
 
 
 def is_pytree_basis(name: str) -> bool:
@@ -392,27 +426,55 @@ def is_pytree_basis(name: str) -> bool:
 def make_bases(name: str, clients: Sequence, x0: Optional[torch.Tensor] = None,
                **kw):
     """One `MatrixBasis` per client for a registered d×d basis name, on the
-    device of the clients' data.  For a pytree basis (`is_pytree_basis`)
+    device of the clients' data (``kw``: the factory's options, e.g.
+    ``rcond`` for ``data_outer``).  For a pytree basis (`is_pytree_basis`)
     `clients` is the parameter tree and the result is the fleet-global
     basis object itself."""
-    if name == "per_layer_svd":
-        return per_layer_svd_basis(clients, **kw)
-    if name in ("dct_tree", "hadamard_tree"):
-        return structured_tree_basis(clients, kind=name[:-len("_tree")], **kw)
-    clients = list(clients)
-    if name == "data_outer":
-        rcond = kw.pop("rcond", 1e-10)
-        if kw:
-            raise TypeError(f"unexpected data_outer options {sorted(kw)}")
-        return [orth_basis_from_data(c.A, rcond=rcond) for c in clients]
-    if name not in available_bases():
+    if name not in BASIS_REGISTRY:
         raise KeyError(f"unknown basis {name!r}; registered: {available_bases()}")
-    if kw:
-        raise TypeError(f"unexpected {name} options {sorted(kw)}")
-    if name == "eigen":
-        return eigen_basis_from_clients(clients, x0=x0)
-    d = int(clients[0].A.shape[1])
-    if name == "dct":
-        basis = DCTBasis(d, device=clients[0].A.device)
-        return [basis for _ in clients]
-    return [CONVENTION_BASES[name](d) for _ in clients]
+    if name in PYTREE_BASES:
+        return BASIS_REGISTRY[name](clients, x0=x0, **kw)
+    return BASIS_REGISTRY[name](list(clients), x0=x0, **kw)
+
+
+def _fleet_d(clients) -> int:
+    return int(clients[0].A.shape[1])
+
+
+def _register_convention(name: str, cls) -> None:
+    register_basis(name)(lambda clients, x0=None: [cls(_fleet_d(clients)) for _ in clients])
+
+
+for _name, _cls in CONVENTION_BASES.items():
+    _register_convention(_name, _cls)
+
+
+@register_basis("data_outer")
+def _data_outer_bases(clients, x0=None, rcond: float = 1e-10):
+    return [orth_basis_from_data(c.A, rcond=rcond) for c in clients]
+
+
+@register_basis("eigen")
+def _eigen_bases(clients, x0=None):
+    return eigen_basis_from_clients(clients, x0=x0)
+
+
+@register_basis("dct")
+def _dct_bases(clients, x0=None):
+    basis = DCTBasis(_fleet_d(clients), device=clients[0].A.device)
+    return [basis for _ in clients]
+
+
+@register_basis("per_layer_svd", pytree=True)
+def _per_layer_svd_bases(params, x0=None, use_basis: bool = True):
+    return per_layer_svd_basis(params, use_basis=use_basis)
+
+
+@register_basis("dct_tree", pytree=True)
+def _dct_tree_bases(params, x0=None, min_dim: int = 2):
+    return structured_tree_basis(params, kind="dct", min_dim=min_dim)
+
+
+@register_basis("hadamard_tree", pytree=True)
+def _hadamard_tree_bases(params, x0=None, min_dim: int = 2):
+    return structured_tree_basis(params, kind="hadamard", min_dim=min_dim)

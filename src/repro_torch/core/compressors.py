@@ -179,6 +179,10 @@ class TopK(Compressor):
         return (out.reshape(x.shape), comm.Counts(floats=c, indices=c),
                 s.reshape(x.shape[1:]))
 
+    def delta_for(self, numel: int) -> float:
+        """The contraction δ on a vector of `numel` entries: min(k, numel)/numel."""
+        return min(self.k, numel) / numel
+
 
 @dataclasses.dataclass(unsafe_hash=True)
 class RankR(Compressor):
@@ -203,6 +207,10 @@ class RankR(Compressor):
         # wire format: rr singular triples (u_i, σ_i, v_i)
         c = _full(n, rr * (x.shape[1] + x.shape[2] + 1), x.device)
         return out, comm.Counts(floats=c)
+
+    def delta_for(self, d: int) -> float:
+        """The contraction δ on d×d matrices: min(R, d)/d."""
+        return min(self.r, d) / d
 
 
 @dataclasses.dataclass(unsafe_hash=True)

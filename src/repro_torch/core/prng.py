@@ -4,9 +4,10 @@ JAX package calls, on jax's default generator, threefry2x32.
 Keys are ``(..., 2)`` int64 tensors holding uint32 words; a key with
 leading dimensions is a batch of keys, and every draw from it gains those
 dimensions in front of its own shape (the port's form of ``jax.vmap`` over
-keys).  Words and counts are held in int64 and masked to 32 bits after
-every add and shift, so no value ever needs an unsigned 64-bit type: a
-64-bit draw is the pair of its (high, low) words.
+keys).  Words and counts are held as uint32 values in int64 (a tensor
+hash runs in int32, whose adds wrap as uint32 adds do), so no value ever
+needs an unsigned type: a 64-bit draw is the pair of its (high, low)
+words.
 
 The bits are jax's, for both settings of ``jax_threefry_partitionable``:
 
@@ -24,7 +25,9 @@ context — never a process-wide flag a caller could leave set.
 
 ``jax_enable_x64`` is on in the JAX package, so the port follows its
 conventions: a Python-float ``p`` draws float64 uniforms from 64-bit bits,
-and `randint` defaults to int64.
+and `randint` defaults to int64.  `normal` draws float32 as XLA's CPU code
+computes ``jax.random.normal``, its inverse error function included
+(`xla_math`), and `normal_chunks` draws a leaf of any size in pieces.
 
 Where the draws run: on ``device`` (default: the key's device).  A single
 key held on the CPU hashes small counts (at most `HOST_PAIRS` pairs) in
@@ -40,6 +43,8 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+
+from . import xla_math
 
 M32 = 0xFFFFFFFF
 #: key-schedule parity constant of Threefry (Salmon et al., 2011)
@@ -66,22 +71,42 @@ def _part(partitionable: Optional[bool]) -> bool:
     return _PARTITIONABLE.get() if partitionable is None else bool(partitionable)
 
 
-def _rotl(x, r: int):
-    return ((x << r) & M32) | (x >> (32 - r))
+def _s32(v):
+    """A uint32 value as int32 (the same 32 bits): a Python int or an
+    int64 tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int32)
+    v &= M32
+    return v - (1 << 32) if v >> 31 else v
 
 
 def _threefry(k0, k1, x0, x1):
     """Threefry-2x32, 20 rounds, on Python ints or int64 tensors holding
-    uint32 values (broadcasting); returns the two output words."""
+    uint32 values (broadcasting); returns the two output words in the
+    inputs' form.  Python ints are masked to 32 bits after every add; a
+    tensor hash runs in int32 instead, whose adds wrap modulo 2³² as
+    uint32 adds do (a right shift is masked to a logical one): several
+    times faster than masked int64 arithmetic, and the same bits."""
+    words = (k0, k1, x0, x1)
+    tensor = any(isinstance(v, torch.Tensor) for v in words)
+    if tensor:
+        k0, k1, x0, x1 = (_s32(v) for v in words)
+
+    def wrap(v):
+        if not tensor:
+            return v & M32
+        return v if isinstance(v, torch.Tensor) else _s32(v)
+
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (x0 + ks[0]) & M32
-    x1 = (x1 + ks[1]) & M32
+    x0, x1 = wrap(x0 + ks[0]), wrap(x1 + ks[1])
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+            x0 = wrap(x0 + x1)
+            x1 = wrap((x1 << r) | ((x1 >> (32 - r)) & ((1 << r) - 1))) ^ x0
+        x0 = wrap(x0 + ks[(i + 1) % 3])
+        x1 = wrap(x1 + ks[(i + 2) % 3] + (i + 1))
+    if tensor:
+        return tuple(v.to(torch.int64) & M32 for v in (x0, x1))
     return x0, x1
 
 
@@ -216,21 +241,125 @@ def random_bits(key: torch.Tensor, bit_width: int, shape: Sequence[int] = (), *,
 _FLOAT_ONE = {torch.float32: 0x3F800000, torch.float64: 0x3FF0000000000000}
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float64, *,
-            device=None, partitionable: Optional[bool] = None) -> torch.Tensor:
-    """``jax.random.uniform`` on [0, 1) (the only range the JAX package
-    draws): the mantissa from the top bits of a draw of the type's width,
-    with the exponent of 1.0, minus 1."""
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """float32 in [0, 1) from 32-bit words: the top 23 bits as the mantissa
+    of a number in [1, 2), minus 1."""
+    return ((bits >> 9) | _FLOAT_ONE[torch.float32]).to(torch.int32).view(torch.float32) - 1.0
+
+
+def _scale_f32(f: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """``max(lo, f·(hi − lo) + lo)`` in float32, the multiply–add one fused
+    step as XLA's CPU code computes it; [0, 1) maps to itself."""
+    if (minval, maxval) == (0.0, 1.0):
+        return f
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    return torch.maximum(lo, xla_math.fma(f, hi - lo, lo))
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float64,
+            minval: float = 0.0, maxval: float = 1.0, *, device=None,
+            partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.uniform``: the mantissa from the top bits of a draw of
+    the type's width, with the exponent of 1.0, minus 1 — a number in [0,
+    1) — then ``max(minval, floats·(maxval − minval) + minval)`` in the
+    type.  float32 draws take any range (the multiply–add rounded once, as
+    XLA's CPU code fuses it); float64 draws only [0, 1), the one range the
+    JAX package draws them on."""
+    minval, maxval = float(minval), float(maxval)
     if dtype == torch.float32:
         bits = random_bits(key, 32, shape, device=device, partitionable=partitionable)
-        f = ((bits >> 9) | _FLOAT_ONE[dtype]).to(torch.int32).view(torch.float32)
-    elif dtype == torch.float64:
-        hi, lo = random_bits(key, 64, shape, device=device, partitionable=partitionable)
-        mant = (hi << 20) | (lo >> 12)                  # the draw's top 52 bits
-        f = (mant | _FLOAT_ONE[dtype]).view(torch.float64)
-    else:
+        return _scale_f32(_unit_floats(bits), minval, maxval)
+    if dtype != torch.float64:
         raise ValueError(f"uniform draws float32 or float64, got {dtype}")
-    return f - 1.0
+    if (minval, maxval) != (0.0, 1.0):
+        raise ValueError(f"float64 uniforms are drawn on [0, 1) only, got [{minval}, {maxval})")
+    hi, lo = random_bits(key, 64, shape, device=device, partitionable=partitionable)
+    mant = (hi << 20) | (lo >> 12)                  # the draw's top 52 bits
+    return (mant | _FLOAT_ONE[dtype]).view(torch.float64) - 1.0
+
+
+#: `normal`'s uniform range: (nextafter(−1, 0), 1) in float32
+_NORMAL_LO = -0.9999999403953552
+_SQRT2_F32 = 1.4142135381698608
+#: draws `normal_chunks` makes at once, by device type: a CPU chunk's
+#: temporaries stay near the caches, the card's amortise its launches
+NORMAL_CHUNK = {"cpu": 1 << 17, "cuda": 1 << 24}
+
+
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    u = _scale_f32(_unit_floats(bits), _NORMAL_LO, 1.0)
+    return xla_math.erf_inv(u) * _SQRT2_F32
+
+
+def _bits32_chunks(key: torch.Tensor, size: int, device, partitionable, chunk: int,
+                   start: int = 0, stop: Optional[int] = None):
+    """The 32-bit words of ``random_bits(key, 32, (size,))`` for one key, in
+    pieces of at most ``chunk`` words: ``(first flat index, words)``, only
+    the pieces that hold a word of [start, stop).  Under the original
+    layout the pair (i, h + i) hashes to words i and h + i (h = ⌈size/2⌉),
+    so a range of pairs gives two ranges of words."""
+    stop = size if stop is None else min(int(stop), size)
+
+    def wanted(a, b):
+        return a < stop and b > start
+
+    if _part(partitionable):
+        for a in range(0, size, chunk):
+            b = min(size, a + chunk)
+            if wanted(a, b):
+                y0, y1 = _hash(key, 0, range(a, b), b - a, device)
+                yield a, y0 ^ y1
+        return
+    h = (size + 1) // 2
+    step = max(1, chunk // 2)
+    for a in range(0, h, step):
+        b = min(h, a + step)
+        hi_stop = min(size, h + b)
+        if not (wanted(a, b) or wanted(h + a, hi_stop)):
+            continue
+        y0, y1 = _hash(key, range(a, b), range(h + a, h + b), b - a, device,
+                       zero_last=b == h and size % 2 == 1)
+        yield a, y0
+        yield h + a, y1[: hi_stop - (h + a)]
+
+
+def normal_chunks(key: torch.Tensor, shape: Sequence[int] = (), *, device=None,
+                  partitionable: Optional[bool] = None, chunk: Optional[int] = None,
+                  start: int = 0, stop: Optional[int] = None):
+    """`normal`'s draws for one (2,) key, flattened, in pieces of at most
+    ``chunk`` (default `NORMAL_CHUNK` of the device): ``(first flat index,
+    float32 draws)`` — a leaf of any size without a whole-leaf temporary.
+    ``start``/``stop`` draw only the pieces that hold a flat index in
+    [start, stop) (a window of a large leaf, to hold against another
+    device's draw)."""
+    if key.dim() != 1:
+        raise ValueError(f"normal_chunks draws for one (2,) key, got {tuple(key.shape)}")
+    size = _numel(shape)
+    if size >= M32:
+        raise ValueError(f"normal draws fewer than 2**32 - 1 values, got {size}")
+    dev = _out_device(key, device)
+    chunk = NORMAL_CHUNK.get(dev.type, NORMAL_CHUNK["cuda"]) if chunk is None else int(chunk)
+    for first, bits in _bits32_chunks(key, size, dev, partitionable, chunk, start, stop):
+        yield first, _normal_from_bits(bits)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float32, *,
+           device=None, partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.normal`` in float32, bit for bit with jax on the CPU:
+    u = ``uniform(key, shape, float32, nextafter(−1, 0), 1)`` and
+    √2·erf_inv(u), with XLA's own erf_inv and log1p (`xla_math`).  A
+    single key draws in `normal_chunks`; a batch of keys at once."""
+    if dtype != torch.float32:
+        raise ValueError(f"normal draws float32 (the JAX package's only type), got {dtype}")
+    shape = tuple(int(s) for s in shape)
+    if key.dim() > 1:
+        bits = random_bits(key, 32, shape, device=device, partitionable=partitionable)
+        return _normal_from_bits(bits)
+    out = torch.empty(_numel(shape), dtype=torch.float32, device=_out_device(key, device))
+    for start, z in normal_chunks(key, shape, device=device, partitionable=partitionable):
+        out[start:start + z.numel()] = z
+    return out.reshape(shape)
 
 
 def bernoulli(key: torch.Tensor, p: Union[float, torch.Tensor] = 0.5,

@@ -14,13 +14,13 @@ Where the port differs, and why:
 
   * every entry point takes ``device`` (``None`` means ``"cuda"``, raising
     without a card); the problem memo is keyed on (spec, device);
-  * BL-DNN problems are not drawn: the reference draws them with
-    ``jax.random.normal``, which the port does not yet reproduce bit for
-    bit (ROADMAP.md §1 item 9's remainder).  `build_problem` loads the
-    fig-dnn problem carried in ``data/fig_dnn_seed0.npz`` — data, student
-    and the reference's per-layer SVD factors, which are not unique and
-    which ``per_layer_svd`` cells rotate with — and refuses any other
-    `DNNProblemSpec`;
+  * a BL-DNN problem is drawn by the port
+    (`bldnn.make_synthetic_classification`, the reference's draws bit for
+    bit) with its per-layer SVD basis computed on the host, except fig-dnn's
+    own `DNNProblemSpec`: `build_problem` loads it from
+    ``data/fig_dnn_seed0.npz``, which carries the reference's per-layer SVD
+    factors — not unique for the rank-deficient input layer, and the
+    committed artifacts rotate with them;
   * backends (`resolve_backend`): ``"fast+sharded"`` (fig1-xl's) runs the
     sharded reducer (`repro_torch.core.rounds.ShardedReducer`) over the
     ranks of this process's `torch.distributed` world — ``torchrun
@@ -48,9 +48,9 @@ import torch
 
 from .. import device as _device
 from ..core import baselines, batched, bl, client_batch, cohort, compressors, glm, prng, specs
-from ..core.basis import PerLayerSVDBasis, is_pytree_basis, make_bases
+from ..core.basis import PerLayerSVDBasis, is_pytree_basis, make_bases, per_layer_svd_basis
 from ..core.convert import dnn_problem_from_numpy
-from ..core.pytree import tree_leaves
+from ..core.pytree import tree_leaves, tree_map
 from ..core.rounds import StreamHook
 from ..fed import bldnn
 from ..launch import mesh
@@ -150,8 +150,8 @@ class StreamProblem:
 @dataclasses.dataclass
 class DNNProblem:
     """A built `DNNProblemSpec`: client-stacked data, the student's
-    parameters, the carried per-layer SVD basis, and the (stable,
-    memoized) loss/eval closures."""
+    parameters, its per-layer SVD basis (the reference's, carried, for the
+    fixture's spec), and the (stable, memoized) loss/eval closures."""
 
     spec: DNNProblemSpec
     batch: client_batch.TreeBatch
@@ -199,15 +199,28 @@ def load_dnn_problem(path: pathlib.Path = DNN_FIXTURE,
                       eval_fn=bldnn.make_eval_fn())
 
 
+def draw_dnn_problem(spec: DNNProblemSpec, *, device=None) -> DNNProblem:
+    """A `DNNProblemSpec` drawn by the port: data and student from
+    `bldnn.make_synthetic_classification` and the per-layer SVD basis of
+    the student from LAPACK's gesdd on the host (`per_layer_svd_basis`:
+    the reference's own factors on one machine, and the same factors for
+    every device), moved to ``device``."""
+    kw = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec) if f.name != "kind"}
+    batch, params0 = bldnn.make_synthetic_classification(**kw, device="cpu")
+    basis = per_layer_svd_basis(params0)
+    dev = _device.resolve(device)
+    return DNNProblem(spec=spec,
+                      batch=client_batch.tree_batch(tree_map(lambda v: v.to(dev), batch.data)),
+                      params0=tree_map(lambda p: p.to(dev), params0), basis=basis.to(dev),
+                      loss_fn=bldnn.make_loss_fn(spec.classes), eval_fn=bldnn.make_eval_fn())
+
+
 @functools.lru_cache(maxsize=None)
 def _build_problem(spec, dev: torch.device):
     if isinstance(spec, DNNProblemSpec):
-        if spec != DNN_FIXTURE_SPEC:
-            raise NotImplementedError(
-                f"{spec} is not the carried fig-dnn problem: drawing a BL-DNN "
-                "fleet needs jax.random.normal bit for bit, ROADMAP.md §1 "
-                "item 9's remainder (normal / erf_inv) brings it")
-        return load_dnn_problem(DNN_FIXTURE, spec, device=dev)
+        if spec == DNN_FIXTURE_SPEC:
+            return load_dnn_problem(DNN_FIXTURE, spec, device=dev)
+        return draw_dnn_problem(spec, device=dev)
     if spec.kind == "synthetic_stream":
         store = client_batch.synthetic_store(spec.seed, spec.n_clients, spec.m, spec.d,
                                              lam=spec.lam)

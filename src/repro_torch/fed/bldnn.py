@@ -11,23 +11,23 @@ classifier, its loss and evaluation, the per-leaf compressors and the
 public `run_bldnn`.
 
 Parameters are nested dicts of float32 tensors (`repro_torch.core.pytree`),
-data a `client_batch.TreeBatch` ``{"x": (n, m, d), "y": (n, m)}``.  The
-reference draws its synthetic fleet and initial weights with
-``jax.random.normal``, whose inverse-erf transform the port does not
-reproduce bit for bit: a problem is carried across from the reference as
-numpy arrays (`repro_torch.core.convert.dnn_problem_from_numpy`).  The
-rounds' own draws (RTop-K's dithering) come from `repro_torch.core.prng`.
+data a `client_batch.TreeBatch` ``{"x": (n, m, d), "y": (n, m)}``.
+`make_synthetic_classification` draws the reference's synthetic fleet and
+student: numpy's draws made by numpy, the weights' ``jax.random.normal``
+draws bit for bit through `repro_torch.core.prng.normal`.  The rounds' own
+draws (RTop-K's dithering) come from `repro_torch.core.prng` too.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import device as _device
-from ..core import batched, comm, rounds, specs
+from ..core import batched, client_batch, comm, prng, rounds, specs
 from ..core.basis import PerLayerSVDBasis, is_pytree_basis, make_bases
 from ..core.bl import History
 from ..core.client_batch import TreeBatch
@@ -60,21 +60,85 @@ class BLDNNConfig:
     drift_threshold: float = 0.0
 
 
-_JAX_RANDOM = ("draws on jax.random.normal, whose inverse-erf transform "
-               "(XLA's erf_inv) torch.erfinv does not reproduce bit for bit: "
-               "ROADMAP.md §1 item 9's remainder (normal / erf_inv) brings it; "
-               "until then carry a problem across from the reference "
-               "(repro_torch.core.convert.dnn_problem_from_numpy, ROADMAP.md §1 item 11)")
+def _f32(v: float) -> torch.Tensor:
+    """A Python float as the reference's weakly typed scalar: rounded to
+    float32, so the product with a float32 tensor is one float32 multiply
+    on any device."""
+    return torch.tensor(v, dtype=torch.float32)
 
 
-def init_mlp_classifier(*args, **kwargs):
-    """The reference's initializer; raises until the port draws normals."""
-    raise NotImplementedError(f"init_mlp_classifier {_JAX_RANDOM}")
+def init_mlp_classifier(key: torch.Tensor, d_in: int, width: int, classes: int,
+                        spectral_decay: float = 0.0, *, device=None) -> dict:
+    """Input projection → `models.layers` MLP block → class head, bit for
+    bit the reference's draws from `key` (a `prng.PRNGKey`) in float32.
+
+    ``spectral_decay > 0`` re-spectralizes every 2-D weight to singular
+    values exp(−i/decay), rescaled to the weight's own Frobenius norm, in
+    float64 as the reference (x64) computes it — within 1e-5·max|w| of the
+    reference, whose SVD is another LAPACK call; 0 keeps the plain draws."""
+    dev = _device.resolve(device)
+    ks = prng.split(key, 3)
+    params = {
+        "in": L._init(ks[0], (d_in, width), d_in ** -0.5, torch.float32, dev),
+        "mlp": L.init_mlp(ks[1], width, 2 * width, False, torch.float32, dev),
+        "out": L._init(ks[2], (width, classes), width ** -0.5, torch.float32, dev),
+    }
+    if spectral_decay > 0.0:
+        def respectralize(p):
+            if p.dim() != 2 or min(p.shape) < 2:
+                return p
+            u, s, vt = torch.linalg.svd(p, full_matrices=False)
+            snew = torch.exp(-torch.arange(s.shape[0], dtype=torch.float64, device=p.device)
+                             / spectral_decay)
+            snew = snew * (torch.linalg.norm(s).double() / torch.linalg.norm(snew))
+            return ((u.double() * snew) @ vt.double()).to(p.dtype)
+        params = tree_map(respectralize, params)
+    return params
 
 
-def make_synthetic_classification(*args, **kwargs):
-    """The reference's synthetic fleet; raises until the port draws normals."""
-    raise NotImplementedError(f"make_synthetic_classification {_JAX_RANDOM}")
+def make_synthetic_classification(seed: int, n_clients: int, m: int, d: int,
+                                  classes: int, width: int, r: int = 8,
+                                  heterogeneity: float = 0.5,
+                                  label_noise: float = 0.05, *,
+                                  device=None) -> Tuple[TreeBatch, dict]:
+    """The reference's teacher-labelled classification fleet and
+    near-teacher student (`repro.fed.bldnn.make_synthetic_classification`):
+    client inputs in a shared r-dimensional subspace span(P), labels from a
+    subspace-aligned teacher with decaying spectra plus `label_noise`
+    flips, and the student 0.6·teacher + 0.4·fresh with the fresh input
+    layer projected onto span(P).
+
+    Drawn on the host, where every step is the reference's: numpy's draws
+    and products by numpy (``P @ (P.T @ fresh_in)`` in float64), the
+    weights' normals bit for bit, the teacher's labels from float32 logits
+    on the CPU, the 0.6/0.4 mix as separate float32 operations.  So x and
+    y are the reference's exactly and the student's input layer too; the
+    other student leaves inherit the re-spectralising SVD's ~1e-7 relative
+    difference.  Returns ``(batch, params0)`` on ``device``."""
+    dev = _device.resolve(device)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(seed)
+    kt, ks = prng.split(prng.PRNGKey(seed), 2)
+    P, _ = np.linalg.qr(rng.standard_normal((d, r)))      # shared subspace
+    shifts = np.linspace(-1.0, 1.0, n_clients) * heterogeneity
+    z = rng.standard_normal((n_clients, m, r)) + shifts[:, None, None]
+    x = torch.from_numpy((z @ P.T).astype(np.float32))     # rank-r rows
+
+    teacher = init_mlp_classifier(kt, d, width, classes, spectral_decay=8.0, device=cpu)
+    M = rng.standard_normal((r, width)) / np.sqrt(r)
+    teacher["in"] = torch.from_numpy((P @ M).astype(np.float32))
+    logits = torch.stack([mlp_classifier_logits(teacher, xb) for xb in x])
+    y = logits.argmax(dim=-1).numpy()
+    flip = rng.random((n_clients, m)) < label_noise
+    y = np.where(flip, rng.integers(0, classes, (n_clients, m)), y)
+
+    fresh = init_mlp_classifier(ks, d, width, classes, device=cpu)
+    fresh["in"] = torch.from_numpy(
+        (P @ (P.T @ fresh["in"].numpy().astype(np.float64))).astype(np.float32))
+    student = tree_map(lambda t, f: t * _f32(0.6) + f * _f32(0.4), teacher, fresh)
+    batch = client_batch.tree_batch({"x": x.to(dev),
+                                     "y": torch.from_numpy(y.astype(np.int32)).to(dev)})
+    return batch, tree_map(lambda p: p.to(dev), student)
 
 
 def mlp_classifier_logits(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Wrappers over the port's kernels — port of `repro.kernels.ops`.
 
-``basis_project`` and ``glm_hessian`` compute in float32 through
-`tiled_matmul.matmul`: the kernel on CUDA tensors, its plain version on CPU
-tensors.  The engine's default route for Γ = VᵀAV is a float64 einsum
+Each wrapper launches its kernel on CUDA tensors and takes the kernel's
+plain version on CPU tensors.  ``matmul`` is `tiled_matmul.matmul` (kernel
+3); ``basis_project`` and ``glm_hessian`` compute in float32 through it.
+``basis_transform`` is kernel 4 (A·gᵢ·B over a client stack) and
+``topk_compress`` the global exact Top-K of `topk_threshold.topk_threshold`
+(kernel 1).  The engine's default route for Γ = VᵀAV is a float64 einsum
 (`repro_torch.core.client_batch`); this one is the opt-in float32 route.
 ``attention`` and ``ssd`` are the LM stack's: kernel 5
 (`flash_attention`) and kernel 6 (`ssd_scan`), in the model's layout.
@@ -13,9 +16,18 @@ from typing import Optional
 
 import torch
 
+from . import basis_transform as _bt
+from . import tiled_matmul as _tm
 from .flash_attention import flash_attention
 from .ssd_scan import ssd_scan
-from .tiled_matmul import matmul
+from .topk_threshold import topk_threshold
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
+    """``a @ b`` with float32 accumulation, cast to `out_dtype` (kernel 3;
+    2-D or batched operands, see `tiled_matmul.matmul`)."""
+    return _tm.matmul(a, b, out_dtype=out_dtype)
 
 
 def basis_project(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -27,6 +39,20 @@ def basis_project(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     broadcast over a batched A.  Vᵀ is read through its strides."""
     T = matmul(A, V)                          # (…, d, r)
     return matmul(V.transpose(-1, -2), T)     # (…, r, r)
+
+
+def basis_transform(A: torch.Tensor, g: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A · gᵢ · B for every client i of a stacked (n, d1, d2) float32 leaf —
+    the pytree-basis rotation Uᵀ g V / U c Vᵀ (kernel 4)."""
+    return _bt.basis_transform(A, g, B)
+
+
+def topk_compress(x: torch.Tensor, k: int) -> tuple:
+    """Exact global Top-K of `x`: ``(dense, kept)``, kept == min(k, numel)
+    with ties broken by earliest index (`topk_threshold.topk_threshold`,
+    whose threshold is kernel 1's)."""
+    dense, _, kept = topk_threshold(x, k)
+    return dense, kept
 
 
 def glm_hessian(A: torch.Tensor, w: torch.Tensor, lam: float) -> torch.Tensor:

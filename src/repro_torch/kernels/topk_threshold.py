@@ -17,6 +17,10 @@ is that arithmetic in PyTorch, for the tests and the card's checks; no path
 runs it.  `keep_mask` runs outside the kernel in the reference too, so it
 stays plain PyTorch here.
 
+`topk_threshold` is the reference's global Top-K over a whole tensor: the
+tensor flattened to one row, its threshold from `topk_row_threshold`
+(the kernel on a CUDA tensor) and `keep_mask`'s exactly-k selection.
+
 `topk_compress_sum` is the fused codec of the reference's Fisher leg: the
 same selection applied to every row of a signed (n, T) client stack, the
 dense kept values, and their sum over the client axis in row order
@@ -183,6 +187,35 @@ def keep_mask(a32: torch.Tensor, t: torch.Tensor, k: int) -> torch.Tensor:
     n_above = above.sum(dim=-1, keepdim=True)
     cum = eq.cumsum(dim=-1)
     return above | (eq & (cum <= k - n_above))
+
+
+def _global_topk(x: torch.Tensor, k: int, threshold):
+    if k <= 0:
+        return (torch.zeros_like(x), torch.tensor(float("inf"), device=x.device),
+                torch.tensor(0, device=x.device))
+    flat = x.reshape(1, -1)
+    kk = min(int(k), flat.shape[1])
+    a32 = flat.abs().to(torch.float32)
+    t = threshold(a32, kk)
+    mask = keep_mask(a32, t, kk)
+    dense = torch.where(mask, flat, torch.zeros((), dtype=x.dtype, device=x.device))
+    return dense.reshape(x.shape), t[0, 0], mask.sum()
+
+
+def topk_threshold(x: torch.Tensor, k: int):
+    """Global exact Top-K over the whole of `x` (flattened): returns
+    ``(dense, threshold, kept)`` — `x` with all but its k largest |·|
+    zeroed, the k-th largest |x| as a float32 scalar, and the kept count,
+    ``min(k, numel)`` exactly (the tie group at the threshold broken by
+    earliest flat index), an int64 scalar.  k ≤ 0 keeps nothing: zeros,
+    +inf and 0.  The threshold is kernel 1's (`topk_row_threshold`) on a
+    CUDA tensor, its plain version on a CPU one."""
+    return _global_topk(x, k, topk_row_threshold)
+
+
+def topk_threshold_plain(x: torch.Tensor, k: int):
+    """`topk_threshold` with the threshold's plain version on any device."""
+    return _global_topk(x, k, topk_row_threshold_plain)
 
 
 def topk_compress_sum_plain(v: torch.Tensor, k: int):

@@ -9,9 +9,10 @@
 prompts and a 96-token cache, as the reference does.  Otherwise the config
 runs at full width in bfloat16 at the `--shape`'s sizes (`sizes`): its
 batch, prompts of half its length and a cache of its length; the
-`decode_4k_*` shapes are the ones one card holds.  Weights are drawn from
-a generator seeded 0 (there is no checkpoint), prompts from numpy's
-generator seeded 0.  Runs on the CUDA device unless `--device cpu`.  `--multi-pod` needs LM sharding
+`decode_4k_*` shapes are the ones one card holds.  Weights are the
+reference's ``init_params(PRNGKey(--seed))`` bit for bit (default 0, the
+reference's key; there is no checkpoint), prompts from numpy's generator
+seeded 0.  Runs on the CUDA device unless `--device cpu`.  `--multi-pod` needs LM sharding
 (ROADMAP.md §1 item 18.7) and raises.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..core import prng
 from ..configs import get_config
 from ..models import model as M
 from ..models.config import ModelConfig
@@ -100,6 +102,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--debug", action="store_true")
     ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0, help="the weights' PRNGKey seed")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.multi_pod:
@@ -116,14 +119,18 @@ def main(argv=None) -> dict:
         dtype = torch.bfloat16
     dev = _device.resolve(args.device)
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = M.init_params(cfg, dtype, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    params = M.init_params(prng.PRNGKey(args.seed), cfg, dtype, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    print(f"init: {init_s:.2f}s", flush=True)
     cache = M.init_cache(cfg, B, max_seq, dtype, device=dev)
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, prompt)),
                               dtype=torch.int32, device=dev)
     extras = stub_inputs(cfg, B, dtype, device=dev)
-    out = generate(params, cfg, prompts, cache, args.gen, extras)
+    out = {**generate(params, cfg, prompts, cache, args.gen, extras), "init_s": init_s}
     print(f"prefill {B}×{prompt}: {out['prefill_s']:.2f}s", flush=True)
     dt = out["decode_s"]
     print(f"decoded {args.gen} steps × {B}: {dt:.2f}s "

@@ -9,8 +9,8 @@ without rematerialisation, 4 sequences of 64 tokens, as the reference
 does.  Otherwise the config runs at full width in bfloat16 with bfloat16
 AdamW moments and each layer group rematerialised, at the `--shape`'s batch
 and sequence length; the `train_4k_b*` shapes are the ones one card holds.
-Weights are drawn from a generator seeded 0 (there is no checkpoint), the
-tokens from the reference's synthetic pipeline (`repro_torch.data`, bitwise
+Weights are the reference's ``init_params(PRNGKey(--seed))`` bit for bit
+(default 0, the reference's key; there is no checkpoint), the tokens from the reference's synthetic pipeline (`repro_torch.data`, bitwise
 the reference's).  Runs on the CUDA device unless `--device cpu`.
 `--multi-pod` needs LM sharding (ROADMAP.md §1 item 18.7) and raises.
 """
@@ -22,6 +22,7 @@ import time
 import torch
 
 from .. import device as _device
+from ..core import prng
 from ..configs import get_config
 from ..data import make_batch_iterator
 from ..models import model as M
@@ -50,6 +51,7 @@ def main(argv=None) -> dict:
                     help="reduced config, float32, no remat (a CPU run)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0, help="the weights' PRNGKey seed")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.multi_pod:
@@ -69,8 +71,9 @@ def main(argv=None) -> dict:
 
     _sync(dev)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, dtype, generator=torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
+    params = M.init_params(prng.PRNGKey(args.seed), cfg, dtype, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
     opt = adamw_init(params, dtype)
     step = make_train_step(cfg, lr=args.lr, remat=not args.debug)
     it = make_batch_iterator(cfg.vocab_size, S + 1, B, seed=0, dtype=dtype, device=dev)
@@ -89,7 +92,8 @@ def main(argv=None) -> dict:
         losses.append(loss)
         print(f"step {i:4d} loss {loss:.4f} ({time.time() - t0:.1f}s)", flush=True)
     print("done")
-    return {"losses": losses, "step_s": step_s, "setup_s": setup_s, "config": cfg.name,
+    return {"losses": losses, "step_s": step_s, "setup_s": setup_s, "init_s": init_s,
+            "config": cfg.name,
             "params": M.count_params(params), "batch": B, "seq_len": S,
             "dtype": str(dtype).replace("torch.", "")}
 

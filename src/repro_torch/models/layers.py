@@ -19,11 +19,13 @@ M-RoPE, cross-attention and MoE are ROADMAP.md §1 item 18's later part.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..core import prng, xla_math
 from ..kernels import ops
 from .config import ModelConfig
 
@@ -32,13 +34,24 @@ _NEG = -1e30
 _ITEM_18 = "is not ported yet: ROADMAP.md §1 item 18 (LM stack) brings it"
 
 
-def _init(gen, shape, scale, dtype, device) -> torch.Tensor:
-    """Normal(0, scale²) draws in float32, cast to `dtype` (reference
-    `layers._init`)."""
+def _init(key: torch.Tensor, shape, scale, dtype, device) -> torch.Tensor:
+    """``(jax.random.normal(key, shape, float32) * scale).astype(dtype)``
+    (reference `layers._init`), bit for bit: the draws are `prng.normal`'s,
+    the scale rounds to float32 (a weakly typed Python float) and the cast
+    rounds to nearest even.  A batch of keys (..., 2) draws a stacked leaf
+    (..., *shape), one draw a key, as the reference stacks per-group draws.
+    Each draw is made in `prng.normal_chunks` and written into the leaf, so
+    no float32 copy of a whole leaf is held."""
+    lead = tuple(key.shape[:-1])
+    out = torch.empty(lead + tuple(shape), dtype=dtype, device=device)
     if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-            * scale).to(dtype)
+        return out
+    s = float(torch.tensor(scale, dtype=torch.float32))
+    flat = out.view(-1, math.prod(shape))
+    for row, k in zip(flat, key.reshape(-1, 2)):
+        for start, z in prng.normal_chunks(k, shape, device=device):
+            row[start:start + z.numel()] = (z * s).to(dtype)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -83,14 +96,15 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
 # --------------------------------------------------------------------------
 # Attention
 # --------------------------------------------------------------------------
-def init_attention(gen, cfg: ModelConfig, dtype, device, lead: tuple = ()) -> Params:
+def init_attention(key, cfg: ModelConfig, dtype, device) -> Params:
     d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    ks = prng.split(key, 4).unbind(-2)
     s = d ** -0.5
     return {
-        "wq": _init(gen, lead + (d, nh, hd), s, dtype, device),
-        "wk": _init(gen, lead + (d, nkv, hd), s, dtype, device),
-        "wv": _init(gen, lead + (d, nkv, hd), s, dtype, device),
-        "wo": _init(gen, lead + (nh, hd, d), (nh * hd) ** -0.5, dtype, device),
+        "wq": _init(ks[0], (d, nh, hd), s, dtype, device),
+        "wk": _init(ks[1], (d, nkv, hd), s, dtype, device),
+        "wv": _init(ks[2], (d, nkv, hd), s, dtype, device),
+        "wo": _init(ks[3], (nh, hd, d), (nh * hd) ** -0.5, dtype, device),
     }
 
 
@@ -178,11 +192,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
 # --------------------------------------------------------------------------
 # MLP
 # --------------------------------------------------------------------------
-def init_mlp(gen, d: int, f: int, gated: bool, dtype, device, lead: tuple = ()) -> Params:
-    p = {"wi": _init(gen, lead + (d, f), d ** -0.5, dtype, device)}
+def init_mlp(key, d: int, f: int, gated: bool, dtype, device) -> Params:
+    ks = prng.split(key, 3).unbind(-2)
+    p = {"wi": _init(ks[0], (d, f), d ** -0.5, dtype, device)}
     if gated:
-        p["wg"] = _init(gen, lead + (d, f), d ** -0.5, dtype, device)
-    p["wo"] = _init(gen, lead + (f, d), f ** -0.5, dtype, device)
+        p["wg"] = _init(ks[1], (d, f), d ** -0.5, dtype, device)
+    p["wo"] = _init(ks[2], (f, d), f ** -0.5, dtype, device)
     return p
 
 
@@ -201,22 +216,24 @@ def mlp(p: Params, x: torch.Tensor, gated: bool = False) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Mamba2 (SSD)
 # --------------------------------------------------------------------------
-def init_mamba(gen, cfg: ModelConfig, dtype, device, lead: tuple = ()) -> Params:
+def init_mamba(key, cfg: ModelConfig, dtype, device) -> Params:
     sc = cfg.ssm
     d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
     conv_dim = di + 2 * sc.d_state
+    ks = prng.split(key, 5).unbind(-2)
+    lead = tuple(key.shape[:-1])
     f32 = dict(dtype=torch.float32, device=device)
-    a_log = torch.log(torch.arange(1, nh + 1, **f32)) if device.type != "meta" \
+    # log as XLA computes it (torch.log differs by an ulp on some integers)
+    a_log = xla_math.log(torch.arange(1, nh + 1, **f32)) if device.type != "meta" \
         else torch.empty(nh, **f32)
     return {
-        "in_proj": _init(gen, lead + (d, 2 * di + 2 * sc.d_state + nh), d ** -0.5, dtype,
-                         device),
-        "conv_w": _init(gen, lead + (sc.conv_width, conv_dim), 0.5, dtype, device),
+        "in_proj": _init(ks[0], (d, 2 * di + 2 * sc.d_state + nh), d ** -0.5, dtype, device),
+        "conv_w": _init(ks[1], (sc.conv_width, conv_dim), 0.5, dtype, device),
         "A_log": a_log.expand(lead + (nh,)).clone(),
         "D": torch.ones(lead + (nh,), **f32),
         "dt_bias": torch.zeros(lead + (nh,), **f32),
         "norm": init_rmsnorm(di, dtype, device, lead),
-        "out_proj": _init(gen, lead + (di, d), di ** -0.5, dtype, device),
+        "out_proj": _init(ks[4], (di, d), di ** -0.5, dtype, device),
     }
 
 

@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
+from ..core import prng
 from . import layers as L
 from .config import LayerSpec, ModelConfig
 
@@ -43,46 +44,47 @@ def _check_supported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 # Init
 # --------------------------------------------------------------------------
-def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, lead) -> Params:
+def _init_layer(key, spec: LayerSpec, cfg: ModelConfig, dtype, device) -> Params:
+    ks = prng.split(key, 4).unbind(-2)
+    lead = tuple(key.shape[:-1])
     p: Params = {"ln1": L.init_rmsnorm(cfg.d_model, dtype, device, lead)}
     if spec.mixer == "attn":
-        p["attn"] = L.init_attention(gen, cfg, dtype, device, lead)
+        p["attn"] = L.init_attention(ks[0], cfg, dtype, device)
     else:
-        p["mamba"] = L.init_mamba(gen, cfg, dtype, device, lead)
+        p["mamba"] = L.init_mamba(ks[0], cfg, dtype, device)
     if spec.ffn == "mlp":
         p["ln2"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype, device, lead)
+        p["mlp"] = L.init_mlp(ks[1], cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype, device)
     return p
 
 
-def _build_params(cfg: ModelConfig, dtype, gen, dev: torch.device) -> Params:
+def init_params(key: torch.Tensor, cfg: ModelConfig, dtype=torch.bfloat16, *,
+                device=None) -> Params:
+    """The reference's parameters (`model.init_params(key, cfg, dtype)`)
+    bit for bit, drawn on `device`: the same key splits, and each weight
+    `layers._init`'s ``jax.random.normal`` draw (`prng.normal`), scaled
+    and cast as the reference's eager call rounds them.  ``key`` is a
+    `prng.PRNGKey`.  Every stacked leaf (leading ``n_groups`` axis) is
+    filled group by group from the group's own key, as the reference
+    stacks its per-group trees."""
     _check_supported(cfg)
-    p: Params = {"embed": L._init(gen, (cfg.padded_vocab, cfg.d_model), 0.02, dtype, dev),
+    dev = torch.device("meta") if str(device) == "meta" else _device.resolve(device)
+    ks = prng.split(key, 6)
+    p: Params = {"embed": L._init(ks[0], (cfg.padded_vocab, cfg.d_model), 0.02, dtype, dev),
                  "final_norm": L.init_rmsnorm(cfg.d_model, dtype, dev)}
     if not cfg.tie_embeddings:
-        p["unembed"] = L._init(gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model ** -0.5,
+        p["unembed"] = L._init(ks[1], (cfg.d_model, cfg.padded_vocab), cfg.d_model ** -0.5,
                                dtype, dev)
-    # every leaf of the stacked groups has a leading n_groups axis
-    lead = (cfg.n_groups,)
-    p["layers"] = {f"l{i}": _init_layer(gen, spec, cfg, dtype, dev, lead)
+    # layer i of group g from split(split(ks[2], G)[g], len(group))[i]
+    lkeys = prng.split(prng.split(ks[2], cfg.n_groups), len(cfg.group))   # (G, L, 2)
+    p["layers"] = {f"l{i}": _init_layer(lkeys[:, i], spec, cfg, dtype, dev)
                    for i, spec in enumerate(cfg.group)}
     return p
 
 
-def init_params(cfg: ModelConfig, dtype=torch.bfloat16, *,
-                generator: Optional[torch.Generator], device=None) -> Params:
-    """Random parameters at the reference's shapes, scales and types
-    (`model.init_params`): normal draws of `generator` (on `device`; None
-    uses the default generator of that device).  The draws cannot be
-    `jax.random`'s (ROADMAP.md §1 item 9): parity tests carry the
-    reference's parameters across with `convert.params_from_numpy`."""
-    dev = _device.resolve(device)
-    return _build_params(cfg, dtype, generator, dev)
-
-
 def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
     """The parameter tree as meta tensors (shapes and types, no storage)."""
-    return _build_params(cfg, dtype, None, torch.device("meta"))
+    return init_params(prng.PRNGKey(0), cfg, dtype, device="meta")
 
 
 def count_params(tree) -> int:

@@ -239,3 +239,65 @@ def test_basis_grid_matches_reference(paper, cell):
     assert np.all(np.abs(g - gr) <= GAP_RTOL * np.abs(gr) + GAP_ATOL), (g, gr)
     assert h.up_bits == ref["up_bits"] and h.down_bits == ref["down_bits"]
     assert h.legs == ref["legs"]
+
+
+# --------------------------------------------------------------------------
+# the registry, EigenBasis.shipped and the compressors' δ
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("float_bits", [32, 16, 8])
+def test_eigen_basis_shipped_is_the_references(fleet, float_bits):
+    """Q through the shipment wire (float32, bfloat16, int8 with scales)
+    and the shipment's bits, against the reference, bit for bit."""
+    from repro.core import comm as jcomm
+    from repro_torch.core import comm as tcomm
+
+    jb, tb = _pair(fleet, "eigen")
+    jq, jbits = jb[0].shipped(jcomm.BasisShipSpec(float_bits=float_bits))
+    tq, tbits = tb[0].shipped(tcomm.BasisShipSpec(float_bits=float_bits))
+    assert isinstance(tq, tbasis.EigenBasis) and tbits == float(jbits)
+    a, b = _np(tq.Q), np.asarray(jq.Q)
+    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def test_register_basis_adds_matrix_and_pytree_bases(fleet):
+    """A registered factory is a name of `make_bases`; ``pytree=True``
+    adds it to `PYTREE_BASES`, whose factory takes the parameter tree."""
+    _, tc, _, _, _ = fleet
+    names = set(tbasis.available_bases())
+    assert names == set(jbasis.available_bases())
+    try:
+        @tbasis.register_basis("test_scaled_standard")
+        def _scaled(clients, x0=None, scale=1.0):
+            return [tbasis.StandardBasis(int(c.A.shape[1])) for c in clients]
+
+        @tbasis.register_basis("test_tree", pytree=True)
+        def _tree(params, x0=None):
+            return tbasis.per_layer_svd_basis(params, use_basis=False)
+
+        assert {"test_scaled_standard", "test_tree"} <= set(tbasis.available_bases())
+        assert not tbasis.is_pytree_basis("test_scaled_standard")
+        assert tbasis.is_pytree_basis("test_tree") and "test_tree" in tbasis.PYTREE_BASES
+        got = tbasis.make_bases("test_scaled_standard", tc, scale=2.0)
+        assert len(got) == N and all(isinstance(b, tbasis.StandardBasis) for b in got)
+        tree = tbasis.make_bases("test_tree", {"w": torch.zeros(3, 4)})
+        assert tree.UV == (None,)
+        with pytest.raises(TypeError):
+            tbasis.make_bases("dct", tc, rcond=1.0)
+    finally:
+        for name in ("test_scaled_standard", "test_tree"):
+            tbasis.BASIS_REGISTRY.pop(name, None)
+            tbasis.PYTREE_BASES.discard(name)
+    assert set(tbasis.available_bases()) == names
+    assert sorted(tbasis.PYTREE_BASES) == sorted(jbasis.PYTREE_BASES)
+    with pytest.raises(KeyError, match="unknown basis"):
+        tbasis.make_bases("nope", tc)
+
+
+@pytest.mark.parametrize("k,numel", [(1, 10), (5, 5), (50, 7), (576, 1024)])
+def test_topk_delta_for(k, numel):
+    assert tcomp.TopK(k=k).delta_for(numel) == jcomp.TopK(k=k).delta_for(numel)
+
+
+@pytest.mark.parametrize("r,d", [(1, 10), (2, 2), (5, 3)])
+def test_rankr_delta_for(r, d):
+    assert tcomp.RankR(r=r).delta_for(d) == jcomp.RankR(r=r).delta_for(d)

@@ -202,3 +202,20 @@ def test_kernel_is_built_from_its_source_with_the_bound_prototype():
     assert len(params) == len(bt._ARGS)
     for param, arg in zip(params, bt._ARGS):
         assert ("*" in param) == (arg is not ctypes.c_int), (param, arg)
+
+
+def test_ops_basis_transform_is_the_wrapper_and_the_references():
+    """`ops.basis_transform` (kernel 4's entry point) is `basis_transform`
+    and the reference's `ops.basis_transform` within 1e-6·max|ref|."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(4)
+    A = rng.standard_normal((24, 24)).astype(np.float32)
+    g = rng.standard_normal((3, 24, 8)).astype(np.float32)
+    B = rng.standard_normal((8, 8)).astype(np.float32)
+    got = ops.basis_transform(torch.from_numpy(A), torch.from_numpy(g), torch.from_numpy(B))
+    assert torch.equal(got, bt.basis_transform(torch.from_numpy(A), torch.from_numpy(g),
+                                               torch.from_numpy(B)))
+    want = np.asarray(jops.basis_transform(jnp.asarray(A), jnp.asarray(g), jnp.asarray(B)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=TOL_F64 * float(np.abs(want).max()))

@@ -46,11 +46,14 @@ from repro.fed import bldnn as jbldnn
 from repro_torch.core import basis as tbasis
 from repro_torch.core import client_batch as tcb
 from repro_torch.core import comm as tcomm
+from repro_torch.core import prng as tprng
 from repro_torch.core import compressors as tcomp
 from repro_torch.core import rounds as trounds
 from repro_torch.core.convert import dnn_problem_from_numpy
 from repro_torch.core.pytree import tree_leaves, tree_map
+from repro_torch.exp import engine as tengine
 from repro_torch.exp import problems
+from repro_torch.exp import registry as tregistry
 from repro_torch.fed import bldnn as tbldnn
 from repro_torch.kernels import basis_transform as tbt
 
@@ -59,6 +62,8 @@ LOSS_RTOL = 1e-4
 MATMUL_TOL = 1e-6
 #: rounds of the fig-dnn artifact the CPU run holds
 ARTIFACT_ROUNDS = 4
+#: both settings of jax_threefry_partitionable
+SETTINGS_BOTH = (False, True)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -387,7 +392,8 @@ def test_fig_dnn_bldnn_from_fixture_matches_artifact():
 def test_unported_paths_raise_naming_their_item(small):
     """fig-dnn/RTopK and the composed Top-K run since the PRNG port (see
     `test_fig_dnn_rtopk_from_fixture_matches_artifact`); drawing the fleet
-    itself (jax.random.normal) stays item 9's remainder."""
+    itself runs since the port draws jax.random.normal (it raised item 9's
+    remainder until then; its parity: `test_drawn_problem_is_the_references`)."""
     _, _, _, conv = small
     h = problems.run_dnn_cell(problems.FIG_DNN["RTopK"],
                               problems.DNNProblem(problems.DNN_FIG, conv.batch, conv.params0,
@@ -395,9 +401,10 @@ def test_unported_paths_raise_naming_their_item(small):
                                                   tbldnn.make_eval_fn()), steps=1)
     assert len(h.gaps) == 1 and np.isfinite(h.metrics["loss"]).all()
     assert tcomp.ComposedTopK(k=3, inner=tcomp.NaturalCompression()).stochastic
-    with pytest.raises(NotImplementedError, match="item 9's remainder"):
-        tbldnn.make_synthetic_classification(seed=0, n_clients=2, m=4, d=6,
-                                             classes=2, width=4)
+    tiny, params = tbldnn.make_synthetic_classification(seed=0, n_clients=2, m=4, d=6,
+                                                        classes=2, width=4, r=2, device="cpu")
+    assert tuple(tiny.data["x"].shape) == (2, 4, 6) and tiny.data["y"].dtype == torch.int32
+    assert [tuple(p.shape) for p in tree_leaves(params)] == [(6, 4), (4, 8), (8, 4), (4, 2)]
     # "fast+sharded" (ROADMAP.md §1 item 13) on a one-rank world: bitwise
     # the fast path, in both modes
     fns = (tbldnn.make_loss_fn(4), tbldnn.make_eval_fn())
@@ -423,6 +430,90 @@ def test_fig_dnn_rtopk_from_fixture_matches_artifact():
     loss, lr = np.asarray(h.metrics["loss"][:n]), np.asarray(ref["metrics"]["loss"][:n])
     assert (np.abs(loss - lr) <= 1e-4 * np.abs(lr)).all(), (loss, lr)
     assert h.gaps[:n] == ref["gaps"][:n]
+
+
+# --------------------------------------------------------------------------
+# problems drawn by the port (`prng.normal`: jax.random.normal bit for bit)
+# --------------------------------------------------------------------------
+#: respectralised leaves: another LAPACK SVD, in float64, as x64 computes it
+DRAW_TOL = 1e-5
+#: fig-dnn's registered problem and a reduced one
+DRAW_SPECS = {"fig-dnn": dict(seed=0, n_clients=8, m=64, d=96, classes=4, width=32),
+              "reduced": dict(seed=1, n_clients=4, m=16, d=24, classes=4, width=8)}
+
+
+def _ref_draw(part, fn, *args, **kw):
+    with jax.threefry_partitionable(part):
+        return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("part", SETTINGS_BOTH, ids=["original", "partitionable"])
+@pytest.mark.parametrize("decay", [0.0, 8.0])
+def test_init_mlp_classifier_is_the_references(part, decay):
+    """No decay: every leaf bit for bit.  Decay > 0: the re-spectralised
+    leaves within 1e-5·max|ref| (another LAPACK SVD)."""
+    want = _ref_draw(part, jbldnn.init_mlp_classifier, jax.random.PRNGKey(5), 24, 8, 4,
+                     spectral_decay=decay)
+    with tprng.threefry_partitionable(part):
+        got = tbldnn.init_mlp_classifier(tprng.PRNGKey(5), 24, 8, 4, spectral_decay=decay,
+                                         device="cpu")
+    for g, w in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        if decay == 0.0:
+            _bitwise(g, w)
+        else:
+            _close(g, w, DRAW_TOL)
+
+
+@pytest.mark.parametrize("name,part", [("fig-dnn", False), ("reduced", False),
+                                       ("reduced", True)])
+def test_drawn_problem_is_the_references(name, part):
+    """x bit for bit and y equal; the student's input layer bit for bit
+    (numpy's float64 projection of a bitwise draw), its other leaves
+    within 1e-5·max|ref| (the teacher's re-spectralising SVD)."""
+    jb, jp = _ref_draw(part, jbldnn.make_synthetic_classification, **DRAW_SPECS[name])
+    with tprng.threefry_partitionable(part):
+        tb, tp = tbldnn.make_synthetic_classification(**DRAW_SPECS[name], device="cpu")
+    _bitwise(tb.data["x"], jb.data["x"])
+    np.testing.assert_array_equal(_np(tb.data["y"]), np.asarray(jb.data["y"]))
+    _bitwise(tp["in"], jp["in"])
+    for g, w in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+        _close(g, w, DRAW_TOL)
+
+
+def test_drawn_fig_dnn_problem_is_the_fixture():
+    """The port's own draw of fig-dnn's `DNNProblemSpec` (under the
+    fixture's threefry setting) against the carried reference problem."""
+    spec = problems.DNN_FIG
+    with tprng.threefry_partitionable(False):
+        drawn = tengine.draw_dnn_problem(spec, device="cpu")
+    fix = problems.load_dnn_problem(device="cpu")
+    _bitwise(drawn.batch.data["x"], fix.batch.data["x"])
+    assert torch.equal(drawn.batch.data["y"], fix.batch.data["y"])
+    _bitwise(drawn.params0["in"], fix.params0["in"])
+    for g, w in zip(tree_leaves(drawn.params0), tree_leaves(fix.params0)):
+        _close(g, w, DRAW_TOL)
+    # the input layer is bitwise, so host LAPACK gives the carried factors
+    _bitwise(drawn.basis.UV[0][0], fix.basis.UV[0][0])
+    _bitwise(drawn.basis.UV[0][1], fix.basis.UV[0][1])
+
+
+@pytest.mark.parametrize("name,part", [("BLDNN", False), ("BLDNN", True), ("TopK", False)])
+def test_drawn_reduced_problem_runs_as_the_references(name, part):
+    """A reduced fig-dnn cell from the problem each package draws for
+    itself (the port's basis by host LAPACK, the reference's by jax's
+    SVD), in the BL-DNN gate: bits exact over all 8 rounds, loss within
+    1e-4·|ref| and the error rate equal over rounds 0–3."""
+    spec = tregistry.DNNProblemSpec(seed=1, n_clients=4, m=16, d=24, width=8)
+    jb, jp = _ref_draw(part, jbldnn.make_synthetic_classification, **DRAW_SPECS["reduced"])
+    with tprng.threefry_partitionable(part):
+        prob = tengine.draw_dnn_problem(spec, device="cpu")
+    kw = SMALL_CONFIGS[name]
+    jh = jbldnn.run_bldnn(jbldnn.make_loss_fn(4), jbldnn.make_eval_fn(), jp, jb, 8,
+                          jbldnn.BLDNNConfig(**kw))
+    th = tbldnn.run_bldnn(prob.loss_fn, prob.eval_fn, prob.params0, prob.batch, 8,
+                          tbldnn.BLDNNConfig(**kw), basis=prob.basis, device="cpu")
+    _assert_same_history(th, jh.gaps, jh.metrics["loss"], jh.up_bits, jh.down_bits, jh.legs,
+                         rounds=ARTIFACT_ROUNDS)
 
 
 def test_tree_batch_validates_client_axis():

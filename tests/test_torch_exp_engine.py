@@ -24,6 +24,14 @@ GAP_RTOL, GAP_ATOL = 1e-8, 1e-12
 DNN_HELD_ROUNDS, DNN_LOSS_RTOL = 4, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _quiet(*_):
     pass
 
@@ -220,8 +228,11 @@ def test_unported_problems_and_backends_raise_naming_their_item():
     assert engine.resolve_backend("cohort") == "cohort"
     # the sharded cohort backend (ROADMAP.md §1 item 13) runs as named
     assert engine.resolve_backend("cohort+sharded") == "cohort+sharded"
-    with pytest.raises(NotImplementedError, match="item 9's remainder"):
-        engine.build_problem(registry.DNNProblemSpec(seed=1), "cpu")
+    # a BL-DNN spec other than the carried fixture's is drawn (it raised
+    # ROADMAP.md §1 item 9's remainder until the port drew normals)
+    drawn = engine.build_problem(registry.DNNProblemSpec(seed=1), "cpu")
+    assert isinstance(drawn, engine.DNNProblem) and drawn.n == 8
+    assert tuple(drawn.batch.data["x"].shape) == (8, 64, 96)
     exp = registry.get_experiment("fig1r1")
     with pytest.raises(ValueError, match="routes Γ of bl1 and newton only"):
         engine.run_cell(exp, exp.cell("NL1"), engine.build_problem(exp.problem, "cpu"),

@@ -102,13 +102,14 @@ def test_lm_entry_points_without_device_raise_when_cuda_is_unavailable(monkeypat
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.launch import serve
     from repro_torch.models import convert, model, steps
 
     cfg = get_config("gemma3_4b").reduced()
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        model.init_params(cfg, torch.float32, generator=None)
+        model.init_params(prng.PRNGKey(0), cfg, torch.float32)
     with pytest.raises(RuntimeError, match="CUDA device"):
         model.init_cache(cfg, 1, 8, torch.float32)
     with pytest.raises(RuntimeError, match="CUDA device"):

@@ -3,8 +3,8 @@
 
 Both sides compute with the same weights: the reference's
 `init_params(PRNGKey(s), cfg, float32)` carried across with
-`convert.params_from_numpy` (the port's own draws cannot be `jax.random`'s
-until ROADMAP.md §1 item 9).  Modules and whole models run on reduced
+`convert.params_from_numpy` (the port's keyed `init_params` draws the same
+weights bit for bit: `test_keyed_init_params_is_the_references`).  Modules and whole models run on reduced
 configs in float32, where the kernels' plain versions stand in for kernels
 5 and 6.  Tolerance: |port − ref| ≤ 2e-4·max|ref| (`TOL`), the bound the
 card's check holds the kernels' path to; the measured errors are 1e-6 to
@@ -28,6 +28,7 @@ from repro.models.config import ModelConfig as JModelConfig
 from repro.models.steps import make_prefill_step as j_prefill
 from repro.models.steps import make_serve_step as j_serve
 from repro_torch import configs
+from repro_torch.core import prng
 from repro_torch.launch import serve, shapes
 from repro_torch.models import convert
 from repro_torch.models import layers as L
@@ -39,6 +40,14 @@ TOL = 2e-4
 #: the reduced serve configs: gemma3 with grouped KV heads (8 query heads
 #: over 4 at full width; the reduced config would keep 4 over 4)
 SERVE_CFGS = {"gemma3_4b": dict(n_kv_heads=2), "mamba2_370m": {}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def close(got, want, tol=TOL):
@@ -135,18 +144,52 @@ def _flatten(tree, prefix=""):
 
 def test_init_params_draws_from_the_generator_at_the_references_scales():
     jcfg, cfg = both_cfgs("mamba2_370m")
-    p1 = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(3),
-                       device="cpu")
-    p2 = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(3),
-                       device="cpu")
+    # the draws are the key's (they came from a torch generator until the
+    # port drew jax.random.normal): the reference's leaves bit for bit
+    p1 = M.init_params(prng.PRNGKey(3), cfg, torch.float32, device="cpu")
+    p2 = M.init_params(prng.PRNGKey(3), cfg, torch.float32, device="cpu")
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(_flatten(p1), _flatten(p2)))
-    ref = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32))
+    with jax.threefry_partitionable(False):
+        ref = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(3), jcfg, jnp.float32))
     m, mr = p1["layers"]["l0"]["mamba"], ref["layers"]["l0"]["mamba"]
-    for leaf in ("A_log", "D", "dt_bias"):       # deterministic leaves (log to an ulp)
-        np.testing.assert_allclose(m[leaf].numpy(), mr[leaf], rtol=2e-7, atol=0)
-    # random leaves: the reference's scale (std) within sampling error
-    for leaf in ("in_proj", "conv_w", "out_proj"):
-        assert abs(float(m[leaf].std()) / float(mr[leaf].std()) - 1) < 0.05, leaf
+    for leaf in ("A_log", "D", "dt_bias", "in_proj", "conv_w", "out_proj"):
+        assert m[leaf].numpy().tobytes() == mr[leaf].tobytes(), leaf
+
+
+#: keyed-init configs: gemma3 cut to width 64 but two stacked groups (the
+#: per-group keys), mamba2's reduced config (two groups already)
+INIT_CFGS = {"gemma3_4b": dict(d_model=64, d_ff=128, n_layers=34), "mamba2_370m": {}}
+
+
+@pytest.mark.parametrize("arch,dtype,part", [
+    ("gemma3_4b", "float32", False), ("gemma3_4b", "bfloat16", True),
+    ("mamba2_370m", "float32", True), ("mamba2_370m", "bfloat16", False)])
+def test_keyed_init_params_is_the_references(arch, dtype, part):
+    """`init_params(key, cfg, dtype)` bit for bit as the reference's
+    launchers call it (eagerly: each weight one `jax.random.normal` call,
+    scaled in float32 and cast), in both threefry settings."""
+    jcfg, cfg = both_cfgs(arch, **INIT_CFGS[arch])
+    assert cfg.n_groups == 2
+    with jax.threefry_partitionable(part):
+        ref = dict(_flatten(JM.init_params(jax.random.PRNGKey(11), jcfg, getattr(jnp, dtype))))
+    with prng.threefry_partitionable(part):
+        got = dict(_flatten(M.init_params(prng.PRNGKey(11), cfg, getattr(torch, dtype),
+                                          device="cpu")))
+    assert got.keys() == ref.keys()
+    for k, want in ref.items():
+        g = got[k]
+        assert tuple(g.shape) == want.shape and str(g.dtype) == f"torch.{want.dtype}", k
+        assert g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32).numpy() \
+            .tobytes() == np.asarray(want).tobytes(), k
+
+
+def test_param_shapes_are_meta_tensors_of_init_params():
+    cfg = configs.get_config("mamba2_370m").reduced()
+    shapes = dict(_flatten(M.param_shapes(cfg)))
+    real = dict(_flatten(M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cpu")))
+    assert all(v.device.type == "meta" for v in shapes.values())
+    assert {k: (tuple(v.shape), v.dtype) for k, v in shapes.items()} == \
+        {k: (tuple(v.shape), v.dtype) for k, v in real.items()}
 
 
 # ----------------------------- single modules -------------------------------
@@ -376,7 +419,7 @@ def test_serve_cli_debug_on_cpu(arch, capsys):
 def test_unported_model_parts_raise_naming_their_item(arch, what):
     cfg = configs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=f"{what}.*item 18"):
-        M.init_params(cfg, torch.float32, generator=None, device="cpu")
+        M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="item 18"):
         M.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
 
@@ -388,8 +431,7 @@ def test_unported_entry_points_raise_naming_their_item():
         shapes.batch_struct(None, None, None)
     # the train step is ported (it raised here until then): one step runs
     cfg = configs.get_config("gemma3_4b").reduced()
-    params = M.init_params(cfg, torch.float32, generator=torch.Generator().manual_seed(0),
-                           device="cpu")
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
     tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)),
                              dtype=torch.int32)
     from repro_torch.optim import adamw_init

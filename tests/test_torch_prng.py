@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from repro.core import rounds as jrounds  # noqa: F401  (turns on x64, as the package does)
-from repro_torch.core import prng
+from repro_torch.core import prng, xla_math
 from repro_torch.exp import problems
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
@@ -32,6 +32,14 @@ import chip_smoke  # noqa: E402  (the repo root's smoke script: its table adapte
 TABLE = problems.DATA / "prng_table.json"
 SEEDS = (0, 3, 2**40 + 7, -1)
 SETTINGS = (False, True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _np(x) -> np.ndarray:
@@ -193,12 +201,115 @@ def test_setting_is_scoped_and_explicit_argument_wins():
     assert torch.equal(prng.split(k), orig)
 
 
+NORMAL_SHAPES = [(), (1,), (7,), (1000,), (33, 77), (200_000,)]
+
+
+@pytest.mark.parametrize("shape", NORMAL_SHAPES, ids=str)
+@pytest.mark.parametrize("seed", [0, 1, 42])
+def test_normal(setting, seed, shape):
+    """float32 normals bit for bit: XLA's erf_inv and log1p with its fused
+    multiply-adds (`xla_math`)."""
+    _same(jax.random.normal(jax.random.PRNGKey(seed), shape, jnp.float32),
+          prng.normal(prng.PRNGKey(seed), shape))
+
+
+def test_normal_from_a_split_batch_of_keys(setting):
+    jks = jax.random.split(jax.random.PRNGKey(7), 5)
+    _same(jax.vmap(lambda k: jax.random.normal(k, (3, 11), jnp.float32))(jks),
+          prng.normal(prng.split(prng.PRNGKey(7), 5), (3, 11)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 9, 10, 1001])
+def test_normal_chunks_tile_the_draw(setting, n):
+    """Chunks of any size (odd, even, larger than the draw) give the
+    whole draw's values at their flat offsets."""
+    whole = prng.normal(prng.PRNGKey(3), (n,))
+    for chunk in ((1, 2, 3, 64) if n < 100 else (7, 64, 2000)):
+        got = torch.empty(n)
+        for start, z in prng.normal_chunks(prng.PRNGKey(3), (n,), chunk=chunk):
+            got[start:start + z.numel()] = z
+        assert got.view(torch.int32).equal(whole.view(torch.int32)), chunk
+    # a window draws only the pieces that hold it, at their offsets
+    lo, hi = n // 3, n // 3 + 2
+    pieces = list(prng.normal_chunks(prng.PRNGKey(3), (n,), chunk=2, start=lo, stop=hi))
+    covered = set()
+    for start, z in pieces:
+        assert z.view(torch.int32).equal(whole[start:start + z.numel()].view(torch.int32))
+        covered |= set(range(start, start + z.numel()))
+    assert set(range(lo, min(hi, n))) <= covered and len(pieces) <= 4
+
+
+@pytest.mark.parametrize("lo,hi", [(-2.3, 7.1), (-1.0, 1.0), (0.5, 0.75), (-0.9999999403953552, 1.0)])
+def test_uniform_float32_range(setting, lo, hi):
+    """``floats·(hi − lo) + lo`` rounded once, as XLA's CPU code fuses it."""
+    _same(jax.random.uniform(jax.random.PRNGKey(4), (2000,), jnp.float32, lo, hi),
+          prng.uniform(prng.PRNGKey(4), (2000,), torch.float32, lo, hi))
+
+
+def _exact_f32(v) -> float:
+    """The float32 nearest the exact rational v (ties to even)."""
+    from fractions import Fraction
+
+    d = np.float32(float(v))                   # within one float32 ulp of v
+    best = min((np.nextafter(d, np.float32(-np.inf)), d, np.nextafter(d, np.float32(np.inf))),
+               key=lambda f: (abs(Fraction(float(f)) - v), int(np.float32(f).view(np.int32)) & 1))
+    return float(best)
+
+
+def test_fma_rounds_once():
+    """`xla_math.fma` is the correctly rounded a·b + c, also where the
+    float64 sum lands exactly halfway between two float32s and rounding it
+    again would be wrong: (1 + 2⁻¹²)² = 1 + 2⁻¹¹ + 2⁻²⁴ is such a midpoint,
+    and ±2⁻⁸⁰ decides its side."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.standard_normal(400).astype(np.float32) for _ in range(3))
+    one = np.float32(1 + 2.0 ** -12)
+    tiny = np.float32(2.0 ** -80)
+    a2 = np.array([one, -one, one, one], np.float32)
+    b2 = np.array([one, one, one, one], np.float32)
+    c2 = np.array([tiny, -tiny, -tiny, 0.0], np.float32)
+    A, B, C = (np.concatenate(z) for z in ((a, a2), (b, b2), (c, c2)))
+    got = xla_math.fma(torch.tensor(A), torch.tensor(B), torch.tensor(C)).numpy()
+    want = np.asarray([_exact_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                       for x, y, z in zip(A, B, C)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    # the cases bite: float64 then float32 rounds the first two wrongly
+    twice = ((A.astype(np.float64) * B + C).astype(np.float32))[-4:]
+    assert (twice != want[-4:]).tolist() == [True, True, False, False]
+
+
+@pytest.mark.parametrize("fn", ["log", "log1p", "erf_inv"])
+def test_xla_math_matches_xla(fn):
+    rng = np.random.default_rng(1)
+    if fn == "log":
+        x = np.concatenate([np.arange(1, 300, dtype=np.float32),
+                            np.exp(rng.standard_normal(20000) * 20).astype(np.float32),
+                            np.array([0.0, np.inf, 1.0], np.float32)])
+        want = jnp.log(jnp.asarray(x))
+    elif fn == "log1p":
+        x = (rng.random(20000) * 3 - 0.9999).astype(np.float32)
+        want = jnp.log1p(jnp.asarray(x))
+    else:
+        x = np.concatenate([(rng.random(20000) * 2 - 1).astype(np.float32),
+                            np.array([-1.0, 1.0, 0.0], np.float32)])
+        want = jax.scipy.special.erfinv(jnp.asarray(x))
+    _same(want, getattr(xla_math, fn)(torch.tensor(x)))
+
+
 def test_bad_arguments_raise():
     k = prng.PRNGKey(0)
     with pytest.raises(ValueError, match="32 and 64"):
         prng.random_bits(k, 16, (2,))
     with pytest.raises(ValueError, match="float32 or float64"):
         prng.uniform(k, (2,), torch.float16)
+    with pytest.raises(ValueError, match="float64 uniforms are drawn on"):
+        prng.uniform(k, (2,), torch.float64, -1.0, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        prng.normal(k, (2,), torch.float64)
+    with pytest.raises(ValueError, match="one"):
+        list(prng.normal_chunks(prng.split(k, 2), (2,)))
     with pytest.raises(ValueError, match="int32 or int64"):
         prng.randint(k, (2,), 0, 3, torch.int16)
     with pytest.raises(ValueError, match="spans below"):
@@ -233,6 +344,10 @@ class _Jax:
     @staticmethod
     def uniform(key, shape, dtype):
         return jax.random.uniform(key, shape, getattr(jnp, dtype))
+
+    @staticmethod
+    def normal(key, shape):
+        return jax.random.normal(key, shape, jnp.float32)
 
     @staticmethod
     def choice(key, n, shape, replace):

@@ -263,3 +263,20 @@ def test_kernel_is_built_from_its_source():
     from repro_torch.kernels import SOURCES
 
     assert "tiled_matmul" in SOURCES and (_build.CSRC / "tiled_matmul.cu").is_file()
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", SWEEP[:3])
+def test_ops_matmul_is_the_references(M, K, N, out_dtype):
+    """`ops.matmul(a, b, out_dtype)` (kernel 3's entry point) against the
+    reference's `ops.matmul`; the output type is the one asked for."""
+    rng = np.random.default_rng(M + K + N)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    jt, tt = DTYPES[out_dtype]
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b), out_dtype=tt)
+    want = np.asarray(jops.matmul(jnp.asarray(a), jnp.asarray(b), out_dtype=jt), np.float32)
+    assert got.dtype == tt and tuple(got.shape) == (M, N)
+    tol = TOL if out_dtype == "float32" else 2.0 ** -8     # one bfloat16 rounding
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=tol * max(float(np.abs(want).max()), 1.0))

@@ -328,3 +328,68 @@ def test_bind_sets_the_prototype_once(monkeypatch):
     again = _build.bind(name, "entry", (ctypes.c_void_p, ctypes.c_int))
     assert first is again and loads == [name]
     assert first.argtypes == [ctypes.c_void_p, ctypes.c_int] and first.restype is ctypes.c_int
+
+
+# --------------------------------------------------------------------------
+# the global Top-K entry points: topk_threshold and ops.topk_compress
+# --------------------------------------------------------------------------
+#: the reference's own sweep (tests/test_kernels.py)
+GLOBAL_SWEEP = [((64, 64), 10), ((100, 100), 50), ((33, 77), 1), ((128,), 100),
+                ((16, 16, 16), 64)]
+
+
+@pytest.mark.parametrize("shape,k", GLOBAL_SWEEP, ids=str)
+def test_topk_threshold_sweep(shape, k):
+    """The threshold is the exact k-th largest |x| (and torch.topk's), the
+    kept set everything above it plus the earliest of its ties, exactly
+    min(k, numel) entries — bit for bit the reference's three outputs."""
+    x = np.random.default_rng(k).standard_normal(shape).astype(np.float32)
+    out, t, kept = ttk.topk_threshold(torch.from_numpy(x), k)
+    jout, jt, jkept = jtk.topk_threshold(jnp.asarray(x), k)
+    kk = min(k, x.size)
+    flat = np.abs(x).ravel()
+    assert int(kept) == kk == int(jkept)
+    assert float(t) == np.sort(flat)[-kk] == float(jt)
+    assert float(t) == float(torch.topk(torch.from_numpy(flat), kk).values[-1])
+    assert out.shape == x.shape and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy().view(np.int32), np.asarray(jout).view(np.int32))
+    kept_mask = out.numpy().ravel() != 0
+    assert kept_mask[flat > float(t)].all() and not kept_mask[flat < float(t)].any()
+    # the plain twin the card's check holds the kernel route to
+    for a, b in zip(ttk.topk_threshold_plain(torch.from_numpy(x), k), (out, t, kept)):
+        assert torch.equal(a, b)
+
+
+def test_topk_threshold_ties_zeros_and_k_zero():
+    ones = torch.ones((10, 10))
+    out, t, kept = ttk.topk_threshold(ones, 7)
+    assert int(kept) == 7 and float(t) == 1.0
+    assert out.ravel().nonzero().ravel().tolist() == list(range(7))   # earliest ties
+    out0, t0, kept0 = ttk.topk_threshold(torch.zeros((10, 10)), 7)
+    assert float(t0) == 0.0 and int(kept0) == 7
+    for k in (0, -2):
+        outz, tz, keptz = ttk.topk_threshold(ones, k)
+        assert int(keptz) == 0 and float(tz) == float("inf") and not outz.any()
+        jz = jtk.topk_threshold(jnp.ones((10, 10), jnp.float32), k)
+        assert float(jz[1]) == float(tz) and int(jz[2]) == int(keptz)
+    # k above numel keeps everything
+    _, t_all, kept_all = ttk.topk_threshold(torch.arange(1.0, 7.0), 100)
+    assert int(kept_all) == 6 and float(t_all) == 1.0
+
+
+@pytest.mark.parametrize("shape,k", GLOBAL_SWEEP[:3], ids=str)
+def test_ops_topk_compress_is_the_references(shape, k):
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops
+
+    x = np.random.default_rng(k + 1).standard_normal(shape).astype(np.float32)
+    dense, kept = ops.topk_compress(torch.from_numpy(x), k)
+    jdense, jkept = jops.topk_compress(jnp.asarray(x), k)
+    np.testing.assert_array_equal(dense.numpy().view(np.int32), np.asarray(jdense).view(np.int32))
+    assert int(kept) == int(jkept)
+
+
+def test_topk_threshold_on_cpu_does_not_count_launches():
+    before = ttk.launches
+    ttk.topk_threshold(torch.randn(50), 5)
+    assert ttk.launches == before

@@ -43,6 +43,14 @@ TRAIN_CFGS = {"gemma3_4b": dict(n_kv_heads=2), "mamba2_370m": {}}
 B, S = 2, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def rel_close(got, want, tol):
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want, np.float32)
