@@ -237,7 +237,14 @@ is non-zero and no result line is printed:
                 size and strided views; a bfloat16 view with head-dim stride
                 2 must raise ValueError; each template's registers and
                 local (spill) bytes; timed at the prefill shapes beside its
-                plain version, SDPA and its bound;
+                plain version, SDPA and its bound; then, in bfloat16, held
+                and timed the same way at the other configs' full-width
+                shapes (`ATTN_CONFIG_SHAPES`: granite's 48 query heads on
+                one KV head, stablelm's head size 160 on the 256 template,
+                codeqwen, deepseek-moe, llama4's rep 5, qwen2-vl's 2304
+                positions, whisper's decoder, non-causal encoder over 1500
+                frames, and cross-attention of 2048 and of 1 query against
+                1500 keys);
   11. kernels_ssd — the SSD kernel's y and final state against its plain
                 version (each within 1e-4·max|plain|) at mamba2-370m's
                 prefill shape, the reference's sweep, ragged lengths, heads
@@ -249,21 +256,33 @@ is non-zero and no result line is printed:
                 the prefill shape beside its plain version and two bounds at
                 the kernel's chunk length (float32 on the CUDA cores; its
                 split TF32 products on the tensor cores), with the CUDA
-                launches one call makes, as the library counts them;
-  12. serve-gemma3 / serve-mamba2 — the LM serving path
-                (`repro_torch.launch.serve.prefill` / `decode`): the reduced
-                config in float32 on the card against the same weights on
-                the CPU (prefill logits, every decode step's logits and the
-                cache within 2e-4·max|ref|, 8 greedy tokens equal, decode
-                after an 8-token prefill equal to the full forward), then
-                the full-width config in bfloat16 with the reference's
-                weights of PRNGKey(0) (init seconds and peak reported): 4
-                (gemma3) or 8 (mamba2) requests of 2048-token prompts and
-                32 decode steps, every logit finite, exactly one kernel-5
-                (gemma3, 34) or kernel-6 (mamba2, 48) launch a layer in the
-                prefill, no other kernel, and no launch in decode.  A
-                reduced reading above 10x the usual 2.4e-6 prints one more
-                line: the largest differences, where they sit (the compared
+                launches one call makes, as the library counts them; then
+                held and timed at jamba-1.5-large's width (4, 2048, 256
+                heads of 64, N 128);
+  12. serve-<arch> — the LM serving path
+                (`repro_torch.launch.serve.prefill` / `decode`) for the ten
+                configs (`SERVE_CELLS`, then `REDUCED_ONLY`): the reduced
+                config in float32 on the card against the same weights and seeded
+                stub inputs (whisper's frames, qwen2-vl's prefix
+                embeddings) on the CPU (prefill logits, every decode step's
+                logits and the cache within 2e-4·max|ref|, 8 greedy tokens
+                equal, decode after an 8-token prefill equal to the full
+                forward, a MoE config at a capacity that drops nothing),
+                then the full-width config in bfloat16 with the reference's
+                weights of PRNGKey(0), cut in depth where `SERVE_CELLS`
+                says (init seconds and peak reported): 4 requests (mamba2:
+                8) of 2048-token prompts, 32 decode steps (gemma3, mamba2)
+                or 4 (the others), every logit finite, exactly the kernel
+                calls `lm_launches` counts (kernel 5 once an attention
+                layer a prefill and, for whisper, once an encoder and a
+                cross-attention layer every call; kernel 6 once a Mamba2
+                layer a prefill), no other kernel; a MoE config's two
+                prefills bitwise equal: eight configs at full width.
+                llama4-maverick (one group is 37 GB and ~60 s of init) and
+                jamba-1.5-large (one group is 90 GB in bf16) run their
+                reduced check only.  A reduced reading above 10x the
+                usual 2.4e-6 prints one more line:
+                the largest differences, where they sit (the compared
                 logits or cache leaf, its index) and both sides' values;
   13. kernels_attn_bwd / kernels_ssd_bwd — the backward kernels of kernels
                 5 and 6 (`flash_attention_bwd.cu`, `ssd_scan_bwd.cu`)
@@ -438,12 +457,53 @@ SSD_EMULATED_CHUNKS = (64, 128)
 SSD_SWEEP = ((2, 64, 16, 8, 16), (1, 128, 32, 16, 32), (4, 96, 8, 4, 24), (1, 60, 16, 8, 32))
 #: serve cells at full width on one card: arch, the port's one-card input
 #: shape (`repro_torch.launch.shapes`: requests, prompt and cache length),
-#: decode steps, and the kernel each prefill layer launches
-SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, "flash_attention"),
-               ("mamba2_370m", "decode_4k_b8", 32, "ssd_scan"))
-#: the reduced configs of the card-against-CPU check (gemma3 with grouped
-#: KV heads, as at full width)
-SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {}}
+#: decode steps, and the layers kept (None: full depth).  The cut cells keep
+#: every width and the first groups' layer pattern; their weights are the
+#: reference's `init_params(PRNGKey(0))` of the cut config: qwen2-vl-72b 2
+#: layers (4.25 B parameters), granite-20b, stablelm-12b and codeqwen1.5-7b
+#: 4 layers (2.12, 2.14, 1.69 B), against full depths' bf16 weights of 145,
+#: 41, 24 and 16 GB, each init a few seconds at ~3.2 ns a draw.  Their 4
+#: decode steps, and llama4-maverick's reduced check in place of its cell,
+#: keep the whole script's time down: with 8 steps and llama4's cell it
+#: ran 823 s (PERF.md §6)
+SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, None),
+               ("mamba2_370m", "decode_4k_b8", 32, None),
+               ("deepseek_moe_16b", "decode_4k_b4", 4, None),
+               ("qwen2_vl_72b", "decode_4k_b4", 4, 2),
+               ("granite_20b", "decode_4k_b4", 4, 4),
+               ("stablelm_12b", "decode_4k_b4", 4, 4),
+               ("codeqwen15_7b", "decode_4k_b4", 4, 4),
+               ("whisper_small", "decode_4k_b4", 4, None))
+#: configs held by their reduced check alone: llama4-maverick (one group,
+#: a MoE layer of 128 experts and a dense one, is 18.68 B parameters, 37.4
+#: GB, and its init alone takes ~60 s of the script's time) and
+#: jamba-1.5-large (one group of 8 layers is 45.1 B parameters, 90.3 GB in
+#: bf16: no depth fits one card)
+REDUCED_ONLY = ("llama4_maverick_400b_a17b", "jamba_15_large_398b")
+#: the reduced configs of the card-against-CPU check, all ten: where the
+#: full width groups its KV heads the reduced config (4 query heads) keeps
+#: 2 KV heads, and stablelm its head size of 160
+SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {},
+                 "deepseek_moe_16b": {}, "granite_20b": {},
+                 "llama4_maverick_400b_a17b": {"n_kv_heads": 2}, "whisper_small": {},
+                 "codeqwen15_7b": {}, "qwen2_vl_72b": {"n_kv_heads": 2},
+                 "stablelm_12b": {"n_kv_heads": 2, "head_dim": 160},
+                 "jamba_15_large_398b": {"n_kv_heads": 2}}
+#: kernel 5 at the other configs' full-width prefill shapes (decode_4k_b4:
+#: 4 × 2048 tokens; qwen2-vl's 256 prefix embeddings in front), bfloat16:
+#: (name, B, Sq, Sk, H, KVH, hd, causal)
+ATTN_CONFIG_SHAPES = (("granite-20b", 4, 2048, 2048, 48, 1, 128, True),
+                      ("stablelm-12b", 4, 2048, 2048, 32, 8, 160, True),
+                      ("codeqwen1.5-7b", 4, 2048, 2048, 32, 32, 128, True),
+                      ("deepseek-moe-16b", 4, 2048, 2048, 16, 16, 128, True),
+                      ("llama4-maverick", 4, 2048, 2048, 40, 8, 128, True),
+                      ("qwen2-vl-72b", 4, 2304, 2304, 64, 8, 128, True),
+                      ("whisper decoder", 4, 2048, 2048, 12, 12, 64, True),
+                      ("whisper encoder", 4, 1500, 1500, 12, 12, 64, False),
+                      ("whisper cross", 4, 2048, 1500, 12, 12, 64, False),
+                      ("whisper cross, decode", 4, 1, 1500, 12, 12, 64, False))
+#: kernel 6 at jamba-1.5-large's full width: (name, B, S, H, hd, N)
+SSD_CONFIG_SHAPES = (("jamba-1.5-large", 4, 2048, 256, 64, 128),)
 #: the backward kernels against float64 autograd through the plain versions,
 #: share of max|f64| (PERF.md §2); bf16 adds one bf16 ulp of the f64 value
 BWD_TOL = 1e-4
@@ -1481,7 +1541,8 @@ def prng_phase(torch, prng, rounds, device: str = "cuda") -> dict:
                       "device_ms_per_round": prof["device_busy_ms"] / PRNG_COST_ROUNDS}
     return {"table_entries": sum(len(v) for v in table.values()),
             "card_vs_cpu_cases": sorted(cases), "draw_cost": cost,
-            "normal": normal_phase(torch, prng)}
+            "normal": normal_phase(torch, prng),
+            "normal_past_a_block": blocked_normal_windows(torch, prng)}
 
 
 #: normal draws held card = CPU over the whole leaf up to this many draws;
@@ -1547,6 +1608,41 @@ def normal_phase(torch, prng) -> dict:
                     "card_s": secs, "card_ns_per_draw": secs / n * 1e9}
                 del card, host
     return out
+
+
+#: llama4-maverick's (128, 5120, 8192) expert leaves: 5.4 G draws a group,
+#: past uint32's count of words, so jax draws them in blocks of 2³² − 1
+BLOCKED_DRAW_SHAPE = (128, 5120, 8192)
+
+
+def blocked_normal_windows(torch, prng) -> dict:
+    """`prng.normal` past 2³² − 1 draws (the original layout splits the key
+    into blocks, `prng._bits32_chunks`) on the card against the CPU,
+    bitwise, in windows at the leaf's start, across the first block's end
+    and at its end: each device draws only the pieces that hold a window."""
+    n = math.prod(BLOCKED_DRAW_SHAPE)
+    w, block = NORMAL_WINDOW, prng.M32
+    key = prng.fold_in(prng.PRNGKey(28), 1)
+    out = {}
+    with prng.threefry_partitionable(False):
+        for lo, hi in ((0, w), (block - w // 2, block + w // 2), (n - w, n)):
+            card = torch.empty(hi - lo, device="cuda")
+            for start, z in prng.normal_chunks(key, BLOCKED_DRAW_SHAPE, device="cuda", chunk=w,
+                                               start=lo, stop=hi):
+                a, b = max(start, lo), min(start + z.numel(), hi)
+                if a < b:
+                    card[a - lo:b - lo] = z[a - start:b - start]
+            host = card.cpu()
+            for start, z in prng.normal_chunks(key, BLOCKED_DRAW_SHAPE, device="cpu", chunk=w,
+                                               start=lo, stop=hi):
+                a, b = max(start, lo), min(start + z.numel(), hi)
+                if a < b and not torch.equal(host[a - lo:b - lo].view(torch.int32),
+                                             z[a - start:b - start].view(torch.int32)):
+                    raise AssertionError(f"normal {BLOCKED_DRAW_SHAPE}: card != CPU in "
+                                         f"[{a}, {b})")
+            out[f"[{lo}, {hi})"] = "card = CPU bitwise"
+    return {"shape": list(BLOCKED_DRAW_SHAPE), "draws": n, "blocks": n // block + 1,
+            "windows": out}
 
 
 def topk_legs(cell) -> int:
@@ -2395,8 +2491,34 @@ def attention_kernel_phase(torch, fa) -> dict:
             "pairs_per_head": attention_pairs(S, S, True, w)}
         del q, k, v, qt, kt, vt, plain
     torch.cuda.empty_cache()
-    return {"cases": len(cases) + 2, "max_abs_err": err, "max_rel_err": rel,
-            "limit_share": share, "timings": timings, "templates": fa.kernel_attributes()}
+    # the other configs' full-width shapes, bfloat16: held, then timed
+    config_timings = {}
+    for name, B, Sq, Sk, H, KVH, hd, causal in ATTN_CONFIG_SHAPES:
+        q = rnd(B, Sq, H, hd, dtype="bfloat16")
+        k, v = (rnd(B, Sk, KVH, hd, dtype="bfloat16") for _ in range(2))
+        hold(name, "bfloat16", q, k, v, causal, None)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+        bound, by = attention_bound_ms(q, k, causal, None)
+        hdp = next(t for t in fa.TEMPLATES["bfloat16"] if hd <= t)
+        config_timings[name] = {
+            "shape": [B, Sq, Sk, H, KVH, hd], "causal": causal, "dtype": "bfloat16",
+            "kernel_ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal),
+                                 20, warmup=2),
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                                5, warmup=1),
+            "library_ms": cuda_ms(torch, sdpa, 20, warmup=2),
+            "bound_ms": bound, "bound_by": by, "template_hd": hdp,
+            # the head dims the template computes past hd: zero-filled by TMA
+            "padded_share": 1.0 - hd / hdp}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {"cases": len(cases) + 2 + len(ATTN_CONFIG_SHAPES), "max_abs_err": err,
+            "max_rel_err": rel, "limit_share": share, "timings": timings,
+            "config_timings": config_timings, "templates": fa.kernel_attributes()}
 
 
 def ssd_kernel_phase(torch, ss) -> dict:
@@ -2490,13 +2612,29 @@ def ssd_kernel_phase(torch, ss) -> dict:
         raise AssertionError(f"ssd_scan ran under a bound it cannot beat: {timing}")
     del args
     torch.cuda.empty_cache()
+    # the other configs' full-width shapes: held, then timed
+    config_timings = {}
+    for name, B, S, H, hd, N in SSD_CONFIG_SHAPES:
+        args = inputs(B, S, H, hd, N)
+        hold(name, args, 256)
+        cases += 1
+        bound_tc, by_tc, bytes_ms = ssd_bound_tc_ms(B, S, H, hd, N, chunk=ss.KERNEL_CHUNK)
+        config_timings[name] = {
+            "shape": [B, S, H, hd, N], "chunk": 256,
+            "kernel_ms": cuda_ms(torch, lambda: ss.ssd_scan(*args), 20, warmup=2),
+            "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(*args, chunk=256), 5,
+                                warmup=1),
+            "library_ms": None, "bound_ms": bound_tc, "bound_by": by_tc,
+            "bound_f32_ms": ssd_bound_ms(B, S, H, hd, N, chunk=ss.KERNEL_CHUNK)[0]}
+        del args
+        torch.cuda.empty_cache()
     from repro_torch.kernels import _build
 
     lib = _build.load("ssd_scan")
     lib.ssd_scan_workspace_floats.argtypes = [ctypes.c_int] * 5
     lib.ssd_scan_workspace_floats.restype = ctypes.c_longlong
     return {"cases": cases, "max_abs_err": err, "timing": timing,
-            "mixed_decay_y_rel_err": mixed, "cuda_launches_per_call": cuda_launches,
+            "config_timings": config_timings, "mixed_decay_y_rel_err": mixed, "cuda_launches_per_call": cuda_launches,
             "workspace_bytes_at_path_shape": 4 * lib.ssd_scan_workspace_floats(*SSD_PATH)}
 
 
@@ -2953,14 +3091,151 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{key}", v
 
 
-def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
+def lm_launches(cfg, prefills: int = 1, decode_steps: int = 0) -> dict:
+    """The kernel calls `prefills` prefills and `decode_steps` decode steps
+    of `cfg` make: kernel 5 once an attention layer a prefill, and once an
+    encoder layer and once a cross-attention layer on every call (whisper's
+    encoder runs on every step, as the reference's does); kernel 6 once a
+    Mamba2 layer a prefill.  No other kernel."""
+    specs = cfg.layer_specs()
+    n_attn = sum(1 for sp in specs if sp.mixer == "attn")
+    every_call = cfg.n_enc_layers + (n_attn if cfg.n_enc_layers else 0)
+    return {"flash_attention": every_call * (prefills + decode_steps) + n_attn * prefills,
+            "ssd_scan": (len(specs) - n_attn) * prefills}
+
+
+def no_drop(cfg):
+    """`cfg` with a capacity factor at which no MoE token is dropped at any
+    token count (capacity ≥ T): decode then routes as the full forward."""
+    import dataclasses
+
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def reduced_extras(cfg, batch: int, seed: int = 100) -> dict:
+    """Seeded random stub inputs of a reduced config (numpy, float32, scale
+    0.5): whisper's frames, qwen2-vl's prefix embeddings."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.n_enc_layers:
+        out["frames"] = rng.standard_normal((batch, cfg.enc_seq, cfg.d_model)) * 0.5
+    if cfg.n_prefix_embeds:
+        out["prefix_embeds"] = rng.standard_normal((batch, cfg.n_prefix_embeds,
+                                                    cfg.d_model)) * 0.5
+    return {key: v.astype(np.float32) for key, v in out.items()}
+
+
+def serve_cell(torch, k, drive, arch, shape, steps, layers, profile) -> dict:
     """One serve cell: the reduced config on the card against the CPU, then
-    the full-width config in bfloat16 at `shape` (see the module docstring)."""
+    the full-width config in bfloat16 at `shape`, cut to `layers` layers
+    when given (see the module docstring)."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch import configs
     from repro_torch.core import prng
     from repro_torch.launch import serve, shapes
+    from repro_torch.models import model as M
+    from repro_torch.models.steps import stub_inputs
+
+    # ---- reduced config: the card's kernels against the CPU's plain versions
+    reduced = serve_reduced_check(torch, k, drive, arch)
+
+    # ---- full width, bfloat16, the reference's weights of PRNGKey(0) drawn
+    # on the card, cut in depth only
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    B, prompt, max_seq = serve.sizes(shapes.SHAPES[shape])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    cache = M.init_cache(cfg, B, max_seq, torch.bfloat16, device="cuda")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
+                              dtype=torch.int32, device="cuda")
+    # the stub frontends' inputs: a standard normal draw scaled by 0.02, as
+    # the data pipeline draws them
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    extras = {key: (torch.randn(v.shape, generator=gen, device="cuda") * 0.02).to(v.dtype)
+              for key, v in stub_inputs(cfg, B, torch.bfloat16, device="cuda").items()}
+    start = serve.decode_start(prompts, extras)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up: one prefill and two decode steps (library handles, new shapes);
+    # the measured runs overwrite the same cache slots with the same values
+    warm = serve.prefill(params, cfg, prompts, cache, extras)
+    serve.decode(params, cfg, warm["token"], warm["cache"], start, 2, extras)
+    pre, _, pre_counts = drive(torch, k, lambda: serve.prefill(params, cfg, prompts, cache,
+                                                               extras))
+    pre_ssd_cuda = k.ss.cuda_launches
+    # two prefills of the same inputs: the same bits (the MoE's combine sums
+    # each token's expert outputs in a fixed order, with no atomics)
+    repeat_bitwise = bool(torch.equal(warm["logits"], pre["logits"]))
+    if cfg.moe is not None and not repeat_bitwise:
+        raise AssertionError(f"{arch}: two prefills of the same inputs differ in their bits")
+    dec, _, dec_counts = drive(torch, k, lambda: serve.decode(
+        params, cfg, pre["token"], pre["cache"], start, steps, extras))
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(pre["logits"]).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in dec["logits"])
+    if not finite:
+        raise AssertionError(f"{arch}: a prefill or decode logit is not finite")
+    calls = lm_launches(cfg)
+    want = {name: calls.get(name, 0) for name in pre_counts}
+    if pre_counts != want:
+        raise AssertionError(f"{arch} prefill: kernel launches {pre_counts}, want {want}")
+    calls = lm_launches(cfg, prefills=0, decode_steps=steps)
+    want = {name: calls.get(name, 0) for name in dec_counts}
+    if dec_counts != want:
+        raise AssertionError(f"{arch} decode: kernel launches {dec_counts}, want {want}")
+    tokens = B * (prompt + cfg.n_prefix_embeds)
+    result = {"reduced": reduced, "config": cfg.name, "layers": cfg.n_layers,
+              "full_layers": configs.get_config(arch).n_layers,
+              "params": M.count_params(params), "shape": shape, "requests": B, "prompt": prompt,
+              "prefix_embeds": cfg.n_prefix_embeds, "enc_seq": cfg.enc_seq,
+              "max_seq": max_seq, "decode_steps": steps, "decode_start": start,
+              "setup_s": setup_s, "init_s": init_s, "init_max_memory_allocated": init_peak,
+              "prefill_s": pre["seconds"], "prefill_tok_s": tokens / pre["seconds"],
+              "decode_s": dec["seconds"], "decode_s_per_step": dec["seconds"] / steps,
+              "decode_tok_s": B * steps / dec["seconds"], "max_memory_allocated": peak,
+              "logits_finite": finite, "prefill_repeat_bitwise": repeat_bitwise,
+              "tokens_head": dec["tokens"][0, :8].tolist(),
+              "launches_prefill": pre_counts, "launches_decode": dec_counts,
+              "ssd_scan_cuda_launches_prefill": pre_ssd_cuda}
+    if profile:
+        def run():
+            p = serve.prefill(params, cfg, prompts, cache, extras)
+            serve.decode(params, cfg, p["token"], p["cache"], start, 4, extras)
+        result["profile"] = profile_run(torch, run, 1)
+    del params, cache, pre, dec, warm, extras
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_reduced_check(torch, k, drive, arch) -> dict:
+    """The reduced config of `arch` (`SERVE_REDUCED`) in float32 with the
+    same weights and stub inputs on the card and on the CPU: prefill and 8
+    greedy decode steps (logits and the cache within SERVE_TOL, tokens
+    equal, exact launch counts), and decode after an 8-token prefill equal
+    to the full forward (a MoE config at a capacity that drops nothing).
+    A reading above SERVE_UNUSUAL prints where its largest differences
+    sit."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
     from repro_torch.models import model as M
 
     diagnosis = []
@@ -2983,20 +3258,21 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
                              "abs_diff": float(flat[i])} for i in top]})
         return e / scale
 
-    # ---- reduced config: the card's kernels against the CPU's plain versions
+    def to_card(tree):
+        return _tree_map(lambda t: t.cuda(), tree)
+
     cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
-    n_kernel_layers = sum(1 for s in cfg.layer_specs()
-                          if (s.mixer == "attn") == (kernel == "flash_attention"))
     cpu_params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
-    params = _tree_map(lambda t: t.cuda(), cpu_params)
+    params = to_card(cpu_params)
     B, prompt, max_seq = serve.DEBUG_SIZES
     prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
                               dtype=torch.int32)
+    extras = {key: torch.tensor(v) for key, v in reduced_extras(cfg, B).items()}
     ref = serve.generate(cpu_params, cfg, prompts,
-                         M.init_cache(cfg, B, max_seq, torch.float32, device="cpu"), 8)
+                         M.init_cache(cfg, B, max_seq, torch.float32, device="cpu"), 8, extras)
     out, _, counts = drive(torch, k, lambda: serve.generate(
         params, cfg, prompts.cuda(), M.init_cache(cfg, B, max_seq, torch.float32, device="cuda"),
-        8))
+        8, to_card(extras)))
     rel = {"prefill_logits": close("prefill logits", out["prefill_logits"],
                                    ref["prefill_logits"])}
     rel["step_logits"] = max(close(f"decode step {i} logits", a, b)
@@ -3007,81 +3283,26 @@ def serve_cell(torch, k, drive, arch, shape, steps, kernel, profile) -> dict:
     if not torch.equal(out["tokens"].cpu(), ref["tokens"]):
         raise AssertionError(f"{arch} reduced: greedy tokens {out['tokens'].tolist()} != "
                              f"CPU {ref['tokens'].tolist()}")
-    want = {name: 0 for name in counts}
-    want[kernel] = n_kernel_layers
+    calls = lm_launches(cfg, decode_steps=8)
+    want = {name: calls.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"{arch} reduced: kernel launches {counts}, want {want}")
+    dcfg = no_drop(cfg)
     toks = prompts[:1, :9].cuda()
-    full, _, _ = M.forward(params, cfg, toks)
-    cache = M.init_cache(cfg, 1, 16, torch.float32, device="cuda")
-    pre = serve.prefill(params, cfg, toks[:, :8], cache)
-    dec, _, _ = M.forward(params, cfg, toks[:, 8:9], cache=pre["cache"], cache_pos=8)
+    ex = {key: v[:1].cuda() for key, v in extras.items()}
+    full, _, _ = M.forward(params, dcfg, toks, **ex)
+    cache = M.init_cache(dcfg, 1, 16, torch.float32, device="cuda")
+    pre = serve.prefill(params, dcfg, toks[:, :8], cache, ex)
+    dec, _, _ = M.forward(params, dcfg, toks[:, 8:9], cache=pre["cache"],
+                          cache_pos=serve.decode_start(toks[:, :8], ex), frames=ex.get("frames"))
     rel["decode_vs_full_forward"] = close("decode after prefill vs full forward",
                                           dec[0, 0], full[0, -1])
-    reduced = {"config": cfg.name, "layers": cfg.n_layers, "max_rel_err": rel,
-               "tokens_equal": True, "launches": counts}
     if diagnosis:
         emit({"phase": f"serve-{arch.split('_')[0]}-reduced-diagnosis",
               "usual_rel": SERVE_USUAL_REL, "threshold_rel": SERVE_UNUSUAL,
               "items": diagnosis})
-    del params, cpu_params, out, ref
-
-    # ---- full width, bfloat16, the reference's weights of PRNGKey(0) drawn
-    # on the card
-    cfg = configs.get_config(arch)
-    B, prompt, max_seq = serve.sizes(shapes.SHAPES[shape])
-    n_kernel_layers = sum(1 for s in cfg.layer_specs()
-                          if (s.mixer == "attn") == (kernel == "flash_attention"))
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated()
-    cache = M.init_cache(cfg, B, max_seq, torch.bfloat16, device="cuda")
-    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
-                              dtype=torch.int32, device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    # warm-up: one prefill and two decode steps (library handles, new shapes);
-    # the measured runs overwrite the same cache slots with the same values
-    warm = serve.prefill(params, cfg, prompts, cache)
-    serve.decode(params, cfg, warm["token"], warm["cache"], prompt, 2)
-    pre, _, pre_counts = drive(torch, k, lambda: serve.prefill(params, cfg, prompts, cache))
-    pre_ssd_cuda = k.ss.cuda_launches
-    dec, _, dec_counts = drive(torch, k, lambda: serve.decode(
-        params, cfg, pre["token"], pre["cache"], prompt, steps))
-    peak = torch.cuda.max_memory_allocated()
-    finite = bool(torch.isfinite(pre["logits"]).all()) and all(
-        bool(torch.isfinite(lg).all()) for lg in dec["logits"])
-    if not finite:
-        raise AssertionError(f"{arch}: a prefill or decode logit is not finite")
-    want = {name: 0 for name in pre_counts}
-    want[kernel] = n_kernel_layers
-    if pre_counts != want:
-        raise AssertionError(f"{arch} prefill: kernel launches {pre_counts}, want {want}")
-    if any(dec_counts.values()):
-        raise AssertionError(f"{arch} decode launched a kernel: {dec_counts}")
-    result = {"reduced": reduced, "config": cfg.name, "layers": cfg.n_layers,
-              "params": M.count_params(params), "shape": shape, "requests": B, "prompt": prompt,
-              "max_seq": max_seq, "decode_steps": steps, "setup_s": setup_s,
-              "init_s": init_s, "init_max_memory_allocated": init_peak,
-              "prefill_s": pre["seconds"], "prefill_tok_s": B * prompt / pre["seconds"],
-              "decode_s": dec["seconds"], "decode_s_per_step": dec["seconds"] / steps,
-              "decode_tok_s": B * steps / dec["seconds"], "max_memory_allocated": peak,
-              "logits_finite": finite, "tokens_head": dec["tokens"][0, :8].tolist(),
-              "launches_prefill": pre_counts, "launches_decode": dec_counts,
-              "ssd_scan_cuda_launches_prefill": pre_ssd_cuda}
-    if profile:
-        def run():
-            p = serve.prefill(params, cfg, prompts, cache)
-            serve.decode(params, cfg, p["token"], p["cache"], prompt, 4)
-        result["profile"] = profile_run(torch, run, 1)
-    del params, cache, pre, dec, warm
-    torch.cuda.empty_cache()
-    return result
+    return {"config": cfg.name, "layers": cfg.n_layers, "max_rel_err": rel,
+            "tokens_equal": True, "launches": counts}
 
 
 #: substrings of the hand-written kernels' names in a profiler trace
@@ -3682,6 +3903,27 @@ def sharded_phase(torch, k, problems, smi: str, one_s_per_round: dict) -> dict:
     return res
 
 
+def lm_serve_phases(torch, k, fa, ss, profile: bool) -> tuple:
+    """Phases 10–12: kernels 5 and 6 against their plain versions and timed,
+    then each serve cell of `SERVE_CELLS` and the reduced check of each
+    config of `REDUCED_ONLY`; returns (attention phase, SSD phase, serve
+    results by arch)."""
+    ka = attention_kernel_phase(torch, fa)
+    emit({"phase": "kernels_attn", "kernel": "flash_attention", **ka})
+    ks = ssd_kernel_phase(torch, ss)
+    emit({"phase": "kernels_ssd", "kernel": "ssd_scan", **ks})
+    serve_res = {}
+    for arch, shape, steps, layers in SERVE_CELLS:
+        t0 = time.perf_counter()
+        serve_res[arch] = serve_cell(torch, k, drive, arch, shape, steps, layers, profile)
+        serve_res[arch]["phase_s"] = time.perf_counter() - t0
+        emit({"phase": f"serve-{arch.split('_')[0]}", **serve_res[arch]})
+    for arch in REDUCED_ONLY:
+        serve_res[arch] = {"reduced": serve_reduced_check(torch, k, drive, arch)}
+        emit({"phase": f"serve-{arch.split('_')[0]}", **serve_res[arch]})
+    return ka, ks, serve_res
+
+
 def main(argv) -> int:
     if argv[:1] == ["--sharded-worker"]:
         return sharded_worker(argv[1])
@@ -3966,16 +4208,8 @@ def main(argv) -> int:
     problems.build_problem.cache_clear()
     torch.cuda.empty_cache()
 
-    # ---- LM serving: kernels 5 and 6, then gemma3-4b and mamba2-370m --------
-    ka = attention_kernel_phase(torch, fa)
-    emit({"phase": "kernels_attn", "kernel": "flash_attention", **ka})
-    ks = ssd_kernel_phase(torch, ss)
-    emit({"phase": "kernels_ssd", "kernel": "ssd_scan", **ks})
-    serve_res = {}
-    for arch, shape, steps, kernel in SERVE_CELLS:
-        serve_res[arch] = serve_cell(torch, k, drive, arch, shape, steps, kernel,
-                                     "--profile" in argv)
-        emit({"phase": f"serve-{arch.split('_')[0]}", **serve_res[arch]})
+    # ---- LM serving: kernels 5 and 6, then the ten configs -----------------
+    ka, ks, serve_res = lm_serve_phases(torch, k, fa, ss, "--profile" in argv)
 
     # ---- LM training: the backward kernels, then gemma3-4b and mamba2-370m
     kab = attention_bwd_phase(torch, fa)
@@ -4082,6 +4316,10 @@ def main(argv) -> int:
         "shape": fg["shape"] + ["global"], "window1024": {
             key: fw[key] for key in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
+        "config_shapes": ka["config_timings"],
+        "launches_serve": {arch: {"prefill": r["launches_prefill"]["flash_attention"],
+                                  "decode": r["launches_decode"]["flash_attention"]}
+                           for arch, r in serve_res.items() if "launches_prefill" in r},
         "launches_train": tr["gemma3_4b"]["launches"]["flash_attention"]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -4093,6 +4331,9 @@ def main(argv) -> int:
         "bound_f32_ms": sd["bound_f32_ms"],
         "cuda_launches": serve_res["mamba2_370m"]["ssd_scan_cuda_launches_prefill"],
         "cuda_launches_per_call": ks["cuda_launches_per_call"],
+        "config_shapes": ks["config_timings"],
+        "launches_jamba_reduced": serve_res["jamba_15_large_398b"]["reduced"]["launches"][
+            "ssd_scan"],
         "launches_train": tr["mamba2_370m"]["launches"]["ssd_scan"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",

@@ -293,35 +293,53 @@ def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _bits32_chunks(key: torch.Tensor, size: int, device, partitionable, chunk: int,
-                   start: int = 0, stop: Optional[int] = None):
+                   start: int = 0, stop: Optional[int] = None, block: int = M32):
     """The 32-bit words of ``random_bits(key, 32, (size,))`` for one key, in
     pieces of at most ``chunk`` words: ``(first flat index, words)``, only
     the pieces that hold a word of [start, stop).  Under the original
     layout the pair (i, h + i) hashes to words i and h + i (h = ⌈size/2⌉),
-    so a range of pairs gives two ranges of words."""
+    so a range of pairs gives two ranges of words.  From ``block`` =
+    2³² − 1 words on (uint32's largest count), the original layout draws as
+    jax does: ``split(key, nblocks + 1)``, each of the first nblocks keys
+    hashing a whole block of counters, the last key the remainder
+    (``_threefry_random_bits_original``); ``block`` is a parameter only so
+    that the tests can hold the split to jax's primitives at a small size."""
     stop = size if stop is None else min(int(stop), size)
 
     def wanted(a, b):
         return a < stop and b > start
 
     if _part(partitionable):
+        if size >= M32:
+            raise ValueError(f"normal draws fewer than 2**32 - 1 values under "
+                             f"jax_threefry_partitionable=True, got {size}")
         for a in range(0, size, chunk):
             b = min(size, a + chunk)
             if wanted(a, b):
                 y0, y1 = _hash(key, 0, range(a, b), b - a, device)
                 yield a, y0 ^ y1
         return
-    h = (size + 1) // 2
-    step = max(1, chunk // 2)
-    for a in range(0, h, step):
-        b = min(h, a + step)
-        hi_stop = min(size, h + b)
-        if not (wanted(a, b) or wanted(h + a, hi_stop)):
+    nblocks, rem = divmod(size, block)
+    if nblocks:
+        keys = split(key, nblocks + 1, partitionable=False)
+        pieces = [(keys[i], i * block, block) for i in range(nblocks)]
+        pieces.append((keys[nblocks], nblocks * block, rem))
+    else:
+        pieces = [(key, 0, size)]
+    for k, off, n in pieces:
+        if not wanted(off, off + n):
             continue
-        y0, y1 = _hash(key, range(a, b), range(h + a, h + b), b - a, device,
-                       zero_last=b == h and size % 2 == 1)
-        yield a, y0
-        yield h + a, y1[: hi_stop - (h + a)]
+        h = (n + 1) // 2
+        step = max(1, chunk // 2)
+        for a in range(0, h, step):
+            b = min(h, a + step)
+            hi_stop = min(n, h + b)
+            if not (wanted(off + a, off + b) or wanted(off + h + a, off + hi_stop)):
+                continue
+            y0, y1 = _hash(k, range(a, b), range(h + a, h + b), b - a, device,
+                           zero_last=b == h and n % 2 == 1)
+            yield off + a, y0
+            yield off + h + a, y1[: hi_stop - (h + a)]
 
 
 def normal_chunks(key: torch.Tensor, shape: Sequence[int] = (), *, device=None,
@@ -329,15 +347,15 @@ def normal_chunks(key: torch.Tensor, shape: Sequence[int] = (), *, device=None,
                   start: int = 0, stop: Optional[int] = None):
     """`normal`'s draws for one (2,) key, flattened, in pieces of at most
     ``chunk`` (default `NORMAL_CHUNK` of the device): ``(first flat index,
-    float32 draws)`` — a leaf of any size without a whole-leaf temporary.
+    float32 draws)`` — a leaf of any size without a whole-leaf temporary,
+    2³² − 1 draws and more included (llama4-maverick's expert leaves, in
+    blocks as jax draws them; see `_bits32_chunks`).
     ``start``/``stop`` draw only the pieces that hold a flat index in
     [start, stop) (a window of a large leaf, to hold against another
     device's draw)."""
     if key.dim() != 1:
         raise ValueError(f"normal_chunks draws for one (2,) key, got {tuple(key.shape)}")
     size = _numel(shape)
-    if size >= M32:
-        raise ValueError(f"normal draws fewer than 2**32 - 1 values, got {size}")
     dev = _out_device(key, device)
     chunk = NORMAL_CHUNK.get(dev.type, NORMAL_CHUNK["cuda"]) if chunk is None else int(chunk)
     for first, bits in _bits32_chunks(key, size, dev, partitionable, chunk, start, stop):

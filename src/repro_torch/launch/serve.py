@@ -5,8 +5,12 @@
   python -m repro_torch.launch.serve --arch gemma3-4b --shape decode_4k_b4 \\
       --gen 32                                                # one H100
 
-`--debug` runs the reduced config in float32 with 4 requests of 32-token
-prompts and a 96-token cache, as the reference does.  Otherwise the config
+Any of the ten configs serves (`repro_torch.configs.ARCH_IDS`).  `--debug`
+runs the reduced config in float32 with 4 requests of 32-token prompts and
+a 96-token cache, as the reference does.  The audio and VLM backbones get
+their stub inputs as zeros (`steps.stub_inputs`): whisper's frames on every
+step, qwen2-vl's prefix embeddings in the prefill, after which decode
+starts at prefix + prompt.  Otherwise the config
 runs at full width in bfloat16 at the `--shape`'s sizes (`sizes`): its
 batch, prompts of half its length and a cache of its length; the
 `decode_4k_*` shapes are the ones one card holds.  Weights are the
@@ -67,7 +71,8 @@ def decode(params, cfg: ModelConfig, token: torch.Tensor, cache, start: int, ste
            extras: Optional[Dict[str, torch.Tensor]] = None) -> dict:
     """`steps` greedy decode steps from `token` (B,) at position `start`:
     the tokens (B, steps), each step's logits, the cache and the seconds of
-    the loop (host clock, synchronised at its end)."""
+    the loop (host clock, synchronised at its end).  Of `extras`, only the
+    encoder's frames reach the steps (prefix embeddings are the prefill's)."""
     serve = make_serve_step(cfg, return_logits=True)
     svex = {k: v for k, v in (extras or {}).items() if k == "frames"}
     tokens, logits = [], []
@@ -82,14 +87,28 @@ def decode(params, cfg: ModelConfig, token: torch.Tensor, cache, start: int, ste
             "logits": logits, "cache": cache, "seconds": time.perf_counter() - t0}
 
 
+def decode_start(prompts: torch.Tensor,
+                 extras: Optional[Dict[str, torch.Tensor]] = None) -> int:
+    """The position of the first decode step: the prefix embeddings' length
+    (when given) plus the prompt's."""
+    prefix = (extras or {}).get("prefix_embeds")
+    return prompts.shape[1] + (prefix.shape[1] if prefix is not None else 0)
+
+
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, cache, gen: int,
              extras: Optional[Dict[str, torch.Tensor]] = None) -> dict:
     """Prefill `prompts` (B, P) into `cache`, then `gen` greedy decode
     steps.  Returns the prefill's last-position logits, each decode step's
     logits, the tokens (B, gen + 1: the prefill's argmax, then each step's),
-    the cache, and the seconds of the prefill and of the decode loop."""
+    the cache, and the seconds of the prefill and of the decode loop.
+
+    Decode starts at the first free cache slot, `decode_start`: after the
+    prefix embeddings and the prompt.  (The reference's launcher decodes at
+    ``prompt + t``, which overwrites the prompt's last cached positions when
+    there is a prefix; ROADMAP.md §3.)"""
     pre = prefill(params, cfg, prompts, cache, extras)
-    dec = decode(params, cfg, pre["token"], pre["cache"], prompts.shape[1], gen, extras)
+    dec = decode(params, cfg, pre["token"], pre["cache"], decode_start(prompts, extras), gen,
+                 extras)
     return {"prefill_logits": pre["logits"], "step_logits": dec["logits"],
             "tokens": torch.cat([pre["token"][:, None], dec["tokens"]], dim=1),
             "cache": dec["cache"], "prefill_s": pre["seconds"], "decode_s": dec["seconds"]}

@@ -11,7 +11,9 @@ AdamW moments and each layer group rematerialised, at the `--shape`'s batch
 and sequence length; the `train_4k_b*` shapes are the ones one card holds.
 Weights are the reference's ``init_params(PRNGKey(--seed))`` bit for bit
 (default 0, the reference's key; there is no checkpoint), the tokens from the reference's synthetic pipeline (`repro_torch.data`, bitwise
-the reference's).  Runs on the CUDA device unless `--device cpu`.
+the reference's), with whisper's frames and qwen2-vl's prefix embeddings
+drawn by it as the reference's launcher asks.  Any of the ten configs
+trains; the loss adds the MoE configs' load-balance loss.  Runs on the CUDA device unless `--device cpu`.
 `--multi-pod` needs LM sharding (ROADMAP.md §1 item 18.7) and raises.
 """
 from __future__ import annotations
@@ -76,7 +78,13 @@ def main(argv=None) -> dict:
     init_s = time.perf_counter() - t0
     opt = adamw_init(params, dtype)
     step = make_train_step(cfg, lr=args.lr, remat=not args.debug)
-    it = make_batch_iterator(cfg.vocab_size, S + 1, B, seed=0, dtype=dtype, device=dev)
+    extras = {}
+    if cfg.n_enc_layers:
+        extras["frames"] = (B, cfg.enc_seq, cfg.d_model)
+    if cfg.n_prefix_embeds:
+        extras["prefix_embeds"] = (B, cfg.n_prefix_embeds, cfg.d_model)
+    it = make_batch_iterator(cfg.vocab_size, S + 1, B, seed=0, extras=extras, dtype=dtype,
+                             device=dev)
     _sync(dev)
     setup_s = time.perf_counter() - t0
 

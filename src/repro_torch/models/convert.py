@@ -34,7 +34,9 @@ def _tree(tree, dtype: Optional[torch.dtype], dev: torch.device):
 
 def params_from_numpy(tree, *, dtype: Optional[torch.dtype] = None, device=None) -> dict:
     """The port's parameters from the reference's tree of arrays: every
-    leaf cast to `dtype`, or kept in its own type when `dtype` is None."""
+    leaf cast to `dtype`, or kept in its own type when `dtype` is None (a
+    bfloat16 model's MoE routers stay float32, as the reference keeps
+    them)."""
     return _tree(tree, dtype, _device.resolve(device))
 
 

@@ -1,7 +1,9 @@
 """Transformer layer library — port of `repro.models.layers` for one device:
-RMSNorm, 1-D RoPE, GQA attention with its KV cache (full or ring), the MLP
-(gated SwiGLU or plain GELU) and the Mamba2 SSD mixer, with the parameter
-initialisers at the reference's shapes and scales.
+RMSNorm, RoPE and M-RoPE, GQA attention with its KV cache (full or ring)
+and cross-attention, the MLP (gated SwiGLU or plain GELU), the MoE
+(top-k token choice with capacity, shared experts) and the Mamba2 SSD
+mixer, with the parameter initialisers at the reference's shapes and
+scales.
 
 Functions are plain functions on tensors and parameters are nested dicts
 of tensors with the reference's names, so each has an obvious counterpart
@@ -14,8 +16,9 @@ The train branches (no cache) write nothing in place, so autograd
 differentiates them; on CUDA tensors kernels 5 and 6 run there through
 their autograd Functions, and the Mamba2 block's float32 `A_log`, `D` and
 `dt_bias` get their gradients through them (A = −exp(A_log) feeds kernel
-6's dA).
-M-RoPE, cross-attention and MoE are ROADMAP.md §1 item 18's later part.
+6's dA).  The MoE is the reference's single-device global path
+(`layers.moe` without sharding rules); its expert-parallel dispatch comes
+with LM sharding (ROADMAP.md §1 item 18.7).
 """
 from __future__ import annotations
 
@@ -31,7 +34,6 @@ from .config import ModelConfig
 
 Params = Dict[str, object]
 _NEG = -1e30
-_ITEM_18 = "is not ported yet: ROADMAP.md §1 item 18 (LM stack) brings it"
 
 
 def _init(key: torch.Tensor, shape, scale, dtype, device) -> torch.Tensor:
@@ -76,17 +78,33 @@ def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
                             * 2.0 / hd))
 
 
+def mrope_sections(hd: int) -> list:
+    """M-RoPE's split of the hd/2 frequency slots into (temporal, height,
+    width) sections: ``[n − 2⌊n/3⌋, ⌊n/3⌋, ⌊n/3⌋]`` for n = hd/2."""
+    n = hd // 2
+    return [n - 2 * (n // 3), n // 3, n // 3]
+
+
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
                mrope: bool = False) -> torch.Tensor:
     """Rotary position embedding of x (B, S, H, hd) at positions pos (B, S),
     rotate-half convention (the two halves of hd, not interleaved pairs),
-    computed in float32."""
+    computed in float32.  M-RoPE (Qwen2-VL) takes pos (3, B, S): frequency
+    slot f turns by the position component of its section
+    (`mrope_sections`) times its frequency, one float32 product as in the
+    reference; with three equal components it is 1-D RoPE."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
     if mrope:
-        raise NotImplementedError(f"M-RoPE {_ITEM_18}")
-    if pos.dim() == 3:
-        pos = pos[0]
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = pos.float()[:, :, None] * freqs[None, None, :]          # (B, S, hd/2)
+        if pos.dim() != 3 or pos.shape[0] != 3:
+            raise ValueError(f"M-RoPE takes positions (3, batch, seq); got {tuple(pos.shape)}")
+        comp = torch.repeat_interleave(torch.arange(3, device=pos.device),
+                                       torch.tensor(mrope_sections(hd), device=pos.device))
+        ang = pos.float()[comp].permute(1, 2, 0) * freqs           # (B, S, hd/2)
+    else:
+        if pos.dim() == 3:
+            pos = pos[0]
+        ang = pos.float()[:, :, None] * freqs[None, None, :]      # (B, S, hd/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -120,7 +138,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
               window: Optional[int] = None,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos: Optional[int] = None,
-              causal: bool = True) -> Tuple[torch.Tensor, Optional[tuple]]:
+              causal: bool = True,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, Optional[tuple]]:
     """GQA attention (reference `layers.attention`).
 
     * train (cache=None): full-sequence attention through kernel 5.
@@ -131,6 +151,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
     * decode (cache given, Sq == 1): the token's K/V go to slot
       ``cache_pos % Sc`` of a ring cache (Sc ≤ window) or ``cache_pos`` of a
       full one, and the query attends over the cache within the window.
+    * cross-attention: ``kv_override = (k, v)``, (B, Sk, KVH, hd) computed
+      from the encoder's output; q gets no RoPE, no cache is written, every
+      key is visible, and kernel 5 runs at every Sq (decode's 1 included),
+      as the reference's `_blocked_attn` does.
     The cache is written in place and returned as ``(K, V)``.  A window
     applies to causal attention only: the reference masks non-causal
     attention with all ones but still slices each query block's window
@@ -142,6 +166,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
     rep = nh // nkv
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if kv_override is not None:
+        o = ops.attention(q, *kv_override, causal=False)
+        return torch.einsum("bqhd,hdm->bqm", o, p["wo"]), None
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
@@ -211,6 +238,101 @@ def mlp(p: Params, x: torch.Tensor, gated: bool = False) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# MoE (fine-grained, shared experts, top-k token choice with capacity)
+# --------------------------------------------------------------------------
+def init_moe(key, cfg: ModelConfig, dtype, device) -> Params:
+    """The reference's `init_moe`: a float32 router whatever `dtype`,
+    (E, d, fe) expert weights and the gated shared expert of width
+    fe·n_shared."""
+    mc, d = cfg.moe, cfg.d_model
+    fe = mc.d_expert or cfg.d_ff
+    ks = prng.split(key, 5).unbind(-2)
+    p = {"router": _init(ks[0], (d, mc.n_experts), d ** -0.5, torch.float32, device),
+         "wi": _init(ks[1], (mc.n_experts, d, fe), d ** -0.5, dtype, device),
+         "wg": _init(ks[2], (mc.n_experts, d, fe), d ** -0.5, dtype, device),
+         "wo": _init(ks[3], (mc.n_experts, fe, d), fe ** -0.5, dtype, device)}
+    if mc.n_shared:
+        p["shared"] = init_mlp(ks[4], d, fe * mc.n_shared, True, dtype, device)
+    return p
+
+
+def moe_capacity(T: int, cfg: ModelConfig) -> int:
+    """Slots an expert takes for T tokens: ``max(⌈T·K/E·cf⌉, K)`` in
+    Python floats, as the reference computes it."""
+    mc = cfg.moe
+    return max(int(math.ceil(T * mc.top_k / mc.n_experts * mc.capacity_factor)), mc.top_k)
+
+
+def moe_route(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` of the router's probabilities (T, E): the k largest
+    a row in descending order, equal values lower expert id first (a stable
+    descending sort; `torch.topk` promises no order among ties).  Returns
+    (values, expert ids)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], ids[:, :k]
+
+
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE (reference `layers.moe`, its global path):
+    float32 softmax router, gates renormalised over the K chosen, the
+    Switch load-balance loss ``E·Σ(me·ce)·w``; a stable sort of the (token,
+    k) pairs by expert id, each expert's first `moe_capacity` pairs kept
+    and the rest dropped (they add nothing); the experts' gated MLPs as
+    grouped products over (E, capacity, d); each token's kept outputs,
+    times their gates cast to the activation type, summed in increasing
+    expert order (the order of the reference's scatter-add), with no
+    atomics, so a CUDA run gives the same bits every time; the shared
+    expert added last.  Returns (out, aux)."""
+    mc = cfg.moe
+    B, S, D = x.shape
+    E, K = mc.n_experts, mc.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)              # (T, E)
+    gate_vals, expert_ids = moe_route(probs, K)                          # (T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    me = probs.mean(0)
+    ce = torch.bincount(expert_ids.reshape(-1), minlength=E).float() / (T * K)
+    aux = E * torch.sum(me * ce) * mc.router_aux_weight
+
+    cap = moe_capacity(T, cfg)
+    flat_e = expert_ids.reshape(-1)                                      # (T·K,), t·K + k
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    pos_in_e = torch.arange(T * K, device=x.device) - torch.searchsorted(
+        sorted_e, sorted_e, side="left")
+    keep = pos_in_e < cap
+    # the (E·cap) dispatch table of source tokens; an empty slot reads the
+    # zero row T, as the reference's zero-initialised dispatch buffer
+    slot = torch.where(keep, sorted_e * cap + pos_in_e, E * cap)
+    table = torch.full((E * cap + 1,), T, dtype=torch.long, device=x.device)
+    table[slot] = torch.where(keep, order // K, T)
+    xe = torch.cat([xt, xt.new_zeros((1, D))])[table[:-1]].reshape(E, cap, D)
+
+    h = torch.bmm(xe, p["wi"])
+    h = F.silu(torch.bmm(xe, p["wg"])) * h
+    ye = torch.bmm(h, p["wo"]).reshape(E * cap, D)
+
+    # each token's pairs in increasing expert order, the order in which the
+    # reference's scatter-add meets them: kept outputs times their gates
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot                                                # by pair t·K + k
+    by_expert = torch.argsort(expert_ids, dim=-1)                        # (T, K)
+    pair = torch.arange(T, device=x.device)[:, None] * K + by_expert
+    contrib = torch.cat([ye, ye.new_zeros((1, D))])[slot_of[pair]]       # (T, K, D)
+    contrib = contrib * torch.gather(gate_vals, 1, by_expert).to(x.dtype)[:, :, None]
+    out = contrib[:, 0]
+    for j in range(1, K):
+        out = out + contrib[:, j]
+
+    if mc.n_shared:
+        out = out + mlp(p["shared"], xt[None], True)[0]
+    return out.reshape(B, S, D), aux
 
 
 # --------------------------------------------------------------------------

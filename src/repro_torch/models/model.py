@@ -9,9 +9,12 @@ a Python loop walks them, indexing each group's slice of the stacked
 leaves in place (a view, through which the gradient of the stacked leaf
 flows).
 
-MoE, encoder–decoder (cross-attention), prefix embeddings and M-RoPE are
-ROADMAP.md §1 item 18's later part: `init_params` and `forward` raise for
-configs that need them.
+Encoder–decoder (Whisper): the encoder is a stack of non-causal attention
+layers over the stub frame embeddings, and every decoder attention layer
+adds cross-attention against its output.  VLM (Qwen2-VL): stub patch
+embeddings are concatenated in front of the token embeddings and M-RoPE
+positions are used.  MoE layers return the load-balance loss, summed over
+the layers and returned as `forward`'s aux.
 """
 from __future__ import annotations
 
@@ -26,19 +29,6 @@ from . import layers as L
 from .config import LayerSpec, ModelConfig
 
 Params = Dict[str, object]
-_ITEM_18 = "is not ported yet: ROADMAP.md §1 item 18 (LM stack) brings it"
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the parts of the reference model this
-    slice does not run."""
-    missing = [what for what, present in (
-        ("MoE", cfg.moe is not None or any(s.ffn == "moe" for s in cfg.group)),
-        ("the encoder–decoder (cross-attention)", cfg.n_enc_layers > 0),
-        ("prefix embeddings", cfg.n_prefix_embeds > 0),
-        ("M-RoPE", cfg.mrope)) if present]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} {_ITEM_18}")
 
 
 # --------------------------------------------------------------------------
@@ -52,9 +42,15 @@ def _init_layer(key, spec: LayerSpec, cfg: ModelConfig, dtype, device) -> Params
         p["attn"] = L.init_attention(ks[0], cfg, dtype, device)
     else:
         p["mamba"] = L.init_mamba(ks[0], cfg, dtype, device)
+    if cfg.n_enc_layers and spec.mixer == "attn":
+        p["ln_x"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
+        p["xattn"] = L.init_attention(ks[2], cfg, dtype, device)
     if spec.ffn == "mlp":
         p["ln2"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
         p["mlp"] = L.init_mlp(ks[1], cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype, device)
+    elif spec.ffn == "moe":
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
+        p["moe"] = L.init_moe(ks[1], cfg, dtype, device)
     return p
 
 
@@ -66,8 +62,8 @@ def init_params(key: torch.Tensor, cfg: ModelConfig, dtype=torch.bfloat16, *,
     and cast as the reference's eager call rounds them.  ``key`` is a
     `prng.PRNGKey`.  Every stacked leaf (leading ``n_groups`` axis) is
     filled group by group from the group's own key, as the reference
-    stacks its per-group trees."""
-    _check_supported(cfg)
+    stacks its per-group trees; the encoder's layers (stacked on a leading
+    ``n_enc_layers`` axis) likewise."""
     dev = torch.device("meta") if str(device) == "meta" else _device.resolve(device)
     ks = prng.split(key, 6)
     p: Params = {"embed": L._init(ks[0], (cfg.padded_vocab, cfg.d_model), 0.02, dtype, dev),
@@ -79,6 +75,17 @@ def init_params(key: torch.Tensor, cfg: ModelConfig, dtype=torch.bfloat16, *,
     lkeys = prng.split(prng.split(ks[2], cfg.n_groups), len(cfg.group))   # (G, L, 2)
     p["layers"] = {f"l{i}": _init_layer(lkeys[:, i], spec, cfg, dtype, dev)
                    for i, spec in enumerate(cfg.group)}
+    if cfg.n_enc_layers:
+        # encoder layer e from split(split(ks[3], n_enc)[e], 2): attention, MLP
+        ekeys = prng.split(prng.split(ks[3], cfg.n_enc_layers), 2)          # (n_enc, 2, 2)
+        lead = (cfg.n_enc_layers,)
+        p["encoder"] = {
+            "ln1": L.init_rmsnorm(cfg.d_model, dtype, dev, lead),
+            "attn": L.init_attention(ekeys[:, 0], cfg, dtype, dev),
+            "ln2": L.init_rmsnorm(cfg.d_model, dtype, dev, lead),
+            "mlp": L.init_mlp(ekeys[:, 1], cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype, dev)}
+        p["enc_pos"] = L._init(ks[4], (cfg.enc_seq, cfg.d_model), 0.02, dtype, dev)
+        p["enc_norm"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
     return p
 
 
@@ -132,7 +139,10 @@ def _index(tree, g: int):
 
 
 def _apply_layer(lp: Params, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor,
-                 pos: torch.Tensor, cache: Optional[Params], cache_pos) -> torch.Tensor:
+                 pos: torch.Tensor, cache: Optional[Params], cache_pos,
+                 enc_out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer: (h, the MoE's aux loss, zero for another FFN)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     x = L.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     if spec.mixer == "attn":
         kv = (cache["k"], cache["v"]) if cache is not None else None
@@ -144,17 +154,49 @@ def _apply_layer(lp: Params, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor,
             cache["conv"].copy_(new_state["conv"])
             cache["ssm"].copy_(new_state["ssm"])
     h = h + out
+    if enc_out is not None and spec.mixer == "attn" and "xattn" in lp:
+        xp = lp["xattn"]
+        kv = (torch.einsum("bsd,dhk->bshk", enc_out, xp["wk"]),
+              torch.einsum("bsd,dhk->bshk", enc_out, xp["wv"]))
+        out, _ = L.attention(xp, L.rmsnorm(lp["ln_x"], h, cfg.norm_eps), cfg, pos,
+                             kv_override=kv)
+        h = h + out
     if spec.ffn == "mlp":
         h = h + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg.mlp_gated)
-    return h
+    elif spec.ffn == "moe":
+        out, a = L.moe(lp["moe"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+        h = h + out
+        aux = aux + a
+    return h, aux
 
 
 def _run_group(gp: Params, gc: Optional[Params], cfg: ModelConfig, h: torch.Tensor,
-               pos: torch.Tensor, cache_pos) -> torch.Tensor:
+               pos: torch.Tensor, cache_pos, enc_out: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The group's layers in order: (h, the sum of their aux losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, spec in enumerate(cfg.group):
-        h = _apply_layer(gp[f"l{i}"], spec, cfg, h, pos,
-                         gc[f"l{i}"] if gc is not None else None, cache_pos)
-    return h
+        h, a = _apply_layer(gp[f"l{i}"], spec, cfg, h, pos,
+                            gc[f"l{i}"] if gc is not None else None, cache_pos, enc_out)
+        aux = aux + a
+    return h, aux
+
+
+def run_encoder(p: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The Whisper-style encoder over stub frame embeddings (B, enc_seq, D)
+    (reference `model._run_encoder`): ``frames + enc_pos``, then each layer's
+    non-causal self-attention (RoPE at positions 0 .. enc_seq − 1, kernel 5)
+    and MLP, then the final norm."""
+    h = frames + p["enc_pos"][None].to(frames.dtype)
+    B, S = frames.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
+    for e in range(cfg.n_enc_layers):
+        ep = _index(p["encoder"], e)
+        out, _ = L.attention(ep["attn"], L.rmsnorm(ep["ln1"], h, cfg.norm_eps), cfg, pos,
+                             causal=False)
+        h = h + out
+        h = h + L.mlp(ep["mlp"], L.rmsnorm(ep["ln2"], h, cfg.norm_eps), cfg.mlp_gated)
+    return L.rmsnorm(p["enc_norm"], h, cfg.norm_eps)
 
 
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -170,20 +212,29 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     S == 1, cache_pos the token's position).  The cache is updated in place
     and returned.  Logits of the padded vocabulary slots are −1e30.
 
+    ``prefix_embeds`` (B, P, D) go in front of the token embeddings, and
+    the positions run over P + S (a prefill writes P + S cache slots, so
+    decode continues at P + S).  M-RoPE configs take the positions as three
+    equal components.  An encoder–decoder config needs ``frames`` (B,
+    enc_seq, D) on every call, decode steps included: the encoder runs on
+    each, as in the reference.  ``aux_loss`` is the MoE layers' summed
+    load-balance loss (float32; zero without MoE): summed a group in layer
+    order, then over the groups.
+
     ``remat`` (train mode, when a gradient is being taken) runs each group
     under `torch.utils.checkpoint` (non-reentrant), so the backward
     recomputes a group's activations instead of keeping them, as the
     reference's ``jax.checkpoint(..., nothing_saveable)`` does.
     ``return_hidden`` returns the final-normed hidden states in place of the
     logits (the fused cross entropy's input)."""
-    _check_supported(cfg)
-    if prefix_embeds is not None or frames is not None:
-        raise NotImplementedError(f"prefix embeddings and encoder frames {_ITEM_18}")
     B, S = tokens.shape
     h = p["embed"][tokens]
     if cfg.tie_embeddings:
         # the scale is cast to the activation type first, as the reference does
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    S = h.shape[1]
     decode = cache is not None and S == 1
     if decode:
         pos = torch.full((B, 1), int(cache_pos), dtype=torch.int32, device=h.device)
@@ -192,21 +243,31 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if cache_pos is not None:
             base = base + int(cache_pos)
         pos = base[None].expand(B, S)
+    if cfg.mrope:
+        pos = pos[None].expand(3, B, S)
+    enc_out = None
+    if cfg.n_enc_layers:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder–decoder: forward needs its frames "
+                             f"(batch, {cfg.enc_seq}, {cfg.d_model}) on every call")
+        enc_out = run_encoder(p, cfg, frames)
 
     checkpointed = remat and cache is None and torch.is_grad_enabled()
+    auxs = []
     for g in range(cfg.n_groups):
         gp = _index(p["layers"], g)
         if checkpointed:
-            h = checkpoint(_run_group, gp, None, cfg, h, pos, cache_pos, use_reentrant=False,
-                           preserve_rng_state=False)
+            h, aux = checkpoint(_run_group, gp, None, cfg, h, pos, cache_pos, enc_out,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            h = _run_group(gp, _index(cache, g) if cache is not None else None, cfg, h, pos,
-                           cache_pos)
+            h, aux = _run_group(gp, _index(cache, g) if cache is not None else None, cfg, h,
+                                pos, cache_pos, enc_out)
+        auxs.append(aux)
 
     if cache is not None and not decode:
         h = h[:, -1:, :]           # prefill: only the last position's logits
     h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = torch.stack(auxs).sum()
     if return_hidden:
         return h, cache, aux
     unemb = p["embed"].T if cfg.tie_embeddings else p["unembed"]

@@ -12,6 +12,7 @@ card's check holds the kernels' path to; the measured errors are 1e-6 to
 be equal.
 """
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +38,23 @@ from repro_torch.models import steps
 from repro_torch.models.config import LayerSpec, ModelConfig
 
 TOL = 2e-4
-#: the reduced serve configs: gemma3 with grouped KV heads (8 query heads
-#: over 4 at full width; the reduced config would keep 4 over 4)
-SERVE_CFGS = {"gemma3_4b": dict(n_kv_heads=2), "mamba2_370m": {}}
+#: the reduced serve configs, all ten: where the full width groups its KV
+#: heads (gemma3 8 over 4, llama4 40 over 8, qwen2-vl 64 over 8, jamba 64
+#: over 8, stablelm 32 over 8) the reduced config would keep 4 over 4, so
+#: they keep 2; stablelm also keeps its head size of 160 (granite's one KV
+#: head survives the cut)
+SERVE_CFGS = {"gemma3_4b": dict(n_kv_heads=2), "mamba2_370m": {},
+              "deepseek_moe_16b": {}, "granite_20b": {},
+              "llama4_maverick_400b_a17b": dict(n_kv_heads=2), "whisper_small": {},
+              "codeqwen15_7b": {}, "qwen2_vl_72b": dict(n_kv_heads=2),
+              "stablelm_12b": dict(n_kv_heads=2, head_dim=160),
+              "jamba_15_large_398b": dict(n_kv_heads=2)}
+#: full-width parameter counts (the reference's `param_shapes`)
+PARAM_COUNTS = {"deepseek_moe_16b": 16_879_568_896, "mamba2_370m": 420_025_856,
+                "granite_20b": 20_315_756_544, "llama4_maverick_400b_a17b": 400_713_815_040,
+                "gemma3_4b": 3_879_907_840, "whisper_small": 279_203_328,
+                "codeqwen15_7b": 8_189_644_800, "qwen2_vl_72b": 72_705_384_448,
+                "stablelm_12b": 12_142_924_800, "jamba_15_large_398b": 397_710_891_264}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,8 +129,7 @@ def test_one_card_serve_shapes():
     assert serve.sizes(shapes.SHAPES["decode_32k"]) == (128, 16384, 32768)
 
 
-@pytest.mark.parametrize("arch,count", [("gemma3_4b", 3_879_907_840),
-                                        ("mamba2_370m", 420_025_856)])
+@pytest.mark.parametrize("arch,count", list(PARAM_COUNTS.items()))
 def test_full_width_parameter_shapes_are_the_references(arch, count):
     cfg = configs.get_config(arch)
     got = M.param_shapes(cfg, torch.bfloat16)
@@ -157,19 +171,27 @@ def test_init_params_draws_from_the_generator_at_the_references_scales():
 
 
 #: keyed-init configs: gemma3 cut to width 64 but two stacked groups (the
-#: per-group keys), mamba2's reduced config (two groups already)
-INIT_CFGS = {"gemma3_4b": dict(d_model=64, d_ff=128, n_layers=34), "mamba2_370m": {}}
+#: per-group keys), the reduced configs of the others (two groups, or one
+#: group of two or eight layers; whisper with two encoder layers)
+INIT_CFGS = {"gemma3_4b": dict(d_model=64, d_ff=128, n_layers=34), "mamba2_370m": {},
+             "deepseek_moe_16b": {}, "llama4_maverick_400b_a17b": {}, "whisper_small": {},
+             "qwen2_vl_72b": {}, "jamba_15_large_398b": {}}
 
 
 @pytest.mark.parametrize("arch,dtype,part", [
     ("gemma3_4b", "float32", False), ("gemma3_4b", "bfloat16", True),
-    ("mamba2_370m", "float32", True), ("mamba2_370m", "bfloat16", False)])
+    ("mamba2_370m", "float32", True), ("mamba2_370m", "bfloat16", False),
+    ("deepseek_moe_16b", "bfloat16", False), ("deepseek_moe_16b", "float32", True),
+    ("llama4_maverick_400b_a17b", "bfloat16", False), ("whisper_small", "bfloat16", False),
+    ("whisper_small", "float32", True), ("qwen2_vl_72b", "bfloat16", False),
+    ("jamba_15_large_398b", "bfloat16", False)])
 def test_keyed_init_params_is_the_references(arch, dtype, part):
     """`init_params(key, cfg, dtype)` bit for bit as the reference's
     launchers call it (eagerly: each weight one `jax.random.normal` call,
-    scaled in float32 and cast), in both threefry settings."""
+    scaled in float32 and cast), in both threefry settings; the MoE router
+    stays float32 in a bfloat16 tree, as the reference's."""
     jcfg, cfg = both_cfgs(arch, **INIT_CFGS[arch])
-    assert cfg.n_groups == 2
+    assert cfg.n_groups * len(cfg.group) >= 2
     with jax.threefry_partitionable(part):
         ref = dict(_flatten(JM.init_params(jax.random.PRNGKey(11), jcfg, getattr(jnp, dtype))))
     with prng.threefry_partitionable(part):
@@ -181,6 +203,31 @@ def test_keyed_init_params_is_the_references(arch, dtype, part):
         assert tuple(g.shape) == want.shape and str(g.dtype) == f"torch.{want.dtype}", k
         assert g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32).numpy() \
             .tobytes() == np.asarray(want).tobytes(), k
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "llama4_maverick_400b_a17b",
+                                  "whisper_small", "qwen2_vl_72b", "jamba_15_large_398b"])
+def test_reference_trees_carry_across(arch):
+    """`convert.params_from_numpy` takes a bfloat16 tree of the reference's
+    with its new leaves (the MoE's float32 router, the stacked encoder,
+    `enc_pos`, `ln_x`/`xattn`): each leaf keeps its type and bits and the
+    tree is the port's `init_params` tree; ``dtype`` casts every leaf."""
+    jcfg, cfg = both_cfgs(arch, **SERVE_CFGS[arch])
+    ref = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(2), jcfg, jnp.bfloat16))
+    got = dict(_flatten(convert.params_from_numpy(ref, device="cpu")))
+    want = dict(_flatten(ref))
+    shapes = dict(_flatten(M.param_shapes(cfg)))
+    assert got.keys() == want.keys() == shapes.keys()
+    for k, w in want.items():
+        g = got[k]
+        assert (tuple(g.shape), g.dtype) == (tuple(shapes[k].shape), shapes[k].dtype), k
+        assert str(g.dtype) == f"torch.{w.dtype}", k
+        assert g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32).numpy() \
+            .tobytes() == w.tobytes(), k
+    if cfg.moe is not None:
+        assert any(k.endswith("moe/router") and v.dtype == torch.float32 for k, v in got.items())
+    f32 = convert.params_from_numpy(ref, dtype=torch.float32, device="cpu")
+    assert all(v.dtype == torch.float32 for _, v in _flatten(f32))
 
 
 def test_param_shapes_are_meta_tensors_of_init_params():
@@ -209,6 +256,29 @@ def test_apply_rope_rotate_half(theta, offset):
     want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta, False)
     close(L.apply_rope(torch.tensor(x), torch.tensor(pos), theta), want)
     close(L.rope_freqs(64, theta), JL.rope_freqs(64, theta))
+
+
+@pytest.mark.parametrize("hd", [64, 160, 30])
+def test_apply_mrope_at_three_distinct_position_components(hd):
+    """M-RoPE with temporal, height and width positions that differ (a
+    patch grid), at head sizes whose hd/2 slots split evenly (32: 12, 10,
+    10) or not (80: 28, 26, 26; 15: 5, 5, 5)."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 12, 3, hd)).astype(np.float32)
+    pos = np.stack([np.broadcast_to(np.arange(12) + 5, (2, 12)),
+                    rng.integers(0, 50, (2, 12)),
+                    rng.integers(0, 1000, (2, 12))]).astype(np.int32)
+    assert len({tuple(c.ravel()) for c in pos}) == 3
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1_000_000.0, True)
+    got = L.apply_rope(torch.tensor(x), torch.tensor(pos), 1_000_000.0, mrope=True)
+    close(got, want)
+    assert sum(L.mrope_sections(hd)) == hd // 2
+    # three equal components are 1-D RoPE
+    same = np.broadcast_to(pos[0], (3, 2, 12))
+    close(L.apply_rope(torch.tensor(x), torch.tensor(same.copy()), 1e6, mrope=True),
+          JL.apply_rope(jnp.asarray(x), jnp.asarray(pos[0]), 1e6, False))
+    with pytest.raises(ValueError, match="M-RoPE takes positions"):
+        L.apply_rope(torch.tensor(x), torch.tensor(pos[0]), 1e6, mrope=True)
 
 
 @pytest.mark.parametrize("gated", [True, False], ids=["swiglu", "gelu"])
@@ -275,6 +345,35 @@ def test_attention_non_causal():
     close(got, want)
 
 
+@pytest.mark.parametrize("Sq", [32, 1])
+def test_cross_attention(Sq):
+    """kv_override: K/V from 20 encoder positions, no RoPE on q, every key
+    visible, no cache; decode's single query included."""
+    jcfg, cfg, jp, tp, x = _attn_setup(None, seed=3)
+    enc = np.random.default_rng(3).standard_normal((2, 20, 64)).astype(np.float32)
+    k = np.einsum("bsd,dhk->bshk", enc, np.asarray(jp["wk"]))
+    v = np.einsum("bsd,dhk->bshk", enc, np.asarray(jp["wv"]))
+    pos = np.broadcast_to(np.arange(Sq, dtype=np.int32) + 7, (2, Sq))
+    want, wc = JL.attention(jp, jnp.asarray(x[:, :Sq]), jcfg, None, jnp.asarray(pos),
+                            kv_override=(jnp.asarray(k), jnp.asarray(v)), causal=False)
+    got, cache = L.attention(tp, torch.tensor(x[:, :Sq]), cfg, torch.tensor(pos),
+                             kv_override=(torch.tensor(k), torch.tensor(v)))
+    assert wc is None and cache is None
+    close(got, want)
+
+
+def test_encoder_matches_reference():
+    """`run_encoder` (frames + enc_pos, non-causal self-attention with RoPE,
+    MLP, final norm) on whisper's reduced config with the reference's
+    weights and seeded frames."""
+    jcfg, cfg = both_cfgs("whisper_small")
+    params = JM.init_params(jax.random.PRNGKey(5), jcfg, jnp.float32)
+    frames = np.random.default_rng(5).standard_normal(
+        (2, jcfg.enc_seq, jcfg.d_model)).astype(np.float32)
+    want = JM._run_encoder(params, jcfg, None, jnp.asarray(frames))
+    close(M.run_encoder(carry(params), cfg, torch.tensor(frames)), want)
+
+
 def test_attention_window_needs_causal():
     _, cfg, _, tp, x = _attn_setup(8)
     pos = torch.arange(32)[None].expand(2, 32)
@@ -318,35 +417,58 @@ def test_mamba_prefill_decode_and_cache():
 
 
 # ----------------------------- whole model ----------------------------------
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """The card's smoke script, imported from the repo's root: its helpers
+    for the reduced LM configs are shared with these tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.syspath_prepend(str(pathlib.Path(__file__).resolve().parents[1]))
+        import chip_smoke
+    return chip_smoke
+
+
 @pytest.fixture(scope="module", params=list(SERVE_CFGS))
-def serve_ref(request):
+def serve_ref(request, chip_smoke):
     """Reference run of a reduced config: full forward over 32 tokens (the
     SSD needs whole chunks), then prefill 32 + 8 greedy decode steps
-    (B = 2), with its weights."""
+    (B = 2), with its weights and seeded stub inputs.  Decode runs at the
+    first free slot, P + 32 + t after P prefix embeddings (the reference's
+    launcher uses 32 + t, ROADMAP.md §3)."""
     arch = request.param
     jcfg, cfg = both_cfgs(arch, **SERVE_CFGS[arch])
     params = JM.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
     toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 32)).astype(np.int32)
-    full, _, _ = JM.forward(params, jcfg, None, jnp.asarray(toks), remat=False)
+    ex = chip_smoke.reduced_extras(jcfg, 2)
+    jex = {k: jnp.asarray(v) for k, v in ex.items()}
+    full, _, full_aux = JM.forward(params, jcfg, None, jnp.asarray(toks), remat=False, **jex)
     cache = JM.init_cache(jcfg, 2, 96, jnp.float32)
-    logits, cache = jax.jit(j_prefill(jcfg, None))(params, {"tokens": jnp.asarray(toks)},
+    logits, cache = jax.jit(j_prefill(jcfg, None))(params, {"tokens": jnp.asarray(toks), **jex},
                                                    cache)
     step = jax.jit(j_serve(jcfg, None))
+    svex = {k: v for k, v in jex.items() if k == "frames"}
+    start = 32 + jcfg.n_prefix_embeds
     tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)
-    tokens, caches = [np.asarray(tok)], []
+    tokens = [np.asarray(tok)]
     for t in range(8):
-        tok, cache = step(params, {"tokens": tok[:, None]}, cache, jnp.asarray(32 + t, jnp.int32))
+        tok, cache = step(params, {"tokens": tok[:, None], **svex}, cache,
+                          jnp.asarray(start + t, jnp.int32))
         tokens.append(np.asarray(tok))
     return dict(arch=arch, cfg=cfg, jcfg=jcfg, params=params, tp=carry(params), toks=toks,
-                full=np.asarray(full), prefill=np.asarray(logits),
+                extras={k: torch.tensor(v) for k, v in ex.items()},
+                full=np.asarray(full), full_aux=float(full_aux), prefill=np.asarray(logits),
                 tokens=np.stack(tokens, 1), cache=jax.tree.map(np.asarray, cache))
 
 
 def test_forward_matches_reference(serve_ref):
     r = serve_ref
-    logits, cache, aux = M.forward(r["tp"], r["cfg"], torch.as_tensor(r["toks"]))
-    assert cache is None and float(aux) == 0.0
+    logits, cache, aux = M.forward(r["tp"], r["cfg"], torch.as_tensor(r["toks"]),
+                                   **r["extras"])
+    assert cache is None and aux.dtype == torch.float32
     close(logits, r["full"])
+    if r["cfg"].moe is None:
+        assert float(aux) == r["full_aux"] == 0.0
+    else:
+        np.testing.assert_allclose(float(aux), r["full_aux"], rtol=1e-5)
 
 
 def test_prefill_and_greedy_decode_match_reference(serve_ref):
@@ -354,7 +476,7 @@ def test_prefill_and_greedy_decode_match_reference(serve_ref):
     cache leaf by leaf."""
     r = serve_ref
     cache = M.init_cache(r["cfg"], 2, 96, torch.float32, device="cpu")
-    out = serve.generate(r["tp"], r["cfg"], torch.as_tensor(r["toks"]), cache, 8)
+    out = serve.generate(r["tp"], r["cfg"], torch.as_tensor(r["toks"]), cache, 8, r["extras"])
     close(out["prefill_logits"], r["prefill"])
     np.testing.assert_array_equal(out["tokens"].numpy(), r["tokens"])
     assert out["tokens"].dtype == torch.int32
@@ -362,16 +484,51 @@ def test_prefill_and_greedy_decode_match_reference(serve_ref):
     assert all(torch.isfinite(lg).all() for lg in out["step_logits"])
 
 
-def test_decode_after_prefill_matches_full_forward(serve_ref):
+def test_decode_after_prefill_matches_full_forward(serve_ref, chip_smoke):
     """Decode with the cache reproduces the full forward's last logits
-    (reference `test_arch_smoke.py:87-122`)."""
+    (reference `test_arch_smoke.py:87-122`), after the prefix embeddings and
+    with the frames where the config takes them; a MoE config at a capacity
+    factor that drops no token (its capacity depends on the token count)."""
     r = serve_ref
+    cfg = chip_smoke.no_drop(r["cfg"])
     toks = torch.as_tensor(r["toks"][:1, :9])
-    full, _, _ = M.forward(r["tp"], r["cfg"], toks)
-    cache = M.init_cache(r["cfg"], 1, 16, torch.float32, device="cpu")
-    _, cache = steps.make_prefill_step(r["cfg"])(r["tp"], {"tokens": toks[:, :8]}, cache)
-    dec, _, _ = M.forward(r["tp"], r["cfg"], toks[:, 8:9], cache=cache, cache_pos=8)
+    ex = {k: v[:1] for k, v in r["extras"].items()}
+    full, _, _ = M.forward(r["tp"], cfg, toks, **ex)
+    cache = M.init_cache(cfg, 1, 16, torch.float32, device="cpu")
+    _, cache = steps.make_prefill_step(cfg)(r["tp"], {"tokens": toks[:, :8], **ex}, cache)
+    dec, _, _ = M.forward(r["tp"], cfg, toks[:, 8:9], cache=cache,
+                          cache_pos=8 + cfg.n_prefix_embeds, frames=ex.get("frames"))
     close(dec[0, 0], full[0, -1].detach())
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_kernel_calls_of_a_prefill_and_a_decode_step(arch, monkeypatch, chip_smoke):
+    """The kernel calls `chip_smoke.lm_launches` holds the card's serve
+    path to, counted here at the wrappers: kernel 5 once an attention layer
+    in a prefill and once an encoder and a cross-attention layer on every
+    call (whisper), kernel 6 once a Mamba2 layer in a prefill."""
+    from repro_torch.kernels import ops
+
+    calls = {"flash_attention": 0, "ssd_scan": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(ops, "attention", counted("flash_attention", ops.attention))
+    monkeypatch.setattr(ops, "ssd", counted("ssd_scan", ops.ssd))
+    cfg = configs.get_config(arch).reduced(**SERVE_CFGS[arch])
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
+    ex = {k: torch.tensor(v) for k, v in chip_smoke.reduced_extras(cfg, 1).items()}
+    toks = torch.zeros((1, 32), dtype=torch.int32)
+    cache = M.init_cache(cfg, 1, 48, torch.float32, device="cpu")
+    pre = serve.prefill(params, cfg, toks, cache, ex)
+    assert calls == chip_smoke.lm_launches(cfg)
+    calls.update(flash_attention=0, ssd_scan=0)
+    serve.decode(params, cfg, pre["token"], pre["cache"], serve.decode_start(toks, ex), 1, ex)
+    assert calls == chip_smoke.lm_launches(cfg, prefills=0, decode_steps=1)
 
 
 def test_ring_cache_matches_window_mask():
@@ -401,7 +558,7 @@ def test_ring_cache_matches_window_mask():
 
 
 # ----------------------------- launcher and error paths ---------------------
-@pytest.mark.parametrize("arch", ["gemma3_4b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_serve_cli_debug_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--debug", "--device", "cpu", "--gen", "3"])
     assert out["tokens"].shape == (4, 4)
@@ -412,16 +569,11 @@ def test_serve_cli_debug_on_cpu(arch, capsys):
     assert "prefill 4×32" in text and "done" in text
 
 
-@pytest.mark.parametrize("arch,what", [("deepseek_moe_16b", "MoE"),
-                                       ("whisper_small", "encoder"),
-                                       ("qwen2_vl_72b", "M-RoPE"),
-                                       ("jamba_15_large_398b", "MoE")])
-def test_unported_model_parts_raise_naming_their_item(arch, what):
-    cfg = configs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 18"):
-        M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        M.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
+def test_encoder_decoder_needs_its_frames():
+    cfg = configs.get_config("whisper_small").reduced()
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="needs its frames"):
+        M.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int32))
 
 
 def test_unported_entry_points_raise_naming_their_item():
@@ -438,5 +590,3 @@ def test_unported_entry_points_raise_naming_their_item():
     _, _, metrics = steps.make_train_step(cfg, remat=False)(params, adamw_init(params),
                                                             {"tokens": tokens})
     assert bool(torch.isfinite(metrics["loss"]))
-    with pytest.raises(NotImplementedError, match="M-RoPE.*item 18"):
-        L.apply_rope(torch.zeros((1, 2, 1, 4)), torch.zeros((3, 1, 2)), 1e4, mrope=True)

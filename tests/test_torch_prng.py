@@ -318,6 +318,37 @@ def test_bad_arguments_raise():
         prng.choice(k, 3, (4,), replace=False)
 
 
+@pytest.mark.parametrize("block,size", [(1001, 1001), (1001, 3 * 1001 + 17), (1000, 2500)])
+def test_draws_past_a_block_split_the_key_as_jax(block, size):
+    """From uint32's largest count of words on (2³² − 1: llama4-maverick's
+    (128, 5120, 8192) expert leaves), jax's original layout splits the key
+    into nblocks + 1 keys, hashes a whole block of counters under each of
+    the first nblocks and the remainder under the last
+    (`jax._src.prng._threefry_random_bits_original`).  The port's split, at
+    a small block, against those primitives, windows included; the block is
+    the one jax uses."""
+    from jax._src import prng as jprng
+
+    assert prng.M32 == int(np.iinfo(np.uint32).max)
+    key = jax.random.PRNGKey(5)
+    with jax.threefry_partitionable(False):
+        nblocks, rem = divmod(size, block)
+        keys = jprng.threefry_split(key, (nblocks + 1,))
+        want = np.concatenate(
+            [np.asarray(jprng.threefry_2x32(k, jax.lax.iota(np.uint32, block)))
+             for k in keys[:-1]] + [np.asarray(jprng.threefry_2x32(
+                 keys[-1], jax.lax.iota(np.uint32, rem)))]).astype(np.int64)
+    got = np.empty(size, np.int64)
+    for a, w in prng._bits32_chunks(prng.PRNGKey(5), size, torch.device("cpu"), False, 64,
+                                    block=block):
+        got[a:a + w.numel()] = w.numpy()
+    np.testing.assert_array_equal(got, want)
+    lo, hi = block - 5, min(size, block + 40)
+    for a, w in prng._bits32_chunks(prng.PRNGKey(5), size, torch.device("cpu"), False, 16,
+                                    lo, hi, block=block):
+        np.testing.assert_array_equal(w.numpy(), want[a:a + w.numel()])
+
+
 # --------------------------------------------------------------------------
 # the committed table the card is held to (chip_smoke.py phase `prng`)
 # --------------------------------------------------------------------------

@@ -17,6 +17,7 @@ steps 1–2 (float32 sums in another order, compounded by three AdamW
 steps).
 """
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +38,13 @@ from repro_torch.launch import train
 from repro_torch.models import convert, steps
 from repro_torch.optim import adamw
 
-#: the reduced configs trained here: gemma3 with grouped KV heads (8 query
-#: heads over 4 at full width; the reduced config would keep 4 over 4)
-TRAIN_CFGS = {"gemma3_4b": dict(n_kv_heads=2), "mamba2_370m": {}}
+#: the reduced configs trained here: gemma3 and qwen2-vl with grouped KV
+#: heads (8 over 4 and 64 over 8 at full width; the reduced config would
+#: keep 4 over 4), deepseek-moe (the MoE's aux in the loss), whisper (the
+#: encoder's gradients through cross-attention) and qwen2-vl (M-RoPE, and
+#: the prefix's positions sliced off before the loss)
+TRAIN_CFGS = {"gemma3_4b": dict(n_kv_heads=2), "mamba2_370m": {}, "deepseek_moe_16b": {},
+              "whisper_small": {}, "qwen2_vl_72b": dict(n_kv_heads=2)}
 B, S = 2, 32
 
 
@@ -178,39 +183,66 @@ def test_fused_cross_entropy_matches_the_reference(arch):
 
 # ----------------------------- the train step -------------------------------
 def _ref_loss_fn(jcfg):
+    """The reference's train loss (`steps.make_train_step`'s `loss_fn`):
+    (loss, aux)."""
     xent = j_fused(jcfg, None)
 
     def loss_fn(params, batch):
         toks = batch["tokens"]
         h, _, aux = JM.forward(params, jcfg, None, toks[:, :-1], remat=False,
-                               return_hidden=True)
+                               return_hidden=True, frames=batch.get("frames"),
+                               prefix_embeds=batch.get("prefix_embeds"))
+        h = h[:, jcfg.n_prefix_embeds:, :]
         W = params["embed"].T if jcfg.tie_embeddings else params["unembed"]
-        return xent(h, W, toks[:, 1:]) + aux
+        return xent(h, W, toks[:, 1:]) + aux, aux
 
     return loss_fn
 
 
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """The card's smoke script, imported from the repo's root: its helpers
+    for the reduced LM configs are shared with these tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.syspath_prepend(str(pathlib.Path(__file__).resolve().parents[1]))
+        import chip_smoke
+    return chip_smoke
+
+
 @pytest.fixture(scope="module", params=list(TRAIN_CFGS))
-def trained(request):
-    """The reference's step-0 loss and gradients and three jitted train
-    steps, and the port's, from the same weights, state and tokens."""
+def trained(request, chip_smoke):
+    """The reference's step-0 loss, aux and gradients and three jitted train
+    steps, and the port's, from the same weights, state, tokens and stub
+    inputs; for a MoE config also the reference's step with two
+    microbatches (the capacity follows the microbatch's token count)."""
     arch = request.param
     jcfg = jconfigs.get_config(arch).reduced(**TRAIN_CFGS[arch])
     cfg = configs.get_config(arch).reduced(**TRAIN_CFGS[arch])
     params = JM.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
     gen = pipeline.SyntheticTokens(cfg.vocab_size, S + 1, B, seed=3)
-    toks = [gen.batch(i) for i in range(3)]
-    loss0, grads0 = jax.jit(jax.value_and_grad(_ref_loss_fn(jcfg)))(
-        params, {"tokens": jnp.asarray(toks[0])})
+    batches = [{"tokens": gen.batch(i), **chip_smoke.reduced_extras(cfg, B, 50 + i)}
+               for i in range(3)]
+    jb = [jax.tree.map(jnp.asarray, b) for b in batches]
+    (loss0, aux0), grads0 = jax.jit(jax.value_and_grad(_ref_loss_fn(jcfg), has_aux=True))(
+        params, jb[0])
     jstep = jax.jit(j_train_step(jcfg, None, remat=False))
     jp, jo, jlosses = params, jadamw.adamw_init(params), []
-    for t in toks:
-        jp, jo, m = jstep(jp, jo, {"tokens": jnp.asarray(t)})
+    for b in jb:
+        jp, jo, m = jstep(jp, jo, b)
         jlosses.append(float(m["loss"]))
+    mb = None
+    if jcfg.moe is not None:
+        mp, _, m = jax.jit(j_train_step(jcfg, None, remat=False, microbatch=2))(
+            params, jadamw.adamw_init(params), jb[0])
+        mb = dict(loss=float(m["loss"]), params=jax.tree.map(np.asarray, mp))
     np_params = jax.tree.map(np.asarray, params)
-    return dict(cfg=cfg, np_params=np_params, toks=toks, loss0=float(loss0),
-                grads0=jax.tree.map(np.asarray, grads0), losses=jlosses,
-                final=jax.tree.map(np.asarray, jp))
+    return dict(cfg=cfg, np_params=np_params, batches=batches, loss0=float(loss0),
+                aux0=float(aux0), grads0=jax.tree.map(np.asarray, grads0), losses=jlosses,
+                final=jax.tree.map(np.asarray, jp), microbatch_ref=mb)
+
+
+def _batch(trained, i):
+    return {k: torch.tensor(v) for k, v in trained["batches"][i].items()}
 
 
 def _port_run(trained, steps_=3, remat=False, microbatch=1):
@@ -219,8 +251,8 @@ def _port_run(trained, steps_=3, remat=False, microbatch=1):
     opt = adamw.adamw_init(params)
     step = steps.make_train_step(cfg, remat=remat, microbatch=microbatch)
     losses = []
-    for t in trained["toks"][:steps_]:
-        params, opt, m = step(params, opt, {"tokens": torch.tensor(t)})
+    for i in range(steps_):
+        params, opt, m = step(params, opt, _batch(trained, i))
         losses.append(float(m["loss"]))
     return params, losses
 
@@ -228,8 +260,12 @@ def _port_run(trained, steps_=3, remat=False, microbatch=1):
 def test_step0_loss_and_every_gradient_leaf_match_the_reference(trained):
     params = convert.params_from_numpy(trained["np_params"], device="cpu")
     loss, aux, grads = steps.make_grad_fn(trained["cfg"], remat=False)(
-        params, {"tokens": torch.tensor(trained["toks"][0])})
-    assert float(aux) == 0.0
+        params, _batch(trained, 0))
+    if trained["cfg"].moe is None:
+        assert float(aux) == trained["aux0"] == 0.0
+    else:
+        assert trained["aux0"] > 0
+        np.testing.assert_allclose(float(aux), trained["aux0"], rtol=1e-5)
     np.testing.assert_allclose(float(loss), trained["loss0"], rtol=1e-5)
     want = dict(leaves(trained["grads0"]))
     got = dict(leaves(grads))
@@ -252,7 +288,7 @@ def test_remat_is_bitwise_the_plain_forward(trained):
     """Recomputing each group in the backward (torch.utils.checkpoint) runs
     the same operations: gradients and the updated weights are equal bit for
     bit on the CPU."""
-    batch = {"tokens": torch.tensor(trained["toks"][0])}
+    batch = _batch(trained, 0)
     p = convert.params_from_numpy(trained["np_params"], device="cpu")
     _, _, g0 = steps.make_grad_fn(trained["cfg"], remat=False)(p, batch)
     _, _, g1 = steps.make_grad_fn(trained["cfg"], remat=True)(p, batch)
@@ -268,10 +304,17 @@ def test_remat_is_bitwise_the_plain_forward(trained):
 def test_microbatches_match_one_batch(trained):
     """As the reference's `tests/test_steps.py:55-69`: the same loss within
     1e-5 and weights within 1e-3 (Adam rescales the float32 ordering
-    differences of the summed gradients)."""
-    p1, l1 = _port_run(trained, steps_=1)
+    differences of the summed gradients).  A MoE config routes each
+    microbatch with its own capacity and load-balance loss, so its two
+    microbatches are held to the reference's two instead."""
     p2, l2 = _port_run(trained, steps_=1, microbatch=2)
-    np.testing.assert_allclose(l2, l1, rtol=1e-5)
+    if trained["microbatch_ref"] is None:
+        p1, l1 = _port_run(trained, steps_=1)
+        np.testing.assert_allclose(l2, l1, rtol=1e-5)
+    else:
+        ref = trained["microbatch_ref"]
+        np.testing.assert_allclose(l2, [ref["loss"]], rtol=1e-5)
+        p1 = convert.params_from_numpy(ref["params"], device="cpu")
     assert max(float((a - b).abs().max()) for (_, a), (_, b) in zip(leaves(p1), leaves(p2))) \
         < 1e-3
 
@@ -285,6 +328,15 @@ def test_train_cli_debug_on_cpu_and_its_loss_falls(arch, capsys):
     assert (out["batch"], out["seq_len"], out["dtype"]) == (*train.DEBUG_SIZES, "float32")
     text = capsys.readouterr().out
     assert text.count("step ") == 3 and "loss" in text and text.rstrip().endswith("done")
+
+
+@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCH_IDS) - set(TRAIN_CFGS)))
+def test_train_cli_debug_runs_every_other_config(arch, capsys):
+    """The other five configs (granite, llama4, codeqwen, stablelm, jamba)
+    train too: two finite steps each."""
+    out = train.main(["--arch", arch, "--debug", "--device", "cpu", "--steps", "2"])
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert capsys.readouterr().out.rstrip().endswith("done")
 
 
 def test_train_cli_refuses_multi_pod_naming_its_item():
