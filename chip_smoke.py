@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile    # + torch.profiler passes over fig1-xl,
                                        #   fig2's and Newton-XL's kernel route,
                                        #   fig-dnn/BLDNN and a prefill + 4 decode
-                                       #   steps of each serve cell
+                                       #   steps of each serve cell, and
+                                       #   gemma3-4b's keyed init the eager way
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is non-zero and no result line is printed:
@@ -54,12 +55,21 @@ is non-zero and no result line is printed:
                 jax.random draws in both threefry settings
                 (src/repro_torch/exp/data/prng_table.json, `normal` among
                 them), the card's draws at the path's shapes bitwise equal
-                to the CPU's, `normal` at every draw shape of the LM init
-                and BL-DNN (whole leaves to 2²¹ draws; gemma3-4b's
-                671M-draw embedding and the other large leaves drawn whole
-                on the card in chunks and held in three windows) in both
-                settings, and the host time and CUDA launches a round's
-                draws cost;
+                to the CPU's, `normal` (kernel 7 on the card, one launch a
+                piece) at every draw shape of the ten configs' inits and
+                BL-DNN (whole leaves to 2²¹ draws; the large leaves, up to
+                jamba's 3.2 G-draw expert rows, drawn whole on the card and
+                held in three windows) in both settings, llama4's 5.4 G-draw
+                expert leaf past 2³² − 1 in one launch and in windows, and
+                the host time and CUDA launches a round's draws cost; then
+                kernel 7 (`kernels.threefry_normal`): the keyed
+                `init_params` of the ten reduced configs card = CPU bitwise
+                (bf16 and f32, one launch a drawn leaf), gemma3-4b's
+                embedding leaf bitwise its plain version on the card and
+                timed beside it, its bound and `torch.randn`'s fill, and
+                gemma3-4b's full keyed init through the kernel (seconds and
+                ns a draw; with --profile also through the eager route,
+                bitwise equal);
      fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
                 the experiment engine (`repro_torch.exp.problems.run_cell`
                 → `exp.engine.run_cell` → `core.bl.bl1` /
@@ -276,10 +286,10 @@ is non-zero and no result line is printed:
                 calls `lm_launches` counts (kernel 5 once an attention
                 layer a prefill and, for whisper, once an encoder and a
                 cross-attention layer every call; kernel 6 once a Mamba2
-                layer a prefill), no other kernel; a MoE config's two
-                prefills bitwise equal: eight configs at full width.
-                llama4-maverick (one group is 37 GB and ~60 s of init) and
-                jamba-1.5-large (one group is 90 GB in bf16) run their
+                layer a prefill), no other kernel; kernel 7 once a drawn
+                leaf of the init; a MoE config's two prefills bitwise equal:
+                nine configs at full width (llama4-maverick one group, 37 GB).
+                jamba-1.5-large (one group is 90 GB in bf16) runs its
                 reduced check only.  A reduced reading above 10x the
                 usual 2.4e-6 prints one more line:
                 the largest differences, where they sit (the compared
@@ -292,7 +302,11 @@ is non-zero and no result line is printed:
                 ulp of the f64 value + 1e-4·max|f64| in bf16; kernel 6's dx,
                 ddt, dA, dB, dC within 1e-4·max|f64|), at the train path's
                 shapes (gemma3's global and window-1024 layers at (1, 4096,
-                8 | 4, 256) in both types; mamba2's layer at (8, 4096, 32,
+                8 | 4, 256) in both types, and `ATTN_BWD_PATH`'s other
+                shapes: deepseek-moe's, qwen2-vl's, whisper's non-causal
+                encoder, decoder and 4096 × 1500 cross-attention, their
+                float64 truths a batch entry and a few KV heads at a time;
+                mamba2's layer at (8, 4096, 32,
                 64), N 128, with A and dt drawn as its init makes them) and
                 edge cases (among them decays of up to exp(−550) a step),
                 bitwise over two reruns at the path's shapes, each launch's
@@ -301,18 +315,26 @@ is non-zero and no result line is printed:
                 timed beside the plain version's backward, the library's
                 (SDPA's backward; none for the SSD) and the bound;
   14. train   — the LM training path (`repro_torch.launch.train`,
-                `models.steps.make_train_step`): gemma3-4b and mamba2-370m
-                reduced in float32 on the card against the CPU from the same
-                weights and batches (3 steps' losses within 2e-4 relative,
-                step 0's gradients within 2e-4·max|ref| a leaf), then at full
-                width through `launch.train.main` (gemma3-4b at
-                train_4k_b1, mamba2-370m at train_4k_b8; bf16 weights and
-                AdamW moments, remat; 4 steps): every loss finite and
-                exactly 68 kernel-5 forward and 34 backward calls a step
-                (gemma3) or 96 kernel-6 forward and 48 backward (mamba2),
-                no other kernel; s/step, tokens/s, peak memory, set-up and
+                `models.steps.make_train_step`): gemma3-4b, mamba2-370m,
+                deepseek-moe-16b, whisper-small and qwen2-vl-72b reduced in
+                float32 on the card against the CPU from the same weights,
+                batches and seeded frames / prefix embeddings (a MoE's
+                expert ids compared first, a mismatch named a tie or not;
+                3 steps' losses within 2e-4 relative, step 0's gradients
+                within 2e-4·max|ref| a leaf), then at full width through
+                `launch.train.main`, cut in depth only where `TRAIN_CELLS`
+                says (gemma3-4b, deepseek-moe at 12 layers, qwen2-vl at 6
+                at train_4k_b1; mamba2-370m, whisper-small at train_4k_b8;
+                bf16 weights and AdamW moments, remat; 4 steps): every loss
+                finite and exactly the kernel calls `train_launches` counts
+                (68 kernel-5 forward and 34 backward calls a step for
+                gemma3, 96 kernel-6 forward and 48 backward for mamba2,
+                whisper's encoder once and its self- and cross-attention
+                twice), kernel 7 once a drawn leaf, no other kernel;
+                deepseek-moe's step-0 gradient twice from the same weights,
+                bitwise equal; s/step, tokens/s, peak memory, set-up and
                 init s (the reference's weights of PRNGKey(0));
-                then each cell again through the plain versions (losses
+                then gemma3-4b and mamba2-370m again through the plain versions (losses
                 within 1e-2 relative of the kernels' at step 0, 5e-2 at
                 steps 1–3); and the bf16 witness: gemma3-4b at full width,
                 cut to 6 layers, one gradient on one 4096-token batch
@@ -462,10 +484,10 @@ SSD_SWEEP = ((2, 64, 16, 8, 16), (1, 128, 32, 16, 32), (4, 96, 8, 4, 24), (1, 60
 #: reference's `init_params(PRNGKey(0))` of the cut config: qwen2-vl-72b 2
 #: layers (4.25 B parameters), granite-20b, stablelm-12b and codeqwen1.5-7b
 #: 4 layers (2.12, 2.14, 1.69 B), against full depths' bf16 weights of 145,
-#: 41, 24 and 16 GB, each init a few seconds at ~3.2 ns a draw.  Their 4
-#: decode steps, and llama4-maverick's reduced check in place of its cell,
-#: keep the whole script's time down: with 8 steps and llama4's cell it
-#: ran 823 s (PERF.md §6)
+#: 41, 24 and 16 GB; llama4-maverick one group (a MoE layer of 128 experts
+#: and a dense one: 18.68 B, 37.4 GB).  The keyed inits run through kernel 7.
+#: The new cells' 4 decode steps keep the whole script's time down: with 8
+#: steps it ran 823 s (PERF.md §6)
 SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, None),
                ("mamba2_370m", "decode_4k_b8", 32, None),
                ("deepseek_moe_16b", "decode_4k_b4", 4, None),
@@ -473,13 +495,11 @@ SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, None),
                ("granite_20b", "decode_4k_b4", 4, 4),
                ("stablelm_12b", "decode_4k_b4", 4, 4),
                ("codeqwen15_7b", "decode_4k_b4", 4, 4),
-               ("whisper_small", "decode_4k_b4", 4, None))
-#: configs held by their reduced check alone: llama4-maverick (one group,
-#: a MoE layer of 128 experts and a dense one, is 18.68 B parameters, 37.4
-#: GB, and its init alone takes ~60 s of the script's time) and
-#: jamba-1.5-large (one group of 8 layers is 45.1 B parameters, 90.3 GB in
-#: bf16: no depth fits one card)
-REDUCED_ONLY = ("llama4_maverick_400b_a17b", "jamba_15_large_398b")
+               ("whisper_small", "decode_4k_b4", 4, None),
+               ("llama4_maverick_400b_a17b", "decode_4k_b4", 4, 2))
+#: configs held by their reduced check alone: jamba-1.5-large (one group of
+#: 8 layers is 45.1 B parameters, 90.3 GB in bf16: no depth fits one card)
+REDUCED_ONLY = ("jamba_15_large_398b",)
 #: the reduced configs of the card-against-CPU check, all ten: where the
 #: full width groups its KV heads the reduced config (4 query heads) keeps
 #: 2 KV heads, and stablelm its head size of 160
@@ -507,9 +527,23 @@ SSD_CONFIG_SHAPES = (("jamba-1.5-large", 4, 2048, 256, 64, 128),)
 #: the backward kernels against float64 autograd through the plain versions,
 #: share of max|f64| (PERF.md §2); bf16 adds one bf16 ulp of the f64 value
 BWD_TOL = 1e-4
-#: gemma3-4b's training attention at train_4k_b1: (B, S, H, KVH, hd, window)
-#: of its global and its window-1024 layers
-ATTN_BWD_PATH = ((1, 4096, 8, 4, 256, None), (1, 4096, 8, 4, 256, 1024))
+#: the training attention of the train cells: (name, B, Sq, Sk, H, KVH, hd,
+#: causal, window): gemma3-4b's global and window-1024 layers at
+#: train_4k_b1, deepseek-moe-16b's (MHA, hd 128) and qwen2-vl-72b's (GQA
+#: rep 8 over 256 prefix + 4096 tokens) at train_4k_b1, whisper-small's
+#: non-causal encoder over 1500 frames, its decoder's self-attention and its
+#: cross-attention of 4096 queries against 1500 keys at train_4k_b8
+ATTN_BWD_PATH = (("global", 1, 4096, 4096, 8, 4, 256, True, None),
+                 ("window1024", 1, 4096, 4096, 8, 4, 256, True, 1024),
+                 ("deepseek-moe-16b", 1, 4096, 4096, 16, 16, 128, True, None),
+                 ("qwen2-vl-72b", 1, 4352, 4352, 64, 8, 128, True, None),
+                 ("whisper encoder", 8, 1500, 1500, 12, 12, 64, False, None),
+                 ("whisper decoder", 8, 4096, 4096, 12, 12, 64, True, None),
+                 ("whisper cross", 8, 4096, 1500, 12, 12, 64, False, None))
+#: float64 truths of the path cases are taken this many float64 score
+#: elements at a time (a batch entry and a few KV heads' query heads), so
+#: whisper's 8 × 12 × 4096² scores never stand whole in float64
+BWD_TRUTH_ELEMS = 1 << 27
 #: edge cases: (name, B, Sq, Sk, H, KVH, hd, causal, window)
 ATTN_BWD_SWEEP = (("GQA rep 2, hd 64", 2, 128, 128, 4, 2, 64, True, None),
                   ("window 64, hd 256", 1, 256, 256, 8, 4, 256, True, 64),
@@ -538,10 +572,25 @@ SSD_BWD_SWEEP = (("two chunks, state gradient", 2, 256, 3, 64, 128, True, 0.5, 1
                  ("mixed decays", 2, 300, 2, 64, 128, False, 10.0, 50.0, 0.01),
                  ("mamba2 init, 3 chunks ragged, state gradient", 2, 300, 32, 64, 128, True,
                   None, None, None))
-#: the train phase: full-width cells (arch, one-card shape, kernel), steps;
-#: the reduced card-against-CPU check's steps and its (batch, tokens)
-TRAIN_CELLS = (("gemma3_4b", "train_4k_b1", "flash_attention"),
-               ("mamba2_370m", "train_4k_b8", "ssd_scan"))
+#: the train phase: full-width cells (arch, one-card shape, the layers kept
+#: or None for full depth, whether the cell runs again through the plain
+#: versions), steps; the reduced card-against-CPU check's steps and its
+#: (batch, tokens).  bf16 weights, gradients and two AdamW moments take 8 B
+#: a parameter, so the deep configs are cut in depth only, each to the
+#: deepest that keeps the peak under ~70 GB: deepseek-moe-16b to 12 of its
+#: 28 layers (0.588 B a layer plus 0.42 B of embedding and head: 7.47 B,
+#: peak 65.2 GB on the card, so 13 layers would read ~69.9 GB), qwen2-vl-72b
+#: to 6 of its 80 (0.878 B a layer plus 2.49 B: 7.76 B; 5 layers peaked at
+#: 57.1 GB, so 6 read ~64 GB and 7 ~71 GB; PERF.md §6);
+#: whisper-small (279 M) runs whole at 8 × 4096 tokens (21.4 GB)
+TRAIN_CELLS = (("gemma3_4b", "train_4k_b1", None, True),
+               ("mamba2_370m", "train_4k_b8", None, True),
+               ("deepseek_moe_16b", "train_4k_b1", 12, False),
+               ("whisper_small", "train_4k_b8", None, False),
+               ("qwen2_vl_72b", "train_4k_b1", 6, False))
+#: the MoE cell whose step-0 gradient runs twice from the same weights and
+#: must give the same bits (the MoE's backward sums in a fixed order)
+TRAIN_RERUN = "deepseek_moe_16b"
 TRAIN_STEPS = 4
 TRAIN_REDUCED_STEPS, TRAIN_REDUCED_SIZES = 3, (4, 64)
 TRAIN_TOL = 2e-4
@@ -1460,7 +1509,8 @@ def basis_transform_phase(torch, bt, profile: bool) -> dict:
             "basis_transform_refused": refused, "basis_transform_timings": timings}
 
 
-def prng_phase(torch, prng, rounds, device: str = "cuda") -> dict:
+def prng_phase(torch, prng, rounds, tn, device: str = "cuda",
+               eager_init: bool = False) -> dict:
     """The port's threefry draws on the card: the committed table of
     jax.random draws (both settings) drawn on the card and on the CPU, equal
     to it entry for entry; draws at the path's shapes (a 512-client split
@@ -1469,7 +1519,7 @@ def prng_phase(torch, prng, rounds, device: str = "cuda") -> dict:
     `normal` at every draw shape of the path (`normal_phase`); then the host
     time and CUDA launches a round's draws cost, replayed
     without the round's arithmetic, for bl2-xl, fig3/RTopK and
-    fig-dnn/RTopK."""
+    fig-dnn/RTopK; then kernel 7 (`threefry_normal_phase`)."""
     table = json.loads(PRNG_TABLE.read_text())
     for where in (device, "cpu"):
         got = prng_table(PortRandom(torch, prng, where))
@@ -1541,8 +1591,9 @@ def prng_phase(torch, prng, rounds, device: str = "cuda") -> dict:
                       "device_ms_per_round": prof["device_busy_ms"] / PRNG_COST_ROUNDS}
     return {"table_entries": sum(len(v) for v in table.values()),
             "card_vs_cpu_cases": sorted(cases), "draw_cost": cost,
-            "normal": normal_phase(torch, prng),
-            "normal_past_a_block": blocked_normal_windows(torch, prng)}
+            "normal": normal_phase(torch, prng, tn),
+            "normal_past_a_block": blocked_normal_windows(torch, prng, tn),
+            "threefry_normal": threefry_normal_phase(torch, prng, tn, eager_init)}
 
 
 #: normal draws held card = CPU over the whole leaf up to this many draws;
@@ -1553,29 +1604,55 @@ NORMAL_WHOLE = 1 << 21
 NORMAL_WINDOW = 1 << 16
 
 
+#: leaves `init_params` does not draw (norm scales, the Mamba2 block's
+#: A_log, D and dt_bias)
+UNDRAWN_LEAVES = ("scale", "A_log", "D", "dt_bias")
+
+
+def drawn_leaves(tree) -> list:
+    """(name, leaf) of each leaf of a parameter tree that `layers._init`
+    draws: one kernel-7 launch each on the card."""
+    return [(name, leaf) for name, leaf in _leaves(tree)
+            if name.rsplit("/", 1)[-1] not in UNDRAWN_LEAVES]
+
+
+def draw_shape(name: str, leaf) -> tuple:
+    """The shape of one `jax.random.normal` draw of a leaf: a stacked leaf
+    (the decoder's groups, the encoder's layers) is one draw a row."""
+    return tuple(leaf.shape[1:]) if name.startswith(("layers", "encoder")) else tuple(leaf.shape)
+
+
 def normal_draw_shapes() -> list:
     """The shapes of every `jax.random.normal` draw the main path makes:
-    gemma3-4b's and mamba2-370m's weights at full width (one draw a leaf,
-    a stacked leaf one per group) and fig-dnn's four leaves."""
+    the ten configs' weights at full width (one draw a leaf, a stacked leaf
+    one a row) and fig-dnn's four leaves, one shape a draw size (a draw
+    depends on its shape only through its size), those past 2³² − 1 draws
+    left to `blocked_normal_windows`."""
     from repro_torch import configs
+    from repro_torch.core import prng
     from repro_torch.models import model as M
 
     shapes = {(96, 32), (32, 64), (64, 32), (32, 4)}
-    for arch in ("gemma3_4b", "mamba2_370m"):
-        for name, leaf in _leaves(M.param_shapes(configs.get_config(arch))):
-            if leaf.dim() < 2 or name.endswith("scale"):
-                continue                        # norms, A_log, D, dt_bias: not drawn
-            shapes.add(tuple(leaf.shape[1:]) if name.startswith("layers") else tuple(leaf.shape))
-    return sorted(shapes, key=math.prod)
+    for arch in configs.ARCH_IDS:
+        for name, leaf in drawn_leaves(M.param_shapes(configs.get_config(arch))):
+            shapes.add(draw_shape(name, leaf))
+    by_size = {}
+    for shape in sorted(shapes):
+        if math.prod(shape) < prng.M32:
+            by_size.setdefault(math.prod(shape), shape)
+    return [by_size[n] for n in sorted(by_size)]
 
 
-def normal_phase(torch, prng) -> dict:
-    """`prng.normal` on the card against the CPU at every draw shape of the
-    path, in both threefry settings: whole leaves up to NORMAL_WHOLE draws,
-    larger ones (up to gemma3-4b's 671M-draw embedding) drawn whole on the
-    card in chunks and held to the CPU's draw of three windows; bitwise.
-    Times the card's whole-leaf draw."""
+def normal_phase(torch, prng, tn) -> dict:
+    """`prng.normal` on the card (kernel 7, one launch a piece of
+    `prng.NORMAL_CHUNK` draws) against the CPU's eager draw at every draw
+    shape of the path, in both threefry settings: whole leaves up to
+    NORMAL_WHOLE draws, larger ones (up to qwen2-vl's 1.2 G-draw embedding
+    and jamba's 3.2 G-draw expert rows) drawn whole on the card and held to
+    the CPU's draw of three windows; bitwise.  Times the card's whole-leaf
+    draw."""
     out = {}
+    chunk = prng.NORMAL_CHUNK["cuda"]
     for flag in (False, True):
         with prng.threefry_partitionable(flag):
             for shape in normal_draw_shapes():
@@ -1583,31 +1660,179 @@ def normal_phase(torch, prng) -> dict:
                 key = prng.fold_in(prng.PRNGKey(27), n % (1 << 32))
                 card = torch.empty(n, device="cuda")
                 torch.cuda.synchronize()
+                tn.launches = 0
                 t0 = time.perf_counter()
                 for start, z in prng.normal_chunks(key, shape, device="cuda"):
                     card[start:start + z.numel()] = z
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
+                if tn.launches != -(-n // chunk):
+                    raise AssertionError(f"normal {shape}: {tn.launches} kernel-7 launches, "
+                                         f"want one a piece of {chunk}")
                 h, w = (n + 1) // 2, NORMAL_WINDOW
                 whole = n <= NORMAL_WHOLE
                 windows = [(0, n)] if whole else [(0, w), (h - w // 2, h + w // 2), (n - w, n)]
-                host = card.cpu()
                 for lo, hi in windows:
+                    host = card[lo:hi].cpu()
                     for start, z in prng.normal_chunks(key, shape, device="cpu",
                                                        chunk=None if whole else w,
                                                        start=lo, stop=hi):
-                        got = host[start:start + z.numel()]
-                        if not torch.equal(got.view(torch.int32), z.view(torch.int32)):
+                        a, b = max(start, lo), min(start + z.numel(), hi)
+                        got = host[a - lo:b - lo]
+                        if not torch.equal(got.view(torch.int32),
+                                           z[a - start:b - start].view(torch.int32)):
                             raise AssertionError(f"normal {shape} (partitionable={flag}): "
-                                                 f"card != CPU at [{start}, "
-                                                 f"{start + z.numel()})")
+                                                 f"card != CPU in [{a}, {b})")
                 if not bool(torch.isfinite(card).all()):
                     raise AssertionError(f"normal {shape}: a draw is not finite")
                 out[f"{'x'.join(map(str, shape))}/partitionable={flag}"] = {
                     "draws": n, "held": "whole" if whole else "3 windows",
-                    "card_s": secs, "card_ns_per_draw": secs / n * 1e9}
-                del card, host
+                    "card_s": secs, "card_ns_per_draw": secs / n * 1e9,
+                    "kernel_launches": -(-n // chunk)}
+                del card
+    torch.cuda.empty_cache()
     return out
+
+
+#: kernel 7's work a draw (csrc/threefry_normal.cu): a pair's hash is 72
+#: integer operations (20 rounds of add, rotate and xor; 5 key injections of
+#: two adds; two first adds), two draws a pair in the original layout and
+#: one (plus the xor) in the partitionable; the unit float 2 integer and 1
+#: float operation; the scale to (−1, 1) an FMA and a max; then erf_inv: on
+#: its log1p's rational branch (|u| < 0.6436) 31 float operations, on its log
+#: branch 41 and 4 integer ones, the polynomial 18, and u·p, ·√2, ·scale and
+#: the cast 5; an FMA counts 2 operations, every other step 1
+TN_HASH_OPS_PER_PAIR = 72
+TN_OPS_SMALL, TN_OPS_LOG = 2 + 1 + 3 + 1 + 31 + 1 + 18 + 5, 2 + 1 + 3 + 1 + 41 + 4 + 1 + 18 + 5
+
+
+def threefry_normal_bound_ms(draws: int, log_share: float, out_bytes: int,
+                             partitionable: bool = False) -> tuple:
+    """Least time for `draws` keyed normals: every operation of the hash
+    and the transform (this run's share on the log branch) at the 32-bit
+    rate outside the tensor cores, or the output written once, whichever is
+    larger."""
+    per_draw = (TN_HASH_OPS_PER_PAIR + 1 if partitionable else TN_HASH_OPS_PER_PAIR / 2) + (
+        (1 - log_share) * TN_OPS_SMALL + log_share * TN_OPS_LOG)
+    ops_ms = draws * per_draw / OPS32_PER_S * 1e3
+    bytes_ms = draws * out_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+#: kernel 7 timed at gemma3-4b's embedding leaf (262,144 × 2560 draws,
+#: scale 0.02, bfloat16), and the full keyed init it is timed in
+TN_TIMED_ARCH = "gemma3_4b"
+
+
+def threefry_normal_phase(torch, prng, tn, eager_init: bool = False) -> dict:
+    """Kernel 7 on the init path: the keyed `init_params` of the ten reduced
+    configs on the card bitwise the CPU's (bfloat16 and float32, exactly one
+    launch a drawn leaf); at gemma3-4b's embedding leaf the kernel against
+    its plain version on the card (the eager draw; bitwise), timed beside it,
+    its bound and `torch.randn`'s fill of the same leaf (no PyTorch call
+    draws jax's stream: a note, not a yardstick); then gemma3-4b's full
+    keyed init through the kernel, twice, timed, with the kernel's launches
+    (one a drawn leaf), and with `eager_init` (``--profile``) once more
+    through the eager route (~16 s), bitwise equal, timed."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    reduced = {}
+    for arch in configs.ARCH_IDS:
+        cfg, cpu = reduced_cpu_params(arch)
+        for dt in (torch.bfloat16, torch.float32):
+            tn.launches = 0
+            card = M.init_params(prng.PRNGKey(0), cfg, dt, device="cuda")
+            launched = tn.launches
+            # a bfloat16 leaf is the float32 one rounded once: (z·s).astype
+            for (name, a), (_, b) in zip(_leaves(card), _leaves(cpu)):
+                if not torch.equal(a.cpu(), b.to(a.dtype)):
+                    raise AssertionError(f"{arch} reduced init ({dt}): {name} card != CPU")
+            want = len(drawn_leaves(cpu))
+            if launched != want:
+                raise AssertionError(f"{arch} reduced init: {launched} kernel-7 launches, "
+                                     f"want one a drawn leaf ({want})")
+            reduced[f"{arch}/{str(dt)[6:]}"] = {"leaves": want, "launches": launched}
+
+    cfg = configs.get_config(TN_TIMED_ARCH)
+    V, D = cfg.padded_vocab, cfg.d_model
+    n = V * D
+    key = prng.split(prng.PRNGKey(0), 6)[0][None]
+    s = float(torch.tensor(0.02, dtype=torch.float32))
+    out = torch.empty((1, n), dtype=torch.bfloat16, device="cuda")
+    plain = torch.empty_like(out)
+
+    def kernel():
+        return tn.threefry_normal(out, key, n, scale=s)
+
+    plain_ms = cuda_ms(torch, lambda: tn.threefry_normal_plain(plain, key, n, scale=s), 1,
+                       warmup=0)
+    kernel()
+    if not torch.equal(out.view(torch.int16), plain.view(torch.int16)):
+        bad = int((out.view(torch.int16) != plain.view(torch.int16)).sum())
+        raise AssertionError(f"kernel 7 at {TN_TIMED_ARCH}'s embedding ({V} x {D}): {bad} "
+                             f"draws differ from the plain version on the card")
+    # the log branch: |u| ≥ √(√2 − 1), XLA's log1p switch, i.e. |z| ≥ √2·erf_inv of it
+    z_log = math.sqrt(2.0) * float(torch.erfinv(torch.tensor(math.sqrt(math.sqrt(2.0) - 1.0),
+                                                             dtype=torch.float64)))
+    log_share = float((out.float().abs() >= z_log * s).double().mean())
+    bound, by = threefry_normal_bound_ms(n, log_share, 2)
+    kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
+    randn_ms = cuda_ms(torch, lambda: plain.normal_(), 5, warmup=1)
+    leaf = {"shape": [V, D], "draws": n, "dtype": "bfloat16", "kernel_ms": kernel_ms,
+            "ns_per_draw": kernel_ms / n * 1e6, "plain_ms": plain_ms,
+            "plain_ns_per_draw": plain_ms / n * 1e6, "bound_ms": bound, "bound_by": by,
+            "share": bound / kernel_ms, "log_branch_share": log_share,
+            "torch_randn_fill_ms": randn_ms,
+            "device_ms": device_ms(torch, {"kernel": kernel}, reps=3)["kernel"]}
+    del out, plain
+    torch.cuda.empty_cache()
+
+    # the full keyed init, through the kernel (twice) and through the eager route
+    nleaves = len(drawn_leaves(M.param_shapes(cfg)))
+    draws = sum(x.numel() for _, x in drawn_leaves(M.param_shapes(cfg)))
+
+    def init(route):
+        saved = L.threefry_normal
+        if route == "eager":
+            L.threefry_normal = tn.threefry_normal_plain
+        try:
+            torch.cuda.synchronize()
+            tn.launches = 0
+            t0 = time.perf_counter()
+            params = M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            L.threefry_normal = saved
+        want = nleaves if route == "kernel" else 0
+        if tn.launches != want:
+            raise AssertionError(f"{TN_TIMED_ARCH} init ({route}): {tn.launches} kernel-7 "
+                                 f"launches, want {want}")
+        return params, secs
+
+    first, kernel_s = init("kernel")
+    eager_s = None
+    if eager_init:
+        eager, eager_s = init("eager")
+        if not all(torch.equal(a, b) for (_, a), (_, b) in zip(_leaves(first),
+                                                                _leaves(eager))):
+            raise AssertionError(f"{TN_TIMED_ARCH} init: the kernel's weights differ from "
+                                 f"the eager route's")
+        del eager
+    del first
+    torch.cuda.empty_cache()
+    again, kernel_s2 = init("kernel")
+    del again
+    torch.cuda.empty_cache()
+    init_s = min(kernel_s, kernel_s2)
+    return {"reduced_init_card_eq_cpu": reduced, "embedding": leaf, "init": {
+        "config": cfg.name, "dtype": "bfloat16", "draws": draws, "launches": nleaves,
+        "kernel_s": [kernel_s, kernel_s2], "eager_s": eager_s,
+        "ns_per_draw": init_s / draws * 1e9,
+        "eager_ns_per_draw": None if eager_s is None else eager_s / draws * 1e9,
+        "bound_ms": threefry_normal_bound_ms(draws, log_share, 2)[0]}}
 
 
 #: llama4-maverick's (128, 5120, 8192) expert leaves: 5.4 G draws a group,
@@ -1615,23 +1840,35 @@ def normal_phase(torch, prng) -> dict:
 BLOCKED_DRAW_SHAPE = (128, 5120, 8192)
 
 
-def blocked_normal_windows(torch, prng) -> dict:
+def blocked_normal_windows(torch, prng, tn) -> dict:
     """`prng.normal` past 2³² − 1 draws (the original layout splits the key
     into blocks, `prng._bits32_chunks`) on the card against the CPU,
     bitwise, in windows at the leaf's start, across the first block's end
-    and at its end: each device draws only the pieces that hold a window."""
+    and at its end: the card draws each window in one kernel-7 launch (the
+    block keys computed on the host), the CPU only the pieces that hold
+    it; then the whole leaf in one launch (5.4 G bfloat16 draws, as
+    llama4-maverick's init writes a group's expert leaf), its windows held
+    the same way."""
     n = math.prod(BLOCKED_DRAW_SHAPE)
     w, block = NORMAL_WINDOW, prng.M32
     key = prng.fold_in(prng.PRNGKey(28), 1)
+    windows = ((0, w), (block - w // 2, block + w // 2), (n - w, n))
     out = {}
     with prng.threefry_partitionable(False):
-        for lo, hi in ((0, w), (block - w // 2, block + w // 2), (n - w, n)):
-            card = torch.empty(hi - lo, device="cuda")
-            for start, z in prng.normal_chunks(key, BLOCKED_DRAW_SHAPE, device="cuda", chunk=w,
-                                               start=lo, stop=hi):
-                a, b = max(start, lo), min(start + z.numel(), hi)
-                if a < b:
-                    card[a - lo:b - lo] = z[a - start:b - start]
+        whole = torch.empty((1, n), dtype=torch.bfloat16, device="cuda")
+        tn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tn.threefry_normal(whole, key[None], n, scale=0.02)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        for lo, hi in windows:
+            card = torch.empty((1, hi - lo), device="cuda")
+            tn.threefry_normal(card, key[None], n, lo)
+            card = card[0]
+            if not torch.equal(whole[0, lo:hi], (card * 0.02).to(torch.bfloat16)):
+                raise AssertionError(f"normal {BLOCKED_DRAW_SHAPE}: the whole leaf's draw "
+                                     f"differs from its window [{lo}, {hi})")
             host = card.cpu()
             for start, z in prng.normal_chunks(key, BLOCKED_DRAW_SHAPE, device="cpu", chunk=w,
                                                start=lo, stop=hi):
@@ -1641,8 +1878,14 @@ def blocked_normal_windows(torch, prng) -> dict:
                     raise AssertionError(f"normal {BLOCKED_DRAW_SHAPE}: card != CPU in "
                                          f"[{a}, {b})")
             out[f"[{lo}, {hi})"] = "card = CPU bitwise"
+        if tn.launches != 1 + len(windows):
+            raise AssertionError(f"normal {BLOCKED_DRAW_SHAPE}: {tn.launches} kernel-7 "
+                                 f"launches, want {1 + len(windows)}")
+        del whole
+        torch.cuda.empty_cache()
     return {"shape": list(BLOCKED_DRAW_SHAPE), "draws": n, "blocks": n // block + 1,
-            "windows": out}
+            "windows": out, "whole_leaf_bf16_s": whole_s,
+            "whole_leaf_ns_per_draw": whole_s / n * 1e9}
 
 
 def topk_legs(cell) -> int:
@@ -2226,12 +2469,13 @@ def drive(torch, k, run) -> tuple:
     calls as ``topk_compress_sum_cuda`` and ``basis_transform_cuda``).
     Kernel 6's CUDA launches (``ss.cuda_launches``) are reset too, for the
     caller to read; the backward kernels' calls count as
-    ``flash_attention_bwd`` and ``ssd_scan_bwd``."""
+    ``flash_attention_bwd`` and ``ssd_scan_bwd``, kernel 7's (``tn``) as
+    ``threefry_normal``."""
     torch.cuda.synchronize()
     k.tk.launches = k.tk.compress_sum_launches = k.tk.compress_sum_cuda_launches = 0
     k.tm.launches = k.bt.launches = k.bt.cuda_launches = 0
     k.fa.launches = k.ss.launches = k.ss.cuda_launches = 0
-    k.fa.bwd_launches = k.ss.bwd_launches = 0
+    k.fa.bwd_launches = k.ss.bwd_launches = k.tn.launches = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -2245,7 +2489,8 @@ def drive(torch, k, run) -> tuple:
                                            "flash_attention": k.fa.launches,
                                            "ssd_scan": k.ss.launches,
                                            "flash_attention_bwd": k.fa.bwd_launches,
-                                           "ssd_scan_bwd": k.ss.bwd_launches}
+                                           "ssd_scan_bwd": k.ss.bwd_launches,
+                                           "threefry_normal": k.tn.launches}
 
 
 def check_dnn_history(name: str, hist, ref: dict) -> dict:
@@ -2714,13 +2959,30 @@ def attention_bwd_phase(torch, fa) -> dict:
         return dict(zip(("dq", "dk", "dv"), torch.autograd.grad(out, ins, do)))
 
     def truth(q, k, v, do, causal, window):
-        ins = [x.double().detach().requires_grad_(True) for x in (q, k, v)]
-        out = fa.flash_attention_plain(*ins, causal=causal, window=window)
-        return dict(zip(("dq", "dk", "dv"), torch.autograd.grad(out, ins, do.double())))
+        """float64 autograd through the plain version, a batch entry and a
+        group of KV heads (with their query heads) at a time."""
+        B, Sq, H, _ = q.shape
+        Sk, KVH = k.shape[1], k.shape[2]
+        rep = H // KVH
+        g = max(1, min(KVH, BWD_TRUTH_ELEMS // (rep * Sq * Sk)))
+        out = {key: torch.empty(x.shape, dtype=torch.float64, device=x.device)
+               for key, x in (("dq", q), ("dk", k), ("dv", v))}
+        for b in range(B):
+            for h0 in range(0, KVH, g):
+                qs, ks = slice(h0 * rep, (h0 + g) * rep), slice(h0, h0 + g)
+                ins = [x[b:b + 1, :, sl].double().detach().requires_grad_(True)
+                       for x, sl in ((q, qs), (k, ks), (v, ks))]
+                o = fa.flash_attention_plain(*ins, causal=causal, window=window)
+                d = torch.autograd.grad(o, ins, do[b:b + 1, :, qs].double())
+                for key, sl, t in (("dq", qs, d[0]), ("dk", ks, d[1]), ("dv", ks, d[2])):
+                    out[key][b:b + 1, :, sl] = t
+                del ins, o, d
+        return out
 
     cases, errs, bitwise = [], {}, {}
-    for B, S, H, KVH, hd, w in ATTN_BWD_PATH:
-        cases.append((f"gemma3 train, window {w}", B, S, S, H, KVH, hd, True, w, True))
+    for name, B, Sq, Sk, H, KVH, hd, causal, w in ATTN_BWD_PATH:
+        label = f"gemma3 train, window {w}" if name in ("global", "window1024") else name
+        cases.append((label, B, Sq, Sk, H, KVH, hd, causal, w, True))
     cases += [c + (False,) for c in ATTN_BWD_SWEEP]
     for name, B, Sq, Sk, H, KVH, hd, causal, window, path in cases:
         for dt in (torch.bfloat16, torch.float32):
@@ -2739,38 +3001,42 @@ def attention_bwd_phase(torch, fa) -> dict:
             torch.cuda.empty_cache()
 
     timings = {}
-    for B, S, H, KVH, hd, w in ATTN_BWD_PATH:
-        q, do = rnd(B, S, H, hd, dtype=torch.bfloat16), rnd(B, S, H, hd, dtype=torch.bfloat16)
-        k, v = (rnd(B, S, KVH, hd, dtype=torch.bfloat16) for _ in range(2))
+    for name, B, Sq, Sk, H, KVH, hd, causal, w in ATTN_BWD_PATH:
+        gemma = name in ("global", "window1024")
+        q, do = (rnd(B, Sq, H, hd, dtype=torch.bfloat16) for _ in range(2))
+        k, v = (rnd(B, Sk, KVH, hd, dtype=torch.bfloat16) for _ in range(2))
         ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        out_plain = fa.flash_attention_plain(*ins, causal=True, window=w)
+        # the plain version's backward is timed at gemma3's shapes only: at
+        # whisper's its float32 scores alone are 6.4 GB
+        out_plain = fa.flash_attention_plain(*ins, causal=causal, window=w) if gemma else None
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
         if w is None:
-            out_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                      enable_gqa=True)
+            out_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=KVH != H)
         else:
             out_sdpa = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=fa.mask(S, S, True, w, q.device), enable_gqa=True)
+                qt, kt, vt, attn_mask=fa.mask(Sq, Sk, causal, w, q.device),
+                enable_gqa=KVH != H)
         dot = do.transpose(1, 2)
 
         def kernel():
-            return fa._kernel_bwd(q, k, v, do, True, w)
+            return fa._kernel_bwd(q, k, v, do, causal, w)
 
-        bound, by = attention_bwd_bound_ms(q, k, True, w)
+        bound, by = attention_bwd_bound_ms(q, k, causal, w)
         fa.bwd_cuda_launches = 0
         kernel()
         cuda_launches = fa.bwd_cuda_launches
         kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
-        timings["global" if w is None else f"window{w}"] = {
-            "shape": [B, S, H, KVH, hd], "window": w, "dtype": "bfloat16",
-            "kernel_ms": kernel_ms,
+        timings[name] = {
+            "shape": [B, Sq, Sk, H, KVH, hd], "causal": causal, "window": w,
+            "dtype": "bfloat16", "kernel_ms": kernel_ms,
             "device_ms": device_ms(torch, {"bwd": kernel}, reps=3)["bwd"],
             "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-                out_plain, ins, do, retain_graph=True), 3, warmup=1),
+                out_plain, ins, do, retain_graph=True), 3, warmup=1) if gemma else None,
             "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
                 out_sdpa, (qt, kt, vt), dot, retain_graph=True), 5, warmup=1),
             "bound_ms": bound, "bound_by": by, "share": bound / kernel_ms,
-            "pairs_per_head": attention_pairs(S, S, True, w),
+            "pairs_per_head": attention_pairs(Sq, Sk, causal, w),
             "cuda_launches_per_call": cuda_launches}
         del q, k, v, do, ins, out_plain, qt, kt, vt, out_sdpa, dot
         torch.cuda.empty_cache()
@@ -2889,37 +3155,119 @@ def ssd_bwd_phase(torch, ss) -> dict:
             "spills": {key: a["local_bytes"] for key, a in attrs.items() if a["local_bytes"]}}
 
 
+def train_launches(cfg, remat: bool, steps: int = 1) -> dict:
+    """Kernel calls of `steps` train steps of `cfg`: kernel 5 once a
+    forward for each encoder layer (outside the rematerialised groups),
+    and for each decoder attention layer, and whisper's cross-attention
+    beside it, twice with remat (the forward, then the group again in the
+    backward) or once without; kernel 6 likewise for each Mamba2 layer;
+    each of those layers' backward once."""
+    specs = cfg.layer_specs()
+    n_attn = sum(1 for sp in specs if sp.mixer == "attn")
+    n_ssd = len(specs) - n_attn
+    dec = n_attn * (2 if cfg.n_enc_layers else 1)
+    f = 2 if remat else 1
+    return {"flash_attention": steps * (cfg.n_enc_layers + f * dec),
+            "flash_attention_bwd": steps * (cfg.n_enc_layers + dec),
+            "ssd_scan": steps * f * n_ssd, "ssd_scan_bwd": steps * n_ssd}
+
+
+@contextlib.contextmanager
+def cut_config(train, cfg):
+    """`launch.train.main` builds `cfg` (a config cut in depth) for its
+    ``--arch``: the launcher runs unchanged, with no flag the reference's
+    lacks."""
+    saved = train.get_config
+    train.get_config = lambda arch: cfg
+    try:
+        yield
+    finally:
+        train.get_config = saved
+
+
+def moe_routes(torch, M, L, params, cfg, batch) -> list:
+    """Each MoE layer's router probabilities and expert ids in a forward of
+    ``batch``'s inputs (host copies), in layer order."""
+    got, route = [], L.moe_route
+
+    def recorded(probs, k):
+        vals, ids = route(probs, k)
+        got.append((probs.detach().cpu(), ids.cpu()))
+        return vals, ids
+
+    L.moe_route = recorded
+    try:
+        with torch.no_grad():
+            M.forward(params, cfg, batch["tokens"][:, :-1], frames=batch.get("frames"),
+                      prefix_embeds=batch.get("prefix_embeds"), remat=False)
+    finally:
+        L.moe_route = route
+    return got
+
+
+def compare_routes(name: str, card: list, cpu: list) -> dict:
+    """The card's expert ids against the CPU's, layer by layer, before any
+    gradient is compared: a token routed otherwise is a tie when its two
+    experts' CPU probabilities lie within 4 float32 ulps (then the gradients
+    may differ by O(1), and the reading says so), else a fault."""
+    import torch
+
+    for layer, ((p_card, i_card), (p_cpu, i_cpu)) in enumerate(zip(card, cpu)):
+        bad = (i_card != i_cpu).any(dim=-1).nonzero().flatten()
+        if bad.numel():
+            t = int(bad[0])
+            a, b = i_card[t], i_cpu[t]
+            pa, pb = p_cpu[t, a], p_cpu[t, b]
+            gap = float((pa - pb).abs().max())
+            ulp = float(torch.finfo(torch.float32).eps * p_cpu[t].max())
+            kind = "a tie" if gap <= 4 * ulp else "not a tie"
+            raise AssertionError(f"{name}: MoE layer {layer} routes token {t} to experts "
+                                 f"{a.tolist()} on the card and {b.tolist()} on the CPU "
+                                 f"({kind}: CPU probabilities {pa.tolist()} / "
+                                 f"{pb.tolist()}, gap {gap})")
+    return {"moe_layers": len(cpu), "expert_ids_equal": True}
+
+
 def train_phase(torch, k) -> dict:
     """The LM training path: the reduced configs on the card against the CPU,
     then the full-width cells through the launcher (see the module
     docstring)."""
-    import numpy as np
+    import dataclasses
 
     from repro_torch import configs
     from repro_torch.core import prng
-    from repro_torch.data import pipeline
-    from repro_torch.launch import train
+    from repro_torch.data import make_batch_iterator, pipeline
+    from repro_torch.launch import shapes, train
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import steps
     from repro_torch.optim import adamw_init
 
     res = {}
-    for arch, shape, kernel in TRAIN_CELLS:
+    for arch, shape, layers, with_plain in TRAIN_CELLS:
         # ---- reduced, float32: the card's kernels against the CPU's plain versions
-        cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
-        n_layers = sum(1 for s in cfg.layer_specs()
-                       if (s.mixer == "attn") == (kernel == "flash_attention"))
-        cpu = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
+        cfg, cpu = reduced_cpu_params(arch)
         card = _tree_map(lambda t: t.cuda(), cpu)
         Bsz, S = TRAIN_REDUCED_SIZES
         gen = pipeline.SyntheticTokens(cfg.vocab_size, S + 1, Bsz, seed=0)
-        batches = [torch.as_tensor(gen.batch(i)) for i in range(TRAIN_REDUCED_STEPS)]
+        extras = {key: torch.tensor(v) for key, v in reduced_extras(cfg, Bsz).items()}
+        batches = [{"tokens": torch.as_tensor(gen.batch(i)), **extras}
+                   for i in range(TRAIN_REDUCED_STEPS)]
+
+        def on_card(b):
+            return {key: v.cuda() for key, v in b.items()}
+
+        routes = None
+        if cfg.moe is not None:
+            routes = compare_routes(f"{arch} reduced", moe_routes(
+                torch, M, L, card, cfg, on_card(batches[0])), moe_routes(
+                torch, M, L, cpu, cfg, batches[0]))
         grad_fn = steps.make_grad_fn(cfg, remat=False)
-        l_cpu, _, g_cpu = grad_fn(cpu, {"tokens": batches[0]})
+        l_cpu, _, g_cpu = grad_fn(cpu, batches[0])
         (l_card, _, g_card), _, counts = drive(
-            torch, k, lambda: grad_fn(card, {"tokens": batches[0].cuda()}))
+            torch, k, lambda: grad_fn(card, on_card(batches[0])))
         want = {name: 0 for name in counts}
-        want[kernel] = want[f"{kernel}_bwd"] = n_layers
+        want.update(train_launches(cfg, remat=False))
         if counts != want:
             raise AssertionError(f"{arch} reduced gradient: kernel launches {counts}, "
                                  f"want {want}")
@@ -2932,67 +3280,88 @@ def train_phase(torch, k) -> dict:
             grad_rel[name] = e / scale if scale else 0.0
         step = steps.make_train_step(cfg, remat=False)
         losses = {}
-        for where, params, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        for where, params, to in (("cpu", cpu, dict), ("card", card, on_card)):
             opt = adamw_init(params)
             losses[where] = []
             for b in batches:
-                params, opt, m = step(params, opt, {"tokens": b.to(dev)})
+                params, opt, m = step(params, opt, to(b))
                 losses[where].append(float(m["loss"]))
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
         if not (max(loss_rel) <= TRAIN_TOL and all(map(math.isfinite, losses["card"]))):
             raise AssertionError(f"{arch} reduced: losses {losses}")
         reduced = {"config": cfg.name, "layers": cfg.n_layers, "loss_rel": loss_rel,
                    "losses": losses, "loss0": [float(l_card), float(l_cpu)],
-                   "grad_max_rel": max(grad_rel.values()), "launches_grad": counts}
+                   "grad_max_rel": max(grad_rel.values()), "launches_grad": counts,
+                   "routes": routes}
         del cpu, card, g_cpu, g_card
         torch.cuda.empty_cache()
 
-        # ---- full width through the launcher
-        cfg = configs.get_config(arch)
-        n_layers = sum(1 for s in cfg.layer_specs()
-                       if (s.mixer == "attn") == (kernel == "flash_attention"))
+        # ---- full width through the launcher, cut in depth where TRAIN_CELLS says
+        full = configs.get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        shp = shapes.SHAPES[shape]
+        rerun = None
+        if arch == TRAIN_RERUN:
+            # step 0's gradient twice from the same weights and batch: the same bits
+            params = M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cuda")
+            batch = next(make_batch_iterator(cfg.vocab_size, shp.seq_len + 1, shp.global_batch,
+                                             seed=0, dtype=torch.bfloat16, device="cuda"))
+            grad_fn = steps.make_grad_fn(cfg, remat=True)
+            l1, a1, g1 = grad_fn(params, batch)
+            l2, a2, g2 = grad_fn(params, batch)
+            differ = [name for (name, a), (_, b) in zip(_leaves(g1), _leaves(g2))
+                      if not torch.equal(a, b)]
+            if differ or not (torch.equal(l1, l2) and torch.equal(a1, a2)):
+                raise AssertionError(f"{arch} at full width: two step-0 gradients from the "
+                                     f"same weights differ (loss {float(l1)} / {float(l2)}; "
+                                     f"leaves {differ})")
+            rerun = {"loss": float(l1), "aux": float(a1), "leaves": len(list(_leaves(g1))),
+                     "bitwise": True}
+            del params, batch, g1, g2
+            torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         text = io.StringIO()
-        with contextlib.redirect_stdout(text):
-            out, wall, counts = drive(torch, k, lambda: train.main(
-                ["--arch", arch, "--shape", shape, "--steps", str(TRAIN_STEPS)]))
+        argv = ["--arch", arch, "--shape", shape, "--steps", str(TRAIN_STEPS)]
+        with contextlib.redirect_stdout(text), cut_config(train, cfg):
+            out, wall, counts = drive(torch, k, lambda: train.main(argv))
         peak = torch.cuda.max_memory_allocated()
         if not all(map(math.isfinite, out["losses"])):
             raise AssertionError(f"{arch} {shape}: losses {out['losses']}")
         want = {name: 0 for name in counts}
-        want[kernel] = 2 * n_layers * TRAIN_STEPS          # the forward, then its remat
-        want[f"{kernel}_bwd"] = n_layers * TRAIN_STEPS
+        want.update(train_launches(cfg, remat=True, steps=TRAIN_STEPS))
+        want["threefry_normal"] = len(drawn_leaves(M.param_shapes(cfg)))    # the keyed init
         if counts != want:
             raise AssertionError(f"{arch} {shape}: kernel launches {counts}, want {want} "
                                  f"({TRAIN_STEPS} steps)")
         s_step = median(out["step_s"][1:])
         tokens = out["batch"] * out["seq_len"]
-        # the same run through the plain versions: is the loss's course the
-        # kernels' or the optimiser's?
-        torch.cuda.empty_cache()
-        with plain_routes(), contextlib.redirect_stdout(io.StringIO()):
-            plain, _, counts_plain = drive(torch, k, lambda: train.main(
-                ["--arch", arch, "--shape", shape, "--steps", str(TRAIN_STEPS)]))
-        if any(counts_plain.values()):
-            raise AssertionError(f"{arch} {shape} through the plain versions launched "
-                                 f"kernels: {counts_plain}")
-        plain_rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], plain["losses"])]
-        if not (plain_rel[0] <= WITNESS_LOSS_TOL[0]
-                and max(plain_rel[1:]) <= WITNESS_LOSS_TOL[1]):
-            raise AssertionError(f"{arch} {shape}: losses {out['losses']} through the "
-                                 f"kernels, {plain['losses']} through the plain versions")
         res[arch] = {"reduced": reduced, "config": cfg.name, "layers": cfg.n_layers,
-                     "params": out["params"], "shape": shape, "batch": out["batch"],
-                     "seq_len": out["seq_len"], "steps": TRAIN_STEPS, "losses": out["losses"],
-                     "step_s": out["step_s"], "s_per_step": s_step,
+                     "full_layers": full.n_layers, "params": out["params"], "shape": shape,
+                     "batch": out["batch"], "seq_len": out["seq_len"], "steps": TRAIN_STEPS,
+                     "losses": out["losses"], "step_s": out["step_s"], "s_per_step": s_step,
                      "tokens_per_s": tokens / s_step, "setup_s": out["setup_s"],
-                     "init_s": out["init_s"],
-                     "wall_s_run": wall, "max_memory_allocated": peak,
-                     "launches": counts,
-                     "launches_per_step": {key: n / TRAIN_STEPS for key, n in counts.items()},
-                     "plain_losses": plain["losses"], "plain_loss_rel": plain_rel,
-                     "plain_step_s": plain["step_s"],
-                     "log": text.getvalue().splitlines()}
+                     "init_s": out["init_s"], "wall_s_run": wall,
+                     "max_memory_allocated": peak, "launches": counts,
+                     "launches_per_step": {key: n / TRAIN_STEPS for key, n in counts.items()
+                                           if key != "threefry_normal"},
+                     "rerun_step0": rerun, "log": text.getvalue().splitlines()}
+        if with_plain:
+            # the same run through the plain versions: is the loss's course the
+            # kernels' or the optimiser's?
+            torch.cuda.empty_cache()
+            with plain_routes(), contextlib.redirect_stdout(io.StringIO()), \
+                    cut_config(train, cfg):
+                plain, _, counts_plain = drive(torch, k, lambda: train.main(argv))
+            if any(n for name, n in counts_plain.items() if name != "threefry_normal"):
+                raise AssertionError(f"{arch} {shape} through the plain versions launched "
+                                     f"kernels: {counts_plain}")
+            plain_rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], plain["losses"])]
+            if not (plain_rel[0] <= WITNESS_LOSS_TOL[0]
+                    and max(plain_rel[1:]) <= WITNESS_LOSS_TOL[1]):
+                raise AssertionError(f"{arch} {shape}: losses {out['losses']} through the "
+                                     f"kernels, {plain['losses']} through the plain versions")
+            res[arch].update(plain_losses=plain["losses"], plain_loss_rel=plain_rel,
+                             plain_step_s=plain["step_s"])
         emit({"phase": f"train-{arch.split('_')[0]}", **res[arch]})
         torch.cuda.empty_cache()
     return res
@@ -3077,6 +3446,26 @@ def bf16_witness(torch, k) -> dict:
                              "plain_bf16": max(v[1] for v in leaves.values())}}
 
 
+_REDUCED_CPU = {}
+
+
+def reduced_cpu_params(arch):
+    """The reduced config of `arch` (`SERVE_REDUCED`) and a fresh copy of
+    its float32 weights of PRNGKey(0) drawn on the CPU (the eager draw,
+    ~1 µs a draw there): drawn once, shared by the prng, serve and train
+    phases, each of which may update its copy."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
+    if arch not in _REDUCED_CPU:
+        _REDUCED_CPU[arch] = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
+    return cfg, _tree_map(lambda t: t.clone(), _REDUCED_CPU[arch])
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {key: _tree_map(fn, v) for key, v in tree.items()}
@@ -3156,11 +3545,16 @@ def serve_cell(torch, k, drive, arch, shape, steps, layers, profile) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    k.tn.launches = 0
     t0 = time.perf_counter()
     params = M.init_params(prng.PRNGKey(0), cfg, torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
+    init_launches = k.tn.launches
+    if init_launches != len(drawn_leaves(params)):
+        raise AssertionError(f"{arch} init: {init_launches} kernel-7 launches, want one a "
+                             f"drawn leaf ({len(drawn_leaves(params))})")
     cache = M.init_cache(cfg, B, max_seq, torch.bfloat16, device="cuda")
     prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
                               dtype=torch.int32, device="cuda")
@@ -3206,6 +3600,7 @@ def serve_cell(torch, k, drive, arch, shape, steps, layers, profile) -> dict:
               "prefix_embeds": cfg.n_prefix_embeds, "enc_seq": cfg.enc_seq,
               "max_seq": max_seq, "decode_steps": steps, "decode_start": start,
               "setup_s": setup_s, "init_s": init_s, "init_max_memory_allocated": init_peak,
+              "init_launches": init_launches,
               "prefill_s": pre["seconds"], "prefill_tok_s": tokens / pre["seconds"],
               "decode_s": dec["seconds"], "decode_s_per_step": dec["seconds"] / steps,
               "decode_tok_s": B * steps / dec["seconds"], "max_memory_allocated": peak,
@@ -3233,8 +3628,6 @@ def serve_reduced_check(torch, k, drive, arch) -> dict:
     sit."""
     import numpy as np
 
-    from repro_torch import configs
-    from repro_torch.core import prng
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
@@ -3261,8 +3654,7 @@ def serve_reduced_check(torch, k, drive, arch) -> dict:
     def to_card(tree):
         return _tree_map(lambda t: t.cuda(), tree)
 
-    cfg = configs.get_config(arch).reduced(**SERVE_REDUCED[arch])
-    cpu_params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
+    cfg, cpu_params = reduced_cpu_params(arch)
     params = to_card(cpu_params)
     B, prompt, max_seq = serve.DEBUG_SIZES
     prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt)),
@@ -3308,7 +3700,7 @@ def serve_reduced_check(torch, k, drive, arch) -> dict:
 #: substrings of the hand-written kernels' names in a profiler trace
 HAND_KERNELS = ("threshold", "select_rows", "column_sum", "compress_sum", "tiled_matmul",
                 "stream_kernel", "basis_transform", "flash_kernel", "ssd_prep", "ssd_state",
-                "ssd_pass", "ssd_out")
+                "ssd_pass", "ssd_out", "threefry_normal")
 
 
 class _StampedLines:
@@ -3521,6 +3913,7 @@ def sharded_worker(job_file: str) -> int:
     from repro_torch.kernels import basis_transform as bt
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import threefry_normal as tn
     from repro_torch.kernels import tiled_matmul as tm
     from repro_torch.kernels import topk_threshold as tk
     from repro_torch.launch import fed_serve, mesh
@@ -3528,7 +3921,7 @@ def sharded_worker(job_file: str) -> int:
     job = json.loads(pathlib.Path(job_file).read_text())
     mesh.init_from_env("cuda")
     rank, size = mesh.world()
-    k = SimpleNamespace(tk=tk, tm=tm, bt=bt, fa=fa, ss=ss)
+    k = SimpleNamespace(tk=tk, tm=tm, bt=bt, fa=fa, ss=ss, tn=tn)
     out, probs = {}, {}
     for case in job["cases"]:
         exp = registry.get_experiment(case["exp"])
@@ -3946,10 +4339,11 @@ def main(argv) -> int:
     from repro_torch.kernels import basis_transform as bt
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import threefry_normal as tn
     from repro_torch.kernels import tiled_matmul as tm
     from repro_torch.kernels import topk_threshold as tk
 
-    k = SimpleNamespace(tk=tk, tm=tm, bt=bt, fa=fa, ss=ss)
+    k = SimpleNamespace(tk=tk, tm=tm, bt=bt, fa=fa, ss=ss, tn=tn)
     _device.resolve("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -3967,7 +4361,8 @@ def main(argv) -> int:
     emit({"phase": "kernels_matmul", "kernel": "tiled_matmul", **km})
     ep = entry_points_phase(torch, k)
     emit({"phase": "kernels_entry_points", **ep})
-    emit({"phase": "prng", **prng_phase(torch, prng, rounds)})
+    pr = prng_phase(torch, prng, rounds, tn, eager_init="--profile" in argv)
+    emit({"phase": "prng", **pr})
 
     def need(name, counts, want):
         """Fail unless every kernel ran at least (or, for 0, exactly) as
@@ -4217,9 +4612,9 @@ def main(argv) -> int:
     ksb = ssd_bwd_phase(torch, ss)
     emit({"phase": "kernels_ssd_bwd", "kernel": "ssd_scan_bwd", **ksb})
     tr = train_phase(torch, k)
-    emit({"phase": "train", "cells": {arch: {key: r[key] for key in (
-        "shape", "s_per_step", "tokens_per_s", "max_memory_allocated", "setup_s", "init_s",
-        "plain_loss_rel")} for arch, r in tr.items()}})
+    emit({"phase": "train", "cells": {arch: {key: r.get(key) for key in (
+        "shape", "layers", "s_per_step", "tokens_per_s", "max_memory_allocated", "setup_s",
+        "init_s", "plain_loss_rel")} for arch, r in tr.items()}})
     emit({"phase": "train-bf16-witness", **bf16_witness(torch, k)})
 
     xl = kern["timings"]["fig1-xl"]
@@ -4231,6 +4626,7 @@ def main(argv) -> int:
     sd = ks["timing"]
     fbg, fbw = kab["timings"]["global"], kab["timings"]["window1024"]
     sbd = ksb["timing"]
+    tnl = pr["threefry_normal"]["embedding"]
     main = dnn_launches["fig-dnn/BLDNN"]
     emit({"kernels": [{
         "name": "topk_row_threshold", "route": "cuda",
@@ -4348,6 +4744,10 @@ def main(argv) -> int:
         "window1024": {key: fbw[key] for key in ("kernel_ms", "device_ms", "plain_ms",
                                                  "bound_ms", "bound_by", "library_ms")},
         "cuda_launches_per_call": fbg["cuda_launches_per_call"],
+        "config_shapes": {name: kab["timings"][name] for name, *_ in ATTN_BWD_PATH
+                          if name not in ("global", "window1024")},
+        "launches_train": {arch: r["launches"]["flash_attention_bwd"]
+                           for arch, r in tr.items()},
         "spills": kab["spills"]}, {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -4359,7 +4759,21 @@ def main(argv) -> int:
         "ms": sbd["kernel_ms"], "device_ms": sbd["device_ms"], "plain_ms": sbd["plain_ms"],
         "bound_ms": sbd["bound_ms"], "bound_by": sbd["bound_by"], "library_ms": None,
         "shape": sbd["shape"], "cuda_launches_per_call": sbd["cuda_launches_per_call"],
-        "bound_f32_ms": sbd["bound_f32_ms"], "spills": ksb["spills"]}]})
+        "bound_f32_ms": sbd["bound_f32_ms"], "spills": ksb["spills"]}, {
+        "name": "threefry_normal", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threefry_normal.cu",
+        "replaces": "src/repro/models/layers.py:33",
+        "replaces_note": "no TPU kernel: the reference's jax.random.normal draw in "
+                         "layers._init, which XLA lowers on its CPU",
+        "launches": tr["gemma3_4b"]["launches"]["threefry_normal"],
+        "max_abs_err": 0.0, "ms": tnl["kernel_ms"], "device_ms": tnl["device_ms"],
+        "plain_ms": tnl["plain_ms"], "bound_ms": tnl["bound_ms"], "bound_by": tnl["bound_by"],
+        "library_ms": None, "torch_randn_fill_ms": tnl["torch_randn_fill_ms"],
+        "shape": tnl["shape"], "dtype": tnl["dtype"], "ns_per_draw": tnl["ns_per_draw"],
+        "init": pr["threefry_normal"]["init"],
+        "launches_train": {arch: r["launches"]["threefry_normal"] for arch, r in tr.items()},
+        "launches_serve_init": {arch: r["init_launches"] for arch, r in serve_res.items()
+                                if "init_launches" in r}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

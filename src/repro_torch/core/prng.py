@@ -27,7 +27,10 @@ context — never a process-wide flag a caller could leave set.
 conventions: a Python-float ``p`` draws float64 uniforms from 64-bit bits,
 and `randint` defaults to int64.  `normal` draws float32 as XLA's CPU code
 computes ``jax.random.normal``, its inverse error function included
-(`xla_math`), and `normal_chunks` draws a leaf of any size in pieces.
+(`xla_math`), and `normal_chunks` draws a leaf of any size in pieces.  On
+a CUDA device both draw through kernel 7 (`kernels.threefry_normal`: the
+hash, the transform and the store in one launch, the same bits); elsewhere
+they run eagerly.
 
 Where the draws run: on ``device`` (default: the key's device).  A single
 key held on the CPU hashes small counts (at most `HOST_PAIRS` pairs) in
@@ -358,6 +361,18 @@ def normal_chunks(key: torch.Tensor, shape: Sequence[int] = (), *, device=None,
     size = _numel(shape)
     dev = _out_device(key, device)
     chunk = NORMAL_CHUNK.get(dev.type, NORMAL_CHUNK["cuda"]) if chunk is None else int(chunk)
+    if dev.type == "cuda":
+        # kernel 7, one launch a piece: pieces of `chunk` consecutive draws
+        from ..kernels.threefry_normal import threefry_normal
+
+        stop = size if stop is None else min(int(stop), size)
+        for a in range(0, size, chunk):
+            b = min(size, a + chunk)
+            if a < stop and b > start:
+                out = torch.empty((1, b - a), dtype=torch.float32, device=dev)
+                yield a, threefry_normal(out, key[None], size, a,
+                                         partitionable=_part(partitionable))[0]
+        return
     for first, bits in _bits32_chunks(key, size, dev, partitionable, chunk, start, stop):
         yield first, _normal_from_bits(bits)
 
@@ -366,11 +381,20 @@ def normal(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float32, *,
            device=None, partitionable: Optional[bool] = None) -> torch.Tensor:
     """``jax.random.normal`` in float32, bit for bit with jax on the CPU:
     u = ``uniform(key, shape, float32, nextafter(−1, 0), 1)`` and
-    √2·erf_inv(u), with XLA's own erf_inv and log1p (`xla_math`).  A
-    single key draws in `normal_chunks`; a batch of keys at once."""
+    √2·erf_inv(u), with XLA's own erf_inv and log1p (`xla_math`).  On a
+    CUDA device one launch of kernel 7 draws it all, for one key or a batch;
+    elsewhere a single key draws in `normal_chunks`, a batch at once."""
     if dtype != torch.float32:
         raise ValueError(f"normal draws float32 (the JAX package's only type), got {dtype}")
     shape = tuple(int(s) for s in shape)
+    dev = _out_device(key, device)
+    if dev.type == "cuda":
+        from ..kernels.threefry_normal import threefry_normal
+
+        keys = key.reshape(-1, 2)
+        out = torch.empty((keys.shape[0], _numel(shape)), dtype=torch.float32, device=dev)
+        threefry_normal(out, keys, out.shape[1], partitionable=_part(partitionable))
+        return out.reshape(tuple(key.shape[:-1]) + shape)
     if key.dim() > 1:
         bits = random_bits(key, 32, shape, device=device, partitionable=partitionable)
         return _normal_from_bits(bits)

@@ -17,11 +17,15 @@ grouped-query heads (CUDA C++, sm_90a), replacing the Pallas
 ``ssd_scan`` — the Mamba2 SSD chunked scan with its final state (CUDA C++,
 sm_90a), replacing the Pallas ``repro.kernels.ssd_scan.ssd_scan``.
 Every Pallas kernel of the reference now has its counterpart here.
-Two more kernels replace no Pallas kernel: the backward passes of kernels 5
-and 6 (``flash_attention_bwd``, ``ssd_scan_bwd``), which training on the
-card runs where the reference differentiates with jax.grad.
+Three more kernels replace no Pallas kernel: the backward passes of kernels
+5 and 6 (``flash_attention_bwd``, ``ssd_scan_bwd``), which training on the
+card runs where the reference differentiates with jax.grad, and kernel 7,
+``threefry_normal``: ``jax.random.normal``'s keyed draw (threefry-2x32 and
+XLA's CPU inverse error function, bit for bit) written straight into a
+weight leaf, which the reference leaves to XLA.
 """
 
 #: every CUDA source of the port, by its base name under ``csrc/``
 SOURCES = ("topk_threshold", "topk_compress_sum", "tiled_matmul", "basis_transform",
-           "flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
+           "flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd",
+           "threefry_normal")

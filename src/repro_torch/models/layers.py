@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..core import prng, xla_math
 from ..kernels import ops
+from ..kernels.threefry_normal import threefry_normal
 from .config import ModelConfig
 
 Params = Dict[str, object]
@@ -42,17 +43,18 @@ def _init(key: torch.Tensor, shape, scale, dtype, device) -> torch.Tensor:
     the scale rounds to float32 (a weakly typed Python float) and the cast
     rounds to nearest even.  A batch of keys (..., 2) draws a stacked leaf
     (..., *shape), one draw a key, as the reference stacks per-group draws.
-    Each draw is made in `prng.normal_chunks` and written into the leaf, so
-    no float32 copy of a whole leaf is held."""
+    The draws are written straight into the leaf by
+    `kernels.threefry_normal` (one launch of kernel 7 a leaf on the card;
+    on the CPU its plain version, `prng.normal_chunks`' pieces), so no
+    float32 copy of a whole leaf is held."""
     lead = tuple(key.shape[:-1])
     out = torch.empty(lead + tuple(shape), dtype=dtype, device=device)
     if device.type == "meta":
         return out
     s = float(torch.tensor(scale, dtype=torch.float32))
-    flat = out.view(-1, math.prod(shape))
-    for row, k in zip(flat, key.reshape(-1, 2)):
-        for start, z in prng.normal_chunks(k, shape, device=device):
-            row[start:start + z.numel()] = (z * s).to(dtype)
+    n = math.prod(shape)
+    if n and out.numel():
+        threefry_normal(out.view(-1, n), key.reshape(-1, 2), n, scale=s)
     return out
 
 
@@ -275,6 +277,30 @@ def moe_route(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[:, :k], ids[:, :k]
 
 
+class _RowGather(torch.autograd.Function):
+    """``cat([src, 0])[index]``: rows of ``src`` (N, D), the index N reading
+    a zero row, with a backward in a fixed order and no index-accumulate.
+    ``back`` (N, J) lists, for each source row, the output rows that read
+    it (the number of output rows for an empty place); its gradient is
+    their gradients summed left to right, each add one elementwise pass, so
+    a CUDA run gives the same bits every time (autograd's backward of the
+    gather is an index-add)."""
+
+    @staticmethod
+    def forward(ctx, src, index, back):
+        ctx.save_for_backward(back)
+        return torch.cat([src, src.new_zeros((1, src.shape[1]))])[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (back,) = ctx.saved_tensors
+        parts = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])[back]   # (N, J, D)
+        out = parts[:, 0]
+        for j in range(1, back.shape[1]):
+            out = out + parts[:, j]
+        return out, None, None
+
+
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE (reference `layers.moe`, its global path):
     float32 softmax router, gates renormalised over the K chosen, the
@@ -285,7 +311,10 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
     times their gates cast to the activation type, summed in increasing
     expert order (the order of the reference's scatter-add), with no
     atomics, so a CUDA run gives the same bits every time; the shared
-    expert added last.  Returns (out, aux)."""
+    expert added last.  The backward keeps that discipline (`_RowGather`):
+    a token's gradient sums its kept slots' in the same increasing expert
+    order, and a slot's is the one (token, k) pair that reads it.  Returns
+    (out, aux)."""
     mc = cfg.moe
     B, S, D = x.shape
     E, K = mc.n_experts, mc.top_k
@@ -312,19 +341,25 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
     slot = torch.where(keep, sorted_e * cap + pos_in_e, E * cap)
     table = torch.full((E * cap + 1,), T, dtype=torch.long, device=x.device)
     table[slot] = torch.where(keep, order // K, T)
-    xe = torch.cat([xt, xt.new_zeros((1, D))])[table[:-1]].reshape(E, cap, D)
+    # each token's pairs in increasing expert order, the order in which the
+    # reference's scatter-add meets them, and the slot each one fills
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot                                                # by pair t·K + k
+    by_expert = torch.argsort(expert_ids, dim=-1)                        # (T, K)
+    pair = torch.arange(T, device=x.device)[:, None] * K + by_expert
+    reads = slot_of[pair]                                                # (T, K), E·cap: dropped
+    # slot → the (t, j) place that reads it (T·K: none); only the dropped
+    # pairs share a target, the row past the slots, which is cut off
+    reader = torch.full((E * cap + 1,), T * K, dtype=torch.long, device=x.device)
+    reader[reads.reshape(-1)] = torch.arange(T * K, device=x.device)
+    xe = _RowGather.apply(xt, table[:-1], reads).reshape(E, cap, D)
 
     h = torch.bmm(xe, p["wi"])
     h = F.silu(torch.bmm(xe, p["wg"])) * h
     ye = torch.bmm(h, p["wo"]).reshape(E * cap, D)
 
-    # each token's pairs in increasing expert order, the order in which the
-    # reference's scatter-add meets them: kept outputs times their gates
-    slot_of = torch.empty_like(slot)
-    slot_of[order] = slot                                                # by pair t·K + k
-    by_expert = torch.argsort(expert_ids, dim=-1)                        # (T, K)
-    pair = torch.arange(T, device=x.device)[:, None] * K + by_expert
-    contrib = torch.cat([ye, ye.new_zeros((1, D))])[slot_of[pair]]       # (T, K, D)
+    # kept outputs times their gates, summed in that order
+    contrib = _RowGather.apply(ye, reads.reshape(-1), reader[:-1, None]).reshape(T, K, D)
     contrib = contrib * torch.gather(gate_vals, 1, by_expert).to(x.dtype)[:, :, None]
     out = contrib[:, 0]
     for j in range(1, K):

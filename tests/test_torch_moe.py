@@ -155,6 +155,36 @@ def test_moe_gradients_match_jax_grad(arch, case, cf, tie):
         assert err <= TOL * float(np.abs(want["router"]).max()) + sum(noise), (err, noise)
 
 
+@pytest.mark.parametrize("case,cf,tie", CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fixed_order_backward_is_autograd_of_the_gathers(arch, case, cf, tie, monkeypatch):
+    """The MoE's dispatch and combine gathers (`layers._RowGather`) sum
+    each token's slot gradients in a fixed order, with no index-add; every
+    gradient equals autograd through plain indexing (an index-accumulate)
+    within rounding (1e-6·max|ref|), with dropped tokens and router ties."""
+    jcfg, cfg, p, x = setup(arch, cf, tie, seed=1)
+    w = torch.tensor(np.random.default_rng(9).standard_normal(x.shape).astype(np.float32))
+
+    def grads():
+        tp = convert.params_from_numpy(p, device="cpu")
+        leaves = dict(flat(tp))
+        for t in leaves.values():
+            t.requires_grad_(True)
+        tx = torch.tensor(x, requires_grad=True)
+        out, aux = L.moe(tp, tx, cfg)
+        (torch.sum(out * w) + 3.0 * aux).backward()
+        return {"x": tx.grad, **{name: t.grad for name, t in leaves.items()}}
+
+    got = grads()
+    with monkeypatch.context() as m:
+        m.setattr(L._RowGather, "apply", staticmethod(
+            lambda src, index, back: torch.cat([src, src.new_zeros((1, src.shape[1]))])[index]))
+        want = grads()
+    assert got.keys() == want.keys()
+    for name, g in want.items():
+        close(got[name], g.numpy(), tol=1e-6, what=name)
+
+
 @pytest.mark.parametrize("k", [1, 2, 6])
 def test_route_breaks_ties_as_lax_top_k(k):
     """Rows with many equal probabilities: the same values and expert ids

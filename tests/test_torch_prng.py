@@ -13,6 +13,7 @@ draws (``src/repro_torch/exp/data/prng_table.json``) that ``chip_smoke.py``
 holds the card's draws to.
 """
 import json
+import math
 import pathlib
 import sys
 
@@ -25,6 +26,7 @@ import torch
 from repro.core import rounds as jrounds  # noqa: F401  (turns on x64, as the package does)
 from repro_torch.core import prng, xla_math
 from repro_torch.exp import problems
+from repro_torch.kernels import threefry_normal as tn
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the repo root's smoke script: its table adapter)
@@ -347,6 +349,138 @@ def test_draws_past_a_block_split_the_key_as_jax(block, size):
     for a, w in prng._bits32_chunks(prng.PRNGKey(5), size, torch.device("cpu"), False, 16,
                                     lo, hi, block=block):
         np.testing.assert_array_equal(w.numpy(), want[a:a + w.numel()])
+
+
+# --------------------------------------------------------------------------
+# kernel 7 (`kernels.threefry_normal`): its launcher's geometry and its CPU route
+# --------------------------------------------------------------------------
+def _twin_words(size, lo, hi, part, key, block=prng.M32):
+    """The words kernel 7 takes for the draws [lo, hi): its launcher's plan
+    (`plan`, `block_keys`) walked pair by pair as the kernel walks it (pair
+    p of a block hashes (p, h + p), the last counter 0 when the block is
+    odd, and gives draws p and h + p; partitionable: (0, i) gives draw i as
+    y0 ^ y1), hashed in Python integers: {flat index: uint32 word}."""
+    table = tn.block_keys(key[None], size, part, block)[0].tolist()
+    words = {}
+    for r in tn.plan(size, lo, hi, part, block):
+        for p in range(r.first, r.first + r.count):
+            if part:
+                y0, y1 = prng._threefry(*table[r.key], 0, p)
+                out = [(r.off + p, y0 ^ y1)]
+            else:
+                x1 = 0 if (p == r.h - 1 and r.n % 2) else r.h + p
+                y0, y1 = prng._threefry(*table[r.key], p, x1)
+                out = [(r.off + p, y0)] + ([(r.off + r.h + p, y1)] if r.h + p < r.n else [])
+            for i, w in out:
+                if lo <= i < hi:
+                    assert i not in words, i
+                    words[i] = w
+    return words
+
+
+@pytest.mark.parametrize("size", [1, 2, 7, 8, 1000, 1001])
+def test_launcher_geometry_picks_jax_normals_words(setting, size):
+    """A pure-Python twin of kernel 7's launch (`plan`, `block_keys`,
+    `sources`) picks, for odd and even sizes and for windows at the start,
+    across h = ⌈n/2⌉ (where the original layout's pairs split) and at the
+    end, exactly the words of ``jax.random.bits``, and through the port's
+    transform exactly ``jax.random.normal``'s values."""
+    bits = np.asarray(jax.random.bits(jax.random.PRNGKey(3), (size,), jnp.uint32))
+    normal = np.asarray(jax.random.normal(jax.random.PRNGKey(3), (size,), jnp.float32))
+    h = (size + 1) // 2
+    for lo, hi in ((0, size), (0, 3), (max(0, h - 3), min(size, h + 3)), (max(0, size - 2), size),
+                   (size // 3, size // 3 + 5)):
+        hi = min(hi, size)
+        words = _twin_words(size, lo, hi, setting, prng.PRNGKey(3))
+        assert sorted(words) == list(range(lo, hi)), (lo, hi)
+        got = torch.tensor([words[i] for i in range(lo, hi)], dtype=torch.int64)
+        np.testing.assert_array_equal(got.numpy(), bits[lo:hi].astype(np.int64))
+        assert prng._normal_from_bits(got).numpy().tobytes() == normal[lo:hi].tobytes()
+
+
+@pytest.mark.parametrize("block,size", [(1001, 1001), (1001, 3 * 1001 + 17), (1000, 2500)])
+def test_launcher_geometry_splits_blocks_as_jax(block, size):
+    """Past a block of counters (2³² − 1 in jax; a small ``block`` here)
+    the twin's plan takes each block's words under its key of ``split(key,
+    nblocks + 1)``, as jax's primitives draw them, also in a window across
+    the first block's end, in at most `MAX_RANGES` ranges."""
+    from jax._src import prng as jprng
+
+    with jax.threefry_partitionable(False):
+        nblocks, rem = divmod(size, block)
+        keys = jprng.threefry_split(jax.random.PRNGKey(5), (nblocks + 1,))
+        want = np.concatenate(
+            [np.asarray(jprng.threefry_2x32(k, jax.lax.iota(np.uint32, block)))
+             for k in keys[:-1]] + [np.asarray(jprng.threefry_2x32(
+                 keys[-1], jax.lax.iota(np.uint32, rem)))]).astype(np.int64)
+    for lo, hi in ((0, size), (block - 5, min(size, block + 40))):
+        words = _twin_words(size, lo, hi, False, prng.PRNGKey(5), block)
+        assert sorted(words) == list(range(lo, hi))
+        np.testing.assert_array_equal([words[i] for i in range(lo, hi)], want[lo:hi])
+        assert len(tn.plan(size, lo, hi, False, block)) <= tn.MAX_RANGES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kernel_wrapper_cpu_route_is_the_eager_draw(setting, dtype):
+    """`threefry_normal` on a CPU ``out`` is the eager draw bit for bit —
+    whole rows of a batch of keys, a window across h, a scale and the
+    rounding to bfloat16 — launches nothing, and is `threefry_normal_plain`."""
+    keys = prng.split(prng.PRNGKey(11), 3)
+    n, lo, w = 1001, 480, 60
+    whole = prng.normal(keys, (n,))
+    tn.launches = 0
+    out = tn.threefry_normal(torch.empty(3, n, dtype=dtype), keys, n, scale=0.02)
+    assert out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32).equal(
+        (whole * 0.02).to(dtype).view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    part = torch.empty(3, w, dtype=dtype)
+    tn.threefry_normal(part, keys, n, lo, scale=0.02)
+    plain = tn.threefry_normal_plain(torch.empty(3, w, dtype=dtype), keys, n, lo, scale=0.02)
+    assert torch.equal(part, out[:, lo:lo + w]) and torch.equal(plain, part)
+    # a row of a wider buffer (a leaf's row stride)
+    wide = torch.zeros(3, 2 * n, dtype=dtype)
+    tn.threefry_normal(wide[:, :n], keys, n, scale=0.02)
+    assert torch.equal(wide[:, :n], out) and not wide[:, n:].any()
+    assert tn.launches == 0
+
+
+def test_kernel_wrapper_refuses_what_it_cannot_draw():
+    k = prng.PRNGKey(0)[None]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tn.threefry_normal(torch.empty(1, 4, dtype=torch.float64), k, 4)
+    with pytest.raises(ValueError, match="unit inner stride"):
+        tn.threefry_normal(torch.empty(4, 2)[:, :1].T, k, 4)
+    with pytest.raises(ValueError, match="one \\(2,\\) key a row"):
+        tn.threefry_normal(torch.empty(2, 4), k, 4)
+    with pytest.raises(ValueError, match="outside"):
+        tn.threefry_normal(torch.empty(1, 4), k, 6, start=3)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tn.threefry_normal(torch.empty(1, 4, device="meta"), k, 4)
+    with pytest.raises(ValueError, match="partitionable=True"):
+        tn.plan(prng.M32, 0, 8, True)
+
+
+def test_every_init_leaf_is_one_launch():
+    """Each row of every keyed leaf of the ten configs at full width (the
+    largest, llama4-maverick's experts, past 2³² − 1 draws) plans into at
+    most `MAX_RANGES` ranges: one launch a leaf."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    sizes = set()
+    for arch in configs.ARCH_IDS:
+        for name, leaf in chip_smoke._leaves(M.param_shapes(configs.get_config(arch))):
+            if leaf.dim() >= 2 and not name.endswith("scale"):
+                sizes.add(math.prod(leaf.shape[1:]) if name.startswith(("layers", "encoder"))
+                          else leaf.numel())
+    assert max(sizes) > prng.M32
+    for n in sizes:
+        for part in (False, True):
+            if part and n >= prng.M32:
+                continue
+            ranges = tn.plan(n, 0, n, part)
+            assert 1 <= len(ranges) <= tn.MAX_RANGES, (n, part)
+            assert sum(r.count for r in ranges) == (n if part else sum(
+                (r.n + 1) // 2 for r in ranges)), n
 
 
 # --------------------------------------------------------------------------

@@ -32,10 +32,12 @@ from repro.models.steps import make_fused_vocab_xent as j_fused
 from repro.models.steps import make_train_step as j_train_step
 from repro.optim import adamw as jadamw
 from repro_torch import configs
+from repro_torch.core import prng
 from repro_torch.data import pipeline
 from repro_torch.kernels import basis_transform, tiled_matmul, topk_threshold
 from repro_torch.launch import train
 from repro_torch.models import convert, steps
+from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
 #: the reduced configs trained here: gemma3 and qwen2-vl with grouped KV
@@ -299,6 +301,63 @@ def test_remat_is_bitwise_the_plain_forward(trained):
     assert l0 == l1
     for (_, a), (_, b) in zip(leaves(p0), leaves(p1)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("arch", list(TRAIN_CFGS))
+def test_kernel_calls_of_a_train_step(arch, remat, monkeypatch, chip_smoke):
+    """The kernel calls `chip_smoke.train_launches` holds the card's train
+    path to, counted here at the wrappers over one gradient: kernel 5 once a
+    forward for each encoder layer, and for each decoder attention and
+    cross-attention layer once, or twice under remat (the group again in
+    the backward); kernel 6 likewise for each Mamba2 layer; each layer's
+    backward once."""
+    from repro_torch.kernels import ops
+
+    calls = dict.fromkeys(("flash_attention", "flash_attention_bwd", "ssd_scan",
+                           "ssd_scan_bwd"), 0)
+
+    class Backward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, name, x):
+            ctx.name = name
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            calls[f"{ctx.name}_bwd"] += 1
+            return None, g
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            out = fn(*args, **kwargs)
+            if isinstance(out, tuple):
+                return (Backward.apply(name, out[0]),) + out[1:]
+            return Backward.apply(name, out)
+        return wrapper
+
+    monkeypatch.setattr(ops, "attention", counted("flash_attention", ops.attention))
+    monkeypatch.setattr(ops, "ssd", counted("ssd_scan", ops.ssd))
+    cfg = configs.get_config(arch).reduced(**TRAIN_CFGS[arch])
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
+    batch = {"tokens": torch.zeros((1, 17), dtype=torch.int32),
+             **{k: torch.tensor(v) for k, v in chip_smoke.reduced_extras(cfg, 1).items()}}
+    steps.make_grad_fn(cfg, remat=remat)(params, batch)
+    assert calls == chip_smoke.train_launches(cfg, remat)
+
+
+def test_route_comparison_names_a_tie(chip_smoke):
+    """`chip_smoke.compare_routes` passes equal expert ids, and names a
+    token routed otherwise a tie when its two experts' probabilities are
+    equal, not a tie when they are apart."""
+    probs = torch.tensor([[0.5, 0.3, 0.2], [0.4, 0.4, 0.2]])
+    ids = torch.tensor([[0], [0]])
+    assert chip_smoke.compare_routes("t", [(probs, ids)], [(probs, ids)])["expert_ids_equal"]
+    with pytest.raises(AssertionError, match=r"routes token 1 .*\(a tie"):
+        chip_smoke.compare_routes("t", [(probs, torch.tensor([[0], [1]]))], [(probs, ids)])
+    with pytest.raises(AssertionError, match=r"routes token 0 .*\(not a tie"):
+        chip_smoke.compare_routes("t", [(probs, torch.tensor([[2], [0]]))], [(probs, ids)])
 
 
 def test_microbatches_match_one_batch(trained):
