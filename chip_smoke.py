@@ -57,7 +57,7 @@ is non-zero and no result line is printed:
                 them), the card's draws at the path's shapes bitwise equal
                 to the CPU's, `normal` (kernel 7 on the card, one launch a
                 piece) at every draw shape of the ten configs' inits and
-                BL-DNN (whole leaves to 2²¹ draws; the large leaves, up to
+                BL-DNN (whole leaves to 2¹⁸ draws; the large leaves, up to
                 jamba's 3.2 G-draw expert rows, drawn whole on the card and
                 held in three windows) in both settings, llama4's 5.4 G-draw
                 expert leaf past 2³² − 1 in one launch and in windows, and
@@ -229,7 +229,7 @@ is non-zero and no result line is printed:
                 fig4/BL2_tau_half served under the serve smoke's fault plan
                 to round 12, then resumed here on one rank: bitwise the
                 uninterrupted one-rank serve and held to fed_serve_ref.json;
-                at W = 2 fig1-xl/BL1 (2 rounds at full width) exact and
+                at W = 2 fig1-xl/BL1 (1 round at full width) exact and
                 exact=False, and fig1-xxl/BL2 on cohort+sharded held to its
                 file with the participants equal.  Each case prints W, the
                 ranks holding clients, the process-group backend, s/round
@@ -254,7 +254,11 @@ is non-zero and no result line is printed:
                 codeqwen, deepseek-moe, llama4's rep 5, qwen2-vl's 2304
                 positions, whisper's decoder, non-causal encoder over 1500
                 frames, and cross-attention of 2048 and of 1 query against
-                1500 keys);
+                1500 keys); and at a sequence-parallel rank's query offset
+                (`q_pos0`: phase lm_sharded's gemma3 slices, 1024 queries
+                at 0 / 1024 / 2048 against 3072 keys, window 1024 and
+                global) in both types, timed at the last slice beside SDPA
+                with the offset mask and the bound over the visible pairs;
   11. kernels_ssd — the SSD kernel's y and final state against its plain
                 version (each within 1e-4·max|plain|) at mamba2-370m's
                 prefill shape, the reference's sweep, ragged lengths, heads
@@ -281,7 +285,7 @@ is non-zero and no result line is printed:
                 then the full-width config in bfloat16 with the reference's
                 weights of PRNGKey(0), cut in depth where `SERVE_CELLS`
                 says (init seconds and peak reported): 4 requests (mamba2:
-                8) of 2048-token prompts, 32 decode steps (gemma3, mamba2)
+                8) of 2048-token prompts, 16 decode steps (gemma3, mamba2)
                 or 4 (the others), every logit finite, exactly the kernel
                 calls `lm_launches` counts (kernel 5 once an attention
                 layer a prefill and, for whisper, once an encoder and a
@@ -313,20 +317,24 @@ is non-zero and no result line is printed:
                 registers and spill bytes printed (kernel 5's bfloat16
                 templates must be its wgmma kernels and spill nothing), and
                 timed beside the plain version's backward, the library's
-                (SDPA's backward; none for the SSD) and the bound;
+                (SDPA's backward; none for the SSD) and the bound; kernel
+                5's backward also at phase lm_sharded's gemma3 slices
+                (query offsets 0 / 1024 / 2048, both types, bitwise over
+                reruns), timed at the last;
   14. train   — the LM training path (`repro_torch.launch.train`,
                 `models.steps.make_train_step`): gemma3-4b, mamba2-370m,
                 deepseek-moe-16b, whisper-small and qwen2-vl-72b reduced in
                 float32 on the card against the CPU from the same weights,
                 batches and seeded frames / prefix embeddings (a MoE's
                 expert ids compared first, a mismatch named a tie or not;
-                3 steps' losses within 2e-4 relative, step 0's gradients
+                2 steps' losses within 2e-4 relative, step 0's gradients
                 within 2e-4·max|ref| a leaf), then at full width through
                 `launch.train.main`, cut in depth only where `TRAIN_CELLS`
                 says (gemma3-4b, deepseek-moe at 12 layers, qwen2-vl at 6
                 at train_4k_b1; mamba2-370m, whisper-small at train_4k_b8;
-                bf16 weights and AdamW moments, remat; 4 steps): every loss
-                finite and exactly the kernel calls `train_launches` counts
+                bf16 weights and AdamW moments, remat; `TRAIN_STEPS` 2
+                steps): every loss finite and exactly the kernel calls
+                `train_launches` counts
                 (68 kernel-5 forward and 34 backward calls a step for
                 gemma3, 96 kernel-6 forward and 48 backward for mamba2,
                 whisper's encoder once and its self- and cross-attention
@@ -341,7 +349,32 @@ is non-zero and no result line is printed:
                 through the kernels and through the plain versions in bf16,
                 each leaf's relative distance from the float32 plain
                 versions' gradient at most twice the bf16 plain versions'
-                (or 2⁻⁸).
+                (or 2⁻⁸);
+  15. lm_sharded — the LM's sharding (`repro_torch.sharding`): the cells of
+                `LM_SHARDED`, float32, full width cut in depth (deepseek-
+                moe-16b (8 layers) prefill of 2 × 4096 tokens and 4 decode
+                steps at mesh (2, 2): the expert-parallel MoE, heads and
+                vocabulary over `model`, FSDP; gemma3-4b prefill of 3072 tokens and 4
+                decode steps at (1, 3): sequence-parallel attention, kernel
+                5 at q_pos0 0 / 1024 / 2048; mamba2-370m (12 layers) train,
+                8 × 4096, 3 steps at (2, 2): SSM heads over `model`, the
+                vocabulary-parallel fused CE; the reduced deepseek-moe
+                train: the expert-parallel backward), the one-process port
+                on the card first from the same weights and tokens, then the
+                ranks of `tests/torch_lm_sharded_worker.py` sharing the card
+                through gloo: logits within 2e-4·max|ref|, greedy tokens
+                equal, each data shard's expert ids equal or first
+                differing at near-ties (a gap within twice the router's
+                rounding drift there, `route_diff`), ranks holding the same
+                rows bitwise alike; losses within 1e-5 relative and each
+                step-0 gradient leaf within 1e-4·max|ref|, or within twice
+                the one-process port's own distance under a 1e-7 relative
+                perturbation of its weights where that is larger (the
+                in-run control, `LM_CONTROL_FACTOR`), every rank's bits
+                alike, a rerun bitwise; prefill / decode s or s/step, peak
+                memory and collectives by kind and bytes (gloo through host
+                memory: a check's seconds, not the path's speed); kernels 5,
+                5b, 6, 6b and 7 each launched, counted on every rank.
 
 GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
 every bit stream exactly; a NaN gap agrees only with a NaN in the
@@ -423,11 +456,12 @@ TOPK_KINDS = ("topk", "rtopk", "ntopk")
 #: under, and the 16-round chunks timed on each fleet (median)
 COHORT_FLAT_N = 1024
 COHORT_FLAT_RATIO = 2.0
-COHORT_TIMED_CHUNKS = 3
+COHORT_TIMED_CHUNKS = 2   # cut from 3 to fit phase lm_sharded in the script's time
 #: rounds of simulated draws timed in the prng phase: the launch counts a
 #: round are exact at any length, and the profiled pass over fig-dnn/RTopK
-#: costs ~1.6 s a round (50 rounds held the whole script ~80 s longer)
-PRNG_COST_ROUNDS = 10
+#: costs ~1.6 s a round (50 rounds held the whole script ~80 s longer; cut
+#: from 10 to fit phase lm_sharded in the script's time)
+PRNG_COST_ROUNDS = 4
 #: the experiments the exp phase runs through the CLI: the paper's headline
 #: cell (kernel 1), BL-DNN (kernels 1, 2 and 4) and the full-width fig1-xl
 EXP_FIGS = ("fig1r1", "fig-dnn", "fig1-xl")
@@ -467,6 +501,13 @@ TF32_SPLIT_PRODUCTS = 3
 #: gemma3-4b's prefill attention: (B, S, H, KVH, hd, window) of its sliding
 #: and its global layers
 ATTN_PATH = ((4, 2048, 8, 4, 256, 1024), (4, 2048, 8, 4, 256, None))
+#: kernel 5 and its backward at a sequence-parallel rank's query offset:
+#: the three slices of phase lm_sharded's gemma3-4b cell (B 1, a 3072-token
+#: prompt over 3 ranks: 1024 queries against 3072 keys, 8 query / 4 KV
+#: heads, hd 256) at q_pos0 0, 1024 and 2048, in its window-1024 layers and
+#: its global one: (B, Sq, Sk, H, KVH, hd), then (q_pos0, window) pairs
+ATTN_OFFSET_SHAPE = (1, 1024, 3072, 8, 4, 256)
+ATTN_OFFSETS = tuple((q0, w) for w in (1024, None) for q0 in (0, 1024, 2048))
 #: the reference's attention test sweep (tests/test_kernels.py)
 ATTN_SWEEP = ((2, 128, 128, 64, True, None), (1, 256, 256, 32, True, 64),
               (3, 64, 192, 64, False, None), (2, 96, 96, 128, True, 17))
@@ -487,9 +528,10 @@ SSD_SWEEP = ((2, 64, 16, 8, 16), (1, 128, 32, 16, 32), (4, 96, 8, 4, 24), (1, 60
 #: 41, 24 and 16 GB; llama4-maverick one group (a MoE layer of 128 experts
 #: and a dense one: 18.68 B, 37.4 GB).  The keyed inits run through kernel 7.
 #: The new cells' 4 decode steps keep the whole script's time down: with 8
-#: steps it ran 823 s (PERF.md §6)
-SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 32, None),
-               ("mamba2_370m", "decode_4k_b8", 32, None),
+#: steps it ran 823 s (PERF.md §6); gemma3-4b and mamba2-370m decode 16
+#: (32 until cut to fit phase lm_sharded in the script's time)
+SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 16, None),
+               ("mamba2_370m", "decode_4k_b8", 16, None),
                ("deepseek_moe_16b", "decode_4k_b4", 4, None),
                ("qwen2_vl_72b", "decode_4k_b4", 4, 2),
                ("granite_20b", "decode_4k_b4", 4, 4),
@@ -591,8 +633,8 @@ TRAIN_CELLS = (("gemma3_4b", "train_4k_b1", None, True),
 #: the MoE cell whose step-0 gradient runs twice from the same weights and
 #: must give the same bits (the MoE's backward sums in a fixed order)
 TRAIN_RERUN = "deepseek_moe_16b"
-TRAIN_STEPS = 4
-TRAIN_REDUCED_STEPS, TRAIN_REDUCED_SIZES = 3, (4, 64)
+TRAIN_STEPS = 2       # cut from 4 to fit phase lm_sharded in the script's time
+TRAIN_REDUCED_STEPS, TRAIN_REDUCED_SIZES = 2, (4, 64)   # steps cut from 3, as TRAIN_STEPS
 TRAIN_TOL = 2e-4
 #: the bfloat16 witness (PERF.md §2): gemma3-4b at full width cut to one
 #: period of its layer pattern (5 window-1024 layers, then a global one),
@@ -615,7 +657,7 @@ WITNESS_LOSS_TOL = (1e-2, 5e-2)
 SHARDED_W, SHARDED_XL_W = 4, 2
 SHARDED_CELLS = (("fig1r1", "BL1"), ("fig4", "BL2_tau_half"), ("fig4", "BL3_tau_half"),
                  ("fig1-bag", "BAG_q0.5"), ("fig-dnn", "BLDNN"))
-SHARDED_XL_STEPS = 2
+SHARDED_XL_STEPS = 1  # cut from 2 to fit phase lm_sharded in the script's time
 SERVE_SMOKE_CASE, SERVE_SMOKE_STOP = "fig4/BL2_tau_half", 12
 SHARDED_TIMEOUT_S = 400
 #: the reference's envelope of exact=False around the exact run
@@ -1598,10 +1640,12 @@ def prng_phase(torch, prng, rounds, tn, device: str = "cuda",
 
 #: normal draws held card = CPU over the whole leaf up to this many draws;
 #: a larger leaf is drawn whole on the card (in chunks) and held in windows
-NORMAL_WHOLE = 1 << 21
+#: (whole leaves to 2²¹ draws and windows of 2¹⁶ until cut to fit phase
+#: lm_sharded in the script's time: the CPU's draws took ~25 s)
+NORMAL_WHOLE = 1 << 18
 #: the windows' length (start, across the half ⌈n/2⌉ where the original
 #: layout's pairs split, end)
-NORMAL_WINDOW = 1 << 16
+NORMAL_WINDOW = 1 << 14
 
 
 #: leaves `init_params` does not draw (norm scales, the Mamba2 block's
@@ -2584,19 +2628,20 @@ def dnn_drawn_phase(torch, k, problems) -> dict:
             "fixture": {"x_bitwise": True, "y_equal": True, "params0": leaf_rel}}
 
 
-def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+def attention_pairs(Sq: int, Sk: int, causal: bool, window, q_pos0: int = 0) -> int:
     """Visible (query, key) pairs of one head: keys j ≤ i (causal) and
-    j > i − window; a row that sees no key averages all Sk values."""
+    j > i − window for the query at position i (q_pos0 + its row); a row
+    that sees no key averages all Sk values."""
     import numpy as np
 
-    qi = np.arange(Sq)
+    qi = q_pos0 + np.arange(Sq)
     hi = np.minimum(qi, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(qi - window + 1, 0) if window else np.zeros(Sq, np.int64)
     n = np.maximum(hi - lo + 1, 0)
     return int(np.where(n > 0, n, Sk).sum())
 
 
-def attention_bound_ms(q, k, causal: bool, window) -> tuple:
+def attention_bound_ms(q, k, causal: bool, window, q_pos0: int = 0) -> tuple:
     """Least time for masked attention: q, k, v read once and o written once
     in their type, or 4·hd operations (two multiply-adds) a visible pair and
     head at the bfloat16 tensor-core rate (bfloat16 inputs) or the float32
@@ -2606,7 +2651,7 @@ def attention_bound_ms(q, k, causal: bool, window) -> tuple:
     eb = q.element_size()
     bytes_ms = eb * (2 * B * Sq * H * hd + 2 * B * Sk * KVH * hd) / HBM_BYTES_PER_S * 1e3
     rate = BF16_OPS_PER_S if str(q.dtype) == "torch.bfloat16" else OPS32_PER_S
-    ops_ms = 4 * hd * B * H * attention_pairs(Sq, Sk, causal, window) / rate * 1e3
+    ops_ms = 4 * hd * B * H * attention_pairs(Sq, Sk, causal, window, q_pos0) / rate * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -2671,9 +2716,10 @@ def attention_kernel_phase(torch, fa) -> dict:
     #: the largest share of its limit an element's error takes, by type
     share = {"float32": 0.0, "bfloat16": 0.0}
 
-    def hold(name, dt, q, k, v, causal, window):
-        out = fa.flash_attention(q, k, v, causal=causal, window=window)
-        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    def hold(name, dt, q, k, v, causal, window, q_pos0=0):
+        out = fa.flash_attention(q, k, v, causal=causal, window=window, q_pos0=q_pos0)
+        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         q_pos0=q_pos0).float()
         torch.cuda.synchronize()
         d = (out.float() - plain).abs()
         scale = float(plain.abs().max())
@@ -2695,6 +2741,12 @@ def attention_kernel_phase(torch, fa) -> dict:
     for name, B, Sq, Sk, H, KVH, hd, causal, window, dt in cases:
         hold(name, dt, rnd(B, Sq, H, hd, dtype=dt), rnd(B, Sk, KVH, hd, dtype=dt),
              rnd(B, Sk, KVH, hd, dtype=dt), causal, window)
+    # a sequence-parallel rank's slice: its queries at q_pos0 against every key
+    B, Sq, Sk, H, KVH, hd = ATTN_OFFSET_SHAPE
+    for q0, w in ATTN_OFFSETS:
+        for dt in ("bfloat16", "float32"):
+            hold(f"gemma3 slice at q_pos0 {q0}, window {w}", dt, rnd(B, Sq, H, hd, dtype=dt),
+                 rnd(B, Sk, KVH, hd, dtype=dt), rnd(B, Sk, KVH, hd, dtype=dt), True, w, q0)
     # q, k, v read through strides: views of head-major (B, H, S, hd) arrays
     for dt in ("float32", "bfloat16"):
         hold("strided views", dt, rnd(2, 8, 96, 64, dtype=dt).transpose(1, 2),
@@ -2736,6 +2788,30 @@ def attention_kernel_phase(torch, fa) -> dict:
             "pairs_per_head": attention_pairs(S, S, True, w)}
         del q, k, v, qt, kt, vt, plain
     torch.cuda.empty_cache()
+    # the last slice (q_pos0 2048) of each layer kind, in both types, beside
+    # SDPA with the offset mask as a boolean mask
+    B, Sq, Sk, H, KVH, hd = ATTN_OFFSET_SHAPE
+    for q0, w in ATTN_OFFSETS:
+        if q0 != 2048:
+            continue
+        for dt in ("float32", "bfloat16"):
+            q = rnd(B, Sq, H, hd, dtype=dt)
+            k, v = (rnd(B, Sk, KVH, hd, dtype=dt) for _ in range(2))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = fa.mask(Sq, Sk, True, w, q.device, q0)
+            bound, by = attention_bound_ms(q, k, True, w, q0)
+            timings[f"offset{q0}_{'global' if w is None else f'window{w}'}_{dt}"] = {
+                "shape": [B, Sq, Sk, H, KVH, hd], "q_pos0": q0, "window": w, "dtype": dt,
+                "kernel_ms": cuda_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, causal=True, window=w, q_pos0=q0), 20, warmup=2),
+                "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
+                    q, k, v, causal=True, window=w, q_pos0=q0), 5, warmup=1),
+                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), 20, warmup=2),
+                "bound_ms": bound, "bound_by": by,
+                "pairs_per_head": attention_pairs(Sq, Sk, True, w, q0)}
+            del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     # the other configs' full-width shapes, bfloat16: held, then timed
     config_timings = {}
     for name, B, Sq, Sk, H, KVH, hd, causal in ATTN_CONFIG_SHAPES:
@@ -2761,7 +2837,8 @@ def attention_kernel_phase(torch, fa) -> dict:
             "padded_share": 1.0 - hd / hdp}
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return {"cases": len(cases) + 2 + len(ATTN_CONFIG_SHAPES), "max_abs_err": err,
+    return {"cases": len(cases) + 2 + len(ATTN_CONFIG_SHAPES) + 2 * len(ATTN_OFFSETS),
+            "max_abs_err": err,
             "max_rel_err": rel, "limit_share": share, "timings": timings,
             "config_timings": config_timings, "templates": fa.kernel_attributes()}
 
@@ -2883,7 +2960,7 @@ def ssd_kernel_phase(torch, ss) -> dict:
             "workspace_bytes_at_path_shape": 4 * lib.ssd_scan_workspace_floats(*SSD_PATH)}
 
 
-def attention_bwd_bound_ms(q, k, causal: bool, window) -> tuple:
+def attention_bwd_bound_ms(q, k, causal: bool, window, q_pos0: int = 0) -> tuple:
     """Least time for attention's gradient: q, k, v and dO read once and dq,
     dk, dv written once in their type, or five products of 2·hd operations
     a visible pair and query head (s, dP, dv, dq, dk) at the bfloat16
@@ -2894,7 +2971,7 @@ def attention_bwd_bound_ms(q, k, causal: bool, window) -> tuple:
     eb = q.element_size()
     bytes_ms = eb * (3 * B * Sq * H * hd + 4 * B * Sk * KVH * hd) / HBM_BYTES_PER_S * 1e3
     rate = BF16_OPS_PER_S if str(q.dtype) == "torch.bfloat16" else OPS32_PER_S
-    ops_ms = 10 * hd * B * H * attention_pairs(Sq, Sk, causal, window) / rate * 1e3
+    ops_ms = 10 * hd * B * H * attention_pairs(Sq, Sk, causal, window, q_pos0) / rate * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -2950,15 +3027,15 @@ def attention_bwd_phase(torch, fa) -> dict:
     def rnd(*shape, dtype):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
-    def grads(q, k, v, do, causal, window):
+    def grads(q, k, v, do, causal, window, q0=0):
         ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        out = fa.flash_attention(*ins, causal=causal, window=window)
+        out = fa.flash_attention(*ins, causal=causal, window=window, q_pos0=q0)
         if out.grad_fn is None or out.dtype != q.dtype:
             raise AssertionError("flash_attention on tensors that require a gradient "
                                  "returned no grad_fn")
         return dict(zip(("dq", "dk", "dv"), torch.autograd.grad(out, ins, do)))
 
-    def truth(q, k, v, do, causal, window):
+    def truth(q, k, v, do, causal, window, q0=0):
         """float64 autograd through the plain version, a batch entry and a
         group of KV heads (with their query heads) at a time."""
         B, Sq, H, _ = q.shape
@@ -2972,7 +3049,7 @@ def attention_bwd_phase(torch, fa) -> dict:
                 qs, ks = slice(h0 * rep, (h0 + g) * rep), slice(h0, h0 + g)
                 ins = [x[b:b + 1, :, sl].double().detach().requires_grad_(True)
                        for x, sl in ((q, qs), (k, ks), (v, ks))]
-                o = fa.flash_attention_plain(*ins, causal=causal, window=window)
+                o = fa.flash_attention_plain(*ins, causal=causal, window=window, q_pos0=q0)
                 d = torch.autograd.grad(o, ins, do[b:b + 1, :, qs].double())
                 for key, sl, t in (("dq", qs, d[0]), ("dk", ks, d[1]), ("dv", ks, d[2])):
                     out[key][b:b + 1, :, sl] = t
@@ -2983,17 +3060,20 @@ def attention_bwd_phase(torch, fa) -> dict:
     for name, B, Sq, Sk, H, KVH, hd, causal, w in ATTN_BWD_PATH:
         label = f"gemma3 train, window {w}" if name in ("global", "window1024") else name
         cases.append((label, B, Sq, Sk, H, KVH, hd, causal, w, True))
-    cases += [c + (False,) for c in ATTN_BWD_SWEEP]
-    for name, B, Sq, Sk, H, KVH, hd, causal, window, path in cases:
+    cases = [c + (0,) for c in cases] + [c + (False, 0) for c in ATTN_BWD_SWEEP]
+    # a sequence-parallel rank's slices (phase lm_sharded's gemma3 cell)
+    cases += [(f"gemma3 slice at q_pos0 {q0}, window {w}", *ATTN_OFFSET_SHAPE, True, w, True, q0)
+              for q0, w in ATTN_OFFSETS]
+    for name, B, Sq, Sk, H, KVH, hd, causal, window, path, q0 in cases:
         for dt in (torch.bfloat16, torch.float32):
             q, do = rnd(B, Sq, H, hd, dtype=dt), rnd(B, Sq, H, hd, dtype=dt)
             k, v = rnd(B, Sk, KVH, hd, dtype=dt), rnd(B, Sk, KVH, hd, dtype=dt)
-            got = grads(q, k, v, do, causal, window)
+            got = grads(q, k, v, do, causal, window, q0)
             tag = f"{name} ({str(dt)[6:]})"
             errs[tag] = _bwd_err(f"flash_attention backward on {tag}", got,
-                                 truth(q, k, v, do, causal, window), dt == torch.bfloat16)
+                                 truth(q, k, v, do, causal, window, q0), dt == torch.bfloat16)
             if path:
-                again = grads(q, k, v, do, causal, window)
+                again = grads(q, k, v, do, causal, window, q0)
                 bitwise[tag] = all(torch.equal(got[key], again[key]) for key in got)
                 if not bitwise[tag]:
                     raise AssertionError(f"flash_attention backward on {tag}: two runs differ")
@@ -3040,6 +3120,37 @@ def attention_bwd_phase(torch, fa) -> dict:
             "cuda_launches_per_call": cuda_launches}
         del q, k, v, do, ins, out_plain, qt, kt, vt, out_sdpa, dot
         torch.cuda.empty_cache()
+    # the last slice (q_pos0 2048) of each layer kind, in both types, beside
+    # the plain version's backward and SDPA's with the offset mask
+    B, Sq, Sk, H, KVH, hd = ATTN_OFFSET_SHAPE
+    for q0, w in ATTN_OFFSETS:
+        for dt in (torch.float32, torch.bfloat16) if q0 == 2048 else ():
+            q, do = (rnd(B, Sq, H, hd, dtype=dt) for _ in range(2))
+            k, v = (rnd(B, Sk, KVH, hd, dtype=dt) for _ in range(2))
+            ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out_plain = fa.flash_attention_plain(*ins, causal=True, window=w, q_pos0=q0)
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+            out_sdpa = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=fa.mask(Sq, Sk, True, w, q.device, q0), enable_gqa=True)
+            dot = do.transpose(1, 2)
+
+            def kernel():
+                return fa._kernel_bwd(q, k, v, do, True, w, q0)
+
+            bound, by = attention_bwd_bound_ms(q, k, True, w, q0)
+            kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
+            timings[f"offset{q0}_{'global' if w is None else f'window{w}'}_{str(dt)[6:]}"] = {
+                "shape": [B, Sq, Sk, H, KVH, hd], "causal": True, "window": w, "q_pos0": q0,
+                "dtype": str(dt)[6:], "kernel_ms": kernel_ms,
+                "device_ms": device_ms(torch, {"bwd": kernel}, reps=3)["bwd"],
+                "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                    out_plain, ins, do, retain_graph=True), 3, warmup=1),
+                "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                    out_sdpa, (qt, kt, vt), dot, retain_graph=True), 5, warmup=1),
+                "bound_ms": bound, "bound_by": by, "share": bound / kernel_ms,
+                "pairs_per_head": attention_pairs(Sq, Sk, True, w, q0)}
+            del q, k, v, do, ins, out_plain, qt, kt, vt, out_sdpa, dot
+            torch.cuda.empty_cache()
     attrs = fa.backward_attributes()
     for key, a in attrs.items():
         if key.startswith("bfloat16/") and (a["kernel"] != fa.BWD_KERNELS["bfloat16"][
@@ -4317,6 +4428,414 @@ def lm_serve_phases(torch, k, fa, ss, profile: bool) -> tuple:
     return ka, ks, serve_res
 
 
+#: phase lm_sharded: the LM's sharded path (`repro_torch.sharding`), ranks
+#: sharing the card through gloo (`tests/torch_lm_sharded_worker.py`), held
+#: to the one-process port on the card from the same weights and inputs.
+#: Every cell is float32 and full width, cut in depth for time: gloo carries
+#: every collective through host memory at ~0.7 GB/s a rank (PERF.md §6),
+#: and FSDP gathers each expert weight every step.  deepseek-moe-16b keeps
+#: LM_DEEPSEEK_LAYERS of its 28 layers (~1.2 GB of expert weights gathered
+#: a layer and a step, ~9 s a layer for the prefill and 4 decode steps) and
+#: skips the serve rerun; gemma3-4b its first 6 (5 window-1024 layers and
+#: its global one); mamba2-370m LM_MAMBA_LAYERS of 48 (~1 GB of collectives
+#: a layer a rank a step); the reduced deepseek-moe trains 4 × 1024 tokens.
+#: Each cell: (name, mesh, worker case)
+LM_DEEPSEEK_LAYERS = 8
+LM_MAMBA_LAYERS = 12
+LM_SHARDED = (
+    ("deepseek-moe-16b/prefill@2x2", (2, 2),
+     dict(kind="serve", arch="deepseek_moe_16b", reduced=False, layers=LM_DEEPSEEK_LAYERS, B=2,
+          S=4096, max_seq=4100, gen=4, routes=True, rerun=False)),
+    ("deepseek-moe-reduced/train@2x2", (2, 2),
+     dict(kind="train", arch="deepseek_moe_16b", B=4, S=1024, steps=2, remat=False)),
+    ("mamba2-370m/train@2x2", (2, 2),
+     dict(kind="train", arch="mamba2_370m", reduced=False, layers=LM_MAMBA_LAYERS, B=8, S=4096,
+          steps=3, remat=True, keep_grads=0)),
+    ("gemma3-4b/prefill@1x3", (1, 3),
+     dict(kind="serve", arch="gemma3_4b", reduced=False, layers=6, B=1, S=3072, max_seq=3078,
+          gen=4)),
+)
+#: the sharded cells against the one-process port on the card: logits share
+#: of max|ref|, losses relative, step-0 gradients share of each leaf's max
+LM_SHARDED_TOL = {"logits": 2e-4, "loss": 1e-5, "grad": 1e-4}
+LM_SHARDED_TIMEOUT = 600
+#: a train cell's control: the one-process port run again from its weights
+#: under a relative perturbation of LM_PERTURBATION (about float32's unit
+#: roundoff), its step-0 gradients' and its steps' losses' distance from
+#: the unperturbed run.  The sharded path reorders float32 sums, so its
+#: distance is held to LM_CONTROL_FACTOR times the control's (the control is
+#: one random draw), or to LM_SHARDED_TOL where that is larger.  The float64
+#: witness in `tests/test_torch_lm_sharded.py` shows the gap is rounding:
+#: in float64 the sharded gradient is the one-process one to ~1e-13 at
+#: mamba2-370m's full depth.
+LM_PERTURBATION = 1e-7
+LM_CONTROL_FACTOR = 2.0
+#: the kernels the sharded path launches
+LM_SHARDED_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+                      "threefry_normal")
+
+
+def lm_worker():
+    """`tests/torch_lm_sharded_worker.py`, the ranks' script, as a module:
+    its `case_config` builds a cell's config for the one-process port as
+    the ranks build it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_sharded_worker", ROOT / "tests" / "torch_lm_sharded_worker.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lm_cell_inputs(cfg, case: dict) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    S = case["S"] + (1 if case["kind"] == "train" else 0)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (case["B"], S)).astype(np.int32)}
+
+
+def lm_one_process(torch, cfg, case: dict, inputs: dict, mesh: tuple) -> dict:
+    """The one-process port on the card from the cell's weights and inputs:
+    a serve cell's prefill (on each data shard's rows where the MoE is
+    expert-parallel, as the sharded path defines it) and greedy decode, its
+    routes; a train cell's step-0 loss and gradients (host copies) and its
+    AdamW steps' losses (the mean of the data shards' gradients where
+    expert-parallel), and the control: the same from weights perturbed by
+    LM_PERTURBATION."""
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw_init, adamw_update
+
+    B = case["B"]
+    ep = (cfg.moe is not None and cfg.moe.n_experts % mesh[1] == 0
+          and B * case["S"] >= 4096)
+    shards = mesh[0] if ep else 1
+    n = B // shards
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cuda")
+    toks = torch.as_tensor(inputs["tokens"], device="cuda")
+    out = {}
+    if case["kind"] == "serve":
+        routes, route = [], L.moe_route
+
+        def recorded(probs, k):
+            vals, ids = route(probs, k)
+            routes.append((probs.float().cpu().numpy(), ids.cpu().numpy()))
+            return vals, ids
+        pres = []
+        L.moe_route = recorded
+        try:
+            for s in range(shards):
+                cache = M.init_cache(cfg, n, case["max_seq"], torch.float32, device="cuda")
+                pres.append(serve.prefill(params, cfg, toks[s * n:(s + 1) * n], cache))
+                out[f"routes{s}"] = list(routes)
+                routes.clear()
+        finally:
+            L.moe_route = route
+        cache = {li: {key: torch.cat([p["cache"][li][key] for p in pres], 1)
+                      for key in pres[0]["cache"][li]} for li in pres[0]["cache"]}
+        token = torch.cat([p["token"] for p in pres])
+        dec = serve.decode(params, cfg, token, cache, case["S"], case["gen"])
+        out.update(prefill=torch.cat([p["logits"] for p in pres]).float().cpu().numpy(),
+                   steps=[lg.float().cpu().numpy() for lg in dec["logits"]],
+                   tokens=torch.cat([token[:, None], dec["tokens"]], 1).cpu().numpy(),
+                   prefill_s=sum(p["seconds"] for p in pres), decode_s=dec["seconds"])
+        return out
+    grad_fn = steps.make_grad_fn(cfg, remat=case.get("remat", False))
+
+    def grads_of(p):
+        parts = [grad_fn(p, {"tokens": toks[s * n:(s + 1) * n]}) for s in range(shards)]
+        g = parts[0][2]
+        for _, _, gi in parts[1:]:
+            g = _tree_add(g, gi)
+        if shards > 1:
+            g = _tree_map(lambda a: a / shards, g)
+        return sum(float(x[0]) for x in parts) / shards, g
+
+    def train(p):
+        opt, losses, step_s = adamw_init(p, torch.float32), [], []
+        for _ in range(case["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = grads_of(p)
+            p, opt = adamw_update(g, opt, p, lr=3e-4)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss)
+            del g
+        return losses, step_s
+
+    loss, g = grads_of(params)
+    out.update(loss=loss, grads=_tree_map(lambda t: t.float().cpu().numpy(), g))
+    del g
+    # the control (LM_PERTURBATION): every float weight perturbed, the
+    # gradient's worst leaf's distance (share of the leaf's max) and the
+    # steps' losses' relative distances from the unperturbed run
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noisy = _tree_map(lambda t: t * (1 + LM_PERTURBATION * torch.randn(
+        t.shape, generator=gen, device="cuda")) if t.is_floating_point() else t, params)
+    want = dict(_leaves(out["grads"]))
+    out["perturbed_grad_rel_err"] = max(
+        float(abs(g.float().cpu().numpy() - want[path]).max()
+              / max(abs(want[path]).max(), 1e-30))
+        for path, g in _leaves(grads_of(noisy)[1]))
+    noisy_losses, _ = train(noisy)
+    del noisy
+    losses, step_s = train(params)
+    out.update(losses=losses, step_s=step_s, perturbed_losses_rel_err=[
+        abs(a - b) / abs(b) for a, b in zip(noisy_losses, losses)])
+    return out
+
+
+def _tree_add(a: dict, b: dict) -> dict:
+    return {key: _tree_add(v, b[key]) if isinstance(v, dict) else v + b[key]
+            for key, v in a.items()}
+
+
+def run_lm_ranks(mesh: tuple, cases: list, tmp: pathlib.Path, timeout: float) -> dict:
+    """Start data·model ranks of `tests/torch_lm_sharded_worker.py` on the
+    one card (gloo: the ranks share it) with `cases`; every rank must exit 0
+    within `timeout` seconds (collectives time out sooner), or the phase
+    fails and every rank still running is killed.  Returns {rank: results}."""
+    import pickle
+
+    tag = "x".join(map(str, mesh))
+    out = tmp / f"out{tag}"
+    out.mkdir()
+    job = tmp / f"job{tag}.json"
+    job.write_text(json.dumps({"data": mesh[0], "model": mesh[1], "device": "cuda",
+                               "inputs": str(tmp), "out": str(out), "cases": cases}))
+    world, port = mesh[0] * mesh[1], _free_port()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                       OMP_NUM_THREADS="2", REPRO_DIST_TIMEOUT_S=str(int(timeout / 2)))
+            logs.append(open(out / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "tests" / "torch_lm_sharded_worker.py"), str(job)],
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            time.sleep(0.5)
+            if any(p.returncode not in (None, 0) for p in procs):
+                time.sleep(5.0)        # the others leave their collective
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = {r: p.returncode for r, p in enumerate(procs) if p.returncode != 0}
+    if bad:
+        tails = {r: (out / f"rank{r}.log").read_text()[-3000:] for r in bad}
+        raise AssertionError(f"lm_sharded ranks failed (rank: exit code) {bad}: {tails}")
+    return {r: pickle.loads((out / f"rank{r}.pkl").read_bytes())["results"]
+            for r in range(world)}
+
+
+def route_diff(got: list, want: list) -> dict:
+    """Each MoE layer's (probabilities, expert ids) of the sharded prefill
+    against the one-process port's: the tokens routed otherwise, and for
+    each the gap between the one-process probabilities of the experts that
+    differ (over the row's largest), the first layer that differs, and
+    there the router's drift, the largest distance between the two paths'
+    probabilities (over the row's largest).  Up to that layer the paths'
+    inputs differ only by the order of float32 sums, so the drift is their
+    rounding; ``ties`` is whether every token routed otherwise there has a
+    gap within LM_CONTROL_FACTOR times it (a near-tie the rounding flips).
+    Past it the inputs differ by a route (capacity, attention), so later
+    layers are counted, not judged."""
+    import numpy as np
+
+    out = {"moe_layers": len(want), "tokens_routed_otherwise": 0, "first_layer": None,
+           "gaps": [], "drift": None, "ties": True}
+    for layer, ((p_got, ids), (probs, ref_ids)) in enumerate(zip(got, want)):
+        # a token's experts as a set: their order does not enter its output
+        ids, ref_ids = np.sort(ids, axis=-1), np.sort(ref_ids, axis=-1)
+        bad = np.nonzero((ids != ref_ids).any(axis=-1))[0]
+        out["tokens_routed_otherwise"] += int(bad.size)
+        if not bad.size:
+            continue
+        first = out["first_layer"] is None
+        if first:
+            out["first_layer"] = layer
+            out["drift"] = float((np.abs(p_got - probs).max(axis=-1)
+                                  / probs.max(axis=-1)).max())
+        for t in bad[:8] if not first else bad:
+            a = sorted(set(ids[t].tolist()) ^ set(ref_ids[t].tolist()))
+            p = probs[t]
+            gap = float((p[a].max() - p[a].min()) / p.max())
+            out["gaps"].append([layer, int(t), gap])
+            if first and gap > LM_CONTROL_FACTOR * out["drift"]:
+                out["ties"] = False
+    return out
+
+
+def _rel(got, want) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(want).max())
+
+
+def _lm_sharded_launches(lms: dict, kernel: str) -> dict:
+    """A kernel's launches on each rank in phase lm_sharded's cells, where
+    it ran: {cell: [rank 0's, rank 1's, ...]}."""
+    out = {}
+    for name, rec in lms["cells"].items():
+        counts = [rec["launches_by_rank"][r][kernel] for r in sorted(rec["launches_by_rank"])]
+        if any(counts):
+            out[name] = counts
+    return out
+
+
+def lm_sharded_phase(torch, smi: str) -> dict:
+    """The LM's sharded cells (LM_SHARDED): the one-process port first on
+    the card (kept on the host, freed), then the ranks, two launches (the
+    (2, 2) and the (1, 3) mesh), each case with the kernels' counts set to 0
+    just before it and read just after.  A serve cell's gathered logits
+    within LM_SHARDED_TOL of the one-process port's, greedy tokens equal,
+    each data shard's expert ids equal or first differing at rounding ties
+    (`route_diff`), ranks holding the same rows equal bitwise, a rerun
+    bitwise; a train cell's step-0 loss and each gradient
+    leaf and its steps' losses within LM_SHARDED_TOL or LM_CONTROL_FACTOR
+    times the control's distance, whichever is larger, every rank's bits
+    alike, a rerun bitwise.  Fails if a kernel of the path (5, 5b, 6, 6b,
+    7) was launched no time.  Gloo moves every collective through host
+    memory: the seconds are a check's, not the path's speed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="lm_sharded_"))
+    out = {}
+    try:
+        refs, jobs, worker = {}, {}, lm_worker()
+        for name, mesh, case in LM_SHARDED:
+            cfg = worker.case_config(case)
+            inputs = lm_cell_inputs(cfg, case)
+            fname = name.replace("/", "_").replace("@", "_") + ".npz"
+            np.savez(tmp / fname, **inputs)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            refs[name] = lm_one_process(torch, cfg, case, inputs, mesh)
+            refs[name]["ref_s"] = time.perf_counter() - t0
+            emit({"phase": "lm_sharded", "one_process": name, "seconds": refs[name]["ref_s"]})
+            refs[name]["ref_peak_bytes"] = torch.cuda.max_memory_allocated()
+            jobs.setdefault(mesh, []).append(dict(case, name=name, inputs=fname))
+        t0 = time.perf_counter()
+        ranks = {}
+        for mesh, cases in jobs.items():
+            t1 = time.perf_counter()
+            ranks[mesh] = run_lm_ranks(mesh, cases, tmp, LM_SHARDED_TIMEOUT)
+            emit({"phase": "lm_sharded", "ranks": list(mesh),
+                  "seconds": time.perf_counter() - t1,
+                  "case_s": {n: ranks[mesh][0][n]["case_s"] for n in ranks[mesh][0]}})
+        ranks_s = time.perf_counter() - t0
+        for name, mesh, case in LM_SHARDED:
+            res = {r: v[name] for r, v in ranks[mesh].items()}
+            ref = refs[name]
+            rec = {"mesh": list(mesh), "ranks": len(res), "card": smi,
+                   "launches_by_rank": {r: v["launches"] for r, v in res.items()},
+                   "case_s_by_rank": {r: v["case_s"] for r, v in res.items()},
+                   "peak_bytes_by_rank": {r: v["peak_bytes"] for r, v in res.items()},
+                   "one_process_s": ref["ref_s"], "one_process_peak_bytes": ref["ref_peak_bytes"]}
+            if case["kind"] == "serve":
+                B = case["B"]
+                rows = [None] * B
+                for v in res.values():
+                    s0, nrow = v["rows"]
+                    for i in range(nrow):
+                        got = (v["prefill"][i], [st[i] for st in v["steps"]], v["tokens"][i])
+                        if rows[s0 + i] is None:
+                            rows[s0 + i] = got
+                        elif not (np.array_equal(got[0], rows[s0 + i][0]) and all(
+                                np.array_equal(a, b) for a, b in zip(got[1], rows[s0 + i][1]))):
+                            raise AssertionError(f"lm_sharded {name}: ranks holding row "
+                                                 f"{s0 + i} differ")
+                pre = np.stack([r[0] for r in rows])
+                steps_ = [np.stack([r[1][t] for r in rows]) for t in range(case["gen"])]
+                toks = np.stack([r[2] for r in rows])
+                errs = [_rel(pre, ref["prefill"])] + [_rel(a, b) for a, b in
+                                                       zip(steps_, ref["steps"])]
+                if max(errs) > LM_SHARDED_TOL["logits"]:
+                    raise AssertionError(f"lm_sharded {name}: logits off the one-process "
+                                         f"port by {errs} of max|ref|")
+                if not np.array_equal(toks, ref["tokens"]):
+                    raise AssertionError(f"lm_sharded {name}: greedy tokens differ")
+                if case.get("routes"):
+                    rec["routes"] = {}
+                    for r, v in res.items():
+                        s = v["rows"][0] // v["rows"][1]
+                        rec["routes"][r] = route_diff(v["routes"], ref[f"routes{s}"])
+                    bad = {r: d for r, d in rec["routes"].items() if not d["ties"]}
+                    if bad:
+                        raise AssertionError(f"lm_sharded {name}: expert ids differ from the "
+                                             f"one-process port's past a rounding tie "
+                                             f"(by rank) {bad}")
+                if not all(v.get("rerun_equal", True) for v in res.values()):
+                    raise AssertionError(f"lm_sharded {name}: a rerun's logits differ")
+                rec.update(logits_rel_err=errs, tokens=toks.tolist(),
+                           prefill_s=max(v["prefill_s"] for v in res.values()),
+                           decode_s=max(v["decode_s"] for v in res.values()),
+                           prefill_collectives=res[0]["prefill_stats"],
+                           decode_collectives=res[0]["decode_stats"],
+                           one_process_prefill_s=ref["prefill_s"],
+                           one_process_decode_s=ref["decode_s"])
+            else:
+                r0 = res[0]
+                loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+                grad, want = {}, dict(_leaves(ref["grads"]))
+                for path, g in _leaves(r0["grads"]):
+                    w = want[path]
+                    grad[path] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+                worst = max(grad, key=grad.get)
+                losses_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+                gate = {"grad": max(LM_SHARDED_TOL["grad"],
+                                    LM_CONTROL_FACTOR * ref["perturbed_grad_rel_err"]),
+                        "loss": max(LM_SHARDED_TOL["loss"],
+                                    LM_CONTROL_FACTOR * max(ref["perturbed_losses_rel_err"]))}
+                if (max([loss_rel] + losses_rel) > gate["loss"]
+                        or grad[worst] > gate["grad"]):
+                    raise AssertionError(f"lm_sharded {name}: loss {loss_rel}, losses "
+                                         f"{losses_rel}, gradient {worst} {grad[worst]} off "
+                                         f"the one-process port, over the gates {gate}")
+                if len({v["digest"] for v in res.values()}) != 1 or not all(
+                        v["rerun_equal"] and v["losses"] == r0["losses"] for v in res.values()):
+                    raise AssertionError(f"lm_sharded {name}: ranks or reruns differ")
+                rec.update(loss=r0["loss"], loss_rel_err=loss_rel, losses=r0["losses"],
+                           losses_rel_err=losses_rel, worst_grad_leaf=worst,
+                           worst_grad_rel_err=grad[worst],
+                           s_per_step=float(np.median(r0["step_s"])),
+                           step_s_by_rank={r: v["step_s"] for r, v in res.items()},
+                           one_process_s_per_step=float(np.median(ref["step_s"])),
+                           one_process_perturbed_grad_rel_err=ref["perturbed_grad_rel_err"],
+                           one_process_perturbed_losses_rel_err=ref["perturbed_losses_rel_err"],
+                           gates=gate,
+                           grad_collectives=r0["stats"], step_collectives=r0["step_stats"])
+            out[name] = rec
+            emit({"phase": "lm_sharded", "cell": name, **rec})
+        total = {kname: sum(c[kname] for rec in out.values()
+                            for c in rec["launches_by_rank"].values())
+                 for kname in LM_SHARDED_KERNELS}
+        missing = [kname for kname, n in total.items() if not n]
+        if missing:
+            raise AssertionError(f"lm_sharded: the path launched no {missing}")
+        return {"cells": out, "launches": total, "ranks_s": ranks_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--sharded-worker"]:
         return sharded_worker(argv[1])
@@ -4616,6 +5135,11 @@ def main(argv) -> int:
         "shape", "layers", "s_per_step", "tokens_per_s", "max_memory_allocated", "setup_s",
         "init_s", "plain_loss_rel")} for arch, r in tr.items()}})
     emit({"phase": "train-bf16-witness", **bf16_witness(torch, k)})
+    torch.cuda.empty_cache()
+
+    # ---- LM sharding: the sharded cells, ranks sharing the card ------------
+    lms = lm_sharded_phase(torch, smi)
+    emit({"phase": "lm_sharded", "launches": lms["launches"], "ranks_s": lms["ranks_s"]})
 
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]
@@ -4716,7 +5240,10 @@ def main(argv) -> int:
         "launches_serve": {arch: {"prefill": r["launches_prefill"]["flash_attention"],
                                   "decode": r["launches_decode"]["flash_attention"]}
                            for arch, r in serve_res.items() if "launches_prefill" in r},
-        "launches_train": tr["gemma3_4b"]["launches"]["flash_attention"]}, {
+        "launches_train": tr["gemma3_4b"]["launches"]["flash_attention"],
+        "offset_shapes": {key: v for key, v in ka["timings"].items()
+                          if key.startswith("offset")},
+        "launches_lm_sharded": _lm_sharded_launches(lms, "flash_attention")}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:73",
@@ -4730,7 +5257,8 @@ def main(argv) -> int:
         "config_shapes": ks["config_timings"],
         "launches_jamba_reduced": serve_res["jamba_15_large_398b"]["reduced"]["launches"][
             "ssd_scan"],
-        "launches_train": tr["mamba2_370m"]["launches"]["ssd_scan"]}, {
+        "launches_train": tr["mamba2_370m"]["launches"]["ssd_scan"],
+        "launches_lm_sharded": _lm_sharded_launches(lms, "ssd_scan")}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/layers.py:129",
@@ -4746,6 +5274,9 @@ def main(argv) -> int:
         "cuda_launches_per_call": fbg["cuda_launches_per_call"],
         "config_shapes": {name: kab["timings"][name] for name, *_ in ATTN_BWD_PATH
                           if name not in ("global", "window1024")},
+        "offset_shapes": {key: v for key, v in kab["timings"].items()
+                          if key.startswith("offset")},
+        "launches_lm_sharded": _lm_sharded_launches(lms, "flash_attention_bwd"),
         "launches_train": {arch: r["launches"]["flash_attention_bwd"]
                            for arch, r in tr.items()},
         "spills": kab["spills"]}, {
@@ -4759,7 +5290,8 @@ def main(argv) -> int:
         "ms": sbd["kernel_ms"], "device_ms": sbd["device_ms"], "plain_ms": sbd["plain_ms"],
         "bound_ms": sbd["bound_ms"], "bound_by": sbd["bound_by"], "library_ms": None,
         "shape": sbd["shape"], "cuda_launches_per_call": sbd["cuda_launches_per_call"],
-        "bound_f32_ms": sbd["bound_f32_ms"], "spills": ksb["spills"]}, {
+        "bound_f32_ms": sbd["bound_f32_ms"], "spills": ksb["spills"],
+        "launches_lm_sharded": _lm_sharded_launches(lms, "ssd_scan_bwd")}, {
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/threefry_normal.cu",
         "replaces": "src/repro/models/layers.py:33",
@@ -4773,7 +5305,8 @@ def main(argv) -> int:
         "init": pr["threefry_normal"]["init"],
         "launches_train": {arch: r["launches"]["threefry_normal"] for arch, r in tr.items()},
         "launches_serve_init": {arch: r["init_launches"] for arch, r in serve_res.items()
-                                if "init_launches" in r}}]})
+                                if "init_launches" in r},
+        "launches_lm_sharded": _lm_sharded_launches(lms, "threefry_normal")}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -8,6 +8,8 @@
 // scores masked to −1e30 as the reference does, f32 softmax with an f32
 // running max and denominator.  Layout: q (B, Sq, H, hd), k and v
 // (B, Sk, KVH, hd), read in place; query head h reads KV head h / (H / KVH),
+// query row i stands at position q_pos0 + i for the masks (q_pos0 > 0: a
+// sequence-parallel rank's slice of the queries against every key),
 // so neither the head transpose nor the KV repeat of ops.attention exists.
 // o is a contiguous (B, Sq, H, hd) array of the input type.  Tiles wholly
 // outside the causal / window band are skipped: every row with a visible
@@ -80,7 +82,7 @@ constexpr int kBuf = 64 * kKS;        // floats of the K-chunk / V-chunk buffer 
 constexpr float kMasked = -1e30f;     // the reference's masked score
 
 struct Geometry {
-  int B, Sq, Sk, H, KVH, hd, causal, window;
+  int B, Sq, Sk, H, KVH, hd, causal, window, q_pos0;
   float scale;
   long long qs[4], ks[4], vs[4];      // element strides (b, s, h, d)
 };
@@ -128,12 +130,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
   }
 
-  // the keys this block's rows can see
-  const int q_last = min(q0 + kBQ, g.Sq) - 1;
+  // the keys this block's rows (at positions q_pos0 + row) can see
+  const int p0 = g.q_pos0 + q0, p_last = g.q_pos0 + min(q0 + kBQ, g.Sq) - 1;
   int lo = 0, hi = g.Sk;
-  if (!(g.window > 0 && q_last >= g.Sk + g.window - 1)) {
-    if (g.causal) hi = min(g.Sk, q_last + 1);
-    if (g.window > 0) lo = max(0, q0 - g.window + 1);
+  if (!(g.window > 0 && p_last >= g.Sk + g.window - 1)) {
+    if (g.causal) hi = min(g.Sk, p_last + 1);
+    if (g.window > 0) lo = max(0, p0 - g.window + 1);
   }
 
   for (int k0 = (lo / kBK) * kBK; k0 < hi; k0 += kBK) {
@@ -172,7 +174,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     // mask, online softmax; s becomes the probabilities
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + ty * 4 + r;
+      const int qi = g.q_pos0 + q0 + ty * 4 + r;   // the row's position
       float mx = kMasked;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -290,7 +292,7 @@ constexpr int kThreads = 384;         // producer warpgroup + two consumer warpg
 constexpr int kRow = 128;             // bytes of a swizzled row: 64 bf16 head dims
 
 struct Geometry {
-  int Sq, Sk, H, KVH, causal, window;
+  int Sq, Sk, H, KVH, causal, window, q_pos0;
   float scale_log2;                   // log2(e) / √hd: scores in base 2
 };
 
@@ -307,10 +309,13 @@ struct Layout {                       // dynamic shared memory, from a 1024-alig
   static constexpr int alloc = bytes + 1024;          // slack to align the base
 };
 
-// the keys [lo, hi) that rows [r0, r_last] can see; every key when the last
-// row sees none (the reference's −1e30 rows then average every value)
+// the keys [lo, hi) that rows [r0, r_last] (at positions q_pos0 + row) can
+// see; every key when the last row sees none (the reference's −1e30 rows
+// then average every value)
 __device__ __forceinline__ void key_range(const Geometry& g, int r0, int r_last, int& lo,
                                           int& hi) {
+  r0 += g.q_pos0;
+  r_last += g.q_pos0;
   lo = 0;
   hi = g.Sk;
   if (g.window > 0 && r_last >= g.Sk + g.window - 1) return;
@@ -389,7 +394,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int quad = lane % 4;
   const int row_a = cw * 64 + warp * 16 + lane / 4;   // block row of the thread's first row
-  const int qa = q0 + row_a, qb = qa + 8;             // its two query rows
+  const int qa = g.q_pos0 + q0 + row_a, qb = qa + 8;  // its two query rows' positions
   const int w0 = q0 + cw * 64, w_last = min(w0 + 63, g.Sq - 1);
   const bool active = w0 < g.Sq;
   int wlo, whi;
@@ -433,8 +438,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     // mask, online softmax (base 2); S becomes the probabilities
     uint32_t p_hi[16], p_lo[16];
     if (work) {
-      const bool edge = (g.causal && k0 + kBK - 1 > w0) ||
-                        (g.window > 0 && k0 <= w_last - g.window) || k0 + kBK > g.Sk;
+      const bool edge = (g.causal && k0 + kBK - 1 > g.q_pos0 + w0) ||
+                        (g.window > 0 && k0 <= g.q_pos0 + w_last - g.window) ||
+                        k0 + kBK > g.Sk;
       float mx_a = m_a, mx_b = m_b;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
@@ -542,7 +548,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int KVH, int hd, int causal, int window, const long long* strides,
+           int KVH, int hd, int causal, int window, int q_pos0, const long long* strides,
            cudaStream_t stream) {
   constexpr int smem = Layout<HDP>::alloc;
   static bool opted_in = false;
@@ -562,6 +568,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   if (err) return err;
   Geometry g;
   g.Sq = Sq; g.Sk = Sk; g.H = H; g.KVH = KVH; g.causal = causal; g.window = window;
+  g.q_pos0 = q_pos0;
   g.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(hd)));
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_kernel_wgmma<HDP><<<grid, kThreads, smem, stream>>>(qm, km, vm, om, g);
@@ -569,13 +576,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-             int KVH, int hd, int causal, int window, const long long* strides,
+             int KVH, int hd, int causal, int window, int q_pos0, const long long* strides,
              cudaStream_t stream) {
   if (hd % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd <= 64) return launch<64>(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, strides, stream);
+  if (hd <= 64)
+    return launch<64>(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, q_pos0, strides, stream);
   if (hd <= 128)
-    return launch<128>(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, strides, stream);
-  return launch<256>(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, strides, stream);
+    return launch<128>(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, q_pos0, strides, stream);
+  return launch<256>(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, q_pos0, strides, stream);
 }
 
 }  // namespace tc
@@ -595,7 +603,8 @@ int attributes_of(F* fn, int* out) {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KVH, hd) of one type (dtype 0 float32,
 // 1 bfloat16); strides: 12 element strides, (b, s, h, d) of q, k and v;
-// o: contiguous (B, Sq, H, hd) of the same type.  window <= 0 means none.
+// o: contiguous (B, Sq, H, hd) of the same type.  window <= 0 means none;
+// q_pos0: the position of query row 0 (rows at q_pos0 + i for the masks).
 // float32 runs flash_kernel (any strides), bfloat16 flash_kernel_wgmma
 // (TMA's layout rules, see the note above; the caller checks them).
 // Returns cudaGetLastError() after the launch, or the shared-memory opt-in's
@@ -604,18 +613,19 @@ int attributes_of(F* fn, int* out) {
 // that is not a multiple of 8.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                int dtype, int B, int Sq, int Sk, int H, int KVH, int hd,
-                               int causal, int window, const long long* strides,
-                               void* stream) {
+                               int causal, int window, int q_pos0,
+                               const long long* strides, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  if (Sk <= 0 || KVH <= 0 || H % KVH != 0 || hd <= 0 || hd > 256)
+  if (Sk <= 0 || KVH <= 0 || H % KVH != 0 || hd <= 0 || hd > 256 || q_pos0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, strides, st);
+    return tc::dispatch(q, k, v, o, B, Sq, Sk, H, KVH, hd, causal, window, q_pos0, strides,
+                        st);
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Geometry g;
   g.B = B; g.Sq = Sq; g.Sk = Sk; g.H = H; g.KVH = KVH; g.hd = hd;
-  g.causal = causal; g.window = window;
+  g.causal = causal; g.window = window; g.q_pos0 = q_pos0;
   g.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   for (int i = 0; i < 4; ++i) {
     g.qs[i] = strides[i];

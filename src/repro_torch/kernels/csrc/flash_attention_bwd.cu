@@ -104,13 +104,25 @@ constexpr int kKS = kBK + 1;          // row stride of a transposed K or V chunk
 constexpr float kMasked = -1e30f;     // the reference's masked score
 
 struct Geometry {
-  int B, Sq, Sk, H, KVH, hd, causal, window;
+  int B, Sq, Sk, H, KVH, hd, causal, window, q_pos0;
   float scale;
   long long qs[4], ks[4], vs[4], gs[4];   // element strides of q, k, v, dO (b, s, h, d)
 };
 
+// query row qi stands at position q_pos0 + qi
 __device__ __forceinline__ bool is_masked(const Geometry& g, int qi, int kj) {
+  qi += g.q_pos0;
   return (g.causal && kj > qi) || (g.window > 0 && kj <= qi - g.window);
+}
+
+// the local query rows [lo, hi) that keys [k0, k_last] are visible to; with
+// a window, rows at positions past Sk + window − 1 see no key and average
+// them all, so then every later row is walked
+__device__ __forceinline__ void query_range(int Sq, int Sk, int causal, int window, int q_pos0,
+                                            int k0, int k_last, int& lo, int& hi) {
+  lo = causal ? max(0, k0 - q_pos0) : 0;
+  hi = window > 0 ? max(0, min(Sq, k_last + window - q_pos0)) : Sq;
+  if (window > 0 && q_pos0 + Sq > Sk + window - 1) hi = Sq;
 }
 
 // ---- launch 1: m, 1/l, D and dq, per 64 queries of one (b, h) ---------------
@@ -156,12 +168,12 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, con
     Gs[d * kQS + qi] = gv;
   }
 
-  // the keys this block's rows can see (the forward's walk)
-  const int q_last = min(q0 + kBQ, g.Sq) - 1;
+  // the keys this block's rows can see (the forward's walk, in positions)
+  const int p0 = g.q_pos0 + q0, p_last = g.q_pos0 + min(q0 + kBQ, g.Sq) - 1;
   int lo = 0, hi = g.Sk;
-  if (!(g.window > 0 && q_last >= g.Sk + g.window - 1)) {
-    if (g.causal) hi = min(g.Sk, q_last + 1);
-    if (g.window > 0) lo = max(0, q0 - g.window + 1);
+  if (!(g.window > 0 && p_last >= g.Sk + g.window - 1)) {
+    if (g.causal) hi = min(g.Sk, p_last + 1);
+    if (g.window > 0) lo = max(0, p0 - g.window + 1);
   }
   const int k_first = (lo / kBK) * kBK;
 
@@ -375,12 +387,10 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, c
     Vs[d * KBP + kj] = vv;
   }
 
-  // the queries that see these keys; with a window, rows past Sk + window − 1
-  // see no key and average them all, so then every later row is walked
+  // the queries that see these keys
   const int k_last = min(k0 + KB, g.Sk) - 1;
-  const int qlo = g.causal ? k0 : 0;
-  int qhi = g.window > 0 ? min(g.Sq, k_last + g.window) : g.Sq;
-  if (g.window > 0 && g.Sq > g.Sk + g.window - 1) qhi = g.Sq;
+  int qlo, qhi;
+  query_range(g.Sq, g.Sk, g.causal, g.window, g.q_pos0, k0, k_last, qlo, qhi);
 
   float dK[KR][NJ], dV[KR][NJ];
 #pragma unroll
@@ -556,18 +566,23 @@ constexpr int kKBox = 32;             // rows of a K / V TMA box
 constexpr int kPad = 128;             // workspace rows are padded to a multiple of this
 
 struct Geometry {
-  int B, Sq, Sk, H, KVH, hd, causal, window, SqP;   // SqP: Sq rounded up to kPad
-  float scale, scale_log2;                          // 1/√hd, log2(e)/√hd
+  int B, Sq, Sk, H, KVH, hd, causal, window, q_pos0, SqP;   // SqP: Sq rounded up to kPad
+  float scale, scale_log2;                                  // 1/√hd, log2(e)/√hd
 };
 
+// query row qi stands at position q_pos0 + qi
 __device__ __forceinline__ bool is_masked(const Geometry& g, int qi, int kj) {
+  qi += g.q_pos0;
   return (g.causal && kj > qi) || (g.window > 0 && kj <= qi - g.window);
 }
 
-// the keys [lo, hi) that rows [r0, r_last] can see; every key when the last
-// row sees none (the reference's −1e30 rows then average every value)
+// the keys [lo, hi) that rows [r0, r_last] (at positions q_pos0 + row) can
+// see; every key when the last row sees none (the reference's −1e30 rows
+// then average every value)
 __device__ __forceinline__ void key_range(const Geometry& g, int r0, int r_last, int& lo,
                                           int& hi) {
+  r0 += g.q_pos0;
+  r_last += g.q_pos0;
   lo = 0;
   hi = g.Sk;
   if (g.window > 0 && r_last >= g.Sk + g.window - 1) return;
@@ -911,9 +926,9 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   // the queries that see these keys; with a window, rows past Sk + window − 1
   // see no key and average them all, so then every later row is walked
   const int k_last = min(k0 + kBK2, g.Sk) - 1;
-  const int qt0 = (g.causal ? k0 : 0) / kBQ2;
-  int qhi = g.window > 0 ? min(g.Sq, k_last + g.window) : g.Sq;
-  if (g.window > 0 && g.Sq > g.Sk + g.window - 1) qhi = g.Sq;
+  int qlo, qhi;
+  query_range(g.Sq, g.Sk, g.causal, g.window, g.q_pos0, k0, k_last, qlo, qhi);
+  const int qt0 = qlo / kBQ2;
   const int per_head = max(0, (qhi - qt0 * kBQ2 + kBQ2 - 1) / kBQ2);
   const int n_tiles = rep * per_head;
 
@@ -1126,7 +1141,7 @@ extern "C" long long flash_attention_bwd_workspace_floats(int B, int Sq, int H) 
 // checks it).  dq: contiguous (B, Sq, H, hd); dk, dv: contiguous
 // (B, Sk, KVH, hd), all of the input type; ws:
 // flash_attention_bwd_workspace_floats(B, Sq, H) float32 elements.  causal
-// 0 or 1; window 0 for none.  *launched: the CUDA launches made (2).
+// 0 or 1; window 0 for none; q_pos0 the position of query row 0.  *launched: the CUDA launches made (2).
 // Returns the first CUDA error (cudaGetLastError() after each launch), the
 // negated CUresult of a tensor map that could not be encoded, or
 // cudaErrorInvalidValue for what neither type takes (hd > 256, H not a
@@ -1134,11 +1149,12 @@ extern "C" long long flash_attention_bwd_workspace_floats(int B, int Sq, int H) 
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, void* dq, void* dk, void* dv, void* ws,
                                    int dtype, int B, int Sq, int Sk, int H, int KVH, int hd,
-                                   int causal, int window, const long long* strides,
-                                   void* stream, int* launched) {
+                                   int causal, int window, int q_pos0,
+                                   const long long* strides, void* stream, int* launched) {
   *launched = 0;
   if (B == 0 || Sq == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  if (Sk <= 0 || KVH <= 0 || H % KVH != 0 || hd <= 0 || hd > 256 || B > 65535 || H > 65535)
+  if (Sk <= 0 || KVH <= 0 || H % KVH != 0 || hd <= 0 || hd > 256 || B > 65535 ||
+      H > 65535 || q_pos0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* stats = static_cast<float*>(ws);
@@ -1146,7 +1162,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     tc::Geometry g;
     g.B = B; g.Sq = Sq; g.Sk = Sk; g.H = H; g.KVH = KVH; g.hd = hd;
-    g.causal = causal; g.window = window; g.SqP = pad_rows(Sq);
+    g.causal = causal; g.window = window; g.q_pos0 = q_pos0; g.SqP = pad_rows(Sq);
     g.scale = static_cast<float>(scale);
     g.scale_log2 = static_cast<float>(1.4426950408889634 * scale);
     return tc::dispatch(q, k, v, dout, dq, dk, dv, stats, g, strides, st, launched);
@@ -1154,7 +1170,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Geometry g;
   g.B = B; g.Sq = Sq; g.Sk = Sk; g.H = H; g.KVH = KVH; g.hd = hd;
-  g.causal = causal; g.window = window;
+  g.causal = causal; g.window = window; g.q_pos0 = q_pos0;
   g.scale = static_cast<float>(scale);
   for (int i = 0; i < 4; ++i) {
     g.qs[i] = strides[i];

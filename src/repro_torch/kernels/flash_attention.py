@@ -5,9 +5,13 @@ Port of `repro.kernels.flash_attention` together with the head folding of
 `repro.kernels.ops.attention`.  `flash_attention(q, k, v, causal=, window=)`
 computes ``o = softmax(q·kᵀ/√hd + mask)·v`` for q (B, Sq, H, hd) and k, v
 (B, Sk, KVH, hd), query head h reading KV head ``h // (H // KVH)``.  The
-mask keeps key j for query i when ``j <= i`` (causal) and ``j > i -
-window`` (sliding window); masked scores are −1e30, as in the reference,
-so a row that sees no key averages every value.  Inputs are float32 or
+mask keeps key j for query row i, at position ``p = q_pos0 + i``, when
+``j <= p`` (causal) and ``j > p - window`` (sliding window); masked scores
+are −1e30, as in the reference, so a row that sees no key averages every
+value.  ``q_pos0`` (default 0) is the position of the first query: a
+sequence-parallel rank's slice of the queries against every key (the
+reference's `_blocked_attn(..., q_pos0=)`); a causal call at an offset
+needs ``Sk >= q_pos0 + Sq``.  Inputs are float32 or
 bfloat16 (all three of one type); scores, softmax and the P·V sums are
 float32 and the result has the input type.
 
@@ -71,8 +75,8 @@ BWD_KERNELS = {"float32": ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel"),
 _NEG = -1e30
 _lib = None
 #: the backward's C entry: q, k, v, dO, dq, dk, dv, workspace; type, B, Sq,
-#: Sk, H, KVH, hd, causal, window; strides, stream, launches made
-_BWD_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9
+#: Sk, H, KVH, hd, causal, window, q_pos0; strides, stream, launches made
+_BWD_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 10
              + (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)))
 
 
@@ -81,7 +85,7 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("flash_attention")
-        lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                                         + [ctypes.c_void_p, ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -91,7 +95,8 @@ def _library():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int], plain: bool = False) -> None:
+           window: Optional[int], plain: bool = False, causal: bool = False,
+           q_pos0: int = 0) -> None:
     """Raise for what neither version takes; `plain` also admits float64
     (the plain version's float64 runs are the backward's yardstick)."""
     types = (*_DTYPES, torch.float64) if plain else tuple(_DTYPES)
@@ -114,6 +119,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention needs at least one key")
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive number of positions, got {window}")
+    if q_pos0 < 0:
+        raise ValueError(f"q_pos0 must be a position, got {q_pos0}")
+    if q_pos0 and causal and k.shape[1] < q_pos0 + Sq:
+        raise ValueError(f"causal queries at positions {q_pos0} .. {q_pos0 + Sq - 1} need "
+                         f"at least {q_pos0 + Sq} keys; got {k.shape[1]}")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError(f"q, k and v lie on different devices {q.device}, {k.device}, "
                          f"{v.device}")
@@ -122,10 +132,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
-         device=None) -> torch.Tensor:
+         device=None, q_pos0: int = 0) -> torch.Tensor:
     """The (Sq, Sk) boolean mask of visible keys (reference
-    `flash_attention.py:44-50`)."""
-    qi = torch.arange(Sq, device=device)[:, None]
+    `flash_attention.py:44-50`), query row i at position ``q_pos0 + i``."""
+    qi = q_pos0 + torch.arange(Sq, device=device)[:, None]
     ki = torch.arange(Sk, device=device)[None, :]
     keep = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -136,17 +146,17 @@ def mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          causal: bool = True, window: Optional[int] = None,
+                          q_pos0: int = 0) -> torch.Tensor:
     """The exact masked softmax in float32 (float64 for float64 inputs), cast
     to the input type."""
-    _check(q, k, v, window, plain=True)
+    _check(q, k, v, window, plain=True, causal=causal, q_pos0=q_pos0)
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     wide = torch.float64 if q.dtype == torch.float64 else torch.float32
     qg = q.to(wide).reshape(B, Sq, KVH, H // KVH, hd)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(wide)) * hd ** -0.5
-    s = torch.where(mask(Sq, Sk, causal, window, q.device), s, _NEG)
+    s = torch.where(mask(Sq, Sk, causal, window, q.device, q_pos0), s, _NEG)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(wide))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
@@ -192,7 +202,7 @@ def kernel_attributes() -> dict:
 
 
 def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: Optional[int]) -> torch.Tensor:
+            window: Optional[int], q_pos0: int = 0) -> torch.Tensor:
     global launches
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
@@ -212,7 +222,7 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
              B, Sq, Sk, H, KVH, hd, int(causal), 0 if window is None else int(window),
-             ctypes.cast(strides, ctypes.c_void_p), stream)
+             int(q_pos0), ctypes.cast(strides, ctypes.c_void_p), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
                            f"(negative: the driver's error encoding a tensor map)")
@@ -242,7 +252,7 @@ def backward_attributes() -> dict:
 
 
 def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                causal: bool, window: Optional[int]) -> tuple:
+                causal: bool, window: Optional[int], q_pos0: int = 0) -> tuple:
     """(dq, dk, dv) through the backward kernel, contiguous, of q's type."""
     global bwd_launches, bwd_cuda_launches
     B, Sq, H, hd = q.shape
@@ -264,7 +274,7 @@ def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     made = ctypes.c_int(0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KVH,
-             hd, int(causal), 0 if window is None else int(window),
+             hd, int(causal), 0 if window is None else int(window), int(q_pos0),
              ctypes.cast(strides, ctypes.c_void_p), stream, ctypes.byref(made))
     bwd_cuda_launches += made.value
     if err != 0:
@@ -277,25 +287,26 @@ class FlashAttention(torch.autograd.Function):
     """Kernel 5 forward and its backward kernel, for CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], q_pos0: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return _kernel(q, k, v, causal, window)
+        ctx.causal, ctx.window, ctx.q_pos0 = causal, window, q_pos0
+        return _kernel(q, k, v, causal, window, q_pos0)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = _kernel_bwd(q, k, v, do, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        dq, dk, dv = _kernel_bwd(q, k, v, do, ctx.causal, ctx.window, ctx.q_pos0)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    q_pos0: int = 0) -> torch.Tensor:
     """Masked softmax attention, (B, Sq, H, hd) × (B, Sk, KVH, hd)² →
-    (B, Sq, H, hd).  CUDA tensors go through `FlashAttention` (the forward
-    kernel; its backward kernel when a gradient is taken), CPU tensors
-    through `flash_attention_plain`."""
-    _check(q, k, v, window)
+    (B, Sq, H, hd), the queries at positions ``q_pos0 ..``.  CUDA tensors go
+    through `FlashAttention` (the forward kernel; its backward kernel when a
+    gradient is taken), CPU tensors through `flash_attention_plain`."""
+    _check(q, k, v, window, causal=causal, q_pos0=q_pos0)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    return FlashAttention.apply(q, k, v, causal, window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, q_pos0=q_pos0)
+    return FlashAttention.apply(q, k, v, causal, window, int(q_pos0))

@@ -19,7 +19,7 @@ import torch
 from . import basis_transform as _bt
 from . import tiled_matmul as _tm
 from .flash_attention import flash_attention
-from .ssd_scan import ssd_scan
+from .ssd_scan import ssd_scan, ssd_scan_plain
 from .topk_threshold import topk_threshold
 
 
@@ -64,11 +64,12 @@ def glm_hessian(A: torch.Tensor, w: torch.Tensor, lam: float) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-              window: Optional[int] = None) -> torch.Tensor:
+              window: Optional[int] = None, q_pos0: int = 0) -> torch.Tensor:
     """Masked softmax attention over (B, S, H, hd) with grouped KV heads
     (B, S, KVH, hd): kernel 5 reads KV head ``h // (H // KVH)`` in place, so
-    the reference's head transpose and KV repeat are not materialised."""
-    return flash_attention(q, k, v, causal=causal, window=window)
+    the reference's head transpose and KV repeat are not materialised.  The
+    queries stand at positions ``q_pos0 ..`` (a sequence-parallel slice)."""
+    return flash_attention(q, k, v, causal=causal, window=window, q_pos0=q_pos0)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -77,5 +78,10 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     A (H,), B and C (B, S, N) shared by the heads — through kernel 6:
     returns (y, final state (B, H, hd, N)).  The reference's `ops.ssd` takes
     the heads-folded (B·H, S, ·) layout and returns y alone.  `chunk` sets
-    only the plain version's chunks on CPU tensors (see `ssd_scan`)."""
+    only the plain version's chunks on CPU tensors (see `ssd_scan`).
+    Float64 CPU operands (a float64 run of the model: the sharded path's
+    rounding witness in the CPU tests) take the plain version in float64;
+    the wrapper refuses float64 elsewhere."""
+    if x.dtype == torch.float64 and x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)

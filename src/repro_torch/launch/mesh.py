@@ -25,8 +25,11 @@ as collectives over their group.
     120), so a rank killed mid-run ends its peers with an error instead of
     a hang.
 
-The LM's production meshes (the reference's `make_production_mesh`,
-`make_debug_mesh`) belong to LM sharding, ROADMAP.md §1 item 18.7.
+The LM's meshes (`make_production_mesh`, `make_debug_mesh`) are
+`LMMesh` views of the same world: the reference's (data, model) or (pod,
+data, model) device grid laid over the ranks row-major, with one process
+group per line of each axis.  `repro_torch.sharding.collectives` runs the
+LM's collectives over them.
 """
 from __future__ import annotations
 
@@ -197,3 +200,122 @@ def client_group(n_clients: int, device=None) -> ClientGroup:
     group = _group_of(ndev, size) if ndev > 1 else None
     return ClientGroup(n=n_clients, ndev=ndev, rank=rank, world_size=size,
                        backend=dist.get_backend(), group=group)
+
+
+# --------------------------------------------------------------------------
+# LM meshes
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(eq=False)
+class LMMesh:
+    """The reference's LM device mesh over a `torch.distributed` world.
+
+    ``axis_names`` and ``shape`` (axis → size) are the reference's; rank r
+    sits at the row-major coordinates of r in that order (``coords``).
+    Each axis, and each run of axes a collective spans, has one process
+    group per line of ranks that differ only along it (`group`), built on
+    first use; every rank builds every line, in the same order.  A one-rank
+    world (the (1, 1) debug mesh) has no groups and its collectives are
+    identities.  ``platform`` / ``device_kind`` describe the ranks' device
+    (`repro_torch.sharding.rules.mesh_fingerprint`)."""
+
+    axis_names: tuple
+    shape: dict
+    rank: int
+    world_size: int
+    backend: str
+    device: torch.device
+    platform: str = "cpu"
+    device_kind: str = "cpu"
+    _groups: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def coords(self) -> dict:
+        return _coords_of(self.rank, self)
+
+    def size(self, axes) -> int:
+        """The number of ranks along `axes` (a name, a tuple of names or None)."""
+        axes = _axes(axes)
+        out = 1
+        for a in axes:
+            out *= self.shape[a]
+        return out
+
+    def index(self, axes) -> int:
+        """This rank's row-major position along `axes`."""
+        c, out = self.coords, 0
+        for a in _axes(axes):
+            out = out * self.shape[a] + c[a]
+        return out
+
+    def group(self, axes):
+        """The process group of this rank's line along `axes` (None when the
+        line is this rank alone)."""
+        axes = tuple(a for a in self.axis_names if a in _axes(axes))
+        if self.size(axes) == 1:
+            return None
+        if axes not in self._groups:
+            lines = {}
+            for r in range(self.world_size):
+                c = _coords_of(r, self)
+                key = tuple(c[a] for a in self.axis_names if a not in axes)
+                lines.setdefault(key, []).append(r)
+            if self.size(axes) == self.world_size:
+                self._groups[axes] = dist.group.WORLD
+            else:
+                mine, _ = dist.new_subgroups_by_enumeration(list(lines.values()))
+                self._groups[axes] = mine
+        return self._groups[axes]
+
+
+def _axes(axes) -> tuple:
+    if axes is None:
+        return ()
+    return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+
+
+def _coords_of(r: int, mesh: LMMesh) -> dict:
+    """Rank r's row-major coordinates, by axis in the mesh's order."""
+    out = {}
+    for a in reversed(mesh.axis_names):
+        out[a] = r % mesh.shape[a]
+        r //= mesh.shape[a]
+    return {a: out[a] for a in mesh.axis_names}
+
+
+def _lm_mesh(shape: tuple, axes: tuple, device=None) -> LMMesh:
+    """An `LMMesh` of `shape` over the world (initialized from the
+    environment when it names one); raises unless the world has exactly
+    ``prod(shape)`` ranks, naming the size it needs."""
+    init_from_env(device)
+    rank, size = world()
+    need = 1
+    for n in shape:
+        need *= n
+    if size != need:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh over axes {axes} needs a world "
+                         f"of {need} ranks; this one has {size}")
+    dev = torch.device("cuda" if device is None else device)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" and torch.cuda.is_available() \
+        else dev.type
+    mesh = LMMesh(axis_names=axes, shape=dict(zip(axes, shape)), rank=rank, world_size=size,
+                  backend=dist.get_backend() if size > 1 else "none", device=dev,
+                  platform="gpu" if dev.type == "cuda" else "cpu", device_kind=kind)
+    if size > 1 and mesh.backend != "fake":
+        for a in axes:          # one group per line of each axis, built by every rank
+            mesh.group((a,))
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
+    """The reference's production mesh: (data 16, model 16), or (pod 2,
+    data 16, model 16) with `multi_pod`, over a world of 256 or 512 ranks
+    (anything else raises, as ``jax.make_mesh`` does without the devices)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _lm_mesh(shape, axes, device)
+
+
+def make_debug_mesh(data: int = 1, model: int = 1, device=None) -> LMMesh:
+    """A (data, model) mesh over a world of ``data·model`` ranks — for
+    tests; (1, 1) is the one-rank world."""
+    return _lm_mesh((data, model), ("data", "model"), device)

@@ -1,16 +1,21 @@
-"""The four assigned input shapes — port of `repro.launch.shapes` — and
-the port's one-card serve and train shapes.
+"""The four assigned input shapes — port of `repro.launch.shapes` — the
+port's one-card serve and train shapes, and the input spec builders.
 
-The reference's sharded ``*_struct`` input specs describe
-inputs on a production mesh; they come with LM sharding (ROADMAP.md §1
-item 18.7).
+`batch_struct`, `cache_struct` and `pos_struct` describe a step's inputs
+on a mesh without allocating anything: `Struct` records (global shape,
+dtype, sharding spec), where the reference returns sharded
+``jax.ShapeDtypeStruct`` records.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
+import torch
+
+from ..models import model as M
 from ..models.config import ModelConfig
+from ..sharding.rules import Rules, cache_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,14 +56,40 @@ def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
     return True, ""
 
 
-def _sharded(name):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(f"{name} builds sharded input specs on a production "
-                                  f"mesh: ROADMAP.md §1 item 18.7 (LM sharding) brings it")
-    stub.__name__ = name
-    return stub
+@dataclasses.dataclass(frozen=True)
+class Struct:
+    """A global tensor's shape, dtype and sharding spec (the counterpart of
+    a sharded ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: tuple
 
 
-batch_struct = _sharded("batch_struct")
-cache_struct = _sharded("cache_struct")
-pos_struct = _sharded("pos_struct")
+def batch_struct(cfg: ModelConfig, shape: InputShape, rules: Rules,
+                 act_dtype=torch.bfloat16) -> Dict[str, Any]:
+    B = shape.global_batch
+    b = rules.spec(("batch",))[0]
+    S = shape.seq_len + 1 if shape.kind == "train" else (
+        shape.seq_len if shape.kind == "prefill" else 1)
+    batch: Dict[str, Any] = {"tokens": Struct((B, S), torch.int32, (b, None))}
+    if cfg.n_enc_layers:
+        batch["frames"] = Struct((B, cfg.enc_seq, cfg.d_model), act_dtype, (b, None, None))
+    if cfg.n_prefix_embeds and shape.kind != "decode":
+        batch["prefix_embeds"] = Struct((B, cfg.n_prefix_embeds, cfg.d_model), act_dtype,
+                                        (b, None, None))
+    return batch
+
+
+def cache_struct(cfg: ModelConfig, shape: InputShape, rules: Rules, dtype=torch.bfloat16):
+    # prefill caches must also hold the stubbed VLM prefix embeddings
+    max_seq = shape.seq_len
+    if shape.kind == "prefill" and cfg.n_prefix_embeds:
+        max_seq += cfg.n_prefix_embeds
+    shapes = M.cache_shapes(cfg, shape.global_batch, max_seq, dtype)
+    specs = cache_specs(shapes, cfg, rules)
+    return {li: {k: Struct(tuple(t.shape), t.dtype, specs[li][k]) for k, t in leaves.items()}
+            for li, leaves in shapes.items()}
+
+
+def pos_struct(rules: Rules) -> Struct:
+    return Struct((), torch.int32, ())

@@ -14,7 +14,12 @@ Weights are the reference's ``init_params(PRNGKey(--seed))`` bit for bit
 the reference's), with whisper's frames and qwen2-vl's prefix embeddings
 drawn by it as the reference's launcher asks.  Any of the ten configs
 trains; the loss adds the MoE configs' load-balance loss.  Runs on the CUDA device unless `--device cpu`.
-`--multi-pod` needs LM sharding (ROADMAP.md §1 item 18.7) and raises.
+
+Without `--debug`, a world of 256 ranks (512 with `--multi-pod`) trains on
+the production mesh with the reference's rules, every rank stepping its
+parameter and optimizer shards on its rows of the batch (as
+`launch.serve.production_rules` builds them); a one-rank world keeps the
+one-card path, and `--multi-pod` in a world of another size raises.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from ..models import model as M
 from ..models.steps import make_train_step
 from ..optim import adamw_init
 from . import shapes as SH
+from .serve import batch_rows, production_rules
 
 #: `--debug`'s sequences and tokens a sequence (reference train.py)
 DEBUG_SIZES = (4, 64)
@@ -56,9 +62,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0, help="the weights' PRNGKey seed")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError("--multi-pod trains on a sharded mesh: ROADMAP.md §1 "
-                                  "item 18.7 (LM sharding) brings it")
 
     if args.debug:
         cfg = get_config(args.arch).reduced()
@@ -70,14 +73,16 @@ def main(argv=None) -> dict:
         B, S = shp.global_batch, shp.seq_len
         dtype = torch.bfloat16
     dev = _device.resolve(args.device)
+    rules = production_rules(args, cfg, B, dev)
+    rows = batch_rows(rules, B)
 
     _sync(dev)
     t0 = time.perf_counter()
-    params = M.init_params(prng.PRNGKey(args.seed), cfg, dtype, device=dev)
+    params = M.init_params(prng.PRNGKey(args.seed), cfg, dtype, device=dev, rules=rules)
     _sync(dev)
     init_s = time.perf_counter() - t0
     opt = adamw_init(params, dtype)
-    step = make_train_step(cfg, lr=args.lr, remat=not args.debug)
+    step = make_train_step(cfg, rules, lr=args.lr, remat=not args.debug)
     extras = {}
     if cfg.n_enc_layers:
         extras["frames"] = (B, cfg.enc_seq, cfg.d_model)
@@ -91,7 +96,7 @@ def main(argv=None) -> dict:
     losses, step_s = [], []
     t0 = time.time()
     for i in range(args.steps):
-        batch = next(it)
+        batch = {k: v[rows] for k, v in next(it).items()}
         _sync(dev)
         ts = time.perf_counter()
         params, opt, m = step(params, opt, batch)

@@ -1,4 +1,5 @@
-"""Carry the reference's parameter, cache and optimizer-state pytrees across.
+"""Carry the reference's parameter, cache and optimizer-state pytrees across
+(whole, or cut into a rank's shards: `shard_params`).
 
 The JAX package's trees are nested dicts of arrays with the stacked
 ``layers`` leaves (leading ``n_groups`` axis); the port's are nested dicts
@@ -54,3 +55,28 @@ def opt_state_from_numpy(tree, *, dtype: Optional[torch.dtype] = None, device=No
     an int32 scalar."""
     dev = _device.resolve(device)
     return {k: _tree(v, torch.int32 if k == "step" else dtype, dev) for k, v in tree.items()}
+
+
+def shard_params(tree, cfg, rules, *, dtype: Optional[torch.dtype] = None,
+                 device=None) -> dict:
+    """This rank's shards of a full parameter tree (the reference's, as
+    numpy): each leaf cut by `repro_torch.sharding.rules.param_specs` under
+    `rules`, then carried across as `params_from_numpy` carries it."""
+    from ..sharding.rules import axes_of, param_specs
+
+    specs = param_specs(tree, cfg, rules)
+    mesh = rules.mesh
+
+    def cut(node, spec):
+        if isinstance(node, dict):
+            return {k: cut(v, spec[k]) for k, v in node.items()}
+        arr = np.asarray(node)
+        for d, entry in enumerate(spec):
+            axes = axes_of(entry)
+            if axes:
+                n = arr.shape[d] // mesh.size(axes)
+                i = mesh.index(axes)
+                arr = arr[(slice(None),) * d + (slice(i * n, (i + 1) * n),)]
+        return np.ascontiguousarray(arr)
+
+    return params_from_numpy(cut(tree, specs), dtype=dtype, device=device)

@@ -134,18 +134,18 @@ def test_rejects_what_the_kernel_does_not_take():
         fa.flash_attention(q, kv[:, :0], kv[:, :0])
 
 
-def _kernel_arithmetic(q, k, v, causal, window, split_p, bk=64):
+def _kernel_arithmetic(q, k, v, causal, window, split_p, bk=64, q_pos0=0):
     """What the bfloat16 tensor-core kernel computes, in torch on the CPU:
     bfloat16 inputs, float32 scores over 64-key tiles in base 2, the online
     softmax with a float32 running max and denominator, P rounded to
     bfloat16 before P·V — split into bf16(p) and bf16(p − bf16(p)), or once
     — and float32 accumulation.  Returns the float32 output before its
-    final bfloat16 rounding."""
+    final bfloat16 rounding.  Query row i stands at position q_pos0 + i."""
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KVH, H // KVH, hd)
     kf, vf = k.float(), v.float()
-    keep = fa.mask(Sq, Sk, causal, window)
+    keep = fa.mask(Sq, Sk, causal, window, q_pos0=q_pos0)
     scale_log2 = float(np.float32(np.log2(np.e) / np.sqrt(hd)))
     m = torch.full((B, KVH, H // KVH, Sq), -1e30)
     l = torch.zeros_like(m)
@@ -170,24 +170,32 @@ def _kernel_arithmetic(q, k, v, causal, window, split_p, bk=64):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
-@pytest.mark.parametrize("mask", [(True, None), (True, 100)], ids=["causal", "window100"])
+MASKS = [(True, None, 0), (True, 100, 0), (True, 100, 100)]
+MASK_IDS = ["causal", "window100", "window100_offset100"]
+
+
+@pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
 @pytest.mark.parametrize("p_rounding", ["split", "single"])
 def test_bf16_kernel_arithmetic_holds_the_chip_gate_only_with_p_split(mask, p_rounding):
     """The bfloat16 kernel's P·V takes P in bfloat16.  Held to the plain
     version under chip_smoke.py's gate (one bfloat16 ulp of the plain value
     + 1e-5·max|plain|, elementwise; compared before the output's bfloat16
     rounding, which both share), P split into two bfloat16 terms uses at
-    most half the gate at hd 256; one bfloat16 rounding of P leaves it."""
-    causal, window = mask
+    most half the gate at hd 256; one bfloat16 rounding of P leaves it.
+    The offset case is a sequence-parallel rank's slice: 200 queries at
+    positions 100 .. 299 against 300 keys."""
+    causal, window, q_pos0 = mask
     B, S, H, KVH, hd = 1, 300, 4, 2, 256
     rng = np.random.default_rng(15)
-    q = torch.tensor(rng.standard_normal((B, S, H, hd)), dtype=torch.float32).bfloat16()
+    q = torch.tensor(rng.standard_normal((B, S - q_pos0, H, hd)),
+                     dtype=torch.float32).bfloat16()
     k, v = (torch.tensor(rng.standard_normal((B, S, KVH, hd)),
                          dtype=torch.float32).bfloat16() for _ in range(2))
-    got = _kernel_arithmetic(q, k, v, causal, window, split_p=p_rounding == "split")
+    got = _kernel_arithmetic(q, k, v, causal, window, split_p=p_rounding == "split",
+                             q_pos0=q_pos0)
     # the plain version's float32 value: its arithmetic on the same bf16 values
     plain = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
-                                     window=window)
+                                     window=window, q_pos0=q_pos0)
     ulp = torch.where(plain == 0, 0.0,
                       torch.ldexp(torch.ones_like(plain), torch.frexp(plain)[1] - 8))
     share = float(((got - plain).abs() / (1e-5 * plain.abs().max() + ulp)).max())
@@ -197,7 +205,7 @@ def test_bf16_kernel_arithmetic_holds_the_chip_gate_only_with_p_split(mask, p_ro
         assert share > 1.0, share
 
 
-def _bwd_kernel_arithmetic(q, k, v, do, causal, window, split_p, split_ds, bk=32):
+def _bwd_kernel_arithmetic(q, k, v, do, causal, window, split_p, split_ds, bk=32, q_pos0=0):
     """What the bfloat16 backward kernels compute, in torch on the CPU:
     bfloat16 inputs and exact float32 products s = q·kᵀ, dP = dO·vᵀ; the
     scale applied in float32 after them, in base 2; launch 1's pass over
@@ -206,13 +214,13 @@ def _bwd_kernel_arithmetic(q, k, v, do, causal, window, split_p, split_ds, bk=32
     entering its product in bfloat16 — split into bf16(x) and
     bf16(x − bf16(x)), or rounded once — with float32 sums: dq = dS·k·scale,
     dk = dSᵀ·q·scale, dv = Pᵀ·dO.  Returns float32 (dq, dk, dv) before their
-    final bfloat16 rounding."""
+    final bfloat16 rounding.  Query row i stands at position q_pos0 + i."""
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KVH, H // KVH, hd)
     dog = do.float().reshape(B, Sq, KVH, H // KVH, hd)
     kf, vf = k.float(), v.float()
-    keep = fa.mask(Sq, Sk, causal, window)
+    keep = fa.mask(Sq, Sk, causal, window, q_pos0=q_pos0)
     scale = float(np.float32(1 / np.sqrt(hd)))
     scale_log2 = float(np.float32(np.log2(np.e) / np.sqrt(hd)))
     m = torch.full((B, KVH, H // KVH, Sq), -1e30)
@@ -244,7 +252,7 @@ def _bwd_kernel_arithmetic(q, k, v, do, causal, window, split_p, split_ds, bk=32
     return dq.reshape(B, Sq, H, hd), dk, dv
 
 
-@pytest.mark.parametrize("mask", [(True, None), (True, 100)], ids=["causal", "window100"])
+@pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
 @pytest.mark.parametrize("rounding", ["split", "single_p", "single_ds"])
 def test_bf16_backward_arithmetic_holds_the_chip_gate_only_with_p_and_ds_split(mask, rounding):
     """The bfloat16 backward kernels take P (into dv) and dS (into dq and dk)
@@ -253,18 +261,18 @@ def test_bf16_backward_arithmetic_holds_the_chip_gate_only_with_p_and_ds_split(m
     1e-4·max|f64|, elementwise; compared before the outputs' bfloat16
     rounding), both split into two bfloat16 terms use at most half the gate
     at hd 256; one bfloat16 rounding of P leaves it in dv, of dS in dq and
-    dk."""
-    causal, window = mask
+    dk.  The offset case: 200 queries at positions 100 .. 299."""
+    causal, window, q_pos0 = mask
     B, S, H, KVH, hd = 1, 300, 4, 2, 256
     rng = np.random.default_rng(16)
-    q, do = (torch.tensor(rng.standard_normal((B, S, H, hd)), dtype=torch.float32).bfloat16()
-             for _ in range(2))
+    q, do = (torch.tensor(rng.standard_normal((B, S - q_pos0, H, hd)),
+                          dtype=torch.float32).bfloat16() for _ in range(2))
     k, v = (torch.tensor(rng.standard_normal((B, S, KVH, hd)),
                          dtype=torch.float32).bfloat16() for _ in range(2))
-    got = _bwd_kernel_arithmetic(q, k, v, do, causal, window,
-                                 split_p=rounding != "single_p", split_ds=rounding != "single_ds")
+    got = _bwd_kernel_arithmetic(q, k, v, do, causal, window, split_p=rounding != "single_p",
+                                 split_ds=rounding != "single_ds", q_pos0=q_pos0)
     ins = [x.double().requires_grad_(True) for x in (q, k, v)]
-    out = fa.flash_attention_plain(*ins, causal=causal, window=window)
+    out = fa.flash_attention_plain(*ins, causal=causal, window=window, q_pos0=q_pos0)
     want = torch.autograd.grad(out, ins, do.double())
     share = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -341,3 +349,52 @@ def test_cuda_path_is_an_autograd_function():
     kv = torch.zeros((1, 4, 1, 8))
     out = fa.flash_attention(q, kv, kv)
     assert out.grad_fn is not None and fa.bwd_launches == 0
+
+
+@pytest.mark.parametrize("q_pos0", [16, 32])
+@pytest.mark.parametrize("window", [None, 8])
+def test_plain_at_a_query_offset_matches_blocked_attention(q_pos0, window):
+    """A sequence-parallel rank's queries: the slice at positions q_pos0 ..
+    of a 48-token sequence against all 48 keys, forward and gradients of
+    the plain version against the reference's `_blocked_attn(...,
+    q_pos0=)` and `jax.grad` of it (causal, with and without a window,
+    GQA), and against the same rows of the unsliced call."""
+    import jax
+
+    B, S, H, KVH, hd, n = 2, 48, 4, 2, 16, 16
+    rng = np.random.default_rng(200 + q_pos0 + (window or 0))
+    qf = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    q = qf[:, q_pos0:q_pos0 + n]
+    k, v = (rng.standard_normal((B, S, KVH, hd)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((B, n, H, hd)).astype(np.float32)
+    if window is None:
+        mask = lambda qi, ki: ki <= qi  # noqa: E731
+    else:
+        mask = lambda qi, ki: (ki <= qi) & (ki > qi - window)  # noqa: E731
+
+    def ref_out(q, k, v):
+        return JL._blocked_attn(q.reshape(B, n, KVH, H // KVH, hd), k, v, mask, 8, None,
+                                q_pos0=q_pos0, window=window)
+
+    want = ref_out(*(jnp.asarray(a) for a in (q, k, v)))
+    wgrad = jax.grad(lambda *a: jnp.sum(ref_out(*a) * jnp.asarray(do)), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = ops.attention(tq, tk, tv, causal=True, window=window, q_pos0=q_pos0)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **F32_TOL)
+    full = fa.flash_attention(torch.tensor(qf), torch.tensor(k), torch.tensor(v), causal=True,
+                              window=window)[:, q_pos0:q_pos0 + n]
+    np.testing.assert_allclose(out.detach().numpy(), full.numpy(), rtol=1e-6, atol=1e-6)
+    out.backward(torch.tensor(do))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), wgrad):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **F32_TOL)
+
+
+def test_an_offset_call_needs_its_keys():
+    """A causal call at q_pos0 needs keys up to its last query's position."""
+    q, kv = torch.zeros((1, 8, 2, 16)), torch.zeros((1, 20, 2, 16))
+    fa.flash_attention(q, kv, kv, q_pos0=12)
+    with pytest.raises(ValueError, match="need at least 21 keys"):
+        fa.flash_attention(q, kv, kv, q_pos0=13)
+    with pytest.raises(ValueError, match="q_pos0"):
+        fa.flash_attention(q, kv, kv, q_pos0=-1)

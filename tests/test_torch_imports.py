@@ -34,7 +34,8 @@ def test_port_files_are_found():
             "shapes.py", "gemma3_4b.py", "mamba2_370m.py", "registry.py", "engine.py",
             "artifacts.py", "metrics.py", "__main__.py", "cohort.py", "faults.py",
             "fed_serve.py", "mesh.py", "adamw.py", "pipeline.py", "train.py",
-            "flash_attention_bwd.cu", "ssd_scan_bwd.cu"} <= names | CUDA_SOURCES
+            "flash_attention_bwd.cu", "ssd_scan_bwd.cu", "rules.py", "collectives.py",
+            "analysis.py"} <= names | CUDA_SOURCES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -577,10 +577,43 @@ def test_encoder_decoder_needs_its_frames():
 
 
 def test_unported_entry_points_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="item 18.7"):
+    """Every LM entry point is ported: `--multi-pod` in a one-rank world
+    raises the production mesh's world-size error, and the input spec
+    builders return the reference's global shapes, types and specs (on the
+    (1, 1) debug mesh, at each of the four input shapes)."""
+    from repro.launch import mesh as jmesh
+    from repro.sharding import rules as jrules
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import rules
+
+    with pytest.raises(ValueError, match="needs a world of 512 ranks; this one has 1"):
         serve.main(["--arch", "gemma3_4b", "--multi-pod", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 18.7"):
-        shapes.batch_struct(None, None, None)
+    jm, tm = jmesh.make_debug_mesh(1, 1), mesh.make_debug_mesh(1, 1, device="cpu")
+    types = {"int32": torch.int32, "bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def same(got, want):
+        assert got.shape == tuple(want.shape) and got.dtype == types[str(want.dtype)]
+        assert got.spec == tuple(want.sharding.spec) + (None,) * (len(got.spec)
+                                                                  - len(want.sharding.spec))
+
+    for arch in ("whisper_small", "qwen2_vl_72b", "jamba_15_large_398b"):
+        jcfg, cfg = jconfigs.get_config(arch), configs.get_config(arch)
+        for name, shp in shapes.SHAPES.items():
+            if name not in jshapes.SHAPES:
+                continue
+            jr = jrules.make_rules(jm, batch_size=shp.global_batch)
+            tr = rules.make_rules(tm, batch_size=shp.global_batch)
+            want, got = jshapes.batch_struct(jcfg, jshapes.SHAPES[name], jr), \
+                shapes.batch_struct(cfg, shp, tr)
+            assert sorted(got) == sorted(want)
+            for k in want:
+                same(got[k], want[k])
+            want = jshapes.cache_struct(jcfg, jshapes.SHAPES[name], jr)
+            got = shapes.cache_struct(cfg, shp, tr)
+            for li in want:
+                for k in want[li]:
+                    same(got[li][k], want[li][k])
+        same(shapes.pos_struct(tr), jshapes.pos_struct(jr))
     # the train step is ported (it raised here until then): one step runs
     cfg = configs.get_config("gemma3_4b").reduced()
     params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")

@@ -399,7 +399,10 @@ def test_train_cli_debug_runs_every_other_config(arch, capsys):
 
 
 def test_train_cli_refuses_multi_pod_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 18.7"):
+    """`--multi-pod` trains on the (2, 16, 16) production mesh, whose world
+    is 512 ranks: a one-rank world raises the mesh's error, naming the
+    world it needs."""
+    with pytest.raises(ValueError, match="needs a world of 512 ranks; this one has 1"):
         train.main(["--arch", "gemma3_4b", "--multi-pod", "--device", "cpu"])
 
 
