@@ -340,11 +340,12 @@ is non-zero and no result line is printed:
                 whisper's encoder once and its self- and cross-attention
                 twice), kernel 7 once a drawn leaf, no other kernel;
                 deepseek-moe's step-0 gradient twice from the same weights,
-                bitwise equal; s/step, tokens/s, peak memory, set-up and
-                init s (the reference's weights of PRNGKey(0));
+                bitwise equal; s/step (the second step's time: the first
+                warms up), tokens/s, peak memory, set-up and init s (the
+                reference's weights of PRNGKey(0));
                 then gemma3-4b and mamba2-370m again through the plain versions (losses
                 within 1e-2 relative of the kernels' at step 0, 5e-2 at
-                steps 1–3); and the bf16 witness: gemma3-4b at full width,
+                step 1); and the bf16 witness: gemma3-4b at full width,
                 cut to 6 layers, one gradient on one 4096-token batch
                 through the kernels and through the plain versions in bf16,
                 each leaf's relative distance from the float32 plain
@@ -374,7 +375,25 @@ is non-zero and no result line is printed:
                 alike, a rerun bitwise; prefill / decode s or s/step, peak
                 memory and collectives by kind and bytes (gloo through host
                 memory: a check's seconds, not the path's speed); kernels 5,
-                5b, 6, 6b and 7 each launched, counted on every rank.
+                5b, 6, 6b and 7 each launched, counted on every rank; each
+                mesh's ranks first hold the reductions (reduce-scatter by
+                one all-to-all and a sum in rank order, all-reduce by that
+                and an all-gather) bitwise against the n-copy form on CUDA
+                tensors through gloo, float32 and bfloat16, sizes that do
+                not divide by n, dim 0 and last, sum and max, each counted
+                as |x| or 2·|x| padded;
+  16. dryrun  — the kernels' fake-tensor routes size their workspaces as
+                the built libraries do (kernels 6, 6b, 5b at the cells'
+                shapes); `repro_torch.launch.dryrun` in 4 host processes
+                started after the build (fake tensors on the CPU, torch's
+                fake process group; no card): each lm_sharded cell dry-run at
+                its mesh, depth, type and sizes, its collective calls and
+                bytes by kind equal to rank 0's measured ones, its argument
+                bytes to rank 0's arguments', its peak within 0.75–1.25 of
+                rank 0's measured window (less what the process held
+                before it); then the reference's four shapes for every
+                config on the (16, 16) mesh, each ok or skipped, its peak
+                printed beside the card's memory.
 
 GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
 every bit stream exactly; a NaN gap agrees only with a NaN in the
@@ -643,7 +662,7 @@ TRAIN_TOL = 2e-4
 #: WITNESS_FACTOR times the bf16 plain versions', or WITNESS_FLOOR (one
 #: bf16 ulp, 2⁻⁸, relative; storing a gradient in bf16 alone costs half
 #: that); the full-depth cells' losses through the plain versions within
-#: WITNESS_LOSS_TOL of the kernels' (step 0, steps 1–3)
+#: WITNESS_LOSS_TOL of the kernels' (step 0, the later steps)
 WITNESS_LAYERS = 6
 WITNESS_FACTOR, WITNESS_FLOOR = 2.0, 2.0 ** -8
 WITNESS_LOSS_TOL = (1e-2, 5e-2)
@@ -4470,6 +4489,9 @@ LM_SHARDED_TIMEOUT = 600
 #: mamba2-370m's full depth.
 LM_PERTURBATION = 1e-7
 LM_CONTROL_FACTOR = 2.0
+#: each mesh's first case: the all-to-all reductions against the n-copy
+#: form, bitwise, on CUDA tensors through gloo (`torch_lm_sharded_worker`)
+LM_REDUCTIONS = {"name": "reductions", "kind": "reductions", "dtypes": ["float32", "bfloat16"]}
 #: the kernels the sharded path launches
 LM_SHARDED_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
                       "threefry_normal")
@@ -4737,11 +4759,14 @@ def lm_sharded_phase(torch, smi: str) -> dict:
         ranks = {}
         for mesh, cases in jobs.items():
             t1 = time.perf_counter()
-            ranks[mesh] = run_lm_ranks(mesh, cases, tmp, LM_SHARDED_TIMEOUT)
+            ranks[mesh] = run_lm_ranks(mesh, [LM_REDUCTIONS] + cases, tmp, LM_SHARDED_TIMEOUT)
             emit({"phase": "lm_sharded", "ranks": list(mesh),
                   "seconds": time.perf_counter() - t1,
                   "case_s": {n: ranks[mesh][0][n]["case_s"] for n in ranks[mesh][0]}})
         ranks_s = time.perf_counter() - t0
+        reductions = {"x".join(map(str, mesh)): check_reductions(mesh, r)
+                      for mesh, r in ranks.items()}
+        emit({"phase": "lm_sharded", "reductions": reductions})
         for name, mesh, case in LM_SHARDED:
             res = {r: v[name] for r, v in ranks[mesh].items()}
             ref = refs[name]
@@ -4785,6 +4810,9 @@ def lm_sharded_phase(torch, smi: str) -> dict:
                                              f"(by rank) {bad}")
                 if not all(v.get("rerun_equal", True) for v in res.values()):
                     raise AssertionError(f"lm_sharded {name}: a rerun's logits differ")
+                rec["dryrun_window"] = {"stats": res[0]["prefill_step_stats"],
+                                        "peak_bytes": res[0]["prefill_peak_bytes"],
+                                        **res[0]["prefill_window"]}
                 rec.update(logits_rel_err=errs, tokens=toks.tolist(),
                            prefill_s=max(v["prefill_s"] for v in res.values()),
                            decode_s=max(v["decode_s"] for v in res.values()),
@@ -4813,6 +4841,9 @@ def lm_sharded_phase(torch, smi: str) -> dict:
                 if len({v["digest"] for v in res.values()}) != 1 or not all(
                         v["rerun_equal"] and v["losses"] == r0["losses"] for v in res.values()):
                     raise AssertionError(f"lm_sharded {name}: ranks or reruns differ")
+                rec["dryrun_window"] = {"stats": r0["step0_stats"],
+                                        "peak_bytes": r0["step0_peak_bytes"],
+                                        **r0["step0_window"]}
                 rec.update(loss=r0["loss"], loss_rel_err=loss_rel, losses=r0["losses"],
                            losses_rel_err=losses_rel, worst_grad_leaf=worst,
                            worst_grad_rel_err=grad[worst],
@@ -4831,14 +4862,257 @@ def lm_sharded_phase(torch, smi: str) -> dict:
         missing = [kname for kname, n in total.items() if not n]
         if missing:
             raise AssertionError(f"lm_sharded: the path launched no {missing}")
-        return {"cells": out, "launches": total, "ranks_s": ranks_s}
+        return {"cells": out, "launches": total, "ranks_s": ranks_s, "reductions": reductions}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_reductions(mesh: tuple, ranks: dict) -> dict:
+    """Each rank's ``reductions`` case (`LM_REDUCTIONS`): every all-to-all
+    reduction bitwise the n-copy form, and counted as |x| (reduce-scatter)
+    or 2·|x| padded to a multiple of n (all-reduce).  Returns the checks a
+    rank by n."""
+    import numpy as np
+
+    sizes = dict(zip(("data", "model"), mesh))
+    by_n = {}
+    for r, res in ranks.items():
+        for (axes, kind, dtype, shape, dim), (equal, moved, size) in res["reductions"][
+                "checks"].items():
+            n = math.prod(sizes[a] for a in axes)
+            if kind == "reduce_scatter":
+                want = size
+            else:
+                numel = int(np.prod(shape))
+                want = 2 * (-(-numel // n) * n) * (size // numel)
+            if not equal or moved != want:
+                raise AssertionError(f"lm_sharded {mesh} rank {r}: {kind} over {axes} "
+                                     f"({dtype}, {shape}, dim {dim}): bitwise the n-copy "
+                                     f"form {equal}, {moved} bytes counted, want {want}")
+            if r == 0:
+                by_n[n] = by_n.get(n, 0) + 1
+    return {"checks_a_rank_by_n": by_n, "ranks": len(ranks), "bitwise": True}
+
+
+#: phase dryrun: `repro_torch.launch.dryrun` in DRYRUN_PROCS processes of
+#: its own (`--dryrun-worker`), started after the build and read after
+#: phase lm_sharded.  They run on the host alone (fake tensors on the CPU,
+#: torch's fake process group; CUDA_VISIBLE_DEVICES is empty, niced): each
+#: LM_SHARDED cell at its mesh, depth, type and sizes, whose collective
+#: calls and bytes by kind must equal rank 0's measured ones exactly, its
+#: argument bytes rank 0's arguments', and its peak (arguments + temp) lie
+#: within DRYRUN_PEAK_BAND of rank 0's measured peak over the same window,
+#: less the bytes the process held at the window's start beyond the step's
+#: arguments (the 64 MiB of cuBLAS workspaces an earlier product made: in
+#: the reduced deepseek train's ~160 MB window they alone would read 0.58);
+#: and `--all` on the (16, 16) mesh (the reference's four shapes for every
+#: config), each case ok or skipped, its peak beside the card's memory.
+DRYRUN_PROCS = 4
+DRYRUN_PEAK_BAND = (0.75, 1.25)
+DRYRUN_TIMEOUT_S = 900
+
+
+def dryrun_jobs() -> list:
+    """The phase's dry runs: the sharded cells, then every (config, shape)
+    of ``--all`` on (16, 16)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.dryrun import REFERENCE_SHAPES
+
+    return [("cell", name) for name, _, _ in LM_SHARDED] + [
+        ("all", arch, shape) for arch in ARCH_IDS for shape in REFERENCE_SHAPES]
+
+
+def dryrun_share(jobs: list, parts: int) -> list:
+    """`jobs` dealt to `parts` processes, the costliest first to the least
+    loaded (cost: a train step 4, another step 1, times the config's
+    layers)."""
+    from repro_torch.configs import get_config
+
+    def cost(job):
+        if job[0] == "cell":
+            case = next(c for n, _, c in LM_SHARDED if n == job[1])
+            return 4 * (case.get("layers") or 4)
+        return (4 if job[2] == "train_4k" else 1) * get_config(job[1]).n_layers
+    load, out = [0] * parts, [[] for _ in range(parts)]
+    for job in sorted(jobs, key=cost, reverse=True):
+        i = load.index(min(load))
+        load[i] += cost(job)
+        out[i].append(job)
+    return out
+
+
+def dryrun_worker(out_path: str, part: str, parts: str) -> int:
+    """`--dryrun-worker OUT PART PARTS`: this process's share of the
+    phase's dry runs, their records written to OUT (a case that raises is
+    recorded with status ``error``)."""
+    import traceback
+
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import InputShape
+
+    torch.set_num_threads(1)
+    worker = lm_worker()
+    res = {}
+    for job in dryrun_share(dryrun_jobs(), int(parts))[int(part)]:
+        t0 = time.perf_counter()
+        key = job[1] if job[0] == "cell" else f"{job[1]}/{job[2]}"
+        try:
+            if job[0] == "cell":
+                name, mesh, case = next(c for c in LM_SHARDED if c[0] == job[1])
+                kind = "train" if case["kind"] == "train" else "prefill"
+                rec = dryrun.dry_run(worker.case_config(case),
+                                     InputShape(name, case["S"], case["B"], kind), mesh,
+                                     dtype=torch.float32, remat=case.get("remat", True),
+                                     max_seq=case.get("max_seq"))
+            else:
+                rec = dryrun.lower_case(job[1], job[2])
+        except Exception as e:
+            rec = {"status": "error", "error": f"{type(e).__name__}: {e}",
+                   "trace": traceback.format_exc()[-2000:]}
+        res[key] = dict(rec, seconds=time.perf_counter() - t0)
+    pathlib.Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def start_dryrun(tmp: pathlib.Path) -> list:
+    """Start the phase's DRYRUN_PROCS processes on the host; returns
+    [(process, its output file, its log)]."""
+    import atexit
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = []
+    for part in range(DRYRUN_PROCS):
+        log = open(tmp / f"dryrun{part}.log", "w")
+        out = tmp / f"dryrun{part}.json"
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker", str(out),
+             str(part), str(DRYRUN_PROCS)], env=env, stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(19)), out, log))
+
+    def stop():
+        for p, _, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    atexit.register(stop)
+    return procs
+
+
+#: (B, S, H, hd, N) of kernel 6's calls and (B, Sq, H) of kernel 5b's whose
+#: workspaces the fake-tensor routes must size as the libraries do: the
+#: mamba2 cells (a rank's 4 × 4096 at 16 heads; one card's 8 × 4096 at 32),
+#: a tail chunk; the gemma3 slice and train layer, a padded row count
+DRYRUN_SSD_WORKSPACES = ((4, 4096, 16, 64, 128), (8, 4096, 32, 64, 128), (1, 300, 3, 16, 8))
+DRYRUN_ATTN_WORKSPACES = ((1, 1024, 8), (1, 4096, 8), (2, 130, 4))
+
+
+def fake_workspaces() -> dict:
+    """The fake-tensor routes' workspace sizes (`kernels._fake`) against
+    the built libraries' at DRYRUN_*_WORKSPACES; raises on a difference."""
+    from repro_torch.kernels import _build, _fake
+
+    sizes, ll = (ctypes.c_int,) * 5, ctypes.c_longlong
+    lib = {"ssd": _build.bind("ssd_scan", "ssd_scan_workspace_floats", sizes, ll),
+           "ssd_bwd_forward": _build.bind("ssd_scan_bwd",
+                                          "ssd_scan_bwd_forward_workspace_floats", sizes, ll),
+           "ssd_bwd": _build.bind("ssd_scan_bwd", "ssd_scan_bwd_workspace_floats", sizes, ll),
+           "attn_bwd": _build.bind("flash_attention_bwd", "flash_attention_bwd_workspace_floats",
+                                   (ctypes.c_int,) * 3, ll)}
+    pairs = []
+    for shape in DRYRUN_SSD_WORKSPACES:
+        pairs += [("ssd", shape, _fake.ssd_workspace_floats(*shape)),
+                  ("ssd_bwd_forward", shape, _fake.ssd_workspace_floats(*shape)),
+                  ("ssd_bwd", shape, _fake.ssd_bwd_workspace_floats(*shape))]
+    pairs += [("attn_bwd", shape, _fake.attention_bwd_workspace_floats(*shape))
+              for shape in DRYRUN_ATTN_WORKSPACES]
+    out = {}
+    for name, shape, fake in pairs:
+        got = lib[name](*shape)
+        if got != fake:
+            raise AssertionError(f"dryrun: {name} workspace at {shape}: the library's {got} "
+                                 f"floats, the fake route's {fake}")
+        out[f"{name}{list(shape)}"] = got
+    return out
+
+
+def dryrun_phase(torch, smi: str, lms: dict, procs: list, started: float) -> dict:
+    """Phase dryrun's checks (see DRYRUN_PROCS) on the records of the
+    processes `start_dryrun` started at `started` (a perf_counter time),
+    after the fake routes' workspace sizes against the libraries'."""
+    emit({"phase": "dryrun", "workspace_floats": fake_workspaces()})
+    deadline = started + DRYRUN_TIMEOUT_S
+    res = {}
+    for p, out, log in procs:
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        log.flush()
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun: a process exited {p.returncode}: "
+                                 f"{pathlib.Path(log.name).read_text()[-3000:]}")
+        res.update(json.loads(out.read_text()))
+    bad = {key: r["error"] for key, r in res.items() if r["status"] not in ("ok", "skipped")}
+    if bad:
+        raise AssertionError(f"dryrun: cases that did not run: {bad}")
+    cells = {}
+    for name, mesh, case in LM_SHARDED:
+        d, w = res[name], lms["cells"][name]["dryrun_window"]
+        counts = {k: v["calls"] for k, v in w["stats"].items()}
+        nbytes = {k: float(v["bytes"]) for k, v in w["stats"].items()}
+        if d["collectives"]["counts"] != counts or d["collectives"]["bytes_by_kind"] != nbytes:
+            raise AssertionError(f"dryrun {name}: collectives {d['collectives']} where rank 0 "
+                                 f"counted {w['stats']}")
+        args = d["memory"]["argument_size_bytes"]
+        if args != w["args_bytes"]:
+            raise AssertionError(f"dryrun {name}: argument bytes {args}, rank 0's arguments "
+                                 f"{w['args_bytes']}")
+        pred = args + d["memory"]["temp_size_bytes"]
+        # bytes held at the window's start that are not the step's (cuBLAS's
+        # workspaces, made at an earlier product of the process)
+        held = w["base_bytes"] - w["args_bytes"]
+        ratio = pred / (w["peak_bytes"] - held)
+        cells[name] = {"mesh": list(mesh), "predicted_peak_bytes": pred,
+                       "measured_peak_bytes": w["peak_bytes"], "held_before_bytes": held,
+                       "ratio": ratio, "ratio_with_held": pred / w["peak_bytes"],
+                       "argument_bytes": args, "collectives": d["collectives"],
+                       "flops": d["cost"]["flops"], "seconds": d["seconds"], "card": smi}
+        emit({"phase": "dryrun", "cell": name, **cells[name]})
+        lo, hi = DRYRUN_PEAK_BAND
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"dryrun {name}: predicted peak {pred} is {ratio} of the "
+                                 f"measured {w['peak_bytes']} less the {held} bytes held "
+                                 f"before the step, outside {DRYRUN_PEAK_BAND}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    cases = {}
+    for key, r in res.items():
+        if "/" not in key or key in cells:
+            continue
+        line = {"case": key, "status": r["status"], "seconds": r["seconds"],
+                "card_memory_bytes": total}
+        if r["status"] == "ok":
+            peak = r["memory"]["argument_size_bytes"] + r["memory"]["temp_size_bytes"]
+            line.update(peak_bytes=peak, fits=peak <= total,
+                        collective_bytes=r["collectives"]["total_bytes"],
+                        flops=r["cost"]["flops"], model_flops=r["cost"]["model_flops"])
+        cases[key] = line
+        emit({"phase": "dryrun", "mesh": "16x16", **line})
+    return {"cells": cells, "cases": cases,
+            "seconds": max(r["seconds"] for r in res.values()),
+            "wall_s": time.perf_counter() - started}
 
 
 def main(argv) -> int:
     if argv[:1] == ["--sharded-worker"]:
         return sharded_worker(argv[1])
+    if argv[:1] == ["--dryrun-worker"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        return dryrun_worker(*argv[1:4])
     import torch
 
     if not torch.cuda.is_available():
@@ -4873,6 +5147,11 @@ def main(argv) -> int:
     _build.build_all(SOURCES)
     emit({"phase": "build", "sources": list(SOURCES),
           "seconds": time.perf_counter() - t0})
+    import tempfile
+
+    dryrun_tmp = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_"))
+    dryrun_started = time.perf_counter()
+    dryrun_procs = start_dryrun(dryrun_tmp)
 
     kern = kernel_phase(torch, tk, "--profile" in argv)
     emit({"phase": "kernels", "kernel": "topk_row_threshold", **kern})
@@ -5140,6 +5419,16 @@ def main(argv) -> int:
     # ---- LM sharding: the sharded cells, ranks sharing the card ------------
     lms = lm_sharded_phase(torch, smi)
     emit({"phase": "lm_sharded", "launches": lms["launches"], "ranks_s": lms["ranks_s"]})
+
+    # ---- the dry run: its processes started after the build ----------------
+    dr = dryrun_phase(torch, smi, lms, dryrun_procs, dryrun_started)
+    emit({"phase": "dryrun", "wall_s_since_start": dr["wall_s"],
+          "longest_case_s": dr["seconds"],
+          "ratios": {name: c["ratio"] for name, c in dr["cells"].items()},
+          "cases": len(dr["cases"])})
+    import shutil
+
+    shutil.rmtree(dryrun_tmp, ignore_errors=True)
 
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]

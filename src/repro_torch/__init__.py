@@ -9,8 +9,13 @@ they raise instead of running on the CPU.  The CPU is used only when the
 caller passes ``device="cpu"`` (the tests do), and then every kernel
 wrapper takes its plain PyTorch version.
 
-Ported so far (ROADMAP.md §1): BL1, Newton and FedNL on the single-device
-fast path, BL-DNN, and the LM serving path (`launch.serve`: prefill and
-greedy decode of gemma3-4b and mamba2-370m), with a hand-written CUDA
-kernel for every Pallas kernel of the reference (`repro_torch.kernels`).
+Ported so far (ROADMAP.md §1): the round engine with BL1/BL2/BL3 and the
+baselines, the compressors, the basis registry and comm ledger, BL-DNN, the
+experiment registry, the cohort engine, the service loop and the sharded
+reducer; and the LM stack: all ten configs serve (`launch.serve`) and train
+(`launch.train`), sharded over a `torch.distributed` mesh with the
+reference's rules (`sharding`), and dry-run on the production mesh
+(`launch.dryrun`).  Every Pallas kernel of the reference has a
+hand-written CUDA kernel (`repro_torch.kernels`).  Not yet: the compile
+cache (item 16) and the op-by-op reference backend (item 17).
 """

@@ -42,6 +42,11 @@ contiguous dO (copied when it is not); float32 runs FMAs on the CUDA cores
 through any strides.  A CPU call takes `flash_attention_plain`, which
 autograd differentiates.  Without a gradient to take, a CUDA call launches
 the forward kernel alone, as before.
+
+Fake tensors (the dry run, `repro_torch.launch.dryrun`), CUDA or CPU,
+take the CUDA path with the kernels' fake-tensor routes (`_fake`) where it
+launches: the same outputs and workspace, the plain version's flop count,
+no launch and no count.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _fake
 
 #: launches of the CUDA kernel since the last reset (the plain version on
 #: CPU tensors does not count)
@@ -178,7 +183,7 @@ def check_tma_layout(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"the bfloat16 attention kernel reads {name} through TMA, which "
                          f"needs strides that are multiples of 8 elements; {name} has "
                          f"strides {x.stride()}")
-    if x.data_ptr() % 16:
+    if not _fake.is_fake(x) and x.data_ptr() % 16:
         raise ValueError(f"the bfloat16 attention kernel reads {name} through TMA, which "
                          f"needs 16-byte aligned data")
 
@@ -216,6 +221,8 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                              f"{_MAX_GRID_YZ * _BF16_QUERIES_A_BLOCK} queries; got {Sq}")
         for name, x in (("q", q), ("k", k), ("v", v)):
             check_tma_layout(name, x)
+    if _fake.is_fake(q):
+        return _fake.ops().flash_attention(q, k, v, causal, window or 0, q_pos0)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     fn = _library().flash_attention
     strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
@@ -262,6 +269,9 @@ def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
         for name, x in (("q", q), ("k", k), ("v", v)):
             check_tma_layout(name, x)
         do = do.contiguous()
+    if _fake.is_fake(q):
+        dq, dk, dv, _ = _fake.ops().flash_attention_bwd(q, k, v, do, causal, window or 0, q_pos0)
+        return dq, dk, dv
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KVH, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -305,8 +315,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Masked softmax attention, (B, Sq, H, hd) × (B, Sk, KVH, hd)² →
     (B, Sq, H, hd), the queries at positions ``q_pos0 ..``.  CUDA tensors go
     through `FlashAttention` (the forward kernel; its backward kernel when a
-    gradient is taken), CPU tensors through `flash_attention_plain`."""
+    gradient is taken), CPU tensors through `flash_attention_plain`, fake
+    tensors of either device through `FlashAttention` to the kernels'
+    fake-tensor routes (`_fake`)."""
     _check(q, k, v, window, causal=causal, q_pos0=q_pos0)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not _fake.is_fake(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window, q_pos0=q_pos0)
     return FlashAttention.apply(q, k, v, causal, window, int(q_pos0))

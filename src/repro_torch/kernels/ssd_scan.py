@@ -37,6 +37,12 @@ every product on the tensor cores as the forward does (three TF32 products
 of split operands, operands staged whole by cp.async);
 `ssd_scan_bwd_emulated` is its arithmetic in PyTorch, for accuracy studies.
 A CPU call takes `ssd_scan_plain`, which autograd differentiates.
+
+Fake tensors (the dry run, `repro_torch.launch.dryrun`), CUDA or CPU,
+take the CUDA path with the kernels' fake-tensor routes (`_fake`) where it
+launches: the
+same outputs and workspaces (the forward's kept for the backward), the
+plain version's flop count at `chunk`, no launch and no count.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _fake
 
 #: calls of the CUDA kernel since the last reset, one a call whatever its
 #: CUDA launches (the plain version on CPU tensors does not count)
@@ -94,6 +100,15 @@ def _check(x, dt, A, B, C, plain: bool = False) -> None:
         raise ValueError(f"ssd_scan runs on cuda or cpu, got {x.device}")
 
 
+def plain_chunk(S: int, chunk: int) -> int:
+    """The plain version's chunk: the largest divisor of S at most
+    ``min(chunk, S)``."""
+    c = max(1, min(chunk, S))
+    while S % c:
+        c -= 1
+    return c
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor, *, chunk: int = 256) -> tuple:
     """`_ssd_chunked` in PyTorch: returns (y (B, S, H, hd), final state
@@ -101,9 +116,7 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.
     _check(x, dt, A, B, C, plain=True)
     Bsz, S, H, hd = x.shape
     N = B.shape[-1]
-    c = max(1, min(chunk, S))
-    while S % c:
-        c -= 1
+    c = plain_chunk(S, chunk)
     n = S // c
     xh = x.reshape(Bsz, n, c, H, hd)
     dtc = dt.reshape(Bsz, n, c, H)
@@ -295,8 +308,9 @@ def _strides(x, dt, B, C):
     return (ctypes.c_longlong * 13)(*x.stride(), *dt.stride(), *B.stride(), *C.stride())
 
 
-def _kernel(x, dt, A, B, C) -> tuple:
-    """(y, final state, the workspace the call filled)."""
+def _kernel(x, dt, A, B, C, chunk: int = 256) -> tuple:
+    """(y, final state, the workspace the call filled); `chunk` is the
+    plain version's, for the fake-tensor route's flop count."""
     global launches, cuda_launches
     Bsz, S, H, hd = x.shape
     N = B.shape[-1]
@@ -304,6 +318,8 @@ def _kernel(x, dt, A, B, C) -> tuple:
         raise ValueError(
             f"the SSD kernel takes head_dim and d_state up to {MAX_PADDED} (batch and heads "
             f"up to {_MAX_BATCH}); got head_dim={hd}, d_state={N}, batch={Bsz}, heads={H}")
+    if _fake.is_fake(x):
+        return _fake.ops().ssd_scan(x, dt, A, B, C, chunk)
     y = torch.empty((Bsz, S, H, hd), dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, hd, N), dtype=torch.float32, device=x.device)
     ws_fn = _build.bind("ssd_scan", "ssd_scan_workspace_floats", _SIZES, ctypes.c_longlong)
@@ -322,12 +338,16 @@ def _kernel(x, dt, A, B, C) -> tuple:
     return y, state, ws
 
 
-def _kernel_bwd(x, dt, A, B, C, dy, dstate, fws) -> tuple:
+def _kernel_bwd(x, dt, A, B, C, dy, dstate, fws, chunk: int = 256) -> tuple:
     """(dx, ddt, dA, dB, dC) through the backward kernel, from the forward's
     workspace `fws` on the same inputs; `dstate` may be None (zero)."""
     global bwd_launches, bwd_cuda_launches
     Bsz, S, H, hd = x.shape
     N = B.shape[-1]
+    if _fake.is_fake(x):
+        dstate = dstate.contiguous() if dstate is not None else None
+        return _fake.ops().ssd_scan_bwd(x, dt, A, B, C, dy.contiguous(), dstate, fws,
+                                        chunk)[:5]
     fwd_floats = _build.bind("ssd_scan_bwd", "ssd_scan_bwd_forward_workspace_floats", _SIZES,
                              ctypes.c_longlong)(Bsz, S, H, hd, N)
     if fwd_floats != fws.numel():
@@ -377,9 +397,10 @@ class SSDScan(torch.autograd.Function):
     """Kernel 6 forward and its backward kernel, for CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C):
-        y, state, ws = _kernel(x, dt, A, B, C)
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        y, state, ws = _kernel(x, dt, A, B, C, chunk)
         ctx.save_for_backward(x, dt, A, B, C, ws)
+        ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         return y, state
 
@@ -388,7 +409,7 @@ class SSDScan(torch.autograd.Function):
         x, dt, A, B, C, ws = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        return _kernel_bwd(x, dt, A, B, C, dy, dstate, ws)
+        return (*_kernel_bwd(x, dt, A, B, C, dy, dstate, ws, ctx.chunk), None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -396,10 +417,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     """The SSD over every position, (y (B, S, H, hd), final state
     (B, H, hd, N)).  CUDA tensors go through `SSDScan` (the forward kernel;
     its backward kernel when a gradient is taken), CPU tensors through
-    `ssd_scan_plain` with chunks of `chunk` positions.  `chunk` is the
+    `ssd_scan_plain` with chunks of `chunk` positions, fake tensors of
+    either device through `SSDScan` to the kernels' fake-tensor routes.  `chunk` is the
     plain version's rounding choice only: the kernel walks its own
     `KERNEL_CHUNK`-position chunks whatever it says."""
     _check(x, dt, A, B, C)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _fake.is_fake(x):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-    return SSDScan.apply(x, dt, A, B, C)
+    return SSDScan.apply(x, dt, A, B, C, chunk)

@@ -1,4 +1,5 @@
-"""Port of `repro.launch`, so far the LM serving launcher (`serve`), the
-input-shape registry (`shapes`) and the federated service loop
-(`fed_serve`); training, the dry run and the mesh are ROADMAP.md §1 items
-13 and 18."""
+"""Port of `repro.launch`: the LM serving and training launchers (`serve`,
+`train`), the input-shape registry and spec builders (`shapes`), the
+client groups and LM meshes over `torch.distributed` (`mesh`), the dry run
+on the production mesh (`dryrun`) and the federated service loop
+(`fed_serve`)."""

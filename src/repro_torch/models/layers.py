@@ -182,8 +182,10 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
     if mrope:
         if pos.dim() != 3 or pos.shape[0] != 3:
             raise ValueError(f"M-RoPE takes positions (3, batch, seq); got {tuple(pos.shape)}")
-        comp = torch.repeat_interleave(torch.arange(3, device=pos.device),
-                                       torch.tensor(mrope_sections(hd), device=pos.device))
+        # each frequency slot's component, built on the host (a repeat by a
+        # tensor of counts has a data-dependent size, which fake tensors refuse)
+        comp = torch.tensor([c for c, n in enumerate(mrope_sections(hd)) for _ in range(n)],
+                            device=pos.device)
         ang = pos.float()[comp].permute(1, 2, 0) * freqs           # (B, S, hd/2)
     else:
         if pos.dim() == 3:
@@ -635,7 +637,11 @@ def _router(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig) -> tuple:
     gate_vals, expert_ids = moe_route(probs, K)                          # (T, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(0)
-    ce = torch.bincount(expert_ids.reshape(-1), minlength=E).float() / (T * K)
+    # each expert's count into a fixed (E,) tensor (`bincount`'s size would
+    # depend on the ids, which fake tensors cannot read)
+    ids = expert_ids.reshape(-1)
+    ce = torch.zeros((E,), dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids)).float() / (T * K)
     aux = E * torch.sum(me * ce) * mc.router_aux_weight
     return probs, gate_vals, expert_ids, aux
 

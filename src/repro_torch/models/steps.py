@@ -18,7 +18,7 @@ from .. import device as _device
 from ..core.pytree import tree_leaves, tree_map, tree_unflatten
 from ..optim import adamw_update
 from ..sharding import collectives as C
-from ..sharding.rules import axes_of, data_axes, param_specs
+from ..sharding.rules import axes_of, data_axes, map_with_path
 from . import layers as L
 from . import model as M
 from .config import ModelConfig
@@ -176,24 +176,25 @@ def make_grad_fn(cfg: ModelConfig, remat: bool = True, rules=None):
         if rules is None:
             return loss.detach(), aux.detach(), grads
         data = data_axes(rules.mesh)
-        grads = _sum_over_data(grads, cfg, rules)
+        grads = _sum_over_data(grads, rules)
         loss = C.all_reduce(ce.detach(), rules.mesh, data) + aux.detach()
         return loss, aux.detach(), grads
 
     return grad_fn
 
 
-def _sum_over_data(grads, cfg: ModelConfig, rules):
+def _sum_over_data(grads, rules):
     """Gradients of leaves that no data axis shards summed over the data
-    axes (in rank order); FSDP leaves' are already reduce-scattered."""
-    specs = param_specs(M.param_shapes(cfg), cfg, rules)
+    axes (in rank order); FSDP leaves' are already reduce-scattered.  The
+    specs come from the bound rules' table (no parameter shapes are drawn
+    here, so the step also runs on fake tensors)."""
     data = data_axes(rules.mesh)
 
-    def f(g, sp):
-        if any(a in data for e in sp for a in axes_of(e)):
+    def f(path, g):
+        if any(a in data for e in rules.table[path] for a in axes_of(e)):
             return g
         return C.all_reduce(g, rules.mesh, data)
-    return tree_map(f, grads, specs)
+    return map_with_path(f, grads)
 
 
 def make_train_step(cfg: ModelConfig, rules=None, lr: float = 3e-4, remat: bool = True,

@@ -19,14 +19,20 @@ call these where the reference's GSPMD program moves data:
   all-gathers the parts.
 * `reduce_scatter` — the sum over the axes, this rank's part kept.
 
-Every reduction is an all-gather followed by a sum in rank order, so
-every rank of a line gets the same bits, and a rerun the same bits again
-(no reduction order is left to the backend).  gloo moves CUDA tensors
-through pinned host buffers (ranks sharing one card); NCCL moves them on
-the cards.  ``stats`` counts calls and bytes by kind, forward and backward
-alike, until `reset_stats`: the bytes a rank receives and holds, which are
-the n operands of its line for every kind (a reduction gathers them all
-before it sums, so it moves and holds n times the reduced tensor).
+A reduce-scatter splits the tensor along `dim` into n parts (n must
+divide it), sends each rank its part of every rank's tensor in one
+all-to-all, and sums the n parts it receives in rank order.  An all-reduce
+is that reduce-scatter of the flattened tensor (padded to a multiple of
+n), then an all-gather of the reduced slices.  Every element is the sum of
+the ranks' values in rank order, the same float adds as a sum of the n
+gathered operands, so every rank of a line gets the same bits, and a rerun
+the same bits again (no reduction order is left to the backend).  gloo
+moves CUDA tensors through pinned host buffers (ranks sharing one card);
+NCCL moves them on the cards.  ``stats`` counts calls and bytes by kind,
+forward and backward alike, until `reset_stats`: the bytes a rank receives
+and holds.  That is n operands for an all-gather, |x| for a reduce-scatter
+(n parts of |x|/n) and 2·|x| for an all-reduce (|x| of parts, then |x| of
+reduced slices; x padded to a multiple of n elements).
 """
 from __future__ import annotations
 
@@ -52,6 +58,26 @@ def snapshot() -> dict:
     return {k: dict(v) for k, v in stats.items()}
 
 
+def _moved(mesh, axes, send: torch.Tensor, gather: bool) -> torch.Tensor:
+    """One collective over `axes` of the flat contiguous `send`: an
+    all-gather (``gather``: every rank's `send`, in row-major order) or an
+    all-to-all of n equal parts (part i of the result: rank i's part for
+    this rank).  gloo stages CUDA tensors through pinned host buffers."""
+    n = mesh.size(axes)
+    numel = send.numel() * (n if gather else 1)
+    host = mesh.backend == "gloo" and send.is_cuda
+    if host:
+        src, out = _staging(send.dtype, send.numel(), numel)
+        src.copy_(send)
+    else:
+        src, out = send, torch.empty((numel,), dtype=send.dtype, device=send.device)
+    if gather:
+        _ALL_GATHER(out, src, group=mesh.group(axes))
+    else:
+        dist.all_to_all_single(out, src, group=mesh.group(axes))
+    return out.to(send.device) if host else out
+
+
 def _stacked(mesh, axes, x: torch.Tensor, kind: str) -> torch.Tensor:
     """(n, *x.shape): every rank's `x` along `axes`, in row-major order,
     counted under `kind`."""
@@ -63,17 +89,7 @@ def _stacked(mesh, axes, x: torch.Tensor, kind: str) -> torch.Tensor:
     w = x.detach().contiguous()
     if w.dtype == torch.bool:
         w = w.view(torch.uint8)
-    host = mesh.backend == "gloo" and w.is_cuda      # gloo: staged through the host
-    if host:
-        src, out = _staging(w.dtype, w.numel(), n)
-        src.copy_(w.reshape(-1))
-    else:
-        src = w.reshape(-1)
-        out = torch.empty((n * src.numel(),), dtype=src.dtype, device=src.device)
-    _ALL_GATHER(out, src, group=mesh.group(axes))
-    out = out.view((n,) + tuple(x.shape))
-    if host:
-        out = out.to(x.device)
+    out = _moved(mesh, axes, w.reshape(-1), gather=True).view((n,) + tuple(x.shape))
     return out.view(torch.bool) if x.dtype == torch.bool else out
 
 
@@ -81,15 +97,14 @@ def _stacked(mesh, axes, x: torch.Tensor, kind: str) -> torch.Tensor:
 _PINNED: dict = {}
 
 
-def _staging(dtype, numel: int, n: int) -> tuple:
-    """(send, receive) pinned host buffers for `numel` elements from each of
-    `n` ranks (grown as needed, kept for the next call: fresh pageable
+def _staging(dtype, send: int, receive: int) -> tuple:
+    """(send, receive) pinned host buffers of `send` and `receive`
+    elements (grown as needed, kept for the next call: fresh pageable
     memory costs page faults at every call)."""
-    key = (dtype, n)
-    have = _PINNED.get(key)
-    if have is None or have.numel() < (n + 1) * numel:
-        have = _PINNED[key] = torch.empty(((n + 1) * numel,), dtype=dtype, pin_memory=True)
-    return have[:numel], have[numel:(n + 1) * numel]
+    have = _PINNED.get(dtype)
+    if have is None or have.numel() < send + receive:
+        have = _PINNED[dtype] = torch.empty((send + receive,), dtype=dtype, pin_memory=True)
+    return have[:send], have[send:send + receive]
 
 
 def _ordered_sum(g: torch.Tensor) -> torch.Tensor:
@@ -112,19 +127,41 @@ def _part(mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.narrow(dim, mesh.index(axes) * size, size)
 
 
+def _scatter_sum(mesh, axes, w: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """This rank's slice of the reduction of (n·m, *rest) `w`: the ranks'
+    slices exchanged in one all-to-all, then summed in rank order (or
+    their max)."""
+    n = mesh.size(axes)
+    got = _moved(mesh, axes, w.detach().contiguous().reshape(-1), gather=False)
+    got = got.view((n, w.shape[0] // n) + tuple(w.shape[1:]))
+    return got.amax(dim=0) if op == "max" else _ordered_sum(got)
+
+
 def _reduce_scatter(mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
     n = mesh.size(axes)
     if n == 1:
         return x
-    return _part(mesh, axes, _ordered_sum(_stacked(mesh, axes, x, "reduce_scatter")),
-                 dim).contiguous()
+    if x.shape[dim] % n:
+        raise ValueError(f"a reduce-scatter over {n} ranks splits dimension {dim} of a "
+                         f"{tuple(x.shape)} tensor into equal parts; it does not divide")
+    stats["reduce_scatter"]["calls"] += 1
+    stats["reduce_scatter"]["bytes"] += x.numel() * x.element_size()
+    out = _scatter_sum(mesh, axes, x.movedim(dim, 0))
+    return out.movedim(0, dim).contiguous()
 
 
 def _reduce(mesh, axes, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    if mesh.size(axes) == 1:
+    n = mesh.size(axes)
+    if n == 1:
         return x
-    g = _stacked(mesh, axes, x, "all_reduce")
-    return g.amax(dim=0) if op == "max" else _ordered_sum(g)
+    flat = x.detach().reshape(-1)
+    m = -(-flat.numel() // n)
+    if m * n != flat.numel():
+        flat = torch.cat([flat, flat.new_zeros((m * n - flat.numel(),))])
+    stats["all_reduce"]["calls"] += 1
+    stats["all_reduce"]["bytes"] += 2 * m * n * flat.element_size()
+    mine = _scatter_sum(mesh, axes, flat, op)
+    return _moved(mesh, axes, mine, gather=True)[:x.numel()].view(x.shape)
 
 
 class _AllGather(torch.autograd.Function):

@@ -209,9 +209,10 @@ def _drop_indivisible(sp: Spec, shape, mesh) -> Spec:
     return tuple(fixed)
 
 
-def _map_with_path(fn, tree, prefix: str = ""):
+def map_with_path(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a nested dict, keeping its structure."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, f"{prefix}/{k}" if prefix else k)
+        return {k: map_with_path(fn, v, f"{prefix}/{k}" if prefix else k)
                 for k, v in tree.items()}
     return fn(prefix, tree)
 
@@ -228,7 +229,7 @@ def param_specs(params_tree, cfg, rules: Rules):
             ok = (cfg.moe.n_experts if "moe" in ps else cfg.n_heads) % msize == 0
             sp = (None, "model" if ok else None, None, rules.amap["fsdp"])
         return _drop_indivisible(sp, shape, rules.mesh)
-    return _map_with_path(f, params_tree)
+    return map_with_path(f, params_tree)
 
 
 def cache_specs(cache_tree, cfg, rules: Rules):
@@ -255,7 +256,7 @@ def cache_specs(cache_tree, cfg, rules: Rules):
         if name == "conv":
             return (None, batch_ax, None, "model" if shape[3] % msize == 0 else None)
         return (None,) * len(shape)
-    return _map_with_path(f, cache_tree)
+    return map_with_path(f, cache_tree)
 
 
 def batch_specs(rules: Rules) -> Spec:

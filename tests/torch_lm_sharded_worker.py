@@ -13,13 +13,24 @@ batch rows) and pickles what it saw to ``OUT/rank{r}.pkl``:
 
 * ``serve``: prefill, then ``gen`` greedy decode steps; the logits over the
   whole vocabulary of this rank's rows, the tokens, the collectives by
-  kind, and (unless ``rerun`` is false) whether a rerun gives equal bits;
+  kind (``prefill_step_stats``: the prefill step's alone, as the dry run
+  counts it), the prefill step's peak device memory and the bytes at its
+  start (``prefill_peak_bytes``, ``prefill_window``), and (unless ``rerun``
+  is false) whether a rerun gives equal bits;
 * ``moe``: one MoE layer (`layers.moe` with the rules) on the rank's rows
   of ``x``: its output, aux, the shard's own aux and expert ids;
 * ``train``: the step-0 loss and every gradient leaf gathered whole (kept
   by rank 0 only with ``keep_grads``; in the case's ``dtype``, float32 by
   default), a rerun of it (bitwise; unless ``rerun`` is false), then
-  ``steps`` AdamW steps' losses.
+  ``steps`` AdamW steps' losses, and the first step's collectives, peak
+  device memory and the bytes at its start (``step0_stats``,
+  ``step0_peak_bytes``, ``step0_window``: the step's arguments' and every
+  allocated byte);
+* ``reductions``: `collectives.reduce_scatter` and `all_reduce` (sum and
+  max) over every axis run of the mesh, in each of the case's ``dtypes``,
+  at sizes that do not divide by the ranks, ``dim`` 0 and last, held
+  bitwise to the n-copy form (`n_copy_reduce`: every rank's operand
+  gathered, summed in rank order), with each call's ``stats`` bytes.
 
 Every case also records the kernels' launches (their counts set to 0 just
 before the case and read just after; on CPU tensors the plain versions
@@ -46,6 +57,7 @@ from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels import threefry_normal as tn
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as LM
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -154,8 +166,11 @@ def run_serve(case, data, mesh, dev) -> dict:
         _sync(dev)
         if routes is not None:
             routes.on = not rerun
+        before = _reset_peak(dev)
+        window = _window(dev, params, toks, ex, cache)
         t0 = time.perf_counter()
         lg, cache = prefill(params, {"tokens": toks, **ex}, cache)
+        prefill_step_stats, prefill_peak = C.snapshot(), _peak(dev)
         if routes is not None:
             routes.on = False
         lg = M.gather_logits(lg, cfg, rules)
@@ -180,9 +195,10 @@ def run_serve(case, data, mesh, dev) -> dict:
                 [out["prefill"], *out["steps"]])
         else:
             out.update(rec, prefill_s=prefill_s, decode_s=decode_s, prefill_stats=prefill_stats,
+                       prefill_step_stats=prefill_step_stats, prefill_peak_bytes=prefill_peak,
+                       prefill_window=window,
                        decode_stats=C.snapshot(),
-                       peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                       else None)
+                       peak_bytes=_case_peak(dev, before))
         del cache
     if routes is not None:
         L.moe_route = routes._route
@@ -227,17 +243,22 @@ def run_train(case, data, mesh, dev) -> dict:
         del full, grads
     opt = adamw_init(params, dtype)
     step = steps.make_train_step(cfg, rules, remat=remat)
-    losses, step_s = [], []
+    losses, step_s, before = [], [], None
     C.reset_stats()
-    for _ in range(case.get("steps", 0)):
+    for i in range(case.get("steps", 0)):
         _sync(dev)
+        if i == 0:
+            before = _reset_peak(dev)
+            out["step0_window"] = _window(dev, params, opt, batch)
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
         step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            out.update(step0_stats=C.snapshot(), step0_peak_bytes=_peak(dev))
     out["step_stats"] = C.snapshot()
     out.update(losses=losses, step_s=step_s,
-               peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+               peak_bytes=_case_peak(dev, before))
     return out
 
 
@@ -246,7 +267,109 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-RUN = {"serve": run_serve, "moe": run_moe, "train": run_train}
+def _reset_peak(dev):
+    """Start a window of peak device memory (the allocated bytes now are
+    its floor); returns the peak before it (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return before
+
+
+def _window(dev, *args) -> dict:
+    """At a window's start: the step's arguments' bytes (their distinct
+    storages, rounded as the allocator rounds a block) and every allocated
+    byte (None on the CPU)."""
+    return {"args_bytes": dryrun.storage_bytes([t for a in args for t in tree_leaves(a)]),
+            "base_bytes": torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None}
+
+
+def _case_peak(dev, before):
+    """The case's peak device bytes: its windows' and the one `before`
+    them (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    return max(before or 0, torch.cuda.max_memory_allocated(dev))
+
+
+def _peak(dev):
+    """The window's peak allocated device bytes (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def n_copy_reduce(mesh, axes, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """The reduction as an all-gather of the n ranks' operands and their
+    sum in rank order (or max): the form the all-to-all reductions must
+    match bit for bit."""
+    g = C._stacked(mesh, axes, x, "all_gather")
+    if op == "max":
+        return g.amax(dim=0)
+    out = g[0]
+    for i in range(1, g.shape[0]):
+        out = out + g[i]
+    return out
+
+
+def n_copy_reduce_scatter(mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
+    n = mesh.size(axes)
+    size = x.shape[dim] // n
+    return n_copy_reduce(mesh, axes, x).narrow(dim, mesh.index(axes) * size, size).contiguous()
+
+
+def _bits(t: torch.Tensor) -> bytes:
+    return t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def reduction_axes(mesh) -> list:
+    """Every run of the mesh's axes wider than one rank."""
+    names = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    runs = [(a,) for a in names]
+    return runs + ([tuple(names)] if len(names) > 1 else [])
+
+
+def run_reductions(case, data, mesh, dev) -> dict:
+    """``checks``: each reduction against the n-copy form, (axes, kind,
+    dtype, shape, dim) → (bitwise equal, the call's stats bytes, |x| in
+    bytes)."""
+    gen = torch.Generator().manual_seed(1000 + mesh.rank)
+    out = {}
+    for axes in reduction_axes(mesh):
+        n = mesh.size(axes)
+        for name in case["dtypes"]:
+            dt = getattr(torch, name)
+
+            def draw(*shape):
+                scale = 10.0 ** (6 * torch.rand(shape, generator=gen, dtype=torch.float64) - 3)
+                x = torch.randn(shape, generator=gen, dtype=torch.float64) * scale
+                return x.to(dt).to(dev)
+            for shape in ((101,), (5, 7, 3), (3, 1, 127)):
+                x = draw(*shape)
+                for op in ("sum", "max"):
+                    C.reset_stats()
+                    got = C.all_reduce(x, mesh, axes, op=op)
+                    moved = C.snapshot()["all_reduce"]["bytes"]
+                    want = n_copy_reduce(mesh, axes, x, op)
+                    out[(axes, f"all_reduce/{op}", name, shape, None)] = (
+                        _bits(got) == _bits(want) and got.shape == x.shape, moved,
+                        x.numel() * x.element_size())
+            for shape, dim in (((3 * n, 5, 7), 0), ((5, 7, 3 * n), -1), ((2 * n, 13), 0)):
+                x = draw(*shape)
+                C.reset_stats()
+                got = C.reduce_scatter(x, mesh, axes, dim)
+                moved = C.snapshot()["reduce_scatter"]["bytes"]
+                want = n_copy_reduce_scatter(mesh, axes, x, dim % x.dim())
+                out[(axes, "reduce_scatter", name, shape, dim)] = (
+                    _bits(got) == _bits(want) and got.shape == want.shape, moved,
+                    x.numel() * x.element_size())
+    return {"checks": out}
+
+
+RUN = {"serve": run_serve, "moe": run_moe, "train": run_train, "reductions": run_reductions}
 
 
 def main(job_path: str) -> None:
