@@ -76,6 +76,16 @@ is non-zero and no result line is printed:
                 `core.baselines.newton`; every cell phase below goes the
                 same way) against the committed artifacts
                 results/exp/fig1r1/*.seed0.json;
+     fig1r1-reference — the same three cells through
+                ``backend="reference"`` (the op-by-op loops,
+                `core.bl_reference`), held to their artifacts in the
+                reference's envelope between its two backends (gaps atol
+                1e-8 and rtol 1e-9, bits rtol 1e-12) and to the same loops
+                on the CPU in the GLM gate, kernel 1 exactly once a client a
+                round on BL1's Top-K leg (120); and a fleet the fast path
+                cannot stack (Top-K on half the clients, Rank-R on the
+                rest): "fast" raises `FastPathUnavailable`, "auto" equals
+                "reference" bit for bit;
   6. fig2     — Newton without a basis and in the data basis on the default
                 float64 route against results/exp/fig2/*.seed0.json, and in
                 the data basis on the kernel route (Γ in float32 through the
@@ -197,17 +207,23 @@ is non-zero and no result line is printed:
                 two records equal and held to the JAX package's file
                 (participants included) and the artifact; fig4/BL2_tau_half
                 through ``python3 -m repro_torch.launch.fed_serve`` with
-                dropout, killed by ``--crash-after-round 14`` (exit -9) and
-                restarted, equal to the uninterrupted CLI serve, and
+                dropout and the default program cache, killed by
+                ``--crash-after-round 14`` (exit -9) and restarted from a
+                fresh copy of src/ (tier 2 empty) with ``nvcc`` hidden,
+                the restart only cache hits and no nvcc run, equal to the
+                uninterrupted CLI serve bit for bit, and
                 written on the CPU to round 12 then resumed on the card
                 (its coefficients mapped into the card's SVD basis); it and
                 fig4/BL3_tau_half and fig1-bag/BAG_q0.5 (outages,
                 stragglers; 8 rounds extended to 24) in-process, each held
                 to src/repro_torch/exp/data/fed_serve_ref.json (written by
                 tools/serve_reference.py: events and bits exact, gaps in
-                the GLM gate); kernel 1 exactly once a round a Top-K leg;
-                s/round served beside the direct call's, checkpoint bytes,
-                write and load seconds, time to first round.
+                the GLM gate); cohort-smoke in-process twice through one
+                program cache, the second after `rounds.clear_aot_memo`
+                (equal bits, no cohort_chunk trace); kernel 1 exactly
+                once a round a Top-K leg; s/round served beside the direct
+                call's, checkpoint bytes, write and load seconds, time to
+                first round cold and warm.
      sharded  — the client-sharded reducer (`repro_torch.core.rounds.
                 ShardedReducer` over `repro_torch.launch.mesh`'s client
                 group), its ranks sharing the one card through gloo, each a
@@ -2063,6 +2079,82 @@ def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
     return out
 
 
+def check_backend_envelope(name: str, hist, ref: dict) -> dict:
+    """The reference's envelope between its two backends
+    (tests/test_batched_parity.py ``_assert_parity``): gaps within
+    1e-8 + 1e-9·|ref|, uplink and downlink bits within 1e-12·|ref|."""
+    import numpy as np
+
+    g, gr = np.asarray(hist.gaps), np.asarray(ref["gaps"])
+    if g.shape != gr.shape or not np.all(np.abs(g - gr) <= 1e-8 + 1e-9 * np.abs(gr)):
+        raise AssertionError(f"{name}: gaps leave the backends' envelope: {g} vs {gr}")
+    worst = {}
+    for key in ("up_bits", "down_bits"):
+        b, br = np.asarray(getattr(hist, key)), np.asarray(ref[key])
+        if b.shape != br.shape or not np.all(np.abs(b - br) <= 1e-12 * np.abs(br)):
+            raise AssertionError(f"{name}: {key} {b} leave 1e-12 of {br}")
+        worst[key] = float(np.max(np.abs(b - br)))
+    return {"envelope_max_gap_abs_err": float(np.max(np.abs(g - gr))),
+            "envelope_max_bits_abs_err": worst}
+
+
+def fig1r1_reference_phase(torch, k, problems, prob, device: str = "cuda") -> dict:
+    """fig1r1's BL1, FedNL and Newton through ``backend="reference"`` on the
+    card, each held to its artifact in the backends' envelope
+    (`check_backend_envelope`) and to the same loops on the CPU in the GLM
+    gate (integer bits exact); kernel 1 exactly once a client a round on a
+    Top-K Hessian leg and once a round on a Top-K model stream (BL1: 12
+    rounds of 10 clients, 120).  Then a fleet the fast path cannot stack,
+    Top-K on half the clients and Rank-R on the rest, 6 rounds: "fast"
+    raises `batched.FastPathUnavailable` and "auto" is "reference" bit for
+    bit."""
+    from repro_torch.core import batched, bl
+    from repro_torch.core import compressors as C
+
+    cpu = problems.build_problem(problems.FIG1R1.problem, device="cpu")
+    out = {}
+    for name in ("BL1", "FedNL", "Newton"):
+        cell = problems.FIG1R1_CELLS[name]
+        hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob,
+                                                                       backend="reference"))
+        n = cell.problem.n_clients
+        want = dict.fromkeys(counts, 0)
+        want["topk_row_threshold"] = cell.steps * sum(
+            per for comp, per in ((cell.hess_comp, n), (cell.model_comp, 1))
+            if comp is not None and comp.kind in TOPK_KINDS)
+        need_exact(f"fig1r1/{name} (reference)", counts, want)
+        env = check_backend_envelope(f"fig1r1/{name} (reference)", hist,
+                                     json.loads(cell.artifact.read_text())["history"])
+        t0 = time.perf_counter()
+        on_cpu = problems.run_cell(cell, cpu, backend="reference")
+        cpu_s = time.perf_counter() - t0
+        res = check_history(f"fig1r1/{name} (reference, card vs CPU)", hist,
+                            history_dict(on_cpu))
+        res.pop("gaps")
+        out[name] = {"run_s": secs, "cpu_run_s": cpu_s, "s_per_round": secs / cell.steps,
+                     "launches": counts, **env, "card_vs_cpu": res}
+    clients, bases = prob.clients, prob.bases("data_outer")
+    half = len(clients) // 2
+    comps = [C.TopK(k=bases[0].r ** 2)] * half + [C.RankR(r=2)] * (len(clients) - half)
+    args = (clients, bases, comps, C.Identity(), prob.x0, prob.x_star, 6)
+    try:
+        bl.bl1(*args, backend="fast", device=device)
+    except batched.FastPathUnavailable as e:
+        refused = str(e)
+    else:
+        raise AssertionError("fig1r1 mixed fleet: backend='fast' ran a fleet it cannot stack")
+    auto, secs, counts = drive(torch, k, lambda: bl.bl1(*args, backend="auto", device=device))
+    ref = bl.bl1(*args, backend="reference", device=device)
+    if (auto.gaps, auto.up_bits, auto.down_bits) != (ref.gaps, ref.up_bits, ref.down_bits):
+        raise AssertionError("fig1r1 mixed fleet: 'auto' differs from 'reference'")
+    want = dict.fromkeys(counts, 0)
+    want["topk_row_threshold"] = 6 * half
+    need_exact("fig1r1 mixed fleet (auto)", counts, want)
+    out["mixed_fleet"] = {"fast_refused": refused, "auto_equals_reference": True,
+                          "run_s": secs, "launches": counts, "gaps": auto.gaps}
+    return out
+
+
 def _stream_arrays(ys) -> list:
     """A cohort run's (eval_x, ledger, events) streams as host tensors."""
     x, led, ev = ys
@@ -2296,6 +2388,16 @@ def strip_meta(rec: dict) -> dict:
     return {k: v for k, v in rec.items() if k != "meta"}
 
 
+def served_cache_line(name: str, stdout: str) -> dict:
+    """The ``[serve] progcache {...}`` line a serve child logs after its
+    first chunk (a killed child writes no record)."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[serve] progcache ")]
+    if not lines:
+        raise AssertionError(f"{name}: the serve child logged no program-cache line: "
+                             f"{stdout[-1000:]}")
+    return json.loads(lines[-1][len("[serve] progcache "):])
+
+
 def ckpt_bytes(ckpt_dir) -> int:
     """Bytes of the newest checkpoint in a directory (its npz and manifest)."""
     from repro_torch.exp import artifacts
@@ -2320,10 +2422,15 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
           resumed; equal, and equal to results/exp/fig1-xl/BL1.seed0.json
           (BL1 with Top-K and Identity draws nothing);
       (a) fig4/BL2_tau_half through ``python3 -m repro_torch.launch.fed_serve``
-          with the reference CI's serve-smoke command: uninterrupted, killed
+          with the reference CI's serve-smoke command and the default
+          program cache (``<ckpt-dir>/progcache``): uninterrupted and killed
           by ``--crash-after-round 14`` (exit -9, newest checkpoint below
-          30), restarted; the restart's record equals the uninterrupted one
-          and both the JAX package's (`problems.SERVE_REFERENCE`); then the
+          30), both cache misses only; restarted from a fresh copy of
+          ``src/`` (its tier 2, ``<copy>/build/``, empty) with ``nvcc``
+          hidden (``PATH`` without it, ``CUDA_HOME`` an empty directory):
+          only cache hits and no nvcc run, and its record equals the
+          uninterrupted one bit for bit and both the JAX package's
+          (`problems.SERVE_REFERENCE`); then the
           same serve in-process, counted and timed; then written on the CPU
           to round 12 and resumed on the card, held to the same file: its L
           is in the CPU's data basis, whose SVD column signs may differ
@@ -2331,7 +2438,11 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
           (`fed_serve.basis_fingerprint`; the flipped columns are counted);
       (b) fig4/BL3_tau_half and fig1-bag/BAG_q0.5 (8 rounds, then extended
           to 24 from its checkpoint) in-process with their fault plans,
-          against the same file.
+          against the same file;
+      (e) cohort-smoke/BL2 in-process with its cache, then again in a new
+          checkpoint directory through the first one's cache after
+          `rounds.clear_aot_memo`: equal records (meta aside), the second
+          all cache hits and no ``cohort_chunk`` trace.
 
     Every in-process serve runs under `drive`: kernel 1 exactly once a
     round a Top-K leg, no other kernel.  Each case reports s/round served
@@ -2344,6 +2455,7 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
     import tempfile
     from types import SimpleNamespace
 
+    from repro_torch.core import rounds
     from repro_torch.exp import artifacts, engine
     from repro_torch.launch import fed_serve
 
@@ -2439,13 +2551,13 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
         name = "fig4/BL2_tau_half"
         case = ref[name]
 
-        def cli(ckpt, *extra):
+        def cli(ckpt, *extra, src=ROOT / "src", env=None):
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "repro_torch.launch.fed_serve", *case["args"],
                  "--ckpt-dir", str(ckpt), "--device", device, *extra], capture_output=True,
-                text=True,
-                timeout=600, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+                text=True, timeout=600, cwd=src.parent,
+                env={**os.environ, **(env or {}), "PYTHONPATH": str(src)})
             return proc, time.perf_counter() - t0
 
         p_ref, s_ref = cli(tmp / "cli_ref", "--result", str(tmp / "cli_ref.json"))
@@ -2457,7 +2569,24 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
         if p_kill.returncode != -9 or not ts or max(ts) >= case["record"]["rounds"]:
             raise AssertionError(f"{name}: the armed CLI exited {p_kill.returncode} with "
                                  f"checkpoints {ts}: {p_kill.stderr[-2000:]}")
-        p_res, s_res = cli(tmp / "cli_crash", "--result", str(tmp / "cli_res.json"))
+        cold = {"uninterrupted": served_cache_line(name, p_ref.stdout),
+                "killed": served_cache_line(name, p_kill.stdout)}
+        for which, line in cold.items():
+            if line["stats"].get("hit", 0) or not line["stats"].get("miss", 0):
+                raise AssertionError(f"{name}: the {which} child's cache should only miss: "
+                                     f"{line}")
+        # the restart: a fresh copy of src/ (an empty tier 2) and no toolkit
+        fresh = tmp / "fresh_checkout"
+        shutil.copytree(ROOT / "src", fresh / "src",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        (fresh / "no_cuda").mkdir()
+        path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                               if d and not os.path.exists(os.path.join(d, "nvcc")))
+        if shutil.which("nvcc", path=path) is not None:
+            raise AssertionError(f"{name}: nvcc is still on the restart's PATH")
+        p_res, s_res = cli(tmp / "cli_crash", "--result", str(tmp / "cli_res.json"),
+                           src=fresh / "src",
+                           env={"PATH": path, "CUDA_HOME": str(fresh / "no_cuda")})
         if p_res.returncode != 0 or "resumed from checkpoint" not in p_res.stdout:
             raise AssertionError(f"{name}: the restart exited {p_res.returncode}: "
                                  f"{p_res.stdout[-1000:]} {p_res.stderr[-2000:]}")
@@ -2466,6 +2595,17 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
         if resumed["meta"]["resumed_from"] != max(ts) or strip_meta(resumed) != strip_meta(whole):
             raise AssertionError(f"{name}: kill -9 and restart differ from the uninterrupted "
                                  "serve")
+        warm = resumed["meta"]["progcache"]
+        built = sorted(p.name for p in (fresh / "build").rglob("*")) \
+            if (fresh / "build").exists() else []
+        if warm["stats"].get("miss", 0) != 0 or not warm["stats"].get("hit", 0) \
+                or warm["nvcc_runs"] or built:
+            raise AssertionError(f"{name}: the warm restart should only hit the cache and "
+                                 f"build nothing: {warm['stats']}, nvcc {warm['nvcc_runs']}, "
+                                 f"tier 2 {built}")
+        if warm["dlopens"] != {"topk_threshold": 1}:
+            raise AssertionError(f"{name}: the warm restart loaded {warm['dlopens']}, not "
+                                 "kernel 1's library once")
         held = hold_serve(name, whole, case["record"])
         rec, tin = served(name, problems.FIG4["BL2_tau_half"], tmp / "inproc",
                           **_serve_kwargs(case))
@@ -2491,6 +2631,11 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
                      "resumed_from": resumed["meta"]["resumed_from"],
                      "cli_ttfr_s": {"uninterrupted": whole["meta"]["ttfr_s"],
                                     "restart": resumed["meta"]["ttfr_s"]},
+                     "progcache_cold": {**cold, "uninterrupted_record":
+                                        {key: whole["meta"]["progcache"][key] for key in
+                                         ("stats", "nvcc_runs", "dlopens")}},
+                     "progcache_warm": {key: warm[key] for key in
+                                        ("stats", "nvcc_runs", "dlopens", "programs")},
                      "cli_checkpoint_load_s": resumed["meta"]["restore_s"],
                      "in_process": tin, "s_per_round_direct": direct[name], **held}
         emit({"phase": "serve", "case": "a", "cell": name, **out[name]})
@@ -2507,6 +2652,26 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
             out[name] = {**tin, "degraded_rounds": rec["degraded_rounds"],
                          "s_per_round_direct": direct[name.split("@")[0]], **held}
             emit({"phase": "serve", "case": "b", "cell": name, **out[name]})
+
+        # ---- (e) cohort-smoke twice through one program cache ----------------------
+        name, cell = "cohort-smoke/BL2", problems.COHORT_SMOKE
+        kw = dict(seed=2, chunk=3, max_rounds=12)
+        first, t1 = served(name, cell, tmp / "cs1", **kw)
+        rounds.clear_aot_memo()
+        before = rounds.trace_counts()
+        again, t2 = served(f"{name} (memo cleared)", cell, tmp / "cs2",
+                           progcache_dir=str(tmp / "cs1" / "progcache"), **kw)
+        traced = rounds.trace_counts().get("cohort_chunk", 0) - before.get("cohort_chunk", 0)
+        if strip_meta(again) != strip_meta(first) or traced:
+            raise AssertionError(f"{name}: the second serve differs ({traced} cohort_chunk "
+                                 "traces) from the first")
+        if again["meta"]["progcache"]["stats"].get("miss", 0):
+            raise AssertionError(f"{name}: the second serve missed the cache: "
+                                 f"{again['meta']['progcache']['stats']}")
+        out[name] = {"first": t1, "second": t2, "cohort_chunk_traces_second": traced,
+                     "progcache_first": first["meta"]["progcache"]["stats"],
+                     "progcache_second": again["meta"]["progcache"]["stats"]}
+        emit({"phase": "serve", "case": "e", "cell": name, **out[name]})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["launches"] = launches
@@ -5192,6 +5357,8 @@ def main(argv) -> int:
         need(f"fig1r1/{cell.name}", counts, {"tiled_matmul": 0})
         per_cell[f"fig1r1/{cell.name}"] = counts
         emit({"phase": "fig1r1", "cell": cell.name, "run_s": secs, "launches": counts, **res})
+
+    emit({"phase": "fig1r1-reference", **fig1r1_reference_phase(torch, k, problems, prob)})
 
     # ---- fig2: Newton without and with the data basis, both Γ routes -------
     fig2_launches = {}

@@ -15,7 +15,8 @@ experiment registry, the cohort engine, the service loop and the sharded
 reducer; and the LM stack: all ten configs serve (`launch.serve`) and train
 (`launch.train`), sharded over a `torch.distributed` mesh with the
 reference's rules (`sharding`), and dry-run on the production mesh
-(`launch.dryrun`).  Every Pallas kernel of the reference has a
-hand-written CUDA kernel (`repro_torch.kernels`).  Not yet: the compile
-cache (item 16) and the op-by-op reference backend (item 17).
+(`launch.dryrun`); the program cache and its retrace audit
+(`core.progcache`) and the op-by-op reference backend
+(`core.bl_reference`).  Every Pallas kernel of the reference has a
+hand-written CUDA kernel (`repro_torch.kernels`).
 """

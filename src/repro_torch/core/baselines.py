@@ -7,7 +7,10 @@ follow-up, on the round engine); FedNL itself is `repro_torch.core.bl.bl1`
 with the standard basis and a Rank-R Hessian compressor.  First order: GD
 and DIANA on the round engine, and ADIANA, Local-GD and DORE-style
 bidirectional compression as the reference's loops, the client loop of
-each batched over the fleet.
+each batched over the fleet.  `newton`, `gd` and `diana` take the
+reference's backends (`bl.dispatch`): "reference" runs the reference's
+op-by-op loop, client by client, and "auto" falls back to it on a fleet the
+fast path cannot stack.
 
 Conventions are the reference's: ``x0`` and ``x_star`` are (d,) tensors,
 every function returns a `bl.History` of per-round gaps and cumulative
@@ -28,8 +31,9 @@ import torch
 
 from .. import device as _device
 from . import client_batch, comm, glm, prng
-from .basis import MatrixBasis
-from .bl import _BACKENDS, History, _to, proj_mu, run_fast
+from .basis import DataOuterBasis, MatrixBasis
+from .bl import (_BACKENDS, History, _client_hcoef, _server_reconstruct, _to, dispatch,
+                 proj_mu)
 from .comm import FLOAT_BITS
 from .compressors import Compressor, RandK
 
@@ -52,6 +56,10 @@ def _fleet(device, clients, x0, x_star, what: str):
     if batch is None:
         raise ValueError(f"{what} needs a homogeneous fleet (one m and λ)")
     return clients, batch, x0, float(client_batch.global_loss(batch, x_star))
+
+
+def _fstar(clients, x_star) -> float:
+    return float(glm.global_loss(list(clients), x_star))
 
 
 def _gap(batch, x, f_star: float) -> float:
@@ -101,17 +109,58 @@ def newton(
     ``device`` (``None`` means ``"cuda"``, which raises without a GPU) and
     ``basis_project``, the route of Γ = VᵀAV: "einsum" (float64, the
     default) or "kernel" (float32 through the tiled-matmul kernel).
-    "auto" and "fast" run the single-device fast path, "fast+sharded" the
-    sharded reducer; bases of another kind raise
-    `batched.FastPathUnavailable` under "fast" and `NotImplementedError`
-    under "auto"."""
+    "fast" runs the single-device fast path, "fast+sharded" the sharded
+    reducer, "reference" the reference's loop (`_newton_reference`), and
+    "auto" the fast path, falling back to the loop on a fleet the fast
+    path cannot stack (bases of another kind raise
+    `batched.FastPathUnavailable` under "fast")."""
     from . import batched
 
     def fast(clients, bases, x0, x_star, sharded):
         return batched.newton_fast(clients, x0, x_star, steps, bases=bases,
                                    basis_project=basis_project, sharded=sharded)
 
-    return run_fast(backend, device, clients, bases, x0, x_star, fast)
+    def reference(clients, bases, x0, x_star):
+        return _newton_reference(clients, x0, x_star, steps, bases)
+
+    return dispatch(backend, device, clients, bases, x0, x_star, fast, reference)
+
+
+def _newton_reference(clients, x0, x_star, steps, bases) -> History:
+    """The reference's Newton loop: the Hessian summed client by client,
+    billed d² + d floats a round without bases, r² + r (after a one-time
+    d·r shipment) with per-client data bases.  The loop bills a basis by
+    its rank, so a basis without one (another kind) raises ``ValueError``,
+    where the reference's loop fails on the missing attribute."""
+    clients = list(clients)
+    n = len(clients)
+    d = x0.shape[0]
+    lam = clients[0].lam
+    if bases is not None and not all(isinstance(b, DataOuterBasis) for b in bases):
+        raise ValueError(
+            "newton's reference loop bills each client's data-basis rank r (r² + r "
+            "floats a round): bases must be per-client DataOuterBasis, or None; got "
+            f"{sorted({type(b).__name__ for b in bases})}")
+    f_star = _fstar(clients, x_star)
+    x = x0
+    up = 0.0
+    if bases is not None:
+        up = sum(float(b.d * b.r * FLOAT_BITS) for b in bases) / n  # ship bases once
+    hist = History([], [], [])
+    for _ in range(steps):
+        hist.append(float(glm.global_loss(clients, x)) - f_star, up, 0.0)
+        if bases is None:
+            H = glm.global_hess(clients, x)
+            g = glm.global_grad(clients, x)
+            up += (d * d + d) * FLOAT_BITS
+        else:
+            # clients send Γ_i = V_iᵀ∇²f_i^data V_i (r² floats) + r grad coeffs
+            H = sum(_server_reconstruct(bases[i], _client_hcoef(bases[i], clients[i], x), lam)
+                    for i in range(n)) / n
+            g = glm.global_grad(clients, x)
+            up += sum(b.r * b.r + b.r for b in bases) / n * FLOAT_BITS
+        x = x - torch.linalg.solve(H, g)
+    return hist
 
 
 def nl1(
@@ -197,9 +246,10 @@ def fednl_bag(
                 eta=eta, mu=mu, seed=seed, init_exact_hessian=init_exact_hessian,
                 sharded=sharded, exact=exact)
         except batched.FastPathUnavailable as e:
+            # with no loop to fall back to, "auto" names the limit instead
             raise ValueError(f"fednl_bag requires a stackable homogeneous fleet ({e})") from e
 
-    return run_fast(backend, device, clients, bases, x0, x_star, fast)
+    return dispatch(backend, device, clients, bases, x0, x_star, fast, None)
 
 
 # ==========================================================================
@@ -207,16 +257,29 @@ def fednl_bag(
 # ==========================================================================
 def gd(clients, x0, x_star, steps, lr: Optional[float] = None,
        backend: str = "auto", *, device=None) -> History:
-    """Distributed gradient descent (`specs.GDSpec` on the round engine),
-    d floats a client a round; ``lr`` defaults to 1/L
-    (`smoothness_constant`).  The downlink is an exact broadcast, not
-    billed."""
+    """Distributed gradient descent (`specs.GDSpec` on the round engine;
+    "reference": the reference's loop), d floats a client a round; ``lr``
+    defaults to 1/L (`smoothness_constant`).  The downlink is an exact
+    broadcast, not billed."""
     from . import batched
 
     def fast(clients, _bases, x0, x_star, sharded):
         return batched.gd_fast(clients, x0, x_star, steps, lr=lr, sharded=sharded)
 
-    return run_fast(backend, device, clients, None, x0, x_star, fast)
+    def reference(clients, _bases, x0, x_star):
+        d = x0.shape[0]
+        f_star = _fstar(clients, x_star)
+        step = 1.0 / smoothness_constant(clients) if lr is None else lr
+        x = x0
+        up = 0.0
+        hist = History([], [], [])
+        for _ in range(steps):
+            hist.append(float(glm.global_loss(clients, x)) - f_star, up, 0.0)
+            x = x - step * glm.global_grad(clients, x)
+            up += d * FLOAT_BITS
+        return hist
+
+    return dispatch(backend, device, clients, None, x0, x_star, fast, reference)
 
 
 def diana(clients, x0, x_star, steps, comp: Compressor, omega: float,
@@ -227,14 +290,45 @@ def diana(clients, x0, x_star, steps, comp: Compressor, omega: float,
     1/(ω+1), ``lr`` by default the theoretical min(α_h/2μ,
     1/(L(1+6ω/n))); ``comp`` is unbiased (e.g. `RandomDithering`) with
     variance ω, and every round's client keys are ``split(round_key, n)``
-    as in the reference's fast path."""
+    as in the reference's fast path.  "reference" runs the reference's
+    loop, whose key chain ``key, sk = split(key)`` advances client after
+    client, so a stochastic ``comp`` draws other bits there, as in the
+    reference."""
     from . import batched
 
     def fast(clients, _bases, x0, x_star, sharded):
         return batched.diana_fast(clients, x0, x_star, steps, comp, omega, lr=lr, seed=seed,
                                   sharded=sharded)
 
-    return run_fast(backend, device, clients, None, x0, x_star, fast)
+    def reference(clients, _bases, x0, x_star):
+        n = len(clients)
+        d = x0.shape[0]
+        f_star = _fstar(clients, x_star)
+        L = smoothness_constant(clients)
+        mu = clients[0].lam
+        alpha_h = 1.0 / (omega + 1.0)
+        step = (min(alpha_h / (2.0 * mu), 1.0 / (L * (1.0 + 6.0 * omega / n)))
+                if lr is None else lr)
+        key = prng.PRNGKey(seed)
+        x = x0
+        h = [torch.zeros(d, dtype=x0.dtype, device=x0.device) for _ in range(n)]
+        up = 0.0
+        hist = History([], [], [])
+        for _ in range(steps):
+            hist.append(float(glm.global_loss(clients, x)) - f_star, up, 0.0)
+            ghat = torch.zeros(d, dtype=x0.dtype, device=x0.device)
+            step_bits = 0.0
+            for i, c in enumerate(clients):
+                key, sk = prng.split(key)
+                q, bits = comp(sk, glm.grad(c, x) - h[i])
+                ghat = ghat + (h[i] + q) / n
+                h[i] = h[i] + alpha_h * q
+                step_bits += float(bits)
+            x = x - step * ghat
+            up += step_bits / n
+        return hist
+
+    return dispatch(backend, device, clients, None, x0, x_star, fast, reference)
 
 
 def adiana(clients, x0, x_star, steps, comp: Compressor, omega: float,

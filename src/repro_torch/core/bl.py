@@ -2,15 +2,18 @@
 port of `repro.core.bl`.
 
 `bl1`, `bl2` and `bl3` take ``backend="auto"|"fast"|"fast+sharded"|
-"reference"``.  The port runs "auto" and "fast" on its single-device fast
-path (`repro_torch.core.batched`) and "fast+sharded" on the same path with
-its clients sharded over the ranks of a `torch.distributed` world
-(`rounds.ShardedReducer`; one process is a one-rank world), ``exact``
-choosing its collectives as the reference's does; "reference" raises
-`NotImplementedError` until ROADMAP.md §1 item 17 ports it (`run_fast`,
-shared with `repro_torch.core.baselines`).  Draws follow
-`repro_torch.core.prng` under the caller's `prng.threefry_partitionable`
-setting (default False, the setting of every committed artifact).
+"reference"``, dispatched as the reference dispatches them (`dispatch`,
+shared with `repro_torch.core.baselines`): "fast" runs the single-device
+fast path (`repro_torch.core.batched`) and raises
+`batched.FastPathUnavailable` for a fleet it cannot stack, "fast+sharded"
+the same path with the clients sharded over the ranks of a
+`torch.distributed` world (`rounds.ShardedReducer`; one process is a
+one-rank world), ``exact`` choosing its collectives as the reference's
+does, "reference" the op-by-op loops (`repro_torch.core.bl_reference`), and
+"auto" the fast path, falling back to the loops on
+`batched.FastPathUnavailable`.  Draws follow `repro_torch.core.prng` under
+the caller's `prng.threefry_partitionable` setting (default False, the
+setting of every committed artifact).
 
 Conventions are the reference's: compression acts on coefficient matrices
 h^i(∇²f_i) in the client's basis; with the data basis the Hessian's data
@@ -28,7 +31,8 @@ import torch
 
 from .. import device as _device
 from . import glm
-from .basis import DataOuterBasis, MatrixBasis, RotationBasis
+from .basis import DataOuterBasis, MatrixBasis, RotationBasis, basis_transmission_bits
+from .comm import FLOAT_BITS
 from .compressors import Compressor
 
 _BACKENDS = ("auto", "fast", "fast+sharded", "reference")
@@ -39,6 +43,10 @@ def proj_mu(A: torch.Tensor, mu: float) -> torch.Tensor:
     S = (A + A.T) / 2.0
     w, V = torch.linalg.eigh(S)
     return (V * torch.clamp(w, min=mu)) @ V.T
+
+
+def _sym(A: torch.Tensor) -> torch.Tensor:
+    return (A + A.T) / 2.0
 
 
 @dataclasses.dataclass
@@ -60,6 +68,33 @@ class History:
         self.gaps.append(float(max(gap, 0.0)))
         self.up_bits.append(float(up))
         self.down_bits.append(float(down))
+
+
+# --------------------------------------------------------------------------
+# one client's basis arithmetic (the reference loops, `bl_reference`)
+# --------------------------------------------------------------------------
+def _grad_uplink_bits(basis: MatrixBasis) -> float:
+    return (basis.r if isinstance(basis, DataOuterBasis) else basis.d) * FLOAT_BITS
+
+
+def _client_hcoef(basis: MatrixBasis, data: glm.ClientData, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(basis, DataOuterBasis):
+        return basis.h(glm.hess_data_part(data, x))
+    return basis.h(glm.hess(data, x))
+
+
+def _server_reconstruct(basis: MatrixBasis, L: torch.Tensor, lam: float) -> torch.Tensor:
+    H = basis.reconstruct(L)
+    if isinstance(basis, DataOuterBasis):
+        H = H + lam * torch.eye(basis.d, dtype=H.dtype, device=H.device)
+    return H
+
+
+def _init_bits(basis: MatrixBasis, init_exact: bool) -> float:
+    bits = basis_transmission_bits(basis)
+    if init_exact:
+        bits += basis.n_coeff * FLOAT_BITS
+    return bits
 
 
 # --------------------------------------------------------------------------
@@ -112,30 +147,26 @@ def _to(device, clients, bases, x0, x_star):
     return clients, bases, x0.to(device), x_star.to(device)
 
 
-def run_fast(backend: str, device, clients, bases, x0, x_star, fast):
-    """Dispatch a public entry point: validate ``backend``, move the inputs
-    to the resolved device and run ``fast(clients, bases, x0, x_star,
-    sharded=backend == "fast+sharded")`` on the fast path.  "reference"
-    raises until ROADMAP.md §1 item 17; a fleet the fast path cannot stack
-    raises `batched.FastPathUnavailable` under "fast" and
-    `NotImplementedError` under "auto", whose reference fallback is not
-    ported."""
+def dispatch(backend: str, device, clients, bases, x0, x_star, fast, reference):
+    """Dispatch a public entry point, as the reference's ``_dispatch``
+    does: validate ``backend``, move the inputs to the resolved device
+    (``bases`` may be None), then run ``fast(clients, bases, x0, x_star,
+    sharded=backend == "fast+sharded")`` or, for "reference",
+    ``reference(clients, bases, x0, x_star)``; "auto" falls back to
+    ``reference`` when the fast path raises `batched.FastPathUnavailable`,
+    "fast" and "fast+sharded" let it raise."""
     from . import batched
 
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+    args = _to(_device.resolve(device), clients, bases, x0, x_star)
     if backend == "reference":
-        raise NotImplementedError(
-            "backend='reference' (the op-by-op loops) is not ported yet: "
-            "ROADMAP.md §1 item 17 brings it")
-    dev = _device.resolve(device)
+        return reference(*args)
     try:
-        return fast(*_to(dev, clients, bases, x0, x_star), sharded=backend == "fast+sharded")
-    except batched.FastPathUnavailable as e:
+        return fast(*args, sharded=backend == "fast+sharded")
+    except batched.FastPathUnavailable:
         if backend == "auto":
-            raise NotImplementedError(
-                f"{e}: the reference backend that 'auto' falls back to is "
-                "not ported yet (ROADMAP.md §1 item 17)") from e
+            return reference(*args)
         raise
 
 
@@ -174,17 +205,24 @@ def bl1(
     off that backend.
 
     Returns a `History` with per-round gaps, cumulative per-node uplink and
-    downlink bits, and the per-leg `CommLedger` streams in ``legs``."""
-    from . import batched
+    downlink bits, and the per-leg `CommLedger` streams in ``legs`` (None
+    from the reference loops, which ignore ``stream``, ``exact`` and
+    ``basis_project``: they project in float64 as the reference's do)."""
+    from . import batched, bl_reference
+
+    kw = dict(alpha=alpha, eta=eta, p=p, mu=mu, seed=seed,
+              init_exact_hessian=init_exact_hessian)
 
     def fast(clients, bases, x0, x_star, sharded):
-        return batched.bl1_fast(
-            clients, bases, hess_comp, model_comp, x0, x_star, steps,
-            alpha=alpha, eta=eta, p=p, mu=mu, seed=seed,
-            init_exact_hessian=init_exact_hessian, stream=stream,
-            basis_project=basis_project, sharded=sharded, exact=exact)
+        return batched.bl1_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
+                                stream=stream, basis_project=basis_project, sharded=sharded,
+                                exact=exact, **kw)
 
-    return run_fast(backend, device, clients, bases, x0, x_star, fast)
+    def reference(clients, bases, x0, x_star):
+        return bl_reference.bl1_reference(clients, bases, hess_comp, model_comp, x0, x_star,
+                                          steps, **kw)
+
+    return dispatch(backend, device, clients, bases, x0, x_star, fast, reference)
 
 
 def bl2(
@@ -216,15 +254,20 @@ def bl2(
     None is full participation), ``p`` the per-client gradient-refresh
     probability, ``exact`` the "fast+sharded" reducer's collectives (as in
     `bl1`); plus ``device`` (``None`` means ``"cuda"``)."""
-    from . import batched
+    from . import batched, bl_reference
+
+    kw = dict(alpha=alpha, eta=eta, p=p, tau=tau, seed=seed,
+              init_exact_hessian=init_exact_hessian)
 
     def fast(clients, bases, x0, x_star, sharded):
         return batched.bl2_fast(clients, bases, hess_comp, model_comp, x0, x_star, steps,
-                                alpha=alpha, eta=eta, p=p, tau=tau, seed=seed,
-                                init_exact_hessian=init_exact_hessian, stream=stream,
-                                sharded=sharded, exact=exact)
+                                stream=stream, sharded=sharded, exact=exact, **kw)
 
-    return run_fast(backend, device, clients, bases, x0, x_star, fast)
+    def reference(clients, bases, x0, x_star):
+        return bl_reference.bl2_reference(clients, bases, hess_comp, model_comp, x0, x_star,
+                                          steps, **kw)
+
+    return dispatch(backend, device, clients, bases, x0, x_star, fast, reference)
 
 
 def bl3(
@@ -253,11 +296,16 @@ def bl3(
     ``init_exact_hessian`` (BL3 starts from the exact h̃), plus ``c``, the
     γ_i floor (γ_i = max(c, max|L_i|)), and ``option``, the β_i candidate
     (1: previous-iterate numerator; 2: current target)."""
-    from . import batched
+    from . import batched, bl_reference
+
+    kw = dict(alpha=alpha, eta=eta, p=p, tau=tau, c=c, option=option, seed=seed)
 
     def fast(clients, _bases, x0, x_star, sharded):
         return batched.bl3_fast(clients, hess_comp, model_comp, x0, x_star, steps,
-                                alpha=alpha, eta=eta, p=p, tau=tau, c=c, option=option,
-                                seed=seed, stream=stream, sharded=sharded, exact=exact)
+                                stream=stream, sharded=sharded, exact=exact, **kw)
 
-    return run_fast(backend, device, clients, None, x0, x_star, fast)
+    def reference(clients, _bases, x0, x_star):
+        return bl_reference.bl3_reference(clients, hess_comp, model_comp, x0, x_star, steps,
+                                          **kw)
+
+    return dispatch(backend, device, clients, None, x0, x_star, fast, reference)

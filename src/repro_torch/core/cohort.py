@@ -551,6 +551,45 @@ class CohortEngine:
             t += seg
         return rounds.concat_streams(outs)
 
+    def warm_programs(self, chunk: int) -> bool:
+        """Resolve this engine's chunk program through the active program
+        cache (`rounds.warm_chunk_program` / `warm_cohort_chunk_program`)
+        without running a round or touching the engine's state, so the
+        serve loop can warm before checkpoint restore.  Every argument is a
+        template at the dispatch shapes: this rank's slots, the store's
+        dtypes, the padding mask the cohort takes, and the first segment's
+        length, min(chunk, rounds_per_cohort), since `run_chunk` cuts at
+        epoch boundaries.  Returns False when no cache is active."""
+        if rounds.progcache.active() is None:
+            return False
+        dev, chunk = self.device, int(chunk)
+        rows = self._slots.stop - self._slots.start      # the carry's: this rank's slots
+
+        def empty(shape, dtype=torch.float64):
+            return torch.empty(tuple(shape), dtype=dtype, device=dev)
+
+        st = self.store
+        data_rows = self.n if self.full else rows         # full mode takes the fleet's
+        batch = client_batch.ClientBatch(A=empty((data_rows,) + st.A.shape[1:]),
+                                         b=empty((data_rows,) + st.b.shape[1:]), lam=st.lam)
+        carry = tuple(
+            empty((rows,) + st.state[name].shape[1:],
+                  torch.from_numpy(st.state[name][:0]).dtype) if cl else self._server[name]
+            for name, cl in zip(self._names, self._is_client))
+        if self.full:
+            return rounds.warm_chunk_program(self.spec, batch, self._basis_full, self.x0,
+                                             carry, chunk, sharded=self.sharded,
+                                             exact=self.exact)
+        frozen = {agg: empty(self._totals[agg].shape if op == "mean"
+                             else st.state[leaf].shape[1:])
+                  for agg, (leaf, op) in self._aggs.items()}
+        real = self._padded(np.arange(self.cohort))[1][self._slots]
+        return rounds.warm_cohort_chunk_program(
+            self.spec, batch, self._basis_cohort, self.x0, carry, min(chunk, self.rpc),
+            cidx=empty((rows,), torch.int32), frozen=frozen, n_global=self.n,
+            real=None if real.all() else empty((rows,), torch.bool), sharded=self.sharded,
+            exact=self.exact, cap=self.cap)
+
     # ------------------------------------------------------------------
     # checkpoint plumbing (repro.exp/ckpt@2)
     # ------------------------------------------------------------------

@@ -46,18 +46,27 @@ the rank's slice of them (views) and evaluate the trajectory on the whole;
 a sharded carry is held by shard, and `carry_leaves` gathers it to the
 one-rank leaves.
 
-The program cache (ROADMAP.md §1 item 16, the reference's
-`warm_chunk_program` and `warm_cohort_chunk_program`) is not ported yet.
+The serve programs (`serve_init`, the chunk of `run_chunk`, the cohort
+chunk of `run_cohort_chunk`) dispatch through `_Program`, the reference's
+`_AotProgram`: a memo by (kind, spec, backend scope, abstract argument
+signature) and, when a program cache is active (`repro_torch.core.
+progcache`), a program entry naming the kernel libraries the program
+launches, which a hit loads before any round.  `warm_chunk_program` and
+`warm_cohort_chunk_program` resolve them without running a round, and
+`trace_counts` is the reference's retrace audit.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import client_batch, comm, prng
+from ..kernels import _build
+from . import client_batch, comm, prng, progcache
 from .pytree import tree_leaves, tree_map, tree_unflatten
 
 #: ops `Reducer.reduce_tree` understands, per leaf
@@ -931,6 +940,157 @@ def run_rounds(spec, batch, basisb, x0, f_star, steps: int, *, seed: int = 0,
 
 
 # ==========================================================================
+# Programs: cache-aware dispatch of the serve programs, and the retrace audit
+# ==========================================================================
+# Retrace audit.  The port runs its rounds eagerly, so a "trace" is a
+# program's resolution: on a cache miss, or on its first dispatch when no
+# cache is active.  The invariant is the reference's: one per (kind, spec,
+# shapes) per process and zero across chunk and epoch boundaries; a cache
+# hit counts as a hit, not a trace.  `carry_client_flags`' evaluations of
+# the init on meta tensors count under "init/shape_eval".
+_TRACE_COUNTS: collections.Counter = collections.Counter()
+
+
+def trace_counts() -> dict:
+    """{program kind: traces} since the last reset.  Kinds: "init",
+    "chunk", "cohort_chunk" and "init/shape_eval"."""
+    return dict(_TRACE_COUNTS)
+
+
+def reset_trace_audit() -> None:
+    _TRACE_COUNTS.clear()
+
+
+# resolved programs by (cache serial or None, entry name, spec, scope,
+# signature): module-level, so the memo outlives the per-dispatch `_Program`
+_PROGRAMS: dict = {}
+
+
+def clear_aot_memo() -> None:
+    """Drop the program resolutions of this process (tests use it to send
+    the next dispatch back through the on-disk cache).  The loaded kernel
+    libraries and their bound entry points stay for the life of the
+    process."""
+    _PROGRAMS.clear()
+
+
+def _abstract_sig(o):
+    """A hashable shape-and-type signature of a program's arguments:
+    tensors by shape, dtype and device type; dataclasses (`ClientBatch`,
+    `BatchedBasis`, `CommLedger`) by class and fields, their static fields
+    (λ, a basis's kind and ranks) by value; containers recursively."""
+    if isinstance(o, torch.Tensor):
+        return ("T", tuple(o.shape), str(o.dtype), o.device.type)
+    if o is None or isinstance(o, (bool, int, str)):
+        return o
+    if isinstance(o, float):
+        return float.hex(o)
+    if isinstance(o, (tuple, list)):
+        return (type(o).__name__,) + tuple(_abstract_sig(v) for v in o)
+    if isinstance(o, dict):
+        return ("dict",) + tuple((k, _abstract_sig(o[k])) for k in sorted(o))
+    if dataclasses.is_dataclass(o) and not isinstance(o, type):
+        return (type(o).__qualname__,) + tuple(
+            (f.name, _abstract_sig(getattr(o, f.name))) for f in dataclasses.fields(o))
+    return type(o).__qualname__
+
+
+def _scope(R, *extra) -> tuple:
+    """The backend scope of a program: ``("vmap", n, device type)`` or
+    ``("sharded", world size, n, exact)``, then ``extra``."""
+    if is_sharded(R):
+        return ("sharded", R.group.world_size, R.n, R.exact) + extra
+    return ("vmap", R.n, R.device.type) + extra
+
+
+def _load_libraries(path: str) -> list:
+    """A program entry's payload: load the kernel libraries it names."""
+    with open(path) as f:
+        libs = json.load(f)
+    if not isinstance(libs, list) or not all(isinstance(e, dict) and
+                                             isinstance(e.get("library"), str) for e in libs):
+        raise ValueError(f"{path}: not a list of kernel-library entries")
+    for e in libs:
+        _build.load(e["library"])
+    return libs
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A program whose entry missed: its first call runs it and stores the
+    entry from the libraries that call launched."""
+
+    cache: progcache.ProgramCache
+    key: str
+    aux: dict
+
+
+class _Program:
+    """One serve program behind cache-aware dispatch (the reference's
+    `_AotProgram`).
+
+    ``fn(*args)`` is the program's eager body and ``sig(*args)`` the part
+    of its arguments its signature covers (shapes, not values: never the
+    round index or the key).  With no active cache, a call is ``fn`` plus
+    one memo lookup (the first counts a trace).  With a cache, the first
+    resolution of a signature reads the program entry: a hit loads the
+    kernel libraries it names, before any round; a miss counts a trace,
+    and the next call runs the program and stores its entry — the
+    libraries it launched — before returning, so before the serve loop
+    writes a checkpoint.  `resolve` is the half that never runs the
+    program (the serve loop warms through it before restore)."""
+
+    def __init__(self, name: str, kind: str, spec, scope: tuple, fn: Callable,
+                 sig: Callable):
+        self.name, self.kind = name, kind
+        self.spec, self.scope = spec, scope
+        self.fn, self.sig = fn, sig
+
+    def _memo_key(self, cache, sig) -> tuple:
+        spec = self.spec
+        try:
+            hash(spec)
+        except TypeError:                     # a spec with an unhashable field
+            spec = ("id", id(spec))
+        return (None if cache is None else cache.serial, self.name, spec, self.scope, sig)
+
+    def resolve(self, *args):
+        """The memo key and state for these arguments (True: resolved;
+        a `_Pending`: missed, the next call stores).  Never runs ``fn``."""
+        cache = progcache.active()
+        sig = _abstract_sig(self.sig(*args))
+        memo = self._memo_key(cache, sig)
+        state = _PROGRAMS.get(memo)
+        if state is not None:
+            return memo, state
+        if cache is None:
+            _TRACE_COUNTS[self.kind] += 1
+            state = True
+        else:
+            key = progcache.entry_key((self.name, progcache.fingerprint(self.spec),
+                                       progcache.fingerprint(self.scope), repr(sig)),
+                                      cache.backend)
+            _, why = cache.lookup(self.name, key, _load_libraries)
+            state = True
+            if why != "hit":
+                _TRACE_COUNTS[self.kind] += 1
+                state = _Pending(cache, key, {"scope": [str(s) for s in self.scope]})
+        _PROGRAMS[memo] = state
+        return memo, state
+
+    def __call__(self, *args):
+        memo, state = self.resolve(*args)
+        if state is True:
+            return self.fn(*args)
+        with _build.recording() as used:
+            out = self.fn(*args)
+        libs = [{"library": lib, "entry": _build.entry_name(lib)} for lib in sorted(used)]
+        state.cache.store(self.name, state.key, json.dumps(libs).encode(), state.aux)
+        _PROGRAMS[memo] = True
+        return out
+
+
+# ==========================================================================
 # Chunked driver: rounds [t0, t0 + steps) from an explicit carry
 # ==========================================================================
 def _device_of(x0) -> torch.device:
@@ -950,11 +1110,21 @@ def _meta(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     return torch.empty(shape, dtype=x.dtype, device="meta")
 
 
-def serve_init(spec, R, batch, basisb, x0):
-    """The round-0 carry: ``spec.init`` after ``spec.prepare``, the init
-    the stacked driver and the cohort engine's fleet init share."""
+def _init_body(spec, R, batch, basisb, x0):
     env = Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(R, batch, basisb, x0))
     return spec.init(R, env)
+
+
+def _init_program(spec, R) -> _Program:
+    return _Program("serve_init", "init", spec, _scope(R), _init_body,
+                    lambda spec, R, batch, basisb, x0: (batch, basisb, x0))
+
+
+def serve_init(spec, R, batch, basisb, x0):
+    """The round-0 carry: ``spec.init`` after ``spec.prepare``, the init
+    the stacked driver and the cohort engine's fleet init share, through
+    the ``serve_init`` program (`_Program`)."""
+    return _init_program(spec, R)(spec, R, batch, basisb, x0)
 
 
 def carry_client_flags(spec, batch, basisb, x0) -> tuple:
@@ -973,7 +1143,8 @@ def carry_client_flags(spec, batch, basisb, x0) -> tuple:
                                                 for f in ("V", "Q")
                                                 if getattr(basisb, f) is not None})
         xm = tree_map(_meta, x0)
-        carry = serve_init(spec, VmapReducer(n=nn, device=torch.device("meta")), b, bb, xm)
+        _TRACE_COUNTS["init/shape_eval"] += 1
+        carry = _init_body(spec, VmapReducer(n=nn, device=torch.device("meta")), b, bb, xm)
         return [_elem_shapes(e) for e in carry]
 
     s1, s2 = shapes_at(n), shapes_at(2 * n)
@@ -1041,14 +1212,49 @@ def run_chunk(spec, batch, basisb, x0, carry, t0: int, steps: int, root_key, *,
     if is_sharded(R) and not R.group.active:
         return carry, _share(R, None)
     lbatch, lbasis = local_problem(R, spec, batch, basisb)
-    env = Env(batch=lbatch, basisb=lbasis, x0=x0, extra=spec.prepare(R, lbatch, lbasis, x0))
+    carry, streams = _chunk_program(spec, R)(spec, R, lbatch, lbasis, x0, carry, int(t0),
+                                             steps, root_key, avail)
+    return carry, _share(R, streams)
+
+
+def _chunk_body(spec, R, batch, basisb, x0, carry, t0: int, steps: int, root_key, avail):
+    env = Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(R, batch, basisb, x0))
     outs = []
-    for i, t in enumerate(range(int(t0), int(t0) + steps)):
+    for i, t in enumerate(range(t0, t0 + steps)):
         rc = RoundCtx(t=t, key=prng.fold_in(root_key, t),
                       avail=None if avail is None else avail[i])
         carry, ys = spec.step(R, env, carry, rc)
         outs.append(ys)
-    return carry, _share(R, _stack_streams(outs))
+    return carry, _stack_streams(outs)
+
+
+def _chunk_program(spec, R) -> _Program:
+    # the signature holds the chunk's length, not its first round or key
+    return _Program("serve_chunk", "chunk", spec, _scope(R), _chunk_body,
+                    lambda spec, R, batch, basisb, x0, carry, t0, steps, key, avail:
+                    (batch, basisb, x0, carry, steps))
+
+
+def warm_chunk_program(spec, batch, basisb, x0, carry, steps: int, *,
+                       sharded: bool = False, exact: bool = True) -> bool:
+    """Resolve the serve (init, chunk) programs of this cell through the
+    active program cache — on a hit its kernel libraries load — without
+    running a round or touching ``carry``, a template at the dispatch
+    shapes (`init_serve_carry`'s output).  The serve loop calls this before
+    checkpoint restore, so a warm restart builds nothing before its first
+    round.  Returns False (and does nothing) when no cache is active.  (The
+    reference's ``root_key`` argument is gone: a key's value keys no
+    program.)"""
+    if progcache.active() is None:
+        return False
+    R = make_reducer(spec, batch.n, _device_of(x0), sharded=sharded, exact=exact)
+    if is_sharded(R) and not R.group.active:
+        return True
+    lbatch, lbasis = local_problem(R, spec, batch, basisb)
+    _init_program(spec, R).resolve(spec, R, lbatch, lbasis, x0)
+    _chunk_program(spec, R).resolve(spec, R, lbatch, lbasis, x0, carry, 0, int(steps),
+                                    None, None)
+    return True
 
 
 def _flat_flags(flags) -> list:
@@ -1135,18 +1341,54 @@ def run_cohort_chunk(spec, batch, basisb, x0, carry, t0: int, steps: int, root_k
     a client) over the ranks: ``batch``, ``carry``, ``cidx`` and ``real``
     are then the rank's slots, and ``uploads`` is gathered to all ``cap``
     slots."""
+    R, idx, real = _cohort_args(spec, batch, cidx, real, sharded, exact, cap)
+    carry, streams, ups = _cohort_program(spec, R, n_global)(
+        spec, R, batch, basisb, x0, carry, int(t0), int(steps), root_key, idx, frozen,
+        int(n_global), real)
+    if is_sharded(R):
+        ups = R.fleet_rows(ups.T.contiguous()).T
+    return carry, streams, ups
+
+
+def _cohort_args(spec, batch, cidx, real, sharded: bool, exact: bool, cap):
     dev = batch.A.device
     R = make_reducer(spec, batch.n if cap is None else int(cap), dev, sharded=sharded,
                      exact=exact)
-    CR = CohortReducer(R, idx=torch.as_tensor(cidx, dtype=torch.int32, device=dev),
-                       frozen=frozen, n_global=n_global,
-                       real=None if real is None else torch.as_tensor(real, device=dev))
+    return (R, torch.as_tensor(cidx, dtype=torch.int32, device=dev),
+            None if real is None else torch.as_tensor(real, device=dev))
+
+
+def _cohort_body(spec, R, batch, basisb, x0, carry, t0: int, steps: int, root_key, cidx,
+                 frozen: dict, n_global: int, real):
+    CR = CohortReducer(R, idx=cidx, frozen=frozen, n_global=n_global, real=real)
     env = Env(batch=batch, basisb=basisb, x0=x0, extra=spec.prepare(CR, batch, basisb, x0))
     outs = []
-    for t in range(int(t0), int(t0) + int(steps)):
+    for t in range(t0, t0 + steps):
         carry, ys = spec.step(CR, env, carry, RoundCtx(t=t, key=prng.fold_in(root_key, t)))
         outs.append(ys)
-    ups = torch.stack(CR.uploads)
-    if is_sharded(R):
-        ups = R.fleet_rows(ups.T.contiguous()).T
-    return carry, _stack_streams(outs), ups
+    return carry, _stack_streams(outs), torch.stack(CR.uploads)
+
+
+def _cohort_program(spec, R, n_global: int) -> _Program:
+    return _Program("cohort_chunk", "cohort_chunk", spec, _scope(R, int(n_global)),
+                    _cohort_body,
+                    lambda spec, R, batch, basisb, x0, carry, t0, steps, key, cidx, frozen,
+                    n_global, real: (batch, basisb, x0, carry, steps, cidx, frozen, real))
+
+
+def warm_cohort_chunk_program(spec, batch, basisb, x0, carry, steps: int, *,
+                              cidx, frozen: dict, n_global: int, real=None,
+                              sharded: bool = False, exact: bool = True,
+                              cap: Optional[int] = None) -> bool:
+    """`warm_chunk_program` for the cohort chunk program: every argument a
+    template at `run_cohort_chunk`'s dispatch shapes
+    (`repro_torch.core.cohort.CohortEngine.warm_programs` builds them
+    before any epoch is gathered).  Returns False when no cache is
+    active."""
+    if progcache.active() is None:
+        return False
+    R, idx, real = _cohort_args(spec, batch, cidx, real, sharded, exact, cap)
+    _cohort_program(spec, R, n_global).resolve(spec, R, batch, basisb, x0, carry, 0,
+                                               int(steps), None, idx, frozen,
+                                               int(n_global), real)
+    return True

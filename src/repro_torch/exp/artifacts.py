@@ -1,6 +1,7 @@
 """Resumable, schema-versioned artifacts for experiment sweeps and the
-service loop's checkpoints — port of `repro.exp.artifacts` (without the
-program-cache schema tag, ROADMAP.md §1 item 16).
+service loop's checkpoints — port of `repro.exp.artifacts`, with the
+program cache's entry schema tag (`PROGCACHE_SCHEMA`) beside the
+checkpoint schemas.
 
 Two artifact kinds per experiment, byte-for-byte the reference's layout:
 
@@ -165,6 +166,11 @@ CKPT_SCHEMA = f"repro.exp/ckpt@{CKPT_SCHEMA_VERSION}"
 
 SERVE_SCHEMA_VERSION = 1
 SERVE_SCHEMA = f"repro.exp/serve@{SERVE_SCHEMA_VERSION}"
+
+# the program cache's entry schema lives with its validation in
+# `repro_torch.core.progcache`; re-exported here so every schema tag the
+# port writes is enumerable from one module
+from ..core.progcache import PROGCACHE_SCHEMA  # noqa: E402,F401
 
 
 def _ckpt_base(ckpt_dir: str, t: int) -> str:

@@ -136,13 +136,14 @@ def cells(experiment, names=None, reference: Optional[pathlib.Path] = None) -> D
             if names is None or c.name in names}
 
 
-def run_cell(cell: Cell, prob, *, steps=None, basis_project: str = "einsum"):
+def run_cell(cell: Cell, prob, *, steps=None, basis_project: str = "einsum",
+             backend: Optional[str] = None):
     """Run a cell through `engine.run_cell` on the problem's device;
-    ``basis_project`` routes the data basis's Γ = VᵀAV of BL1 and Newton
-    (see `engine.run_cell`)."""
+    ``basis_project`` routes the data basis's Γ = VᵀAV of BL1 and Newton,
+    ``backend`` overrides the cell's (see `engine.run_cell`)."""
     x = prob.x0 if isinstance(prob, (Problem, StreamProblem)) else tree_leaves(prob.params0)[0]
     return engine.run_cell(cell.exp, cell.cell, prob, steps=steps, device=x.device,
-                           basis_project=basis_project)
+                           basis_project=basis_project, backend=backend)
 
 
 #: the BL-DNN cells' handle on `run_cell`

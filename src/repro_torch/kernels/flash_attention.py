@@ -86,8 +86,10 @@ _BWD_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 10
 
 
 def _library():
-    """The kernel library, with its entry points' signatures set once."""
+    """The kernel library, with its entry points' signatures set once (a
+    use of it for `_build.recording`, as `_build.bind` counts one)."""
     global _lib
+    _build.note("flash_attention")
     if _lib is None:
         lib = _build.load("flash_attention")
         lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10

@@ -39,6 +39,11 @@ Parameters and the AdamW moments are bfloat16 (the reference's
 extrapolates; the port's Python loop over the groups counts every layer,
 so here it is a cross-check of the full count.
 
+``--progcache-dir DIR`` activates the program cache
+(`repro_torch.core.progcache`) for the run, as the reference's flag does,
+and prints its summary to stderr at the end.  No kernel launches on fake
+tensors, so the cache gains no entry and the records are unchanged.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--both-meshes] [--out out.json]
@@ -65,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get_config
+from ..core import progcache
 from ..core.pytree import tree_leaves, tree_map
 from ..models import analysis
 from ..models import model as M
@@ -322,12 +328,18 @@ def main(argv=None) -> int:
                     help="also compute the G=1/G=2 cost extrapolation (a cross-check here)")
     ap.add_argument("--out", type=str, default=None)
     ap.add_argument("--progcache-dir", type=str, default=None,
-                    help="not ported yet (ROADMAP.md §1 item 16)")
+                    help="activate the program cache here and print its summary "
+                         "(stderr) at the end; the dry run launches no kernel on "
+                         "fake tensors, so the summary is empty")
     args = ap.parse_args(argv)
-    if args.progcache_dir is not None:
-        raise NotImplementedError(
-            "--progcache-dir: the program cache is not ported yet; ROADMAP.md §1 "
-            "item 16 (compile cache) brings it — drop the flag")
+    with progcache.scope(args.progcache_dir, "cpu") as cache:
+        status = _run_cases(args)
+        if cache is not None:
+            print(f"# progcache {json.dumps(cache.summary(), sort_keys=True)}", file=sys.stderr)
+    return status
+
+
+def _run_cases(args) -> int:
 
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(REFERENCE_SHAPES) if (args.all or not args.shape) else [args.shape]

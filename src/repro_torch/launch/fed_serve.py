@@ -30,10 +30,14 @@ host every chunk), and between chunks the orchestrator
      them.  Carries in a convention basis (standard, symmetric, PSD, DCT)
      resume across packages and devices as they are.
 
-The loop serves without a program cache (the reference's AOT cache,
-``--progcache-dir``, is ROADMAP.md §1 item 16): ``--no-progcache`` is
-accepted and ``meta.progcache`` is null.  Time-to-first-round lands in the
-record's ``meta`` (``ttfr_s``).  ``--metrics-out`` additionally streams an
+A warm restart builds nothing: the serve programs resolve through the
+program cache (`repro_torch.core.progcache`, rooted at
+``<ckpt_dir>/progcache`` by default, ``--progcache-dir`` / ``--no-progcache``)
+*before* checkpoint restore, so the kernel libraries a program launches
+load from the cache's verified copies with no ``nvcc`` (a fresh checkout's
+empty ``build/`` and a host without the CUDA toolkit included).
+Time-to-first-round and the cache's summary land in the record's ``meta``
+(``ttfr_s``, ``progcache``).  ``--metrics-out`` additionally streams an
 append-only, crash-safe JSONL line per round (round, gap, degradation
 events, per-leg ledger bits — `MetricsSink`).
 
@@ -80,7 +84,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..core import batched, cohort, comm, faults, prng, rounds
+from ..core import batched, cohort, comm, faults, prng, progcache, rounds
 from ..exp import artifacts
 from ..exp.engine import StreamProblem, _comp, build_problem, build_stream_spec, resolve_backend
 from ..exp.registry import get_experiment
@@ -354,14 +358,22 @@ class MetricsSink:
             os.fsync(f.fileno())
 
 
-def _no_progcache(progcache_dir: Optional[str], log) -> None:
-    """The port serves without the reference's AOT program cache
-    (ROADMAP.md §1 item 16): a cache directory is refused, never ignored."""
-    if progcache_dir is not None:
-        raise NotImplementedError(
-            "--progcache-dir: the program cache is not ported yet; ROADMAP.md §1 "
-            "item 16 (compile cache) brings it — drop the flag")
-    log("[serve] serving without a program cache (ROADMAP.md §1 item 16)")
+def _activate_progcache(ckpt_dir: str, progcache_dir: Optional[str], no_progcache: bool,
+                        device):
+    """The serve loop's cache policy: on by default, rooted beside the
+    checkpoints (``<ckpt_dir>/progcache``) so a warm restart finds both; a
+    context manager that restores the cache active before the serve."""
+    root = None if no_progcache else (progcache_dir or os.path.join(ckpt_dir, "progcache"))
+    return progcache.scope(root, device)
+
+
+def _log_progcache(cache, log) -> None:
+    """One line of the cache's counts (the crash harness's children report
+    them so, having no record)."""
+    if cache is not None:
+        summ = cache.summary()
+        log("[serve] progcache " + json.dumps(
+            {k: summ[k] for k in ("stats", "nvcc_runs", "dlopens")}, sort_keys=True))
 
 
 def _record(exp, cell, seed, digest, config, t, hist, streams, meta) -> dict:
@@ -396,14 +408,15 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
                   max_rounds: int, ckpt_dir: str, backend: Optional[str],
                   keep: int, plan: Optional[faults.FaultPlan],
                   crash_after_round: Optional[int], result_path: Optional[str],
-                  metrics_out: Optional[str] = None, log=print) -> dict:
+                  cache=None, metrics_out: Optional[str] = None, log=print) -> dict:
     """The serve loop over the cohort-streaming engine: same chunked
     checkpoint/resume/crash contract as the stacked path, with the engine's
     host plane (client store, fleet totals, frozen epoch stats) riding in
     the ckpt@2 ``host_state`` payload.  The trajectory does not depend on
     chunk boundaries — per-round keys are ``fold_in(root_key, t)`` and the
     cohort schedule is a function of the absolute epoch index — so kill -9
-    and a rerun are bit-exact here too."""
+    and a rerun are bit-exact here too.  ``cache`` is the active program
+    cache (None: off)."""
     plan = plan if plan is not None else faults.FaultPlan(n=prob.n)
     if not plan.trivial:
         raise SystemExit(
@@ -426,6 +439,10 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
                               sharded=backend == "cohort+sharded")
     writer = mesh.world()[0] == 0
     log = mesh.rank0(log)
+    # resolve the chunk program BEFORE checkpoint restore: on a warm restart
+    # its kernel libraries load from the cache and the first round builds
+    # nothing
+    eng.warm_programs(min(chunk, max_rounds))
     w0 = time.perf_counter()
     ck = artifacts.load_checkpoint(ckpt_dir, config_digest=digest)
     resumed_from = restore_s = None
@@ -459,6 +476,7 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
             chunks_run += 1
             if ttfr_s is None:
                 ttfr_s = time.perf_counter() - t0_wall
+                _log_progcache(cache, log)
             log(f"[serve] rounds {t - steps}..{t - 1} done (epoch {(t - 1) // rpc})")
             if sink is not None:
                 xs_new = streams["eval_x"][-steps:]
@@ -499,7 +517,7 @@ def _serve_cohort(exp, cell, prob: StreamProblem, *, seed: int, chunk: int,
         "chunk_s": chunk_s,
         "checkpoint_s": ckpt_s,
         "restore_s": restore_s,
-        "progcache": None,
+        "progcache": cache.summary() if cache is not None else None,
         "cohort": eng.cohort,
         "rounds_per_cohort": rpc,
         "n_clients": eng.n,
@@ -523,31 +541,49 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
           keep: int = 3, plan: Optional[faults.FaultPlan] = None,
           crash_after_round: Optional[int] = None,
           result_path: Optional[str] = None,
-          progcache_dir: Optional[str] = None,
+          progcache_dir: Optional[str] = None, no_progcache: bool = False,
           metrics_out: Optional[str] = None, log=print, device=None) -> dict:
     """Run (or resume) a serve loop to ``max_rounds``; returns the final
     serve record (also written to ``result_path`` when given).
 
     ``device`` (``None``: the card) is where the rounds run.
-    ``progcache_dir`` raises (no program cache until ROADMAP.md §1 item
-    16); ``metrics_out``
+    ``progcache_dir`` roots the program cache (default
+    ``<ckpt_dir>/progcache``; ``no_progcache=True`` turns it off), active
+    for this call only; ``metrics_out``
     appends a crash-safe JSONL metrics line per round (`MetricsSink`).
     ``meta.chunk_s`` holds each chunk's seconds (its rounds, with the
     streams copied to the host), ``meta.checkpoint_s`` each checkpoint's
     write seconds, ``meta.restore_s`` the seconds a resume took to load and
-    adopt its checkpoint."""
+    adopt its checkpoint, ``meta.progcache`` the cache's summary (null
+    without one)."""
     if chunk < 1:
         raise SystemExit(f"--chunk must be >= 1, got {chunk}")
-    _no_progcache(progcache_dir, log)
     exp = get_experiment(exp_name)
     cell = exp.cell(cell_name)
     prob = build_problem(exp.problem, device=device)
-    if isinstance(prob, StreamProblem):
-        return _serve_cohort(
+    with _activate_progcache(ckpt_dir, progcache_dir, no_progcache,
+                             prob.x0.device) as cache:
+        if cache is not None:
+            mesh.rank0(log)(f"[serve] program cache at {cache.root}")
+        if isinstance(prob, StreamProblem):
+            return _serve_cohort(
+                exp, cell, prob, seed=seed, chunk=chunk, max_rounds=max_rounds,
+                ckpt_dir=ckpt_dir, backend=backend, keep=keep, plan=plan,
+                crash_after_round=crash_after_round, result_path=result_path,
+                cache=cache, metrics_out=metrics_out, log=log)
+        return _serve_stacked(
             exp, cell, prob, seed=seed, chunk=chunk, max_rounds=max_rounds,
             ckpt_dir=ckpt_dir, backend=backend, keep=keep, plan=plan,
             crash_after_round=crash_after_round, result_path=result_path,
-            metrics_out=metrics_out, log=log)
+            cache=cache, metrics_out=metrics_out, log=log)
+
+
+def _serve_stacked(exp, cell, prob, *, seed: int, chunk: int, max_rounds: int,
+                   ckpt_dir: str, backend: Optional[str], keep: int,
+                   plan: Optional[faults.FaultPlan], crash_after_round: Optional[int],
+                   result_path: Optional[str], cache=None,
+                   metrics_out: Optional[str] = None, log=print) -> dict:
+    """The serve loop over the stacked engine (`rounds.run_chunk`)."""
     spec, batch, basisb = build_setup(exp, cell, prob)
     plan = plan if plan is not None else faults.FaultPlan(n=batch.n)
     if plan.n != batch.n:
@@ -575,6 +611,11 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
     digest = artifacts.config_digest(config)
     t0_wall = time.perf_counter()      # time-to-first-round starts here
     template = rounds.init_serve_carry(spec, batch, basisb, x0, sharded=sharded)
+    # resolve the chunk program BEFORE checkpoint restore: on a warm restart
+    # its kernel libraries load from the cache and the first round builds
+    # nothing
+    rounds.warm_chunk_program(spec, batch, basisb, x0, template, min(chunk, max_rounds),
+                              sharded=sharded)
     w0 = time.perf_counter()
     ck = artifacts.load_checkpoint(ckpt_dir, config_digest=digest)
     resumed_from = restore_s = None
@@ -623,6 +664,7 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
         waited_total += waited
         if ttfr_s is None:
             ttfr_s = time.perf_counter() - t0_wall
+            _log_progcache(cache, log)
         if sink is not None:
             gaps = spec.eval_streams(
                 batch, torch.as_tensor(streams["eval_x"][-steps:], device=x0.device),
@@ -665,7 +707,7 @@ def serve(*, exp_name: str, cell_name: str, seed: int = 0, chunk: int = 25,
         "chunk_s": chunk_s,
         "checkpoint_s": ckpt_s,
         "restore_s": restore_s,
-        "progcache": None,
+        "progcache": cache.summary() if cache is not None else None,
         "layout": R.group.describe() if sharded else None,
     })
     if result_path and writer:
@@ -714,10 +756,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--result", default=None,
                     help="write the final serve record JSON here")
     ap.add_argument("--progcache-dir", default=None,
-                    help="AOT program cache directory (not ported: ROADMAP.md §1 "
-                         "item 16; raises)")
+                    help="program cache directory (default: "
+                         "<ckpt-dir>/progcache)")
     ap.add_argument("--no-progcache", action="store_true",
-                    help="serve without a program cache (the port always does)")
+                    help="serve without a program cache")
     ap.add_argument("--metrics-out", default=None,
                     help="append per-round JSONL metrics (round, gap, "
                          "events, per-leg ledger bits) to this file")
@@ -764,7 +806,7 @@ def main(argv=None):
           plan=_build_plan(args, prob.n),
           crash_after_round=args.crash_after_round,
           result_path=args.result, progcache_dir=args.progcache_dir,
-          metrics_out=args.metrics_out,
+          no_progcache=args.no_progcache, metrics_out=args.metrics_out,
           device=args.device)
     return 0
 

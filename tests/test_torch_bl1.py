@@ -159,8 +159,13 @@ def test_unported_backends_raise_naming_roadmap_item(small, backend, item):
         assert tbl.bl1(*_args(small[-1]), backend=backend, device="cpu") == \
             tbl.bl1(*_args(small[-1]), backend="fast", device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
-        tbl.bl1(*_args(small[-1]), backend=backend, device="cpu")
+    # item 17 is ported: the reference's loop, held to the JAX package's
+    clients, jbases, x0, x_star, port = small
+    h = tbl.bl1(*_args(port), backend=backend, device="cpu")
+    ref = jbl.bl1(clients, jbases, [jcomp.TopK(k=6)] * 4, jcomp.Identity(), x0, x_star, 2,
+                  backend=backend)
+    assert h.legs is None
+    assert_same_history(h, ref.gaps, ref.up_bits, ref.down_bits)
 
 
 def test_p_below_one_raises_until_prng_port(small):
@@ -196,14 +201,19 @@ def test_symmetrized_topk_raises(small):
 
 def test_fleet_the_fast_path_cannot_stack(small):
     """Heterogeneous compressors: 'fast' raises FastPathUnavailable, 'auto'
-    (whose reference fallback is not ported) raises NotImplementedError."""
-    port = small[-1]
+    falls back to the reference loops: bit for bit an explicit 'reference'
+    run, and the JAX package's 'auto' in the GLM gate."""
+    clients, jbases, x0, x_star, port = small
     mixed = [tcomp.TopK(k=6)] * 3 + [tcomp.TopK(k=5)]
     args = (port.clients, port.bases, mixed, tcomp.Identity(), port.x0, port.x_star, 2)
     with pytest.raises(batched.FastPathUnavailable):
         tbl.bl1(*args, backend="fast", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tbl.bl1(*args, backend="auto", device="cpu")
+    auto = tbl.bl1(*args, backend="auto", device="cpu")
+    ref = tbl.bl1(*args, backend="reference", device="cpu")
+    assert (auto.gaps, auto.up_bits, auto.down_bits) == (ref.gaps, ref.up_bits, ref.down_bits)
+    jauto = jbl.bl1(clients, jbases, [jcomp.TopK(k=6)] * 3 + [jcomp.TopK(k=5)],
+                    jcomp.Identity(), x0, x_star, 2, backend="auto")
+    assert_same_history(auto, jauto.gaps, jauto.up_bits, jauto.down_bits)
 
 
 def test_run_rounds_options_not_ported_raise(small):

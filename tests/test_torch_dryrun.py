@@ -18,10 +18,12 @@ port's own CPU route.
   (`tests/torch_lm_sharded_worker.py`).
 * ``--extrapolate`` equals the full count for two stacks of whole groups;
   the reference's two failing cases (ROADMAP.md §3) are ``ok`` here;
-  ``--progcache-dir`` raises naming item 16; a real tensor never takes a
-  fake route.
+  ``--progcache-dir`` gives the same records and an empty cache summary;
+  a real tensor never takes a fake route.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -360,5 +362,18 @@ def test_cli_runs_a_case_and_refuses_a_program_cache(tmp_path):
                         "--out", str(out)]) == 0
     (rec,) = json.loads(out.read_text())
     assert rec["status"] == "lowered" and rec["mesh"] == "16x16"
-    with pytest.raises(NotImplementedError, match="item 16"):
-        dryrun.main(["--arch", "mamba2_370m", "--progcache-dir", str(tmp_path)])
+    # the program cache (item 16) is ported: the same records with it on,
+    # and an empty summary (no kernel launches on fake tensors)
+    out_pc = tmp_path / "out_pc.json"
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert dryrun.main(["--arch", "mamba2_370m", "--shape", "long_500k", "--no-compile",
+                            "--out", str(out_pc), "--progcache-dir",
+                            str(tmp_path / "pc")]) == 0
+    (rec_pc,) = json.loads(out_pc.read_text())
+    drop = ("lower_s",)
+    assert {k: v for k, v in rec_pc.items() if k not in drop} == \
+        {k: v for k, v in rec.items() if k not in drop}
+    summary = json.loads(err.getvalue().split("# progcache ", 1)[1])
+    assert summary["stats"] == {} and summary["programs"] == []
+    assert summary["dir"] == str(tmp_path / "pc") and not list((tmp_path / "pc").iterdir())

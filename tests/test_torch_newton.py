@@ -220,8 +220,13 @@ def test_unported_backends_raise_naming_roadmap_item(small, backend, item):
         assert baselines.newton(*_newton_args(small[-1]), backend=backend, device="cpu") == \
             baselines.newton(*_newton_args(small[-1]), backend="fast", device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
-        baselines.newton(*_newton_args(small[-1]), backend=backend, device="cpu")
+    # item 17 is ported: the reference's loop, held to the JAX package's
+    clients, _, x0, x_star, port = small
+    h = baselines.newton(*_newton_args(port), backend=backend, device="cpu")
+    ref = jbaselines.newton(clients, x0, x_star, 2, backend=backend)
+    g, gr = np.asarray(h.gaps), np.asarray(ref.gaps)
+    assert not (np.abs(g - gr) > GAP_RTOL * np.abs(gr) + GAP_ATOL).any(), (g, gr)
+    assert list(h.up_bits) == list(ref.up_bits) and h.legs is None
 
 
 def test_unknown_backend_and_route_raise_value_error(small):
@@ -237,11 +242,27 @@ def test_unknown_backend_and_route_raise_value_error(small):
 
 
 def test_newton_with_a_basis_that_is_not_the_data_basis(small):
-    """Bases of another kind: 'fast' raises FastPathUnavailable, 'auto'
-    (whose reference fallback is not ported) raises NotImplementedError."""
-    port = small[-1]
+    """Bases of another kind: 'fast' raises FastPathUnavailable; 'auto'
+    falls back to the reference loop, which bills each basis's rank r, as
+    the JAX package's loop does: a basis without one raises ValueError
+    there (the JAX loop fails on the missing attribute), and a fleet of
+    data bases the fast path cannot stack (clients of unequal sample
+    counts) runs, equal to the JAX package's 'auto'."""
+    clients, jbases, x0, x_star, port = small
     std = [TStd(24)] * 4
     with pytest.raises(batched.FastPathUnavailable, match="DataOuterBasis"):
         baselines.newton(*_newton_args(port), bases=std, backend="fast", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="DataOuterBasis"):
         baselines.newton(*_newton_args(port), bases=std, backend="auto", device="cpu")
+    with pytest.raises(AttributeError, match="'r'"):
+        jbaselines.newton(clients, x0, x_star, 3, bases=[JStd(24)] * 4, backend="auto")
+    cut = [jglm.ClientData(A=c.A[:14 + 2 * i], b=c.b[:14 + 2 * i], lam=c.lam)
+           for i, c in enumerate(clients)]
+    tcut = [type(c)(A=torch.tensor(np.asarray(j.A)), b=torch.tensor(np.asarray(j.b)),
+                    lam=j.lam) for c, j in zip(port.clients, cut)]
+    h = baselines.newton(tcut, port.x0, port.x_star, 3, bases=port.bases, backend="auto",
+                         device="cpu")
+    ref = jbaselines.newton(cut, x0, x_star, 3, bases=jbases, backend="auto")
+    g, gr = np.asarray(h.gaps), np.asarray(ref.gaps)
+    assert not (np.abs(g - gr) > GAP_RTOL * np.abs(gr) + GAP_ATOL).any(), (g, gr)
+    assert list(h.up_bits) == list(ref.up_bits) and h.legs is None

@@ -27,8 +27,9 @@ mirroring `tests/test_serve.py` and `tests/test_cohort.py`'s serve tests.
     serve, ``meta`` aside;
   * `MetricsSink` overwrites a torn tail and a resume emits no round twice;
   * the refusals: faults on bl1 ("synchronous"), a fault plan or a stacked
-    backend on a cohort cell, the reference backend, ``--progcache-dir``
-    (item 16); and ``cohort+sharded`` served on a one-rank world.
+    backend on a cohort cell, the reference backend; ``--progcache-dir``
+    serving with its cache where it says (item 16, ported); and
+    ``cohort+sharded`` served on a one-rank world.
 """
 import contextlib
 import io
@@ -321,7 +322,12 @@ def test_inprocess_serve_matches_the_reference_file(served, ref_file, name):
     rec = served[name]
     assert_record_matches(rec, ref_file["cases"][name]["record"])
     assert rec["meta"]["resumed_from"] == ref_file["cases"][name]["resumed_from"]
-    assert rec["meta"]["progcache"] is None
+    # the default program cache, beside the checkpoints: a fresh serve
+    # misses its init and chunk programs, a resumed one hits them
+    pc = rec["meta"]["progcache"]
+    assert os.path.basename(pc["dir"]) == "progcache"
+    resumed = ref_file["cases"][name]["resumed_from"] is not None
+    assert pc["stats"] == ({"hit": 2} if resumed else {"miss": 2, "absent": 2})
 
 
 def test_bag_outages_degrade_the_window_only(served):
@@ -524,10 +530,22 @@ def test_refusals(tmp_path):
     with pytest.raises(SystemExit, match="the reference backend has no checkpointable"):
         fed_serve.serve(exp_name="fig4", cell_name="BL2_tau_half", ckpt_dir=d, max_rounds=2,
                         backend="reference", device="cpu", **QUIET)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fed_serve.serve(exp_name="fig4", cell_name="BL2_tau_half", ckpt_dir=d, max_rounds=2,
-                        progcache_dir=d, device="cpu", **QUIET)
     assert artifacts.list_checkpoints(d) == []
+    # the program cache (ROADMAP.md §1 item 16) is ported: --progcache-dir
+    # serves, its entries where it says, the record that of --no-progcache
+    pc = tmp_path / "pc"
+    cached = fed_serve.serve(exp_name="fig4", cell_name="BL2_tau_half",
+                             ckpt_dir=str(tmp_path / "c1"), max_rounds=2, progcache_dir=str(pc),
+                             device="cpu", **QUIET)
+    plain = fed_serve.serve(exp_name="fig4", cell_name="BL2_tau_half",
+                            ckpt_dir=str(tmp_path / "c2"), max_rounds=2, no_progcache=True,
+                            device="cpu", **QUIET)
+    assert cached["meta"]["progcache"]["dir"] == str(pc) and plain["meta"]["progcache"] is None
+    assert {k: v for k, v in cached.items() if k != "meta"} == \
+        {k: v for k, v in plain.items() if k != "meta"}
+    assert sorted(f.name.split("-")[0] for f in pc.glob("*.json")) == ["serve_chunk",
+                                                                      "serve_init"]
+    assert not (tmp_path / "c1" / "progcache").exists()
     # cohort+sharded (ROADMAP.md §1 item 13) serves, here on a one-rank world
     rec = fed_serve.serve(exp_name="cohort-smoke", cell_name="BL2", ckpt_dir=str(tmp_path / "s"),
                           max_rounds=2, backend="cohort+sharded", device="cpu", **QUIET)
