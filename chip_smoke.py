@@ -54,22 +54,32 @@ is non-zero and no result line is printed:
                 the card and on the CPU against the committed table of
                 jax.random draws in both threefry settings
                 (src/repro_torch/exp/data/prng_table.json, `normal` among
-                them), the card's draws at the path's shapes bitwise equal
-                to the CPU's, `normal` (kernel 7 on the card, one launch a
-                piece) at every draw shape of the ten configs' inits and
-                BL-DNN (whole leaves to 2¹⁸ draws; the large leaves, up to
-                jamba's 3.2 G-draw expert rows, drawn whole on the card and
-                held in three windows) in both settings, llama4's 5.4 G-draw
-                expert leaf past 2³² − 1 in one launch and in windows, and
-                the host time and CUDA launches a round's draws cost; then
-                kernel 7 (`kernels.threefry_normal`): the keyed
+                them), every card hash through kernel 7 (its bits path for
+                split, fold_in, bits, uniform and bernoulli; the eager hash
+                refused on the card meanwhile), the card's draws at the
+                path's shapes bitwise equal to the CPU's with each one's
+                exact bits-path launches, `normal` (kernel 7's normal path,
+                one launch a piece) at every draw shape of the ten configs'
+                inits and BL-DNN (whole leaves to 2¹⁸ draws; the large
+                leaves, up to jamba's 3.2 G-draw expert rows, drawn whole on
+                the card and held in three windows) in both settings,
+                llama4's 5.4 G-draw expert leaf past 2³² − 1 in one launch
+                and in windows, the host time, device time and CUDA
+                launches a round's draws cost through the bits path and
+                through the eager hash (equal draws), and the bits path at
+                the rounds' shapes beside its plain version and bound; then
+                kernel 7's normal path (`kernels.threefry_normal`): the keyed
                 `init_params` of the ten reduced configs card = CPU bitwise
                 (bf16 and f32, one launch a drawn leaf), gemma3-4b's
                 embedding leaf bitwise its plain version on the card and
-                timed beside it, its bound and `torch.randn`'s fill, and
-                gemma3-4b's full keyed init through the kernel (seconds and
-                ns a draw; with --profile also through the eager route,
-                bitwise equal);
+                timed beside it, its bound and its bound with every
+                operation at the float32 rate, its SASS instruction
+                counts and `torch.randn`'s fill, and gemma3-4b's
+                full keyed init through the kernel (seconds and ns a draw;
+                with --profile also through the eager route, bitwise
+                equal).  Every later phase that holds kernel 1 to exactly
+                one launch a round a Top-K leg holds the bits path to
+                exactly `bits_per_round` a round (the cell's draws);
      fig1r1   — BL1, FedNL (standard basis, Rank-1) and Newton through
                 the experiment engine (`repro_torch.exp.problems.run_cell`
                 → `exp.engine.run_cell` → `core.bl.bl1` /
@@ -210,7 +220,8 @@ is non-zero and no result line is printed:
                 dropout and the default program cache, killed by
                 ``--crash-after-round 14`` (exit -9) and restarted from a
                 fresh copy of src/ (tier 2 empty) with ``nvcc`` hidden,
-                the restart only cache hits and no nvcc run, equal to the
+                the restart only cache hits and no nvcc run (one dlopen
+                each of kernel 1's and kernel 7's libraries), equal to the
                 uninterrupted CLI serve bit for bit, and
                 written on the CPU to round 12 then resumed on the card
                 (its coefficients mapped into the card's SVD basis); it and
@@ -447,6 +458,10 @@ GAP_RTOL, GAP_ATOL = 1e-8, 1e-12
 #: tensor cores (the kernel's operations are 32-bit integer compares/adds)
 HBM_BYTES_PER_S = 3.35e12
 OPS32_PER_S = 67e12
+#: 32-bit integer operations a second outside the tensor cores: an H100 SXM
+#: SM has 64 INT32 lanes (half its 128 FP32 lanes; the Hopper white paper),
+#: 132 SMs at 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #: the Top-K kernels' radix select: passes over the keys
 RADIX_PASSES = 4
 #: fig1-xl timing repeats (each a 1-round and a full run)
@@ -1586,24 +1601,136 @@ def basis_transform_phase(torch, bt, profile: bool) -> dict:
             "basis_transform_refused": refused, "basis_transform_timings": timings}
 
 
+#: kernel 7's bits-path launches of each card-vs-CPU case of phase prng:
+#: one a hash the card makes (a single CPU key's splits of a few pairs hash
+#: on the host; `permutation` of 5000 is two rounds of `random_bits`, of 60
+#: one, each round's `split` of the card's keys one more)
+PRNG_CASE_LAUNCHES = {"split_512": 1, "bernoulli_f64_512": 1, "dither_levels_10x24": 2,
+                      "randk_choice_10x60": 3, "permutation_5000": 2, "randint_i64_7": 2}
+#: the bits path timed at the rounds' shapes: fig-dnn's (8, 3072) dithering
+#: levels (float32 p), bl2-xl's (512,) participation (float64), and the
+#: split of its round key into 512 client keys
+BITS_TIMED = (("bernoulli_f32_8x3072", "bool32", 8, 3072),
+              ("bernoulli_f64_512", "bool64", 1, 512), ("split_512", "split", 1, 512))
+
+
+@contextlib.contextmanager
+def eager_card_hash(prng):
+    """Within the block, `prng` hashes on the card eagerly (`_threefry`'s
+    tensor ops, the bits path's plain version) instead of through kernel 7."""
+    saved = prng._on_card
+    prng._on_card = lambda key, device: None
+    try:
+        yield
+    finally:
+        prng._on_card = saved
+
+
+@contextlib.contextmanager
+def no_eager_card_hash(prng):
+    """Within the block, `prng._threefry` on a CUDA tensor raises: every
+    hash on the card must go through kernel 7."""
+    import torch
+
+    saved = prng._threefry
+
+    def guarded(*words):
+        if any(isinstance(w, torch.Tensor) and w.is_cuda for w in words):
+            raise AssertionError("prng hashed eagerly on the card (no kernel-7 launch)")
+        return saved(*words)
+
+    prng._threefry = guarded
+    try:
+        yield
+    finally:
+        prng._threefry = saved
+
+
+def threefry_bits_bound_ms(pairs: int, elements: int, in_bytes: int, out_bytes: int) -> tuple:
+    """Least time for one bits-path hash: its pairs' integer operations
+    (`TN_HASH_OPS_PER_PAIR`) at the integer rate and ~4 float operations an
+    element (the uniform, a range or a compare) at the float32 rate, or its
+    bytes (keys, p and data read once, the output written once)."""
+    ops_ms = max(pairs * TN_HASH_OPS_PER_PAIR / INT32_OPS_PER_S,
+                 elements * 4 / OPS32_PER_S) * 1e3
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _host_lists(x):
+    """Tensors nested in tuples and lists, as nested Python lists."""
+    if isinstance(x, (tuple, list)):
+        return [_host_lists(v) for v in x]
+    return x.cpu().tolist()
+
+
+def bits_timing_phase(torch, prng, tn) -> dict:
+    """Kernel 7's bits path at the rounds' shapes (`BITS_TIMED`), in the
+    original layout: through its wrapper, its device time, its plain version
+    (the eager hash) on the card, bitwise equal, and its bound."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, kind, rows, size in BITS_TIMED:
+        keys = prng.split(prng.PRNGKey(0), rows, device="cuda")
+        bp = tn.bits_plan(kind, size, False)
+        shape = (rows, size, 2) if kind == "split" else (rows, size)
+        dt = torch.float32 if kind == "bool32" else torch.float64
+        p = torch.rand((rows, size), generator=gen, device="cuda", dtype=dt) \
+            if kind == "bool32" else 0.5
+        card = torch.empty(shape, dtype=bp.dtype, device="cuda")
+        plain = torch.empty_like(card)
+
+        def kernel():
+            return tn.threefry_bits(card, keys, bp, p=p)
+
+        kernel()
+        tn.threefry_bits_plain(plain, keys, bp, p=p)
+        if not torch.equal(card, plain):
+            raise AssertionError(f"bits path {name}: kernel != plain version on the card")
+        in_bytes = rows * 16 + (p.numel() * p.element_size() if isinstance(p, torch.Tensor)
+                                else 0)
+        bound, by = threefry_bits_bound_ms(rows * bp.pairs, rows * bp.width, in_bytes,
+                                           card.numel() * card.element_size())
+        ms = cuda_ms(torch, kernel, 200)
+        dev = device_ms(torch, {"kernel": kernel}, reps=20)["kernel"]
+        out[name] = {"shape": list(shape), "pairs": rows * bp.pairs, "kernel_ms": ms,
+                     "device_ms": sum(dev.values()) if dev else None,
+                     "plain_ms": cuda_ms(torch, lambda: tn.threefry_bits_plain(
+                         plain, keys, bp, p=p), 20),
+                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return out
+
+
 def prng_phase(torch, prng, rounds, tn, device: str = "cuda",
                eager_init: bool = False) -> dict:
     """The port's threefry draws on the card: the committed table of
     jax.random draws (both settings) drawn on the card and on the CPU, equal
-    to it entry for entry; draws at the path's shapes (a 512-client split
-    and participation mask, the dithering's float32 level draws, Rand-K's
-    choice, a 5000-long permutation) on the card bitwise equal to the CPU's;
-    `normal` at every draw shape of the path (`normal_phase`); then the host
-    time and CUDA launches a round's draws cost, replayed
-    without the round's arithmetic, for bl2-xl, fig3/RTopK and
-    fig-dnn/RTopK; then kernel 7 (`threefry_normal_phase`)."""
+    to it entry for entry, every card hash through kernel 7 (`prng._threefry`
+    refuses a CUDA tensor meanwhile); draws at the path's shapes (a
+    512-client split and participation mask, the dithering's float32 level
+    draws, Rand-K's choice, a 5000-long permutation) on the card bitwise
+    equal to the CPU's, each with exactly its `PRNG_CASE_LAUNCHES` of the
+    bits path; `normal` at every draw shape of the path (`normal_phase`);
+    then the host time, device time and CUDA launches a round's draws cost,
+    replayed without the round's arithmetic, for bl2-xl, fig3/RTopK and
+    fig-dnn/RTopK, through the bits path and through the eager hash (the
+    route before it); the bits path timed at the rounds' shapes
+    (`bits_timing_phase`); then kernel 7's normal path
+    (`threefry_normal_phase`)."""
+    seconds = {}
+    t_part = time.perf_counter()
     table = json.loads(PRNG_TABLE.read_text())
-    for where in (device, "cpu"):
-        got = prng_table(PortRandom(torch, prng, where))
+    with no_eager_card_hash(prng):
+        tn.bits_launches = 0
+        got = prng_table(PortRandom(torch, prng, device))
+        table_launches = tn.bits_launches
+    for where, draws_got in ((device, got), ("cpu", prng_table(PortRandom(torch, prng, "cpu")))):
         for flag, draws in table.items():
-            bad = [k for k in draws if got[flag][k] != draws[k]]
+            bad = [k for k in draws if draws_got[flag][k] != draws[k]]
             if bad:
                 raise AssertionError(f"prng on {where}, {flag}: draws {bad} differ from jax's")
+    if not table_launches:
+        raise AssertionError("prng: the table's card draws made no bits-path launch")
     key = prng.PRNGKey(0)
     p32 = torch.rand((10, 24), generator=torch.Generator().manual_seed(0))
     cases = {
@@ -1619,10 +1746,20 @@ def prng_phase(torch, prng, rounds, tn, device: str = "cuda",
     for flag in (False, True):
         with prng.threefry_partitionable(flag):
             for name, fn in cases.items():
-                card, host = fn(device), fn("cpu")
+                with no_eager_card_hash(prng):
+                    tn.bits_launches = tn.launches = 0
+                    card = fn(device)
+                    launched = (tn.bits_launches, tn.launches)
+                host = fn("cpu")
                 if card.device.type != device or not torch.equal(card.cpu(), host):
                     raise AssertionError(f"prng {name} (partitionable={flag}): card != CPU")
+                if launched != (PRNG_CASE_LAUNCHES[name], 0):
+                    raise AssertionError(f"prng {name} (partitionable={flag}): kernel-7 "
+                                         f"launches (bits, normal) {launched}, want "
+                                         f"({PRNG_CASE_LAUNCHES[name]}, 0)")
 
+    seconds["table_and_cases"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
     dev = torch.device(device)
     R512 = rounds.VmapReducer(n=512, device=dev)
     R10 = rounds.VmapReducer(n=10, device=dev)
@@ -1651,26 +1788,55 @@ def prng_phase(torch, prng, rounds, tn, device: str = "cuda",
         return out
 
     cost = {}
-    for name, fn in (("bl2-xl", bl2_xl), ("fig3/RTopK", fig3_rtopk),
-                     ("fig-dnn/RTopK", fig_dnn_rtopk)):
+    for name, fn, per_round in (("bl2-xl", bl2_xl, 1), ("fig3/RTopK", fig3_rtopk, 3),
+                                ("fig-dnn/RTopK", fig_dnn_rtopk, 16)):
         def run(fn=fn):
             for t in range(PRNG_COST_ROUNDS):
                 fn(t)
-        run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        prof = profile_run(torch, run, PRNG_COST_ROUNDS)
-        cost[name] = {"host_ms_per_round": wall / PRNG_COST_ROUNDS * 1e3,
-                      "cuda_launches_per_round": prof["cuda_launches_per_step"],
-                      "device_ms_per_round": prof["device_busy_ms"] / PRNG_COST_ROUNDS}
-    return {"table_entries": sum(len(v) for v in table.values()),
-            "card_vs_cpu_cases": sorted(cases), "draw_cost": cost,
-            "normal": normal_phase(torch, prng, tn),
-            "normal_past_a_block": blocked_normal_windows(torch, prng, tn),
-            "threefry_normal": threefry_normal_phase(torch, prng, tn, eager_init)}
+
+        row = {}
+        for route in ("bits", "eager"):
+            ctx = eager_card_hash(prng) if route == "eager" else no_eager_card_hash(prng)
+            with ctx:
+                run()
+                torch.cuda.synchronize()
+                tn.bits_launches = 0
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = tn.bits_launches
+                prof = profile_run(torch, run, PRNG_COST_ROUNDS)
+            want = per_round * PRNG_COST_ROUNDS if route == "bits" else 0
+            if launched != want:
+                raise AssertionError(f"prng draw cost {name} ({route}): {launched} bits-path "
+                                     f"launches, want {want}")
+            row[route] = {"host_ms_per_round": wall / PRNG_COST_ROUNDS * 1e3,
+                          "cuda_launches_per_round": prof["cuda_launches_per_step"],
+                          "device_ms_per_round": prof["device_busy_ms"] / PRNG_COST_ROUNDS,
+                          "bits_launches_per_round": launched / PRNG_COST_ROUNDS}
+        with no_eager_card_hash(prng):
+            card = [fn(t) for t in range(PRNG_COST_ROUNDS)]
+        with eager_card_hash(prng):
+            eager = [fn(t) for t in range(PRNG_COST_ROUNDS)]
+        if _host_lists(card) != _host_lists(eager):
+            raise AssertionError(f"prng draw cost {name}: the bits path's draws differ from "
+                                 "the eager hash's")
+        cost[name] = {**row["bits"], "eager": row["eager"]}
+    seconds["draw_cost"] = time.perf_counter() - t_part
+    out = {"table_entries": sum(len(v) for v in table.values()),
+           "table_bits_launches": table_launches,
+           "card_vs_cpu_cases": {name: PRNG_CASE_LAUNCHES[name] for name in cases},
+           "draw_cost": cost}
+    for key, part in (("bits_timings", lambda: bits_timing_phase(torch, prng, tn)),
+                      ("normal", lambda: normal_phase(torch, prng, tn)),
+                      ("normal_past_a_block", lambda: blocked_normal_windows(torch, prng, tn)),
+                      ("threefry_normal", lambda: threefry_normal_phase(torch, prng, tn,
+                                                                        eager_init))):
+        t_part = time.perf_counter()
+        out[key] = part()
+        seconds[key] = time.perf_counter() - t_part
+    return {**out, "seconds": seconds}
 
 
 #: normal draws held card = CPU over the whole leaf up to this many draws;
@@ -1785,17 +1951,81 @@ TN_HASH_OPS_PER_PAIR = 72
 TN_OPS_SMALL, TN_OPS_LOG = 2 + 1 + 3 + 1 + 31 + 1 + 18 + 5, 2 + 1 + 3 + 1 + 41 + 4 + 1 + 18 + 5
 
 
+#: of those, the integer ones outside the hash: the unit float's shift and
+#: or, and the log branch's 4
+TN_INT_SMALL, TN_INT_LOG = 2, 2 + 4
+
+
+def threefry_normal_ops(draws: int, log_share: float, partitionable: bool = False) -> tuple:
+    """(integer, float32) operations of `draws` keyed normals, this run's
+    share of them on log1p's log branch."""
+    hash_ops = TN_HASH_OPS_PER_PAIR + 1 if partitionable else TN_HASH_OPS_PER_PAIR / 2
+    ints = hash_ops + (1 - log_share) * TN_INT_SMALL + log_share * TN_INT_LOG
+    floats = ((1 - log_share) * (TN_OPS_SMALL - TN_INT_SMALL)
+              + log_share * (TN_OPS_LOG - TN_INT_LOG))
+    return draws * ints, draws * floats
+
+
 def threefry_normal_bound_ms(draws: int, log_share: float, out_bytes: int,
                              partitionable: bool = False) -> tuple:
-    """Least time for `draws` keyed normals: every operation of the hash
-    and the transform (this run's share on the log branch) at the 32-bit
-    rate outside the tensor cores, or the output written once, whichever is
-    larger."""
-    per_draw = (TN_HASH_OPS_PER_PAIR + 1 if partitionable else TN_HASH_OPS_PER_PAIR / 2) + (
-        (1 - log_share) * TN_OPS_SMALL + log_share * TN_OPS_LOG)
-    ops_ms = draws * per_draw / OPS32_PER_S * 1e3
+    """Least time for `draws` keyed normals: the integer operations on the
+    SMs' INT32 lanes (`INT32_OPS_PER_S`) and the float32 ones at the 32-bit
+    float rate, the two pipes running side by side, or the output written
+    once, whichever is largest (`threefry_normal_bound_f32_rate_ms`
+    charges every operation at the float32 rate)."""
+    ints, floats = threefry_normal_ops(draws, log_share, partitionable)
+    ops_ms = max(ints / INT32_OPS_PER_S, floats / OPS32_PER_S) * 1e3
     bytes_ms = draws * out_bytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def threefry_normal_bound_f32_rate_ms(draws: int, log_share: float, out_bytes: int) -> float:
+    """The bound with every operation, integer ones too, at the float32
+    rate (`OPS32_PER_S`)."""
+    ints, floats = threefry_normal_ops(draws, log_share)
+    return max((ints + floats) / OPS32_PER_S, draws * out_bytes / HBM_BYTES_PER_S) * 1e3
+
+
+def sass_counts(lib) -> Optional[dict]:
+    """Static SASS instructions of each kernel in the library at ``lib``
+    (``cuobjdump -sass``), with its funnel shifts (the hash's rotates: 20 a
+    hash inlined) and its longest loop (kernel 7's normal kernels: the tile
+    loop, whole and clamped tiles' code and erf_inv's tail together).  A
+    count a draw needs the instructions that run, which no tool on the card
+    reads (no ncu).  None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    out, name, code = {}, None, []
+
+    def close():
+        if name is None:
+            return
+        longest = 0
+        for i, (addr, op) in enumerate(code):
+            m = re.search(r"BRA\s+.*?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) <= addr:
+                start = next((j for j, (a, _) in enumerate(code) if a == int(m.group(1), 16)), i)
+                longest = max(longest, i - start + 1)
+        out[name] = {"instructions": len(code), "longest_loop": longest,
+                     "funnel_shifts": sum(1 for _, op in code if op.startswith("SHF.L.W"))}
+
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            close()
+            name, code = m.group(1), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            code.append((int(m.group(1), 16), re.sub(r"^@!?U?P[T0-6]\s+", "", m.group(2).strip())))
+    close()
+    return out
 
 
 #: kernel 7 timed at gemma3-4b's embedding leaf (262,144 × 2560 draws,
@@ -1814,6 +2044,7 @@ def threefry_normal_phase(torch, prng, tn, eager_init: bool = False) -> dict:
     (one a drawn leaf), and with `eager_init` (``--profile``) once more
     through the eager route (~16 s), bitwise equal, timed."""
     from repro_torch import configs
+    from repro_torch.kernels import _build
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
@@ -1859,12 +2090,16 @@ def threefry_normal_phase(torch, prng, tn, eager_init: bool = False) -> dict:
     bound, by = threefry_normal_bound_ms(n, log_share, 2)
     kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
     randn_ms = cuda_ms(torch, lambda: plain.normal_(), 5, warmup=1)
+    ints, floats = threefry_normal_ops(n, log_share)
     leaf = {"shape": [V, D], "draws": n, "dtype": "bfloat16", "kernel_ms": kernel_ms,
             "ns_per_draw": kernel_ms / n * 1e6, "plain_ms": plain_ms,
             "plain_ns_per_draw": plain_ms / n * 1e6, "bound_ms": bound, "bound_by": by,
             "share": bound / kernel_ms, "log_branch_share": log_share,
+            "bound_f32_rate_ms": threefry_normal_bound_f32_rate_ms(n, log_share, 2),
+            "int_ops_per_draw": ints / n, "float_ops_per_draw": floats / n,
             "torch_randn_fill_ms": randn_ms,
-            "device_ms": device_ms(torch, {"kernel": kernel}, reps=3)["kernel"]}
+            "device_ms": device_ms(torch, {"kernel": kernel}, reps=3)["kernel"],
+            "sass": sass_counts(_build.library_path("threefry_normal"))}
     del out, plain
     torch.cuda.empty_cache()
 
@@ -1974,6 +2209,90 @@ def topk_legs(cell) -> int:
                if comp is not None and comp.kind in TOPK_KINDS)
 
 
+def codec_draws(comp) -> int:
+    """Bits-path launches of a compressor's own draws in one `compress`
+    call (its client keys aside): a dithering, natural-compression or
+    lazy-Bernoulli codec one `bernoulli`; Top-K composed with one, the
+    inner's; Rank-R composed with two, a `split` of the keys and the
+    inners'.  Rand-K's `choice` depends on the stack's width (see
+    `bits_per_round`'s nl1)."""
+    from repro_torch.core import compressors as C
+
+    if comp.deterministic:
+        return 0
+    if isinstance(comp, C.ComposedTopK):
+        return codec_draws(comp.inner)
+    if isinstance(comp, C.ComposedRankR):
+        return 1 + codec_draws(comp.inner_u) + codec_draws(comp.inner_v)
+    if isinstance(comp, (C.RandomDithering, C.NaturalCompression, C.BernoulliLazy)):
+        return 1
+    raise ValueError(f"no bits-path count for {type(comp).__name__}")
+
+
+def leg_draws(comp) -> int:
+    """A round's bits-path launches for one compressed leg of the fleet:
+    none for a deterministic codec, else the `split` of the leg's key into
+    the clients' keys on the card and the codec's draws."""
+    return 0 if comp is None or comp.deterministic else 1 + codec_draws(comp)
+
+
+def bits_per_round(cell, leaves: int = 0) -> int:
+    """Kernel 7's bits-path launches a round of a cell, from its draws: the
+    round key's splits hash on the host (a CPU key, a few pairs); BL2 and
+    BL3 draw participation (one `bernoulli` over the fleet when τ < n; a
+    cohort's one `fold_in` of its slots and one `bernoulli`), the model
+    stream's and the Hessian leg's codecs (`leg_draws`) and ξ (one
+    `bernoulli` when p < 1); BL1 its Hessian leg (ξ and the model stream
+    are single-key draws on the host); FedNL-BAG its reporters (one
+    `bernoulli`) and its Hessian leg; DIANA its leg; ADIANA two codec calls
+    on host keys; NL1 Rand-K's `choice` without replacement over the m
+    coefficients, whose `permutation` splits host keys and draws
+    ⌈3 ln m / ln(2³² − 1)⌉ `random_bits`; a BL-DNN cell each of its
+    ``leaves`` gradient legs and, preconditioned, as many Fisher legs; GD,
+    local GD, Newton and DORE's Top-K none."""
+    from repro_torch.core import prng
+    from repro_torch.exp import engine
+
+    p = cell.cell.params_dict()
+    spec = cell.problem
+    n = getattr(spec, "n_clients", 0)
+    d = getattr(spec, "d", 0)
+
+    def comp(cfg):
+        return None if cfg is None else engine.build_compressor(cfg, d)
+
+    hc, mc = comp(cell.hess_comp), comp(cell.model_comp)
+    m = cell.method
+    if m in ("gd", "local_gd", "newton"):
+        return 0
+    if m == "dore":
+        if leg_draws(hc) or leg_draws(mc):
+            raise ValueError(f"{cell.name}: no bits-path count for DORE's stochastic codecs")
+        return 0
+    if m == "bl1":
+        if leg_draws(mc):
+            raise ValueError(f"{cell.name}: no bits-path count for BL1's stochastic model stream")
+        return leg_draws(hc)
+    if m in ("bl2", "bl3"):
+        if "cohort" in p:
+            part = 2
+        else:
+            part = 1 if int(p.get("tau", n)) < n else 0
+        return part + leg_draws(mc) + leg_draws(hc) + (1 if float(p.get("p", 1.0)) < 1 else 0)
+    if m == "fednl_bag":
+        return 1 + leg_draws(hc)
+    if m == "diana":
+        return leg_draws(hc)
+    if m == "adiana":
+        return 2 * codec_draws(hc)
+    if m == "nl1":
+        return prng._shuffle_rounds(spec.m)
+    if m == "bldnn":
+        legs = 2 if p.get("precondition", True) else 1
+        return leaves * legs * leg_draws(hc)
+    raise ValueError(f"no bits-path count for method {m!r}")
+
+
 def need_exact(name: str, counts: dict, want: dict) -> None:
     """Fail unless every kernel ran exactly as often as `want` says."""
     bad = {kn: (counts[kn], n) for kn, n in want.items() if counts[kn] != n}
@@ -1981,7 +2300,7 @@ def need_exact(name: str, counts: dict, want: dict) -> None:
         raise AssertionError(f"{name}: kernel launches (counted, expected) {bad}")
 
 
-def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -> int:
+def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -> tuple:
     """BL2 at fig1-xl's widths (n=512, d=1200, τ = 256, 8 rounds) on the
     fig1-xl problem ``prob``, held to the JAX package's reference
     (`problems.BL2_XL_REFERENCE`): the participation masks the port draws
@@ -1992,7 +2311,8 @@ def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -
     `BL2_XL_REPEATS`; peak memory; CUDA launches a round (torch.profiler
     over a 1-round and a 3-round run, differenced).  Then the same run on
     the fleet narrowed to d = 40, held to the reference's whole history.
-    Returns kernel 1's launches in the last full run."""
+    Returns kernel 1's and kernel 7's bits path's launches in the last full
+    run."""
     cell = problems.BL2_XL
     ref = json.loads(cell.artifact.read_text())
     R = rounds.VmapReducer(n=cell.problem.n_clients, device=torch.device(device))
@@ -2015,6 +2335,7 @@ def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -
         if want is None:
             want = dict.fromkeys(counts, 0)
             want["topk_row_threshold"] = topk_legs(cell) * cell.steps
+            want["threefry_bits"] = bits_per_round(cell) * cell.steps
         need_exact("bl2-xl", counts, want)
         res = check_bits("bl2-xl", hist, ref["xl"])
         gaps.append(hist.gaps)
@@ -2042,11 +2363,12 @@ def bl2_xl_phase(torch, k, problems, prng, rounds, prob, device: str = "cuda") -
     need_exact("bl2-xl/BL2_d40", counts, want)
     emit({"phase": "bl2-xl", "cell": narrow.name, "d": narrow.problem.d, "run_s": secs,
           "launches": counts, **res})
-    return want["topk_row_threshold"]
+    return want["topk_row_threshold"], want["threefry_bits"]
 
 
 def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
-                    device: str = "cuda", s_per_round: Optional[dict] = None) -> dict:
+                    device: str = "cuda", s_per_round: Optional[dict] = None,
+                    bits: Optional[dict] = None) -> dict:
     """Run GLM cells on the card, each held to its reference history
     (`problems.Cell.reference_history`: the artifact or the reference file) at
     the GLM gate (`check_history`, with the cell's
@@ -2056,7 +2378,9 @@ def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
     fig1r1's problem, a cell on another regime builds its own.  Emits one
     line a cell (under ``phase``, default the cell's experiment) and
     returns kernel 1's launches by cell; ``s_per_round`` (a dict) collects
-    each cell's seconds a round."""
+    each cell's seconds a round.  Kernel 7's bits path launches exactly
+    `bits_per_round` a round (the cell's draws on the card); ``bits`` (a
+    dict) collects its launches by cell."""
     out = {}
     for cell in cells:
         name = f"{cell.experiment}/{cell.name}"
@@ -2069,8 +2393,11 @@ def glm_cells_phase(torch, k, problems, cells, paper, phase=None,
                             svd_nan_round=problems.REFERENCE_SVD_NAN.get(name))
         want = dict.fromkeys(counts, 0)
         want["topk_row_threshold"] = topk_legs(cell) * cell.steps
+        want["threefry_bits"] = bits_per_round(cell) * cell.steps
         need_exact(name, counts, want)
         out[name] = counts["topk_row_threshold"]
+        if bits is not None:
+            bits[name] = counts["threefry_bits"]
         if s_per_round is not None:
             s_per_round[name] = secs / cell.steps
         emit({"phase": phase or cell.experiment, "cell": cell.name, "method": cell.method,
@@ -2211,6 +2538,7 @@ def cohort_phase(torch, k, problems, prng, device: str = "cuda") -> dict:
                                                                      device=device))
         want = dict.fromkeys(counts, 0)
         want["topk_row_threshold"] = topk_legs(cell) * cell.steps
+        want["threefry_bits"] = bits_per_round(cell) * cell.steps
         need_exact(name, counts, want)
         kind = "participants" if cell.method == "bl2" else "senders"
         if hist.uploads != run[kind]:
@@ -2224,6 +2552,7 @@ def cohort_phase(torch, k, problems, prng, device: str = "cuda") -> dict:
               "store_sha256_equal": True, "epochs_equal": len(cohorts),
               f"{kind}_per_round": [len(u) for u in hist.uploads], f"{kind}_equal": True,
               **res})
+        out.setdefault("bits_launches", {})[name] = counts["threefry_bits"]
         return counts["topk_row_threshold"]
 
     # ---- fig1-xxl at full size ---------------------------------------------
@@ -2428,7 +2757,8 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
           30), both cache misses only; restarted from a fresh copy of
           ``src/`` (its tier 2, ``<copy>/build/``, empty) with ``nvcc``
           hidden (``PATH`` without it, ``CUDA_HOME`` an empty directory):
-          only cache hits and no nvcc run, and its record equals the
+          only cache hits, no nvcc run and one dlopen each of kernel 1's
+          and kernel 7's libraries, and its record equals the
           uninterrupted one bit for bit and both the JAX package's
           (`problems.SERVE_REFERENCE`); then the
           same serve in-process, counted and timed; then written on the CPU
@@ -2445,7 +2775,8 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
           all cache hits and no ``cohort_chunk`` trace.
 
     Every in-process serve runs under `drive`: kernel 1 exactly once a
-    round a Top-K leg, no other kernel.  Each case reports s/round served
+    round a Top-K leg, kernel 7's bits path exactly `bits_per_round` a
+    round, no other kernel.  Each case reports s/round served
     (the record's runtime less its checkpoint writes, over the rounds it
     ran: the carry's init or the load, the rounds and the final gap
     evaluation) and s/round in its chunks alone (``meta.chunk_s``) beside
@@ -2461,15 +2792,17 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
 
     ref = json.loads(problems.SERVE_REFERENCE.read_text())["cases"]
     quiet = {"log": lambda *a: None}
-    out, launches = {}, {}
+    out, launches, bits = {}, {}, {}
     t_phase = time.perf_counter()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
 
     def want_k1(name, cell, rounds_run, counts):
         want = dict.fromkeys(counts, 0)
         want["topk_row_threshold"] = topk_legs(cell) * rounds_run
+        want["threefry_bits"] = bits_per_round(cell) * rounds_run
         need_exact(name, counts, want)
         launches[name] = launches.get(name, 0) + counts["topk_row_threshold"]
+        bits[name] = bits.get(name, 0) + counts["threefry_bits"]
 
     def timing(rec, secs, ckpt_dir) -> dict:
         m = rec["meta"]
@@ -2603,9 +2936,9 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
             raise AssertionError(f"{name}: the warm restart should only hit the cache and "
                                  f"build nothing: {warm['stats']}, nvcc {warm['nvcc_runs']}, "
                                  f"tier 2 {built}")
-        if warm["dlopens"] != {"topk_threshold": 1}:
+        if warm["dlopens"] != {"topk_threshold": 1, "threefry_normal": 1}:
             raise AssertionError(f"{name}: the warm restart loaded {warm['dlopens']}, not "
-                                 "kernel 1's library once")
+                                 "kernel 1's and kernel 7's libraries once each")
         held = hold_serve(name, whole, case["record"])
         rec, tin = served(name, problems.FIG4["BL2_tau_half"], tmp / "inproc",
                           **_serve_kwargs(case))
@@ -2675,6 +3008,7 @@ def serve_phase(torch, k, problems, direct: dict, device: str = "cuda") -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["launches"] = launches
+    out["bits_launches"] = bits
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2698,12 +3032,13 @@ def drive(torch, k, run) -> tuple:
     Kernel 6's CUDA launches (``ss.cuda_launches``) are reset too, for the
     caller to read; the backward kernels' calls count as
     ``flash_attention_bwd`` and ``ssd_scan_bwd``, kernel 7's (``tn``) as
-    ``threefry_normal``."""
+    ``threefry_normal`` (its normal path) and ``threefry_bits`` (its bits
+    path)."""
     torch.cuda.synchronize()
     k.tk.launches = k.tk.compress_sum_launches = k.tk.compress_sum_cuda_launches = 0
     k.tm.launches = k.bt.launches = k.bt.cuda_launches = 0
     k.fa.launches = k.ss.launches = k.ss.cuda_launches = 0
-    k.fa.bwd_launches = k.ss.bwd_launches = k.tn.launches = 0
+    k.fa.bwd_launches = k.ss.bwd_launches = k.tn.launches = k.tn.bits_launches = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -2718,7 +3053,8 @@ def drive(torch, k, run) -> tuple:
                                            "ssd_scan": k.ss.launches,
                                            "flash_attention_bwd": k.fa.bwd_launches,
                                            "ssd_scan_bwd": k.ss.bwd_launches,
-                                           "threefry_normal": k.tn.launches}
+                                           "threefry_normal": k.tn.launches,
+                                           "threefry_bits": k.tn.bits_launches}
 
 
 def check_dnn_history(name: str, hist, ref: dict) -> dict:
@@ -3995,7 +4331,7 @@ def serve_reduced_check(torch, k, drive, arch) -> dict:
 #: substrings of the hand-written kernels' names in a profiler trace
 HAND_KERNELS = ("threshold", "select_rows", "column_sum", "compress_sum", "tiled_matmul",
                 "stream_kernel", "basis_transform", "flash_kernel", "ssd_prep", "ssd_state",
-                "ssd_pass", "ssd_out", "threefry_normal")
+                "ssd_pass", "ssd_out", "threefry_normal", "threefry_bits")
 
 
 class _StampedLines:
@@ -4413,7 +4749,8 @@ def sharded_phase(torch, k, problems, smi: str, one_s_per_round: dict) -> dict:
         raise AssertionError("fig1-xl: fast+sharded on one rank is not bitwise fast")
     held = check_history("fig1-xl (fast+sharded, one rank)", sh1,
                          json.loads(xl.artifact.read_text())["history"])
-    need_exact("fig1-xl one rank", counts1, {"topk_row_threshold": xl.steps, "tiled_matmul": 0})
+    need_exact("fig1-xl one rank", counts1, {"topk_row_threshold": xl.steps, "tiled_matmul": 0,
+                                             "threefry_bits": 0})
     emit({"phase": "sharded", "case": "fig1-xl/BL1 W=1", "card": smi, "W": 1, "ndev": 1,
           "process_group": "none", "s_per_round": secs_sh1 / xl.steps,
           "one_process_s_per_round": secs_one / xl.steps, "bitwise_fast": True,
@@ -4485,6 +4822,12 @@ def sharded_phase(torch, k, problems, smi: str, one_s_per_round: dict) -> dict:
             held.pop("error_rate_diff", None)
             want = {kn: one_counts[kn] for kn in ("topk_row_threshold", "topk_compress_sum",
                                                    "basis_transform") if one_counts[kn]}
+            # every rank draws the fleet's keys and masks, as one process does
+            want["threefry_bits"] = bits_per_round(
+                problems.cells(e)[c], len(DNN_STACKS) if dnn else 0) * cellobj.steps
+            if one_counts["threefry_bits"] != want["threefry_bits"]:
+                raise AssertionError(f"{name} (one process): {one_counts['threefry_bits']} "
+                                     f"bits-path launches, want {want['threefry_bits']}")
             need_rank_launches(name, ex, want)
             need_rank_launches(f"{name} exact=False", ring, want)
             env = _envelope(name, ring[0]["history"], ex[0]["history"], dnn)
@@ -4504,7 +4847,9 @@ def sharded_phase(torch, k, problems, smi: str, one_s_per_round: dict) -> dict:
                              SimpleNamespace(**co[0]["history"]), file["runs"]["BL2"])
         if co[0]["history"]["uploads"] != file["runs"]["BL2"]["participants"]:
             raise AssertionError("cohort-smoke (cohort+sharded): participants differ from file")
-        need_rank_launches("cohort-smoke", co, {"topk_row_threshold": smoke.cell("BL2").steps})
+        need_rank_launches("cohort-smoke", co, {
+            "topk_row_threshold": smoke.cell("BL2").steps,
+            "threefry_bits": bits_per_round(problems.COHORT_SMOKE) * smoke.cell("BL2").steps})
         held.pop("gaps")
         line(f"cohort-smoke/BL2 W={SHARDED_W} cohort+sharded", co,
              ones["cohort-smoke/BL2"][1], {"bitwise_one_process": co_bitwise, "file": held})
@@ -4559,8 +4904,10 @@ def sharded_phase(torch, k, problems, smi: str, one_s_per_round: dict) -> dict:
     held_xl = check_history(f"fig1-xl W={SHARDED_XL_W}", SimpleNamespace(**ex[0]["history"]),
                             xl_one)
     held_xl.pop("gaps")
-    need_rank_launches("fig1-xl", ex, {"topk_row_threshold": SHARDED_XL_STEPS})
-    need_rank_launches("fig1-xl exact=False", ring, {"topk_row_threshold": SHARDED_XL_STEPS})
+    need_rank_launches("fig1-xl", ex, {"topk_row_threshold": SHARDED_XL_STEPS,
+                                       "threefry_bits": 0})
+    need_rank_launches("fig1-xl exact=False", ring, {"topk_row_threshold": SHARDED_XL_STEPS,
+                                                     "threefry_bits": 0})
     line(f"fig1-xl/BL1 W={SHARDED_XL_W} exact", ex, xl_one_s / SHARDED_XL_STEPS,
          {"bitwise_one_process": xl_bitwise, "one_process": held_xl,
           "steps": SHARDED_XL_STEPS})
@@ -4577,7 +4924,10 @@ def sharded_phase(torch, k, problems, smi: str, one_s_per_round: dict) -> dict:
             raise AssertionError(f"fig1-xxl: rank {r} differs from rank 0")
     if xxl[0]["history"]["uploads"] != file["runs"]["BL2"]["participants"]:
         raise AssertionError("fig1-xxl (cohort+sharded): participants differ from the file")
-    need_rank_launches("fig1-xxl", xxl, {"topk_row_threshold": problems.FIG1_XXL["BL2"].steps})
+    xxl_cell = problems.FIG1_XXL["BL2"]
+    need_rank_launches("fig1-xxl", xxl, {"topk_row_threshold": xxl_cell.steps,
+                                         "threefry_bits": bits_per_round(xxl_cell)
+                                         * xxl_cell.steps})
     # s/round here is `engine.run_cell`'s wall over its rounds (the fleet init
     # and the host's gap evaluation included), as is the one-process figure
     line(f"fig1-xxl/BL2 W={SHARDED_XL_W} cohort+sharded", xxl,
@@ -5292,6 +5642,7 @@ def main(argv) -> int:
 
     from repro_torch import device as _device
     from repro_torch.core import baselines, client_batch, prng, rounds
+    from repro_torch.core.pytree import tree_leaves
     from repro_torch.exp import problems
     from repro_torch.kernels import SOURCES, _build, ops
     from repro_torch.kernels import basis_transform as bt
@@ -5348,13 +5699,14 @@ def main(argv) -> int:
     per_cell = {"fig1r1/BL1": counts}
     direct = {"fig1r1/BL1": {"direct": secs / cell.steps}}
     res = check_history("fig1r1", hist, json.loads(cell.artifact.read_text())["history"])
-    need("fig1r1", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0})
+    need("fig1r1", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0,
+                            "threefry_bits": 0})
     emit({"phase": "fig1r1", "setup_s": setup_s, "run_s": secs, "launches": counts, **res})
     for cell in (problems.FIG1R1_CELLS["FedNL"], problems.FIG1R1_CELLS["Newton"]):
         hist, secs, counts = drive(torch, k, lambda: problems.run_cell(cell, prob))
         res = check_history(f"fig1r1/{cell.name}", hist,
                             json.loads(cell.artifact.read_text())["history"])
-        need(f"fig1r1/{cell.name}", counts, {"tiled_matmul": 0})
+        need(f"fig1r1/{cell.name}", counts, {"tiled_matmul": 0, "threefry_bits": 0})
         per_cell[f"fig1r1/{cell.name}"] = counts
         emit({"phase": "fig1r1", "cell": cell.name, "run_s": secs, "launches": counts, **res})
 
@@ -5383,14 +5735,17 @@ def main(argv) -> int:
 
     # ---- the stochastic paper cells: fig4, fig6, fig3, fig5, NL1, fig1r3 ----
     cell_s = {}                                  # s/round by cell, for the serve phase
+    bits_cells = {}                              # kernel 7's bits path by cell
     stochastic = glm_cells_phase(torch, k, problems, problems.STOCHASTIC_CELLS, prob,
-                                 s_per_round=cell_s)
+                                 s_per_round=cell_s, bits=bits_cells)
     per_cell["fig1r1/NL1"] = {**dict.fromkeys(counts, 0),
-                              "topk_row_threshold": stochastic["fig1r1/NL1"]}
+                              "topk_row_threshold": stochastic["fig1r1/NL1"],
+                              "threefry_bits": bits_per_round(problems.FIG1R1_CELLS["NL1"])
+                              * problems.FIG1R1_CELLS["NL1"].steps}
 
     # ---- fig1r2, fig5 (FedNL-BC, DORE), fig1-bag; then the basis grid and a1a
     baseline = glm_cells_phase(torch, k, problems, problems.BASELINE_CELLS, prob,
-                               s_per_round=cell_s)
+                               s_per_round=cell_s, bits=bits_cells)
     grid = glm_cells_phase(torch, k, problems, (*problems.BASIS_GRID.values(),
                                                 problems.TABLE2_A1A), prob, "basis-grid")
 
@@ -5427,7 +5782,8 @@ def main(argv) -> int:
     direct["fig1-xl/BL1"] = {"direct": median(per_round),
                              "direct_full_run": t_alls[-1] / cell.steps}
     res = check_history("fig1-xl", hist, json.loads(cell.artifact.read_text())["history"])
-    need("fig1-xl", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0})
+    need("fig1-xl", counts, {"topk_row_threshold": cell.steps, "tiled_matmul": 0,
+                             "threefry_bits": 0})
     emit({"phase": "fig1-xl", "problem_build_s": build_s, "newton_s": newton_s,
           "bases_s": bases_s, "run_1_round_s": t_ones, "run_s": t_alls,
           "s_per_round": sorted(per_round), "s_per_round_median": median(per_round),
@@ -5472,7 +5828,8 @@ def main(argv) -> int:
               **profile_run(torch, lambda: newton_xl("kernel", steps=2), 2)})
 
     # ---- bl2-xl: BL2 at fig1-xl's widths with τ = 256 ---------------------
-    launches["bl2-xl"] = bl2_xl_phase(torch, k, problems, prng, rounds, prob)
+    launches["bl2-xl"], launches["bl2-xl_bits"] = bl2_xl_phase(torch, k, problems, prng,
+                                                               rounds, prob)
     del prob
     problems.build_problem.cache_clear()         # the engine's memo holds fig1-xl's
     torch.cuda.empty_cache()
@@ -5489,6 +5846,7 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     dnn_launches = {}
+    dnn_leaves = len(tree_leaves(prob.params0))
     for cell in (problems.FIG_DNN["BLDNN"], problems.FIG_DNN["TopK"],
                  problems.FIG_DNN["FedAvg"], problems.FIG_DNN_SHIP["TopK"],
                  problems.FIG_DNN_SHIP["BLDNN_f32"], problems.FIG_DNN_SHIP["BLDNN_bf16"],
@@ -5504,9 +5862,10 @@ def main(argv) -> int:
             want = dict.fromkeys(counts, 0)
             want["topk_row_threshold"] = 8 * cell.steps
             want["basis_transform"] = want["basis_transform_cuda"] = 4 * cell.steps
+            want["threefry_bits"] = bits_per_round(cell, dnn_leaves) * cell.steps
             need_exact(f"{cell.experiment}/{cell.name}", counts, want)
         else:
-            want = {"tiled_matmul": 0}
+            want = {"tiled_matmul": 0, "threefry_bits": bits_per_round(cell, dnn_leaves) * cell.steps}
             if cell.hess_comp.kind == "topk":
                 want["topk_row_threshold"] = want["topk_compress_sum"] = 4 * cell.steps
             if cell.basis is not None:
@@ -5557,7 +5916,8 @@ def main(argv) -> int:
         "fig1-xxl/BL2": co["fig1-xxl"]["timing"][xxl]["s_per_round_median"],
         **{name: cell_s[name] for name in ("fig4/BL2_tau_half", "fig4/BL3_tau_half",
                                            "fig1-bag/BAG_q0.5")}})
-    emit({"phase": "serve", "seconds": sv["seconds"], "launches": sv["launches"]})
+    emit({"phase": "serve", "seconds": sv["seconds"], "launches": sv["launches"],
+          "bits_launches": sv["bits_launches"]})
     problems.build_problem.cache_clear()
     torch.cuda.empty_cache()
 
@@ -5607,6 +5967,7 @@ def main(argv) -> int:
     fbg, fbw = kab["timings"]["global"], kab["timings"]["window1024"]
     sbd = ksb["timing"]
     tnl = pr["threefry_normal"]["embedding"]
+    btm = pr["bits_timings"]["bernoulli_f32_8x3072"]
     main = dnn_launches["fig-dnn/BLDNN"]
     emit({"kernels": [{
         "name": "topk_row_threshold", "route": "cuda",
@@ -5762,7 +6123,21 @@ def main(argv) -> int:
         "launches_train": {arch: r["launches"]["threefry_normal"] for arch, r in tr.items()},
         "launches_serve_init": {arch: r["init_launches"] for arch, r in serve_res.items()
                                 if "init_launches" in r},
-        "launches_lm_sharded": _lm_sharded_launches(lms, "threefry_normal")}]})
+        "launches_lm_sharded": _lm_sharded_launches(lms, "threefry_normal"),
+        "bound_f32_rate_ms": tnl["bound_f32_rate_ms"], "sass": tnl["sass"]}, {
+        "name": "threefry_bits", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threefry_normal.cu",
+        "replaces": "src/repro/core/rounds.py:742",
+        "replaces_note": "no TPU kernel: the reference's per-round jax.random draws (here "
+                         "BL2's participation mask), which XLA lowers; kernel 7's bits path",
+        "launches": dnn_launches["fig-dnn/RTopK"]["threefry_bits"],
+        "max_abs_err": 0.0, "ms": btm["kernel_ms"], "device_ms": btm["device_ms"],
+        "plain_ms": btm["plain_ms"], "bound_ms": btm["bound_ms"], "bound_by": btm["bound_by"],
+        "library_ms": None, "shape": btm["shape"], "timings": pr["bits_timings"],
+        "draw_cost": pr["draw_cost"], "launches_glm_cells": bits_cells,
+        "launches_bl2-xl": launches["bl2-xl_bits"],
+        "launches_cohort": co["bits_launches"], "launches_serve": sv["bits_launches"],
+        "launches_sharded": _sharded_launches(sh, "threefry_bits")}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -27,16 +27,21 @@ context — never a process-wide flag a caller could leave set.
 conventions: a Python-float ``p`` draws float64 uniforms from 64-bit bits,
 and `randint` defaults to int64.  `normal` draws float32 as XLA's CPU code
 computes ``jax.random.normal``, its inverse error function included
-(`xla_math`), and `normal_chunks` draws a leaf of any size in pieces.  On
-a CUDA device both draw through kernel 7 (`kernels.threefry_normal`: the
-hash, the transform and the store in one launch, the same bits); elsewhere
-they run eagerly.
+(`xla_math`), and `normal_chunks` draws a leaf of any size in pieces.
 
-Where the draws run: on ``device`` (default: the key's device).  A single
-key held on the CPU hashes small counts (at most `HOST_PAIRS` pairs) in
-Python integers, on the host, and passes its words to a device draw as
-scalars, so per-round key arithmetic costs no device launch and no copy;
-every draw over a client or entry axis runs on the device it is asked for.
+Where the draws run: on ``device`` (default: the key's device).  On a CUDA
+device every hash is one launch of kernel 7 (`kernels.threefry_normal`):
+`normal` through its normal path (the hash, the transform and the store in
+one launch), `split`, `fold_in`, `random_bits`, `uniform` and `bernoulli`
+(``u < p`` fused) through its bits path, and through those `randint`,
+`permutation` and `choice` one launch a `random_bits` (their sorts and
+modular arithmetic stay tensor ops); the same bits, and never the eager
+hash.  Elsewhere the draws run eagerly (`_threefry` on int64 tensors, the
+kernels' plain version).  A single key held on the CPU hashes small counts
+(at most `HOST_PAIRS` pairs) for a CPU result in Python integers, on the
+host, and passes its words to a device draw as scalars, so per-round key
+arithmetic costs no device launch and no copy; every draw over a client or
+entry axis runs on the device it is asked for.
 """
 from __future__ import annotations
 
@@ -171,6 +176,31 @@ def _numel(shape: Sequence[int]) -> int:
     return math.prod(int(s) for s in shape)
 
 
+def _tn():
+    """`kernels.threefry_normal` (imported at first use: it imports this
+    module)."""
+    from ..kernels import threefry_normal
+
+    return threefry_normal
+
+
+def _on_card(key: torch.Tensor, device) -> Optional[torch.device]:
+    """The hash's output device when it is a CUDA device (kernel 7), else
+    None (the eager route)."""
+    dev = _out_device(key, device)
+    return dev if dev.type == "cuda" else None
+
+
+def _card_hash(key: torch.Tensor, dev: torch.device, kind: str, size: int, partitionable,
+               shape: Sequence[int], **kw) -> torch.Tensor:
+    """One launch of kernel 7's bits path on ``dev``: ``bits_plan(kind,
+    size)`` under every key of ``key`` into a new (…, *shape) tensor."""
+    tn = _tn()
+    bp = tn.bits_plan(kind, size, _part(partitionable), kw.pop("base", 0))
+    out = torch.empty(tuple(key.shape[:-1]) + tuple(shape), dtype=bp.dtype, device=dev)
+    return tn.threefry_bits(out, key, bp, **kw)
+
+
 # ==========================================================================
 # Keys
 # ==========================================================================
@@ -185,6 +215,9 @@ def split(key: torch.Tensor, num: int = 2, *, device=None,
           partitionable: Optional[bool] = None) -> torch.Tensor:
     """``jax.random.split``: (..., 2) → (..., num, 2)."""
     num = int(num)
+    dev = _on_card(key, device)
+    if dev is not None:
+        return _card_hash(key, dev, "split", num, partitionable, (num, 2))
     if _part(partitionable):
         y0, y1 = _hash(key, 0, range(num), num, device)
         return torch.stack([y0, y1], dim=-1)
@@ -203,11 +236,17 @@ def fold_in(key: torch.Tensor, data, *, device=None) -> torch.Tensor:
         if key.dim() != 1:
             raise ValueError(f"fold_in folds a vector into one (2,) key, got {tuple(key.shape)}")
         x1 = data.to(device=data.device if device is None else device, dtype=torch.int64)
+        dev = _on_card(key, x1.device)
+        if dev is not None:
+            return _card_hash(key, dev, "fold", x1.numel(), None, (x1.numel(), 2), data=x1)
         k0, k1 = key.tolist()
         y0, y1 = _threefry(k0, k1, torch.zeros_like(x1), x1)
         return torch.stack([y0, y1], dim=-1)
     if not 0 <= int(data) <= M32:
         raise ValueError(f"fold_in takes data in [0, 2**32), got {data}")
+    dev = _on_card(key, device)
+    if dev is not None:
+        return _card_hash(key, dev, "fold1", 1, None, (2,), base=int(data))
     y0, y1 = _hash(key, [0], [int(data)], 1, device)
     return torch.cat([y0, y1], dim=-1)
 
@@ -221,6 +260,12 @@ def random_bits(key: torch.Tensor, bit_width: int, shape: Sequence[int] = (), *,
     if size >= M32:
         raise ValueError(f"random_bits draws fewer than 2**32 - 1 words, got {size}")
     batch = tuple(key.shape[:-1])
+    dev = _on_card(key, device) if bit_width in (32, 64) else None
+    if dev is not None and bit_width == 32:
+        return _card_hash(key, dev, "bits32", size, partitionable, shape)
+    if dev is not None:
+        w = _card_hash(key, dev, "bits64", size, partitionable, (2, size))
+        return w[..., 0, :].reshape(batch + shape), w[..., 1, :].reshape(batch + shape)
     if bit_width == 32:
         if _part(partitionable):
             y0, y1 = _hash(key, 0, range(size), size, device)
@@ -270,6 +315,11 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float64,
     XLA's CPU code fuses it); float64 draws only [0, 1), the one range the
     JAX package draws them on."""
     minval, maxval = float(minval), float(maxval)
+    shape = tuple(int(s) for s in shape)
+    dev = _on_card(key, device)
+    if dev is not None and dtype == torch.float32:
+        return _card_hash(key, dev, "f32", _numel(shape), partitionable, shape,
+                          lo=minval, hi=maxval)
     if dtype == torch.float32:
         bits = random_bits(key, 32, shape, device=device, partitionable=partitionable)
         return _scale_f32(_unit_floats(bits), minval, maxval)
@@ -277,6 +327,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float64,
         raise ValueError(f"uniform draws float32 or float64, got {dtype}")
     if (minval, maxval) != (0.0, 1.0):
         raise ValueError(f"float64 uniforms are drawn on [0, 1) only, got [{minval}, {maxval})")
+    if dev is not None:
+        return _card_hash(key, dev, "f64", _numel(shape), partitionable, shape)
     hi, lo = random_bits(key, 64, shape, device=device, partitionable=partitionable)
     mant = (hi << 20) | (lo >> 12)                  # the draw's top 52 bits
     return (mant | _FLOAT_ONE[dtype]).view(torch.float64) - 1.0
@@ -363,8 +415,7 @@ def normal_chunks(key: torch.Tensor, shape: Sequence[int] = (), *, device=None,
     chunk = NORMAL_CHUNK.get(dev.type, NORMAL_CHUNK["cuda"]) if chunk is None else int(chunk)
     if dev.type == "cuda":
         # kernel 7, one launch a piece: pieces of `chunk` consecutive draws
-        from ..kernels.threefry_normal import threefry_normal
-
+        threefry_normal = _tn().threefry_normal
         stop = size if stop is None else min(int(stop), size)
         for a in range(0, size, chunk):
             b = min(size, a + chunk)
@@ -389,11 +440,9 @@ def normal(key: torch.Tensor, shape: Sequence[int] = (), dtype=torch.float32, *,
     shape = tuple(int(s) for s in shape)
     dev = _out_device(key, device)
     if dev.type == "cuda":
-        from ..kernels.threefry_normal import threefry_normal
-
         keys = key.reshape(-1, 2)
         out = torch.empty((keys.shape[0], _numel(shape)), dtype=torch.float32, device=dev)
-        threefry_normal(out, keys, out.shape[1], partitionable=_part(partitionable))
+        _tn().threefry_normal(out, keys, out.shape[1], partitionable=_part(partitionable))
         return out.reshape(tuple(key.shape[:-1]) + shape)
     if key.dim() > 1:
         bits = random_bits(key, 32, shape, device=device, partitionable=partitionable)
@@ -409,7 +458,9 @@ def bernoulli(key: torch.Tensor, p: Union[float, torch.Tensor] = 0.5,
               partitionable: Optional[bool] = None) -> torch.Tensor:
     """``jax.random.bernoulli``: ``uniform < p`` in p's type — float64 for
     a Python float (x64), a tensor's own dtype otherwise.  ``shape``
-    defaults to p's shape after the key's batch dimensions."""
+    defaults to p's shape after the key's batch dimensions.  On a CUDA
+    device the comparison runs in the hash's launch, ``p`` broadcast to the
+    draw's (…, *shape)."""
     batch = tuple(key.shape[:-1])
     if isinstance(p, torch.Tensor):
         dtype = p.dtype
@@ -420,6 +471,13 @@ def bernoulli(key: torch.Tensor, p: Union[float, torch.Tensor] = 0.5,
     else:
         dtype = torch.float64
         shape = () if shape is None else shape
+    shape = tuple(int(s) for s in shape)
+    dev = _on_card(key, device)
+    if dev is not None:
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"bernoulli draws float32 or float64 uniforms, got {dtype}")
+        kind = "bool32" if dtype == torch.float32 else "bool64"
+        return _card_hash(key, dev, kind, _numel(shape), partitionable, shape, p=p)
     u = uniform(key, shape, dtype, device=device, partitionable=partitionable)
     return u < p
 

@@ -22,7 +22,9 @@ Three more kernels replace no Pallas kernel: the backward passes of kernels
 card runs where the reference differentiates with jax.grad, and kernel 7,
 ``threefry_normal``: ``jax.random.normal``'s keyed draw (threefry-2x32 and
 XLA's CPU inverse error function, bit for bit) written straight into a
-weight leaf, which the reference leaves to XLA.
+weight leaf, and through its bits path every other threefry hash the port
+makes on the card (``jax.random.split`` / ``fold_in`` / ``bits`` /
+``uniform`` / ``bernoulli``), which the reference leaves to XLA.
 """
 
 #: every CUDA source of the port, by its base name under ``csrc/``
