@@ -281,7 +281,9 @@ is non-zero and no result line is printed:
                 codeqwen, deepseek-moe, llama4's rep 5, qwen2-vl's 2304
                 positions, whisper's decoder, non-causal encoder over 1500
                 frames, and cross-attention of 2048 and of 1 query against
-                1500 keys); and at a sequence-parallel rank's query offset
+                1500 keys; and the (1, 4096) train shapes of granite,
+                stablelm, codeqwen and jamba), with device times; and at a
+                sequence-parallel rank's query offset
                 (`q_pos0`: phase lm_sharded's gemma3 slices, 1024 queries
                 at 0 / 1024 / 2048 against 3072 keys, window 1024 and
                 global) in both types, timed at the last slice beside SDPA
@@ -299,10 +301,12 @@ is non-zero and no result line is printed:
                 split TF32 products on the tensor cores), with the CUDA
                 launches one call makes, as the library counts them; then
                 held and timed at jamba-1.5-large's width (4, 2048, 256
-                heads of 64, N 128);
+                heads of 64, N 128), with random decays and with its init's
+                (A = −(1..256), dt a softplus), the latter also against the
+                plain version's arithmetic in float64;
   12. serve-<arch> — the LM serving path
                 (`repro_torch.launch.serve.prefill` / `decode`) for the ten
-                configs (`SERVE_CELLS`, then `REDUCED_ONLY`): the reduced
+                configs (`SERVE_CELLS`; `REDUCED_ONLY` is empty): the reduced
                 config in float32 on the card against the same weights and seeded
                 stub inputs (whisper's frames, qwen2-vl's prefix
                 embeddings) on the CPU (prefill logits, every decode step's
@@ -311,7 +315,8 @@ is non-zero and no result line is printed:
                 forward, a MoE config at a capacity that drops nothing),
                 then the full-width config in bfloat16 with the reference's
                 weights of PRNGKey(0), cut in depth where `SERVE_CELLS`
-                says (init seconds and peak reported): 4 requests (mamba2:
+                says (`cut_layers`; init seconds and peak reported): 4
+                requests (mamba2:
                 8) of 2048-token prompts, 16 decode steps (gemma3, mamba2)
                 or 4 (the others), every logit finite, exactly the kernel
                 calls `lm_launches` counts (kernel 5 once an attention
@@ -319,9 +324,10 @@ is non-zero and no result line is printed:
                 cross-attention layer every call; kernel 6 once a Mamba2
                 layer a prefill), no other kernel; kernel 7 once a drawn
                 leaf of the init; a MoE config's two prefills bitwise equal:
-                nine configs at full width (llama4-maverick one group, 37 GB).
-                jamba-1.5-large (one group is 90 GB in bf16) runs its
-                reduced check only.  A reduced reading above 10x the
+                all ten configs at full width (llama4-maverick one group, 37
+                GB; jamba-1.5-large the first five layers of its group, 48
+                GB: kernel 5 once and kernel 6 four times a prefill).  A
+                reduced reading above 10x the
                 usual 2.4e-6 prints one more line:
                 the largest differences, where they sit (the compared
                 logits or cache leaf, its index) and both sides' values;
@@ -335,10 +341,13 @@ is non-zero and no result line is printed:
                 shapes (gemma3's global and window-1024 layers at (1, 4096,
                 8 | 4, 256) in both types, and `ATTN_BWD_PATH`'s other
                 shapes: deepseek-moe's, qwen2-vl's, whisper's non-causal
-                encoder, decoder and 4096 × 1500 cross-attention, their
-                float64 truths a batch entry and a few KV heads at a time;
-                mamba2's layer at (8, 4096, 32,
-                64), N 128, with A and dt drawn as its init makes them) and
+                encoder, decoder and 4096 × 1500 cross-attention, granite's
+                48 query heads on one KV head, stablelm's head size 160,
+                codeqwen's MHA and jamba's rep 8, their float64 truths a
+                batch entry and a few KV heads, or some query heads of one,
+                at a time; mamba2's layer at (8, 4096, 32, 64) and jamba's
+                at (1, 4096, 256, 64), N 128, with A and dt drawn as their
+                inits make them) and
                 edge cases (among them decays of up to exp(−550) a step),
                 bitwise over two reruns at the path's shapes, each launch's
                 registers and spill bytes printed (kernel 5's bfloat16
@@ -349,28 +358,34 @@ is non-zero and no result line is printed:
                 (query offsets 0 / 1024 / 2048, both types, bitwise over
                 reruns), timed at the last;
   14. train   — the LM training path (`repro_torch.launch.train`,
-                `models.steps.make_train_step`): gemma3-4b, mamba2-370m,
-                deepseek-moe-16b, whisper-small and qwen2-vl-72b reduced in
+                `models.steps.make_train_step`): all ten configs
+                (`TRAIN_REDUCED`) reduced in
                 float32 on the card against the CPU from the same weights,
                 batches and seeded frames / prefix embeddings (a MoE's
                 expert ids compared first, a mismatch named a tie or not;
                 2 steps' losses within 2e-4 relative, step 0's gradients
                 within 2e-4·max|ref| a leaf), then at full width through
                 `launch.train.main`, cut in depth only where `TRAIN_CELLS`
-                says (gemma3-4b, deepseek-moe at 12 layers, qwen2-vl at 6
-                at train_4k_b1; mamba2-370m, whisper-small at train_4k_b8;
+                says (`cut_layers`: gemma3-4b, deepseek-moe at 12 layers,
+                qwen2-vl at 6, granite-20b at 18, stablelm-12b at 22,
+                codeqwen1.5-7b at 28, jamba-1.5-large at layers 0 and 4 of
+                its group at train_4k_b1; mamba2-370m, whisper-small at
+                train_4k_b8; no llama4-maverick cell: one MoE layer is 147
+                GB of training state;
                 bf16 weights and AdamW moments, remat; `TRAIN_STEPS` 2
                 steps): every loss finite and exactly the kernel calls
                 `train_launches` counts
                 (68 kernel-5 forward and 34 backward calls a step for
                 gemma3, 96 kernel-6 forward and 48 backward for mamba2,
                 whisper's encoder once and its self- and cross-attention
-                twice), kernel 7 once a drawn leaf, no other kernel;
+                twice, jamba's two layers 2 + 1 of kernels 5 and 6 each),
+                kernel 7 once a drawn leaf, no other kernel;
                 deepseek-moe's step-0 gradient twice from the same weights,
                 bitwise equal; s/step (the second step's time: the first
                 warms up), tokens/s, peak memory, set-up and init s (the
                 reference's weights of PRNGKey(0));
-                then gemma3-4b and mamba2-370m again through the plain versions (losses
+                then gemma3-4b, mamba2-370m, granite-20b and jamba-1.5-large
+                again through the plain versions (losses
                 within 1e-2 relative of the kernels' at step 0, 5e-2 at
                 step 1); and the bf16 witness: gemma3-4b at full width,
                 cut to 6 layers, one gradient on one 4096-token batch
@@ -380,7 +395,7 @@ is non-zero and no result line is printed:
                 (or 2⁻⁸);
   15. lm_sharded — the LM's sharding (`repro_torch.sharding`): the cells of
                 `LM_SHARDED`, float32, full width cut in depth (deepseek-
-                moe-16b (8 layers) prefill of 2 × 4096 tokens and 4 decode
+                moe-16b (8 layers) prefill of 2 × 4096 tokens and 2 decode
                 steps at mesh (2, 2): the expert-parallel MoE, heads and
                 vocabulary over `model`, FSDP; gemma3-4b prefill of 3072 tokens and 4
                 decode steps at (1, 3): sequence-parallel attention, kernel
@@ -570,16 +585,20 @@ SSD_EMULATED_CHUNKS = (64, 128)
 SSD_SWEEP = ((2, 64, 16, 8, 16), (1, 128, 32, 16, 32), (4, 96, 8, 4, 24), (1, 60, 16, 8, 32))
 #: serve cells at full width on one card: arch, the port's one-card input
 #: shape (`repro_torch.launch.shapes`: requests, prompt and cache length),
-#: decode steps, and the layers kept (None: full depth).  The cut cells keep
-#: every width and the first groups' layer pattern; their weights are the
+#: decode steps, and the layers kept (`cut_layers`: None for full depth, a
+#: count, or a tuple of the group's layer indices).  The cut cells keep
+#: every width and the first layers of the pattern; their weights are the
 #: reference's `init_params(PRNGKey(0))` of the cut config: qwen2-vl-72b 2
 #: layers (4.25 B parameters), granite-20b, stablelm-12b and codeqwen1.5-7b
 #: 4 layers (2.12, 2.14, 1.69 B), against full depths' bf16 weights of 145,
 #: 41, 24 and 16 GB; llama4-maverick one group (a MoE layer of 128 experts
-#: and a dense one: 18.68 B, 37.4 GB).  The keyed inits run through kernel 7.
-#: The new cells' 4 decode steps keep the whole script's time down: with 8
-#: steps it ran 823 s (PERF.md §6); gemma3-4b and mamba2-370m decode 16
-#: (32 until cut to fit phase lm_sharded in the script's time)
+#: and a dense one: 18.68 B, 37.4 GB); jamba-1.5-large the first five layers
+#: of its group of 8 (Mamba2 + MLP, Mamba2 + MoE, twice, then attention +
+#: MLP: 23.99 B, 48.0 GB; the whole group is 90.3 GB).  The keyed inits run
+#: through kernel 7.  The new cells' 4 decode steps keep the whole script's
+#: time down: with 8 steps it ran 823 s (PERF.md §6); gemma3-4b and
+#: mamba2-370m decode 16 (32 until cut to fit phase lm_sharded in the
+#: script's time)
 SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 16, None),
                ("mamba2_370m", "decode_4k_b8", 16, None),
                ("deepseek_moe_16b", "decode_4k_b4", 4, None),
@@ -588,10 +607,11 @@ SERVE_CELLS = (("gemma3_4b", "decode_4k_b4", 16, None),
                ("stablelm_12b", "decode_4k_b4", 4, 4),
                ("codeqwen15_7b", "decode_4k_b4", 4, 4),
                ("whisper_small", "decode_4k_b4", 4, None),
-               ("llama4_maverick_400b_a17b", "decode_4k_b4", 4, 2))
-#: configs held by their reduced check alone: jamba-1.5-large (one group of
-#: 8 layers is 45.1 B parameters, 90.3 GB in bf16: no depth fits one card)
-REDUCED_ONLY = ("jamba_15_large_398b",)
+               ("llama4_maverick_400b_a17b", "decode_4k_b4", 4, 2),
+               ("jamba_15_large_398b", "decode_4k_b4", 4, 5))
+#: configs held by their reduced check alone: none since every config has a
+#: full-width cell
+REDUCED_ONLY = ()
 #: the reduced configs of the card-against-CPU check, all ten: where the
 #: full width groups its KV heads the reduced config (4 query heads) keeps
 #: 2 KV heads, and stablelm its head size of 160
@@ -602,8 +622,9 @@ SERVE_REDUCED = {"gemma3_4b": {"n_kv_heads": 2}, "mamba2_370m": {},
                  "stablelm_12b": {"n_kv_heads": 2, "head_dim": 160},
                  "jamba_15_large_398b": {"n_kv_heads": 2}}
 #: kernel 5 at the other configs' full-width prefill shapes (decode_4k_b4:
-#: 4 × 2048 tokens; qwen2-vl's 256 prefix embeddings in front), bfloat16:
-#: (name, B, Sq, Sk, H, KVH, hd, causal)
+#: 4 × 2048 tokens; qwen2-vl's 256 prefix embeddings in front) and at the
+#: train cells' train_4k_b1 shapes of granite, stablelm, codeqwen and jamba
+#: (1 × 4096), bfloat16: (name, B, Sq, Sk, H, KVH, hd, causal)
 ATTN_CONFIG_SHAPES = (("granite-20b", 4, 2048, 2048, 48, 1, 128, True),
                       ("stablelm-12b", 4, 2048, 2048, 32, 8, 160, True),
                       ("codeqwen1.5-7b", 4, 2048, 2048, 32, 32, 128, True),
@@ -613,9 +634,17 @@ ATTN_CONFIG_SHAPES = (("granite-20b", 4, 2048, 2048, 48, 1, 128, True),
                       ("whisper decoder", 4, 2048, 2048, 12, 12, 64, True),
                       ("whisper encoder", 4, 1500, 1500, 12, 12, 64, False),
                       ("whisper cross", 4, 2048, 1500, 12, 12, 64, False),
-                      ("whisper cross, decode", 4, 1, 1500, 12, 12, 64, False))
-#: kernel 6 at jamba-1.5-large's full width: (name, B, S, H, hd, N)
-SSD_CONFIG_SHAPES = (("jamba-1.5-large", 4, 2048, 256, 64, 128),)
+                      ("whisper cross, decode", 4, 1, 1500, 12, 12, 64, False),
+                      ("granite-20b train", 1, 4096, 4096, 48, 1, 128, True),
+                      ("stablelm-12b train", 1, 4096, 4096, 32, 8, 160, True),
+                      ("codeqwen1.5-7b train", 1, 4096, 4096, 32, 32, 128, True),
+                      ("jamba-1.5-large train", 1, 4096, 4096, 64, 8, 128, True))
+#: kernel 6 at jamba-1.5-large's full width: (name, B, S, H, hd, N, A and
+#: dt as its init draws them): random decays, and the init's (A = −(1..256)
+#: from `A_log`, dt a softplus; `ssd_kernel_phase`), which also reads the
+#: float64 truth
+SSD_CONFIG_SHAPES = (("jamba-1.5-large", 4, 2048, 256, 64, 128, False),
+                     ("jamba-1.5-large, its init's decays", 4, 2048, 256, 64, 128, True))
 #: the backward kernels against float64 autograd through the plain versions,
 #: share of max|f64| (PERF.md §2); bf16 adds one bf16 ulp of the f64 value
 BWD_TOL = 1e-4
@@ -624,17 +653,25 @@ BWD_TOL = 1e-4
 #: train_4k_b1, deepseek-moe-16b's (MHA, hd 128) and qwen2-vl-72b's (GQA
 #: rep 8 over 256 prefix + 4096 tokens) at train_4k_b1, whisper-small's
 #: non-causal encoder over 1500 frames, its decoder's self-attention and its
-#: cross-attention of 4096 queries against 1500 keys at train_4k_b8
+#: cross-attention of 4096 queries against 1500 keys at train_4k_b8;
+#: granite-20b's 48 query heads on one KV head, stablelm-12b's head size
+#: 160 (on the 256 template), codeqwen1.5-7b's MHA and jamba-1.5-large's
+#: rep 8 at train_4k_b1
 ATTN_BWD_PATH = (("global", 1, 4096, 4096, 8, 4, 256, True, None),
                  ("window1024", 1, 4096, 4096, 8, 4, 256, True, 1024),
                  ("deepseek-moe-16b", 1, 4096, 4096, 16, 16, 128, True, None),
                  ("qwen2-vl-72b", 1, 4352, 4352, 64, 8, 128, True, None),
                  ("whisper encoder", 8, 1500, 1500, 12, 12, 64, False, None),
                  ("whisper decoder", 8, 4096, 4096, 12, 12, 64, True, None),
-                 ("whisper cross", 8, 4096, 1500, 12, 12, 64, False, None))
+                 ("whisper cross", 8, 4096, 1500, 12, 12, 64, False, None),
+                 ("granite-20b", 1, 4096, 4096, 48, 1, 128, True, None),
+                 ("stablelm-12b", 1, 4096, 4096, 32, 8, 160, True, None),
+                 ("codeqwen1.5-7b", 1, 4096, 4096, 32, 32, 128, True, None),
+                 ("jamba-1.5-large", 1, 4096, 4096, 64, 8, 128, True, None))
 #: float64 truths of the path cases are taken this many float64 score
-#: elements at a time (a batch entry and a few KV heads' query heads), so
-#: whisper's 8 × 12 × 4096² scores never stand whole in float64
+#: elements at a time (a batch entry and a few KV heads' query heads, or
+#: some of one KV head's query heads: granite's 48), so whisper's 8 × 12 ×
+#: 4096² scores never stand whole in float64
 BWD_TRUTH_ELEMS = 1 << 27
 #: edge cases: (name, B, Sq, Sk, H, KVH, hd, causal, window)
 ATTN_BWD_SWEEP = (("GQA rep 2, hd 64", 2, 128, 128, 4, 2, 64, True, None),
@@ -648,6 +685,9 @@ ATTN_BWD_SWEEP = (("GQA rep 2, hd 64", 2, 128, 128, 4, 2, 64, True, None),
 #: mamba2-370m's training SSD at train_4k_b8: (B, S, H, hd, N), 32 of
 #: kernel 6's 128-position chunks
 SSD_BWD_PATH = (8, 4096, 32, 64, 128)
+#: jamba-1.5-large's training SSD at train_4k_b1: the same B·H·S as
+#: mamba2's, 256 heads of one batch entry, its init's decays
+SSD_BWD_JAMBA = (1, 4096, 256, 64, 128)
 #: edge cases: (name, B, S, H, hd, N, with the final state's gradient,
 #: dt scale, A scale, dt's least value), dt uniform in [least, least +
 #: scale] and A in −scale·[0.1, 1.1]; None for the scales draws A and dt as
@@ -664,22 +704,36 @@ SSD_BWD_SWEEP = (("two chunks, state gradient", 2, 256, 3, 64, 128, True, 0.5, 1
                  ("mixed decays", 2, 300, 2, 64, 128, False, 10.0, 50.0, 0.01),
                  ("mamba2 init, 3 chunks ragged, state gradient", 2, 300, 32, 64, 128, True,
                   None, None, None))
-#: the train phase: full-width cells (arch, one-card shape, the layers kept
-#: or None for full depth, whether the cell runs again through the plain
-#: versions), steps; the reduced card-against-CPU check's steps and its
-#: (batch, tokens).  bf16 weights, gradients and two AdamW moments take 8 B
-#: a parameter, so the deep configs are cut in depth only, each to the
-#: deepest that keeps the peak under ~70 GB: deepseek-moe-16b to 12 of its
-#: 28 layers (0.588 B a layer plus 0.42 B of embedding and head: 7.47 B,
-#: peak 65.2 GB on the card, so 13 layers would read ~69.9 GB), qwen2-vl-72b
-#: to 6 of its 80 (0.878 B a layer plus 2.49 B: 7.76 B; 5 layers peaked at
-#: 57.1 GB, so 6 read ~64 GB and 7 ~71 GB; PERF.md §6);
-#: whisper-small (279 M) runs whole at 8 × 4096 tokens (21.4 GB)
+#: the train phase: the reduced configs held card against CPU (all ten:
+#: llama4-maverick's MoE trains on the card here only), then the full-width
+#: cells (arch, one-card shape, the layers kept as `cut_layers` takes them,
+#: whether the cell runs again through the plain versions), steps; the
+#: reduced check's steps and its (batch, tokens).  bf16 weights, gradients
+#: and two AdamW moments take 8 B a parameter, so the deep configs are cut
+#: in depth only, each to the deepest that keeps the peak under ~70 GB:
+#: deepseek-moe-16b to 12 of its 28 layers (0.588 B a layer plus 0.42 B of
+#: embedding and head: 7.47 B, peak 65.2 GB on the card, so 13 layers would
+#: read ~69.9 GB), qwen2-vl-72b to 6 of its 80 (0.878 B a layer plus 2.49
+#: B: 7.76 B; 5 layers peaked at 57.1 GB, so 6 read ~64 GB and 7 ~71 GB;
+#: PERF.md §6); granite-20b to 18 of 52 (7.43 B), stablelm-12b to 22 of 40
+#: (7.14 B), codeqwen1.5-7b to 28 of 32 (7.26 B; its full depth's 8.19 B
+#: read ~66 GB before activations); jamba-1.5-large to layers 0 and 4 of
+#: its group (Mamba2 + MLP, attention + MLP: 2.84 B; one MoE layer is 9.7
+#: B, 78 GB at 8 B a parameter); whisper-small (279 M) runs whole at 8 ×
+#: 4096 tokens (21.4 GB).  llama4-maverick has no full-width cell: one MoE
+#: layer with the embedding and head is 18.37 B, ~147 GB
+TRAIN_REDUCED = ("gemma3_4b", "mamba2_370m", "deepseek_moe_16b", "whisper_small",
+                 "qwen2_vl_72b", "granite_20b", "stablelm_12b", "codeqwen15_7b",
+                 "llama4_maverick_400b_a17b", "jamba_15_large_398b")
 TRAIN_CELLS = (("gemma3_4b", "train_4k_b1", None, True),
                ("mamba2_370m", "train_4k_b8", None, True),
                ("deepseek_moe_16b", "train_4k_b1", 12, False),
                ("whisper_small", "train_4k_b8", None, False),
-               ("qwen2_vl_72b", "train_4k_b1", 6, False))
+               ("qwen2_vl_72b", "train_4k_b1", 6, False),
+               ("granite_20b", "train_4k_b1", 18, True),
+               ("stablelm_12b", "train_4k_b1", 22, False),
+               ("codeqwen15_7b", "train_4k_b1", 28, False),
+               ("jamba_15_large_398b", "train_4k_b1", (0, 4), True))
 #: the MoE cell whose step-0 gradient runs twice from the same weights and
 #: must give the same bits (the MoE's backward sums in a fixed order)
 TRAIN_RERUN = "deepseek_moe_16b"
@@ -3349,6 +3403,8 @@ def attention_kernel_phase(torch, fa) -> dict:
             "shape": [B, Sq, Sk, H, KVH, hd], "causal": causal, "dtype": "bfloat16",
             "kernel_ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal),
                                  20, warmup=2),
+            "device_ms": device_ms(torch, {"fwd": lambda: fa.flash_attention(
+                q, k, v, causal=causal)}, reps=5)["fwd"],
             "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=causal),
                                 5, warmup=1),
             "library_ms": cuda_ms(torch, sdpa, 20, warmup=2),
@@ -3369,10 +3425,17 @@ def ssd_kernel_phase(torch, ss) -> dict:
     time at the path's shape beside the plain version and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(6)
 
-    def inputs(B, S, H, hd, N, dt_scale=0.5, a_scale=1.0, dt_min=0.01):
+    def inputs(B, S, H, hd, N, dt_scale=0.5, a_scale=1.0, dt_min=0.01, init=False):
+        """dt uniform in [dt_min, dt_min + dt_scale], A in −a_scale·[0.1,
+        1.1]; or with `init` both as the Mamba2 init draws them (see
+        `ssd_bwd_phase`): A = −(1..H), dt = softplus(z), z ~ N(0, 1)."""
         x = torch.randn(B, S, H, hd, device="cuda", generator=gen)
-        dt = torch.rand(B, S, H, device="cuda", generator=gen) * dt_scale + dt_min
-        A = -(torch.rand(H, device="cuda", generator=gen) + 0.1) * a_scale
+        if init:
+            dt = torch.nn.functional.softplus(torch.randn(B, S, H, device="cuda", generator=gen))
+            A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+        else:
+            dt = torch.rand(B, S, H, device="cuda", generator=gen) * dt_scale + dt_min
+            A = -(torch.rand(H, device="cuda", generator=gen) + 0.1) * a_scale
         Bm, Cm = (torch.randn(B, S, N, device="cuda", generator=gen) for _ in range(2))
         return x, dt, A, Bm, Cm
 
@@ -3454,16 +3517,31 @@ def ssd_kernel_phase(torch, ss) -> dict:
         raise AssertionError(f"ssd_scan ran under a bound it cannot beat: {timing}")
     del args
     torch.cuda.empty_cache()
-    # the other configs' full-width shapes: held, then timed
+    # the other configs' full-width shapes: held, then timed; at the init's
+    # decays (dt·A to −256·softplus(z) a step) each version's y also against
+    # the plain version's arithmetic in float64
     config_timings = {}
-    for name, B, S, H, hd, N in SSD_CONFIG_SHAPES:
-        args = inputs(B, S, H, hd, N)
-        hold(name, args, 256)
+    for name, B, S, H, hd, N, init in SSD_CONFIG_SHAPES:
+        args = inputs(B, S, H, hd, N, init=init)
+        vs_f64 = None
+        if init:
+            y, yp = ss.ssd_scan(*args)[0], ss.ssd_scan_plain(*args, chunk=256)[0]
+            y64 = ss.ssd_scan_plain(*(t.double() for t in args), chunk=256)[0]
+            scale = float(y64.abs().max())
+            vs_f64 = {"kernel_vs_f64": float((y.double() - y64).abs().max()) / scale,
+                      "plain_vs_f64": float((yp.double() - y64).abs().max()) / scale,
+                      "kernel_vs_plain": float((y - yp).abs().max()) / float(yp.abs().max())}
+            del y, yp, y64
+        try:
+            hold(name, args, 256)
+        except AssertionError as e:
+            raise AssertionError(f"{e}; y against the float64 truth: {vs_f64}") from None
         cases += 1
         bound_tc, by_tc, bytes_ms = ssd_bound_tc_ms(B, S, H, hd, N, chunk=ss.KERNEL_CHUNK)
         config_timings[name] = {
-            "shape": [B, S, H, hd, N], "chunk": 256,
+            "shape": [B, S, H, hd, N], "chunk": 256, "init_decays": init, "y_rel_err": vs_f64,
             "kernel_ms": cuda_ms(torch, lambda: ss.ssd_scan(*args), 20, warmup=2),
+            "device_ms": device_ms(torch, {"fwd": lambda: ss.ssd_scan(*args)}, reps=5)["fwd"],
             "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(*args, chunk=256), 5,
                                 warmup=1),
             "library_ms": None, "bound_ms": bound_tc, "bound_by": by_tc,
@@ -3557,23 +3635,37 @@ def attention_bwd_phase(torch, fa) -> dict:
 
     def truth(q, k, v, do, causal, window, q0=0):
         """float64 autograd through the plain version, a batch entry and a
-        group of KV heads (with their query heads) at a time."""
+        group of KV heads (with their query heads) at a time, or a part of
+        one KV head's query heads at a time (its dk and dv summed over the
+        parts)."""
         B, Sq, H, _ = q.shape
         Sk, KVH = k.shape[1], k.shape[2]
         rep = H // KVH
         g = max(1, min(KVH, BWD_TRUTH_ELEMS // (rep * Sq * Sk)))
-        out = {key: torch.empty(x.shape, dtype=torch.float64, device=x.device)
+        r = rep if g > 1 else max(1, min(rep, BWD_TRUTH_ELEMS // (Sq * Sk)))
+        while rep % r:
+            r -= 1
+        out = {key: torch.zeros(x.shape, dtype=torch.float64, device=x.device)
                for key, x in (("dq", q), ("dk", k), ("dv", v))}
         for b in range(B):
             for h0 in range(0, KVH, g):
-                qs, ks = slice(h0 * rep, (h0 + g) * rep), slice(h0, h0 + g)
-                ins = [x[b:b + 1, :, sl].double().detach().requires_grad_(True)
-                       for x, sl in ((q, qs), (k, ks), (v, ks))]
-                o = fa.flash_attention_plain(*ins, causal=causal, window=window, q_pos0=q0)
-                d = torch.autograd.grad(o, ins, do[b:b + 1, :, qs].double())
-                for key, sl, t in (("dq", qs, d[0]), ("dk", ks, d[1]), ("dv", ks, d[2])):
-                    out[key][b:b + 1, :, sl] = t
-                del ins, o, d
+                n = min(g, KVH - h0)
+                ks = slice(h0, h0 + n)
+                for r0 in range(0, rep, r):
+                    # query heads r0 .. r0 + r of each KV head of the group
+                    qs = torch.arange(h0 * rep, (h0 + n) * rep, device=q.device).view(
+                        n, rep)[:, r0:r0 + r].flatten()
+                    ins = [q[b:b + 1].index_select(2, qs).double().detach()
+                           .requires_grad_(True)] + [
+                        x[b:b + 1, :, ks].double().detach().requires_grad_(True)
+                        for x in (k, v)]
+                    o = fa.flash_attention_plain(*ins, causal=causal, window=window,
+                                                 q_pos0=q0)
+                    d = torch.autograd.grad(o, ins, do[b:b + 1].index_select(2, qs).double())
+                    out["dq"][b:b + 1].index_copy_(2, qs, d[0])
+                    out["dk"][b:b + 1, :, ks] += d[1]
+                    out["dv"][b:b + 1, :, ks] += d[2]
+                    del ins, o, d
         return out
 
     cases, errs, bitwise = [], {}, {}
@@ -3602,13 +3694,11 @@ def attention_bwd_phase(torch, fa) -> dict:
 
     timings = {}
     for name, B, Sq, Sk, H, KVH, hd, causal, w in ATTN_BWD_PATH:
-        gemma = name in ("global", "window1024")
         q, do = (rnd(B, Sq, H, hd, dtype=torch.bfloat16) for _ in range(2))
         k, v = (rnd(B, Sk, KVH, hd, dtype=torch.bfloat16) for _ in range(2))
         ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        # the plain version's backward is timed at gemma3's shapes only: at
-        # whisper's its float32 scores alone are 6.4 GB
-        out_plain = fa.flash_attention_plain(*ins, causal=causal, window=w) if gemma else None
+        # the plain version's float32 scores: 6.4 GB at whisper's decoder
+        out_plain = fa.flash_attention_plain(*ins, causal=causal, window=w)
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
         if w is None:
             out_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -3632,7 +3722,7 @@ def attention_bwd_phase(torch, fa) -> dict:
             "dtype": "bfloat16", "kernel_ms": kernel_ms,
             "device_ms": device_ms(torch, {"bwd": kernel}, reps=3)["bwd"],
             "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-                out_plain, ins, do, retain_graph=True), 3, warmup=1) if gemma else None,
+                out_plain, ins, do, retain_graph=True), 3, warmup=1),
             "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
                 out_sdpa, (qt, kt, vt), dot, retain_graph=True), 5, warmup=1),
             "bound_ms": bound, "bound_by": by, "share": bound / kernel_ms,
@@ -3728,7 +3818,9 @@ def ssd_bwd_phase(torch, ss) -> dict:
         return dict(zip(names, torch.autograd.grad(outs, ins, gs)))
 
     errs, bitwise = {}, {}
-    cases = [("mamba2 train", *SSD_BWD_PATH, False, None, None, None)] + list(SSD_BWD_SWEEP)
+    path = {"mamba2 train": SSD_BWD_PATH, "jamba train": SSD_BWD_JAMBA}
+    cases = [(name, *shape, False, None, None, None) for name, shape in path.items()]
+    cases += list(SSD_BWD_SWEEP)
     for name, B, S, H, hd, N, with_state, dts, As, dt_min in cases:
         args = inputs(B, S, H, hd, N, dts, As, dt_min)
         dy = torch.randn(B, S, H, hd, device="cuda", generator=gen)
@@ -3736,7 +3828,7 @@ def ssd_bwd_phase(torch, ss) -> dict:
         got = grads(args, dy, ds)
         errs[name] = _bwd_err(f"ssd_scan backward on {name}", got,
                               truth(args, dy, ds, 256 if S % 256 == 0 else S), False)
-        if name == "mamba2 train":
+        if name in path:
             again = grads(args, dy, ds)
             bitwise[name] = all(torch.equal(got[key], again[key]) for key in got)
             if not bitwise[name]:
@@ -3744,45 +3836,52 @@ def ssd_bwd_phase(torch, ss) -> dict:
         del args, dy, ds, got
         torch.cuda.empty_cache()
 
-    args = inputs(*SSD_BWD_PATH)
-    dy = torch.randn(*SSD_BWD_PATH[:4], device="cuda", generator=gen)
-    _, _, fws = ss._kernel(*args)
-    ss.bwd_cuda_launches = 0
-    ss._kernel_bwd(*args, dy, None, fws)
-    cuda_launches = ss.bwd_cuda_launches
+    def timed(shape) -> dict:
+        """6b at `shape` with the init's decays beside the plain version's
+        backward and the bounds."""
+        args = inputs(*shape)
+        dy = torch.randn(*shape[:4], device="cuda", generator=gen)
+        _, _, fws = ss._kernel(*args)
+        ss.bwd_cuda_launches = 0
+        ss._kernel_bwd(*args, dy, None, fws)
+        cuda_launches = ss.bwd_cuda_launches
 
-    def kernel():
-        return ss._kernel_bwd(*args, dy, None, fws)
+        def kernel():
+            return ss._kernel_bwd(*args, dy, None, fws)
 
-    ins = [t.detach().requires_grad_(True) for t in args]
-    y_plain = ss.ssd_scan_plain(*ins, chunk=256)[0]
-    ops, bytes_ = ssd_bwd_ops_bytes(*SSD_BWD_PATH, chunk=ss.KERNEL_CHUNK)
-    # the card's peak for float32 products is three split TF32 products on
-    # the tensor cores, as kernel 6's bound counts them; the CUDA cores'
-    # float32 rate, which this kernel's FMAs run at, is bound_f32_ms
-    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    ops_ms = TF32_SPLIT_PRODUCTS * ops / TF32_OPS_PER_S * 1e3
-    ops_f32_ms = ops / OPS32_PER_S * 1e3
-    kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
-    timing = {"shape": list(SSD_BWD_PATH), "kernel_chunk": ss.KERNEL_CHUNK,
-              "kernel_ms": kernel_ms,
-              "device_ms": device_ms(torch, {"bwd": kernel}, reps=3)["bwd"],
-              "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-                  y_plain, ins, dy, retain_graph=True), 3, warmup=1),
-              "library_ms": None,
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-              "bound_bytes_ms": bytes_ms, "share": max(bytes_ms, ops_ms) / kernel_ms,
-              "bound_f32_ms": max(bytes_ms, ops_f32_ms),
-              "bound_f32_by": "bytes" if bytes_ms >= ops_f32_ms else "operations",
-              "cuda_launches_per_call": cuda_launches}
-    del args, dy, fws, ins, y_plain
-    torch.cuda.empty_cache()
+        ins = [t.detach().requires_grad_(True) for t in args]
+        y_plain = ss.ssd_scan_plain(*ins, chunk=256)[0]
+        ops, bytes_ = ssd_bwd_ops_bytes(*shape, chunk=ss.KERNEL_CHUNK)
+        # the card's peak for float32 products is three split TF32 products on
+        # the tensor cores, as kernel 6's bound counts them; the CUDA cores'
+        # float32 rate, which this kernel's FMAs run at, is bound_f32_ms
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        ops_ms = TF32_SPLIT_PRODUCTS * ops / TF32_OPS_PER_S * 1e3
+        ops_f32_ms = ops / OPS32_PER_S * 1e3
+        kernel_ms = cuda_ms(torch, kernel, 5, warmup=1)
+        out = {"shape": list(shape), "kernel_chunk": ss.KERNEL_CHUNK,
+               "kernel_ms": kernel_ms,
+               "device_ms": device_ms(torch, {"bwd": kernel}, reps=3)["bwd"],
+               "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                   y_plain, ins, dy, retain_graph=True), 3, warmup=1),
+               "library_ms": None,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bound_bytes_ms": bytes_ms, "share": max(bytes_ms, ops_ms) / kernel_ms,
+               "bound_f32_ms": max(bytes_ms, ops_f32_ms),
+               "bound_f32_by": "bytes" if bytes_ms >= ops_f32_ms else "operations",
+               "cuda_launches_per_call": cuda_launches}
+        del args, dy, fws, ins, y_plain
+        torch.cuda.empty_cache()
+        return out
+
+    timing = timed(SSD_BWD_PATH)
+    config_timings = {"jamba-1.5-large": timed(SSD_BWD_JAMBA)}
     attrs = ss.backward_attributes()
     return {"cases": len(cases), "errors": errs, "bitwise_reruns": bitwise,
             "max_abs_err": max(e["abs"] for c in errs.values() for e in c.values()),
             "max_rel_err": max(e["rel"] for c in errs.values() for e in c.values()),
-            "timing": timing, "templates": attrs,
+            "timing": timing, "config_timings": config_timings, "templates": attrs,
             "spills": {key: a["local_bytes"] for key, a in attrs.items() if a["local_bytes"]}}
 
 
@@ -3801,6 +3900,27 @@ def train_launches(cfg, remat: bool, steps: int = 1) -> dict:
     return {"flash_attention": steps * (cfg.n_enc_layers + f * dec),
             "flash_attention_bwd": steps * (cfg.n_enc_layers + dec),
             "ssd_scan": steps * f * n_ssd, "ssd_scan_bwd": steps * n_ssd}
+
+
+def cut_layers(cfg, layers):
+    """`cfg` cut in depth only: `layers` None keeps it whole; a count keeps
+    that many layers, whole groups or the first layers of one group; a
+    tuple of indices keeps those layers of the group, in order, as one
+    group."""
+    import dataclasses
+
+    if layers is None:
+        return cfg
+    if isinstance(layers, tuple):
+        group, n = tuple(cfg.group[i] for i in layers), len(layers)
+    elif layers % len(cfg.group) == 0:
+        group, n = cfg.group, layers
+    elif layers < len(cfg.group):
+        group, n = cfg.group[:layers], layers
+    else:
+        raise ValueError(f"{cfg.name}: {layers} layers is neither whole groups of "
+                         f"{len(cfg.group)} nor part of one")
+    return dataclasses.replace(cfg, n_layers=n, group=group)
 
 
 @contextlib.contextmanager
@@ -3859,77 +3979,91 @@ def compare_routes(name: str, card: list, cpu: list) -> dict:
     return {"moe_layers": len(cpu), "expert_ids_equal": True}
 
 
-def train_phase(torch, k) -> dict:
-    """The LM training path: the reduced configs on the card against the CPU,
-    then the full-width cells through the launcher (see the module
-    docstring)."""
-    import dataclasses
-
-    from repro_torch import configs
-    from repro_torch.core import prng
-    from repro_torch.data import make_batch_iterator, pipeline
-    from repro_torch.launch import shapes, train
+def train_reduced_check(torch, k, arch) -> dict:
+    """The reduced config of `arch` in float32 on the card against the CPU
+    from the same weights, batches and stub inputs: a MoE's expert ids
+    first, then step 0's loss and gradients (TRAIN_TOL·max|ref| a leaf, the
+    kernel calls exact) and TRAIN_REDUCED_STEPS AdamW steps' losses
+    (TRAIN_TOL relative)."""
+    from repro_torch.data import pipeline
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import steps
     from repro_torch.optim import adamw_init
 
+    cfg, cpu = reduced_cpu_params(arch)
+    card = _tree_map(lambda t: t.cuda(), cpu)
+    Bsz, S = TRAIN_REDUCED_SIZES
+    gen = pipeline.SyntheticTokens(cfg.vocab_size, S + 1, Bsz, seed=0)
+    extras = {key: torch.tensor(v) for key, v in reduced_extras(cfg, Bsz).items()}
+    batches = [{"tokens": torch.as_tensor(gen.batch(i)), **extras}
+               for i in range(TRAIN_REDUCED_STEPS)]
+
+    def on_card(b):
+        return {key: v.cuda() for key, v in b.items()}
+
+    routes = None
+    if cfg.moe is not None:
+        routes = compare_routes(f"{arch} reduced", moe_routes(
+            torch, M, L, card, cfg, on_card(batches[0])), moe_routes(
+            torch, M, L, cpu, cfg, batches[0]))
+    grad_fn = steps.make_grad_fn(cfg, remat=False)
+    l_cpu, _, g_cpu = grad_fn(cpu, batches[0])
+    (l_card, _, g_card), _, counts = drive(
+        torch, k, lambda: grad_fn(card, on_card(batches[0])))
+    want = {name: 0 for name in counts}
+    want.update(train_launches(cfg, remat=False))
+    if counts != want:
+        raise AssertionError(f"{arch} reduced gradient: kernel launches {counts}, "
+                             f"want {want}")
+    grad_rel = {}
+    for (name, a), (_, b) in zip(_leaves(g_card), _leaves(g_cpu)):
+        e, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        if not e <= TRAIN_TOL * scale:
+            raise AssertionError(f"{arch} reduced, step-0 gradient {name}: |Δ| {e} > "
+                                 f"{TRAIN_TOL}·{scale}")
+        grad_rel[name] = e / scale if scale else 0.0
+    step = steps.make_train_step(cfg, remat=False)
+    losses = {}
+    for where, params, to in (("cpu", cpu, dict), ("card", card, on_card)):
+        opt = adamw_init(params)
+        losses[where] = []
+        for b in batches:
+            params, opt, m = step(params, opt, to(b))
+            losses[where].append(float(m["loss"]))
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
+    if not (max(loss_rel) <= TRAIN_TOL and all(map(math.isfinite, losses["card"]))):
+        raise AssertionError(f"{arch} reduced: losses {losses}")
+    del cpu, card, g_cpu, g_card
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "layers": cfg.n_layers, "loss_rel": loss_rel,
+            "losses": losses, "loss0": [float(l_card), float(l_cpu)],
+            "grad_max_rel": max(grad_rel.values()),
+            "grad_max_rel_leaf": max(grad_rel, key=grad_rel.get), "launches_grad": counts,
+            "routes": routes}
+
+
+def train_phase(torch, k) -> dict:
+    """The LM training path: the reduced configs on the card against the CPU,
+    then the full-width cells through the launcher (see the module
+    docstring)."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import shapes, train
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+
     res = {}
-    for arch, shape, layers, with_plain in TRAIN_CELLS:
+    for arch in TRAIN_REDUCED:
         # ---- reduced, float32: the card's kernels against the CPU's plain versions
-        cfg, cpu = reduced_cpu_params(arch)
-        card = _tree_map(lambda t: t.cuda(), cpu)
-        Bsz, S = TRAIN_REDUCED_SIZES
-        gen = pipeline.SyntheticTokens(cfg.vocab_size, S + 1, Bsz, seed=0)
-        extras = {key: torch.tensor(v) for key, v in reduced_extras(cfg, Bsz).items()}
-        batches = [{"tokens": torch.as_tensor(gen.batch(i)), **extras}
-                   for i in range(TRAIN_REDUCED_STEPS)]
-
-        def on_card(b):
-            return {key: v.cuda() for key, v in b.items()}
-
-        routes = None
-        if cfg.moe is not None:
-            routes = compare_routes(f"{arch} reduced", moe_routes(
-                torch, M, L, card, cfg, on_card(batches[0])), moe_routes(
-                torch, M, L, cpu, cfg, batches[0]))
-        grad_fn = steps.make_grad_fn(cfg, remat=False)
-        l_cpu, _, g_cpu = grad_fn(cpu, batches[0])
-        (l_card, _, g_card), _, counts = drive(
-            torch, k, lambda: grad_fn(card, on_card(batches[0])))
-        want = {name: 0 for name in counts}
-        want.update(train_launches(cfg, remat=False))
-        if counts != want:
-            raise AssertionError(f"{arch} reduced gradient: kernel launches {counts}, "
-                                 f"want {want}")
-        grad_rel = {}
-        for (name, a), (_, b) in zip(_leaves(g_card), _leaves(g_cpu)):
-            e, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
-            if not e <= TRAIN_TOL * scale:
-                raise AssertionError(f"{arch} reduced, step-0 gradient {name}: |Δ| {e} > "
-                                     f"{TRAIN_TOL}·{scale}")
-            grad_rel[name] = e / scale if scale else 0.0
-        step = steps.make_train_step(cfg, remat=False)
-        losses = {}
-        for where, params, to in (("cpu", cpu, dict), ("card", card, on_card)):
-            opt = adamw_init(params)
-            losses[where] = []
-            for b in batches:
-                params, opt, m = step(params, opt, to(b))
-                losses[where].append(float(m["loss"]))
-        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
-        if not (max(loss_rel) <= TRAIN_TOL and all(map(math.isfinite, losses["card"]))):
-            raise AssertionError(f"{arch} reduced: losses {losses}")
-        reduced = {"config": cfg.name, "layers": cfg.n_layers, "loss_rel": loss_rel,
-                   "losses": losses, "loss0": [float(l_card), float(l_cpu)],
-                   "grad_max_rel": max(grad_rel.values()), "launches_grad": counts,
-                   "routes": routes}
-        del cpu, card, g_cpu, g_card
-        torch.cuda.empty_cache()
-
+        res[arch] = {"reduced": train_reduced_check(torch, k, arch)}
+        if arch not in {cell[0] for cell in TRAIN_CELLS}:
+            emit({"phase": f"train-{arch.split('_')[0]}", **res[arch]})
+    for arch, shape, layers, with_plain in TRAIN_CELLS:
         # ---- full width through the launcher, cut in depth where TRAIN_CELLS says
         full = configs.get_config(arch)
-        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        cfg = cut_layers(full, layers)
         shp = shapes.SHAPES[shape]
         rerun = None
         if arch == TRAIN_RERUN:
@@ -3966,20 +4100,22 @@ def train_phase(torch, k) -> dict:
                                  f"({TRAIN_STEPS} steps)")
         s_step = median(out["step_s"][1:])
         tokens = out["batch"] * out["seq_len"]
-        res[arch] = {"reduced": reduced, "config": cfg.name, "layers": cfg.n_layers,
-                     "full_layers": full.n_layers, "params": out["params"], "shape": shape,
-                     "batch": out["batch"], "seq_len": out["seq_len"], "steps": TRAIN_STEPS,
-                     "losses": out["losses"], "step_s": out["step_s"], "s_per_step": s_step,
-                     "tokens_per_s": tokens / s_step, "setup_s": out["setup_s"],
-                     "init_s": out["init_s"], "wall_s_run": wall,
-                     "max_memory_allocated": peak, "launches": counts,
-                     "launches_per_step": {key: n / TRAIN_STEPS for key, n in counts.items()
-                                           if key != "threefry_normal"},
-                     "rerun_step0": rerun, "log": text.getvalue().splitlines()}
+        res[arch].update({
+            "config": cfg.name, "layers": cfg.n_layers, "layer_specs": [
+                f"{sp.mixer}+{sp.ffn}" for sp in cfg.group], "full_layers": full.n_layers,
+            "params": out["params"], "shape": shape, "batch": out["batch"],
+            "seq_len": out["seq_len"], "steps": TRAIN_STEPS, "losses": out["losses"],
+            "step_s": out["step_s"], "s_per_step": s_step, "tokens_per_s": tokens / s_step,
+            "setup_s": out["setup_s"], "init_s": out["init_s"], "wall_s_run": wall,
+            "max_memory_allocated": peak, "launches": counts,
+            "launches_per_step": {key: n / TRAIN_STEPS for key, n in counts.items()
+                                  if key != "threefry_normal"},
+            "rerun_step0": rerun, "log": text.getvalue().splitlines()})
         if with_plain:
             # the same run through the plain versions: is the loss's course the
             # kernels' or the optimiser's?
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             with plain_routes(), contextlib.redirect_stdout(io.StringIO()), \
                     cut_config(train, cfg):
                 plain, _, counts_plain = drive(torch, k, lambda: train.main(argv))
@@ -3992,7 +4128,8 @@ def train_phase(torch, k) -> dict:
                 raise AssertionError(f"{arch} {shape}: losses {out['losses']} through the "
                                      f"kernels, {plain['losses']} through the plain versions")
             res[arch].update(plain_losses=plain["losses"], plain_loss_rel=plain_rel,
-                             plain_step_s=plain["step_s"])
+                             plain_step_s=plain["step_s"],
+                             plain_max_memory_allocated=torch.cuda.max_memory_allocated())
         emit({"phase": f"train-{arch.split('_')[0]}", **res[arch]})
         torch.cuda.empty_cache()
     return res
@@ -4021,8 +4158,6 @@ def bf16_witness(torch, k) -> dict:
     kernels and through the plain versions, both in bf16 from the same
     weights, each against the plain versions in float32 from those weights
     (see WITNESS_FACTOR)."""
-    import dataclasses
-
     from repro_torch import configs
     from repro_torch.core import prng
     from repro_torch.data import make_batch_iterator
@@ -4031,7 +4166,7 @@ def bf16_witness(torch, k) -> dict:
     from repro_torch.models import steps
 
     full = configs.get_config("gemma3_4b")
-    cfg = dataclasses.replace(full, n_layers=WITNESS_LAYERS, group=full.group[:WITNESS_LAYERS])
+    cfg = cut_layers(full, WITNESS_LAYERS)
     shp = shapes.SHAPES["train_4k_b1"]
     batch = next(make_batch_iterator(cfg.vocab_size, shp.seq_len + 1, shp.global_batch,
                                      seed=0, dtype=torch.bfloat16, device="cuda"))
@@ -4154,8 +4289,6 @@ def serve_cell(torch, k, drive, arch, shape, steps, layers, profile) -> dict:
     """One serve cell: the reduced config on the card against the CPU, then
     the full-width config in bfloat16 at `shape`, cut to `layers` layers
     when given (see the module docstring)."""
-    import dataclasses
-
     import numpy as np
 
     from repro_torch import configs
@@ -4169,9 +4302,7 @@ def serve_cell(torch, k, drive, arch, shape, steps, layers, profile) -> dict:
 
     # ---- full width, bfloat16, the reference's weights of PRNGKey(0) drawn
     # on the card, cut in depth only
-    cfg = configs.get_config(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = cut_layers(configs.get_config(arch), layers)
     B, prompt, max_seq = serve.sizes(shapes.SHAPES[shape])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4198,9 +4329,12 @@ def serve_cell(torch, k, drive, arch, shape, steps, layers, profile) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     # warm-up: one prefill and two decode steps (library handles, new shapes);
-    # the measured runs overwrite the same cache slots with the same values
+    # then the cache is zeroed again, as init_cache made it: a Mamba2 layer's
+    # prefill continues from the conv state in the cache, as the reference's
+    # does, and an attention layer after it sees the difference (jamba)
     warm = serve.prefill(params, cfg, prompts, cache, extras)
     serve.decode(params, cfg, warm["token"], warm["cache"], start, 2, extras)
+    _tree_map(lambda t: t.zero_(), cache)
     pre, _, pre_counts = drive(torch, k, lambda: serve.prefill(params, cfg, prompts, cache,
                                                                extras))
     pre_ssd_cuda = k.ss.cuda_launches
@@ -4969,17 +5103,20 @@ def lm_serve_phases(torch, k, fa, ss, profile: bool) -> tuple:
 #: every collective through host memory at ~0.7 GB/s a rank (PERF.md §6),
 #: and FSDP gathers each expert weight every step.  deepseek-moe-16b keeps
 #: LM_DEEPSEEK_LAYERS of its 28 layers (~1.2 GB of expert weights gathered
-#: a layer and a step, ~9 s a layer for the prefill and 4 decode steps) and
-#: skips the serve rerun; gemma3-4b its first 6 (5 window-1024 layers and
+#: a layer and a step, ~9 s a layer for the prefill and 4 decode steps),
+#: decodes LM_DEEPSEEK_DECODE steps (cut from 4 to keep the script near its
+#: time when the train cells of all ten configs came in) and skips the
+#: serve rerun; gemma3-4b its first 6 (5 window-1024 layers and
 #: its global one); mamba2-370m LM_MAMBA_LAYERS of 48 (~1 GB of collectives
 #: a layer a rank a step); the reduced deepseek-moe trains 4 × 1024 tokens.
 #: Each cell: (name, mesh, worker case)
 LM_DEEPSEEK_LAYERS = 8
+LM_DEEPSEEK_DECODE = 2
 LM_MAMBA_LAYERS = 12
 LM_SHARDED = (
     ("deepseek-moe-16b/prefill@2x2", (2, 2),
      dict(kind="serve", arch="deepseek_moe_16b", reduced=False, layers=LM_DEEPSEEK_LAYERS, B=2,
-          S=4096, max_seq=4100, gen=4, routes=True, rerun=False)),
+          S=4096, max_seq=4100, gen=LM_DEEPSEEK_DECODE, routes=True, rerun=False)),
     ("deepseek-moe-reduced/train@2x2", (2, 2),
      dict(kind="train", arch="deepseek_moe_16b", B=4, S=1024, steps=2, remat=False)),
     ("mamba2-370m/train@2x2", (2, 2),
@@ -5523,6 +5660,8 @@ def start_dryrun(tmp: pathlib.Path) -> list:
 #: a tail chunk; the gemma3 slice and train layer, a padded row count
 DRYRUN_SSD_WORKSPACES = ((4, 4096, 16, 64, 128), (8, 4096, 32, 64, 128), (1, 300, 3, 16, 8))
 DRYRUN_ATTN_WORKSPACES = ((1, 1024, 8), (1, 4096, 8), (2, 130, 4))
+#: (bfloat16, B, Sk, H, KVH, hd) of kernel 5b's partial sums
+DRYRUN_ATTN_PARTIALS = ((1, 1, 4096, 48, 1, 128), (1, 2, 130, 4, 4, 64), (0, 1, 1024, 8, 4, 256))
 
 
 def fake_workspaces() -> dict:
@@ -5536,7 +5675,10 @@ def fake_workspaces() -> dict:
                                           "ssd_scan_bwd_forward_workspace_floats", sizes, ll),
            "ssd_bwd": _build.bind("ssd_scan_bwd", "ssd_scan_bwd_workspace_floats", sizes, ll),
            "attn_bwd": _build.bind("flash_attention_bwd", "flash_attention_bwd_workspace_floats",
-                                   (ctypes.c_int,) * 3, ll)}
+                                   (ctypes.c_int,) * 3, ll),
+           "attn_bwd_partial": _build.bind("flash_attention_bwd",
+                                           "flash_attention_bwd_partial_floats",
+                                           (ctypes.c_int,) * 6, ll)}
     pairs = []
     for shape in DRYRUN_SSD_WORKSPACES:
         pairs += [("ssd", shape, _fake.ssd_workspace_floats(*shape)),
@@ -5544,6 +5686,8 @@ def fake_workspaces() -> dict:
                   ("ssd_bwd", shape, _fake.ssd_bwd_workspace_floats(*shape))]
     pairs += [("attn_bwd", shape, _fake.attention_bwd_workspace_floats(*shape))
               for shape in DRYRUN_ATTN_WORKSPACES]
+    pairs += [("attn_bwd_partial", shape, _fake.attention_bwd_partial_floats(*shape))
+              for shape in DRYRUN_ATTN_PARTIALS]
     out = {}
     for name, shape, fake in pairs:
         got = lib[name](*shape)
@@ -5939,7 +6083,8 @@ def main(argv) -> int:
     tr = train_phase(torch, k)
     emit({"phase": "train", "cells": {arch: {key: r.get(key) for key in (
         "shape", "layers", "s_per_step", "tokens_per_s", "max_memory_allocated", "setup_s",
-        "init_s", "plain_loss_rel")} for arch, r in tr.items()}})
+        "init_s", "plain_loss_rel", "plain_max_memory_allocated")} for arch, r in tr.items()},
+        "reduced_grad_max_rel": {arch: r["reduced"]["grad_max_rel"] for arch, r in tr.items()}})
     emit({"phase": "train-bf16-witness", **bf16_witness(torch, k)})
     torch.cuda.empty_cache()
 
@@ -6057,7 +6202,8 @@ def main(argv) -> int:
         "launches_serve": {arch: {"prefill": r["launches_prefill"]["flash_attention"],
                                   "decode": r["launches_decode"]["flash_attention"]}
                            for arch, r in serve_res.items() if "launches_prefill" in r},
-        "launches_train": tr["gemma3_4b"]["launches"]["flash_attention"],
+        "launches_train": {arch: r["launches"]["flash_attention"] for arch, r in tr.items()
+                           if "launches" in r},
         "offset_shapes": {key: v for key, v in ka["timings"].items()
                           if key.startswith("offset")},
         "launches_lm_sharded": _lm_sharded_launches(lms, "flash_attention")}, {
@@ -6074,7 +6220,11 @@ def main(argv) -> int:
         "config_shapes": ks["config_timings"],
         "launches_jamba_reduced": serve_res["jamba_15_large_398b"]["reduced"]["launches"][
             "ssd_scan"],
-        "launches_train": tr["mamba2_370m"]["launches"]["ssd_scan"],
+        "launches_serve": {arch: r["launches_prefill"]["ssd_scan"]
+                           for arch, r in serve_res.items()
+                           if r.get("launches_prefill", {}).get("ssd_scan")},
+        "launches_train": {arch: r["launches"]["ssd_scan"] for arch, r in tr.items()
+                           if "launches" in r and r["launches"]["ssd_scan"]},
         "launches_lm_sharded": _lm_sharded_launches(lms, "ssd_scan")}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -6095,7 +6245,7 @@ def main(argv) -> int:
                           if key.startswith("offset")},
         "launches_lm_sharded": _lm_sharded_launches(lms, "flash_attention_bwd"),
         "launches_train": {arch: r["launches"]["flash_attention_bwd"]
-                           for arch, r in tr.items()},
+                           for arch, r in tr.items() if "launches" in r},
         "spills": kab["spills"]}, {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -6108,6 +6258,9 @@ def main(argv) -> int:
         "bound_ms": sbd["bound_ms"], "bound_by": sbd["bound_by"], "library_ms": None,
         "shape": sbd["shape"], "cuda_launches_per_call": sbd["cuda_launches_per_call"],
         "bound_f32_ms": sbd["bound_f32_ms"], "spills": ksb["spills"],
+        "config_shapes": ksb["config_timings"],
+        "launches_train": {arch: r["launches"]["ssd_scan_bwd"] for arch, r in tr.items()
+                           if "launches" in r and r["launches"]["ssd_scan_bwd"]},
         "launches_lm_sharded": _lm_sharded_launches(lms, "ssd_scan_bwd")}, {
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/threefry_normal.cu",
@@ -6120,7 +6273,8 @@ def main(argv) -> int:
         "library_ms": None, "torch_randn_fill_ms": tnl["torch_randn_fill_ms"],
         "shape": tnl["shape"], "dtype": tnl["dtype"], "ns_per_draw": tnl["ns_per_draw"],
         "init": pr["threefry_normal"]["init"],
-        "launches_train": {arch: r["launches"]["threefry_normal"] for arch, r in tr.items()},
+        "launches_train": {arch: r["launches"]["threefry_normal"] for arch, r in tr.items()
+                           if "launches" in r},
         "launches_serve_init": {arch: r["init_launches"] for arch, r in serve_res.items()
                                 if "init_launches" in r},
         "launches_lm_sharded": _lm_sharded_launches(lms, "threefry_normal"),

@@ -6,7 +6,8 @@ storage, no launch.  A kernel wrapper given fake tensors, of either
 device, takes its CUDA path and calls one of the custom operators here in
 place of its ctypes launch.  Each operator
 allocates what the CUDA path allocates, at its shapes and types: the
-outputs and the workspace (kernel 5b's row statistics, freed on return;
+outputs and the workspace (kernel 5b's row statistics and, in bfloat16
+with grouped heads, its float32 partial sums of dk and dv, freed on return;
 kernel 6's chunk states, kept for 6b; 6b's own, freed on return), so the
 dry run's memory is the card path's and not the plain versions'.  Each
 has a flop formula for `torch.utils.flop_counter.FlopCounterMode` that
@@ -78,6 +79,12 @@ def attention_bwd_workspace_floats(B: int, Sq: int, H: int) -> int:
     return 3 * B * H * (-(-Sq // ATTN_BWD_PAD) * ATTN_BWD_PAD)
 
 
+def attention_bwd_partial_floats(bf16: bool, B: int, Sk: int, H: int, KVH: int, hd: int) -> int:
+    """``flash_attention_bwd_partial_floats``: float32 partial sums of dv and
+    dk over a KV head's query heads, in bfloat16 with grouped heads."""
+    return 2 * B * Sk * KVH * hd if bf16 and H > KVH else 0
+
+
 def ssd_workspace_floats(Bsz: int, S: int, H: int, hd: int, N: int) -> int:
     """``ssd_scan_workspace_floats``: the chunks' cumulative decays (kL a
     head), decays, C·Bᵀ (kL × kL) and chunk states (hd × N a head), each
@@ -125,13 +132,16 @@ def ops():
     attn_bwd = custom_op(
         "repro_torch::flash_attention_bwd", real("flash_attention_bwd"), mutates_args=(),
         schema="(Tensor q, Tensor k, Tensor v, Tensor dout, bool causal, int window, "
-               "int q_pos0) -> (Tensor, Tensor, Tensor, Tensor)")
+               "int q_pos0) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
 
     @attn_bwd.register_fake
     def _(q, k, v, dout, causal, window, q_pos0):
-        B, Sq, H, _ = q.shape
+        B, Sq, H, hd = q.shape
+        Sk, KVH = k.shape[1], k.shape[2]
+        part = attention_bwd_partial_floats(q.dtype == torch.bfloat16, B, Sk, H, KVH, hd)
         return (q.new_empty(q.shape), q.new_empty(k.shape), q.new_empty(k.shape),
-                q.new_empty((attention_bwd_workspace_floats(B, Sq, H),), dtype=torch.float32))
+                q.new_empty((attention_bwd_workspace_floats(B, Sq, H),), dtype=torch.float32),
+                q.new_empty((part,), dtype=torch.float32))
 
     ssd = custom_op("repro_torch::ssd_scan", real("ssd_scan"), mutates_args=(),
                     schema="(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk) "

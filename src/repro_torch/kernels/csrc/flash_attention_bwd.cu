@@ -29,7 +29,8 @@
 // 1's two products.  Launch 2 owns a block of keys of one KV head and walks,
 // for each of the rep query heads that share it in turn, the query tiles
 // that see those keys, with P and dS from launch 1's statistics: GQA's sum
-// over the rep heads is that walk, in order.
+// over the rep heads is that walk, in order (in bfloat16 each head's part
+// summed into float32 partials: see below).
 //
 // bfloat16 — attn_bwd_dq_wgmma and attn_bwd_dkdv_wgmma, on the tensor cores,
 // built as the forward's flash_kernel_wgmma (helpers in wgmma_tma.cuh): 384
@@ -57,6 +58,15 @@
 //      the accumulator's own thread layout, so each thread reads what its
 //      counterpart wrote) under two named barriers.  Shared memory at hd
 //      256: 64 + 2 × 64.75 + 16 KB = 210 KB of the 227.
+//   wgmma's float32 accumulation drops a little toward zero on every add
+//   (measured on the card by tools/attn_bwd_bias.py: dk and dv shrink by
+//   ~2e-8 of their size an add),
+//   so a walk over all of a KV head's query heads in one accumulator (48 ×
+//   64 query tiles, 24,576 adds, at granite-20b's 48 heads on one KV head)
+//   left the gate by a bias of −4.7e-4; the accumulator holds one query
+//   head's walk, and at each head's end the consumer adds it into a float32
+//   partial sum of its own in global memory (`part`, one rounded add an
+//   element a head, in head order; the last head's added as it is stored).
 //   The scale 1/√hd is applied in float32 after the products (q·scale
 //   rounded to bf16 would add an error at hd 128, where it is not a power of
 //   two).  P (into dv) and dS (into dq and dk) must be bf16 to enter wgmma;
@@ -884,6 +894,36 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---- launch 2: dk and dv, per 64 keys of one (b, KV head) --------------------
+// The consumer's accumulator (64 keys × hd) into its float32 partial sums
+// `part` (the layout of dk and dv, float32): stored by the first query
+// head, added with one rounding an element by each later one; then zeroed.
+template <int HDP>
+__device__ __forceinline__ void flush_partial(float (&acc)[HDP / 2], float* __restrict__ part,
+                                              bool first, int ka, int kb, int quad, int kvh,
+                                              int b, const Geometry& g) {
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int d = 8 * j + 2 * quad;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kj = half ? kb : ka;
+      float& x0 = acc[4 * j + 2 * half];
+      float& x1 = acc[4 * j + 2 * half + 1];
+      if (kj < g.Sk && d < g.hd) {
+        float2* const p = reinterpret_cast<float2*>(
+            part + ((static_cast<long long>(b) * g.Sk + kj) * g.KVH + kvh) * g.hd + d);
+        float2 x = make_float2(x0, x1);
+        if (!first) {
+          const float2 o = *p;
+          x = make_float2(__fadd_rn(o.x, x.x), __fadd_rn(o.y, x.y));
+        }
+        *p = x;
+      }
+      x0 = x1 = 0.f;
+    }
+  }
+}
+
 template <int HDP>
 struct Layout2 {                      // dynamic shared memory, from a 1024-aligned base
   static constexpr int kChunks = HDP / 64;
@@ -909,7 +949,7 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap gmap, __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, const float* __restrict__ stats,
-                    const Geometry g) {
+                    float* __restrict__ part, const Geometry g) {
   using L = Layout2<HDP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -983,6 +1023,9 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   // consumer 1: sᵀ = K·qᵀ, then dv += Pᵀ·dO; consumer 2: dPᵀ = V·dOᵀ, then
   // dk += dSᵀ·q
   const uint32_t sA = cw == 0 ? sK : sV;
+  // this consumer's partial sums over the query heads (dv, then dk)
+  float* const mine = part == nullptr ? nullptr
+                      : part + (cw == 0 ? 0LL : static_cast<long long>(g.B) * g.Sk * g.KVH * g.hd);
 
   float acc[HDP / 2];
 #pragma unroll
@@ -1055,8 +1098,11 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     product_split<HDP, kBQ2>(acc, hi, lo, cw == 0 ? sGs : sQs, kBQ2);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));
+    if (i % per_head == per_head - 1 && i + 1 < n_tiles)     // a query head's end
+      flush_partial<HDP>(acc, mine, i < per_head, ka, kb, quad, kvh, b, g);
   }
   if (cw == 0 && n_tiles > 0) named_sync(2);   // consumer 2's last arrival
+  const bool summed = n_tiles > per_head;      // more than one query head walked
 
   __nv_bfloat16* const out = cw == 0 ? dv : dk;
   const float mult = cw == 0 ? 1.f : g.scale;
@@ -1067,16 +1113,21 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     for (int half = 0; half < 2; ++half) {
       const int kj = half ? kb : ka;
       if (kj >= g.Sk || d >= g.hd) continue;
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + ((static_cast<long long>(b) * g.Sk + kj) * g.KVH + kvh) * g.hd + d) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half] * mult, acc[4 * j + 2 * half + 1] * mult);
+      const long long at = ((static_cast<long long>(b) * g.Sk + kj) * g.KVH + kvh) * g.hd + d;
+      float x0 = acc[4 * j + 2 * half], x1 = acc[4 * j + 2 * half + 1];
+      if (summed) {
+        const float2 o = *reinterpret_cast<const float2*>(mine + at);
+        x0 = __fadd_rn(o.x, x0);
+        x1 = __fadd_rn(o.y, x1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(x0 * mult, x1 * mult);
     }
   }
 }
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-           void* dv, float* stats, const Geometry& g, const long long* strides,
+           void* dv, float* stats, float* part, const Geometry& g, const long long* strides,
            cudaStream_t st, int* launched) {
   constexpr int smem1 = Layout1<HDP>::alloc, smem2 = Layout2<HDP>::alloc;
   static bool opted1 = false, opted2 = false;
@@ -1097,19 +1148,22 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
   ++*launched;
   attn_bwd_dkdv_wgmma<HDP><<<dim3((g.Sk + kBK2 - 1) / kBK2, g.KVH, g.B), kThreads, smem2, st>>>(
       qm, km, vm, gm, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), stats,
-      g);
+      part, g);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   return 0;
 }
 
 int dispatch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-             void* dv, float* stats, const Geometry& g, const long long* strides,
+             void* dv, float* stats, float* part, const Geometry& g, const long long* strides,
              cudaStream_t st, int* launched) {
-  if (g.hd % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (g.hd <= 64) return launch<64>(q, k, v, dout, dq, dk, dv, stats, g, strides, st, launched);
-  if (g.hd <= 128) return launch<128>(q, k, v, dout, dq, dk, dv, stats, g, strides, st, launched);
-  return launch<256>(q, k, v, dout, dq, dk, dv, stats, g, strides, st, launched);
+  if (g.hd % 8 != 0 || (g.H > g.KVH && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.hd <= 64)
+    return launch<64>(q, k, v, dout, dq, dk, dv, stats, part, g, strides, st, launched);
+  if (g.hd <= 128)
+    return launch<128>(q, k, v, dout, dq, dk, dv, stats, part, g, strides, st, launched);
+  return launch<256>(q, k, v, dout, dq, dk, dv, stats, part, g, strides, st, launched);
 }
 
 }  // namespace tc
@@ -1135,21 +1189,31 @@ extern "C" long long flash_attention_bwd_workspace_floats(int B, int Sq, int H) 
   return 3LL * B * H * pad_rows(Sq);
 }
 
+// The float32 elements of the partial sums of dv and dk over a KV head's
+// query heads (dtype 1 with H > KVH: 2·B·Sk·KVH·hd; else none).
+extern "C" long long flash_attention_bwd_partial_floats(int dtype, int B, int Sk, int H, int KVH,
+                                                         int hd) {
+  return dtype == 1 && H > KVH ? 2LL * B * Sk * KVH * hd : 0;
+}
+
 // q and dout (B, Sq, H, hd), k and v (B, Sk, KVH, hd), one type (dtype 0
 // float32, 1 bfloat16); strides: 16 element strides, q, k, v, dout each
 // (b, s, h, d); bfloat16 takes TMA's layout (see the note above; the caller
 // checks it).  dq: contiguous (B, Sq, H, hd); dk, dv: contiguous
 // (B, Sk, KVH, hd), all of the input type; ws:
-// flash_attention_bwd_workspace_floats(B, Sq, H) float32 elements.  causal
+// flash_attention_bwd_workspace_floats(B, Sq, H) float32 elements; part:
+// flash_attention_bwd_partial_floats(dtype, B, Sk, H, KVH, hd) of them (null
+// when that is 0).  causal
 // 0 or 1; window 0 for none; q_pos0 the position of query row 0.  *launched: the CUDA launches made (2).
 // Returns the first CUDA error (cudaGetLastError() after each launch), the
 // negated CUresult of a tensor map that could not be encoded, or
 // cudaErrorInvalidValue for what neither type takes (hd > 256, H not a
-// multiple of KVH, a bfloat16 hd that is not a multiple of 8).
+// multiple of KVH, a bfloat16 hd that is not a multiple of 8, bfloat16
+// grouped heads without `part`).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, void* dq, void* dk, void* dv, void* ws,
-                                   int dtype, int B, int Sq, int Sk, int H, int KVH, int hd,
-                                   int causal, int window, int q_pos0,
+                                   void* part, int dtype, int B, int Sq, int Sk, int H, int KVH,
+                                   int hd, int causal, int window, int q_pos0,
                                    const long long* strides, void* stream, int* launched) {
   *launched = 0;
   if (B == 0 || Sq == 0 || H == 0) return static_cast<int>(cudaSuccess);
@@ -1165,7 +1229,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     g.causal = causal; g.window = window; g.q_pos0 = q_pos0; g.SqP = pad_rows(Sq);
     g.scale = static_cast<float>(scale);
     g.scale_log2 = static_cast<float>(1.4426950408889634 * scale);
-    return tc::dispatch(q, k, v, dout, dq, dk, dv, stats, g, strides, st, launched);
+    return tc::dispatch(q, k, v, dout, dq, dk, dv, stats, static_cast<float*>(part), g, strides,
+                        st, launched);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Geometry g;

@@ -81,7 +81,7 @@ _NEG = -1e30
 _lib = None
 #: the backward's C entry: q, k, v, dO, dq, dk, dv, workspace; type, B, Sq,
 #: Sk, H, KVH, hd, causal, window, q_pos0; strides, stream, launches made
-_BWD_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 10
+_BWD_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 10
              + (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)))
 
 
@@ -272,7 +272,8 @@ def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
             check_tma_layout(name, x)
         do = do.contiguous()
     if _fake.is_fake(q):
-        dq, dk, dv, _ = _fake.ops().flash_attention_bwd(q, k, v, do, causal, window or 0, q_pos0)
+        dq, dk, dv, *_ = _fake.ops().flash_attention_bwd(q, k, v, do, causal, window or 0,
+                                                         q_pos0)
         return dq, dk, dv
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KVH, hd), dtype=q.dtype, device=q.device)
@@ -280,12 +281,20 @@ def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     ws_floats = _build.bind("flash_attention_bwd", "flash_attention_bwd_workspace_floats",
                             (ctypes.c_int,) * 3, ctypes.c_longlong)(B, Sq, H)
     ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
+    # bfloat16 with grouped heads: float32 partial sums of dv and dk over a KV
+    # head's query heads (the tensor cores' accumulation loses a little on
+    # every add, so each query head's walk is summed there)
+    part_floats = _build.bind("flash_attention_bwd", "flash_attention_bwd_partial_floats",
+                              (ctypes.c_int,) * 6, ctypes.c_longlong)(
+        _DTYPES[q.dtype], B, Sk, H, KVH, hd)
+    part = torch.empty(part_floats, dtype=torch.float32, device=q.device) if part_floats else None
     fn = _build.bind("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS)
     strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(), *do.stride())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     made = ctypes.c_int(0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KVH,
+             dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+             None if part is None else part.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KVH,
              hd, int(causal), 0 if window is None else int(window), int(q_pos0),
              ctypes.cast(strides, ctypes.c_void_p), stream, ctypes.byref(made))
     bwd_cuda_launches += made.value

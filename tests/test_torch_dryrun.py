@@ -247,6 +247,13 @@ def test_fake_routes_allocate_the_cuda_paths_workspaces():
         assert fa._kernel(q, kv, kv, True, None).shape == q.shape
         assert [t.shape for t in fa._kernel_bwd(q, kv, kv, q, True, None)] == [
             q.shape, kv.shape, kv.shape]
+        # bfloat16 with grouped heads: float32 partial sums of dv and dk
+        outs = _fake.ops().flash_attention_bwd(q, kv, kv, q, True, 0, 0)
+        assert outs[4].numel() == 2 * 130 * 2 * 64 == _fake.attention_bwd_partial_floats(
+            True, 1, 130, 4, 2, 64)
+        outs = _fake.ops().flash_attention_bwd(q.float(), kv.float(), kv.float(), q.float(),
+                                               True, 0, 0)
+        assert outs[4].numel() == 0
     assert _fake.attention_bwd_workspace_floats(1, 130, 4) == 3 * 4 * 256
 
 

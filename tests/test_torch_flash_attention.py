@@ -286,6 +286,71 @@ def test_bf16_backward_arithmetic_holds_the_chip_gate_only_with_p_and_ds_split(m
         assert share["dq"] > 1.0 and share["dk"] > 1.0 and share["dv"] <= 0.5, share
 
 
+def _round_toward_zero(exact: torch.Tensor) -> torch.Tensor:
+    """float64 values to float32, rounded toward zero."""
+    r = exact.float()
+    return torch.where(r.double().abs() > exact.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def test_bf16_dkdv_accumulation_is_summed_a_query_head_at_a_time():
+    """The bfloat16 dk/dv launch sums a KV head's rep query heads.  wgmma's
+    float32 accumulation drops a little toward zero on every add (on the
+    card, granite-20b's 48 query heads on one KV head at 4096 tokens left
+    the backward's gate: dk and dv shrank by 4.7e-4 and 3.6e-4 on average
+    over one accumulator's 24,576 adds).  Emulated here, each 16-query
+    product added with rounding toward zero: the dk of the first 64 keys at
+    48 heads of 2048 causal queries, one accumulator for the whole walk,
+    shrinks by more than 1e-4 on average; the kernel's walk — the
+    accumulator holding one query head's walk, each head's added to a
+    float32 partial sum with one rounding to nearest — shrinks by less than
+    a tenth of that and keeps half the gate (one bf16 ulp of the float64
+    value + 1e-4·max|f64|)."""
+    S, H, hd, kb = 2048, 48, 32, 64
+    gen = torch.Generator().manual_seed(48)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen).bfloat16().double()
+
+    q, do = draw(H, S, hd), draw(H, S, hd)
+    k, v = draw(S, hd), draw(S, hd)
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    truth = torch.zeros(kb, hd, dtype=torch.float64)
+    steps = []                # each head's 16-query products, exact: (S / 16, kb, hd)
+    for h in range(H):
+        p = torch.softmax(torch.where(keep, q[h] @ k.T * hd ** -0.5, -1e300), -1)
+        dp = do[h] @ v.T
+        ds = (p * (dp - (p * dp).sum(-1, keepdim=True)))[:, :kb]
+        truth += ds.T @ q[h]
+        hi = ds.float().bfloat16().double()
+        lo = (ds - hi).float().bfloat16().double()
+        steps.append([torch.einsum("tqk,tqd->tkd", part.reshape(S // 16, 16, kb),
+                                   q[h].reshape(S // 16, 16, hd)) for part in (hi, lo)])
+
+    def walk(per_head: bool) -> torch.Tensor:
+        acc, part = torch.zeros(kb, hd), None
+        for h, (hi, lo) in enumerate(steps):
+            for t in range(S // 16):
+                acc = _round_toward_zero(acc.double() + hi[t])
+                acc = _round_toward_zero(acc.double() + lo[t])
+            if per_head and h < H - 1:
+                part = acc if part is None else (part.double() + acc.double()).float()
+                acc = torch.zeros(kb, hd)
+        return acc if part is None else (part.double() + acc.double()).float()
+
+    big = truth.abs() > 0.1 * truth.abs().max()
+    ulp = torch.where(truth == 0, 0.0, torch.ldexp(torch.ones_like(truth),
+                                                     torch.frexp(truth)[1] - 8))
+    bias, share = {}, {}
+    for per_head in (False, True):
+        got = walk(per_head)
+        bias[per_head] = float(((got.double() - truth) * torch.sign(truth))[big].mean()
+                               / truth.abs()[big].mean())
+        share[per_head] = float(((got.bfloat16().double() - truth).abs()
+                                 / (1e-4 * truth.abs().max() + ulp)).max())
+    assert bias[False] < -1e-4 and abs(bias[True]) < 0.1 * abs(bias[False]), bias
+    assert share[True] <= 0.5, share
+
+
 @pytest.mark.parametrize("case", ["ok", "hd_stride", "odd_stride", "hd_not_8", "misaligned"])
 def test_bf16_kernel_layout_rules(case):
     """The bfloat16 kernel reads q, k, v in place through TMA: unit head-dim
