@@ -435,7 +435,22 @@ is non-zero and no result line is printed:
                 rank 0's measured window (less what the process held
                 before it); then the reference's four shapes for every
                 config on the (16, 16) mesh, each ok or skipped, its peak
-                printed beside the card's memory.
+                printed beside the card's memory;
+  17. fed-lm  — BL-DNN on a language model (`examples/torch_train_lm.py
+                --fed`, per-client gradients by torch.func.vmap(grad) with
+                the client axis folded into one kernel-5 / 5b launch a
+                layer): a reduced LM on the card against the CPU from the
+                same weights, batches and SVD factors (round 0's gradients
+                and 4 rounds' losses within FED_LM_TOL, bits exact);
+                lm-100m at full width, 4 rounds (finite, falling losses,
+                bits the CPU's pricing, launches exactly `fed_lm_launches`,
+                round 0's loss against a CPU forward, the host SVDs' set-up
+                (~160 s, in this process), s/round, peak memory and one
+                profiled round); kernels 1,
+                2, 4, 5 and 5b at that path's shapes against their plain
+                versions, timed beside their bounds and library calls; the
+                BL1 head fine-tune (`examples/torch_bl_finetune_head.py`)
+                on the card against the CPU.
 
 GLM gaps on the float64 route must agree to |Δ| ≤ 1e-8·|ref| + 1e-12 and
 every bit stream exactly; a NaN gap agrees only with a NaN in the
@@ -3902,6 +3917,28 @@ def train_launches(cfg, remat: bool, steps: int = 1) -> dict:
             "ssd_scan": steps * f * n_ssd, "ssd_scan_bwd": steps * n_ssd}
 
 
+def fed_lm_launches(cfg, rounds: int) -> dict:
+    """Kernel calls of `rounds` BL-DNN rounds of a dense LM
+    (`examples/torch_train_lm.py --fed`): kernels 1 (the gradient leg's
+    Top-K) and 2 (the Fisher leg's compress-sum) once a leaf a round,
+    kernel 4 once a rotated (2-D) leaf a round, kernel 5 once an attention
+    layer a round for the vmapped gradient and once for the eval stream's
+    evaluation of that round's parameters, 5b once a layer a round: the
+    client axis folds into one launch."""
+    import torch
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.models import model as M
+
+    leaves = tree_leaves(M.param_shapes(cfg, torch.float32))
+    rotated = sum(1 for p in leaves if p.dim() == 2 and min(p.shape) >= 2)
+    n_attn = sum(1 for sp in cfg.layer_specs() if sp.mixer == "attn")
+    return {"topk_row_threshold": rounds * len(leaves),
+            "topk_compress_sum": rounds * len(leaves),
+            "basis_transform": rounds * rotated,
+            "flash_attention": 2 * rounds * n_attn,
+            "flash_attention_bwd": rounds * n_attn}
+
+
 def cut_layers(cfg, layers):
     """`cfg` cut in depth only: `layers` None keeps it whole; a count keeps
     that many layers, whole groups or the first layers of one group; a
@@ -5121,7 +5158,7 @@ LM_SHARDED = (
      dict(kind="train", arch="deepseek_moe_16b", B=4, S=1024, steps=2, remat=False)),
     ("mamba2-370m/train@2x2", (2, 2),
      dict(kind="train", arch="mamba2_370m", reduced=False, layers=LM_MAMBA_LAYERS, B=8, S=4096,
-          steps=3, remat=True, keep_grads=0)),
+          steps=2, remat=True, keep_grads=0)),   # cut from 3 to fit phase fed-lm
     ("gemma3-4b/prefill@1x3", (1, 3),
      dict(kind="serve", arch="gemma3_4b", reduced=False, layers=6, B=1, S=3072, max_seq=3078,
           gen=4)),
@@ -5766,6 +5803,419 @@ def dryrun_phase(torch, smi: str, lms: dict, procs: list, started: float) -> dic
             "wall_s": time.perf_counter() - started}
 
 
+# ==========================================================================
+# fed-lm: the paper's BL-DNN on a language model (examples/torch_train_lm.py
+# --fed), the per-client gradients through torch.func.vmap(grad)
+# ==========================================================================
+#: rounds of each run (the script's 300 cut to 4)
+FED_LM_ROUNDS = 4
+#: the reduced check's LM: 2 layers, d 64, 4 query heads on 2 KV heads, vocab
+#: 512; each client 2 sequences of 33 tokens
+FED_LM_REDUCED = dict(name="lm-reduced", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                      d_ff=128, vocab_size=512, max_seq=64)
+FED_LM_REDUCED_SIZES = (2, 32)
+#: lm-100m's batch and sequence a client (the script's defaults)
+FED_LM_SIZES = (8, 256)
+FED_LM_LR = 3e-4
+#: lm-100m's parameters (the script's preset)
+FED_LM_PARAMS = 125_848_320
+#: card against the CPU: the train phase's gates (gradients a leaf, losses
+#: relative)
+FED_LM_TOL = TRAIN_TOL
+#: kernels 1 and 2 at the path's rows: (T, k, leaf) of the largest leaves
+#: (embed, unembed: 32768 × 768 and k = 5 %) and the smallest (final_norm)
+FED_LM_TOPK = ((25_165_824, 1_258_291, "embed"), (768, 38, "final_norm"))
+#: kernels 5 and 5b at the path's shape: the 2 clients' 8 sequences folded
+#: into one batch axis, (B, S, H, KVH, hd), causal, float32
+FED_LM_ATTN = (16, 256, 12, 4, 64)
+#: the features of examples/torch_bl_finetune_head.py, card against the CPU
+FINETUNE_FEATURE_TOL = 1e-5
+
+
+def load_example(name: str):
+    """A script of `examples/`, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fed_lm_bits(cfg, rounds: int, top_k_frac: float = 0.05) -> dict:
+    """The legs' cumulative bit streams of `rounds` BL-DNN rounds of `cfg`
+    (one client's), priced on the CPU from the leaves' shapes alone: each
+    leaf's Top-K (k = max(1, ⌊frac·numel⌋) floats and indices at the f32
+    wire) on ``grad_up`` and ``hess_up`` every round, and one dense f32
+    shipment of every rotated leaf's U (rows²) and V (cols²) on
+    ``basis_shipment`` at round 0 (`comm.price`)."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.fed import bldnn
+    from repro_torch.models import model as M
+
+    shapes = M.param_shapes(cfg, torch.float32)
+    leaves = tree_leaves(shapes)
+    per_round = 0.0
+    for c, p in zip(bldnn.leaf_compressors("topk", top_k_frac, shapes), leaves):
+        kk = torch.full((1,), float(min(c.k, p.numel())), dtype=torch.float64)
+        per_round += float(comm.price(comm.with_float_bits(c.wire, 32),
+                                      comm.Counts(floats=kk, indices=kk))[0])
+    ship = comm.BasisShipSpec()
+    shipment = sum(float(comm.price(ship.wire, ship.factor_counts(r, r)))
+                   for p in leaves if p.dim() == 2 and min(p.shape) >= 2 for r in p.shape)
+    return {"grad_up": [t * per_round for t in range(rounds)],
+            "hess_up": [t * per_round for t in range(rounds)],
+            "model_down": [0.0] * rounds, "basis_ship": [shipment] * rounds}
+
+
+def check_fed_bits(name: str, hist, want: dict) -> dict:
+    """Every leg's stream and the uplink exactly `want`'s (`fed_lm_bits`)."""
+    got = {leg: list(map(float, stream)) for leg, stream in hist.legs.items()}
+    up = [want["grad_up"][t] + want["hess_up"][t] + want["basis_ship"][t]
+          for t in range(len(want["grad_up"]))]
+    if got != want or list(map(float, hist.up_bits)) != up:
+        raise AssertionError(f"{name}: bit streams {got}, uplink {list(hist.up_bits)}; the "
+                             f"CPU's pricing {want}, uplink {up}")
+    return {"basis_ship": want["basis_ship"][0], "per_round": want["grad_up"][1:2]}
+
+
+def fed_lm_counts(name: str, counts: dict, want: dict) -> None:
+    """The five kernels of the path exactly as `want` says, and the GLM and
+    SSM kernels not at all."""
+    need_exact(name, counts, {**want, "tiled_matmul": 0, "ssd_scan": 0, "ssd_scan_bwd": 0})
+
+
+def fed_lm_reduced_check(torch, k, ex) -> dict:
+    """The reduced LM on the card against the CPU, from the same weights,
+    batches and per-layer SVD factors: round 0's per-client gradients
+    (vmap(grad), one kernel-5 and one 5b launch a layer for both clients)
+    within FED_LM_TOL·max|cpu| a leaf, then FED_LM_ROUNDS rounds' losses
+    within FED_LM_TOL relative, bits exact and `fed_lm_bits`', launches
+    exactly `fed_lm_launches`."""
+    import math
+
+    from repro_torch.core import prng
+    from repro_torch.core.basis import per_layer_svd_basis
+    from repro_torch.core.client_batch import TreeBatch
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as M
+    from repro_torch.models.config import LayerSpec, ModelConfig
+
+    cfg = ModelConfig(group=(LayerSpec(),), **FED_LM_REDUCED)
+    cpu = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cpu")
+    card = _tree_map(lambda t: t.cuda(), cpu)
+    Bsz, S = FED_LM_REDUCED_SIZES
+    batch = ex.fed_batch(make_batch_iterator(cfg.vocab_size, S + 1, Bsz, seed=0, device="cpu"),
+                         ex.n_fed_clients())
+    on_card = TreeBatch(data=_tree_map(lambda t: t.cuda(), batch.data),
+                        n_clients=batch.n_clients)
+    basis = per_layer_svd_basis(cpu)          # one set of factors for both
+    per_client = torch.func.vmap(torch.func.grad(ex.make_loss_fn(cfg)), in_dims=(None, 0))
+    g_cpu = per_client(cpu, batch.data)
+    g_card, _, counts = drive(torch, k, lambda: per_client(card, on_card.data))
+    n_attn = cfg.n_layers
+    fed_lm_counts("fed-lm reduced gradient", counts, {
+        "flash_attention": n_attn, "flash_attention_bwd": n_attn, "topk_row_threshold": 0,
+        "topk_compress_sum": 0, "basis_transform": 0})
+    grad_rel = {}
+    for (name, a), (_, b) in zip(_leaves(g_card), _leaves(g_cpu)):
+        e, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        if a.shape != b.shape or not e <= FED_LM_TOL * scale:
+            raise AssertionError(f"fed-lm reduced, round-0 gradient {name}: |Δ| {e} > "
+                                 f"{FED_LM_TOL}·{scale}")
+        grad_rel[name] = e / scale if scale else 0.0
+    h_cpu = ex.run_fed(cfg, cpu, batch, FED_LM_ROUNDS, FED_LM_LR, device="cpu", basis=basis)
+    h_card, secs, counts = drive(torch, k, lambda: ex.run_fed(
+        cfg, card, on_card, FED_LM_ROUNDS, FED_LM_LR, device="cuda", basis=basis))
+    fed_lm_counts("fed-lm reduced run", counts, fed_lm_launches(cfg, FED_LM_ROUNDS))
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(h_card.gaps, h_cpu.gaps)]
+    if not (max(loss_rel) <= FED_LM_TOL and all(map(math.isfinite, h_card.gaps))):
+        raise AssertionError(f"fed-lm reduced: losses card {list(h_card.gaps)}, cpu "
+                             f"{list(h_cpu.gaps)}")
+    want = fed_lm_bits(cfg, FED_LM_ROUNDS)
+    check_fed_bits("fed-lm reduced (cpu)", h_cpu, want)
+    bits = check_fed_bits("fed-lm reduced (card)", h_card, want)
+    return {"config": FED_LM_REDUCED, "sizes": [batch.n_clients, Bsz, S + 1],
+            "grad_max_rel": max(grad_rel.values()),
+            "grad_max_rel_leaf": max(grad_rel, key=grad_rel.get),
+            "losses": {"card": list(map(float, h_card.gaps)),
+                       "cpu": list(map(float, h_cpu.gaps))},
+            "loss_rel": loss_rel, "bits": bits, "run_s": secs, "launches": counts}
+
+
+def fed_lm_full(torch, k, ex) -> tuple:
+    """lm-100m at full width: the keyed init on the card, the host SVDs of
+    the per-layer basis (the set-up: `per_layer_svd_basis` in this process),
+    FED_LM_ROUNDS rounds through the script's `run_fed` (finite, falling
+    losses; bits the CPU's pricing; launches exactly `fed_lm_launches`), a
+    1-round run for s/round by differencing, a profiled round (its device
+    time by kernel), round 0's loss against one CPU forward of the same
+    weights and batches.  Returns the result and the embedding's and
+    unembedding's (U, V) for the kernel checks."""
+    import math
+
+    from repro_torch.core import prng
+    from repro_torch.core.basis import per_layer_svd_basis
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as M
+
+    cfg = ex.make_cfg("100m")
+    t0 = time.perf_counter()
+    params = M.init_params(prng.PRNGKey(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    if n_params != FED_LM_PARAMS:
+        raise AssertionError(f"lm-100m has {n_params} parameters, not {FED_LM_PARAMS}")
+    Bsz, S = FED_LM_SIZES
+    batch = ex.fed_batch(make_batch_iterator(cfg.vocab_size, S + 1, Bsz, seed=0,
+                                             device="cuda"), ex.n_fed_clients())
+    t0 = time.perf_counter()
+    basis = per_layer_svd_basis(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def run(rounds):
+        return ex.run_fed(cfg, params, batch, rounds, FED_LM_LR, device="cuda", basis=basis)
+
+    _, one_s, counts1 = drive(torch, k, lambda: run(1))
+    fed_lm_counts("fed-lm lm-100m, 1 round", counts1, fed_lm_launches(cfg, 1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hist, secs, counts = drive(torch, k, lambda: run(FED_LM_ROUNDS))
+    peak = torch.cuda.max_memory_allocated()
+    fed_lm_counts("fed-lm lm-100m", counts, fed_lm_launches(cfg, FED_LM_ROUNDS))
+    gaps = list(map(float, hist.gaps))
+    if not (all(map(math.isfinite, gaps)) and gaps[-1] < gaps[0]):
+        raise AssertionError(f"fed-lm lm-100m: losses {gaps} are not finite and falling")
+    bits = check_fed_bits("fed-lm lm-100m", hist, fed_lm_bits(cfg, FED_LM_ROUNDS))
+    prof = profile_run(torch, lambda: run(1), 1)
+    # round 0's loss: one CPU forward of the same weights and batches
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss0_cpu = float(ex.make_eval_fn(ex.make_loss_fn(cfg))(
+            _tree_map(lambda t: t.cpu(), params),
+            _tree_map(lambda t: t.cpu(), batch.data))["gap"])
+    cpu_s = time.perf_counter() - t0
+    loss0_rel = abs(gaps[0] - loss0_cpu) / abs(loss0_cpu)
+    if not loss0_rel <= FED_LM_TOL:
+        raise AssertionError(f"fed-lm lm-100m: round 0's loss {gaps[0]} on the card, "
+                             f"{loss0_cpu} on the CPU")
+    leaves = tree_leaves(params)
+    factors = {}
+    for p, uv in zip(leaves, basis.UV):
+        if uv is not None and p.shape == (cfg.padded_vocab, cfg.d_model):
+            factors["embed"] = uv
+        elif uv is not None and p.shape == (cfg.d_model, cfg.padded_vocab):
+            factors["unembed"] = uv
+    del params, batch, hist
+    res = {"config": cfg.name, "params": n_params,
+           "sizes": [ex.n_fed_clients(), Bsz, S + 1], "rounds": FED_LM_ROUNDS,
+           "init_s": init_s, "setup_s": setup_s,
+           "run_s": secs, "run_1_round_s": one_s,
+           "s_per_round": (secs - one_s) / (FED_LM_ROUNDS - 1),
+           "s_per_round_full_run": secs / FED_LM_ROUNDS, "max_memory_allocated": peak,
+           "losses": gaps, "loss0_cpu": loss0_cpu, "loss0_rel": loss0_rel,
+           "cpu_forward_s": cpu_s, "bits": bits, "launches": counts,
+           "launches_1_round": counts1, "profile": prof}
+    return res, factors
+
+
+def fed_lm_kernels(torch, k, factors: dict) -> dict:
+    """Kernels 1, 2, 4, 5 and 5b at the shapes lm-100m's path gives them,
+    against their plain versions (kernels 1 and 2 bitwise, and kernel 1 to
+    `torch.topk`; kernel 4 within BT_TOL_F64·max|f64| of float64, with the
+    path's own factors; kernel 5 in float32 within ATTN_TOL·max|plain|; 5b
+    within BWD_TOL·max|f64| of float64 autograd through the plain version),
+    each timed beside its plain version, its bound and the library call.
+
+    Kernel 4 is held to float64 alone here: at K = 32768 cuBLAS's float32
+    sums (the plain version on the card) read ~1.02e-5·max|f64| from
+    float64 themselves (the unembedding's factors), so the distances from
+    the plain version and the plain version's own from float64 are
+    readings, not gates."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    out = {}
+    for T, kk, leaf in FED_LM_TOPK:
+        x = torch.randn((2, T), device="cuda", generator=gen)
+        a32 = x.abs()
+        got = k.tk.topk_row_threshold(a32, kk)
+        plain = k.tk.topk_row_threshold_plain(a32, kk)
+        lib = torch.topk(a32, kk, dim=1).values[:, -1:]
+        if not (torch.equal(got, plain) and torch.equal(got, lib)):
+            raise AssertionError(f"topk_row_threshold at (2, {T}) k {kk}: kernel "
+                                 f"{got.tolist()}, plain {plain.tolist()}, torch.topk "
+                                 f"{lib.tolist()}")
+        bound, by = threshold_bound_ms(2, T)
+        reps = 3 if T > 1 << 20 else 20
+        out[f"topk_row_threshold/{leaf}"] = {
+            "shape": [2, T], "k": kk, "stage": k.tk.row_stage(T, k.tk._SMEM_LIMIT)[0],
+            "max_abs_err": 0.0,
+            "kernel_ms": cuda_ms(torch, lambda: k.tk.topk_row_threshold(a32, kk), reps, 1),
+            "plain_ms": cuda_ms(torch, lambda: k.tk.topk_row_threshold_plain(a32, kk), 1, 1),
+            "library_ms": cuda_ms(torch, lambda: torch.topk(a32, kk, dim=1), reps, 1),
+            "bound_ms": bound, "bound_by": by}
+        made = k.tk.compress_sum_cuda_launches
+        dense, col = k.tk.topk_compress_sum(x, kk)
+        made = k.tk.compress_sum_cuda_launches - made
+        pd, pc = k.tk.topk_compress_sum_plain(x, kk)
+        plan = k.tk.compress_sum_plan(2, T)
+        if not (torch.equal(dense, pd) and torch.equal(col, pc)) or made != plan.launches:
+            raise AssertionError(f"topk_compress_sum at (2, {T}) k {kk}: differs from its plain "
+                                 f"version, or {made} CUDA launches for {plan}")
+        bound, by = compress_sum_bound_ms(2, T)
+        out[f"topk_compress_sum/{leaf}"] = {
+            "shape": [2, T], "k": kk, "form": "cluster" if plan.cluster else "two-launch",
+            "cuda_launches_per_call": made, "max_abs_err": 0.0,
+            "kernel_ms": cuda_ms(torch, lambda: k.tk.topk_compress_sum(x, kk), reps, 1),
+            "plain_ms": cuda_ms(torch, lambda: k.tk.topk_compress_sum_plain(x, kk), 1, 1),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+        del x, a32, dense, col, pd, pc
+        torch.cuda.empty_cache()
+    # kernel 4 with the path's factors: A = U.mT read in place, B = V as
+    # `_two_sided` passes it (contiguous)
+    for leaf, (U, V) in factors.items():
+        A, B = U.mT, V.contiguous()
+        n, da, d1, d2, db = 2, A.shape[0], A.shape[1], B.shape[0], B.shape[1]
+        g = torch.randn((n, d1, d2), device="cuda", generator=gen)
+        made = k.bt.cuda_launches
+        got = k.bt.basis_transform(A, g, B)
+        made = k.bt.cuda_launches - made
+        plain = k.bt.basis_transform_plain(A, g, B)
+        ref = torch.matmul(torch.matmul(A.double(), g.double()), B.double())
+        scale = float(ref.abs().max())
+        e_plain = float((got - plain).abs().max())
+        e_f64 = float((got.double() - ref).abs().max())
+        plain_f64 = float((plain.double() - ref).abs().max())
+        del ref
+        if not e_f64 <= BT_TOL_F64 * scale:
+            raise AssertionError(f"basis_transform at {leaf}: |Δ f64| {e_f64}, max|f64| "
+                                 f"{scale} (|Δ plain| {e_plain}; the plain version's |Δ f64| "
+                                 f"{plain_f64})")
+        p = k.bt.plan(n, da, d1, d2, db, k.bt._transposed(A), k.bt._aligned(A, g, B))
+        bound, by = basis_transform_bound_tc_ms(n, da, d1, d2, db)
+        f32_bound, _ = basis_transform_bound_ms(n, da, d1, d2, db)
+        fn = lambda: k.bt.basis_transform(A, g, B)                 # noqa: E731
+        out[f"basis_transform/{leaf}"] = {
+            "shape": [n, da, d1, d2, db], "a_transposed": k.bt._transposed(A), "form": p.form,
+            "loader": p.loader, "cuda_launches_per_call": made, "max_abs_err": e_plain,
+            "rel_err": {"plain": e_plain / scale, "f64": e_f64 / scale,
+                        "plain_vs_f64": plain_f64 / scale},
+            "kernel_ms": cuda_ms(torch, fn, 5, 1),
+            "device_ms": device_ms(torch, {"k": fn}, reps=3)["k"],
+            "plain_ms": cuda_ms(torch, lambda: k.bt.basis_transform_plain(A, g, B), 3, 1),
+            "library_ms": cuda_ms(torch, lambda: torch.matmul(torch.matmul(A, g), B), 3, 1),
+            "bound_ms": bound, "bound_by": by, "bound_f32_ms": f32_bound}
+        del A, B, g, got, plain
+        torch.cuda.empty_cache()
+    # kernels 5 and 5b in float32 at the folded fleet's shape
+    Bf, S, H, KVH, hd = FED_LM_ATTN
+    q, do = (torch.randn((Bf, S, H, hd), device="cuda", generator=gen) for _ in range(2))
+    kk_, v = (torch.randn((Bf, S, KVH, hd), device="cuda", generator=gen) for _ in range(2))
+    got = k.fa._kernel(q, kk_, v, True, None)
+    plain = k.fa.flash_attention_plain(q, kk_, v, causal=True)
+    e, scale = float((got - plain).abs().max()), float(plain.abs().max())
+    if not e <= ATTN_TOL * scale:
+        raise AssertionError(f"flash_attention at {FED_LM_ATTN} (float32): |Δ| {e}, "
+                             f"max|plain| {scale}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kk_, v))
+    bound, by = attention_bound_ms(q, kk_, True, None)
+    out["flash_attention"] = {
+        "shape": list(FED_LM_ATTN), "causal": True, "dtype": "float32", "max_abs_err": e,
+        "rel_err": e / scale, "kernel_ms": cuda_ms(torch, lambda: k.fa._kernel(
+            q, kk_, v, True, None), 20, 2),
+        "plain_ms": cuda_ms(torch, lambda: k.fa.flash_attention_plain(q, kk_, v), 20, 2),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20, 2),
+        "bound_ms": bound, "bound_by": by}
+    got = dict(zip(("dq", "dk", "dv"), k.fa._kernel_bwd(q, kk_, v, do, True, None)))
+    ins = [x.double().requires_grad_(True) for x in (q, kk_, v)]
+    truth = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(
+        k.fa.flash_attention_plain(*ins, causal=True), ins, do.double())))
+    err = _bwd_err(f"flash_attention backward at {FED_LM_ATTN} (float32)", got, truth, False)
+    ins = [x.detach().requires_grad_(True) for x in (q, kk_, v)]
+    out_plain = k.fa.flash_attention_plain(*ins, causal=True)
+    ts = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, kk_, v)]
+    out_sdpa = F.scaled_dot_product_attention(*ts, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    bound, by = attention_bwd_bound_ms(q, kk_, True, None)
+    out["flash_attention_bwd"] = {
+        "shape": list(FED_LM_ATTN), "causal": True, "dtype": "float32",
+        "max_abs_err": max(e["abs"] for e in err.values()),
+        "rel_err": max(e["rel"] for e in err.values()), "errors": err,
+        "kernel_ms": cuda_ms(torch, lambda: k.fa._kernel_bwd(q, kk_, v, do, True, None), 10, 2),
+        "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            out_plain, ins, do, retain_graph=True), 10, 2),
+        "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            out_sdpa, ts, dot, retain_graph=True), 10, 2),
+        "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def finetune_head_check(torch, k) -> dict:
+    """`examples/torch_bl_finetune_head.py` on the card against the CPU: the
+    reduced stablelm-12b backbone's features (kernel 5 in float32, one
+    launch a layer a client) within FINETUNE_FEATURE_TOL·max|cpu|, then the
+    script's three GLM runs from the CPU's features on both (BL1's Top-K
+    through kernel 1): gaps in the GLM gate, bits exact."""
+    import numpy as np
+
+    ex = load_example("torch_bl_finetune_head")
+    cfg, params = ex.backbone("cuda")
+    cpu = _tree_map(lambda t: t.cpu(), params)
+    feats, secs, fcounts = drive(torch, k, lambda: ex.features(
+        params, cfg, np.random.default_rng(0), "cuda"))
+    n_attn = sum(1 for sp in cfg.layer_specs() if sp.mixer == "attn")
+    need_exact("finetune-head features", fcounts, {
+        "flash_attention": n_attn * ex.N_CLIENTS, "flash_attention_bwd": 0,
+        "topk_row_threshold": 0})
+    rng = np.random.default_rng(0)
+    feats_cpu = ex.features(cpu, cfg, rng, "cpu")
+    rel = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(feats, feats_cpu))
+    if not rel <= FINETUNE_FEATURE_TOL:
+        raise AssertionError(f"finetune-head: features off the CPU's by {rel} of max|cpu|")
+    state = rng.bit_generator.state          # past the tokens' draws
+
+    def runs(device):
+        rng.bit_generator.state = state
+        return ex.run_all(ex.make_clients(feats_cpu, rng, device), device)
+
+    card, run_s, counts = drive(torch, k, lambda: runs("cuda"))
+    host = runs("cpu")
+    res = {}
+    for name, h in card.items():
+        r = check_history(f"finetune-head/{name}", h, history_dict(host[name]))
+        res[name] = {key: r[key] for key in ("max_gap_abs_err", "max_gap_rel_err_above_1e-9",
+                                             "bit_streams_equal")}
+    if counts["topk_row_threshold"] < 1:
+        raise AssertionError(f"finetune-head: BL1's Top-K launched no kernel 1: {counts}")
+    return {"features_max_rel": rel, "features_s": secs, "runs_s": run_s,
+            "launches_features": {kn: n for kn, n in fcounts.items() if n},
+            "launches_runs": {kn: n for kn, n in counts.items() if n},
+            "gaps_end": {name: float(h.gaps[-1]) for name, h in card.items()}, "runs": res}
+
+
+def fed_lm_phase(torch, k) -> tuple:
+    """Phase fed-lm: the reduced check, lm-100m at full width, the kernels
+    at the path's new shapes, then the BL1 head fine-tune on the card."""
+    ex = load_example("torch_train_lm")
+    reduced = fed_lm_reduced_check(torch, k, ex)
+    torch.cuda.empty_cache()
+    full, factors = fed_lm_full(torch, k, ex)
+    torch.cuda.empty_cache()
+    kernels = fed_lm_kernels(torch, k, factors)
+    del factors
+    torch.cuda.empty_cache()
+    head = finetune_head_check(torch, k)
+    torch.cuda.empty_cache()
+    return {"reduced": reduced, "full": full, "kernels": kernels, "finetune_head": head}
+
+
 def main(argv) -> int:
     if argv[:1] == ["--sharded-worker"]:
         return sharded_worker(argv[1])
@@ -6102,6 +6552,12 @@ def main(argv) -> int:
 
     shutil.rmtree(dryrun_tmp, ignore_errors=True)
 
+    # ---- fed-lm: BL-DNN on a language model, vmap(grad) over the clients --
+    fl = fed_lm_phase(torch, k)
+    emit({"phase": "fed-lm", **fl})
+    flk = fl["kernels"]
+    fl_launches = fl["full"]["launches"]
+
     xl = kern["timings"]["fig1-xl"]
     cs = kb["compress_sum_timings"]["8x3072"]
     bt_path = kb["basis_transform_timings"]["8x96x96x32x32"]
@@ -6130,6 +6586,8 @@ def main(argv) -> int:
         "launches_baseline_cells": baseline, "launches_basis_grid": grid,
         "launches_cohort": co["launches"], "launches_serve": sv["launches"],
         "launches_sharded": _sharded_launches(sh, "topk_row_threshold"),
+        "launches_fed_lm": fl_launches["topk_row_threshold"],
+        "fed_lm": {key: v for key, v in flk.items() if key.startswith("topk_row_threshold/")},
         "path_shapes": {tag: {key: kern["timings"][tag][key] for key in (
             "shape", "k", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
             for *_, tag in STOCHASTIC_THRESHOLD_SHAPES},
@@ -6150,7 +6608,9 @@ def main(argv) -> int:
         "cuda_launches_per_call": cs["cuda_launches_per_call"],
         "launches_dnn-drawn": {name: c["topk_compress_sum"] for name, c in
                                dnn_launches.items() if name.startswith("dnn-drawn/")},
-        "launches_sharded": _sharded_launches(sh, "topk_compress_sum")}, {
+        "launches_sharded": _sharded_launches(sh, "topk_compress_sum"),
+        "launches_fed_lm": fl_launches["topk_compress_sum"],
+        "fed_lm": {key: v for key, v in flk.items() if key.startswith("topk_compress_sum/")}}, {
         "name": "tiled_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
         "replaces": "src/repro/kernels/tiled_matmul.py:70",
@@ -6181,6 +6641,8 @@ def main(argv) -> int:
         "launches_dnn-drawn": dnn_launches["dnn-drawn/BLDNN"]["basis_transform"],
         "entry_points": {key: v for key, v in ep.items() if key.startswith("basis_transform/")},
         "launches_sharded": _sharded_launches(sh, "basis_transform"),
+        "launches_fed_lm": fl_launches["basis_transform"],
+        "fed_lm": {key: v for key, v in flk.items() if key.startswith("basis_transform/")},
         "device_ms": bt_path["device_ms"][bt_path["form"]],
         "library_device_ms": bt_path["device_ms"]["library"],
         "bound_tf32x3_ms": bt_path["bound_tf32x3_ms"],
@@ -6206,7 +6668,8 @@ def main(argv) -> int:
                            if "launches" in r},
         "offset_shapes": {key: v for key, v in ka["timings"].items()
                           if key.startswith("offset")},
-        "launches_lm_sharded": _lm_sharded_launches(lms, "flash_attention")}, {
+        "launches_lm_sharded": _lm_sharded_launches(lms, "flash_attention"),
+        "launches_fed_lm": fl_launches["flash_attention"], "fed_lm": flk["flash_attention"]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:73",
@@ -6246,6 +6709,8 @@ def main(argv) -> int:
         "launches_lm_sharded": _lm_sharded_launches(lms, "flash_attention_bwd"),
         "launches_train": {arch: r["launches"]["flash_attention_bwd"]
                            for arch, r in tr.items() if "launches" in r},
+        "launches_fed_lm": fl_launches["flash_attention_bwd"],
+        "fed_lm": flk["flash_attention_bwd"],
         "spills": kab["spills"]}, {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",

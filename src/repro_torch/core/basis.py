@@ -317,9 +317,12 @@ def per_layer_svd_basis(params, use_basis: bool = True,
     cuSOLVER pick different ones, so the SVD is always LAPACK's ``sgesdd``
     through scipy on the host — the routine jax's CPU SVD calls, so on one
     machine the factors of equal weights are the reference's bit for bit —
-    and the factors go to the leaves' device (set-up work on leaves of a
-    few hundred rows).  Runs that must match a reference computed elsewhere
-    carry its factors across (`repro_torch.core.convert`)."""
+    and the factors go to the leaves' device.  This is set-up work, and not
+    small at an LM's widths: a 32768 × 768 embedding builds a 32768² U (4.3
+    GB in float32), and lm-100m's two such leaves took 159.9 s on the H100
+    machine's host (`examples/torch_train_lm.py --fed`, PERF.md §6).
+    Runs that must match a reference computed elsewhere carry its factors
+    across (`repro_torch.core.convert`)."""
     import scipy.linalg
 
     out = []

@@ -53,6 +53,10 @@ FUSED_BN = 32
 K_TILE, FUSED_STAGES = 32, 6
 #: the mma's depth: a K-tile is summed in steps of this many terms
 MMA_K = 8
+#: a product deeper than this sums its K-tiles compensated (Fast2Sum; the
+#: kernel's ``kCompensateK``): a plain float32 sum of 1024 K-tiles drifts
+#: to ~2.4e-6·max|ref| at K = 32768, past the 1e-6 float64 contract
+COMPENSATE_K = 1024
 #: the fused form's widest operand: its blocks own 16 rows and a warp one
 #: 16 × 8 tile, built for latency at the path's widths (≤ 96); past this
 #: the two-stage form's 128 × 128 tiles re-read gᵢ and B from L2 8× less
@@ -196,7 +200,10 @@ def _emulated_product(X: torch.Tensor, Y: torch.Tensor, products: str,
     order.  "split": each step adds lo·hi and hi·lo of the split operands
     to a small partial and hi·hi to a big one, and the slice adds big +
     small; "single": one TF32 product of the rounded operands a step;
-    "exact": the float32 product."""
+    "exact": the float32 product.  Past `COMPENSATE_K` the small partial
+    runs over the whole K instead, each slice's big partial joins the
+    running sum as a Fast2Sum whose rounding error joins the small one, and
+    the result is the running sum plus the small one."""
     if products not in ("split", "single", "exact"):
         raise ValueError(f"products is split, single or exact, not {products!r}")
     K = X.shape[-1]
@@ -210,16 +217,27 @@ def _emulated_product(X: torch.Tensor, Y: torch.Tensor, products: str,
     def term(x, y, k):
         return x[..., k:k + MMA_K] @ y[..., k:k + MMA_K, :]
 
-    acc = None
+    comp = K > COMPENSATE_K
+    acc = s_run = None
     for k0 in range(0, K, k_tile):
-        s_part = b_part = None
+        s_part = s_run if comp else None
+        b_part = None
         for k in range(k0, min(K, k0 + k_tile), MMA_K):
             for x, y in small:
                 s_part = term(x, y, k) if s_part is None else s_part + term(x, y, k)
             b_part = term(*big, k) if b_part is None else b_part + term(*big, k)
-        part = b_part if s_part is None else b_part + s_part
-        acc = part if acc is None else acc + part
-    return acc
+        if not comp:
+            part = b_part if s_part is None else b_part + s_part
+            acc = part if acc is None else acc + part
+            continue
+        if acc is None:
+            acc, s_run = b_part, s_part
+            continue
+        total = acc + b_part                 # Fast2Sum: its rounding error into s_run
+        err = b_part - (total - acc)
+        s_run = err if s_part is None else s_part + err
+        acc = total
+    return acc if s_run is None else acc + s_run
 
 
 def basis_transform_emulated(A: torch.Tensor, g: torch.Tensor, B: torch.Tensor, *,

@@ -20,8 +20,15 @@
 // partials, the small products (lo·hi, hi·lo) in one and hi·hi in the
 // other, and acc += big + small closes the K-tile, in K order.  The tensor
 // core rounds its own sums, so a long running sum inside it would drift:
-// this way its rounding acts on the big partial 4 times a K-tile.  Both
-// forms do exactly this arithmetic (they agree bitwise), and
+// this way its rounding acts on the big partial 4 times a K-tile.  A
+// product deeper than kCompensateK is compensated instead: `small` runs
+// over the whole K, and each K-tile closes with acc + big as a Fast2Sum
+// whose rounding error joins `small`; the output is acc + small.  A plain
+// float32 sum of K-tiles drifts as their square root: within the 1e-6
+// float64 contract at 1024 (32 K-tiles), 2.4e-6 of max|ref| at 32768 (an
+// LM's 32768² basis factor).  The compensated form costs registers (it
+// spills) and adds, so shorter products keep the plain sum.  Both forms do
+// exactly this arithmetic (they agree bitwise), and
 // `basis_transform.basis_transform_emulated` repeats it in PyTorch.
 //
 // Two forms, chosen by the Python plan (`basis_transform.plan`):
@@ -66,6 +73,7 @@
 namespace {
 
 constexpr int kBK = 32;       // K depth of a stage and of one summation partial
+constexpr int kCompensateK = 1024;   // deeper products sum their K-tiles compensated
 constexpr int kRefused = -1;  // returned for a form these shapes cannot take
 
 // A block's output tile (BM x BN), its warps' layout and its ring of
@@ -197,6 +205,15 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// acc + x as a Fast2Sum: acc takes the rounded sum, err adds its rounding
+// error (exact while |acc| ≥ |x|, the usual case past the first K-tiles;
+// no worse than the plain sum otherwise)
+__device__ __forceinline__ void fast_two_sum(float& acc, float x, float& err) {
+  const float s = __fadd_rn(acc, x);
+  err = __fadd_rn(err, __fsub_rn(x, __fsub_rn(s, acc)));
+  acc = s;
+}
+
 template <int MT, int NT>
 __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 #pragma unroll
@@ -209,7 +226,8 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 
 // One K-tile of `ksteps` steps of 8 (FULL: 4, so that every load can be
 // hoisted) into fresh partials: the small products (lo·hi, hi·lo) into
-// `small`, the big ones (hi·hi) into `big`, then acc += big + small.
+// `small`, the big ones (hi·hi) into `big`, then acc += big + small; with
+// `comp`, `small` runs on and acc + big is a Fast2Sum into it.
 // X(r, k) = X[r·ldx + k], or X[k·ldx + r] when XT; Y(k, c) = Y[k·ldy + c];
 // with XS / YS, X / Y is a TMA box in the swizzle it was loaded with.
 // The warp's m-tile i covers rows row0 + 16i, its n-tiles the 8·NT columns
@@ -221,8 +239,10 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 // apart means the tensor core's own rounding acts on the big sum only 4
 // times a K-tile.
 template <class S, bool XT, bool FULL, bool XS, bool YS>
-__device__ __forceinline__ void ktile(float (&acc)[S::MT][S::NT][4], const float* X, int ldx,
-                                      const float* Y, int ldy, int row0, int wc0, int ksteps) {
+__device__ __forceinline__ void ktile(float (&acc)[S::MT][S::NT][4],
+                                      float (&small)[S::MT][S::NT][4], bool comp, const float* X,
+                                      int ldx, const float* Y, int ldy, int row0, int wc0,
+                                      int ksteps) {
   static_assert(!(XS && XT) || S::BM == 16, "a k-major box has 64-byte rows");
   // element offsets in a staged tile: pitched, or a TMA box in the swizzle
   // the box was loaded with (16-byte chunk index XOR row bits)
@@ -236,8 +256,8 @@ __device__ __forceinline__ void ktile(float (&acc)[S::MT][S::NT][4], const float
     return YS ? k * kBK + 4 * ((c >> 2) ^ (k & 7)) + (c & 3) : k * ldy + c;
   };
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float small[S::MT][S::NT][4], big[S::MT][S::NT][4];
-  zero(small);
+  float big[S::MT][S::NT][4];
+  if (!comp) zero(small);
   zero(big);
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -280,7 +300,12 @@ __device__ __forceinline__ void ktile(float (&acc)[S::MT][S::NT][4], const float
 #pragma unroll
     for (int j = 0; j < S::NT; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] += big[i][j][q] + small[i][j][q];
+      for (int q = 0; q < 4; ++q) {
+        if (comp)
+          fast_two_sum(acc[i][j][q], big[i][j][q], small[i][j][q]);
+        else
+          acc[i][j][q] += big[i][j][q] + small[i][j][q];
+      }
 }
 
 // put(r, c, v) for each row r the lane holds: v its 2·NT values of columns
@@ -403,18 +428,19 @@ basis_transform_fused(const __grid_constant__ CUtensorMap amap,
     stage<S::kThreads>(ys, S::kYPitch, gi + static_cast<long long>(k0) * p.d2 + c0, p.d2, kBK,
                        p.d1 - k0, S::BN, p.d2 - c0, p.g_vec, threadIdx.x);
   };
-  // one step's K-tile into acc; XS / YS: X / Y is a TMA box
+  float acc[S::MT][S::NT][4], small[S::MT][S::NT][4];
+  // one step's K-tile into acc (and small); XS / YS: X / Y is a TMA box
   auto compute = [&](auto xs_tag, auto ys_tag, bool phase2, const float* X, int ldx,
-                     const float* Y, int ldy, int ksteps, float (&acc)[S::MT][S::NT][4]) {
+                     const float* Y, int ldy, int ksteps, bool comp) {
     constexpr bool XS = decltype(xs_tag)::value, YS = decltype(ys_tag)::value;
     if (phase2 && ksteps == 4)
-      ktile<S, false, true, XS, YS>(acc, X, ldx, Y, ldy, 0, wc0, 4);
+      ktile<S, false, true, XS, YS>(acc, small, comp, X, ldx, Y, ldy, 0, wc0, 4);
     else if (phase2)
-      ktile<S, false, false, XS, YS>(acc, X, ldx, Y, ldy, 0, wc0, ksteps);
+      ktile<S, false, false, XS, YS>(acc, small, comp, X, ldx, Y, ldy, 0, wc0, ksteps);
     else if (ksteps == 4)
-      ktile<S, AT, true, XS, YS>(acc, X, ldx, Y, ldy, 0, wc0, 4);
+      ktile<S, AT, true, XS, YS>(acc, small, comp, X, ldx, Y, ldy, 0, wc0, 4);
     else
-      ktile<S, AT, false, XS, YS>(acc, X, ldx, Y, ldy, 0, wc0, ksteps);
+      ktile<S, AT, false, XS, YS>(acc, small, comp, X, ldx, Y, ldy, 0, wc0, ksteps);
   };
 
   if (p.tma && threadIdx.x == 0) {
@@ -422,8 +448,8 @@ basis_transform_fused(const __grid_constant__ CUtensorMap amap,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  float acc[S::MT][S::NT][4];
   zero(acc);
+  zero(small);
 #pragma unroll
   for (int s = 0; s < S::kStages - 1; ++s) {
     issue(s);
@@ -445,18 +471,27 @@ basis_transform_fused(const __grid_constant__ CUtensorMap amap,
     const float* X = phase2 ? stripe + kt * kBK : slot(s);
     const float* Y = slot(s) + (p.tma ? kXBox / 4 : S::kXFloats);
     const int ksteps = steps_of(phase2 ? p.d2 : p.d1, kt * kBK);
+    const bool comp = (phase2 ? p.d2 : p.d1) > kCompensateK;
     using T = std::true_type;
     using F = std::false_type;
     if (phase2 && p.tma)
-      compute(F(), T(), true, X, sp, Y, kBK, ksteps, acc);
+      compute(F(), T(), true, X, sp, Y, kBK, ksteps, comp);
     else if (phase2)
-      compute(F(), F(), true, X, sp, Y, S::kYPitch, ksteps, acc);
+      compute(F(), F(), true, X, sp, Y, S::kYPitch, ksteps, comp);
     else if (p.tma)
-      compute(T(), T(), false, X, 0, Y, kBK, ksteps, acc);
+      compute(T(), T(), false, X, 0, Y, kBK, ksteps, comp);
     else
       compute(F(), F(), false, X, AT ? S::kXColPitch : S::kXRowPitch, Y, S::kYPitch, ksteps,
-              acc);
+              comp);
     if (kt < kts - 1) continue;
+    if (comp) {
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] = __fadd_rn(acc[i][j][q], small[i][j][q]);
+    }
     if (phase2)
       store<S>(acc, 0, wc0, [&](int r, int cc, const float (&v)[W]) {
         if (r < rows)
@@ -468,6 +503,7 @@ basis_transform_fused(const __grid_constant__ CUtensorMap amap,
         write_row(stripe + r * sp + c0 + cc, v, W, true);
       });
     zero(acc);
+    zero(small);
   }
 }
 
@@ -529,10 +565,11 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
 // s mod kTStages and plane buffer s mod 2; thread 0 keeps kTStages K-tiles
 // of TMA loads in flight.  Each warpgroup runs 4 steps of wgmma m64n128k8
 // against the planes: lo·hi and hi·lo into `small`, hi·hi into `big` (both
-// fresh each K-tile, then acc += big + small) — the fused form's
-// arithmetic, step for step — while every thread splits K-tile s + 1's Y
-// into the other plane buffer.
-template <bool XT>
+// fresh each K-tile, then acc += big + small; COMP, for K past
+// kCompensateK: `small` runs on and acc + big is a Fast2Sum into it) —
+// the fused form's arithmetic, step for step — while every thread splits
+// K-tile s + 1's Y into the other plane buffer.
+template <bool XT, bool COMP>
 __global__ void __launch_bounds__(kTThreads, 1)
 basis_transform_tiled(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap ymap, const TiledArgs p) {
@@ -621,7 +658,7 @@ basis_transform_tiled(const __grid_constant__ CUtensorMap xmap,
       if (kk >= ksteps) break;
       const uint64_t yh = smem_desc(pb + kk * 32, 16, 1024);
       const uint64_t yl = smem_desc(pb + kBoxBytes + kk * 32, 16, 1024);
-      wgmma_tf32(small, al[kk], yh, kk > 0);
+      wgmma_tf32(small, al[kk], yh, COMP || kk > 0);
       wgmma_tf32(small, ah[kk], yl, 1);
       wgmma_tf32(big, ah[kk], yh, kk > 0);
     }
@@ -639,9 +676,18 @@ basis_transform_tiled(const __grid_constant__ CUtensorMap xmap,
       fence_regs(al[kk]);
     }
 #pragma unroll
-    for (int q = 0; q < 64; ++q) acc[q] += big[q] + small[q];
+    for (int q = 0; q < 64; ++q) {
+      if constexpr (COMP)
+        fast_two_sum(acc[q], big[q], small[q]);
+      else
+        acc[q] += big[q] + small[q];
+    }
     __syncthreads();   // slot s read, planes s + 1 ready, plane buffer s free
     if (threadIdx.x == 0) load(s + kTStages);
+  }
+  if constexpr (COMP) {
+#pragma unroll
+    for (int q = 0; q < 64; ++q) acc[q] = __fadd_rn(acc[q], small[q]);
   }
   // accumulator layout of m64nNk8: warp w of the warpgroup, lane 4g + t;
   // acc[4j + 2h + e] at row 16w + g + 8h, column 8j + 2t + e
@@ -739,7 +785,7 @@ int launch_fused(const FusedArgs& a, long long smem, cudaStream_t stream) {
 }
 
 // kRefused when TMA cannot take an operand
-template <bool XT>
+template <bool XT, bool COMP>
 int launch_tiled(const TiledArgs& a, int batch, cudaStream_t stream) {
   CUtensorMap xm, ym;
   const bool ok =
@@ -750,12 +796,13 @@ int launch_tiled(const TiledArgs& a, int batch, cudaStream_t stream) {
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        basis_transform_tiled<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTiledSmem);
+        basis_transform_tiled<XT, COMP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTiledSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
   const dim3 grid((a.N + kTN - 1) / kTN, (a.M + kTM - 1) / kTM, batch);
-  basis_transform_tiled<XT><<<grid, kTThreads, kTiledSmem, stream>>>(xm, ym, a);
+  basis_transform_tiled<XT, COMP><<<grid, kTThreads, kTiledSmem, stream>>>(xm, ym, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -799,12 +846,16 @@ extern "C" int basis_transform_f32(const void* A, int a_trans, const void* g, co
   const long long ldt = (d2 + 3) / 4 * 4;
   const TiledArgs first{Af, lda, 0, gf, d2, static_cast<long long>(d1) * d2, T, ldt, da * ldt,
                         da, d2, d1, 1};
-  int e = a_trans ? launch_tiled<true>(first, n, s) : launch_tiled<false>(first, n, s);
+  const bool c1 = d1 > kCompensateK, c2 = d2 > kCompensateK;
+  int e = a_trans ? (c1 ? launch_tiled<true, true>(first, n, s)
+                        : launch_tiled<true, false>(first, n, s))
+                  : (c1 ? launch_tiled<false, true>(first, n, s)
+                        : launch_tiled<false, false>(first, n, s));
   if (e != 0) return e;
   *launches = 1;
   const TiledArgs second{T, ldt, da * ldt, Bf, db, 0, of, db, static_cast<long long>(da) * db,
                          da, db, d2, vec_ok(of, db)};
-  e = launch_tiled<false>(second, n, s);
+  e = c2 ? launch_tiled<false, true>(second, n, s) : launch_tiled<false, false>(second, n, s);
   if (e == 0) *launches = 2;
   return e;
 }

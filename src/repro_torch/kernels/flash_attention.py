@@ -304,20 +304,72 @@ def _kernel_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     return dq, dk, dv
 
 
+def _fold(n: int, in_dims, tensors) -> list:
+    """A vmapped fleet of `n` (B, S, heads, hd) operands as (n·B, S, heads,
+    hd) tensors: the vmapped axis moved to the front (an unbatched operand,
+    dim None, expanded to it) and folded into the batch axis, so one launch
+    serves the whole fleet, as jax.vmap of a pallas_call adds a grid axis."""
+    out = []
+    for x, d in zip(tensors, in_dims):
+        x = x.expand(n, *x.shape) if d is None else x.movedim(d, 0)
+        out.append(x.reshape(n * x.shape[1], *x.shape[2:]))
+    return out
+
+
 class FlashAttention(torch.autograd.Function):
-    """Kernel 5 forward and its backward kernel, for CUDA tensors."""
+    """Kernel 5 forward and its backward kernel, for CUDA tensors.  Under
+    ``torch.func.vmap`` (the BL-DNN's per-client gradients) the fleet is
+    folded into the batch axis: one kernel-5 launch forward and one 5b
+    call backward (`FlashAttentionBwd`) for all clients."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int], q_pos0: int = 0):
+    def forward(q, k, v, causal: bool, window: Optional[int], q_pos0: int = 0):
+        return _kernel(q, k, v, causal, window, q_pos0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, q_pos0 = inputs
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window, ctx.q_pos0 = causal, window, q_pos0
-        return _kernel(q, k, v, causal, window, q_pos0)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = _kernel_bwd(q, k, v, do, ctx.causal, ctx.window, ctx.q_pos0)
+        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, do, ctx.causal, ctx.window, ctx.q_pos0)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, q_pos0):
+        n = info.batch_size
+        q, k, v = _fold(n, in_dims[:3], (q, k, v))
+        out = _kernel(q, k, v, causal, window, q_pos0)
+        return out.reshape(n, -1, *out.shape[1:]), 0
+
+
+class FlashAttentionBwd(torch.autograd.Function):
+    """Kernel 5b as a function of (q, k, v, dO): `FlashAttention`'s backward
+    calls it, so that under ``torch.func.vmap(torch.func.grad(...))`` the
+    batched backward folds the fleet into one 5b call as the forward
+    does.  It has no backward of its own."""
+
+    @staticmethod
+    def forward(q, k, v, do, causal: bool, window: Optional[int], q_pos0: int = 0):
+        return _kernel_bwd(q, k, v, do, causal, window, q_pos0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the attention backward kernel has no backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, causal, window, q_pos0):
+        n = info.batch_size
+        q, k, v, do = _fold(n, in_dims[:4], (q, k, v, do))
+        grads = _kernel_bwd(q, k, v, do, causal, window, q_pos0)
+        return tuple(x.reshape(n, -1, *x.shape[1:]) for x in grads), (0, 0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -70,10 +70,18 @@ def make_fused_vocab_xent(cfg: ModelConfig, rules=None):
         return lg
 
     class FusedVocabXent(torch.autograd.Function):
+        # the body is plain torch, so functorch batches it: under
+        # ``torch.func.vmap`` each client's mean is over its own B·S tokens,
+        # as the reference's custom_vjp under jax.vmap
+        generate_vmap_rule = True
+
         @staticmethod
-        def forward(ctx, h, W, labels):
-            ctx.save_for_backward(h, W, labels)
+        def forward(h, W, labels):
             return _xent(_logits(h, W), labels)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
 
         @staticmethod
         def backward(ctx, g):

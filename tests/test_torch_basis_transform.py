@@ -163,6 +163,45 @@ def test_emulated_matches_plain_and_reference_kernel(shape):
     assert np.abs(plain - ref).max() <= TOL_F64 * scale
 
 
+def test_emulated_long_k_keeps_the_split_products_error():
+    """At K = 32768 (an LM's 32768² basis factor) a plain float32 running
+    sum of 1024 K-tiles drifts to ~5e-7·max|ref| on 4096 outputs; the
+    kernel's compensated sum (past `COMPENSATE_K`) stays at the split
+    products' ~1e-7."""
+    rng = np.random.default_rng(35)
+    K = 32768
+    X = (rng.standard_normal((64, K)) / np.sqrt(K)).astype(np.float32)
+    Y = rng.standard_normal((K, 64)).astype(np.float32)
+    ref = X.astype(np.float64) @ Y.astype(np.float64)
+    out = bt._emulated_product(torch.from_numpy(X), torch.from_numpy(Y), "split", bt.K_TILE)
+    assert np.abs(out.numpy() - ref).max() <= TOL_F64 / 4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("K", [bt.COMPENSATE_K, bt.COMPENSATE_K + 8])
+def test_compensation_starts_past_the_kernels_depth(K):
+    """The kernel's ``kCompensateK`` is `COMPENSATE_K`; up to it a product
+    sums its K-tiles plainly (acc += big + small), past it compensated."""
+    src = (_build.CSRC / "basis_transform.cu").read_text()
+    assert int(re.search(r"kCompensateK = (\d+);", src).group(1)) == bt.COMPENSATE_K
+    rng = np.random.default_rng(K)
+    X = torch.from_numpy(rng.standard_normal((8, K)).astype(np.float32))
+    Y = torch.from_numpy(rng.standard_normal((K, 8)).astype(np.float32))
+    Xh, Yh = bt._tf32(X), bt._tf32(Y)
+    Xl, Yl = bt._tf32(X - Xh), bt._tf32(Y - Yh)
+    acc = None
+    for k0 in range(0, K, bt.K_TILE):
+        s = b = None
+        for k in range(k0, min(K, k0 + bt.K_TILE), bt.MMA_K):
+            for x, y in ((Xl, Yh), (Xh, Yl)):
+                t = x[:, k:k + 8] @ y[k:k + 8]
+                s = t if s is None else s + t
+            t = Xh[:, k:k + 8] @ Yh[k:k + 8]
+            b = t if b is None else b + t
+        acc = b + s if acc is None else acc + (b + s)
+    out = bt._emulated_product(X, Y, "split", bt.K_TILE)
+    assert torch.equal(out, acc) == (K <= bt.COMPENSATE_K)
+
+
 def test_emulated_k_tile_changes_only_the_rounding():
     A, g, B = (torch.from_numpy(x) for x in _operands(2, 40, 200, 24, 16, seed=5))
     ref = _f64(A, g, B)

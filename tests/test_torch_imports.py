@@ -10,7 +10,8 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 CUDA_SOURCES = {p.name for p in (REPO / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}
 
@@ -35,7 +36,7 @@ def test_port_files_are_found():
             "artifacts.py", "metrics.py", "__main__.py", "cohort.py", "faults.py",
             "fed_serve.py", "mesh.py", "adamw.py", "pipeline.py", "train.py",
             "flash_attention_bwd.cu", "ssd_scan_bwd.cu", "rules.py", "collectives.py",
-            "analysis.py"} <= names | CUDA_SOURCES
+            "analysis.py", "torch_train_lm.py", "torch_bl_finetune_head.py"} <= names | CUDA_SOURCES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
